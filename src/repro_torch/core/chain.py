@@ -1,0 +1,257 @@
+"""Declarative separable-chain API: spec -> plan -> lower -> execute.
+
+Counterpart of ``repro/core/chain.py`` (:46-262, :298-450, :497) for the
+stages of this slice, ``PW`` and ``DW``.  A ``SeparableSpec`` declares an
+ordered chain of stages and a residual; :func:`plan` budgets the chain
+against one CTA's shared memory and answers with a ``ChainPlan`` naming
+which contiguous stages fuse; ``kernels/lowering.lower`` maps that onto
+kernel passes; :func:`execute` runs it.
+
+    spec = inverted_residual_spec(c_in=32, c_out=32, expand=6)
+    params = init_chain(torch.Generator().manual_seed(0), spec, 32,
+                        device="cuda")
+    y = execute(spec, params, x)        # x (B, H, W, 32) on the card
+
+The reference's plan-quarantine and autotune branches (``chain.py:332-339``)
+belong to the runtime and autotuner slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.kernels import blocking, lowering
+from repro_torch.kernels.blocking import ChainPlan, ChainSegment
+from repro_torch.kernels.epilogue import ACTIVATIONS
+from repro_torch.kernels.policy import DEFAULT_POLICY, KernelPolicy
+
+
+def _check_activation(a: Optional[str]) -> None:
+    if a is not None and a not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {a!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PW:
+    """Pointwise stage: 1x1 conv / GEMM to ``features`` channels.  A
+    bias-free expansion PW is what makes a 3-stage window fusable."""
+    features: int
+    activation: Optional[str] = None
+    bias: bool = False
+
+    def __post_init__(self):
+        _check_activation(self.activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class DW:
+    """Depthwise stage: ``hf x wf`` spatial conv at the incoming width."""
+    stride: int = 1
+    activation: Optional[str] = "relu6"
+    hf: int = 3
+    wf: int = 3
+    padding: str = "same"
+    bias: bool = False
+
+    def __post_init__(self):
+        _check_activation(self.activation)
+        if self.padding.lower() not in ("same", "valid"):
+            raise ValueError(self.padding)
+
+    def out_dims(self, h: int, w: int) -> Tuple[int, int]:
+        if self.padding.lower() == "same":
+            return -(-h // self.stride), -(-w // self.stride)
+        return ((h - self.hf) // self.stride + 1,
+                (w - self.wf) // self.stride + 1)
+
+
+Stage = Union[PW, DW]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeparableSpec:
+    """An ordered chain of PW/DW stages and a residual: ``False``, ``True``
+    or ``"auto"`` (add the input exactly when the total stride is 1 and the
+    widths match — the MobileNetV2 rule)."""
+    stages: Tuple[Stage, ...]
+    residual: Union[bool, str] = False
+
+    def __post_init__(self):
+        if not self.stages:
+            raise ValueError("empty chain")
+        if self.residual not in (True, False, "auto"):
+            raise ValueError(self.residual)
+        for s in self.stages:
+            if not isinstance(s, (PW, DW)):
+                raise TypeError(f"stage {s!r} is not ported yet")
+
+    def out_channels(self, c_in: int) -> int:
+        c = c_in
+        for s in self.stages:
+            if isinstance(s, PW):
+                c = s.features
+        return c
+
+    def stride_product(self) -> int:
+        return math.prod(s.stride for s in self.stages if isinstance(s, DW))
+
+    def residual_active(self, c_in: int) -> bool:
+        if self.residual == "auto":
+            return (self.stride_product() == 1
+                    and self.out_channels(c_in) == c_in)
+        return bool(self.residual)
+
+
+def separable_block_spec(c_out: int, *, stride: int = 1,
+                         activation: str = "relu6",
+                         hf: int = 3) -> SeparableSpec:
+    """MobileNetV1 separable block: DW(+bias) -> PW(+bias), both activated."""
+    return SeparableSpec(stages=(
+        DW(stride=stride, activation=activation, hf=hf, wf=hf, bias=True),
+        PW(c_out, activation=activation, bias=True),
+    ))
+
+
+def inverted_residual_spec(c_in: int, c_out: int, *, expand: int = 6,
+                           stride: int = 1, hf: int = 3) -> SeparableSpec:
+    """MobileNetV2 inverted residual: bias-free PW-expand (relu6) -> DW
+    (relu6) -> linear PW-project, residual when shapes allow."""
+    return SeparableSpec(stages=(
+        PW(c_in * expand, activation="relu6"),
+        DW(stride=stride, activation="relu6", hf=hf, wf=hf),
+        PW(c_out),
+    ), residual="auto")
+
+
+def init_chain(generator: torch.Generator, spec: SeparableSpec, c_in: int,
+               dtype: torch.dtype = torch.float32,
+               device="cuda") -> list:
+    """He-style init, one params dict per stage (``lowering.PARAM_KEYS``);
+    biases start at zero, as in the reference.  The draws are made on the
+    CPU from ``generator`` and then moved, so a seed gives the same weights
+    on every device."""
+    params = []
+    c = c_in
+    for s in spec.stages:
+        if isinstance(s, PW):
+            w = torch.randn((c, s.features), generator=generator) / math.sqrt(c)
+            p = {"w": w}
+            if s.bias:
+                p["b"] = torch.zeros(s.features)
+            c = s.features
+        else:
+            f = torch.randn((s.hf, s.wf, c), generator=generator)
+            p = {"f": f / math.sqrt(s.hf * s.wf)}
+            if s.bias:
+                p["b"] = torch.zeros(c)
+        params.append({k: v.to(device=device, dtype=dtype)
+                       for k, v in p.items()})
+    return params
+
+
+def _fusable3(stages, i: int) -> bool:
+    return (i + 2 < len(stages)
+            and isinstance(stages[i], PW) and not stages[i].bias
+            and isinstance(stages[i + 1], DW)
+            and isinstance(stages[i + 2], PW))
+
+
+def _fusable2(stages, i: int) -> bool:
+    return (i + 1 < len(stages)
+            and isinstance(stages[i], DW) and isinstance(stages[i + 1], PW))
+
+
+def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
+         dtype: torch.dtype = torch.float32,
+         policy: KernelPolicy = DEFAULT_POLICY) -> ChainPlan:
+    """Budget the chain at ``x_shape`` and decide which stages fuse.
+
+    Greedy longest-run-first, degrading 3-fused -> 2-fused -> unfused: at
+    each position try the (bias-free PW-expand, DW, PW) window
+    (``plan_separable3``), then the (DW, PW) window (``plan_separable``),
+    else lower a standalone stage.  Budgets are taken at the policy's
+    stream dtype.  The residual folds into the final segment when that
+    segment is fused, else it is a separate add.
+    """
+    b, h, w, c = x_shape
+    dtype = policy.dtype_policy.stream_dtype(dtype)
+    stages = spec.stages
+    n = len(stages)
+    ho_f, wo_f = h, w
+    for s in stages:
+        if isinstance(s, DW):
+            ho_f, wo_f = s.out_dims(ho_f, wo_f)
+    spatial_ok = (ho_f, wo_f) == (h, w)
+    if spec.residual is True and not spatial_ok:
+        raise ValueError(
+            f"residual=True but the chain maps {h}x{w} -> {ho_f}x{wo_f}")
+    res_active = spec.residual_active(c) and spatial_ok
+    allowed = policy.fusion_allowed
+    budget = policy.smem_budget
+
+    segments: list = []
+    i = 0
+    while i < n:
+        s = stages[i]
+        if allowed and _fusable3(stages, i):
+            d, proj = stages[i + 1], stages[i + 2]
+            ho, wo = d.out_dims(h, w)
+            p3 = blocking.plan_separable3(
+                ho, wo, c, stages[i].features, proj.features,
+                stride=d.stride, hf=d.hf, wf=d.wf, dtype=dtype,
+                smem_budget=budget, residual=res_active and i + 3 == n)
+            if p3 is not None:
+                segments.append(ChainSegment("fused3", (i, i + 1, i + 2), p3))
+                h, w, c = ho, wo, proj.features
+                i += 3
+                continue
+        if allowed and _fusable2(stages, i):
+            d, proj = stages[i], stages[i + 1]
+            ho, wo = d.out_dims(h, w)
+            p2 = blocking.plan_separable(
+                ho, wo, c, proj.features, stride=d.stride, hf=d.hf,
+                wf=d.wf, dtype=dtype, smem_budget=budget,
+                residual=res_active and i + 2 == n)
+            if p2 is not None:
+                segments.append(ChainSegment("fused2", (i, i + 1), p2))
+                h, w, c = ho, wo, proj.features
+                i += 2
+                continue
+        if isinstance(s, PW):
+            segments.append(ChainSegment("pw", (i,), blocking.plan_pwconv(
+                b * h * w, c, s.features, dtype=dtype, smem_budget=budget)))
+            c = s.features
+        else:
+            ho, wo = s.out_dims(h, w)
+            hi_v = (ho - 1) * s.stride + s.hf
+            wi_v = (wo - 1) * s.stride + s.wf
+            segments.append(ChainSegment("dw", (i,), blocking.plan_dwconv2d(
+                hi_v, wi_v, ho, wo, c, s.hf, s.wf, dtype=dtype,
+                smem_budget=budget)))
+            h, w = ho, wo
+        i += 1
+
+    return ChainPlan(
+        segments=tuple(segments),
+        residual=res_active,
+        residual_fused=bool(res_active and segments
+                            and segments[-1].kind in blocking.FUSED_KINDS),
+        dtype_bytes=blocking.dtype_bytes(dtype),
+        smem_budget=budget,
+    )
+
+
+#: Re-export: lowering lives at the kernel layer.
+lower = lowering.lower
+
+
+def execute(spec: SeparableSpec, params: Sequence[dict], x: torch.Tensor, *,
+            policy: KernelPolicy = DEFAULT_POLICY,
+            chain_plan: Optional[ChainPlan] = None) -> torch.Tensor:
+    """Run the chain: plan (unless given), lower, execute.  A kernel
+    failure raises."""
+    cp = chain_plan or plan(spec, x.shape, dtype=x.dtype, policy=policy)
+    return lower(spec, cp, policy)(params, x)

@@ -1,0 +1,313 @@
+"""Whole-network chain engine: NetworkSpec -> NetworkPlan -> execute_network.
+
+Counterpart of ``repro/core/network.py`` for the MobileNet V1 and V2 bodies:
+
+* :class:`NetworkSpec` — an ordered tuple of ``SeparableSpec`` blocks and
+  the stem width; frozen and hashable.
+* :func:`plan_network` -> :class:`NetworkPlan` — every block's
+  ``ChainPlan`` resolved once by walking shapes and dtypes through the
+  network.
+* :func:`execute_network` — the whole body.  The (plan, runner) pair is
+  memoized per (spec, shape, dtype, policy, device), so steady-state calls
+  do no planning.  The runner launches the blocks' kernels one after the
+  other on the current stream; capturing them as one CUDA graph is a later
+  PR.  A kernel failure raises: there is no runtime ladder here.
+* :class:`NetworkModule` — an ``nn.Module`` holding the parameters whose
+  ``forward`` is :func:`execute_network`.
+
+    net = mobilenet_v2_spec()
+    params = init_network(net, seed=0)                # on the card
+    y = execute_network(net, params, x,
+                        policy=KernelPolicy(dtype_policy=BF16_STREAM))
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core import chain
+from repro_torch.kernels import lowering
+from repro_torch.kernels.blocking import ChainPlan
+from repro_torch.kernels.policy import (DEFAULT_POLICY, DTYPES, DtypePolicy,
+                                        KernelPolicy)
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkSpec:
+    """An ordered chain of separable blocks; ``c_in`` is the width the
+    first block consumes (the stem output)."""
+    name: str
+    c_in: int
+    blocks: Tuple[chain.SeparableSpec, ...]
+
+    def __post_init__(self):
+        if not self.blocks:
+            raise ValueError("empty network")
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.blocks)
+
+    def out_channels(self) -> int:
+        c = self.c_in
+        for b in self.blocks:
+            c = b.out_channels(c)
+        return c
+
+
+def make_divisible(v: float, divisor: int = 8) -> int:
+    """Round to the nearest multiple of ``divisor``, never below 90% of v."""
+    new = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new < 0.9 * v:
+        new += divisor
+    return new
+
+
+#: MobileNetV1 body after the 32-channel stem: (c_out, stride) per block
+#: (Howard et al. 2017, Table 1).
+MOBILENET_V1_BODY: Tuple[Tuple[int, int], ...] = (
+    (64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+    (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (1024, 2), (1024, 1),
+)
+
+#: MobileNetV2 body after the 32-channel stem: (t, c, n, s) rows
+#: (Sandler et al. 2018, Table 2).
+MOBILENET_V2_BODY: Tuple[Tuple[int, int, int, int], ...] = (
+    (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+    (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1),
+)
+
+
+def mobilenet_v1_spec(width_mult: float = 1.0) -> NetworkSpec:
+    """The 13-block MobileNetV1 body: DW(+bias) -> PW(+bias) per block."""
+    blocks = tuple(
+        chain.separable_block_spec(make_divisible(c * width_mult), stride=s)
+        for c, s in MOBILENET_V1_BODY)
+    return NetworkSpec(name=f"mobilenet_v1_{width_mult:g}",
+                       c_in=make_divisible(32 * width_mult), blocks=blocks)
+
+
+def mobilenet_v2_spec(width_mult: float = 1.0) -> NetworkSpec:
+    """The 17-block MobileNetV2 body: a (DW, PW) first block, then 16 t=6
+    inverted residuals."""
+    c = make_divisible(32 * width_mult)
+    c_in = c
+    blocks = []
+    for t, co, n, s in MOBILENET_V2_BODY:
+        co = make_divisible(co * width_mult)
+        for i in range(n):
+            stride = s if i == 0 else 1
+            if t == 1:
+                blocks.append(chain.SeparableSpec(stages=(
+                    chain.DW(stride=stride, activation="relu6"),
+                    chain.PW(co),
+                ), residual="auto"))
+            else:
+                blocks.append(chain.inverted_residual_spec(
+                    c, co, expand=t, stride=stride))
+            c = co
+    return NetworkSpec(name=f"mobilenet_v2_{width_mult:g}",
+                       c_in=c_in, blocks=tuple(blocks))
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def init_network(net: NetworkSpec, generator: Optional[torch.Generator] = None,
+                 *, seed: int = 0, dtype: torch.dtype = torch.float32,
+                 device="cuda") -> list:
+    """Per-block ``init_chain`` params from one seeded generator, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    dev = require_device(device)
+    gen = generator or torch.Generator().manual_seed(seed)
+    params = []
+    c = net.c_in
+    for spec in net.blocks:
+        params.append(chain.init_chain(gen, spec, c, dtype, dev))
+        c = spec.out_channels(c)
+    return params
+
+
+def cast_network_params(params, dtype: torch.dtype) -> list:
+    """Cast every parameter once, up front (weights stored at the stream
+    width make the lowering's per-call casts no-ops)."""
+    return [[{k: v.to(dtype) for k, v in p.items()} for p in block]
+            for block in params]
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkPlan:
+    """Per-block ``ChainPlan``s and the shape/dtype walk they were planned
+    at."""
+    plans: Tuple[ChainPlan, ...]
+    block_shapes: Tuple[Tuple[int, int, int, int], ...]
+    block_dtypes: Tuple[str, ...]
+    out_shape: Tuple[int, int, int, int]
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.plans)
+
+    @property
+    def n_kernel_passes(self) -> int:
+        return sum(p.n_kernel_passes for p in self.plans)
+
+    @property
+    def fully_fused(self) -> bool:
+        return all(p.fully_fused for p in self.plans)
+
+    def segment_histogram(self) -> dict:
+        """{'fused3': n, 'fused2': m, ...} across all blocks."""
+        return dict(collections.Counter(
+            seg.kind for p in self.plans for seg in p.segments))
+
+
+def resolve_block_policies(
+    net: NetworkSpec, policy: KernelPolicy,
+    block_dtype_policies: Optional[Sequence[DtypePolicy]] = None,
+) -> Tuple[KernelPolicy, ...]:
+    """The effective per-block policy.  Broadcasting one policy, inner
+    blocks hand off at the stream width (their ``out`` is cleared; only the
+    last block honours the pin).  Explicit ``block_dtype_policies`` are
+    taken verbatim."""
+    n = net.n_blocks
+    if block_dtype_policies is None:
+        dp = policy.dtype_policy
+        inner = dataclasses.replace(dp, out=None)
+        return tuple(
+            dataclasses.replace(policy,
+                                dtype_policy=dp if i == n - 1 else inner)
+            for i in range(n))
+    if len(block_dtype_policies) != n:
+        raise ValueError(f"{len(block_dtype_policies)} block policies for "
+                         f"{n} blocks")
+    return tuple(dataclasses.replace(policy, dtype_policy=d)
+                 for d in block_dtype_policies)
+
+
+_DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+
+
+def _block_problems(net: NetworkSpec, x_shape, dtype: torch.dtype,
+                    policies: Sequence[KernelPolicy]):
+    """Walk (shape, dtype) through the network: block i+1's input dtype is
+    block i's out dtype, exactly what the lowering emits."""
+    b, h, w, c = (int(v) for v in x_shape)
+    if c != net.c_in:
+        raise ValueError(f"input has {c} channels, the network takes "
+                         f"{net.c_in}")
+    problems = []
+    d = dtype
+    for spec, pol in zip(net.blocks, policies):
+        problems.append(((b, h, w, c), _DTYPE_NAMES[d]))
+        for s in spec.stages:
+            if isinstance(s, chain.DW):
+                h, w = s.out_dims(h, w)
+        c = spec.out_channels(c)
+        d = pol.dtype_policy.out_dtype(d)
+    return problems, (b, h, w, c)
+
+
+def plan_network(net: NetworkSpec, x_shape, *,
+                 dtype: torch.dtype = torch.float32,
+                 policy: KernelPolicy = DEFAULT_POLICY,
+                 block_dtype_policies: Optional[Sequence[DtypePolicy]] = None,
+                 ) -> NetworkPlan:
+    """Resolve every block's ChainPlan once."""
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    problems, out_shape = _block_problems(net, x_shape, dtype, policies)
+    return NetworkPlan(
+        plans=tuple(
+            chain.plan(spec, shape, dtype=DTYPES[dt], policy=pol)
+            for spec, (shape, dt), pol in zip(net.blocks, problems,
+                                              policies)),
+        block_shapes=tuple(shape for shape, _ in problems),
+        block_dtypes=tuple(dt for _, dt in problems),
+        out_shape=out_shape,
+    )
+
+
+def build_network_fn(net: NetworkSpec, nplan: NetworkPlan,
+                     policy: KernelPolicy = DEFAULT_POLICY,
+                     block_dtype_policies=None):
+    """Compose the per-block lowered runners into one ``run(params, x)``;
+    every block runs its planned blocks verbatim."""
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    runners = [lowering.lower(spec, cp, pol)
+               for spec, cp, pol in zip(net.blocks, nplan.plans, policies)]
+
+    def run(params, x):
+        if len(params) != len(runners):
+            raise ValueError(f"{len(params)} param blocks for "
+                             f"{len(runners)} blocks")
+        for r, p in zip(runners, params):
+            x = r(p, x)
+        return x
+
+    return run
+
+
+#: (net, shape, dtype, policy, device, block policies, explicit plan) ->
+#: (NetworkPlan, runner).
+_NETWORK_CACHE: dict = {}
+
+
+def clear_network_cache() -> None:
+    _NETWORK_CACHE.clear()
+
+
+def execute_network(net: NetworkSpec, params, x: torch.Tensor, *,
+                    policy: KernelPolicy = DEFAULT_POLICY,
+                    network_plan: Optional[NetworkPlan] = None,
+                    block_dtype_policies: Optional[Tuple[DtypePolicy, ...]]
+                    = None) -> torch.Tensor:
+    """Run the whole body.  The first call for a given (net, input shape,
+    dtype, policy, device) plans and builds the runner; later calls reuse
+    it.  The backend follows ``x``'s device (``policy.impl="auto"``)."""
+    key = (net, tuple(x.shape), x.dtype, policy, x.device,
+           block_dtype_policies, network_plan)
+    hit = _NETWORK_CACHE.get(key)
+    if hit is None:
+        nplan = network_plan or plan_network(
+            net, x.shape, dtype=x.dtype, policy=policy,
+            block_dtype_policies=block_dtype_policies)
+        hit = (nplan, build_network_fn(net, nplan, policy,
+                                       block_dtype_policies))
+        _NETWORK_CACHE[key] = hit
+    with torch.inference_mode():
+        return hit[1](params, x)
+
+
+class NetworkModule(nn.Module):
+    """The parameters of a network body, with :func:`execute_network` as
+    ``forward``.  Parameters are frozen (inference only)."""
+
+    def __init__(self, net: NetworkSpec, params,
+                 policy: KernelPolicy = DEFAULT_POLICY):
+        super().__init__()
+        self.net = net
+        self.policy = policy
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(
+                nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                  for k, v in p.items()})
+                for p in block)
+            for block in params)
+
+    def params(self) -> list:
+        return [[dict(pd.items()) for pd in block] for block in self.blocks]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return execute_network(self.net, self.params(), x,
+                               policy=self.policy)

@@ -1,0 +1,113 @@
+"""Execution policy for the port's ops, and the one backend-resolution rule.
+
+Counterpart of ``repro/kernels/policy.py``.  The backend follows the
+TENSOR, not the host: a CUDA tensor runs the hand-written kernels, a CPU
+tensor runs the plain PyTorch versions.  Nothing falls back: a kernel that
+fails to build or launch raises, and ``impl="cuda"`` on a CPU tensor raises.
+
+``KernelPolicy`` keeps only what this slice uses: ``impl``, the ``fused``
+opt-out, the ``dtype_policy``, the GEMM tile overrides and the per-CTA
+shared-memory budget the planner sizes fused tiles against.  The reference's
+autotune / verify / tune-cache / runtime-ladder fields belong to the slices
+that port those layers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.blocking import DEFAULT_SMEM_BUDGET
+
+#: dtype names a DtypePolicy may stream/store at, and their torch dtypes.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+STREAMABLE_DTYPES = tuple(DTYPES)
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Mixed-precision streaming policy (the reference's DESIGN.md §7).
+
+    ``stream``: dtype name every segment's streamed operands move at
+    (``None`` keeps the input's dtype).  ``out``: dtype name of the final
+    output (``None`` stores at the stream width).  Accumulation is fp32 in
+    every kernel regardless.
+    """
+    stream: Optional[str] = None
+    out: Optional[str] = None
+
+    def __post_init__(self):
+        for name in (self.stream, self.out):
+            if name is not None and name not in DTYPES:
+                raise ValueError(f"unknown dtype {name!r}; "
+                                 f"want one of {STREAMABLE_DTYPES}")
+
+    def stream_dtype(self, native: torch.dtype) -> torch.dtype:
+        return DTYPES[self.stream] if self.stream else native
+
+    def out_dtype(self, native: torch.dtype) -> torch.dtype:
+        return DTYPES[self.out] if self.out else self.stream_dtype(native)
+
+
+#: Stream at the input's native dtype.
+NATIVE = DtypePolicy()
+
+#: Stream activations and weights as bf16, accumulate fp32, store bf16.
+BF16_STREAM = DtypePolicy(stream="bfloat16")
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """``"auto"`` -> ``"cuda"`` for a tensor on a CUDA device, else
+    ``"torch"`` (the plain version).  ``"cuda"`` for a tensor that is not on
+    a CUDA device raises; there is no fallback either way."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (want {'|'.join(IMPLS)})")
+    dev = torch.device(device)
+    if impl == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if impl == "cuda" and dev.type != "cuda":
+        raise ValueError(f"impl='cuda' needs a CUDA tensor, got one on {dev}")
+    return impl
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """Execution policy for the port's ops.
+
+    impl: ``"auto"`` (follow the tensor's device) | ``"cuda"`` (the
+    hand-written kernels; CUDA tensors only) | ``"torch"`` (the plain
+    versions, on any device — the yardstick ``chip_smoke.py`` compares
+    against).
+    smem_budget: dynamic shared memory one fused-kernel CTA may claim; the
+    chain planner sizes tiles against it (at most 227 KB on Hopper).
+    block_g/co/ci: explicit pwconv tile overrides; ``None`` defers to
+    ``blocking.plan_pwconv``.
+    fused: ``False`` forces the unfused composition; ``None``/``True`` let
+    the planner fuse whatever fits.
+    dtype_policy: mixed-precision streaming (:class:`DtypePolicy`).
+    """
+    impl: str = "auto"
+    smem_budget: int = DEFAULT_SMEM_BUDGET
+    fused: Optional[bool] = None
+    block_g: Optional[int] = None
+    block_co: Optional[int] = None
+    block_ci: Optional[int] = None
+    dtype_policy: DtypePolicy = NATIVE
+
+    def __post_init__(self):
+        if self.impl not in IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}")
+
+    def resolved(self, device: torch.device) -> str:
+        return resolve_impl(self.impl, device)
+
+    @property
+    def fusion_allowed(self) -> bool:
+        return self.fused is not False
+
+
+DEFAULT_POLICY = KernelPolicy()

@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the ops the kernels compute.
+
+Counterpart of ``repro/kernels/ref.py`` (``dwconv2d_ref`` :24,
+``pwconv_ref`` :141, ``separable_fused_ref`` :158), with the same rounding
+points: every operand is upcast to fp32 explicitly (bf16 and fp16 products
+never run in the narrow type), the fused intermediates stay fp32, and the
+result is cast back to ``x.dtype`` once at the end.  Layouts are the
+reference's: NHWC activations, DW filter (Hf, Wf, C), PW weight (Ci, Co).
+
+These are the CPU path of the port, the oracle the CPU tests hold the
+kernels' wrappers to, and the yardstick ``chip_smoke.py`` compares the
+kernels against on the card.  Nothing on the main path calls them when the
+tensors lie on a card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.epilogue import apply_epilogue
+
+
+def pad_same(x: torch.Tensor, hf: int, wf: int, stride: int) -> torch.Tensor:
+    """Explicit SAME zero padding of an NHWC tensor, odd row and column at
+    the bottom/right (``repro/kernels/ops.py:33-46``; ``F.conv2d``'s
+    ``padding="same"`` differs and rejects stride > 1)."""
+    hi, wi = x.shape[1], x.shape[2]
+    ho = -(-hi // stride)
+    wo = -(-wi // stride)
+    ph = max((ho - 1) * stride + hf - hi, 0)
+    pw = max((wo - 1) * stride + wf - wi, 0)
+    if ph == 0 and pw == 0:
+        return x
+    return F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+
+
+def apply_padding(x: torch.Tensor, hf: int, wf: int, stride: int,
+                  padding: str) -> torch.Tensor:
+    """``x`` padded for ``padding`` ("same" or "valid") so that a VALID
+    conv of it gives the padded conv's output."""
+    if padding.lower() == "same":
+        return pad_same(x, hf, wf, stride)
+    if padding.lower() != "valid":
+        raise ValueError(padding)
+    return x
+
+
+def _dw_fp32(x: torch.Tensor, f: torch.Tensor, stride: int,
+             padding: str) -> torch.Tensor:
+    """fp32 depthwise conv, NHWC in and out."""
+    hf, wf, c = f.shape
+    xp = apply_padding(x.float(), hf, wf, stride, padding)
+    y = F.conv2d(xp.permute(0, 3, 1, 2), f.float().permute(2, 0, 1)[:, None],
+                 stride=stride, groups=c)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def dwconv2d_ref(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
+                 padding: str = "valid") -> torch.Tensor:
+    """Depthwise conv. x: (B, Hi, Wi, C); f: (Hf, Wf, C) -> (B, Ho, Wo, C)."""
+    if x.ndim != 4 or f.ndim != 3 or x.shape[-1] != f.shape[-1]:
+        raise ValueError(f"dwconv2d shapes {tuple(x.shape)} {tuple(f.shape)}")
+    return _dw_fp32(x, f, stride, padding).to(x.dtype)
+
+
+def pwconv_ref(x: torch.Tensor, w: torch.Tensor, *,
+               bias: Optional[torch.Tensor] = None,
+               activation: Optional[str] = None) -> torch.Tensor:
+    """Pointwise conv / GEMM. x: (..., Ci); w: (Ci, Co) -> (..., Co), fp32
+    accumulation, bias and activation in fp32, one cast at the end."""
+    y = torch.matmul(x.float(), w.float())
+    y = apply_epilogue(y, None if bias is None else bias.float(), activation)
+    return y.to(x.dtype)
+
+
+def separable_fused_ref(
+    x: torch.Tensor,
+    dw_f: torch.Tensor,
+    pw_w: torch.Tensor,
+    dw_bias: Optional[torch.Tensor] = None,
+    pw_bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    *,
+    expand_w: Optional[torch.Tensor] = None,
+    expand_activation: Optional[str] = "relu6",
+    stride: int = 1,
+    padding: str = "valid",
+    dw_activation: Optional[str] = "relu6",
+    activation: Optional[str] = None,
+) -> torch.Tensor:
+    """The fused [PW-expand ->] DW -> PW block with fp32 intermediates:
+    the expanded tensor and the DW output stay fp32 into the next product
+    (the unfused composition rounds them to the activation dtype)."""
+    y = x.float()
+    if expand_w is not None:
+        y = apply_epilogue(torch.matmul(y, expand_w.float()), None,
+                           expand_activation)
+    y = _dw_fp32(y, dw_f, stride, padding)
+    if dw_bias is not None:
+        y = y + dw_bias.float()
+    y = apply_epilogue(y, None, dw_activation)
+    out = torch.matmul(y, pw_w.float())
+    out = apply_epilogue(out, None if pw_bias is None else pw_bias.float(),
+                         activation)
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(x.dtype)

@@ -1,0 +1,213 @@
+"""The paper's workload on the port: MobileNet V1/V2 bodies end to end
+through ``execute_network``, on the card by default.
+
+    python -m repro_torch.mobilenet_inference [--arch v1|v2|both]
+        [--dtype fp32|bf16] [--res N] [--batch B] [--device cuda|cpu]
+        [--unfused]
+
+For each network it prints the plan histogram, the kernel launches of one
+forward, ms per forward (CUDA events on the card, median of 10)
+with the peak device memory, and the error against the plain path: the
+same network with ``impl="torch"`` in fp32 on the same device.  Counterpart
+of ``examples/mobilenet_inference.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+from repro_torch.core import network
+from repro_torch.kernels import dwconv2d, pwconv, separable_fused
+from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
+
+#: bf16-streamed network vs the fp32 plain path: one bf16 rounding per
+#: streamed operand per block, compounded over 13-17 blocks (the
+#: reference's gate, ``examples/mobilenet_inference.py:43``).
+BF16_REL_TOL = 5e-2
+#: fp32 kernels vs the fp32 plain path: the same products summed in
+#: another order than cuDNN and cuBLAS (or the CPU's) sum them.
+FP32_REL_TOL = 1e-4
+
+#: Launch counter name -> segment kind it serves.
+KERNEL_SEGMENTS = {"dwconv2d": "dw", "pwconv": "pw",
+                   "separable_fused2": "fused2",
+                   "separable_fused3": "fused3"}
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counters, by kernel name."""
+    return {"dwconv2d": dwconv2d.launches, "pwconv": pwconv.launches,
+            "separable_fused2": separable_fused.launches["fused2"],
+            "separable_fused3": separable_fused.launches["fused3"]}
+
+
+def reset_launch_counts() -> None:
+    dwconv2d.launches = 0
+    pwconv.launches = 0
+    for k in separable_fused.launches:
+        separable_fused.launches[k] = 0
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, in fp32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def time_ms(fn, device: torch.device, reps: int = 10,
+            warmup: int = 2) -> float:
+    """Median ms of ``fn()``: CUDA events around each call on the card,
+    the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    else:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+#: Device kernel name fragment -> the port's kernel it belongs to.
+_KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_kernel": "pwconv",
+                 "fused_kernel": "separable_fused"}
+
+
+def device_breakdown(fn, reps: int = 5) -> dict:
+    """Device time of ``fn()`` by kernel, from ``torch.profiler``: ms per
+    call for each of the port's kernels and for every other device kernel
+    (PyTorch's pads, casts and adds) together.  Empty when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = next((v for k, v in _KERNEL_NAMES.items() if k in e.key),
+                    "other")
+        out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
+                dtype: str = "fp32", fused=None, device="cuda",
+                seed: int = 0) -> dict:
+    """Drive one network body once, time it and hold it against the fp32
+    plain path.  Returns the histogram, the launches of the counted
+    forward, ms, peak memory (bytes, card only), the device time by kernel
+    (card only, :func:`device_breakdown`) and the error."""
+    dev = network.require_device(device)
+    params32 = network.init_network(net, seed=seed, device=dev)
+    x = torch.randn((batch, res, res, net.c_in),
+                    generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    pol = KernelPolicy(fused=fused,
+                       dtype_policy=BF16_STREAM if dtype == "bf16" else NATIVE)
+    params = (network.cast_network_params(params32, torch.bfloat16)
+              if dtype == "bf16" else params32)
+    nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol)
+
+    reset_launch_counts()
+    y = network.execute_network(net, params, x, policy=pol)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = launch_counts()
+
+    peak = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    def forward():
+        return network.execute_network(net, params, x, policy=pol)
+
+    ms = time_ms(forward, dev)
+    device = {}
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        device = device_breakdown(forward)
+
+    ref = network.execute_network(net, params32, x,
+                                  policy=KernelPolicy(impl="torch",
+                                                      fused=fused))
+    err = rel_err(y, ref)
+    ok = bool(torch.isfinite(y.float()).all()) and tuple(y.shape) == \
+        nplan.out_shape
+    return {"histogram": nplan.segment_histogram(), "launches": launches,
+            "ms": ms, "peak_bytes": peak, "device_ms": device,
+            "rel_err": err,
+            "tol": BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL,
+            "out_shape": tuple(y.shape), "out_dtype": str(y.dtype),
+            "finite_and_shaped": ok}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=("v1", "v2", "both"), default="both")
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
+    ap.add_argument("--res", type=int, default=112,
+                    help="body input resolution (112 = a 224 image after "
+                         "the stem)")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--unfused", action="store_true",
+                    help="plan with KernelPolicy(fused=False)")
+    args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    nets = []
+    if args.arch in ("v1", "both"):
+        nets.append(network.mobilenet_v1_spec())
+    if args.arch in ("v2", "both"):
+        nets.append(network.mobilenet_v2_spec())
+    failed = False
+    for net in nets:
+        r = run_network(net, res=args.res, batch=args.batch,
+                        dtype=args.dtype,
+                        fused=False if args.unfused else None,
+                        device=args.device)
+        histo = ",".join(f"{k}:{v}" for k, v in sorted(r["histogram"].items()))
+        clock = "CUDA events" if args.device.startswith("cuda") else "host"
+        print(f"{net.name} @{args.res}x{args.res} batch {args.batch} "
+              f"{args.dtype} on {args.device}: plan {histo}; launches "
+              f"{r['launches']}")
+        peak = ("" if r["peak_bytes"] is None
+                else f", peak {r['peak_bytes'] / 2**20:.1f} MiB")
+        print(f"  {r['ms']:.3f} ms/forward ({clock}, median of "
+              f"10){peak}; out {r['out_shape']} {r['out_dtype']}")
+        if r["device_ms"]:
+            busy = sum(r["device_ms"].values())
+            print(f"  device time {busy:.3f} ms/forward "
+                  f"({busy / r['ms']:.0%} of the forward): "
+                  + ", ".join(f"{k} {v:.3f} ms"
+                              for k, v in sorted(r["device_ms"].items())))
+        print(f"  vs fp32 plain path: max rel err {r['rel_err']:.2e} "
+              f"(tol {r['tol']:g})")
+        failed |= not (r["rel_err"] <= r["tol"] and r["finite_and_shaped"])
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
