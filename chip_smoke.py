@@ -12,13 +12,15 @@ From the root of a checkout it:
 2. builds every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    all at once) and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card at
-   main-path shapes, in fp32 and bf16, and times the kernel, the plain
-   version and one PyTorch library call for the same function;
-4. drives the port's main path, ``execute_network`` on MobileNet V1 and V2
-   at width 1.0 and 112x112, batch 1 and 8, fp32 and bf16 streaming, under
-   the default plan and ``fused=False``: it checks that the launch counters
-   moved by exactly the plan's segment counts, holds each output against
-   the fp32 plain path and times the forward;
+   main-path shapes (3x3 and 5x5 taps), in fp32 and bf16, and times the
+   kernel, the plain version and PyTorch library calls for the same
+   function;
+4. drives the port's main path, ``execute_network`` on MobileNet V1 and
+   V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
+   and 8, fp32 and bf16 streaming, under the default plan and
+   ``fused=False``: for each run it zeroes the launch counters, drives one
+   forward, checks that the counters moved by exactly the expected counts,
+   holds the output against the fp32 plain path and times the forward;
 5. prints the kernels it launched, one JSON line of per-kernel numbers, the
    card again, and as its last line ``{"ok": true, "device": ...}``.
 
@@ -50,12 +52,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 #: Launches one forward makes, by plan: the segment counts the reference
-#: planner gives these bodies at 112x112.
+#: planner gives these bodies at 112x112 (a standalone ``se`` segment
+#: launches ``pwconv`` twice; ``mb`` is the plain ``F.conv2d``).
 EXPECTED_LAUNCHES = {
     ("v1", None): {"separable_fused2": 13},
     ("v1", False): {"dwconv2d": 13, "pwconv": 13},
     ("v2", None): {"separable_fused2": 1, "separable_fused3": 16},
     ("v2", False): {"dwconv2d": 17, "pwconv": 33},
+    ("mnasnet", None): {"separable_fused2": 1, "separable_fused3": 7,
+                        "pwconv": 16, "dw_se": 8},
+    ("mnasnet", False): {"dwconv2d": 16, "pwconv": 47},
+    ("lite0", None): {"separable_fused2": 1, "fused_mbconv": 4,
+                      "separable_fused3": 11},
+    ("lite0", False): {"dwconv2d": 12, "pwconv": 27},
 }
 
 SOURCES = {
@@ -67,6 +76,10 @@ SOURCES = {
                          "src/repro/kernels/separable_fused.py:254"),
     "separable_fused3": ("src/repro_torch/csrc/separable_fused.cu",
                          "src/repro/kernels/separable_fused.py:254"),
+    "fused_mbconv": ("src/repro_torch/csrc/fused_mbconv.cu",
+                     "src/repro/kernels/fused_mbconv.py:193"),
+    "dw_se": ("src/repro_torch/csrc/dw_se.cu",
+              "src/repro/kernels/se_epilogue.py:143"),
 }
 
 
@@ -118,7 +131,7 @@ class KernelChecks:
              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "bytes": nbytes, "ops": ops}
-        print(f"  {name:17s} {label:34s} {dname:8s} rel err {rel:.2e} "
+        print(f"  {name:17s} {label:44s} {dname:8s} rel err {rel:.2e} "
               f"(tol {r['tol']:g}) kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -127,23 +140,24 @@ class KernelChecks:
                                  f"> {r['tol']} (finite={finite})")
         self.results.append(r)
 
-    def dwconv2d(self, b, h, w, c, stride, dtype):
+    def dwconv2d(self, b, h, w, c, stride, dtype, k=3):
         import torch.nn.functional as F
         from repro_torch.kernels import blocking, dwconv2d
-        x = self.pad_same(self.rand((b, h, w, c), dtype), 3, 3, stride)
-        f = self.rand((3, 3, c), dtype, 1 / 3)
+        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
+        f = self.rand((k, k, c), dtype, 1 / k)
         ho, wo = -(-h // stride), -(-w // stride)
         plan = blocking.plan_dwconv2d(x.shape[1], x.shape[2], ho, wo, c,
-                                      dtype=dtype)
+                                      k, k, dtype=dtype)
         xc = x.permute(0, 3, 1, 2)
         fc = f.permute(2, 0, 1)[:, None].contiguous()
         self.measure(
-            "dwconv2d", f"{b}x{h}x{w}x{c} s{stride}", dtype,
+            "dwconv2d", f"{b}x{h}x{w}x{c} k{k} s{stride} vec {plan.block_c}",
+            dtype,
             lambda: dwconv2d.dwconv2d(x, f, stride=stride,
                                       block_c=plan.block_c),
             lambda: dwconv2d.dwconv2d_plain(x, f, stride=stride),
             lambda: F.conv2d(xc, fc, stride=stride, groups=c),
-            2 * b * ho * wo * c * 9,
+            2 * b * ho * wo * c * k * k,
             (x.numel() + f.numel() + b * ho * wo * c) * x.element_size())
 
     def pwconv(self, g, ci, co, dtype):
@@ -160,15 +174,15 @@ class KernelChecks:
             2 * g * ci * co,
             (x.numel() + w.numel() + co + g * co) * x.element_size())
 
-    def fused(self, b, h, w, ci, c, co, stride, residual, dtype):
+    def fused(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import blocking, separable_fused
         expand = ci != c
         x_raw = self.rand((b, h, w, ci), dtype)
-        x = self.pad_same(x_raw, 3, 3, stride)
+        x = self.pad_same(x_raw, k, k, stride)
         ew = self.rand((ci, c), dtype, ci ** -0.5) if expand else None
-        f = self.rand((3, 3, c), dtype, 1 / 3)
+        f = self.rand((k, k, c), dtype, 1 / k)
         dwb = self.rand((c,), dtype, 0.1)
         pw = self.rand((c, co), dtype, c ** -0.5)
         pwb = self.rand((co,), dtype, 0.1)
@@ -176,16 +190,13 @@ class KernelChecks:
         ho, wo = -(-h // stride), -(-w // stride)
         if expand:
             plan = blocking.plan_separable3(ho, wo, ci, c, co, stride=stride,
-                                            dtype=dtype)
+                                            hf=k, wf=k, dtype=dtype)
         else:
             plan = blocking.plan_separable(ho, wo, c, co, stride=stride,
-                                           dtype=dtype)
-        kernel_smem = separable_fused.smem_bytes(
-            ci, c, 3, 3, stride, plan.slab_h, plan.tile_w, plan.block_c,
-            plan.block_co, expand, dtype)
-        if kernel_smem != plan.smem_bytes:
-            raise AssertionError(f"planner models {plan.smem_bytes} B of "
-                                 f"shared memory, the kernel {kernel_smem}")
+                                           hf=k, wf=k, dtype=dtype)
+        self.same_smem(plan.smem_bytes, separable_fused.smem_bytes(
+            ci, c, k, k, stride, plan.slab_h, plan.tile_w, plan.block_c,
+            plan.block_co, expand, dtype))
         act = None if expand else "relu6"
         kw = dict(expand_w=ew, stride=stride, dw_activation="relu6",
                   activation=act)
@@ -197,7 +208,7 @@ class KernelChecks:
                          groups=c)
             return torch.matmul(y.permute(0, 2, 3, 1), pw)
 
-        ops = 2 * b * ho * wo * c * (9 + co)
+        ops = 2 * b * ho * wo * c * (k * k + co)
         if expand:
             ops += 2 * b * h * w * ci * c
         nbytes = (x.numel() + f.numel() + c + pw.numel() + co
@@ -205,7 +216,7 @@ class KernelChecks:
                   + (res.numel() if residual else 0) + b * ho * wo * co)
         name = "separable_fused3" if expand else "separable_fused2"
         label = (f"{b}x{h}x{w}x{ci}" + (f"(x{c})" if expand else "")
-                 + f"->{co} s{stride}" + (" +res" if residual else "")
+                 + f"->{co} k{k} s{stride}" + (" +res" if residual else "")
                  + f" tile {plan.slab_h}x{plan.tile_w} cb {plan.block_c}")
         self.measure(
             name, label, dtype,
@@ -217,15 +228,100 @@ class KernelChecks:
                 x, f, pw, dwb, pwb, res, **kw),
             library, ops, nbytes * x.element_size())
 
+    @staticmethod
+    def same_smem(planned, kernel):
+        if kernel != planned:
+            raise AssertionError(f"planner models {planned} B of shared "
+                                 f"memory, the kernel {kernel}")
+
+    def fused_mb(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import blocking, fused_mbconv
+        x_raw = self.rand((b, h, w, ci), dtype)
+        x = self.pad_same(x_raw, k, k, stride)
+        f = self.rand((k, k, ci, c), dtype, (k * k * ci) ** -0.5)
+        fb = self.rand((c,), dtype, 0.1)
+        pw = self.rand((c, co), dtype, c ** -0.5)
+        pwb = self.rand((co,), dtype, 0.1)
+        res = x_raw if residual else None
+        ho, wo = -(-h // stride), -(-w // stride)
+        plan = blocking.plan_fused_mb(ho, wo, ci, c, co, stride=stride,
+                                      hf=k, wf=k, dtype=dtype)
+        self.same_smem(plan.smem_bytes, fused_mbconv.smem_bytes(
+            ci, k, k, stride, plan.slab_h, plan.tile_w, plan.block_c,
+            plan.block_co))
+        kw = dict(stride=stride, mb_activation="relu6", activation=None)
+        xc = x.permute(0, 3, 1, 2)
+        fc = f.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            y = F.conv2d(xc, fc, fb, stride=stride).clamp_(0, 6)
+            return torch.addmm(pwb, y.permute(0, 2, 3, 1).reshape(-1, c), pw)
+
+        ops = 2 * b * ho * wo * c * (k * k * ci + co)
+        nbytes = (x.numel() + f.numel() + c + pw.numel() + co
+                  + (res.numel() if residual else 0) + b * ho * wo * co)
+        self.measure(
+            "fused_mbconv",
+            f"{b}x{h}x{w}x{ci}(x{c})->{co} k{k} s{stride}"
+            + (" +res" if residual else "")
+            + f" tile {plan.slab_h}x{plan.tile_w} cb {plan.block_c}", dtype,
+            lambda: fused_mbconv.fused_mbconv(
+                x, f, pw, fb, pwb, res, block_c=plan.block_c,
+                block_co=plan.block_co, slab_h=plan.slab_h,
+                tile_w=plan.tile_w, **kw),
+            lambda: fused_mbconv.fused_mbconv_plain(x, f, pw, fb, pwb, res,
+                                                    **kw),
+            library, ops, nbytes * x.element_size())
+
+    def dw_se(self, b, h, w, c, c_se, stride, dtype, k=3):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import blocking, se_epilogue
+        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
+        f = self.rand((k, k, c), dtype, 1 / k)
+        w1 = self.rand((c, c_se), dtype, c ** -0.5)
+        b1 = self.rand((c_se,), dtype, 0.1)
+        w2 = self.rand((c_se, c), dtype, c_se ** -0.5)
+        b2 = self.rand((c,), dtype, 0.1)
+        ho, wo = -(-h // stride), -(-w // stride)
+        plan = blocking.plan_dw_se(x.shape[1], x.shape[2], ho, wo, c, c_se,
+                                   k, k, dtype=dtype)
+        self.same_smem(plan.smem_bytes, se_epilogue.smem_bytes(
+            ho, wo, c, c_se, plan.cluster))
+        kw = dict(stride=stride, dw_activation="relu", se_activation="relu")
+        xc = x.permute(0, 3, 1, 2)
+        fc = f.permute(2, 0, 1)[:, None].contiguous()
+
+        def library():
+            y = F.conv2d(xc, fc, stride=stride, groups=c).relu_()
+            hid = torch.addmm(b1, y.mean(dim=(2, 3)), w1).relu_()
+            gate = torch.sigmoid(torch.addmm(b2, hid, w2))
+            return y * gate[:, :, None, None]
+
+        npix = b * ho * wo * c
+        ops = 2 * npix * k * k + 2 * npix + 4 * b * c * c_se
+        nbytes = (x.numel() + f.numel() + 2 * c * c_se + c_se + c + npix)
+        self.measure(
+            "dw_se", f"{b}x{h}x{w}x{c} k{k} s{stride} Cse {c_se} cluster "
+            f"{plan.cluster}", dtype,
+            lambda: se_epilogue.dw_se(x, f, w1, b1, w2, b2,
+                                      cluster=plan.cluster, **kw),
+            lambda: se_epilogue.dw_se_plain(x, f, w1, b1, w2, b2, **kw),
+            library, ops, nbytes * x.element_size())
+
 
 def run_networks(torch, dev):
-    """The main path: execute_network on V1 and V2, every plan/dtype/batch."""
-    from repro_torch.core import network
-    from repro_torch.mobilenet_inference import KERNEL_SEGMENTS, run_network
+    """The main path: execute_network on V1, V2, MnasNet-A1 and Lite0,
+    every plan, dtype and batch."""
+    from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
+                                                 expected_launches,
+                                                 run_network)
     totals = dict.fromkeys(KERNEL_SEGMENTS, 0)
     runs = []
-    for arch, spec in (("v1", network.mobilenet_v1_spec(1.0)),
-                       ("v2", network.mobilenet_v2_spec(1.0))):
+    for arch, build in ARCHS.items():
+        spec = build(1.0)
         for fused in (None, False):
             for batch in (1, 8):
                 for dtype in ("fp32", "bf16"):
@@ -233,12 +329,11 @@ def run_networks(torch, dev):
                                     fused=fused, device=dev)
                     want = dict.fromkeys(KERNEL_SEGMENTS, 0)
                     want.update(EXPECTED_LAUNCHES[(arch, fused)])
-                    plan_counts = {k: r["histogram"].get(seg, 0)
-                                   for k, seg in KERNEL_SEGMENTS.items()}
+                    plan_counts = expected_launches(r["histogram"])
                     plan_name = "default" if fused is None else "fused=False"
                     peak = r["peak_bytes"] / 2 ** 20
                     busy = sum(r["device_ms"].values())
-                    print(f"  {arch} {plan_name:11s} batch {batch} {dtype}: "
+                    print(f"  {arch:7s} {plan_name:11s} batch {batch} {dtype}: "
                           f"{r['ms']:.3f} ms/forward, peak {peak:.1f} MiB, "
                           f"rel err {r['rel_err']:.2e} (tol {r['tol']:g}), "
                           f"launches {r['launches']}", flush=True)
@@ -303,14 +398,20 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         kc.dwconv2d(8, 112, 112, 32, 1, dtype)
         kc.dwconv2d(8, 112, 112, 64, 2, dtype)
+        kc.dwconv2d(8, 56, 56, 72, 2, dtype, k=5)
         kc.pwconv(8 * 56 * 56, 128, 256, dtype)
         kc.fused(8, 56, 56, 128, 128, 128, 1, False, dtype)
         kc.fused(8, 28, 28, 256, 256, 512, 2, False, dtype)
         kc.fused(8, 56, 56, 24, 144, 24, 1, True, dtype)
         kc.fused(8, 14, 14, 96, 576, 160, 2, False, dtype)
+        kc.fused(8, 14, 14, 112, 672, 112, 1, True, dtype, k=5)
+        kc.fused_mb(8, 112, 112, 16, 96, 24, 2, False, dtype)
+        kc.fused_mb(8, 56, 56, 24, 144, 24, 1, True, dtype)
+        kc.dw_se(8, 56, 56, 72, 6, 2, dtype, k=5)
+        kc.dw_se(8, 14, 14, 672, 28, 1, dtype)
 
-    print("main path: execute_network, MobileNet V1/V2 at width 1.0, "
-          "112x112:")
+    print("main path: execute_network, MobileNet V1/V2, MnasNet-A1 and "
+          "EfficientNet-Lite0 at width 1.0, 112x112:")
     runs, launches = run_networks(torch, dev)
     for name, n in launches.items():
         if n == 0:

@@ -1,11 +1,12 @@
 """Declarative separable-chain API: spec -> plan -> lower -> execute.
 
-Counterpart of ``repro/core/chain.py`` (:46-262, :298-450, :497) for the
-stages of this slice, ``PW`` and ``DW``.  A ``SeparableSpec`` declares an
-ordered chain of stages and a residual; :func:`plan` budgets the chain
-against one CTA's shared memory and answers with a ``ChainPlan`` naming
-which contiguous stages fuse; ``kernels/lowering.lower`` maps that onto
-kernel passes; :func:`execute` runs it.
+Counterpart of ``repro/core/chain.py`` (:46-262, :269-450, :497) for the
+stages ``PW``, ``DW``, ``SE`` and ``FusedMB``.  A ``SeparableSpec``
+declares an ordered chain of stages and a residual; :func:`plan` budgets
+the chain against one CTA's shared memory (or one cluster's, for
+``dw_se``) and answers with a ``ChainPlan`` naming which contiguous stages
+fuse; ``kernels/lowering.lower`` maps that onto kernel passes;
+:func:`execute` runs it.
 
     spec = inverted_residual_spec(c_in=32, c_out=32, expand=6)
     params = init_chain(torch.Generator().manual_seed(0), spec, 32,
@@ -68,12 +69,54 @@ class DW:
                 (w - self.wf) // self.stride + 1)
 
 
-Stage = Union[PW, DW]
+@dataclasses.dataclass(frozen=True)
+class SE:
+    """Squeeze-excite stage: global average pool -> FC-reduce to ``reduce``
+    units (``activation``) -> FC-expand back to the incoming width ->
+    sigmoid -> channel scale of the stage input.  Both FCs carry a bias.
+
+    The builders compute ``reduce`` from the BLOCK input width (MnasNet's
+    ``se_ratio`` convention), not from the expanded width.  The sigmoid
+    does not map 0 to 0, so it never joins ``kernels/epilogue.ACTIVATIONS``:
+    SE runs as the ``dw_se`` kernel's epilogue, whose gate scales the DW
+    output and nothing padded, or as the standalone ``se`` segment.
+    """
+    reduce: int
+    activation: str = "relu"
+
+    def __post_init__(self):
+        if self.reduce < 1:
+            raise ValueError(f"SE reduce {self.reduce} < 1")
+        _check_activation(self.activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedMB:
+    """Fused-MBConv stage: a dense ``hf x wf`` conv straight to ``features``
+    channels (the EfficientNet-Lite edge block, in place of PW-expand + DW).
+    Followed by a PW projection it plans as one ``fusedmb`` kernel pass."""
+    features: int
+    stride: int = 1
+    hf: int = 3
+    wf: int = 3
+    activation: Optional[str] = "relu6"
+    padding: str = "same"
+    bias: bool = False
+
+    def __post_init__(self):
+        _check_activation(self.activation)
+        if self.padding.lower() not in ("same", "valid"):
+            raise ValueError(self.padding)
+
+    out_dims = DW.out_dims
+
+
+Stage = Union[PW, DW, SE, FusedMB]
 
 
 @dataclasses.dataclass(frozen=True)
 class SeparableSpec:
-    """An ordered chain of PW/DW stages and a residual: ``False``, ``True``
+    """An ordered chain of stages and a residual: ``False``, ``True``
     or ``"auto"`` (add the input exactly when the total stride is 1 and the
     widths match — the MobileNetV2 rule)."""
     stages: Tuple[Stage, ...]
@@ -85,18 +128,19 @@ class SeparableSpec:
         if self.residual not in (True, False, "auto"):
             raise ValueError(self.residual)
         for s in self.stages:
-            if not isinstance(s, (PW, DW)):
-                raise TypeError(f"stage {s!r} is not ported yet")
+            if not isinstance(s, (PW, DW, SE, FusedMB)):
+                raise TypeError(f"unknown stage {s!r}")
 
     def out_channels(self, c_in: int) -> int:
         c = c_in
         for s in self.stages:
-            if isinstance(s, PW):
+            if isinstance(s, (PW, FusedMB)):
                 c = s.features
         return c
 
     def stride_product(self) -> int:
-        return math.prod(s.stride for s in self.stages if isinstance(s, DW))
+        return math.prod(s.stride for s in self.stages
+                         if isinstance(s, (DW, FusedMB)))
 
     def residual_active(self, c_in: int) -> bool:
         if self.residual == "auto":
@@ -126,6 +170,32 @@ def inverted_residual_spec(c_in: int, c_out: int, *, expand: int = 6,
     ), residual="auto")
 
 
+def mbconv_se_spec(c_in: int, c_out: int, *, expand: int = 6,
+                   stride: int = 1, hf: int = 3, se_ratio: float = 0.25,
+                   activation: str = "relu") -> SeparableSpec:
+    """MnasNet-A1 MBConv block with squeeze-excite: bias-free PW-expand ->
+    DW -> SE -> linear PW-project, residual when shapes allow.  The SE
+    width is ``se_ratio`` of the block INPUT width."""
+    return SeparableSpec(stages=(
+        PW(c_in * expand, activation=activation),
+        DW(stride=stride, activation=activation, hf=hf, wf=hf),
+        SE(max(1, int(c_in * se_ratio))),
+        PW(c_out),
+    ), residual="auto")
+
+
+def fused_mbconv_spec(c_in: int, c_out: int, *, expand: int = 6,
+                      stride: int = 1, hf: int = 3,
+                      activation: str = "relu6") -> SeparableSpec:
+    """EfficientNet-Lite fused-MBConv block: a dense ``hf x hf`` conv to
+    the expanded width -> linear PW-project, residual when shapes allow."""
+    return SeparableSpec(stages=(
+        FusedMB(c_in * expand, stride=stride, hf=hf, wf=hf,
+                activation=activation),
+        PW(c_out),
+    ), residual="auto")
+
+
 def init_chain(generator: torch.Generator, spec: SeparableSpec, c_in: int,
                dtype: torch.dtype = torch.float32,
                device="cuda") -> list:
@@ -139,6 +209,19 @@ def init_chain(generator: torch.Generator, spec: SeparableSpec, c_in: int,
         if isinstance(s, PW):
             w = torch.randn((c, s.features), generator=generator) / math.sqrt(c)
             p = {"w": w}
+            if s.bias:
+                p["b"] = torch.zeros(s.features)
+            c = s.features
+        elif isinstance(s, SE):
+            p = {"w1": torch.randn((c, s.reduce), generator=generator)
+                 / math.sqrt(c),
+                 "b1": torch.zeros(s.reduce),
+                 "w2": torch.randn((s.reduce, c), generator=generator)
+                 / math.sqrt(s.reduce),
+                 "b2": torch.zeros(c)}
+        elif isinstance(s, FusedMB):
+            f = torch.randn((s.hf, s.wf, c, s.features), generator=generator)
+            p = {"f": f / math.sqrt(s.hf * s.wf * c)}
             if s.bias:
                 p["b"] = torch.zeros(s.features)
             c = s.features
@@ -164,15 +247,33 @@ def _fusable2(stages, i: int) -> bool:
             and isinstance(stages[i], DW) and isinstance(stages[i + 1], PW))
 
 
+def _fusable_mb(stages, i: int) -> bool:
+    return (i + 1 < len(stages)
+            and isinstance(stages[i], FusedMB)
+            and isinstance(stages[i + 1], PW))
+
+
+def _fusable_dw_se(stages, i: int) -> bool:
+    return (i + 1 < len(stages)
+            and isinstance(stages[i], DW) and isinstance(stages[i + 1], SE))
+
+
+def _valid_window(s, ho: int, wo: int) -> Tuple[int, int]:
+    """Input rows and columns a VALID conv reads for an ho x wo output."""
+    return (ho - 1) * s.stride + s.hf, (wo - 1) * s.stride + s.wf
+
+
 def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
          dtype: torch.dtype = torch.float32,
          policy: KernelPolicy = DEFAULT_POLICY) -> ChainPlan:
     """Budget the chain at ``x_shape`` and decide which stages fuse.
 
-    Greedy longest-run-first, degrading 3-fused -> 2-fused -> unfused: at
-    each position try the (bias-free PW-expand, DW, PW) window
-    (``plan_separable3``), then the (DW, PW) window (``plan_separable``),
-    else lower a standalone stage.  Budgets are taken at the policy's
+    Greedy longest-run-first, in the reference's window order: at each
+    position try the (bias-free PW-expand, DW, PW) window
+    (``plan_separable3``), the (FusedMB, PW) window (``plan_fused_mb``),
+    the (DW, PW) window (``plan_separable``) and the (DW, SE) window
+    (``plan_dw_se``), else lower a standalone ``pw`` / ``se`` / ``mb`` /
+    ``dw`` stage.  Budgets are taken at the policy's
     stream dtype.  The residual folds into the final segment when that
     segment is fused, else it is a separate add.
     """
@@ -182,7 +283,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
     n = len(stages)
     ho_f, wo_f = h, w
     for s in stages:
-        if isinstance(s, DW):
+        if isinstance(s, (DW, FusedMB)):
             ho_f, wo_f = s.out_dims(ho_f, wo_f)
     spatial_ok = (ho_f, wo_f) == (h, w)
     if spec.residual is True and not spatial_ok:
@@ -208,6 +309,18 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
                 h, w, c = ho, wo, proj.features
                 i += 3
                 continue
+        if allowed and _fusable_mb(stages, i):
+            mb, proj = stages[i], stages[i + 1]
+            ho, wo = mb.out_dims(h, w)
+            pmb = blocking.plan_fused_mb(
+                ho, wo, c, mb.features, proj.features, stride=mb.stride,
+                hf=mb.hf, wf=mb.wf, dtype=dtype, smem_budget=budget,
+                residual=res_active and i + 2 == n)
+            if pmb is not None:
+                segments.append(ChainSegment("fusedmb", (i, i + 1), pmb))
+                h, w, c = ho, wo, proj.features
+                i += 2
+                continue
         if allowed and _fusable2(stages, i):
             d, proj = stages[i], stages[i + 1]
             ho, wo = d.out_dims(h, w)
@@ -220,17 +333,35 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
                 h, w, c = ho, wo, proj.features
                 i += 2
                 continue
+        if allowed and _fusable_dw_se(stages, i):
+            d, se = stages[i], stages[i + 1]
+            ho, wo = d.out_dims(h, w)
+            pse = blocking.plan_dw_se(
+                *_valid_window(d, ho, wo), ho, wo, c, se.reduce, d.hf, d.wf,
+                dtype=dtype, smem_budget=budget)
+            if pse is not None:
+                segments.append(ChainSegment("dw_se", (i, i + 1), pse))
+                h, w = ho, wo
+                i += 2
+                continue
         if isinstance(s, PW):
             segments.append(ChainSegment("pw", (i,), blocking.plan_pwconv(
                 b * h * w, c, s.features, dtype=dtype, smem_budget=budget)))
             c = s.features
+        elif isinstance(s, SE):
+            segments.append(ChainSegment("se", (i,), blocking.plan_se(
+                b, c, s.reduce, dtype=dtype, smem_budget=budget)))
+        elif isinstance(s, FusedMB):
+            ho, wo = s.out_dims(h, w)
+            segments.append(ChainSegment("mb", (i,), blocking.plan_mb(
+                ho, wo, c, s.features, s.hf, s.wf, stride=s.stride,
+                dtype=dtype, smem_budget=budget)))
+            h, w, c = ho, wo, s.features
         else:
             ho, wo = s.out_dims(h, w)
-            hi_v = (ho - 1) * s.stride + s.hf
-            wi_v = (wo - 1) * s.stride + s.wf
             segments.append(ChainSegment("dw", (i,), blocking.plan_dwconv2d(
-                hi_v, wi_v, ho, wo, c, s.hf, s.wf, dtype=dtype,
-                smem_budget=budget)))
+                *_valid_window(s, ho, wo), ho, wo, c, s.hf, s.wf,
+                dtype=dtype, smem_budget=budget)))
             h, w = ho, wo
         i += 1
 

@@ -1,6 +1,7 @@
 """Whole-network chain engine: NetworkSpec -> NetworkPlan -> execute_network.
 
-Counterpart of ``repro/core/network.py`` for the MobileNet V1 and V2 bodies:
+Counterpart of ``repro/core/network.py`` for the MobileNet V1 and V2,
+MnasNet-A1 and EfficientNet-Lite0 bodies:
 
 * :class:`NetworkSpec` — an ordered tuple of ``SeparableSpec`` blocks and
   the stem width; frozen and hashable.
@@ -82,6 +83,27 @@ MOBILENET_V2_BODY: Tuple[Tuple[int, int, int, int], ...] = (
 )
 
 
+#: MnasNet-A1 body after the 32-channel stem: (t, c, n, s, k, se) rows
+#: (Tan et al. 2019, Fig. 7: expansion, channels, repeats, stride, DW
+#: kernel, squeeze-excite).  The t=1 first row is the SepConv block.
+MNASNET_A1_BODY: Tuple[Tuple[int, int, int, int, int, bool], ...] = (
+    (1, 16, 1, 1, 3, False), (6, 24, 2, 2, 3, False),
+    (3, 40, 3, 2, 5, True), (6, 80, 4, 2, 3, False),
+    (6, 112, 2, 1, 3, True), (6, 160, 3, 2, 5, True),
+    (6, 320, 1, 1, 3, False),
+)
+
+#: EfficientNet-Lite0 body after the 32-channel stem: (t, c, n, s, k,
+#: fused) rows: the B0 table (Tan & Le 2019) with the Lite edits (no SE,
+#: relu6) and the two early stages as fused-MBConv blocks.
+EFFICIENTNET_LITE0_BODY: Tuple[Tuple[int, int, int, int, int, bool], ...] = (
+    (1, 16, 1, 1, 3, False), (6, 24, 2, 2, 3, True),
+    (6, 40, 2, 2, 3, True), (6, 80, 3, 2, 3, False),
+    (6, 112, 3, 1, 5, False), (6, 192, 4, 2, 5, False),
+    (6, 320, 1, 1, 3, False),
+)
+
+
 def mobilenet_v1_spec(width_mult: float = 1.0) -> NetworkSpec:
     """The 13-block MobileNetV1 body: DW(+bias) -> PW(+bias) per block."""
     blocks = tuple(
@@ -112,6 +134,51 @@ def mobilenet_v2_spec(width_mult: float = 1.0) -> NetworkSpec:
             c = co
     return NetworkSpec(name=f"mobilenet_v2_{width_mult:g}",
                        c_in=c_in, blocks=tuple(blocks))
+
+
+def _mbconv_body(name: str, table, width_mult: float, activation: str,
+                 flagged) -> NetworkSpec:
+    """A (t, c, n, s, k, flag) body: a (DW, PW) first row, then per row
+    ``flagged(c_in, c_out, t, stride, k)`` when the flag is set, else an
+    inverted residual."""
+    c = make_divisible(32 * width_mult)
+    c_in = c
+    blocks = []
+    for t, co, n, s, k, flag in table:
+        co = make_divisible(co * width_mult)
+        for i in range(n):
+            stride = s if i == 0 else 1
+            if t == 1:
+                blocks.append(chain.SeparableSpec(stages=(
+                    chain.DW(stride=stride, activation=activation),
+                    chain.PW(co),
+                ), residual="auto"))
+            elif flag:
+                blocks.append(flagged(c, co, t, stride, k))
+            else:
+                blocks.append(chain.inverted_residual_spec(
+                    c, co, expand=t, stride=stride, hf=k))
+            c = co
+    return NetworkSpec(name=f"{name}_{width_mult:g}", c_in=c_in,
+                       blocks=tuple(blocks))
+
+
+def mnasnet_a1_spec(width_mult: float = 1.0) -> NetworkSpec:
+    """The 16-block MnasNet-A1 body.  Its three SE stages declare
+    (PW, DW, SE, PW) chains, which plan as ``pw``, ``dw_se``, ``pw``."""
+    return _mbconv_body(
+        "mnasnet_a1", MNASNET_A1_BODY, width_mult, "relu",
+        lambda c, co, t, stride, k: chain.mbconv_se_spec(
+            c, co, expand=t, stride=stride, hf=k))
+
+
+def efficientnet_lite0_spec(width_mult: float = 1.0) -> NetworkSpec:
+    """The 16-block EfficientNet-Lite0 body.  Its fused-MBConv stages
+    declare (FusedMB, PW) chains, which plan as one ``fusedmb`` pass."""
+    return _mbconv_body(
+        "efficientnet_lite0", EFFICIENTNET_LITE0_BODY, width_mult, "relu6",
+        lambda c, co, t, stride, k: chain.fused_mbconv_spec(
+            c, co, expand=t, stride=stride, hf=k))
 
 
 def require_device(device) -> torch.device:
@@ -212,7 +279,7 @@ def _block_problems(net: NetworkSpec, x_shape, dtype: torch.dtype,
     for spec, pol in zip(net.blocks, policies):
         problems.append(((b, h, w, c), _DTYPE_NAMES[d]))
         for s in spec.stages:
-            if isinstance(s, chain.DW):
+            if isinstance(s, (chain.DW, chain.FusedMB)):
                 h, w = s.out_dims(h, w)
         c = spec.out_channels(c)
         d = pol.dtype_policy.out_dtype(d)

@@ -21,9 +21,9 @@
 //     (halo included: it is recomputed per tile, never stored).  In fused2
 //     it loads the (tile + halo) window of the chunk's input channels;
 //   * in the load, expand and DW phases a thread owns one channel of the
-//     chunk (tid % 64) and every fourth pixel, so its 3x3 taps and DW bias
-//     sit in registers, global loads run along C, and pixel coordinates
-//     advance without a division per element.  The fused3 raw window is
+//     chunk (tid % 64) and every fourth pixel, so its taps (3x3 or 5x5) and
+//     DW bias sit in registers, global loads run along C, and pixel
+//     coordinates advance without a division per element.  The fused3 raw window is
 //     kept transposed in fp32, so the expand reads four adjacent pixels as
 //     one vector per expand weight;
 //   * it runs the DW over the chunk, adds the DW bias and applies the DW
@@ -105,7 +105,9 @@ struct PixelWalk {
   }
 };
 
-template <typename T, typename O, bool EXPAND, bool TAPS3>
+// KT is 3 or 5 for a 3x3 or 5x5 filter, whose taps are held in registers;
+// 0 for any other filter, whose taps are read from device memory per pixel.
+template <typename T, typename O, bool EXPAND, int KT>
 __global__ void __launch_bounds__(kThreads) fused_kernel(
     const T* __restrict__ x, const T* __restrict__ ew, const T* __restrict__ f,
     const T* __restrict__ dwb, const T* __restrict__ pw, const T* __restrict__ pwb,
@@ -203,10 +205,13 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
     // channel is fixed, so its taps and bias sit in registers
     if (active) {
       const float bias = dwb != nullptr ? to_f(dwb[ch]) : 0.f;
-      float taps[9];
-      if (TAPS3) {
+      float taps[KT > 0 ? KT * KT : 1];
+      if (KT > 0) {
 #pragma unroll
-        for (int t = 0; t < 9; ++t) taps[t] = to_f(f[(long long)t * g.c + ch]);
+        for (int n = 0; n < KT; ++n)
+#pragma unroll
+          for (int m = 0; m < KT; ++m)
+            taps[n * KT + m] = to_f(f[(long long)(n * KT + m) * g.c + ch]);
       }
       auto src = [&](int pix) -> float {
         return EXPAND ? xe[pix * g.cb + lane] : to_f(xs[pix * g.cb + lane]);
@@ -214,11 +219,11 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
       for (PixelWalk w(row, g.tile_w); w.p < npx; w.advance(kRows, g.tile_w)) {
         const int base = w.r * s * win + w.q * s;
         float sum = 0.f;
-        if (TAPS3) {
+        if (KT > 0) {
 #pragma unroll
-          for (int n = 0; n < 3; ++n)
+          for (int n = 0; n < KT; ++n)
 #pragma unroll
-            for (int m = 0; m < 3; ++m) sum = fmaf(src(base + n * win + m), taps[n * 3 + m], sum);
+            for (int m = 0; m < KT; ++m) sum = fmaf(src(base + n * win + m), taps[n * KT + m], sum);
         } else {
           for (int n = 0; n < g.hf; ++n)
             for (int m = 0; m < g.wf; ++m)
@@ -267,18 +272,18 @@ __global__ void __launch_bounds__(kThreads) fused_kernel(
   }
 }
 
-template <typename T, typename O, bool EXPAND, bool TAPS3>
+template <typename T, typename O, bool EXPAND, int KT>
 int launch_mode(const void* x, const void* ew, const void* f, const void* dwb, const void* pw,
                 const void* pwb, const void* res, void* out, int B, const Geometry& g,
                 cudaStream_t stream) {
   const Layout l = fused_layout<T>(g, EXPAND);
   if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(fused_kernel<T, O, EXPAND, TAPS3>,
+  cudaError_t e = cudaFuncSetAttribute(fused_kernel<T, O, EXPAND, KT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.total);
   if (e != cudaSuccess) return (int)e;
   const int tiles = ((g.Ho + g.slab_h - 1) / g.slab_h) * ((g.Wo + g.tile_w - 1) / g.tile_w);
   const dim3 grid((unsigned)tiles, (unsigned)((g.co + g.cob - 1) / g.cob), (unsigned)B);
-  fused_kernel<T, O, EXPAND, TAPS3><<<grid, kThreads, l.total, stream>>>(
+  fused_kernel<T, O, EXPAND, KT><<<grid, kThreads, l.total, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ew), static_cast<const T*>(f),
       static_cast<const T*>(dwb), static_cast<const T*>(pw), static_cast<const T*>(pwb),
       static_cast<const T*>(res), static_cast<O*>(out), g, l);
@@ -289,14 +294,16 @@ template <typename T, typename O>
 int launch_io(const void* x, const void* ew, const void* f, const void* dwb, const void* pw,
               const void* pwb, const void* res, void* out, int B, const Geometry& g,
               cudaStream_t stream) {
-  const bool taps3 = g.hf == 3 && g.wf == 3;
-#define REPRO_FUSED_CASE(E, T3)                                                          \
-  if ((ew != nullptr) == E && taps3 == T3)                                             \
-    return launch_mode<T, O, E, T3>(x, ew, f, dwb, pw, pwb, res, out, B, g, stream);
-  REPRO_FUSED_CASE(true, true)
-  REPRO_FUSED_CASE(true, false)
-  REPRO_FUSED_CASE(false, true)
-  REPRO_FUSED_CASE(false, false)
+  const int kt = g.hf == g.wf && (g.hf == 3 || g.hf == 5) ? g.hf : 0;
+#define REPRO_FUSED_CASE(E, KT)                                                          \
+  if ((ew != nullptr) == E && kt == KT)                                                \
+    return launch_mode<T, O, E, KT>(x, ew, f, dwb, pw, pwb, res, out, B, g, stream);
+  REPRO_FUSED_CASE(true, 3)
+  REPRO_FUSED_CASE(true, 5)
+  REPRO_FUSED_CASE(true, 0)
+  REPRO_FUSED_CASE(false, 3)
+  REPRO_FUSED_CASE(false, 5)
+  REPRO_FUSED_CASE(false, 0)
 #undef REPRO_FUSED_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ops the kernels compute.
 
 Counterpart of ``repro/kernels/ref.py`` (``dwconv2d_ref`` :24,
-``pwconv_ref`` :141, ``separable_fused_ref`` :158), with the same rounding
+``pwconv_ref`` :141, ``separable_fused_ref`` :158, ``conv2d_ref`` :201,
+``fused_mbconv_ref`` :224, ``se_ref`` :258, ``dw_se_ref`` :281), with the
+same rounding
 points: every operand is upcast to fp32 explicitly (bf16 and fp16 products
 never run in the narrow type), the fused intermediates stay fp32, and the
 result is cast back to ``x.dtype`` once at the end.  Layouts are the
@@ -107,3 +109,95 @@ def separable_fused_ref(
     if residual is not None:
         out = out + residual.float()
     return out.to(x.dtype)
+
+
+def _conv_fp32(x: torch.Tensor, f: torch.Tensor, stride: int,
+               padding: str) -> torch.Tensor:
+    """fp32 dense conv, NHWC in and out; f (Hf, Wf, Ci, Co)."""
+    xp = apply_padding(x.float(), f.shape[0], f.shape[1], stride, padding)
+    y = F.conv2d(xp.permute(0, 3, 1, 2), f.float().permute(3, 2, 0, 1),
+                 stride=stride)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_ref(x: torch.Tensor, f: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+               padding: str = "valid",
+               activation: Optional[str] = None) -> torch.Tensor:
+    """Dense conv (the FusedMB stage). x (B, Hi, Wi, Ci); f (Hf, Wf, Ci, Co)
+    -> (B, Ho, Wo, Co), fp32 accumulation, one cast at the end."""
+    if x.ndim != 4 or f.ndim != 4 or x.shape[-1] != f.shape[2]:
+        raise ValueError(f"conv2d shapes {tuple(x.shape)} {tuple(f.shape)}")
+    y = apply_epilogue(_conv_fp32(x, f, stride, padding),
+                       None if bias is None else bias.float(), activation)
+    return y.to(x.dtype)
+
+
+def fused_mbconv_ref(
+    x: torch.Tensor,
+    mb_f: torch.Tensor,
+    pw_w: torch.Tensor,
+    mb_bias: Optional[torch.Tensor] = None,
+    pw_bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    *,
+    stride: int = 1,
+    padding: str = "valid",
+    mb_activation: Optional[str] = "relu6",
+    activation: Optional[str] = None,
+) -> torch.Tensor:
+    """The fused-MBConv block: dense conv -> act -> PW-project, the conv
+    output kept fp32 into the GEMM."""
+    y = apply_epilogue(_conv_fp32(x, mb_f, stride, padding),
+                       None if mb_bias is None else mb_bias.float(),
+                       mb_activation)
+    out = torch.matmul(y, pw_w.float())
+    out = apply_epilogue(out, None if pw_bias is None else pw_bias.float(),
+                         activation)
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(x.dtype)
+
+
+def _se_gate(y: torch.Tensor, w1, b1, w2, b2, activation) -> torch.Tensor:
+    """sigmoid(act(mean(y) @ w1 + b1) @ w2 + b2), (B, C), all fp32."""
+    pooled = y.mean(dim=(1, 2))
+    hid = apply_epilogue(torch.matmul(pooled, w1.float()), b1.float(),
+                         activation)
+    return torch.sigmoid(torch.matmul(hid, w2.float()) + b2.float())
+
+
+def se_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+           w2: torch.Tensor, b2: torch.Tensor, *,
+           activation: str = "relu") -> torch.Tensor:
+    """Squeeze-excite: global average pool -> FC-reduce (``activation``) ->
+    FC-expand -> sigmoid -> channel scale.  x (B, H, W, C); w1 (C, Cse);
+    w2 (Cse, C); fp32 inside."""
+    xf = x.float()
+    gate = _se_gate(xf, w1, b1, w2, b2, activation)
+    return (xf * gate[:, None, None, :]).to(x.dtype)
+
+
+def dw_se_ref(
+    x: torch.Tensor,
+    dw_f: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    dw_bias: Optional[torch.Tensor] = None,
+    *,
+    stride: int = 1,
+    padding: str = "valid",
+    dw_activation: Optional[str] = "relu6",
+    se_activation: str = "relu",
+) -> torch.Tensor:
+    """The DW + SE-epilogue pass: the DW output stays fp32 into the pool,
+    both gate FCs and the scale (the unfused composition rounds it to the
+    activation dtype in between)."""
+    y = _dw_fp32(x, dw_f, stride, padding)
+    if dw_bias is not None:
+        y = y + dw_bias.float()
+    y = apply_epilogue(y, None, dw_activation)
+    gate = _se_gate(y, w1, b1, w2, b2, se_activation)
+    return (y * gate[:, None, None, :]).to(x.dtype)

@@ -1,7 +1,9 @@
-"""The paper's workload on the port: MobileNet V1/V2 bodies end to end
-through ``execute_network``, on the card by default.
+"""The paper's workload on the port: MobileNet V1/V2, MnasNet-A1 and
+EfficientNet-Lite0 bodies end to end through ``execute_network``, on the
+card by default.
 
-    python -m repro_torch.mobilenet_inference [--arch v1|v2|both]
+    python -m repro_torch.mobilenet_inference
+        [--arch v1|v2|mnasnet|lite0|all]
         [--dtype fp32|bf16] [--res N] [--batch B] [--device cuda|cpu]
         [--unfused]
 
@@ -20,7 +22,8 @@ import time
 import torch
 
 from repro_torch.core import network
-from repro_torch.kernels import dwconv2d, pwconv, separable_fused
+from repro_torch.kernels import (dwconv2d, fused_mbconv, pwconv,
+                                 se_epilogue, separable_fused)
 from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
 
 #: bf16-streamed network vs the fp32 plain path: one bf16 rounding per
@@ -31,22 +34,41 @@ BF16_REL_TOL = 5e-2
 #: another order than cuDNN and cuBLAS (or the CPU's) sum them.
 FP32_REL_TOL = 1e-4
 
-#: Launch counter name -> segment kind it serves.
-KERNEL_SEGMENTS = {"dwconv2d": "dw", "pwconv": "pw",
-                   "separable_fused2": "fused2",
-                   "separable_fused3": "fused3"}
+#: The networks ``--arch`` names.
+ARCHS = {"v1": network.mobilenet_v1_spec, "v2": network.mobilenet_v2_spec,
+         "mnasnet": network.mnasnet_a1_spec,
+         "lite0": network.efficientnet_lite0_spec}
+
+#: Launch counter name -> segment kinds it serves, with the launches one
+#: segment makes (a standalone ``se`` runs its two FCs through ``pwconv``;
+#: ``mb`` is the plain ``F.conv2d`` and launches none of ours).
+KERNEL_SEGMENTS = {"dwconv2d": {"dw": 1}, "pwconv": {"pw": 1, "se": 2},
+                   "separable_fused2": {"fused2": 1},
+                   "separable_fused3": {"fused3": 1},
+                   "fused_mbconv": {"fusedmb": 1}, "dw_se": {"dw_se": 1}}
+
+
+def expected_launches(histogram: dict) -> dict:
+    """Kernel launches one forward of a plan with this segment histogram
+    makes, by kernel name."""
+    return {name: sum(n * histogram.get(kind, 0) for kind, n in kinds.items())
+            for name, kinds in KERNEL_SEGMENTS.items()}
 
 
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters, by kernel name."""
     return {"dwconv2d": dwconv2d.launches, "pwconv": pwconv.launches,
             "separable_fused2": separable_fused.launches["fused2"],
-            "separable_fused3": separable_fused.launches["fused3"]}
+            "separable_fused3": separable_fused.launches["fused3"],
+            "fused_mbconv": fused_mbconv.launches,
+            "dw_se": se_epilogue.launches}
 
 
 def reset_launch_counts() -> None:
     dwconv2d.launches = 0
     pwconv.launches = 0
+    fused_mbconv.launches = 0
+    se_epilogue.launches = 0
     for k in separable_fused.launches:
         separable_fused.launches[k] = 0
 
@@ -84,7 +106,8 @@ def time_ms(fn, device: torch.device, reps: int = 10,
 
 #: Device kernel name fragment -> the port's kernel it belongs to.
 _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_kernel": "pwconv",
-                 "fused_kernel": "separable_fused"}
+                 "fused_mb_kernel": "fused_mbconv",
+                 "fused_kernel": "separable_fused", "dw_se_kernel": "dw_se"}
 
 
 def device_breakdown(fn, reps: int = 5) -> dict:
@@ -164,7 +187,7 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=("v1", "v2", "both"), default="both")
+    ap.add_argument("--arch", choices=(*ARCHS, "all"), default="all")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     ap.add_argument("--res", type=int, default=112,
                     help="body input resolution (112 = a 224 image after "
@@ -177,11 +200,8 @@ def main(argv=None) -> int:
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    nets = []
-    if args.arch in ("v1", "both"):
-        nets.append(network.mobilenet_v1_spec())
-    if args.arch in ("v2", "both"):
-        nets.append(network.mobilenet_v2_spec())
+    nets = [spec() for name, spec in ARCHS.items()
+            if args.arch in (name, "all")]
     failed = False
     for net in nets:
         r = run_network(net, res=args.res, batch=args.batch,

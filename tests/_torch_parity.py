@@ -6,6 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro_torch.mobilenet_inference import ARCHS
+
 #: fp32 tolerance of the reference's own network tests
 #: (tests/test_network.py::test_pallas_interpret_matches_xla).
 FP32_TOL = 2e-5
@@ -13,6 +15,9 @@ FP32_TOL = 2e-5
 BF16_KERNEL_TOL = 1e-2
 #: bf16 network-level tolerance (examples/mobilenet_inference.py:43).
 BF16_REL_TOL = 5e-2
+
+#: --arch name -> spec builder name, the same in both packages.
+SPECS = {arch: build.__name__ for arch, build in ARCHS.items()}
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

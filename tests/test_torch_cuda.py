@@ -9,11 +9,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import network  # noqa: E402
-from repro_torch.kernels import dwconv2d, ops, pwconv, ref  # noqa: E402
+from repro_torch.kernels import (blocking, dwconv2d, ops, pwconv,  # noqa: E402
+                                 ref, se_epilogue)
+from repro_torch.kernels import fused_mbconv as fmb  # noqa: E402
 from repro_torch.kernels import separable_fused as sf  # noqa: E402
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
-from repro_torch.mobilenet_inference import (launch_counts,  # noqa: E402
-                                             rel_err, reset_launch_counts)
+from repro_torch.mobilenet_inference import (ARCHS,  # noqa: E402
+                                             expected_launches,
+                                             launch_counts, rel_err,
+                                             reset_launch_counts)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +41,8 @@ def _r(shape, dev, dtype, scale=1.0, seed=0):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("b,h,w,c,stride,hf,vec", [
     (2, 9, 11, 12, 1, 3, 4), (1, 8, 8, 20, 2, 3, 4), (2, 7, 9, 6, 2, 5, 1),
-    (1, 10, 10, 5, 1, 3, 1), (1, 12, 12, 8, 1, 7, 4)])
+    (1, 10, 10, 5, 1, 3, 1), (1, 12, 12, 8, 1, 7, 4),
+    (2, 56, 56, 72, 2, 5, 4), (1, 14, 14, 480, 1, 5, 4)])
 def test_dwconv2d_kernel(dev, b, h, w, c, stride, hf, vec, dtype):
     x = ref.pad_same(_r((b, h, w, c), dev, dtype), hf, hf, stride)
     f = _r((hf, hf, c), dev, dtype, 1 / hf)
@@ -91,6 +96,117 @@ def test_separable_fused_kernel(dev, b, h, w, ci, c, co, stride, expand,
     assert rel_err(got, want) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("b,h,w,ci,c,co,stride,residual,k", [
+    (2, 14, 14, 112, 672, 112, 1, True, 5),
+    (2, 14, 14, 112, 672, 192, 2, False, 5),
+    (1, 9, 11, 10, 30, 10, 1, True, 5), (2, 7, 7, 12, 12, 20, 1, False, 5),
+    (1, 9, 9, 8, 24, 8, 1, True, 7), (1, 10, 10, 12, 12, 16, 2, False, 7)])
+def test_separable_fused_kernel_5x5(dev, b, h, w, ci, c, co, stride,
+                                    residual, k, dtype):
+    """5x5 taps (held in registers) and 7x7 (read per pixel)."""
+    x_raw = _r((b, h, w, ci), dev, dtype)
+    x = ref.pad_same(x_raw, k, k, stride)
+    ew = _r((ci, c), dev, dtype, ci ** -0.5) if ci != c else None
+    f, dwb = _r((k, k, c), dev, dtype, 1 / k), _r((c,), dev, dtype, 0.5)
+    pw, pwb = _r((c, co), dev, dtype, c ** -0.5), _r((co,), dev, dtype, 0.5)
+    res = x_raw if residual else None
+    kw = dict(expand_w=ew, stride=stride, dw_activation="relu6",
+              activation=None if ew is not None else "relu")
+    got = sf.separable_fused(x, f, pw, dwb, pwb, res, **kw)
+    want = sf.separable_fused_plain(x, f, pw, dwb, pwb, res, **kw)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+# (b, h, w, ci, c, co, stride, k, residual, tile): Lite0's four fused-MBConv
+# blocks at batch 2, then ragged C and Co, several Co panels, 5x5 taps and
+# forced small tiles.
+FUSED_MB_CASES = [
+    (2, 112, 112, 16, 96, 24, 2, 3, False, None),
+    (2, 56, 56, 24, 144, 24, 1, 3, True, None),
+    (2, 56, 56, 24, 144, 40, 2, 3, False, None),
+    (2, 28, 28, 40, 240, 40, 1, 3, True, None),
+    (1, 9, 11, 5, 37, 70, 1, 3, False, None),
+    (2, 8, 8, 6, 30, 6, 1, 5, True, (3, 2, 7)),
+    (1, 10, 10, 3, 130, 129, 2, 5, False, (1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("b,h,w,ci,c,co,stride,k,residual,tile",
+                         FUSED_MB_CASES)
+def test_fused_mbconv_kernel(dev, b, h, w, ci, c, co, stride, k, residual,
+                             tile, dtype):
+    x_raw = _r((b, h, w, ci), dev, dtype)
+    x = ref.pad_same(x_raw, k, k, stride)
+    f = _r((k, k, ci, c), dev, dtype, (k * k * ci) ** -0.5)
+    fb = _r((c,), dev, dtype, 0.5)
+    pw, pwb = _r((c, co), dev, dtype, c ** -0.5), _r((co,), dev, dtype, 0.5)
+    res = x_raw if residual else None
+    kw = dict(stride=stride, mb_activation="relu6",
+              activation=None if residual else "silu")
+    blocks = {}
+    if tile is not None:
+        blocks = dict(slab_h=tile[0], tile_w=tile[1], block_c=tile[2],
+                      block_co=min(co, 64))
+    got = fmb.fused_mbconv(x, f, pw, fb, pwb, res, **kw, **blocks)
+    want = fmb.fused_mbconv_plain(x, f, pw, fb, pwb, res, **kw)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+def test_fused_mbconv_smem_model_matches_kernel(dev):
+    for ci, k, stride, sh, tw, cb, cob in [(16, 3, 2, 8, 8, 64, 24),
+                                           (40, 3, 1, 8, 8, 64, 40),
+                                           (5, 5, 1, 3, 2, 7, 6),
+                                           (3, 5, 2, 1, 1, 1, 64)]:
+        assert fmb.smem_bytes(ci, k, k, stride, sh, tw, cb, cob) == \
+            blocking.fused_mb_smem_bytes(sh, tw, cb, cob, ci=ci, hf=k, wf=k,
+                                         stride=stride)
+
+
+# (b, h, w, c, c_se, stride, k): MnasNet's SE blocks 3, 4, 10, 11, 12, 13
+# at batch 2, then ragged C and C_se, and filters other than 3x3 and 5x5
+DW_SE_CASES = [
+    (2, 56, 56, 72, 6, 2, 5), (2, 28, 28, 120, 10, 1, 5),
+    (2, 14, 14, 480, 20, 1, 3), (2, 14, 14, 672, 28, 1, 3),
+    (2, 14, 14, 672, 28, 2, 5), (2, 7, 7, 960, 40, 1, 5),
+    (3, 9, 11, 37, 5, 2, 3), (1, 5, 6, 13, 1, 1, 5), (2, 12, 10, 20, 4, 2, 7),
+    (1, 9, 9, 8, 2, 1, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("b,h,w,c,c_se,stride,k", DW_SE_CASES)
+def test_dw_se_kernel(dev, b, h, w, c, c_se, stride, k, dtype):
+    x = ref.pad_same(_r((b, h, w, c), dev, dtype), k, k, stride)
+    f, db = _r((k, k, c), dev, dtype, 1 / k), _r((c,), dev, dtype, 0.5)
+    gate = (_r((c, c_se), dev, dtype, c ** -0.5), _r((c_se,), dev, dtype),
+            _r((c_se, c), dev, dtype, c_se ** -0.5), _r((c,), dev, dtype))
+    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride)
+    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("cluster", blocking.DW_SE_CLUSTERS)
+@pytest.mark.parametrize("c", (72, 61, 5))
+def test_dw_se_kernel_at_each_cluster_size(dev, cluster, c):
+    """Each cluster size, forced through the budget the planner sizes it
+    by; with C=5 some CTAs of a cluster of 8 own no channel."""
+    ho = wo = 28
+    need = blocking.dw_se_smem_bytes(ho, wo, c, 6, cluster)
+    plan = blocking.plan_dw_se(30, 30, ho, wo, c, 6, smem_budget=need)
+    assert plan.cluster == cluster
+    x = ref.pad_same(_r((2, ho, wo, c), dev, torch.float32), 3, 3, 1)
+    f = _r((3, 3, c), dev, torch.float32, 1 / 3)
+    gate = (_r((c, 6), dev, torch.float32, c ** -0.5),
+            _r((6,), dev, torch.float32), _r((6, c), dev, torch.float32),
+            _r((c,), dev, torch.float32))
+    got = se_epilogue.dw_se(x, f, *gate, cluster=cluster)
+    want = se_epilogue.dw_se_plain(x, f, *gate)
+    assert rel_err(got, want) <= TOL[torch.float32]
+    assert se_epilogue.smem_bytes(ho, wo, c, 6, cluster) == need
+
+
 @pytest.mark.parametrize("budget", [64, 600, 232_448])
 def test_ops_separable_fused_degrades_by_budget(dev, budget):
     x = _r((1, 8, 8, 16), dev, torch.float32)
@@ -105,9 +221,9 @@ def test_ops_separable_fused_degrades_by_budget(dev, budget):
 
 
 @pytest.mark.parametrize("fused", (None, False))
-@pytest.mark.parametrize("arch", ("v1", "v2"))
+@pytest.mark.parametrize("arch", tuple(ARCHS))
 def test_network_launches_the_planned_kernels(dev, arch, fused):
-    spec = getattr(network, f"mobilenet_{arch}_spec")(0.5)
+    spec = ARCHS[arch](0.5)
     params = network.init_network(spec, seed=0, device=dev)
     x = _r((2, 32, 32, spec.c_in), dev, torch.float32)
     pol = KernelPolicy(fused=fused)
@@ -115,14 +231,39 @@ def test_network_launches_the_planned_kernels(dev, arch, fused):
     reset_launch_counts()
     y = network.execute_network(spec, params, x, policy=pol)
     torch.cuda.synchronize(dev)
-    hist = plan.segment_histogram()
-    assert launch_counts() == {
-        "dwconv2d": hist.get("dw", 0), "pwconv": hist.get("pw", 0),
-        "separable_fused2": hist.get("fused2", 0),
-        "separable_fused3": hist.get("fused3", 0)}
+    assert launch_counts() == expected_launches(plan.segment_histogram())
     want = network.execute_network(
         spec, params, x, policy=KernelPolicy(impl="torch", fused=fused))
     assert rel_err(y, want) <= 1e-4
+
+
+#: Launches one forward makes at width 1.0 and 112x112, by network and plan.
+NETWORK_LAUNCHES = {
+    ("mnasnet", None): {"separable_fused2": 1, "separable_fused3": 7,
+                        "pwconv": 16, "dw_se": 8},
+    ("mnasnet", False): {"dwconv2d": 16, "pwconv": 47},
+    ("lite0", None): {"separable_fused2": 1, "fused_mbconv": 4,
+                      "separable_fused3": 11},
+    ("lite0", False): {"dwconv2d": 12, "pwconv": 27},
+}
+
+
+@pytest.mark.parametrize("fused", (None, False))
+@pytest.mark.parametrize("arch", ("mnasnet", "lite0"))
+def test_network_launch_counts_at_full_width(dev, arch, fused):
+    spec = ARCHS[arch]()
+    params = network.init_network(spec, seed=1, device=dev)
+    x = _r((1, 112, 112, spec.c_in), dev, torch.float32)
+    pol = KernelPolicy(fused=fused)
+    reset_launch_counts()
+    y = network.execute_network(spec, params, x, policy=pol)
+    torch.cuda.synchronize(dev)
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(NETWORK_LAUNCHES[(arch, fused)])
+    assert launch_counts() == want
+    ref_y = network.execute_network(
+        spec, params, x, policy=KernelPolicy(impl="torch", fused=fused))
+    assert rel_err(y, ref_y) <= 1e-4
 
 
 def test_kernel_refuses_an_uncompiled_dtype_pair(dev):

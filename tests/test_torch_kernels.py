@@ -1,12 +1,14 @@
 """The port's kernel modules on the CPU, held against the JAX package.
 
-Each wrapper (``repro_torch.kernels.{dwconv2d,pwconv,separable_fused}``)
-takes its plain version for a CPU tensor; the same seeded numpy inputs go
-through the reference's Pallas kernels in interpret mode where they run on
-this jax (``dwconv2d_pallas``, ``pwconv_pallas``) and through its
-``kernels/ref.py`` oracles (``separable_fused_pallas`` needs
-``pl.unblocked``, which the installed jax lacks, so the fused block is held
-against ``ref.separable_fused_ref``, as the reference's own CPU tests do).
+Each wrapper (``repro_torch.kernels.{dwconv2d,pwconv,separable_fused,
+fused_mbconv,se_epilogue}``) takes its plain version for a CPU tensor; the
+same seeded numpy inputs go through the reference's Pallas kernels in
+interpret mode where they run on this jax (``dwconv2d_pallas``,
+``pwconv_pallas``, ``dw_se_pallas``) and through its ``kernels/ref.py``
+oracles (``separable_fused_pallas`` and ``fused_mbconv_pallas`` need
+``pl.unblocked``, which the installed jax lacks, so those blocks are held
+against ``ref.separable_fused_ref`` and ``ref.fused_mbconv_ref``, as the
+reference's own CPU tests do).
 """
 import numpy as np
 import pytest
@@ -22,7 +24,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.dwconv2d import dwconv2d_pallas  # noqa: E402
 from repro.kernels.pwconv import pwconv_pallas  # noqa: E402
+from repro.kernels.se_epilogue import dw_se_pallas  # noqa: E402
 from repro_torch.kernels import dwconv2d, ops, pwconv, ref  # noqa: E402
+from repro_torch.kernels import fused_mbconv as fmb  # noqa: E402
+from repro_torch.kernels import se_epilogue  # noqa: E402
 from repro_torch.kernels import separable_fused as sf  # noqa: E402
 from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue  # noqa: E402
 
@@ -160,6 +165,157 @@ def test_separable_fused_keeps_fp32_intermediates():
     assert e_f <= e_u
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride,k,padding,act", [
+    (1, 3, "same", "relu6"), (2, 3, "same", None), (1, 5, "same", "silu"),
+    (2, 5, "valid", "relu")])
+def test_conv2d_ref_matches_reference(stride, k, padding, act, dtype):
+    rng = np.random.default_rng(6)
+    x = rand(rng, (2, 11, 9, 6))
+    f, b = rand(rng, (k, k, 6, 10), (k * k * 6) ** -0.5), rand(rng, (10,))
+    got = ref.conv2d_ref(to_torch(x, dtype), to_torch(f, dtype),
+                         to_torch(b, dtype), stride=stride, padding=padding,
+                         activation=act)
+    want = jref.conv2d_ref(to_jax(x, dtype), to_jax(f, dtype),
+                           to_jax(b, dtype), stride=stride, padding=padding,
+                           activation=act)
+    assert got.dtype == to_torch(x, dtype).dtype
+    assert_match(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,c_se,act", [(2, 5, 7, 12, 3, "relu"),
+                                              (1, 4, 4, 20, 5, "silu"),
+                                              (3, 1, 1, 8, 1, "relu6")])
+def test_se_ref_matches_reference(b, h, w, c, c_se, act, dtype):
+    rng = np.random.default_rng(7)
+    x = rand(rng, (b, h, w, c))
+    w1, b1 = rand(rng, (c, c_se), c ** -0.5), rand(rng, (c_se,), 0.5)
+    w2, b2 = rand(rng, (c_se, c), c_se ** -0.5), rand(rng, (c,), 0.5)
+    args = (x, w1, b1, w2, b2)
+    got = ref.se_ref(*(to_torch(a, dtype) for a in args), activation=act)
+    want = jref.se_ref(*(to_jax(a, dtype) for a in args), activation=act)
+    assert_match(got, want, dtype)
+
+
+# (b, h, w, ci, c, co, stride, k, residual, mb_act, act)
+FUSED_MB_CASES = [
+    (2, 9, 9, 4, 24, 6, 2, 3, False, "relu6", None),
+    (2, 8, 8, 6, 36, 6, 1, 3, True, "relu6", None),
+    (1, 10, 7, 5, 20, 70, 1, 5, False, "silu", "relu"),
+    (2, 7, 9, 3, 10, 3, 1, 5, True, "gelu", "silu"),
+    (1, 11, 11, 8, 16, 12, 2, 5, False, "relu", "relu6"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,ci,c,co,stride,k,residual,mb_act,act",
+                         FUSED_MB_CASES)
+def test_fused_mbconv_cpu_path_matches_reference(
+        b, h, w, ci, c, co, stride, k, residual, mb_act, act, dtype):
+    rng = np.random.default_rng(8)
+    x = rand(rng, (b, h, w, ci))
+    f, fb = rand(rng, (k, k, ci, c), (k * k * ci) ** -0.5), rand(rng, (c,))
+    pw, pwb = rand(rng, (c, co), c ** -0.5), rand(rng, (co,), 0.5)
+    res = x if residual else None
+    t = lambda a: to_torch(a, dtype)  # noqa: E731
+    j = lambda a: to_jax(a, dtype)  # noqa: E731
+    kw = dict(stride=stride, mb_activation=mb_act, activation=act)
+    got = fmb.fused_mbconv(ref.pad_same(t(x), k, k, stride), t(f), t(pw),
+                           t(fb), t(pwb), t(res), **kw)
+    want = jref.fused_mbconv_ref(j(x), j(f), j(pw), j(fb), j(pwb), j(res),
+                                 padding="same", **kw)
+    assert got.dtype == t(x).dtype
+    assert_match(got, want, dtype)
+    via_ref = ref.fused_mbconv_ref(t(x), t(f), t(pw), t(fb), t(pwb), t(res),
+                                   padding="same", **kw)
+    assert_match(via_ref, want, dtype)
+
+
+# (b, h, w, c, c_se, stride, k, dw_bias, dw_act, se_act)
+DW_SE_CASES = [
+    (2, 9, 9, 12, 3, 2, 3, True, "relu", "relu"),
+    (1, 8, 8, 20, 5, 1, 3, False, "relu6", "relu"),
+    (2, 7, 9, 18, 6, 2, 5, True, "relu", "silu"),
+    (1, 6, 6, 7, 1, 1, 5, True, "silu", "relu6"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,c_se,stride,k,dw_bias,dw_act,se_act",
+                         DW_SE_CASES)
+def test_dw_se_cpu_path_matches_reference(b, h, w, c, c_se, stride, k,
+                                          dw_bias, dw_act, se_act, dtype):
+    rng = np.random.default_rng(9)
+    x, f = rand(rng, (b, h, w, c)), rand(rng, (k, k, c), 1 / k)
+    w1, b1 = rand(rng, (c, c_se), c ** -0.5), rand(rng, (c_se,), 0.5)
+    w2, b2 = rand(rng, (c_se, c), c_se ** -0.5), rand(rng, (c,), 0.5)
+    db = rand(rng, (c,), 0.5) if dw_bias else None
+    gate = (w1, b1, w2, b2)
+    kw = dict(stride=stride, dw_activation=dw_act, se_activation=se_act)
+    got = se_epilogue.dw_se(
+        ref.pad_same(to_torch(x, dtype), k, k, stride), to_torch(f, dtype),
+        *(to_torch(a, dtype) for a in gate), to_torch(db, dtype), **kw)
+    pallas = dw_se_pallas(
+        jops.pad_same(to_jax(x, dtype), k, k, stride), to_jax(f, dtype),
+        *(to_jax(a, dtype) for a in gate), to_jax(db, dtype),
+        interpret=True, **kw)
+    oracle = jref.dw_se_ref(to_jax(x, dtype), to_jax(f, dtype),
+                            *(to_jax(a, dtype) for a in gate),
+                            to_jax(db, dtype), padding="same", **kw)
+    assert got.dtype == to_torch(x, dtype).dtype
+    assert_match(got, pallas, dtype)
+    assert_match(got, oracle, dtype)
+
+
+def test_dw_se_out_dtype_widens_once():
+    rng = np.random.default_rng(10)
+    x, f = rand(rng, (2, 6, 6, 8)), rand(rng, (3, 3, 8), 1 / 3)
+    gate = (rand(rng, (8, 2)), rand(rng, (2,)), rand(rng, (2, 8)),
+            rand(rng, (8,)))
+    got = se_epilogue.dw_se(to_torch(x, "bfloat16"), to_torch(f, "bfloat16"),
+                            *(to_torch(a, "bfloat16") for a in gate),
+                            out_dtype=torch.float32)
+    want = dw_se_pallas(to_jax(x, "bfloat16"), to_jax(f, "bfloat16"),
+                        *(to_jax(a, "bfloat16") for a in gate),
+                        interpret=True, out_dtype="float32")
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_fused_blocks_keep_fp32_intermediates():
+    """bf16 fused-MBConv and DW + SE outputs round once: each is the bf16
+    value nearest the exact answer for its bf16 operands, so it sits at
+    least as close to that answer as the unfused composition, which rounds
+    the conv or DW output to bf16 in between."""
+    rng = np.random.default_rng(11)
+    x = rand(rng, (2, 8, 8, 16))
+    f4, pw = rand(rng, (3, 3, 16, 64), 1 / 12), rand(rng, (64, 16), 1 / 8)
+    f3 = rand(rng, (3, 3, 16), 1 / 3)
+    gate = [to_torch(a, "bfloat16") for a in (
+        rand(rng, (16, 4), 0.25), rand(rng, (4,), 0.1),
+        rand(rng, (4, 16), 0.5), rand(rng, (16,), 0.1))]
+    xb = ref.pad_same(to_torch(x, "bfloat16"), 3, 3, 1)
+    f4b, pwb = to_torch(f4, "bfloat16"), to_torch(pw, "bfloat16")
+    f3b = to_torch(f3, "bfloat16")
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    cases = [
+        (fmb.fused_mbconv(*f32((xb, f4b, pwb))),
+         fmb.fused_mbconv(xb, f4b, pwb),
+         pwconv.pwconv(ref.conv2d_ref(xb, f4b, activation="relu6")
+                       .reshape(-1, 64), pwb).reshape(2, 8, 8, 16)),
+        (se_epilogue.dw_se(*f32([xb, f3b] + gate)),
+         se_epilogue.dw_se(xb, f3b, *gate),
+         ref.se_ref(apply_epilogue(dwconv2d.dwconv2d(xb, f3b), None,
+                                   "relu6"), *gate)),
+    ]
+    for exact, fused, unfused in cases:
+        e_f = np.abs(as_f32(fused) - as_f32(exact)).max()
+        e_u = np.abs(as_f32(unfused) - as_f32(exact)).max()
+        assert 0 < e_u and e_f <= e_u
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty((1, 4, 4, 4), device="meta")
     f = torch.empty((3, 3, 4), device="meta")
@@ -169,6 +325,27 @@ def test_wrappers_refuse_other_devices():
         pwconv.pwconv(x.reshape(16, 4), f.reshape(9, 4)[:4])
     with pytest.raises(ValueError, match="CUDA tensors"):
         sf.separable_fused(x, f, torch.empty((4, 4), device="meta"))
+
+
+def test_new_wrappers_refuse_other_devices():
+    m = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fmb.fused_mbconv(m(1, 4, 4, 4), m(3, 3, 4, 8), m(8, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        se_epilogue.dw_se(m(1, 4, 4, 4), m(3, 3, 4), m(4, 2), m(2), m(2, 4),
+                          m(4))
+
+
+def test_new_wrappers_check_shapes():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="fused_mbconv shapes"):
+        fmb.fused_mbconv(z(1, 6, 6, 4), z(3, 3, 5, 8), z(8, 4))
+    with pytest.raises(ValueError, match="residual"):
+        fmb.fused_mbconv(z(1, 6, 6, 4), z(3, 3, 4, 8), z(8, 4),
+                         residual=z(1, 6, 6, 4))
+    with pytest.raises(ValueError, match="dw_se shapes"):
+        se_epilogue.dw_se(z(1, 6, 6, 4), z(3, 3, 4), z(4, 2), z(2),
+                          z(4, 2), z(4))
 
 
 def test_impl_cuda_on_cpu_tensor_raises():
