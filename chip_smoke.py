@@ -12,16 +12,27 @@ From the root of a checkout it:
 2. builds every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    all at once) and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card at
-   main-path shapes (3x3 and 5x5 taps), in fp32 and bf16, and times the
-   kernel, the plain version and PyTorch library calls for the same
-   function;
-4. drives the port's main path, ``execute_network`` on MobileNet V1 and
+   main-path shapes (3x3 and 5x5 taps; the xLSTM conv and Linear shapes),
+   in fp32 and bf16, and times the kernel, the plain version and PyTorch
+   library calls for the same function;
+4. drives the CNN path, ``execute_network`` on MobileNet V1 and
    V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
    and 8, fp32 and bf16 streaming, under the default plan and
    ``fused=False``: for each run it zeroes the launch counters, drives one
    forward, checks that the counters moved by exactly the expected counts,
    holds the output against the fp32 plain path and times the forward;
-5. prints the kernels it launched, one JSON line of per-kernel numbers, the
+5. drives the serving path, xlstm-125m at full width on random weights
+   from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
+   32 greedy ``decode_step``s, in fp32 and bf16.  Around each call it
+   zeroes the counters and checks the launches (12 ``dwconv1d`` + 60
+   ``pwconv`` per prefill, 0 + 60 per decode step); it holds every call's
+   logits against the fp32 plain path (``impl="torch"`` on the card; each
+   decode step from the plain path's cache and token), reports the error
+   of the kernel path run on its own cache, holds ``prefill`` against
+   ``prefill_by_stepping`` at a 64-token prompt, and times prefill (host
+   clock around the checked call) and decode (CUDA events, median of 10)
+   with the device's busy share;
+6. prints the kernels it launched, one JSON line of per-kernel numbers, the
    card again, and as its last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -80,7 +91,17 @@ SOURCES = {
                      "src/repro/kernels/fused_mbconv.py:193"),
     "dw_se": ("src/repro_torch/csrc/dw_se.cu",
               "src/repro/kernels/se_epilogue.py:143"),
+    "dwconv1d": ("src/repro_torch/csrc/dwconv1d.cu",
+                 "src/repro/kernels/dwconv1d.py:51"),
 }
+
+#: The serving phase: prompt length, greedy decode steps, the prompt of the
+#: prefill_by_stepping oracle, and the bf16 tolerance of the reference's
+#: network gate.
+PROMPT_LEN, GEN_STEPS, STEPPING_PROMPT = 512, 32, 64
+BF16_REL_TOL = 5e-2
+#: fp32 kernels against the fp32 plain path (summation order).
+FP32_REL_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -102,7 +123,7 @@ class KernelChecks:
 
     def __init__(self, torch, dev):
         from repro_torch.kernels import ref
-        from repro_torch.mobilenet_inference import rel_err, time_ms
+        from repro_torch.measure import rel_err, time_ms
         self.torch, self.dev = torch, dev
         self.pad_same, self.rel_err, self.time_ms = ref.pad_same, rel_err, time_ms
         self.gen = torch.Generator().manual_seed(0)
@@ -160,19 +181,35 @@ class KernelChecks:
             2 * b * ho * wo * c * k * k,
             (x.numel() + f.numel() + b * ho * wo * c) * x.element_size())
 
-    def pwconv(self, g, ci, co, dtype):
+    def pwconv(self, g, ci, co, dtype, act="relu6"):
         torch = self.torch
         from repro_torch.kernels import pwconv
         x = self.rand((g, ci), dtype)
         w = self.rand((ci, co), dtype, ci ** -0.5)
         bias = self.rand((co,), dtype, 0.1)
         self.measure(
-            "pwconv", f"G={g} {ci}->{co} relu6", dtype,
-            lambda: pwconv.pwconv(x, w, bias, activation="relu6"),
-            lambda: pwconv.pwconv_plain(x, w, bias, activation="relu6"),
+            "pwconv", f"G={g} {ci}->{co} {act or 'no act'}", dtype,
+            lambda: pwconv.pwconv(x, w, bias, activation=act),
+            lambda: pwconv.pwconv_plain(x, w, bias, activation=act),
             lambda: torch.addmm(bias, x, w),
             2 * g * ci * co,
             (x.numel() + w.numel() + co + g * co) * x.element_size())
+
+    def dwconv1d(self, b, length, d, k, dtype, rows=None):
+        import torch.nn.functional as F
+        from repro_torch.kernels import dwconv1d
+        x = self.rand((b, length, d), dtype)
+        f = self.rand((k, d), dtype, k ** -0.5)
+        rows = rows or dwconv1d.ROWS
+        xt, ft = x.transpose(1, 2), f.T[:, None, :]
+        self.measure(
+            "dwconv1d", f"{b}x{length}x{d} k{k} vec "
+            f"{dwconv1d.vector_width(x, f)} rows {rows}", dtype,
+            lambda: dwconv1d.dwconv1d_causal(x, f, rows=rows),
+            lambda: dwconv1d.dwconv1d_causal_plain(x, f),
+            lambda: F.conv1d(xt, ft, groups=d, padding=k - 1)[..., :length],
+            2 * b * length * d * k,
+            (2 * x.numel() + f.numel()) * x.element_size())
 
     def fused(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
         torch = self.torch
@@ -360,6 +397,192 @@ def run_networks(torch, dev):
     return runs, totals
 
 
+def run_serving(torch, dev):
+    """The serving path: xlstm-125m at full width, prefill + greedy decode,
+    batch 1 and 8, fp32 and bf16, each kernel-path call held against the
+    plain path's call on the same inputs: fp32 within FP32_REL_TOL; bf16
+    within BF16_REL_TOL of the bf16 plain path (random-init xLSTM does not
+    hold the fp32 plain path to 5e-2 in bf16: a 512-token prefill at batch
+    1 differs from it by about that much; PERF.md), the error against the
+    fp32 plain path reported beside it."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.serve import (expected_launches, launch_counts,
+                                          reset_launch_counts)
+    from repro_torch.measure import device_breakdown, rel_err, time_ms
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+
+    t0 = time.perf_counter()
+    cfg16 = get_config("xlstm-125m")
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    models = {"fp32": init_params(cfg32, seed=0, device=dev),
+              "bf16": init_params(cfg16, seed=0, device=dev)}
+    n = sum(p.numel() for p in models["fp32"].parameters())
+    print(f"  random weights from seed 0, {n / 1e6:.1f}M parameters, fp32 "
+          f"and bf16, in {time.perf_counter() - t0:.1f} s", flush=True)
+    plain = KernelPolicy(impl="torch")
+    want = {"prefill": expected_launches(cfg32, "prefill"),
+            "decode": expected_launches(cfg32, "decode")}
+    max_len = PROMPT_LEN + GEN_STEPS
+    totals = dict.fromkeys(want["prefill"], 0)
+
+    def counted(label, phase, fn):
+        """fn() on the kernel path, the counters zeroed just before and read
+        just after; the launches must be the expected ones."""
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = launch_counts()
+        if got != want[phase]:
+            raise AssertionError(f"{label} {phase}: launches {got}, "
+                                 f"expected {want[phase]}")
+        for k in totals:
+            totals[k] += got[k]
+        return out
+
+    def lead(prompts):
+        """The fp32 plain path, free-running greedy: its logits, and the
+        (cache, token) each decode step started from."""
+        m = models["fp32"]
+        reset_launch_counts()
+        logits, cache = S.prefill(m, prompts, max_len=max_len, policy=plain)
+        outs, steps = [logits], []
+        for _ in range(GEN_STEPS):
+            tok = greedy(logits)[:, None]
+            steps.append((cache, tok))
+            logits, cache = S.decode_step(m, cache, tok, policy=plain)
+            outs.append(logits)
+        if any(launch_counts().values()):
+            raise AssertionError(f"the plain path launched {launch_counts()}")
+        return outs, steps
+
+    def follow(dtype, prompts, steps, policy=None):
+        """The kernel path (or ``policy``'s): prefill, then each decode step
+        from the fp32 plain path's cache and token.  Held call by call, the
+        error does not compound along the sequence.  Returns the logits and
+        the ms of the prefill (host clock, ending in a synchronize)."""
+        m = models[dtype]
+        call = counted if policy is None else (lambda _l, _p, fn: fn())
+        policy = policy or KernelPolicy()
+        t0 = time.perf_counter()
+        logits, _ = call(dtype, "prefill", lambda: S.prefill(
+            m, prompts, max_len=max_len, policy=policy))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs = [logits]
+        for cache, tok in steps:
+            outs.append(call(dtype, "decode", lambda: S.decode_step(
+                m, cache, tok, policy=policy))[0])
+        return outs, prefill_ms
+
+    def free_run(dtype, prompts, steps):
+        """The kernel path on its own cache, fed the plain path's tokens."""
+        m = models[dtype]
+        logits, cache = S.prefill(m, prompts, max_len=max_len)
+        outs = [logits]
+        for _, tok in steps:
+            logits, cache = S.decode_step(m, cache, tok)
+            outs.append(logits)
+        return outs
+
+    def errors(got, ref):
+        e = [rel_err(a, b) for a, b in zip(got, ref)]
+        return {"prefill": e[0], "decode": max(e[1:]), "max": max(e)}
+
+    runs = []
+    with torch.inference_mode():
+        for batch in (1, 8):
+            prompts = torch.randint(
+                0, cfg32.vocab_size, (batch, PROMPT_LEN),
+                generator=torch.Generator().manual_seed(batch)).to(dev)
+            ref, steps = lead(prompts)
+            for dtype in ("fp32", "bf16"):
+                model = models[dtype]
+                torch.cuda.reset_peak_memory_stats(dev)
+                got, prefill_ms = follow(dtype, prompts, steps)
+                peak = torch.cuda.max_memory_allocated(dev)
+                finite = all(bool(torch.isfinite(o).all()) and tuple(
+                    o.shape) == (batch, cfg32.vocab_size) for o in got)
+                err = errors(got, ref)
+                if dtype == "bf16":
+                    gated = errors(got, follow("bf16", prompts, steps,
+                                               plain)[0])
+                    chained = errors(free_run(dtype, prompts, steps), ref)
+                else:
+                    gated, chained = err, None
+                pre = lambda: S.prefill(model, prompts, max_len=max_len)
+                cache, tok = steps[-1]
+                step = lambda: S.decode_step(model, cache, tok)
+                decode_ms = time_ms(step, dev, reps=10, warmup=2)
+                # Profiling a prefill (~10^5 device events) costs more than
+                # the rest of its cell: once per batch, in fp32 (bf16 runs
+                # the same kernels at the same width, PERF.md).
+                dev_pre = (device_breakdown(pre, reps=1, warmup=False)
+                           if dtype == "fp32" else {})
+                dev_dec = device_breakdown(step, reps=5)
+                tol = FP32_REL_TOL if dtype == "fp32" else BF16_REL_TOL
+                r = {"batch": batch, "dtype": dtype,
+                     "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                     "tokens_per_s": batch * 1e3 / decode_ms,
+                     "peak_bytes": peak, "prefill_device_ms": dev_pre,
+                     "decode_device_ms": dev_dec,
+                     "prefill_busy": (sum(dev_pre.values()) / prefill_ms
+                                      if dev_pre else None),
+                     "decode_busy": sum(dev_dec.values()) / decode_ms,
+                     "rel_err_vs_fp32_plain": err,
+                     "rel_err_gated": gated, "tol": tol,
+                     "rel_err_on_own_cache": chained}
+                runs.append(r)
+                busy = ("not profiled" if r["prefill_busy"] is None
+                        else f"{r['prefill_busy']:.0%}")
+                print(f"  xlstm-125m batch {batch} {dtype}: prefill "
+                      f"{batch}x{PROMPT_LEN} {prefill_ms:.1f} ms (device busy "
+                      f"{busy}), decode {decode_ms:.2f} "
+                      f"ms/token (busy {r['decode_busy']:.0%}), "
+                      f"{r['tokens_per_s']:.1f} tokens/s, peak "
+                      f"{peak / 2**20:.0f} MiB", flush=True)
+                print(f"    vs {dtype} plain path, each call from the same "
+                      f"inputs: prefill {gated['prefill']:.2e}, decode steps "
+                      f"{gated['decode']:.2e} (tol {tol:g})", flush=True)
+                if dtype == "bf16":
+                    print(f"    vs fp32 plain path (not gated): each call "
+                          f"from the same inputs: prefill "
+                          f"{err['prefill']:.2e}, decode steps "
+                          f"{err['decode']:.2e}; on its own cache: decode "
+                          f"steps {chained['decode']:.2e}", flush=True)
+                print("    device ms per prefill: " + (", ".join(
+                    f"{k} {v:.2f}" for k, v in sorted(dev_pre.items()))
+                    or "not profiled") + "; per decode step: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in sorted(dev_dec.items())),
+                    flush=True)
+                if not (finite and gated["max"] <= tol):
+                    raise AssertionError(
+                        f"xlstm-125m batch {batch} {dtype}: rel err {gated} "
+                        f"> {tol} or bad logits (finite and shaped: "
+                        f"{finite})")
+            del ref, steps
+
+        prompts = torch.randint(
+            0, cfg32.vocab_size, (8, STEPPING_PROMPT),
+            generator=torch.Generator().manual_seed(64)).to(dev)
+        m = models["fp32"]
+        lp, cp = S.prefill(m, prompts, max_len=max_len)
+        ls, cs = S.prefill_by_stepping(m, prompts, max_len=max_len)
+        tok = greedy(lp)[:, None]
+        e_pre = rel_err(lp, ls)
+        e_next = rel_err(S.decode_step(m, cp, tok)[0],
+                         S.decode_step(m, cs, tok)[0])
+        print(f"  prefill vs prefill_by_stepping, fp32 8x{STEPPING_PROMPT}: "
+              f"rel err {e_pre:.2e}, next decode step {e_next:.2e} (tol "
+              f"{FP32_REL_TOL:g})", flush=True)
+        if not max(e_pre, e_next) <= FP32_REL_TOL:
+            raise AssertionError(f"prefill vs prefill_by_stepping: {e_pre}, "
+                                 f"{e_next}")
+    return runs, totals, {"prefill": e_pre, "next_step": e_next}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "NVIDIA GPU.")
@@ -393,6 +616,7 @@ def main() -> int:
               f"{max(regs, default=0)} registers, {spills} bytes of spill "
               "stores in all")
 
+    t_phase = time.perf_counter()
     print("kernels vs plain versions:")
     kc = KernelChecks(torch, dev)
     for dtype in (torch.float32, torch.bfloat16):
@@ -409,10 +633,30 @@ def main() -> int:
         kc.fused_mb(8, 56, 56, 24, 144, 24, 1, True, dtype)
         kc.dw_se(8, 56, 56, 72, 6, 2, dtype, k=5)
         kc.dw_se(8, 14, 14, 672, 28, 1, dtype)
+        for b, length, d, k, rows in (
+                (8, 512, 1536, 4, None), (8, 512, 768, 4, None),
+                (2, 1000, 1000, 4, 7), (2, 1000, 1002, 4, None),
+                (8, 512, 1536, 3, None), (8, 512, 1536, 5, None),
+                (8, 1, 1536, 4, None), (8, 2, 768, 4, None)):
+            kc.dwconv1d(b, length, d, k, dtype, rows)
+        kc.pwconv(4096, 768, 3072, dtype, act=None)
+        kc.pwconv(4096, 1536, 1536, dtype, act=None)
+        kc.pwconv(1024, 768, 1024, dtype, act="silu")
+        kc.pwconv(8, 768, 3072, dtype, act=None)
+    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
 
+    t_phase = time.perf_counter()
     print("main path: execute_network, MobileNet V1/V2, MnasNet-A1 and "
           "EfficientNet-Lite0 at width 1.0, 112x112:")
     runs, launches = run_networks(torch, dev)
+    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    t_phase = time.perf_counter()
+    print("serving path: xlstm-125m at full width, prefill + greedy decode:")
+    serving, serve_launches, stepping = run_serving(torch, dev)
+    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    launches["dwconv1d"] = 0
+    for name, n in serve_launches.items():
+        launches[name] += n
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
@@ -432,7 +676,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump({"card": card, "kernel_checks": kc.results,
-                       "networks": runs, "launches": launches,
+                       "networks": runs, "serving": serving,
+                       "prefill_vs_stepping": stepping, "launches": launches,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1)
     print(f"kernels launched and checked: {', '.join(SOURCES)} "

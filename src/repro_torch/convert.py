@@ -1,15 +1,24 @@
-"""Convert the JAX package's network parameters into the port's.
+"""Convert the JAX package's parameters into the port's.
 
-The reference keeps per-block lists of per-stage dicts of arrays (DW
-``f`` (Hf, Wf, C), PW ``w`` (Ci, Co), biases (C,)); the port keeps the
-same structure and layouts, so nothing is transposed.  Leaves may be numpy
-arrays or anything ``numpy.asarray`` accepts (a JAX array converts on the
-host); this module imports neither JAX nor the reference package.
+CNN bodies: the reference keeps per-block lists of per-stage dicts of
+arrays (DW ``f`` (Hf, Wf, C), PW ``w`` (Ci, Co), biases (C,)); the port
+keeps the same structure and layouts, so nothing is transposed.
+
+LM stack: the reference keeps nested dicts whose layer variants are
+stacked along a leading groups axis (``blocks_v0`` = mLSTM, ``blocks_v1``
+= sLSTM for xLSTM); the port's modules name their parameters by the same
+keys joined with dots, and layer ``g*period + vi`` takes
+``blocks_v{vi}[g]``.
+
+Leaves may be numpy arrays or anything ``numpy.asarray`` accepts (a JAX
+array converts on the host); this module imports neither JAX nor the
+reference package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 _DTYPES = {"float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16}
@@ -33,3 +42,52 @@ def params_from_numpy(jax_params, device="cuda") -> list:
     port's (the same structure, tensors on ``device``)."""
     return [[{k: tensor_from_numpy(v, device) for k, v in stage.items()}
              for stage in block] for block in jax_params]
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of leaves as ``{"a.b.c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def load_tree_(module: nn.Module, leaves: dict) -> nn.Module:
+    """Copy ``{dotted name: array}`` into ``module``'s parameters of the
+    same names, in place.  The names, shapes and dtypes must match
+    exactly."""
+    params = dict(module.named_parameters())
+    if set(params) != set(leaves):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(params) - set(leaves))}, unexpected "
+                         f"{sorted(set(leaves) - set(params))}")
+    for name, p in params.items():
+        t = tensor_from_numpy(np.array(leaves[name]), p.device)
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
+                             f"port {tuple(p.shape)} {p.dtype}")
+        with torch.no_grad():
+            p.copy_(t)
+    return module
+
+
+def lm_params_from_numpy(jax_params, cfg, device="cuda"):
+    """Reference LM params (``repro.models.transformer.init_params``) as the
+    port's ``XLSTMModel`` on ``device``."""
+    from repro_torch.models.transformer import init_params
+    model = init_params(cfg, device=device)
+    period = len(model.pattern)
+    leaves = {}
+    for key, sub in jax_params.items():
+        if not key.startswith("blocks_v"):
+            leaves.update(flatten_tree({key: sub}))
+            continue
+        vi = int(key[len("blocks_v"):])
+        for name, arr in flatten_tree(sub).items():
+            arr = np.asarray(arr)
+            for g in range(arr.shape[0]):
+                leaves[f"blocks.{g * period + vi}.{name}"] = arr[g]
+    return load_tree_(model, leaves)

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dwconv2d", "pwconv", "separable_fused", "fused_mbconv", "dw_se")
+SOURCES = ("dwconv2d", "pwconv", "separable_fused", "fused_mbconv", "dw_se",
+           "dwconv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import blocking, ref
+from repro_torch.kernels.dwconv1d import (
+    dwconv1d_causal as dwconv1d_causal_kernel)
 from repro_torch.kernels.dwconv2d import dwconv2d as dwconv2d_kernel
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.kernels.policy import resolve_impl
@@ -39,6 +41,14 @@ def dwconv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
     x = ref.apply_padding(x, f.shape[0], f.shape[1], stride, padding)
     return dwconv2d_kernel(x, f, stride=stride, block_c=block_c,
                            out_dtype=out_dtype)
+
+
+def dwconv1d_causal(x: torch.Tensor, f: torch.Tensor, *,
+                    impl: str = "auto") -> torch.Tensor:
+    """Causal depthwise 1-D conv. x (B, L, D), f (K, D) in x's dtype."""
+    if resolve_impl(impl, x.device) == "torch":
+        return ref.dwconv1d_causal_ref(x, f)
+    return dwconv1d_causal_kernel(x, f)
 
 
 def pwconv(x: torch.Tensor, w: torch.Tensor,

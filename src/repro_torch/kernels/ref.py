@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/ref.py`` (``dwconv2d_ref`` :24,
 ``pwconv_ref`` :141, ``separable_fused_ref`` :158, ``conv2d_ref`` :201,
-``fused_mbconv_ref`` :224, ``se_ref`` :258, ``dw_se_ref`` :281), with the
-same rounding
+``fused_mbconv_ref`` :224, ``se_ref`` :258, ``dw_se_ref`` :281,
+``dwconv1d_causal_ref`` :76, ``dwconv1d_step_ref`` :92), with the same
+rounding
 points: every operand is upcast to fp32 explicitly (bf16 and fp16 products
 never run in the narrow type), the fused intermediates stay fp32, and the
 result is cast back to ``x.dtype`` once at the end.  Layouts are the
@@ -65,6 +66,33 @@ def dwconv2d_ref(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
     if x.ndim != 4 or f.ndim != 3 or x.shape[-1] != f.shape[-1]:
         raise ValueError(f"dwconv2d shapes {tuple(x.shape)} {tuple(f.shape)}")
     return _dw_fp32(x, f, stride, padding).to(x.dtype)
+
+
+def dwconv1d_causal_ref(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv. x: (B, L, D); f: (K, D) -> (B, L, D).
+
+    out[b, l, d] = sum_k x[b, l - (K-1) + k, d] * f[k, d] (zero left pad),
+    fp32 accumulation, one cast to ``x.dtype`` at the end."""
+    if x.ndim != 3 or f.ndim != 2 or x.shape[-1] != f.shape[-1]:
+        raise ValueError(f"dwconv1d shapes {tuple(x.shape)} {tuple(f.shape)}")
+    k, length = f.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):  # K is tiny (3..5): unrolled shifts
+        out = out + xp[:, i:i + length, :] * f[i].float()
+    return out.to(x.dtype)
+
+
+def dwconv1d_step_ref(state: torch.Tensor, x_t: torch.Tensor,
+                      f: torch.Tensor) -> tuple:
+    """One decode step. state: (B, K-1, D) past inputs; x_t: (B, D).
+
+    Returns (new_state, y_t), y_t the causal conv output at this position
+    in ``x_t.dtype``."""
+    k = f.shape[0]
+    window = torch.cat([state, x_t[:, None, :]], dim=1)  # (B, K, D)
+    y = (window.float() * f.float()).sum(dim=1)          # contiguous (B, D)
+    return (window[:, 1:, :] if k > 1 else state), y.to(x_t.dtype)
 
 
 def pwconv_ref(x: torch.Tensor, w: torch.Tensor, *,

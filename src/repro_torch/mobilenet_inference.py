@@ -16,8 +16,6 @@ of ``examples/mobilenet_inference.py``.
 from __future__ import annotations
 
 import argparse
-import statistics
-import time
 
 import torch
 
@@ -25,6 +23,7 @@ from repro_torch.core import network
 from repro_torch.kernels import (dwconv2d, fused_mbconv, pwconv,
                                  se_epilogue, separable_fused)
 from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
+from repro_torch.measure import device_breakdown, rel_err, time_ms
 
 #: bf16-streamed network vs the fp32 plain path: one bf16 rounding per
 #: streamed operand per block, compounded over 13-17 blocks (the
@@ -71,69 +70,6 @@ def reset_launch_counts() -> None:
     se_epilogue.launches = 0
     for k in separable_fused.launches:
         separable_fused.launches[k] = 0
-
-
-def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got - ref| / max |ref|, in fp32."""
-    got, ref = got.float(), ref.float()
-    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
-
-
-def time_ms(fn, device: torch.device, reps: int = 10,
-            warmup: int = 2) -> float:
-    """Median ms of ``fn()``: CUDA events around each call on the card,
-    the host clock on the CPU."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-    else:
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-#: Device kernel name fragment -> the port's kernel it belongs to.
-_KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_kernel": "pwconv",
-                 "fused_mb_kernel": "fused_mbconv",
-                 "fused_kernel": "separable_fused", "dw_se_kernel": "dw_se"}
-
-
-def device_breakdown(fn, reps: int = 5) -> dict:
-    """Device time of ``fn()`` by kernel, from ``torch.profiler``: ms per
-    call for each of the port's kernels and for every other device kernel
-    (PyTorch's pads, casts and adds) together.  Empty when the profiler
-    records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        name = next((v for k, v in _KERNEL_NAMES.items() if k in e.key),
-                    "other")
-        out[name] = out.get(name, 0.0) + us / 1e3 / reps
-    return out
 
 
 def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,

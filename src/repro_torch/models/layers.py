@@ -1,0 +1,114 @@
+"""Primitive layers: norms, Linear (routed through the paper's PWConv) and
+the embedding.  Counterpart of ``repro/models/layers.py``; RoPE, the
+chunked cross-entropy and the backbone wrappers wait for their slices.
+
+Parameters live in ``nn.ParameterDict``s keyed as the reference's dicts
+are (``{"scale"}``, ``{"w", "b"}``, ``{"table"}``), so a module's
+``state_dict`` names are the reference's parameter paths joined by dots.
+Every init draws from an explicit ``torch.Generator`` on the host and
+moves the result to ``device``, so a seed gives the same weights on every
+device.  Parameters are inference-only (``requires_grad=False``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy, pointwise
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def randn(generator: torch.Generator, shape, std: float, dtype, device):
+    """N(0, std^2) drawn in fp32 on the host, then cast and moved."""
+    t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return t.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms (fp32 internals regardless of activation dtype)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def norm(x: torch.Tensor, params, kind: str = "rms") -> torch.Tensor:
+    if kind == "rms":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params.get("bias"))
+
+
+def init_norm(kind: str, d: int, with_bias: bool = False,
+              device="cuda") -> nn.ParameterDict:
+    p = {"scale": param(torch.zeros(d, device=device))}
+    if kind == "layer" and with_bias:
+        p["bias"] = param(torch.zeros(d, device=device))
+    return nn.ParameterDict(p)
+
+
+# ---------------------------------------------------------------------------
+# Linear == the paper's PWConv
+# ---------------------------------------------------------------------------
+
+
+def init_linear(generator: torch.Generator, d_in: int, d_out: int, *,
+                bias: bool = False, dtype=torch.float32,
+                scale: Optional[float] = None,
+                device="cuda") -> nn.ParameterDict:
+    std = scale if scale is not None else d_in ** -0.5
+    p = {"w": param(randn(generator, (d_in, d_out), std, dtype, device))}
+    if bias:
+        p["b"] = param(torch.zeros(d_out, dtype=dtype, device=device))
+    return nn.ParameterDict(p)
+
+
+def linear(p, x: torch.Tensor, *, activation: Optional[str] = None,
+           policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    return pointwise(x, p["w"], p.get("b"), activation=activation,
+                     policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(generator: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device="cuda") -> nn.ParameterDict:
+    return nn.ParameterDict(
+        {"table": param(randn(generator, (vocab, d), d ** -0.5, dtype,
+                              device))})
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ table.T (V, d) -> (..., V) in fp32: the operands upcast,
+    which is the reference's bf16 x bf16 product with fp32 accumulation.
+    A plain product outside any kernel, left to ``torch.matmul`` as the
+    reference leaves it to XLA."""
+    return torch.matmul(x.float(), table.float().T)

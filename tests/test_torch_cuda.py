@@ -271,3 +271,89 @@ def test_kernel_refuses_an_uncompiled_dtype_pair(dev):
     with pytest.raises(ValueError, match="no kernel for stream"):
         dwconv2d.dwconv2d(x, _r((3, 3, 8), dev, torch.float32),
                           out_dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM serving slice: dwconv1d, pwconv at its Linear shapes, the path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("b,l,d,k,rows", [
+    (8, 512, 1536, 4, 8), (8, 512, 768, 4, 8), (2, 1000, 1000, 4, 7),
+    (2, 37, 1002, 4, 8), (1, 50, 20, 3, 3), (2, 64, 48, 5, 16),
+    (3, 1, 64, 4, 8), (3, 2, 64, 4, 8), (2, 9, 24, 1, 4), (2, 19, 16, 7, 5),
+    (1, 30, 13, 2, 8)])
+def test_dwconv1d_kernel(dev, b, l, d, k, rows, dtype):
+    """Vector and scalar channels, ragged runs, L < K-1, exact K = 2..5 and
+    the runtime-K loop (K = 1 and 7)."""
+    from repro_torch.kernels import dwconv1d
+    x = _r((b, l, d), dev, dtype)
+    f = _r((k, d), dev, dtype, k ** -0.5)
+    got = dwconv1d.dwconv1d_causal(x, f, rows=rows)
+    want = dwconv1d.dwconv1d_causal_plain(x, f)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+def test_dwconv1d_kernel_checks_operands(dev):
+    from repro_torch.kernels import dwconv1d
+    x = _r((2, 8, 16), dev, torch.float32)
+    with pytest.raises(ValueError, match="x is torch.float32 but f"):
+        dwconv1d.dwconv1d_causal(x, _r((4, 16), dev, torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        dwconv1d.dwconv1d_causal(x.transpose(0, 1), _r((4, 16), dev,
+                                                       torch.float32))
+    before = dwconv1d.launches
+    dwconv1d.dwconv1d_causal(x, _r((4, 16), dev, torch.float32))
+    assert dwconv1d.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("g,ci,co,act", [(8, 768, 3072, None),
+                                         (1024, 768, 1024, "silu"),
+                                         (8, 1536, 1536, None),
+                                         (1, 1536, 8, None)])
+def test_pwconv_kernel_at_xlstm_shapes(dev, g, ci, co, act, dtype):
+    x = _r((g, ci), dev, dtype)
+    w = _r((ci, co), dev, dtype, ci ** -0.5)
+    got = pwconv.pwconv(x, w, activation=act)
+    want = pwconv.pwconv_plain(x, w, activation=act)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_xlstm_serving_launches_and_matches_the_plain_path(dev, dtype):
+    import dataclasses
+
+    from repro_torch.configs import xlstm_125m
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    cfg = dataclasses.replace(xlstm_125m.smoke_config(), dtype=dtype)
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    plain = KernelPolicy(impl="torch")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    serve.reset_launch_counts()
+    logits, cache = S.prefill(model, toks, max_len=32)
+    torch.cuda.synchronize(dev)
+    assert serve.launch_counts() == serve.expected_launches(cfg, "prefill")
+    ref_logits, ref_cache = S.prefill(model, toks, max_len=32, policy=plain)
+    assert rel_err(logits, ref_logits) <= tol
+    nxt = logits.argmax(-1)[:, None]
+    serve.reset_launch_counts()
+    logits, _ = S.decode_step(model, cache, nxt)
+    torch.cuda.synchronize(dev)
+    assert serve.launch_counts() == serve.expected_launches(cfg, "decode")
+    ref_logits, _ = S.decode_step(model, ref_cache, nxt, policy=plain)
+    assert rel_err(logits, ref_logits) <= tol
+
+
+def test_serve_launcher_on_the_card(dev, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "xlstm-125m", "--smoke", "--batch", "2",
+                       "--prompt-len", "9", "--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "'dwconv1d': 4" in out

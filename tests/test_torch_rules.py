@@ -69,6 +69,21 @@ def test_entry_points_default_to_the_card():
         mobilenet_inference.main(["--arch", "v1", "--res", "16"])
 
 
+def test_serving_entry_points_default_to_the_card():
+    _skip_if_card()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(get_config("xlstm-125m", smoke=True))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "xlstm-125m", "--smoke", "--prompt-len", "4", "--gen", "2"],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "[serve]" not in out.stdout
+
+
 def test_backend_follows_the_tensor():
     cpu = torch.device("cpu")
     assert resolve_impl("auto", cpu) == "torch"
