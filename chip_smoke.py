@@ -133,7 +133,10 @@ class KernelChecks:
         t = self.torch.randn(shape, generator=self.gen) * scale
         return t.to(device=self.dev, dtype=dtype)
 
-    def measure(self, name, label, dtype, kern, plain, library, ops, nbytes):
+    def measure(self, name, label, dtype, kern, plain, library, ops, nbytes,
+                launches=1, extra=None):
+        """``launches``: calls timed between one pair of events (a run of
+        many for a microsecond kernel); ``extra``: more fields to keep."""
         torch = self.torch
         got, want = kern(), plain()
         torch.cuda.synchronize(self.dev)
@@ -141,9 +144,10 @@ class KernelChecks:
         abs_err = float((got.float() - want.float()).abs().max())
         rel = self.rel_err(got, want)
         finite = bool(torch.isfinite(got.float()).all())
-        ms = self.time_ms(kern, self.dev, reps=20, warmup=3)
-        plain_ms = self.time_ms(plain, self.dev, reps=20, warmup=3)
-        library_ms = self.time_ms(library, self.dev, reps=20, warmup=3)
+        kw = dict(reps=20, warmup=3, launches=launches)
+        ms = self.time_ms(kern, self.dev, **kw)
+        plain_ms = self.time_ms(plain, self.dev, **kw)
+        library_ms = self.time_ms(library, self.dev, **kw)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         r = {"name": name, "shape": label, "dtype": dname,
@@ -151,11 +155,14 @@ class KernelChecks:
              "tol": KERNEL_TOL[dname], "ms": ms, "plain_ms": plain_ms,
              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": nbytes, "ops": ops}
+             "bytes": nbytes, "ops": ops, **(extra or {})}
         print(f"  {name:17s} {label:44s} {dname:8s} rel err {rel:.2e} "
               f"(tol {r['tol']:g}) kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + "".join(f", {k} {v:.4f}" if isinstance(v, float)
+                        else f", {k} {v}" for k, v in (extra or {}).items()),
+              flush=True)
         if not (finite and rel <= r["tol"]):
             raise AssertionError(f"{name} {label} {dname}: rel err {rel} "
                                  f"> {r['tol']} (finite={finite})")
@@ -182,18 +189,51 @@ class KernelChecks:
             (x.numel() + f.numel() + b * ho * wo * c) * x.element_size())
 
     def pwconv(self, g, ci, co, dtype, act="relu6"):
+        """One shape: the planner's variant and tile, its shared memory
+        against the kernel's own count, times over runs of 20 launches
+        (eager, and replayed from a CUDA graph, which leaves out the host's
+        launch overhead), and for ``stream`` also with L2 cold (a run
+        rotating over copies of w that together exceed the 50 MB L2, as
+        decode streams its weights)."""
         torch = self.torch
-        from repro_torch.kernels import pwconv
+        from repro_torch.kernels import blocking, pwconv
+        from repro_torch.measure import graph_ms
         x = self.rand((g, ci), dtype)
         w = self.rand((ci, co), dtype, ci ** -0.5)
         bias = self.rand((co,), dtype, 0.1)
+        plan = blocking.plan_pwconv(g, ci, co, dtype=dtype)
+        self.same_smem(plan.smem_bytes, pwconv.smem_bytes(
+            plan.variant, plan.block_g, plan.block_co, plan.block_c, ci))
+        extra = {"variant": plan.variant,
+                 "tile": [plan.block_g, plan.block_co, plan.block_c,
+                          plan.cluster],
+                 "graph_ms": graph_ms(
+                     lambda: pwconv.pwconv(x, w, bias, activation=act),
+                     self.dev)}
+        if plan.variant == "stream":
+            copies = [w] + [w.clone() for _ in range(
+                max(5, -(-64 * 2 ** 20 // (w.numel() * w.element_size()))))]
+            turn = iter(range(10 ** 9))
+            cold = lambda: pwconv.pwconv(  # noqa: E731
+                x, copies[next(turn) % len(copies)], bias, activation=act)
+            extra["cold_ms"] = self.time_ms(cold, self.dev, reps=20,
+                                            warmup=3, launches=len(copies))
+            extra["cold_graph_ms"] = graph_ms(cold, self.dev,
+                                              launches=len(copies))
+        before = pwconv.launches_by_variant[plan.variant]
+        pwconv.pwconv(x, w, bias, activation=act)
+        if pwconv.launches_by_variant[plan.variant] != before + 1:
+            raise AssertionError(f"pwconv G={g} {ci}->{co}: the launch was "
+                                 f"not counted as {plan.variant}")
         self.measure(
-            "pwconv", f"G={g} {ci}->{co} {act or 'no act'}", dtype,
+            "pwconv", f"G={g} {ci}->{co} {act or 'no act'} {plan.variant}",
+            dtype,
             lambda: pwconv.pwconv(x, w, bias, activation=act),
             lambda: pwconv.pwconv_plain(x, w, bias, activation=act),
             lambda: torch.addmm(bias, x, w),
             2 * g * ci * co,
-            (x.numel() + w.numel() + co + g * co) * x.element_size())
+            (x.numel() + w.numel() + co + g * co) * x.element_size(),
+            launches=20, extra=extra)
 
     def dwconv1d(self, b, length, d, k, dtype, rows=None):
         import torch.nn.functional as F
@@ -356,6 +396,7 @@ def run_networks(torch, dev):
                                                  expected_launches,
                                                  run_network)
     totals = dict.fromkeys(KERNEL_SEGMENTS, 0)
+    variants = {}
     runs = []
     for arch, build in ARCHS.items():
         spec = build(1.0)
@@ -376,7 +417,13 @@ def run_networks(torch, dev):
                           f"launches {r['launches']}", flush=True)
                     print(f"    device {busy:.3f} ms/forward: " + ", ".join(
                         f"{k} {v:.3f}" for k, v in sorted(
-                            r["device_ms"].items())), flush=True)
+                            r["device_ms"].items())) + "; pwconv by variant "
+                        f"{r['pwconv_variants']}", flush=True)
+                    check_variants(f"{arch} {plan_name} b{batch} {dtype}",
+                                   r["pwconv_variants"],
+                                   r["launches"]["pwconv"], dtype)
+                    for k, v in r["pwconv_variants"].items():
+                        variants[k] = variants.get(k, 0) + v
                     if r["launches"] != want or plan_counts != want:
                         raise AssertionError(
                             f"{arch} {plan_name} b{batch} {dtype}: launches "
@@ -393,8 +440,28 @@ def run_networks(torch, dev):
                                  "batch": batch, "dtype": dtype,
                                  **{k: r[k] for k in (
                                      "ms", "peak_bytes", "device_ms",
-                                     "rel_err", "launches", "out_shape")}})
-    return runs, totals
+                                     "rel_err", "launches", "pwconv_variants",
+                                     "out_shape")}})
+    return runs, totals, variants
+
+
+def check_variants(label, got, total, dtype, phase=None):
+    """``pwconv``'s launches by variant in one counted call: every one
+    counted once; a decode step streams every Linear; otherwise no fp32
+    product reaches the tensor cores and no bf16 one (G > 16, rows TMA can
+    describe, as every CNN and xLSTM width is) stays on the CUDA cores."""
+    if sum(got.values()) != total:
+        raise AssertionError(f"{label}: pwconv launches {total}, by variant "
+                             f"{got}")
+    if phase == "decode":
+        bad = total - got["stream"]
+    elif dtype in ("fp32", "float32"):
+        bad = got["tc"]
+    else:
+        bad = got["simt"]
+    if bad:
+        raise AssertionError(f"{label} {phase or ''}: pwconv by variant "
+                             f"{got}")
 
 
 def run_serving(torch, dev):
@@ -407,6 +474,7 @@ def run_serving(torch, dev):
     fp32 plain path reported beside it."""
     import dataclasses
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import pwconv
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.launch.serve import (expected_launches, launch_counts,
                                           reset_launch_counts)
@@ -428,10 +496,14 @@ def run_serving(torch, dev):
             "decode": expected_launches(cfg32, "decode")}
     max_len = PROMPT_LEN + GEN_STEPS
     totals = dict.fromkeys(want["prefill"], 0)
+    variants = {}
+    seen = {"fp32": {}, "bf16": {}}
 
     def counted(label, phase, fn):
         """fn() on the kernel path, the counters zeroed just before and read
-        just after; the launches must be the expected ones."""
+        just after; the launches must be the expected ones, every decode
+        step's ``pwconv`` launch ``stream`` and every prefill's the
+        dtype's wide variant (``tc`` in bf16, ``simt`` in fp32)."""
         reset_launch_counts()
         out = fn()
         torch.cuda.synchronize(dev)
@@ -439,8 +511,16 @@ def run_serving(torch, dev):
         if got != want[phase]:
             raise AssertionError(f"{label} {phase}: launches {got}, "
                                  f"expected {want[phase]}")
+        by = dict(pwconv.launches_by_variant)
+        check_variants(label, by, got["pwconv"], label, phase)
+        if phase == "prefill" and by[
+                "tc" if label == "bf16" else "simt"] != got["pwconv"]:
+            raise AssertionError(f"{label} prefill: pwconv by variant {by}")
+        seen[label][phase] = by
         for k in totals:
             totals[k] += got[k]
+        for k, v in by.items():
+            variants[k] = variants.get(k, 0) + v
         return out
 
     def lead(prompts):
@@ -543,6 +623,9 @@ def run_serving(torch, dev):
                       f"ms/token (busy {r['decode_busy']:.0%}), "
                       f"{r['tokens_per_s']:.1f} tokens/s, peak "
                       f"{peak / 2**20:.0f} MiB", flush=True)
+                print(f"    pwconv by variant: prefill "
+                      f"{seen[dtype]['prefill']}, a decode step "
+                      f"{seen[dtype]['decode']}", flush=True)
                 print(f"    vs {dtype} plain path, each call from the same "
                       f"inputs: prefill {gated['prefill']:.2e}, decode steps "
                       f"{gated['decode']:.2e} (tol {tol:g})", flush=True)
@@ -580,7 +663,7 @@ def run_serving(torch, dev):
         if not max(e_pre, e_next) <= FP32_REL_TOL:
             raise AssertionError(f"prefill vs prefill_by_stepping: {e_pre}, "
                                  f"{e_next}")
-    return runs, totals, {"prefill": e_pre, "next_step": e_next}
+    return runs, totals, {"prefill": e_pre, "next_step": e_next}, variants
 
 
 def main() -> int:
@@ -643,24 +726,40 @@ def main() -> int:
         kc.pwconv(4096, 1536, 1536, dtype, act=None)
         kc.pwconv(1024, 768, 1024, dtype, act="silu")
         kc.pwconv(8, 768, 3072, dtype, act=None)
+        # the main path's extremes: V1 block 1 at batch 8, a 14x14 stage at
+        # batch 8, V1 block 13 at batch 1, decode at batch 1, the mLSTM gate
+        # projection with its bias
+        kc.pwconv(8 * 112 * 112, 32, 64, dtype)
+        kc.pwconv(8 * 14 * 14, 512, 512, dtype)
+        kc.pwconv(49, 1024, 1024, dtype)
+        kc.pwconv(1, 768, 3072, dtype, act=None)
+        kc.pwconv(8, 1536, 8, dtype, act=None)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
 
     t_phase = time.perf_counter()
     print("main path: execute_network, MobileNet V1/V2, MnasNet-A1 and "
           "EfficientNet-Lite0 at width 1.0, 112x112:")
-    runs, launches = run_networks(torch, dev)
+    runs, launches, variants = run_networks(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
     t_phase = time.perf_counter()
     print("serving path: xlstm-125m at full width, prefill + greedy decode:")
-    serving, serve_launches, stepping = run_serving(torch, dev)
+    serving, serve_launches, stepping, serve_variants = run_serving(
+        torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
     launches["dwconv1d"] = 0
     for name, n in serve_launches.items():
         launches[name] += n
+    for name, n in serve_variants.items():
+        variants[name] = variants.get(name, 0) + n
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  "main path")
+    print(f"pwconv launches by variant on the main paths: {variants}")
+    for name in ("stream", "tc", "simt"):
+        if not variants.get(name):
+            raise AssertionError(f"pwconv variant {name} was never launched "
+                                 "on the main paths")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -678,6 +777,7 @@ def main() -> int:
             json.dump({"card": card, "kernel_checks": kc.results,
                        "networks": runs, "serving": serving,
                        "prefill_vs_stepping": stepping, "launches": launches,
+                       "pwconv_variants": variants,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1)
     print(f"kernels launched and checked: {', '.join(SOURCES)} "

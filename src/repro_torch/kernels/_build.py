@@ -4,7 +4,12 @@ Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>-<hash>.so``
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu \
+         -lcuda
+
+``-lcuda`` links the driver API (``pwconv``'s TMA maps are encoded with
+``cuTensorMapEncodeTiled``); nvcc finds the toolkit's stub at build time and
+the driver's ``libcuda.so.1`` is loaded at run time.
 
 The hash covers the source, ``common.cuh`` and the flags, so an edited
 source never loads a stale library.  Builds happen at first launch, never
@@ -32,6 +37,8 @@ SOURCES = ("dwconv2d", "pwconv", "separable_fused", "fused_mbconv", "dw_se",
            "dwconv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Libraries, after the source on nvcc's command line.
+LINK_FLAGS = ("-lcuda",)
 
 #: Element-type codes of ``csrc/common.cuh`` (``repro::DType``).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -61,7 +68,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -77,7 +84,8 @@ def build(names: Sequence[str] = SOURCES) -> dict:
             continue
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu"),
+             *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     errors = []
     for n, (proc, tmp) in procs.items():

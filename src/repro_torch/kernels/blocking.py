@@ -27,13 +27,17 @@ it runs one thread-block cluster of ``n`` CTAs per image, each holding a
 in :data:`DW_SE_CLUSTERS` whose slice fits.
 
 ``dwconv2d`` uses no shared memory (one thread per output pixel and
-channel group, taps in registers); ``pwconv`` is a tiled GEMM whose
-``(block_g, block_co, block_ci)`` tile is one of the kernel's compiled
-shapes (:data:`PW_TILES_GC`, :data:`PW_BLOCK_CI`).
+channel group, taps in registers).  ``pwconv`` has three variants
+(``csrc/pwconv.cu``), chosen by :func:`plan_pwconv` from the shape alone:
+``stream`` for G <= :data:`PW_STREAM_MAX_G` rows (a weight-streaming tile,
+Ci split over a cluster), ``tc`` for 16-bit operands whose rows TMA can
+describe (wgmma tiles), ``simt`` for the rest (fp32 register tiles).  Each
+variant's tiles are in :data:`PW_TILES`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -56,10 +60,44 @@ DW_VEC = 4
 #: Largest filter the ``dwconv2d`` kernel holds in registers.
 DW_MAX_TAPS = 7
 
-#: pwconv tiles the kernel is compiled for: (block_g, block_co) pairs and
-#: the K step, which is a runtime loop bound up to 32.
-PW_TILES_GC = ((64, 64), (64, 128), (128, 64), (128, 128))
-PW_BLOCK_CI = (8, 16, 32)
+#: SMs of an H100 SXM: the planner sizes grids to fill them.
+SMS = 132
+
+#: pwconv's variants (``csrc/pwconv.cu``), in the kernel's code order.
+PW_VARIANTS = ("stream", "tc", "simt")
+#: Largest G the ``stream`` variant takes, by stream dtype.  Decode (G =
+#: batch) and the SE gate FCs (G = batch) sit below both.  Set on the card
+#: by ``bench_pwconv.py --tune`` (``stream`` forced against the wide
+#: variant, CUDA-graph timed; NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+#: in fp32 ``stream`` beat ``simt`` at every G up to 64 (768->3072: 29.5
+#: against 42.1 us at G = 64, 42.3 against 42.1 at G = 96; 1024->1024:
+#: 22.2 against 55.2 at G = 64), so the CNN 7x7 stages at batch 1 (G = 49)
+#: stream in fp32.  In bf16 ``tc`` was as fast or faster from G = 8 up
+#: (768->3072: 6.8 against 9.3 us at G = 8; 1536->1536: 9.3 against 9.5),
+#: so 16-bit streams only decode's G <= 16.
+PW_STREAM_MAX_G = {torch.float32: 64, torch.bfloat16: 16, torch.float16: 16}
+#: Compiled tiles of each variant, ``(block_g, block_co, block_ci)``.
+#: ``stream``: ``block_g`` rows of G a CTA holds (a ``block_g`` x vector
+#: sum tile a thread, at most 64 fp32 sums), ``block_co`` columns a CTA
+#: owns (``block_co`` / vector a power of two <= 32 threads); ``block_ci``
+#: is the Ci rows of each CTA of the split-K cluster, any size that needs
+#: at most 8 CTAs, so it is ``None`` here.  ``tc``: M x N tile by a K step
+#: of 64.  ``simt``: M x N tile by a K step of 8.
+PW_TILES = {
+    "stream": tuple((g, co, None) for g in (1, 2, 4, 8, 16)
+                    for co in (32, 64, 128, 256)),
+    "tc": ((128, 128, 64), (128, 64, 64), (64, 128, 64), (64, 64, 64)),
+    "simt": ((128, 128, 8), (128, 64, 8), (64, 128, 8), (64, 64, 8)),
+}
+#: Deepest ring of the ``tc`` variant (no deeper than Ci's K steps) and the
+#: alignment its 128-byte swizzle needs; Ci rows of x a ``stream`` CTA
+#: stages at a time.
+PW_TC_STAGES = 4
+PW_TC_ALIGN = 1024
+PW_STREAM_CHUNK = 256
+PW_STREAM_WARPS = 8
+#: Largest split-K cluster of ``stream`` (the largest portable cluster).
+PW_STREAM_MAX_CLUSTER = 8
 
 #: Threads of one ``dw_se`` CTA, and the cluster sizes it launches with
 #: (8 is the largest portable cluster on Hopper).
@@ -86,7 +124,9 @@ class BlockPlan:
     * ``dwconv2d``        — ``block_c``: channels per thread (1 or 4).
     * ``separable_fused`` — ``block_c`` (DW channel chunk), ``block_co``
       (Co panel), ``slab_h`` x ``tile_w`` output pixels per CTA.
-    * ``pwconv``          — ``block_g``, ``block_co``, ``block_c`` (K step).
+    * ``pwconv``          — ``variant``, ``block_g``, ``block_co``,
+      ``block_c`` (the K step; for ``stream`` the Ci rows of each of the
+      ``cluster`` CTAs that split Ci).
     * ``fused_mbconv``    — as ``separable_fused``; ``block_c`` chunks the
       conv output.
     * ``dw_se``           — ``cluster`` CTAs per image, ``block_c`` channels
@@ -102,6 +142,7 @@ class BlockPlan:
     block_g: int = 0
     tile_w: int = 0
     cluster: int = 1
+    variant: str = ""
 
 
 # ---------------------------------------------------------------------------
@@ -347,26 +388,157 @@ def plan_se(b: int, c: int, c_se: int, *, dtype: torch.dtype = torch.float32,
 
 
 # ---------------------------------------------------------------------------
-# pwconv (tiled GEMM)
+# pwconv (tiled GEMM, three variants)
 # ---------------------------------------------------------------------------
 
-def pwconv_smem_bytes(bg: int, bci: int, bco: int) -> int:
-    """fp32 A tile (rows padded by one against bank conflicts) and B tile
-    of one K step."""
-    return (bg * (bci + 1) + bci * bco) * ACC_BYTES
+def pw_vector(co: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Elements of w a ``stream`` thread reads at once: one 16-byte vector
+    where Co's rows are whole vectors and w's base is 16-byte aligned, else
+    one element."""
+    v = 16 // dtype_bytes(dtype)
+    return v if aligned and co % v == 0 else 1
 
 
+def tc_stages(bg: int, bco: int, bci: int, ci: int) -> int:
+    """Ring depth of a ``tc`` CTA (``tc_stages`` in ``csrc/pwconv.cu``): no
+    deeper than Ci's K steps, nor than lets two CTAs share an SM, nor than
+    :data:`PW_TC_STAGES`; two at least once there are two K steps."""
+    kt = -(-ci // bci)
+    fit = (DEFAULT_SMEM_BUDGET // 2 - PW_TC_ALIGN - 16 * PW_TC_STAGES) // (
+        (bg + bco) * bci * 2)
+    s = min(kt, PW_TC_STAGES, fit)
+    return s if s >= 2 else (1 if kt < 2 else 2)
+
+
+def pwconv_smem_bytes(variant: str, bg: int, bco: int, bci: int,
+                      ci: int) -> int:
+    """Shared memory of one ``pwconv`` CTA for a reduction over ``ci``
+    (``pwconv_smem_bytes`` in ``csrc/pwconv.cu``).  ``stream``: the fp32 x
+    rows of one staged chunk, every warp's partial tile and the CTA's
+    partial tile, each rounded up to 16 bytes.  ``tc``: alignment slack, a
+    ring of :func:`tc_stages` stages of 16-bit x and w tiles and two
+    mbarriers a stage.  ``simt``: two fp32 A and B buffers."""
+    if variant == "stream":
+        return (_a(min(bci, PW_STREAM_CHUNK) * bg * ACC_BYTES)
+                + _a(PW_STREAM_WARPS * bg * bco * ACC_BYTES)
+                + _a(bg * bco * ACC_BYTES))
+    if variant == "tc":
+        return PW_TC_ALIGN + tc_stages(bg, bco, bci, ci) * (
+            (bg + bco) * bci * 2 + 16)
+    if variant == "simt":
+        return 2 * bci * (bg + bco) * ACC_BYTES
+    raise ValueError(f"unknown pwconv variant {variant!r}")
+
+
+def pw_variant(g: int, ci: int, co: int, dtype: torch.dtype, *,
+               aligned: bool = True) -> str:
+    """The variant for a (G, Ci) x (Ci, Co) product streamed at ``dtype``:
+    ``stream`` at G <= :data:`PW_STREAM_MAX_G`; ``tc`` for bf16 / fp16
+    whose rows are 16-byte multiples (Ci, Co multiples of 8) on 16-byte
+    aligned bases; ``simt`` otherwise (every fp32 product)."""
+    if g <= PW_STREAM_MAX_G[dtype]:
+        return "stream"
+    if (dtype in (torch.bfloat16, torch.float16) and aligned
+            and ci % 8 == 0 and co % 8 == 0):
+        return "tc"
+    return "simt"
+
+
+def _fill_tile(g: int, co: int, tiles) -> tuple:
+    """The largest tile no wider than G and Co need (rounded up to 64),
+    whose grid covers every SM, else the one with the most CTAs (the
+    smaller tile of two with as many)."""
+    best = None
+    need_g, need_co = max(64, -(-g // 64) * 64), max(64, -(-co // 64) * 64)
+    for t in tiles:
+        if t[0] > need_g or t[1] > need_co:
+            continue
+        n = -(-g // t[0]) * -(-co // t[1])
+        if n >= SMS:
+            return t
+        if best is None or n >= best[0]:
+            best = (n, t)
+    return best[1]
+
+
+def stream_cluster(ci: int, ctas: int) -> int:
+    """Split-K cluster of ``stream``: the smallest that puts two CTAs on
+    every SM, keeping at least 128 Ci rows a CTA, at most 8.  (On the card,
+    ``bench_pwconv.py --tune``: below 128 rows a CTA the partial-tile
+    reduction cost more than the extra CTAs gained, e.g. 768->3072 at
+    G = 8 in fp32 took 8.0 us at a cluster of 4 and 12.4 at 8.)"""
+    n = 1
+    while (n < PW_STREAM_MAX_CLUSTER and ctas * n < 2 * SMS
+           and -(-ci // (2 * n)) >= 128):
+        n *= 2
+    return n
+
+
+def pwconv_tile_error(variant: str, bg: int, bco: int, bci: int, *, ci: int,
+                      vector: int) -> Optional[str]:
+    """Why ``(bg, bco, bci)`` is not a tile the variant is compiled for, or
+    None when it is."""
+    if variant not in PW_TILES:
+        return f"unknown variant {variant!r}"
+    if variant != "stream":
+        if (bg, bco, bci) not in PW_TILES[variant]:
+            return (f"no compiled {variant} tile ({bg}, {bco}, {bci}); "
+                    f"tiles {PW_TILES[variant]}")
+        return None
+    if (bg, bco, None) not in PW_TILES["stream"]:
+        return (f"no compiled stream tile ({bg}, {bco}); (block_g, "
+                f"block_co) in {[t[:2] for t in PW_TILES['stream']]}")
+    nthr = bco // vector
+    if bco % vector or nthr > 32:
+        return (f"stream block_co {bco} is not 1..32 vectors of {vector}")
+    if vector > 1 and bg * vector > 64:
+        return f"stream block_g {bg} x vector {vector} > 64 sums a thread"
+    if bci < 1 or -(-ci // bci) > PW_STREAM_MAX_CLUSTER:
+        return (f"stream block_ci {bci} needs more than "
+                f"{PW_STREAM_MAX_CLUSTER} CTAs for Ci = {ci}")
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
 def plan_pwconv(g: int, ci: int, co: int, *,
                 dtype: torch.dtype = torch.float32,
-                smem_budget: int = DEFAULT_SMEM_BUDGET) -> BlockPlan:
-    """The GEMM tile: 64 x 64 outputs by a K step of 16 (4 x 4 register
-    micro-tile per thread).  Larger compiled tiles are reachable through
-    ``KernelPolicy.block_g/co/ci``."""
-    bg, bco, bci = 64, 64, 16
+                smem_budget: int = DEFAULT_SMEM_BUDGET,
+                variant: Optional[str] = None,
+                aligned: bool = True) -> BlockPlan:
+    """The variant (:func:`pw_variant`, unless given) and its tile.
+
+    * ``stream``: ``block_g`` the smallest compiled G tile that holds G
+      (rows beyond 16, or 64 sums a thread, run as further CTAs),
+      ``block_co`` 64 columns (32 where Co is at most 32 or w is read
+      element by element), and Ci split by :func:`stream_cluster`.
+    * ``tc`` / ``simt``: the largest compiled M x N tile whose grid covers
+      the card's SMs, else the one with the most CTAs.
+    ``aligned``: w (and, for ``tc``, x) start on 16-byte boundaries.
+    Every compiled tile fits one CTA, so ``smem_budget`` (the fused
+    kernels' budget, which a chain may shrink to force a degradation)
+    does not bind here, as it did not before the variants.
+    """
+    variant = variant or pw_variant(g, ci, co, dtype, aligned=aligned)
+    cluster = 1
+    if variant == "stream":
+        vec = pw_vector(co, dtype, aligned)
+        bg = 1
+        while bg < min(g, 16) and (vec == 1 or 2 * bg * vec <= 64):
+            bg *= 2
+        bco = 64 if vec > 1 and co > 32 else 32
+        ctas = -(-co // bco) * -(-g // bg)
+        cluster = stream_cluster(ci, ctas)
+        bci = -(-ci // cluster)
+        cluster = -(-ci // bci)
+    elif variant in ("tc", "simt"):
+        bg, bco, bci = _fill_tile(g, co, PW_TILES[variant])
+    else:
+        raise ValueError(f"unknown pwconv variant {variant!r}")
+    smem = pwconv_smem_bytes(variant, bg, bco, bci, ci)
     return BlockPlan(
         block_c=bci, block_co=bco, slab_h=0, n_slabs=1, halo_rows=0,
-        smem_bytes=pwconv_smem_bytes(bg, bci, bco),
-        dtype_bytes=dtype_bytes(dtype), block_g=bg,
+        smem_bytes=smem, dtype_bytes=dtype_bytes(dtype), block_g=bg,
+        cluster=cluster, variant=variant,
     )
 
 

@@ -153,6 +153,7 @@ def _run_pw(seg, st, p, y, policy, *, impl, stream_dtype, out_dtype):
                               activation=st.activation).to(out_dtype)
     lead = y.shape[:-1]
     out = pwconv(y.reshape(-1, y.shape[-1]), w, b, activation=st.activation,
+                 variant=seg.plan.variant,
                  block_g=policy.block_g or seg.plan.block_g,
                  block_co=policy.block_co or seg.plan.block_co,
                  block_ci=policy.block_ci or seg.plan.block_c,

@@ -45,7 +45,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     dwconv1d.launches = 0
-    pwconv.launches = 0
+    pwconv.reset_launches()
 
 
 def expected_launches(cfg: ModelConfig, phase: str) -> dict:

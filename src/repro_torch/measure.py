@@ -16,9 +16,10 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def time_ms(fn, device: torch.device, reps: int = 10,
-            warmup: int = 2) -> float:
-    """Median ms of ``fn()``: CUDA events around each call on the card,
-    the host clock on the CPU."""
+            warmup: int = 2, launches: int = 1) -> float:
+    """Median ms of ``fn()``: CUDA events around each run of ``launches``
+    calls on the card (a run of many amortises the event overhead over a
+    microsecond kernel), the host clock on the CPU; ms per call."""
     for _ in range(warmup):
         fn()
     times = []
@@ -28,20 +29,54 @@ def time_ms(fn, device: torch.device, reps: int = 10,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(launches):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / launches)
     else:
         for _ in range(reps):
             t0 = time.perf_counter()
+            for _ in range(launches):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / launches)
+    return statistics.median(times)
+
+
+def graph_ms(fn, device: torch.device, launches: int = 20,
+             reps: int = 5) -> float:
+    """Median ms per call of ``fn()`` replayed from a CUDA graph that
+    captured ``launches`` calls, CUDA events around each replay: the
+    device's pace for a microsecond kernel, without the host's launch
+    overhead between calls."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(3):
             fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
     return statistics.median(times)
 
 
 #: Device kernel name fragment -> the port's kernel it belongs to.
-_KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_kernel": "pwconv",
+_KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
+                 "pw_tc_kernel": "pwconv", "pw_simt_kernel": "pwconv",
                  "fused_mb_kernel": "fused_mbconv",
                  "fused_kernel": "separable_fused", "dw_se_kernel": "dw_se",
                  "dw1d_kernel": "dwconv1d"}

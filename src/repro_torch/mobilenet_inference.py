@@ -65,7 +65,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     dwconv2d.launches = 0
-    pwconv.launches = 0
+    pwconv.reset_launches()
     fused_mbconv.launches = 0
     se_epilogue.launches = 0
     for k in separable_fused.launches:
@@ -77,7 +77,8 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 seed: int = 0) -> dict:
     """Drive one network body once, time it and hold it against the fp32
     plain path.  Returns the histogram, the launches of the counted
-    forward, ms, peak memory (bytes, card only), the device time by kernel
+    forward (and its ``pwconv`` launches by variant), ms, peak memory
+    (bytes, card only), the device time by kernel
     (card only, :func:`device_breakdown`) and the error."""
     dev = network.require_device(device)
     params32 = network.init_network(net, seed=seed, device=dev)
@@ -94,6 +95,7 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     launches = launch_counts()
+    variants = dict(pwconv.launches_by_variant)
 
     peak = None
     if dev.type == "cuda":
@@ -114,7 +116,7 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     ok = bool(torch.isfinite(y.float()).all()) and tuple(y.shape) == \
         nplan.out_shape
     return {"histogram": nplan.segment_histogram(), "launches": launches,
-            "ms": ms, "peak_bytes": peak, "device_ms": device,
+            "pwconv_variants": variants, "ms": ms, "peak_bytes": peak, "device_ms": device,
             "rel_err": err,
             "tol": BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL,
             "out_shape": tuple(y.shape), "out_dtype": str(y.dtype),

@@ -51,20 +51,112 @@ def test_dwconv2d_kernel(dev, b, h, w, c, stride, hf, vec, dtype):
     assert rel_err(got, want) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("tile", [(64, 64, 16), (128, 128, 32),
-                                  (64, 128, 8), (128, 64, 16)])
-@pytest.mark.parametrize("g,ci,co,act", [(37, 20, 50, "relu6"),
-                                         (300, 130, 70, "gelu"),
-                                         (5, 8, 3, "silu")])
-def test_pwconv_kernel(dev, g, ci, co, act, tile, dtype):
+#: (stream, store) pairs of pwconv's card tests.
+PW_IO = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.bfloat16, torch.float32), (torch.float16, torch.float16)]
+#: Each variant at each of its compiled tiles, on shapes with ragged G, Ci
+#: off the K step and Co from 3 to 3072 (``tc`` needs Ci, Co multiples of
+#: 8 and 16-bit operands; ``stream`` tiles whose sums do not fit a thread
+#: are refused, and the test then expects the refusal).
+PW_CASES = (
+    [("simt", t, s) for t in blocking.PW_TILES["simt"] for s in (
+        (37, 20, 50, "relu6"), (300, 130, 70, "gelu"), (5, 8, 3, "silu"),
+        (65, 36, 3072, None))]
+    + [("tc", t, s) for t in blocking.PW_TILES["tc"] for s in (
+        (300, 136, 200, "relu6"), (65, 72, 8, "gelu"), (17, 520, 3072, None),
+        (1, 8, 16, "silu"))]
+    + [("stream", (bg, bco, None), s)
+       for bg, bco in ((1, 32), (8, 64), (16, 64), (4, 128), (8, 256))
+       for s in ((7, 130, 50, "relu6"), (8, 130, 3072, "gelu"),
+                 (15, 1000, 8, None), (16, 70, 3, "silu"))])
+
+
+def _pw_operands(dev, g, ci, co, dtype):
     x = _r((g, ci), dev, dtype)
     w = _r((ci, co), dev, dtype, ci ** -0.5)
-    b = _r((co,), dev, dtype, 0.5)
-    got = pwconv.pwconv(x, w, b, activation=act, block_g=tile[0],
-                        block_co=tile[1], block_ci=tile[2])
-    want = pwconv.pwconv_plain(x, w, b, activation=act)
+    return x, w, _r((co,), dev, dtype, 0.5)
+
+
+@pytest.mark.parametrize("variant,tile,shape,io", [
+    (v, t, s, io) for v, t, s in PW_CASES for io in PW_IO
+    if not (v == "tc" and io[0] == torch.float32)])
+def test_pwconv_kernel(dev, variant, tile, shape, io):
+    """fp32 is not a ``tc`` case: test_pwconv_tc_refuses_fp32."""
+    dtype, odt = io
+    g, ci, co, act = shape
+    x, w, b = _pw_operands(dev, g, ci, co, dtype)
+    bci = tile[2] or -(-ci // 4)
+    why = blocking.pwconv_tile_error(
+        variant, tile[0], tile[1], bci, ci=ci,
+        vector=blocking.pw_vector(co, dtype))
+    kw = dict(activation=act, variant=variant, block_g=tile[0],
+              block_co=tile[1], block_ci=bci, out_dtype=odt)
+    if why is not None:
+        with pytest.raises(ValueError):
+            pwconv.pwconv(x, w, b, **kw)
+        return
+    before = dict(pwconv.launches_by_variant)
+    got = pwconv.pwconv(x, w, b, **kw)
+    want = pwconv.pwconv_plain(x, w, b, activation=act, out_dtype=odt)
+    assert got.dtype == odt and got.shape == (g, co)
+    assert pwconv.launches_by_variant[variant] == before[variant] + 1
     assert rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("g", (1, 7, 8, 15, 16, 17, 63, 64, 65, 300))
+@pytest.mark.parametrize("ci,co", [(130, 3), (130, 8), (520, 50),
+                                   (200, 3072)])
+def test_pwconv_kernel_planned_at_ragged_shapes(dev, g, ci, co, dtype):
+    """The planner's own variant and tile at every G around the stream
+    threshold and the 64-row tiles."""
+    x, w, b = _pw_operands(dev, g, ci, co, dtype)
+    plan = blocking.plan_pwconv(g, ci, co, dtype=dtype)
+    before = dict(pwconv.launches_by_variant)
+    got = pwconv.pwconv(x, w, b, activation="relu6")
+    want = pwconv.pwconv_plain(x, w, b, activation="relu6")
+    assert pwconv.launches_by_variant[plan.variant] == (
+        before[plan.variant] + 1)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+def test_pwconv_tc_refuses_fp32(dev):
+    x, w, b = _pw_operands(dev, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="16-bit"):
+        pwconv.pwconv(x, w, b, variant="tc")
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_pwconv_unaligned_bases_take_the_element_paths(dev, dtype):
+    """A base off a 16-byte boundary: ``tc`` gives way to ``simt`` and
+    ``stream`` reads w element by element, decided before the launch."""
+    g, ci, co = 300, 64, 64
+    xs = _r((g * ci + 1,), dev, dtype)[1:].view(g, ci)
+    ws = _r((ci * co + 1,), dev, dtype, ci ** -0.5)[1:].view(ci, co)
+    before = dict(pwconv.launches_by_variant)
+    got = pwconv.pwconv(xs, ws)
+    want_variant = "simt"
+    assert pwconv.launches_by_variant[want_variant] == (
+        before[want_variant] + 1)
+    assert rel_err(got, pwconv.pwconv_plain(xs, ws)) <= TOL[dtype]
+    got = pwconv.pwconv(xs[:8], ws)
+    assert rel_err(got, pwconv.pwconv_plain(xs[:8], ws)) <= TOL[dtype]
+
+
+def test_pwconv_stream_repeats_bit_for_bit(dev):
+    x, w, b = _pw_operands(dev, 8, 1536, 3072, torch.float32)
+    first = pwconv.pwconv(x, w, b)
+    for _ in range(3):
+        assert torch.equal(pwconv.pwconv(x, w, b), first)
+
+
+@pytest.mark.parametrize("variant", blocking.PW_VARIANTS)
+def test_pwconv_smem_model_matches_the_kernel(dev, variant):
+    for bg, bco, bci in blocking.PW_TILES[variant]:
+        for k in ((bci,) if bci else (1, 96, 192, 300)):
+            for ci in (8, 64, 130, 256, 3072):
+                assert pwconv.smem_bytes(variant, bg, bco, k, ci) == (
+                    blocking.pwconv_smem_bytes(variant, bg, bco, k, ci))
 
 
 @pytest.mark.parametrize("dtype", list(TOL))
