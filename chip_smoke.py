@@ -12,15 +12,19 @@ From the root of a checkout it:
 2. builds every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    all at once) and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card at
-   main-path shapes (3x3 and 5x5 taps; the xLSTM conv and Linear shapes),
-   in fp32 and bf16, and times the kernel, the plain version and PyTorch
-   library calls for the same function;
+   main-path shapes (3x3 and 5x5 taps, ``separable_fused`` at every stage
+   size of V2 and Lite0 including the 7x7 blocks at batch 1 and 8, with
+   the CTA count of each launch; the xLSTM conv and Linear shapes), in
+   fp32 and bf16, and times the kernel and PyTorch library calls for the
+   same function, each replayed from a CUDA graph of 20 calls and as
+   events around one eager call, and the plain version;
 4. drives the CNN path, ``execute_network`` on MobileNet V1 and
    V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
    and 8, fp32 and bf16 streaming, under the default plan and
    ``fused=False``: for each run it zeroes the launch counters, drives one
    forward, checks that the counters moved by exactly the expected counts,
-   holds the output against the fp32 plain path and times the forward;
+   holds the output against the fp32 plain path, times the forward and
+   prints the CTA count of each ``separable_fused`` launch;
 5. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy ``decode_step``s, in fp32 and bf16.  Around each call it
@@ -83,9 +87,9 @@ SOURCES = {
                  "src/repro/kernels/dwconv2d.py:87"),
     "pwconv": ("src/repro_torch/csrc/pwconv.cu",
                "src/repro/kernels/pwconv.py:122"),
-    "separable_fused2": ("src/repro_torch/csrc/separable_fused.cu",
+    "separable_fused2": ("src/repro_torch/csrc/separable_fused.cuh",
                          "src/repro/kernels/separable_fused.py:254"),
-    "separable_fused3": ("src/repro_torch/csrc/separable_fused.cu",
+    "separable_fused3": ("src/repro_torch/csrc/separable_fused.cuh",
                          "src/repro/kernels/separable_fused.py:254"),
     "fused_mbconv": ("src/repro_torch/csrc/fused_mbconv.cu",
                      "src/repro/kernels/fused_mbconv.py:193"),
@@ -123,9 +127,10 @@ class KernelChecks:
 
     def __init__(self, torch, dev):
         from repro_torch.kernels import ref
-        from repro_torch.measure import rel_err, time_ms
+        from repro_torch.measure import graph_ms, rel_err, time_ms
         self.torch, self.dev = torch, dev
         self.pad_same, self.rel_err, self.time_ms = ref.pad_same, rel_err, time_ms
+        self.graph_ms = graph_ms
         self.gen = torch.Generator().manual_seed(0)
         self.results = []
 
@@ -145,9 +150,12 @@ class KernelChecks:
         rel = self.rel_err(got, want)
         finite = bool(torch.isfinite(got.float()).all())
         kw = dict(reps=20, warmup=3, launches=launches)
-        ms = self.time_ms(kern, self.dev, **kw)
+        eager_ms = self.time_ms(kern, self.dev, **kw)
         plain_ms = self.time_ms(plain, self.dev, **kw)
-        library_ms = self.time_ms(library, self.dev, **kw)
+        library_eager_ms = self.time_ms(library, self.dev, **kw)
+        # the device's pace: a CUDA graph of 20 launches replayed
+        ms = self.graph_ms(kern, self.dev)
+        library_ms = self.graph_ms(library, self.dev)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         r = {"name": name, "shape": label, "dtype": dname,
@@ -155,10 +163,12 @@ class KernelChecks:
              "tol": KERNEL_TOL[dname], "ms": ms, "plain_ms": plain_ms,
              "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "eager_ms": eager_ms, "library_eager_ms": library_eager_ms,
              "bytes": nbytes, "ops": ops, **(extra or {})}
         print(f"  {name:17s} {label:44s} {dname:8s} rel err {rel:.2e} "
-              f"(tol {r['tol']:g}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"(tol {r['tol']:g}) kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (eager "
+              f"{library_eager_ms:.4f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
               + "".join(f", {k} {v:.4f}" if isinstance(v, float)
                         else f", {k} {v}" for k, v in (extra or {}).items()),
@@ -206,10 +216,7 @@ class KernelChecks:
             plan.variant, plan.block_g, plan.block_co, plan.block_c, ci))
         extra = {"variant": plan.variant,
                  "tile": [plan.block_g, plan.block_co, plan.block_c,
-                          plan.cluster],
-                 "graph_ms": graph_ms(
-                     lambda: pwconv.pwconv(x, w, bias, activation=act),
-                     self.dev)}
+                          plan.cluster]}
         if plan.variant == "stream":
             copies = [w] + [w.clone() for _ in range(
                 max(5, -(-64 * 2 ** 20 // (w.numel() * w.element_size()))))]
@@ -252,38 +259,46 @@ class KernelChecks:
             (2 * x.numel() + f.numel()) * x.element_size())
 
     def fused(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
+        """One block as the main path runs it: x unpadded, the kernel
+        applying the SAME padding itself, at the planner's slab, cluster,
+        chunk and panel; its shared memory against the kernel's own count;
+        the CTA count printed.  The library yardstick composes the same
+        function: matmul, depthwise conv + bias, relu6, matmul + bias,
+        activation, residual add."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels import blocking, separable_fused
+        from repro_torch.kernels import blocking, ref, separable_fused
         expand = ci != c
-        x_raw = self.rand((b, h, w, ci), dtype)
-        x = self.pad_same(x_raw, k, k, stride)
+        x = self.rand((b, h, w, ci), dtype)
+        pad = ref.same_pads(h, w, k, k, stride)
+        xp = self.pad_same(x, k, k, stride)
         ew = self.rand((ci, c), dtype, ci ** -0.5) if expand else None
         f = self.rand((k, k, c), dtype, 1 / k)
         dwb = self.rand((c,), dtype, 0.1)
         pw = self.rand((c, co), dtype, c ** -0.5)
         pwb = self.rand((co,), dtype, 0.1)
-        res = x_raw if residual else None
+        res = x if residual else None
         ho, wo = -(-h // stride), -(-w // stride)
-        if expand:
-            plan = blocking.plan_separable3(ho, wo, ci, c, co, stride=stride,
-                                            hf=k, wf=k, dtype=dtype)
-        else:
-            plan = blocking.plan_separable(ho, wo, c, co, stride=stride,
-                                           hf=k, wf=k, dtype=dtype)
+        plan = blocking.plan_separable_fused(
+            ho, wo, ci if expand else 0, c, co, stride=stride, hf=k, wf=k,
+            dtype=dtype, batch=b, hi=h, wi=w)
         self.same_smem(plan.smem_bytes, separable_fused.smem_bytes(
-            ci, c, k, k, stride, plan.slab_h, plan.tile_w, plan.block_c,
-            plan.block_co, expand, dtype))
+            ci if expand else 0, plan.block_g, plan.block_c, plan.block_co,
+            plan.cluster, plan.slab_h, wo, h, w, k, k, stride, expand,
+            dtype))
         act = None if expand else "relu6"
         kw = dict(expand_w=ew, stride=stride, dw_activation="relu6",
                   activation=act)
         fc = f.permute(2, 0, 1)[:, None].contiguous()
 
         def library():
-            y = torch.matmul(x, ew) if expand else x
+            y = torch.matmul(xp, ew).clamp_(0, 6) if expand else xp
             y = F.conv2d(y.permute(0, 3, 1, 2), fc, dwb, stride=stride,
-                         groups=c)
-            return torch.matmul(y.permute(0, 2, 3, 1), pw)
+                         groups=c).clamp_(0, 6)
+            y = torch.matmul(y.permute(0, 2, 3, 1), pw).add_(pwb)
+            if act:
+                y = y.clamp_(0, 6)
+            return y.add_(res) if residual else y
 
         ops = 2 * b * ho * wo * c * (k * k + co)
         if expand:
@@ -294,16 +309,18 @@ class KernelChecks:
         name = "separable_fused3" if expand else "separable_fused2"
         label = (f"{b}x{h}x{w}x{ci}" + (f"(x{c})" if expand else "")
                  + f"->{co} k{k} s{stride}" + (" +res" if residual else "")
-                 + f" tile {plan.slab_h}x{plan.tile_w} cb {plan.block_c}")
+                 + f" slab {plan.slab_h} cl {plan.cluster} cb "
+                 f"{plan.block_c} np {plan.block_co}")
+        blocks = dict(slab_h=plan.slab_h, block_c=plan.block_c,
+                      block_co=plan.block_co, cluster=plan.cluster)
         self.measure(
             name, label, dtype,
             lambda: separable_fused.separable_fused(
-                x, f, pw, dwb, pwb, res, block_c=plan.block_c,
-                block_co=plan.block_co, slab_h=plan.slab_h,
-                tile_w=plan.tile_w, **kw),
+                x, f, pw, dwb, pwb, res, pad=pad, **blocks, **kw),
             lambda: separable_fused.separable_fused_plain(
-                x, f, pw, dwb, pwb, res, **kw),
-            library, ops, nbytes * x.element_size())
+                xp, f, pw, dwb, pwb, res, **kw),
+            library, ops, nbytes * x.element_size(),
+            extra={"ctas": plan.ctas})
 
     @staticmethod
     def same_smem(planned, kernel):
@@ -415,6 +432,9 @@ def run_networks(torch, dev):
                           f"{r['ms']:.3f} ms/forward, peak {peak:.1f} MiB, "
                           f"rel err {r['rel_err']:.2e} (tol {r['tol']:g}), "
                           f"launches {r['launches']}", flush=True)
+                    if fused is None:
+                        print(f"    separable_fused CTAs per launch: "
+                              f"{r['fused_ctas']}", flush=True)
                     print(f"    device {busy:.3f} ms/forward: " + ", ".join(
                         f"{k} {v:.3f}" for k, v in sorted(
                             r["device_ms"].items())) + "; pwconv by variant "
@@ -441,7 +461,7 @@ def run_networks(torch, dev):
                                  **{k: r[k] for k in (
                                      "ms", "peak_bytes", "device_ms",
                                      "rel_err", "launches", "pwconv_variants",
-                                     "out_shape")}})
+                                     "out_shape", "fused_ctas")}})
     return runs, totals, variants
 
 
@@ -712,6 +732,13 @@ def main() -> int:
         kc.fused(8, 56, 56, 24, 144, 24, 1, True, dtype)
         kc.fused(8, 14, 14, 96, 576, 160, 2, False, dtype)
         kc.fused(8, 14, 14, 112, 672, 112, 1, True, dtype, k=5)
+        # Lite0's 7x7 k5 block, V2's 7x7 block at batch 1 and 8, Lite0's
+        # 14x14 k5 block at batch 1
+        kc.fused(8, 7, 7, 192, 1152, 192, 1, True, dtype, k=5)
+        kc.fused(1, 7, 7, 192, 1152, 192, 1, True, dtype, k=5)
+        kc.fused(8, 7, 7, 160, 960, 160, 1, True, dtype)
+        kc.fused(1, 7, 7, 160, 960, 160, 1, True, dtype)
+        kc.fused(8, 7, 7, 1024, 1024, 1024, 1, False, dtype)
         kc.fused_mb(8, 112, 112, 16, 96, 24, 2, False, dtype)
         kc.fused_mb(8, 56, 56, 24, 144, 24, 1, True, dtype)
         kc.dw_se(8, 56, 56, 72, 6, 2, dtype, k=5)

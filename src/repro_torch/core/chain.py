@@ -303,7 +303,8 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             p3 = blocking.plan_separable3(
                 ho, wo, c, stages[i].features, proj.features,
                 stride=d.stride, hf=d.hf, wf=d.wf, dtype=dtype,
-                smem_budget=budget, residual=res_active and i + 3 == n)
+                smem_budget=budget, residual=res_active and i + 3 == n,
+                batch=b, hi=h, wi=w)
             if p3 is not None:
                 segments.append(ChainSegment("fused3", (i, i + 1, i + 2), p3))
                 h, w, c = ho, wo, proj.features
@@ -327,7 +328,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             p2 = blocking.plan_separable(
                 ho, wo, c, proj.features, stride=d.stride, hf=d.hf,
                 wf=d.wf, dtype=dtype, smem_budget=budget,
-                residual=res_active and i + 2 == n)
+                residual=res_active and i + 2 == n, batch=b, hi=h, wi=w)
             if p2 is not None:
                 segments.append(ChainSegment("fused2", (i, i + 1), p2))
                 h, w, c = ho, wo, proj.features

@@ -11,8 +11,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 ``cuTensorMapEncodeTiled``); nvcc finds the toolkit's stub at build time and
 the driver's ``libcuda.so.1`` is loaded at run time.
 
-The hash covers the source, ``common.cuh`` and the flags, so an edited
-source never loads a stale library.  Builds happen at first launch, never
+The hash covers the source, every header of ``csrc/`` and the flags, so an
+edited source never loads a stale library.  Builds happen at first launch, never
 at import, into ``build/repro_torch/`` at the root of the checkout (listed
 in ``.gitignore``); ``ptxas``'s register and shared-memory report lands
 beside each library as ``lib<name>-<hash>.log``.  :func:`build` starts one
@@ -33,8 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("dwconv2d", "pwconv", "separable_fused", "fused_mbconv", "dw_se",
-           "dwconv1d")
+SOURCES = ("dwconv2d", "pwconv", "separable_fused", "separable_fused_bf16",
+           "separable_fused_f16", "fused_mbconv", "dw_se", "dwconv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Libraries, after the source on nvcc's command line.
@@ -66,7 +66,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

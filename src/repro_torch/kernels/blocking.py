@@ -5,19 +5,23 @@ Counterpart of ``repro/kernels/blocking.py``.  The schema (``BlockPlan``,
 budget is re-aimed from a TPU core's VMEM (12 MiB, 128-lane snapping) at
 ONE CTA of an H100: at most 227 KB (232,448 B) of dynamic shared memory.
 
-The fused separable kernel (``csrc/separable_fused.cu``) tiles the output
-into ``slab_h x tile_w`` pixels (at most :data:`FUSED_MAX_PIXELS`) by a
-Co panel of at most :data:`FUSED_MAX_CO` channels, and loops over the DW
-channels in chunks of ``block_c``.  Its input window therefore carries a
-halo on BOTH axes, ``(slab_h-1)*s + Hf`` rows by ``(tile_w-1)*s + Wf``
-columns; the reference's slab always spans the full output width.  The
-shared-memory model below is the one the kernel's own layout follows
-(``fused_layout`` in ``csrc/separable_fused.cu``); the kernel refuses
-a launch whose layout exceeds the budget, so a drift fails loudly.
+The fused separable kernel (``csrc/separable_fused.cu``) gives a CTA
+``slab_h`` full-width output rows of one image and a slice of the DW
+channels; a thread-block cluster of up to :data:`SEP_MAX_CLUSTER` CTAs
+splits C, so each expand and DW value is computed once per slab and
+neighbouring slabs share only the window's halo rows (the whole image is
+one slab at the 14x14 and 7x7 stages).  :func:`plan_separable_fused` picks
+the slab, the cluster (enough CTAs to fill :data:`SMS`), the chunk of the
+slice staged at once and the Co panel, from the kernel's shared-memory
+model (:func:`separable_smem_bytes`, the kernel's ``sep_layout``); the
+kernel refuses a launch whose layout exceeds the budget, so a drift fails
+loudly.  :func:`separable_macs` counts a launch's multiply-adds.
 
-The fused-MBConv kernel (``csrc/fused_mbconv.cu``) has the same tile
-and Co panel; per conv-output chunk it stages the dense filter chunk in
-fp32 as well (``fused_mb_smem_bytes``).
+The fused-MBConv kernel (``csrc/fused_mbconv.cu``) tiles the output into
+``slab_h x tile_w`` pixels (at most :data:`FUSED_MAX_PIXELS`) by a Co
+panel of at most :data:`FUSED_MAX_CO`, with a halo on both axes, and
+loops over the conv-output channels in chunks; per chunk it stages the
+dense filter chunk in fp32 as well (``fused_mb_smem_bytes``).
 
 The DW + squeeze-excite kernel (``csrc/dw_se.cu``) needs the WHOLE fp32 DW
 output of an image resident, because its gate mixes the pooled mean of
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -48,12 +53,26 @@ DEFAULT_SMEM_BUDGET = 232_448
 #: Accumulators and fused intermediates are fp32.
 ACC_BYTES = 4
 
-#: The fused kernel's CTA tile limits (256 threads, 4x4 register
+#: The fused-MBConv kernel's CTA tile limits (256 threads, 4x4 register
 #: micro-tile each): at most 64 output pixels by 64 output channels.
 FUSED_MAX_PIXELS = 64
 FUSED_MAX_CO = 64
-#: Largest DW channel chunk a fused CTA stages at once.
+#: Largest conv-output channel chunk a fused-MBConv CTA stages at once.
 FUSED_MAX_CB = 64
+
+#: ``separable_fused`` (``csrc/separable_fused.cuh``): most output pixels a
+#: slab holds, largest cluster splitting C (the largest portable one),
+#: widest Co panel, and the fewest CTAs a launch gets where the image
+#: allows it.
+SEP_MAX_PIXELS = 256
+SEP_MAX_CLUSTER = 8
+SEP_MAX_PANEL = 256
+SEP_MIN_CTAS = 64
+#: Most expand multiply-adds a 3-stage plan does over its minimum (every
+#: input pixel once) where a plan within it exists; shared memory a CTA may
+#: hold for two to share an SM.
+SEP_MAX_EXPAND = 2.0
+SEP_TWO_CTAS = DEFAULT_SMEM_BUDGET // 2 - 1024
 
 #: Channels per thread in ``dwconv2d`` (one 16-byte fp32 vector).
 DW_VEC = 4
@@ -122,8 +141,10 @@ class BlockPlan:
     """One kernel launch's block choices and the shared memory behind them.
 
     * ``dwconv2d``        — ``block_c``: channels per thread (1 or 4).
-    * ``separable_fused`` — ``block_c`` (DW channel chunk), ``block_co``
-      (Co panel), ``slab_h`` x ``tile_w`` output pixels per CTA.
+    * ``separable_fused`` — ``slab_h`` full-width output rows (``tile_w``
+      = Wo) per CTA, ``cluster`` CTAs splitting the DW channels into
+      slices of ``block_g``, ``block_c`` the chunk of a slice staged at
+      once, ``block_co`` the Co panel; ``ctas`` the launch's CTA count.
     * ``pwconv``          — ``variant``, ``block_g``, ``block_co``,
       ``block_c`` (the K step; for ``stream`` the Ci rows of each of the
       ``cluster`` CTAs that split Ci).
@@ -143,6 +164,7 @@ class BlockPlan:
     tile_w: int = 0
     cluster: int = 1
     variant: str = ""
+    ctas: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,38 +184,8 @@ def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
 
 
 # ---------------------------------------------------------------------------
-# fused separable block ([PW-expand ->] DW -> PW)
+# fused-kernel tiles (fused_mbconv)
 # ---------------------------------------------------------------------------
-
-def fused_smem_bytes(slab_h: int, tile_w: int, cb: int, cob: int, *,
-                     ci: int = 0, hf: int = 3, wf: int = 3, stride: int = 1,
-                     itemsize: int = 4) -> int:
-    """Shared memory of one fused CTA.  ``ci > 0`` is the 3-stage kernel
-    with ``ci`` raw input channels.
-
-    Regions, each rounded up to 16 bytes: the fp32 DW output tile, stored
-    channel-major with rows of ``FUSED_MAX_PIXELS + 4``; the fp32 PW weight
-    chunk with rows of ``FUSED_MAX_CO``; then either the raw ``ci``-channel
-    window (loaded once per CTA, transposed to fp32, rows padded to a
-    multiple of 4 pixels), the fp32 expand-weight chunk ``(ci, cb)`` and the
-    fp32 expanded window, or one ``cb`` chunk of the DW input window at the
-    stream width.  The DW taps and bias live in registers; ``cob`` only
-    bounds the panel the fixed-width rows hold.
-    """
-    if cob > FUSED_MAX_CO:
-        raise ValueError(f"Co panel {cob} > {FUSED_MAX_CO}")
-    hin = (slab_h - 1) * stride + hf
-    win = (tile_w - 1) * stride + wf
-    total = (_a(cb * (FUSED_MAX_PIXELS + 4) * ACC_BYTES)
-             + _a(cb * FUSED_MAX_CO * ACC_BYTES))
-    if ci:
-        nwp = -(-hin * win // 4) * 4
-        total += (_a(ci * nwp * ACC_BYTES) + _a(ci * cb * ACC_BYTES)
-                  + _a(hin * win * cb * ACC_BYTES))
-    else:
-        total += _a(hin * win * cb * itemsize)
-    return total
-
 
 def tile_candidates(ho: int, wo: int) -> list[tuple[int, int]]:
     """Output tiles ``(slab_h, tile_w)``, largest first: up to 64 pixels,
@@ -235,47 +227,225 @@ def _tile_plan(ho: int, wo: int, c: int, co: int, *, stride: int, hf: int,
     return None
 
 
-def _fused_plan(ho: int, wo: int, ci: int, c: int, co: int, *, stride: int,
-                hf: int, wf: int, dtype: torch.dtype, smem_budget: int
-                ) -> Optional[BlockPlan]:
-    nb = dtype_bytes(dtype)
-    return _tile_plan(
-        ho, wo, c, co, stride=stride, hf=hf, dtype=dtype,
-        smem_budget=smem_budget,
-        smem=lambda sh, tw, cb, cob: fused_smem_bytes(
-            sh, tw, cb, cob, ci=ci, hf=hf, wf=wf, stride=stride,
-            itemsize=nb))
+# ---------------------------------------------------------------------------
+# fused separable block ([PW-expand ->] DW -> PW), csrc/separable_fused.cu
+# ---------------------------------------------------------------------------
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def separable_slice(c: int, cluster: int) -> int:
+    """DW channels each CTA of a ``cluster`` owns: ``ceil(C / cluster)``,
+    rounded up to 8 once it is 8 or more (so slices start on 16-byte
+    boundaries of the channel rows)."""
+    cs = -(-c // cluster)
+    return _up(cs, 8) if cs >= 8 else cs
+
+
+def separable_smem_bytes(*, ci: int, c_slice: int, cb: int, panel: int,
+                         cluster: int, slab_h: int, wo: int, hi: int,
+                         wi: int, hf: int = 3, wf: int = 3, stride: int = 1,
+                         tc: bool = False) -> int:
+    """Shared memory of one ``separable_fused`` CTA (``sep_layout`` in
+    ``csrc/separable_fused.cu``), each region rounded up to 16 bytes.
+
+    ``ci > 0`` is the 3-stage kernel.  ``hi x wi`` is the input the kernel
+    reads (before any SAME padding it applies itself): the raw window of a
+    slab holds at most ``min(window rows, hi) x min(window cols, wi)`` real
+    pixels.  Regions: the DW tile of the CTA's ``c_slice`` channels for the
+    slab's ``slab_h x wo`` pixels and the window index of each real pixel,
+    resident through both phases; then the
+    larger of phase A (the fp32 window of one ``cb`` chunk, channel-major,
+    and in 3-stage the raw window and the expand-weight chunk) and phase B
+    (one ``panel`` of the project weights, its fp32 bias and the fp32
+    partial output tile the cluster sums; a cluster of one sums its own).  ``tc`` (bf16) keeps the
+    tensor-core operands: 16-bit rows padded to 16 in K plus 8, the DW tile
+    as a bf16 hi and lo pair, pixel rows padded to 16, the weights K-major
+    in rows of their width rounded up to 8, plus 8; otherwise every
+    operand is fp32, pixel rows padded to 8.
+    """
+    p = slab_h * wo
+    hwin = (slab_h - 1) * stride + hf
+    wwin = (wo - 1) * stride + wf
+    rp = min(hwin, hi) * min(wwin, wi)
+    wmap = _a(rp * 4)
+    phase_a = (_a(cb * hwin * wwin * ACC_BYTES)
+               + _a(hf * wf * _up(cb, 8) * ACC_BYTES) + _a(_up(cb, 8) * ACC_BYTES))
+    if tc:
+        sk, sa, pm = _up(ci, 16) + 8, _up(c_slice, 16) + 8, _up(p, 16)
+        dw = 2 * _a(pm * sa * 2)
+        if ci:
+            phase_a += (_a(_up(rp, 16) * sk * 2)
+                        + _a(_up(ci, 16) * (_up(cb, 8) + 8) * 2))
+        phase_b = _a(_up(c_slice, 16) * (panel + 8) * 2)
+    else:
+        pm = _up(p, 8)
+        dw = _a(c_slice * pm * ACC_BYTES)
+        if ci:
+            phase_a += (_a(ci * _up(rp, 8) * ACC_BYTES)
+                        + _a(ci * _up(cb, 8) * ACC_BYTES))
+        phase_b = _a(c_slice * panel * ACC_BYTES)
+    phase_b += _a(panel * ACC_BYTES) + _a(pm * panel * ACC_BYTES)
+    return dw + wmap + max(phase_a, phase_b)
+
+
+def separable_macs(batch: int, ho: int, wo: int, hi: int, wi: int, ci: int,
+                   c: int, co: int, *, stride: int, hf: int, wf: int,
+                   slab_h: int, pad_t: int = 0, pad_l: int = 0) -> dict:
+    """Multiply-adds one launch does, by stage, and the expand's minimum
+    (every input pixel expanded once, ``B*H*W*Ci*C``).  The kernel expands
+    the real pixels of each slab's window (the zero SAME padding is never
+    expanded: the expand is bias-free and every activation maps 0 to 0), so
+    the expand repeats only the halo rows shared by neighbouring slabs."""
+    rows = 0
+    for oh0 in range(0, ho, slab_h):
+        hwin = (min(slab_h, ho - oh0) - 1) * stride + hf
+        r0 = oh0 * stride - pad_t
+        rows += max(0, min(hi, r0 + hwin) - max(0, r0))
+    wwin = (wo - 1) * stride + wf
+    cols = max(0, min(wi, wwin - pad_l) - max(0, -pad_l))
+    return {"expand": batch * rows * cols * ci * c,
+            "expand_min": batch * hi * wi * ci * c,
+            "dw": batch * ho * wo * c * hf * wf,
+            "pw": batch * ho * wo * c * co}
+
+
+def _halvings(n: int, floor: int = 1):
+    """n, ceil(n / 2), ... down to ``floor``; multiples of 8 kept so."""
+    out = [n]
+    while n > floor:
+        n = -(-n // 2)
+        if n >= 8:
+            n = _up(n, 8)
+        if n >= out[-1]:
+            n = out[-1] - 1
+        out.append(max(n, floor))
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_separable_fused(ho: int, wo: int, ci: int, c: int, co: int, *,
+                         stride: int = 1, hf: int = 3, wf: int = 3,
+                         dtype: torch.dtype = torch.float32,
+                         smem_budget: int = DEFAULT_SMEM_BUDGET,
+                         batch: int = 1, hi: Optional[int] = None,
+                         wi: Optional[int] = None) -> Optional[BlockPlan]:
+    """The plan of one ``separable_fused`` launch (``ci = 0``: 2-stage), or
+    None when even one output row with the largest cluster, a one-channel
+    chunk and an 8-wide panel exceeds ``smem_budget``.
+
+    A CTA owns ``slab_h`` full-width output rows of one image and a slice
+    of the DW channels; a cluster of ``cluster`` CTAs splits C, so the
+    expand and the DW run once per slab, and the partial projections are
+    summed across the cluster.  Among the slab heights (balanced over the
+    image), clusters of 1-8 and Co panels, each with the largest chunk that
+    fits the budget, the planner prefers, in order: plans that put at least
+    :data:`SEP_MIN_CTAS` CTAs on the card; where whole-image slabs with the
+    largest cluster already do, an expand within :data:`SEP_MAX_EXPAND` of
+    its minimum (with fewer images, repeating the halo's expand on SMs
+    that would otherwise idle is the cheaper way to fill the card); two
+    CTAs an SM; a CTA count nearest :data:`SMS` (a CTA's loads and barriers
+    cost more than the SMs a second wave would add); the fewest chunks;
+    the widest panel.  The order was read off ``bench_separable_fused.py
+    --tune`` on the card (PERF.md).  ``hi x wi`` is the input the kernel
+    reads (default: the VALID window of the output).
+    """
+    hi = hi or (ho - 1) * stride + hf
+    wi = wi or (wo - 1) * stride + wf
+    most = batch * ho * SEP_MAX_CLUSTER  # one-row slabs, the largest cluster
+    floor, target = min(SEP_MIN_CTAS, most), min(SMS, most)
+    best = None
+    for sh in sorted({-(-ho // -(-ho // h)) for h in _halvings(
+            max(1, min(ho, SEP_MAX_PIXELS // wo)))}, reverse=True):
+        excess = False
+        if ci and batch * SEP_MAX_CLUSTER >= SEP_MIN_CTAS:
+            m = separable_macs(batch, ho, wo, hi, wi, ci, c, co,
+                               stride=stride, hf=hf, wf=wf, slab_h=sh)
+            excess = m["expand"] > SEP_MAX_EXPAND * m["expand_min"]
+        for n in (1, 2, 4, 8):
+            for panel in _halvings(separable_panel(sh * wo, co), 8):
+                p = separable_plan_at(
+                    ho, wo, ci, c, co, slab_h=sh, cluster=n, panel=panel,
+                    stride=stride, hf=hf, wf=wf, dtype=dtype,
+                    smem_budget=smem_budget, batch=batch, hi=hi, wi=wi)
+                if p is None:
+                    continue
+                key = (p.ctas < floor, excess, p.smem_bytes > SEP_TWO_CTAS,
+                       abs(math.log(p.ctas / target)),
+                       -(-p.block_g // p.block_c), -p.block_co)
+                if best is None or key < best[0]:
+                    best = (key, p)
+    return None if best is None else best[1]
+
+
+def separable_panel(pixels: int, co: int) -> int:
+    """The widest Co panel: whole 8-column register tiles, at most 256
+    threads' worth of tiles beside ``pixels`` rows (and at most
+    :data:`SEP_MAX_PANEL`), balanced over Co."""
+    npmax = min(SEP_MAX_PANEL, 8 * max(1, 256 // -(-pixels // 8)))
+    return _up(-(-co // -(-co // npmax)), 8)
+
+
+def separable_plan_at(ho: int, wo: int, ci: int, c: int, co: int, *,
+                      slab_h: int, cluster: int, panel: int,
+                      stride: int = 1, hf: int = 3, wf: int = 3,
+                      dtype: torch.dtype = torch.float32,
+                      smem_budget: int = DEFAULT_SMEM_BUDGET,
+                      batch: int = 1, hi: Optional[int] = None,
+                      wi: Optional[int] = None,
+                      min_cb: int = 1) -> Optional[BlockPlan]:
+    """The plan at this slab, cluster and panel with the largest chunk (at
+    least ``min_cb``) that fits ``smem_budget``, or None."""
+    hi = hi or (ho - 1) * stride + hf
+    wi = wi or (wo - 1) * stride + wf
+    cs = separable_slice(c, cluster)
+    n = -(-c // cs)
+    n_slabs = -(-ho // slab_h)
+    for cb in _halvings(cs):
+        if cb < min_cb:
+            break
+        need = separable_smem_bytes(
+            ci=ci, c_slice=cs, cb=cb, panel=panel, cluster=n, slab_h=slab_h,
+            wo=wo, hi=hi, wi=wi, hf=hf, wf=wf, stride=stride,
+            tc=dtype == torch.bfloat16)
+        if need <= smem_budget:
+            return BlockPlan(
+                block_c=cb, block_co=panel, slab_h=slab_h, n_slabs=n_slabs,
+                halo_rows=max(hf - stride, 0) if n_slabs > 1 else 0,
+                smem_bytes=need, dtype_bytes=dtype_bytes(dtype), tile_w=wo,
+                cluster=n, block_g=cs, ctas=batch * n_slabs * n)
+    return None
 
 
 def plan_separable(ho: int, wo: int, c: int, co: int, *, stride: int = 1,
                    hf: int = 3, wf: int = 3,
                    dtype: torch.dtype = torch.float32,
                    smem_budget: int = DEFAULT_SMEM_BUDGET,
-                   residual: bool = False) -> Optional[BlockPlan]:
-    """Tile plan for the 2-stage fused kernel (DW -> PW), or None when
-    even a 1x1-pixel tile with a one-channel chunk exceeds the budget.
-
-    Preference: the widest Co panel the kernel takes, then a channel chunk
-    of at least 32 (or all of C), then the largest pixel tile, then the
-    largest chunk that fits.  The residual streams straight from global
-    memory into the epilogue and claims no shared memory.
-    """
-    return _fused_plan(ho, wo, 0, c, co, stride=stride, hf=hf, wf=wf,
-                       dtype=dtype, smem_budget=smem_budget)
+                   residual: bool = False, batch: int = 1,
+                   hi: Optional[int] = None,
+                   wi: Optional[int] = None) -> Optional[BlockPlan]:
+    """Plan of the 2-stage fused kernel (DW -> PW), or None when nothing
+    fits (:func:`plan_separable_fused`).  The residual streams from device
+    memory into the epilogue and claims no shared memory."""
+    return plan_separable_fused(ho, wo, 0, c, co, stride=stride, hf=hf,
+                                wf=wf, dtype=dtype, smem_budget=smem_budget,
+                                batch=batch, hi=hi, wi=wi)
 
 
 def plan_separable3(ho: int, wo: int, ci: int, c: int, co: int, *,
                     stride: int = 1, hf: int = 3, wf: int = 3,
                     dtype: torch.dtype = torch.float32,
                     smem_budget: int = DEFAULT_SMEM_BUDGET,
-                    residual: bool = False) -> Optional[BlockPlan]:
-    """Tile plan for the 3-stage fused kernel (expand -> DW -> project), or
-    None when the raw ``ci``-channel window of even a 1x1-pixel tile does
-    not fit (callers degrade to a standalone expand and the 2-stage plan).
-    """
-    return _fused_plan(ho, wo, ci, c, co, stride=stride, hf=hf, wf=wf,
-                       dtype=dtype, smem_budget=smem_budget)
-
+                    residual: bool = False, batch: int = 1,
+                    hi: Optional[int] = None,
+                    wi: Optional[int] = None) -> Optional[BlockPlan]:
+    """Plan of the 3-stage fused kernel (expand -> DW -> project), or None
+    when the raw ``ci``-channel window of even one output row does not fit
+    (callers degrade to a standalone expand and the 2-stage plan)."""
+    return plan_separable_fused(ho, wo, ci, c, co, stride=stride, hf=hf,
+                                wf=wf, dtype=dtype, smem_budget=smem_budget,
+                                batch=batch, hi=hi, wi=wi)
 
 # ---------------------------------------------------------------------------
 # fused MBConv (dense Hf x Wf conv -> act -> PW-project)

@@ -75,14 +75,16 @@ def _run_fused(seg, stages, params, y, res, *, impl, stream_dtype,
             expand_activation=expand_act, stride=d.stride,
             padding=d.padding, dw_activation=d.activation,
             activation=proj.activation).to(out_dtype)
-    y = ref.apply_padding(y, d.hf, d.wf, d.stride, d.padding)
+    # the kernel pads as it reads: no padded copy of y is made
+    pad = (ref.same_pads(y.shape[1], y.shape[2], d.hf, d.wf, d.stride)
+           if d.padding.lower() == "same" else None)
     p = seg.plan
     return separable_fused(
         y, dw_f, pw_w, dw_b, pw_b, res, expand_w=expand_w,
         expand_activation=expand_act, stride=d.stride,
-        dw_activation=d.activation, activation=proj.activation,
-        block_c=p.block_c, block_co=p.block_co, slab_h=p.slab_h,
-        tile_w=p.tile_w, out_dtype=out_dtype)
+        dw_activation=d.activation, activation=proj.activation, pad=pad,
+        slab_h=p.slab_h, block_c=p.block_c, block_co=p.block_co,
+        cluster=p.cluster, out_dtype=out_dtype)
 
 
 def _run_fused_mb(seg, stages, params, y, res, *, impl, stream_dtype,

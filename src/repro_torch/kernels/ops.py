@@ -101,33 +101,38 @@ def separable_fused(
             stride=stride, padding=padding,
             dw_activation=dw_activation, activation=activation)
     hf, wf = dw_f.shape[0], dw_f.shape[1]
-    x = ref.apply_padding(x, hf, wf, stride, padding)
-    ho = (x.shape[1] - hf) // stride + 1
-    wo = (x.shape[2] - wf) // stride + 1
+    b, hi, wi = x.shape[:3]
+    pad = (ref.same_pads(hi, wi, hf, wf, stride)
+           if padding.lower() == "same" else (0, 0, 0, 0))
+    ho = (hi + pad[0] + pad[2] - hf) // stride + 1
+    wo = (wi + pad[1] + pad[3] - wf) // stride + 1
     co = pw_w.shape[-1]
+
+    def blocks(p):
+        return dict(slab_h=p.slab_h, block_c=p.block_c, block_co=p.block_co,
+                    cluster=p.cluster)
     if expand_w is not None:
         plan3 = blocking.plan_separable3(
             ho, wo, expand_w.shape[0], expand_w.shape[1], co, stride=stride,
-            hf=hf, wf=wf, dtype=x.dtype, smem_budget=smem_budget)
+            hf=hf, wf=wf, dtype=x.dtype, smem_budget=smem_budget, batch=b,
+            hi=hi, wi=wi)
         if plan3 is not None:
             return separable_fused_kernel(
                 x, dw_f, pw_w, dw_bias, pw_bias, residual,
                 expand_w=expand_w, expand_activation=expand_activation,
                 stride=stride, dw_activation=dw_activation,
-                activation=activation, block_c=plan3.block_c,
-                block_co=plan3.block_co, slab_h=plan3.slab_h,
-                tile_w=plan3.tile_w)
+                activation=activation, pad=pad, **blocks(plan3))
         x = pwconv(x, expand_w, activation=expand_activation, impl="cuda")
     plan = blocking.plan_separable(
         ho, wo, x.shape[-1], co, stride=stride, hf=hf, wf=wf, dtype=x.dtype,
-        smem_budget=smem_budget)
+        smem_budget=smem_budget, batch=b, hi=hi, wi=wi)
     if plan is None:
-        y = dwconv2d_kernel(x, dw_f, stride=stride)
+        y = dwconv2d_kernel(ref.apply_padding(x, hf, wf, stride, padding),
+                            dw_f, stride=stride)
         y = apply_epilogue(y, dw_bias, dw_activation).to(x.dtype)
         out = pwconv(y, pw_w, pw_bias, activation=activation, impl="cuda")
         return out if residual is None else out + residual
     return separable_fused_kernel(
         x, dw_f, pw_w, dw_bias, pw_bias, residual,
         stride=stride, dw_activation=dw_activation, activation=activation,
-        block_c=plan.block_c, block_co=plan.block_co, slab_h=plan.slab_h,
-        tile_w=plan.tile_w)
+        pad=pad, **blocks(plan))

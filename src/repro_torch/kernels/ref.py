@@ -29,14 +29,19 @@ def pad_same(x: torch.Tensor, hf: int, wf: int, stride: int) -> torch.Tensor:
     """Explicit SAME zero padding of an NHWC tensor, odd row and column at
     the bottom/right (``repro/kernels/ops.py:33-46``; ``F.conv2d``'s
     ``padding="same"`` differs and rejects stride > 1)."""
-    hi, wi = x.shape[1], x.shape[2]
-    ho = -(-hi // stride)
-    wo = -(-wi // stride)
-    ph = max((ho - 1) * stride + hf - hi, 0)
-    pw = max((wo - 1) * stride + wf - wi, 0)
-    if ph == 0 and pw == 0:
+    top, left, bottom, right = same_pads(x.shape[1], x.shape[2], hf, wf,
+                                         stride)
+    if not (top or left or bottom or right):
         return x
-    return F.pad(x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    return F.pad(x, (0, 0, left, right, top, bottom))
+
+
+def same_pads(hi: int, wi: int, hf: int, wf: int,
+              stride: int) -> tuple[int, int, int, int]:
+    """(top, left, bottom, right) zero rows and columns of SAME padding."""
+    ph = max((-(-hi // stride) - 1) * stride + hf - hi, 0)
+    pw = max((-(-wi // stride) - 1) * stride + wf - wi, 0)
+    return ph // 2, pw // 2, ph - ph // 2, pw - pw // 2
 
 
 def apply_padding(x: torch.Tensor, hf: int, wf: int, stride: int,

@@ -4,19 +4,27 @@ kernel's wrapper, its plain version and its launch counters.
 Replaces ``repro/kernels/separable_fused.py::separable_fused_pallas`` (def
 :254, body ``_fused_kernel`` :167) in both its modes: ``fused2`` (DW -> PW)
 and ``fused3`` (bias-free PW-expand computed on the fly -> DW -> PW).  The
-kernel is ``csrc/separable_fused.cu``.
+kernel is ``csrc/separable_fused.cuh``, compiled once per stream dtype by
+``csrc/separable_fused{,_bf16,_f16}.cu``.
 
 Bound on the H100: operations.  The block moves only its input, weights
-and output, and does 2*C*Co (+ 2*Ci*C with expand) operations per output
-pixel on the CUDA cores in fp32.  What the design buys is traffic: one CTA
-per (image, slab_h x tile_w output tile, Co panel) loops over the DW
-channels in chunks, keeps the expanded window and the DW tile in shared
-memory and the output tile in registers, so neither the expanded tensor
-nor the DW output reaches device memory.  The expand of the tile's halo is
-recomputed per tile, not stored.
+and output, and does C*Co (+ Ci*C per input pixel with expand, + C*k*k)
+multiply-adds per output pixel.  The design computes each of them once: a
+CTA owns ``slab_h`` full-width output rows of one image (the whole image
+at the 14x14 and 7x7 stages) and a slice of the DW channels; a
+thread-block cluster of up to 8 CTAs splits C, each CTA projecting its
+slice for all of Co, and the cluster sums the partial output tiles through
+distributed shared memory in rank order.  ``blocking.plan_separable_fused``
+sizes the cluster and the slabs so a batch-8 launch puts at least 64 CTAs
+on the card.  fp32 and fp16 multiply on the CUDA cores in exact fp32
+(register-tiled); bf16 runs both products on the tensor cores, the project
+with the fp32 DW tile split into a bf16 hi and lo pair (two MMAs), so the
+output still rounds once.  Neither the expanded tensor nor the DW output
+reaches device memory.
 
-VALID geometry: callers pad SAME first.  Zero padding commutes with the
-bias-free expand because every activation maps 0 to 0.
+Geometry: VALID on ``x`` zero-padded by ``pad`` (default none); the kernel
+pads as it reads and never expands the padding, which is sound because
+the expand is bias-free and every activation maps 0 to 0.
 """
 from __future__ import annotations
 
@@ -31,36 +39,50 @@ from repro_torch.kernels.epilogue import activation_code
 #: Kernel launches so far in this process, per mode.
 launches = {"fused2": 0, "fused3": 0}
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 20
+#: The kernel's library for each stream dtype (``csrc/separable_fused*.cu``:
+#: one source per stream type, built in parallel).
+LIBRARIES = {torch.float32: "separable_fused",
+             torch.bfloat16: "separable_fused_bf16",
+             torch.float16: "separable_fused_f16"}
+
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 23
              + [ctypes.c_void_p])
-_SMEM_ARGTYPES = [ctypes.c_int] * 11
+_SMEM_ARGTYPES = [ctypes.c_int] * 14
+
+
+def _padded(x, pad):
+    if pad is None or not any(pad):
+        return x
+    top, left, bottom, right = pad
+    return torch.nn.functional.pad(x, (0, 0, left, right, top, bottom))
 
 
 def separable_fused_plain(
     x, dw_f, pw_w, dw_bias=None, pw_bias=None, residual=None, *,
     expand_w=None, expand_activation="relu6", stride=1,
-    dw_activation="relu6", activation=None, out_dtype=None,
+    dw_activation="relu6", activation=None, out_dtype=None, pad=None,
 ) -> torch.Tensor:
-    """The plain version: ``ref.separable_fused_ref`` on VALID geometry,
-    fp32 intermediates, one store at ``out_dtype``."""
+    """The plain version: ``ref.separable_fused_ref`` on VALID geometry
+    (after the zero ``pad``, if given), fp32 intermediates, one store at
+    ``out_dtype``."""
     y = ref.separable_fused_ref(
-        x.float(), dw_f, pw_w, dw_bias, pw_bias, residual,
+        _padded(x, pad).float(), dw_f, pw_w, dw_bias, pw_bias, residual,
         expand_w=expand_w, expand_activation=expand_activation,
         stride=stride, padding="valid", dw_activation=dw_activation,
         activation=activation)
     return y.to(out_dtype or x.dtype)
 
 
-def smem_bytes(ci: int, c: int, hf: int, wf: int, stride: int,
-               slab_h: int, tile_w: int, cb: int, cob: int, expand: bool,
-               dtype: torch.dtype) -> int:
+def smem_bytes(ci: int, c_slice: int, cb: int, panel: int, cluster: int,
+               slab_h: int, wo: int, hi: int, wi: int, hf: int, wf: int,
+               stride: int, expand: bool, dtype: torch.dtype) -> int:
     """The kernel's own count of the shared memory one CTA needs (the
-    planner's ``blocking.fused_smem_bytes`` must agree with it)."""
+    planner's ``blocking.separable_smem_bytes`` must agree with it)."""
     lib = _build.library("separable_fused")
     fn = lib.separable_fused_smem_bytes
     fn.argtypes, fn.restype = _SMEM_ARGTYPES, ctypes.c_longlong
-    return int(fn(ci, c, hf, wf, stride, slab_h, tile_w, cb, cob,
-                  int(expand), _build.DTYPE_CODES[dtype]))
+    return int(fn(ci, c_slice, cb, panel, cluster, slab_h, wo, hi, wi, hf,
+                  wf, stride, int(expand), _build.DTYPE_CODES[dtype]))
 
 
 def separable_fused(
@@ -76,18 +98,23 @@ def separable_fused(
     stride: int = 1,
     dw_activation: Optional[str] = "relu6",
     activation: Optional[str] = None,
+    pad: Optional[tuple] = None,
+    slab_h: Optional[int] = None,
     block_c: Optional[int] = None,
     block_co: Optional[int] = None,
-    slab_h: Optional[int] = None,
-    tile_w: Optional[int] = None,
+    cluster: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """x (B, Hi, Wi, C) [or (B, Hi, Wi, Ci) with ``expand_w`` (Ci, C)];
     dw_f (Hf, Wf, C); pw_w (C, Co); dw_bias (C,); pw_bias (Co,); residual
-    (B, Ho, Wo, Co) -> (B, Ho, Wo, Co), VALID geometry.
+    (B, Ho, Wo, Co) -> (B, Ho, Wo, Co), VALID geometry of x zero-padded by
+    ``pad`` = (top, left, bottom, right) (default none; the kernel pads as
+    it reads, and never expands the padding).
 
-    A CUDA tensor launches the kernel at the given tile (missing entries
-    come from ``blocking.plan_separable``/``plan_separable3``); a CPU tensor
+    A CUDA tensor launches the kernel at the given blocks (``slab_h``
+    output rows a CTA, a cluster of ``cluster`` CTAs splitting C, chunks of
+    ``block_c`` channels, Co panels of ``block_co``; missing entries come
+    from ``blocking.plan_separable``/``plan_separable3``); a CPU tensor
     takes :func:`separable_fused_plain`.
     """
     b, hi, wi, c_in = x.shape
@@ -101,8 +128,11 @@ def separable_fused(
         raise ValueError(f"x {tuple(x.shape)} vs dw_f {tuple(dw_f.shape)}")
     if cw != c:
         raise ValueError(f"pw_w {tuple(pw_w.shape)} vs C={c}")
-    ho = (hi - hf) // stride + 1
-    wo = (wi - wf) // stride + 1
+    top, left, bottom, right = pad or (0, 0, 0, 0)
+    if min(top, left, bottom, right) < 0:
+        raise ValueError(f"negative pad {pad}")
+    ho = (hi + top + bottom - hf) // stride + 1
+    wo = (wi + left + right - wf) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError("input smaller than filter")
     if residual is not None and residual.shape != (b, ho, wo, co):
@@ -114,40 +144,40 @@ def separable_fused(
             x, dw_f, pw_w, dw_bias, pw_bias, residual, expand_w=expand_w,
             expand_activation=expand_activation, stride=stride,
             dw_activation=dw_activation, activation=activation,
-            out_dtype=odt)
+            out_dtype=odt, pad=pad)
     operands = (x, expand_w, dw_f, dw_bias, pw_w, pw_bias, residual)
     dev = _build.require_cuda("separable_fused", *operands)
     for t in operands:
         if t is not None and t.dtype != x.dtype:
             raise ValueError(f"separable_fused: x is {x.dtype} but got a "
                              f"{t.dtype} operand")
-    if None in (block_c, block_co, slab_h, tile_w):
-        if expand_w is not None:
-            plan = blocking.plan_separable3(ho, wo, c_in, c, co,
-                                            stride=stride, hf=hf, wf=wf,
-                                            dtype=x.dtype)
-        else:
-            plan = blocking.plan_separable(ho, wo, c, co, stride=stride,
-                                           hf=hf, wf=wf, dtype=x.dtype)
+    if None in (slab_h, block_c, block_co, cluster):
+        ci = c_in if expand_w is not None else 0
+        plan = blocking.plan_separable_fused(
+            ho, wo, ci, c, co, stride=stride, hf=hf, wf=wf, dtype=x.dtype,
+            batch=b, hi=hi, wi=wi)
         if plan is None:
-            raise ValueError(f"no fused tile fits one CTA for "
+            raise ValueError(f"no fused plan fits one CTA for "
                              f"{(hi, wi, c_in, c, co)}")
+        slab_h = slab_h or plan.slab_h
         block_c = block_c or plan.block_c
         block_co = block_co or plan.block_co
-        slab_h = slab_h or plan.slab_h
-        tile_w = tile_w or plan.tile_w
-    slab_h, tile_w = min(slab_h, ho), min(tile_w, wo)
+        cluster = cluster or plan.cluster
+    cs = blocking.separable_slice(c, cluster)
+    cluster = -(-c // cs)
+    slab_h, block_c = min(slab_h, ho), min(block_c, cs)
     cin, cout = _build.dtype_codes(x.dtype, odt)
     out = torch.empty((b, ho, wo, co), dtype=odt, device=dev)
     mode = "fused3" if expand_w is not None else "fused2"
-    lib = _build.library("separable_fused")
-    fn = lib.separable_fused_launch
+    name = LIBRARIES[x.dtype]
+    lib = _build.library(name)
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    _build.check(lib, "separable_fused", fn(
+    _build.check(lib, name, fn(
         *(_build.ptr(t) for t in operands), _build.ptr(out),
-        b, hi, wi, c_in, c, co, ho, wo, hf, wf, stride, slab_h, tile_w,
-        block_c, block_co, activation_code(expand_activation),
-        activation_code(dw_activation), activation_code(activation),
-        cin, cout, _build.stream(dev)))
+        b, hi, wi, top, left, c_in if expand_w is not None else 0, c, co,
+        ho, wo, hf, wf, stride, slab_h, block_c, cs, block_co, cluster,
+        activation_code(expand_activation), activation_code(dw_activation),
+        activation_code(activation), cin, cout, _build.stream(dev)))
     launches[mode] += 1
     return out

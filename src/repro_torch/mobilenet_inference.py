@@ -115,7 +115,10 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     err = rel_err(y, ref)
     ok = bool(torch.isfinite(y.float()).all()) and tuple(y.shape) == \
         nplan.out_shape
+    fused_ctas = [sg.plan.ctas for p in nplan.plans for sg in p.segments
+                  if sg.kind in ("fused2", "fused3")]
     return {"histogram": nplan.segment_histogram(), "launches": launches,
+            "fused_ctas": fused_ctas,
             "pwconv_variants": variants, "ms": ms, "peak_bytes": peak, "device_ms": device,
             "rel_err": err,
             "tol": BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL,

@@ -161,16 +161,21 @@ def test_pwconv_smem_model_matches_the_kernel(dev, variant):
 
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize(
-    "b,h,w,ci,c,co,stride,expand,residual,dw_act,act,tile", [
+    "b,h,w,ci,c,co,stride,expand,residual,dw_act,act,blocks", [
         (2, 9, 9, 12, 12, 20, 1, False, False, "relu6", "relu6", None),
-        (1, 11, 7, 10, 10, 70, 2, False, False, "relu", "gelu", (3, 2, 4)),
-        (2, 8, 8, 16, 16, 16, 1, False, True, "silu", None, (1, 1, 1)),
+        (1, 11, 7, 10, 10, 70, 2, False, False, "relu", "gelu", (3, 4, 16, 3)),
+        (2, 8, 8, 16, 16, 16, 1, False, True, "silu", None, (1, 1, 8, 1)),
         (2, 8, 8, 8, 48, 8, 1, True, True, "relu6", None, None),
-        (1, 9, 9, 6, 36, 10, 2, True, False, "gelu", "relu", (2, 5, 7)),
-        (2, 7, 7, 5, 30, 5, 1, True, True, "silu", "silu", (7, 7, 30)),
+        (1, 9, 9, 6, 36, 10, 2, True, False, "gelu", "relu", (2, 5, 8, 4)),
+        (2, 7, 7, 5, 30, 5, 1, True, True, "silu", "silu", (7, 30, 8, 1)),
+        (1, 13, 5, 9, 41, 27, 1, True, False, None, "relu6", (4, 3, 24, 5)),
+        (2, 10, 12, 7, 7, 33, 2, False, False, "relu", None, (2, 2, 8, 7)),
+        (1, 6, 9, 33, 33, 33, 1, False, True, "gelu", "silu", (2, 8, 16, 2)),
     ])
 def test_separable_fused_kernel(dev, b, h, w, ci, c, co, stride, expand,
-                                residual, dw_act, act, tile, dtype):
+                                residual, dw_act, act, blocks, dtype):
+    """Ragged C, Co and image edges, every activation, forced slabs,
+    chunks, panels and clusters; the kernel pads as it reads."""
     x_raw = _r((b, h, w, ci), dev, dtype)
     x = ref.pad_same(x_raw, 3, 3, stride)
     ew = _r((ci, c), dev, dtype, ci ** -0.5) if expand else None
@@ -179,13 +184,16 @@ def test_separable_fused_kernel(dev, b, h, w, ci, c, co, stride, expand,
     res = x_raw if residual else None
     kw = dict(expand_w=ew, stride=stride, dw_activation=dw_act,
               activation=act)
-    blocks = {}
-    if tile is not None:
-        blocks = dict(slab_h=tile[0], tile_w=tile[1], block_c=tile[2],
-                      block_co=min(co, 64))
-    got = sf.separable_fused(x, f, pw, dwb, pwb, res, **kw, **blocks)
+    bl = {}
+    if blocks is not None:
+        bl = dict(slab_h=blocks[0], block_c=blocks[1], block_co=blocks[2],
+                  cluster=blocks[3])
     want = sf.separable_fused_plain(x, f, pw, dwb, pwb, res, **kw)
+    got = sf.separable_fused(x, f, pw, dwb, pwb, res, **kw, **bl)
     assert rel_err(got, want) <= TOL[dtype]
+    padded = sf.separable_fused(x_raw, f, pw, dwb, pwb, res, **kw, **bl,
+                                pad=ref.same_pads(h, w, 3, 3, stride))
+    assert rel_err(padded, want) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", list(TOL))
@@ -205,9 +213,90 @@ def test_separable_fused_kernel_5x5(dev, b, h, w, ci, c, co, stride,
     res = x_raw if residual else None
     kw = dict(expand_w=ew, stride=stride, dw_activation="relu6",
               activation=None if ew is not None else "relu")
-    got = sf.separable_fused(x, f, pw, dwb, pwb, res, **kw)
+    got = sf.separable_fused(x_raw, f, pw, dwb, pwb, res, **kw,
+                             pad=ref.same_pads(h, w, k, k, stride))
     want = sf.separable_fused_plain(x, f, pw, dwb, pwb, res, **kw)
     assert rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("cluster", (1, 2, 3, 4, 5, 8))
+@pytest.mark.parametrize("expand", (False, True))
+def test_separable_fused_at_each_cluster_size(dev, cluster, expand, dtype):
+    """C split over every cluster size, the last slice ragged (C = 44)."""
+    b, h, w, ci, c, co, k = 2, 7, 9, 12, 44, 20, 3
+    x_raw = _r((b, h, w, ci if expand else c), dev, dtype)
+    x = ref.pad_same(x_raw, k, k, 1)
+    ew = _r((ci, c), dev, dtype, ci ** -0.5) if expand else None
+    f, pw = _r((k, k, c), dev, dtype, 1 / 3), _r((c, co), dev, dtype, 0.2)
+    kw = dict(expand_w=ew, dw_activation="relu6", activation=None)
+    got = sf.separable_fused(x_raw, f, pw, None, None, None, **kw,
+                             pad=ref.same_pads(h, w, k, k, 1), slab_h=3,
+                             block_c=5, block_co=16, cluster=cluster)
+    want = sf.separable_fused_plain(x, f, pw, None, None, None, **kw)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_separable_fused_repeats_bit_for_bit(dev, dtype):
+    """The cluster's partial tiles are summed in rank order: two runs give
+    the same bits."""
+    x = _r((8, 7, 7, 192), dev, dtype)
+    ew = _r((192, 1152), dev, dtype, 192 ** -0.5)
+    f, pw = _r((5, 5, 1152), dev, dtype, 0.2), _r((1152, 192), dev, dtype,
+                                                  1152 ** -0.5)
+    kw = dict(expand_w=ew, pad=(2, 2, 2, 2), dw_activation="relu6")
+    plan = blocking.plan_separable3(7, 7, 192, 1152, 192, hf=5, wf=5,
+                                    dtype=dtype, batch=8, hi=7, wi=7)
+    assert plan.cluster > 1
+    a = sf.separable_fused(x, f, pw, residual=x, **kw)
+    b = sf.separable_fused(x, f, pw, residual=x, **kw)
+    assert torch.equal(a, b)
+
+
+def test_separable_fused_rounds_once_on_the_card(dev):
+    """bf16 fused output rounds once (the project's A operand is split hi +
+    lo, not rounded): it is no farther from the fp32 answer than the bf16
+    ``dwconv2d`` + ``pwconv`` composition, which rounds the DW output."""
+    for c, co in ((64, 32), (576, 160)):
+        x = _r((2, 14, 14, c), dev, torch.float32)
+        f = _r((3, 3, c), dev, torch.float32, 1 / 3)
+        pw = _r((c, co), dev, torch.float32, c ** -0.5)
+        xp = ref.pad_same(x, 3, 3, 1)
+        exact = sf.separable_fused_plain(xp, f, pw)
+        xb, fb, pwb = (t.to(torch.bfloat16) for t in (xp, f, pw))
+        fused = sf.separable_fused(xb, fb, pwb)
+        dw = torch.clamp(dwconv2d.dwconv2d(xb, fb), 0, 6)
+        unfused = pwconv.pwconv(dw.reshape(-1, c), pwb).reshape(exact.shape)
+        e_f = (fused.float() - exact).abs().max()
+        e_u = (unfused.float() - exact).abs().max()
+        assert e_f <= e_u
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16))
+def test_separable_fused_smem_model_matches_the_kernel(dev, dtype):
+    """The planner's shared-memory model against the kernel's own layout
+    at every fused block of the four bodies, batch 1 and 8."""
+    for arch, build in ARCHS.items():
+        spec = build(1.0)
+        for batch in (1, 8):
+            nplan = network.plan_network(
+                spec, (batch, 112, 112, spec.c_in), dtype=dtype,
+                policy=KernelPolicy())
+            for p, shape, blk in zip(nplan.plans, nplan.block_shapes,
+                                     spec.blocks):
+                for s in p.segments:
+                    if s.kind not in ("fused2", "fused3"):
+                        continue
+                    d = blk.stages[s.stages[-2]]
+                    _, h, w, ci = shape
+                    q = s.plan
+                    assert q.smem_bytes == sf.smem_bytes(
+                        ci if s.kind == "fused3" else 0, q.block_g,
+                        q.block_c, q.block_co, q.cluster, q.slab_h,
+                        q.tile_w, h, w, d.hf, d.wf, d.stride,
+                        s.kind == "fused3", dtype), (arch, s)
 
 
 # (b, h, w, ci, c, co, stride, k, residual, tile): Lite0's four fused-MBConv
@@ -299,7 +388,7 @@ def test_dw_se_kernel_at_each_cluster_size(dev, cluster, c):
     assert se_epilogue.smem_bytes(ho, wo, c, 6, cluster) == need
 
 
-@pytest.mark.parametrize("budget", [64, 600, 232_448])
+@pytest.mark.parametrize("budget", [64, 1500, 232_448])
 def test_ops_separable_fused_degrades_by_budget(dev, budget):
     x = _r((1, 8, 8, 16), dev, torch.float32)
     ew = _r((16, 96), dev, torch.float32, 0.25)

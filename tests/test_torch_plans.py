@@ -106,35 +106,60 @@ def test_fused_plans_fit_one_cta(dtype):
                 if s.kind == "dw_se":
                     assert seg.cluster in blocking.DW_SE_CLUSTERS
                     continue
-                assert seg.slab_h * seg.tile_w <= blocking.FUSED_MAX_PIXELS
-                assert 1 <= seg.block_co <= blocking.FUSED_MAX_CO
+                if s.kind == "fusedmb":
+                    assert seg.slab_h * seg.tile_w <= blocking.FUSED_MAX_PIXELS
+                    assert 1 <= seg.block_co <= blocking.FUSED_MAX_CO
+                    continue
+                # separable_fused: full-width slabs, a C-splitting cluster
+                assert seg.slab_h * seg.tile_w <= blocking.SEP_MAX_PIXELS
+                assert 8 <= seg.block_co <= blocking.SEP_MAX_PANEL
+                assert seg.block_co % 8 == 0
+                assert 1 <= seg.cluster <= blocking.SEP_MAX_CLUSTER
+                assert 1 <= seg.block_c <= seg.block_g
 
 
 def test_fused_plan_has_width_tile_and_halo():
+    """A slab spans the full output width, its rows balanced over the
+    image; slabs of more than one per image carry the window's halo rows;
+    the planner's count of shared memory is the layout rule's."""
     p = blocking.plan_separable(112, 112, 32, 64)
-    assert (p.slab_h, p.tile_w) == (8, 8) and p.n_slabs == 14
-    assert p.halo_rows == 2
-    assert p.smem_bytes == blocking.fused_smem_bytes(
-        8, 8, p.block_c, 64)
+    assert p.tile_w == 112 and p.n_slabs == -(-112 // p.slab_h)
+    assert p.slab_h * 112 <= blocking.SEP_MAX_PIXELS
+    assert p.halo_rows == (2 if p.n_slabs > 1 else 0)
+    assert p.smem_bytes == blocking.separable_smem_bytes(
+        ci=0, c_slice=p.block_g, cb=p.block_c, panel=p.block_co,
+        cluster=p.cluster, slab_h=p.slab_h, wo=112, hi=114, wi=114)
+    whole = blocking.plan_separable3(7, 7, 192, 1152, 192, hf=5, wf=5,
+                                     batch=8, hi=7, wi=7)
+    m = blocking.separable_macs(8, 7, 7, 7, 7, 192, 1152, 192, stride=1,
+                                hf=5, wf=5, slab_h=whole.slab_h, pad_t=2,
+                                pad_l=2)
+    assert m["expand"] <= blocking.SEP_MAX_EXPAND * m["expand_min"]
+    assert whole.ctas >= blocking.SEP_MIN_CTAS
 
 
 def test_planner_degrades_and_returns_none_only_when_nothing_fits():
-    # a raw window of 16384 channels does not fit even a 1x1 tile
+    # a raw window of 16384 channels does not fit even one output row
     assert blocking.plan_separable3(7, 7, 16384, 32, 32) is None
     assert blocking.plan_separable(7, 7, 16384, 32) is not None
-    tiny = blocking.plan_separable(56, 56, 128, 128, smem_budget=2048)
-    assert tiny is not None and tiny.smem_bytes <= 2048
-    assert tiny.block_c < 32  # the chunk gives way before the tile does
-    smaller = blocking.plan_separable(56, 56, 128, 128, smem_budget=600)
-    assert smaller.slab_h * smaller.tile_w < 64
-    assert blocking.plan_separable(56, 56, 128, 128, smem_budget=64) is None
+    full = blocking.plan_separable(56, 56, 128, 128)
+    last = full
+    for budget in (60_000, 20_000, 8000):
+        p = blocking.plan_separable(56, 56, 128, 128, smem_budget=budget)
+        assert p is not None and p.smem_bytes <= budget
+        assert p.smem_bytes <= last.smem_bytes
+        last = p
+    # at the smallest budget the slab, chunk and panel have all given way
+    assert last.slab_h < full.slab_h or last.block_c < full.block_c
+    assert last.block_co < full.block_co
+    assert blocking.plan_separable(56, 56, 128, 128, smem_budget=4000) is None
 
 
 def test_tiny_budget_degrades_chain_like_reference():
     from repro_torch.core import chain
     spec = chain.inverted_residual_spec(16, 16)
     cp = chain.plan(spec, (1, 8, 8, 16),
-                    policy=KernelPolicy(smem_budget=600))
+                    policy=KernelPolicy(smem_budget=1500))
     assert [s.kind for s in cp.segments] == ["pw", "fused2"]
     assert cp.residual and cp.residual_fused
     cp = chain.plan(spec, (1, 8, 8, 16), policy=KernelPolicy(smem_budget=64))
