@@ -12,19 +12,25 @@ From the root of a checkout it:
 2. builds every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    all at once) and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card at
-   main-path shapes (3x3 and 5x5 taps, ``separable_fused`` at every stage
-   size of V2 and Lite0 including the 7x7 blocks at batch 1 and 8, with
-   the CTA count of each launch; the xLSTM conv and Linear shapes), in
-   fp32 and bf16, and times the kernel and PyTorch library calls for the
-   same function, each replayed from a CUDA graph of 20 calls and as
-   events around one eager call, and the plain version;
+   main-path shapes (3x3 and 5x5 taps, ``dwconv2d`` also at 9x9 and 11x11,
+   ``separable_fused`` at every stage size of V2 and Lite0 including the
+   7x7 blocks at batch 1 and 8, with the CTA count of each launch;
+   ``fused_mbconv`` at Lite0's four blocks; ``dw_se`` in both modes, and
+   the two modes bit for bit; the xLSTM conv and Linear shapes), in fp32
+   and bf16, each kernel's planned shared memory against its own count,
+   and times the kernel and PyTorch library calls for the same function,
+   each replayed from a CUDA graph of 20 calls and as events around one
+   eager call, and the plain version;
 4. drives the CNN path, ``execute_network`` on MobileNet V1 and
    V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
    and 8, fp32 and bf16 streaming, under the default plan and
-   ``fused=False``: for each run it zeroes the launch counters, drives one
-   forward, checks that the counters moved by exactly the expected counts,
-   holds the output against the fp32 plain path, times the forward and
-   prints the CTA count of each ``separable_fused`` launch;
+   ``fused=False``, and MnasNet-A1 at 224x224 (batch 8, default plan, its
+   block 11 in ``dw_se``'s recompute mode): for each run it zeroes the
+   launch counters, drives one forward, checks that the counters moved by
+   exactly the expected counts (``dw_se``'s by mode too), holds the output
+   against the fp32 plain path, times the forward and prints the CTA count
+   of each ``separable_fused`` launch and the CTA count and cluster of each
+   ``fused_mbconv`` launch;
 5. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy ``decode_step``s, in fp32 and bf16.  Around each call it
@@ -67,8 +73,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 #: Launches one forward makes, by plan: the segment counts the reference
-#: planner gives these bodies at 112x112 (a standalone ``se`` segment
-#: launches ``pwconv`` twice; ``mb`` is the plain ``F.conv2d``).
+#: planner gives these bodies at 112x112, and MnasNet-A1 at 224x224 (a
+#: standalone ``se`` segment launches ``pwconv`` twice; ``mb`` is the plain
+#: ``F.conv2d``).
 EXPECTED_LAUNCHES = {
     ("v1", None): {"separable_fused2": 13},
     ("v1", False): {"dwconv2d": 13, "pwconv": 13},
@@ -80,6 +87,14 @@ EXPECTED_LAUNCHES = {
     ("lite0", None): {"separable_fused2": 1, "fused_mbconv": 4,
                       "separable_fused3": 11},
     ("lite0", False): {"dwconv2d": 12, "pwconv": 27},
+}
+
+#: ``dw_se`` launches by mode in one forward of the default plan (the
+#: reference plans the same 8 ``dw_se`` segments at 224x224 as at 112x112;
+#: block 11's fp32 DW output, 28x28x672, fits no cluster of 8 CTAs there).
+EXPECTED_DW_SE_MODES = {
+    ("mnasnet", 112, None): {"resident": 8, "recompute": 0},
+    ("mnasnet", 224, None): {"resident": 7, "recompute": 1},
 }
 
 SOURCES = {
@@ -179,24 +194,32 @@ class KernelChecks:
         self.results.append(r)
 
     def dwconv2d(self, b, h, w, c, stride, dtype, k=3):
+        """One shape as the main path runs it: x unpadded, the kernel
+        applying the SAME padding itself, at the planner's tile; its shared
+        memory against the kernel's own count."""
         import torch.nn.functional as F
-        from repro_torch.kernels import blocking, dwconv2d
-        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
+        from repro_torch.kernels import blocking, dwconv2d, ref
+        x_raw = self.rand((b, h, w, c), dtype)
+        x = self.pad_same(x_raw, k, k, stride)
+        pad = ref.same_pads(h, w, k, k, stride)
         f = self.rand((k, k, c), dtype, 1 / k)
         ho, wo = -(-h // stride), -(-w // stride)
-        plan = blocking.plan_dwconv2d(x.shape[1], x.shape[2], ho, wo, c,
-                                      k, k, dtype=dtype)
+        plan = blocking.plan_dwconv2d(h, w, ho, wo, c, k, k, stride=stride,
+                                      dtype=dtype)
+        self.same_smem(plan.smem_bytes, dwconv2d.smem_bytes(
+            plan.slab_h, plan.tile_w, plan.block_c, k, k, stride, dtype))
         xc = x.permute(0, 3, 1, 2)
         fc = f.permute(2, 0, 1)[:, None].contiguous()
         self.measure(
-            "dwconv2d", f"{b}x{h}x{w}x{c} k{k} s{stride} vec {plan.block_c}",
-            dtype,
-            lambda: dwconv2d.dwconv2d(x, f, stride=stride,
-                                      block_c=plan.block_c),
+            "dwconv2d", f"{b}x{h}x{w}x{c} k{k} s{stride} tile {plan.slab_h}x"
+            f"{plan.tile_w}x{plan.block_c} {plan.variant}"
+            + (" compiled" if blocking.dw_compiled(k, k, stride)
+               else " runtime-K"), dtype,
+            lambda: dwconv2d.dwconv2d(x_raw, f, stride=stride, pad=pad),
             lambda: dwconv2d.dwconv2d_plain(x, f, stride=stride),
             lambda: F.conv2d(xc, fc, stride=stride, groups=c),
             2 * b * ho * wo * c * k * k,
-            (x.numel() + f.numel() + b * ho * wo * c) * x.element_size())
+            (x_raw.numel() + f.numel() + b * ho * wo * c) * x.element_size())
 
     def pwconv(self, g, ci, co, dtype, act="relu6"):
         """One shape: the planner's variant and tile, its shared memory
@@ -329,11 +352,18 @@ class KernelChecks:
                                  f"memory, the kernel {kernel}")
 
     def fused_mb(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
+        """One block as the main path runs it: x unpadded, the kernel
+        applying the SAME padding itself, at the planner's slab, cluster,
+        chunk and panel; its shared memory against the kernel's own count;
+        the CTA count and cluster printed.  The library yardstick composes
+        the same function: ``F.conv2d`` + bias, relu6, ``addmm`` + bias,
+        the residual add."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels import blocking, fused_mbconv
+        from repro_torch.kernels import blocking, fused_mbconv, ref
         x_raw = self.rand((b, h, w, ci), dtype)
         x = self.pad_same(x_raw, k, k, stride)
+        pad = ref.same_pads(h, w, k, k, stride)
         f = self.rand((k, k, ci, c), dtype, (k * k * ci) ** -0.5)
         fb = self.rand((c,), dtype, 0.1)
         pw = self.rand((c, co), dtype, c ** -0.5)
@@ -341,49 +371,56 @@ class KernelChecks:
         res = x_raw if residual else None
         ho, wo = -(-h // stride), -(-w // stride)
         plan = blocking.plan_fused_mb(ho, wo, ci, c, co, stride=stride,
-                                      hf=k, wf=k, dtype=dtype)
+                                      hf=k, wf=k, dtype=dtype, batch=b)
         self.same_smem(plan.smem_bytes, fused_mbconv.smem_bytes(
-            ci, k, k, stride, plan.slab_h, plan.tile_w, plan.block_c,
-            plan.block_co))
+            ci, plan.block_g, plan.block_c, plan.block_co, plan.slab_h,
+            plan.tile_w, k, k, stride, dtype))
         kw = dict(stride=stride, mb_activation="relu6", activation=None)
+        blocks = dict(slab_h=plan.slab_h, tile_w=plan.tile_w,
+                      block_c=plan.block_c, block_co=plan.block_co,
+                      cluster=plan.cluster)
         xc = x.permute(0, 3, 1, 2)
         fc = f.permute(3, 2, 0, 1).contiguous()
 
         def library():
             y = F.conv2d(xc, fc, fb, stride=stride).clamp_(0, 6)
-            return torch.addmm(pwb, y.permute(0, 2, 3, 1).reshape(-1, c), pw)
+            y = torch.addmm(pwb, y.permute(0, 2, 3, 1).reshape(-1, c), pw)
+            return y.view(res.shape).add_(res) if residual else y
 
         ops = 2 * b * ho * wo * c * (k * k * ci + co)
-        nbytes = (x.numel() + f.numel() + c + pw.numel() + co
+        nbytes = (x_raw.numel() + f.numel() + c + pw.numel() + co
                   + (res.numel() if residual else 0) + b * ho * wo * co)
         self.measure(
             "fused_mbconv",
             f"{b}x{h}x{w}x{ci}(x{c})->{co} k{k} s{stride}"
             + (" +res" if residual else "")
-            + f" tile {plan.slab_h}x{plan.tile_w} cb {plan.block_c}", dtype,
-            lambda: fused_mbconv.fused_mbconv(
-                x, f, pw, fb, pwb, res, block_c=plan.block_c,
-                block_co=plan.block_co, slab_h=plan.slab_h,
-                tile_w=plan.tile_w, **kw),
+            + f" slab {plan.slab_h} cl {plan.cluster} cb {plan.block_c}",
+            dtype,
+            lambda: fused_mbconv.fused_mbconv(x_raw, f, pw, fb, pwb, res,
+                                              pad=pad, **blocks, **kw),
             lambda: fused_mbconv.fused_mbconv_plain(x, f, pw, fb, pwb, res,
                                                     **kw),
-            library, ops, nbytes * x.element_size())
+            library, ops, nbytes * x.element_size(),
+            extra={"ctas": plan.ctas, "cluster": plan.cluster})
 
-    def dw_se(self, b, h, w, c, c_se, stride, dtype, k=3):
+    def dw_se(self, b, h, w, c, c_se, stride, dtype, k=3, variant=None):
+        """One SE block at the planner's cluster and mode (or ``variant``
+        on a cluster of 8); its shared memory against the kernel's own
+        count."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import blocking, se_epilogue
-        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
-        f = self.rand((k, k, c), dtype, 1 / k)
-        w1 = self.rand((c, c_se), dtype, c ** -0.5)
-        b1 = self.rand((c_se,), dtype, 0.1)
-        w2 = self.rand((c_se, c), dtype, c_se ** -0.5)
-        b2 = self.rand((c,), dtype, 0.1)
+        x, f, gate = self.dw_se_operands(b, h, w, c, c_se, stride, dtype, k)
+        w1, b1, w2, b2 = gate
         ho, wo = -(-h // stride), -(-w // stride)
         plan = blocking.plan_dw_se(x.shape[1], x.shape[2], ho, wo, c, c_se,
                                    k, k, dtype=dtype)
-        self.same_smem(plan.smem_bytes, se_epilogue.smem_bytes(
-            ho, wo, c, c_se, plan.cluster))
+        cluster = plan.cluster if variant is None else 8
+        variant = variant or plan.variant
+        self.same_smem(
+            blocking.dw_se_smem_bytes(ho, wo, c, c_se, cluster,
+                                      variant == "resident"),
+            se_epilogue.smem_bytes(ho, wo, c, c_se, cluster, variant))
         kw = dict(stride=stride, dw_activation="relu", se_activation="relu")
         xc = x.permute(0, 3, 1, 2)
         fc = f.permute(2, 0, 1)[:, None].contiguous()
@@ -399,69 +436,104 @@ class KernelChecks:
         nbytes = (x.numel() + f.numel() + 2 * c * c_se + c_se + c + npix)
         self.measure(
             "dw_se", f"{b}x{h}x{w}x{c} k{k} s{stride} Cse {c_se} cluster "
-            f"{plan.cluster}", dtype,
-            lambda: se_epilogue.dw_se(x, f, w1, b1, w2, b2,
-                                      cluster=plan.cluster, **kw),
-            lambda: se_epilogue.dw_se_plain(x, f, w1, b1, w2, b2, **kw),
-            library, ops, nbytes * x.element_size())
+            f"{cluster} {variant}", dtype,
+            lambda: se_epilogue.dw_se(x, f, *gate, cluster=cluster,
+                                      variant=variant, **kw),
+            lambda: se_epilogue.dw_se_plain(x, f, *gate, **kw),
+            library, ops, nbytes * x.element_size(),
+            extra={"variant": variant})
+
+    def dw_se_operands(self, b, h, w, c, c_se, stride, dtype, k):
+        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
+        f = self.rand((k, k, c), dtype, 1 / k)
+        gate = (self.rand((c, c_se), dtype, c ** -0.5),
+                self.rand((c_se,), dtype, 0.1),
+                self.rand((c_se, c), dtype, c_se ** -0.5),
+                self.rand((c,), dtype, 0.1))
+        return x, f, gate
+
+    def dw_se_modes_agree(self, b, h, w, c, c_se, stride, dtype, k=3):
+        """Both modes on a cluster of 8 at a shape where both run: the
+        recompute mode computes each DW value again by the same code in the
+        same tap order, so the outputs are the same bits."""
+        from repro_torch.kernels import se_epilogue
+        x, f, gate = self.dw_se_operands(b, h, w, c, c_se, stride, dtype, k)
+        kw = dict(stride=stride, dw_activation="relu", se_activation="relu",
+                  cluster=8)
+        a = se_epilogue.dw_se(x, f, *gate, variant="resident", **kw)
+        r = se_epilogue.dw_se(x, f, *gate, variant="recompute", **kw)
+        same = bool(self.torch.equal(a, r))
+        print(f"  dw_se resident vs recompute {b}x{h}x{w}x{c} k{k} "
+              f"s{stride} {str(dtype)[6:]}: bit-identical {same}", flush=True)
+        if not same:
+            raise AssertionError("dw_se recompute differs from resident")
 
 
 def run_networks(torch, dev):
-    """The main path: execute_network on V1, V2, MnasNet-A1 and Lite0,
-    every plan, dtype and batch."""
+    """The main path: execute_network on V1, V2, MnasNet-A1 and Lite0 at
+    112x112, every plan, dtype and batch; then MnasNet-A1 at 224x224, batch
+    8, default plan, fp32 and bf16 (block 11's ``dw_se`` in the recompute
+    mode)."""
     from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
                                                  expected_launches,
                                                  run_network)
     totals = dict.fromkeys(KERNEL_SEGMENTS, 0)
     variants = {}
     runs = []
-    for arch, build in ARCHS.items():
-        spec = build(1.0)
+
+    def one(arch, res, fused, batch, dtype):
+        r = run_network(ARCHS[arch](1.0), res=res, batch=batch, dtype=dtype,
+                        fused=fused, device=dev)
+        want = dict.fromkeys(KERNEL_SEGMENTS, 0)
+        want.update(EXPECTED_LAUNCHES[(arch, fused)])
+        plan_counts = expected_launches(r["histogram"])
+        plan_name = "default" if fused is None else "fused=False"
+        label = f"{arch} {res}x{res} {plan_name} batch {batch} {dtype}"
+        peak = r["peak_bytes"] / 2 ** 20
+        busy = sum(r["device_ms"].values())
+        print(f"  {label}: {r['ms']:.3f} ms/forward, peak {peak:.1f} MiB, "
+              f"rel err {r['rel_err']:.2e} (tol {r['tol']:g}), launches "
+              f"{r['launches']}", flush=True)
+        if fused is None:
+            print(f"    separable_fused CTAs per launch: {r['fused_ctas']}; "
+                  f"fused_mbconv (CTAs, cluster) per launch: "
+                  f"{r['fused_mbconv_ctas_cluster']}; dw_se by mode "
+                  f"{r['dw_se_variants']}", flush=True)
+        print(f"    device {busy:.3f} ms/forward: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(r["device_ms"].items()))
+            + f"; pwconv by variant {r['pwconv_variants']}", flush=True)
+        check_variants(label, r["pwconv_variants"], r["launches"]["pwconv"],
+                       dtype)
+        for k, v in r["pwconv_variants"].items():
+            variants[k] = variants.get(k, 0) + v
+        if r["launches"] != want or plan_counts != want:
+            raise AssertionError(f"{label}: launches {r['launches']}, plan "
+                                 f"{plan_counts}, expected {want}")
+        modes = EXPECTED_DW_SE_MODES.get((arch, res, fused),
+                                         {"resident": 0, "recompute": 0})
+        if r["dw_se_variants"] != modes:
+            raise AssertionError(f"{label}: dw_se by mode "
+                                 f"{r['dw_se_variants']}, expected {modes}")
+        if not (r["finite_and_shaped"] and r["rel_err"] <= r["tol"]):
+            raise AssertionError(f"{label}: rel err {r['rel_err']} > "
+                                 f"{r['tol']} or bad output")
+        for k in totals:
+            totals[k] += r["launches"][k]
+        runs.append({"arch": arch, "res": res, "plan": plan_name,
+                     "batch": batch, "dtype": dtype,
+                     **{k: r[k] for k in (
+                         "ms", "peak_bytes", "device_ms", "rel_err",
+                         "launches", "pwconv_variants", "dw_se_variants",
+                         "out_shape", "fused_ctas",
+                         "fused_mbconv_ctas_cluster")}})
+
+    for arch in ARCHS:
         for fused in (None, False):
             for batch in (1, 8):
                 for dtype in ("fp32", "bf16"):
-                    r = run_network(spec, res=112, batch=batch, dtype=dtype,
-                                    fused=fused, device=dev)
-                    want = dict.fromkeys(KERNEL_SEGMENTS, 0)
-                    want.update(EXPECTED_LAUNCHES[(arch, fused)])
-                    plan_counts = expected_launches(r["histogram"])
-                    plan_name = "default" if fused is None else "fused=False"
-                    peak = r["peak_bytes"] / 2 ** 20
-                    busy = sum(r["device_ms"].values())
-                    print(f"  {arch:7s} {plan_name:11s} batch {batch} {dtype}: "
-                          f"{r['ms']:.3f} ms/forward, peak {peak:.1f} MiB, "
-                          f"rel err {r['rel_err']:.2e} (tol {r['tol']:g}), "
-                          f"launches {r['launches']}", flush=True)
-                    if fused is None:
-                        print(f"    separable_fused CTAs per launch: "
-                              f"{r['fused_ctas']}", flush=True)
-                    print(f"    device {busy:.3f} ms/forward: " + ", ".join(
-                        f"{k} {v:.3f}" for k, v in sorted(
-                            r["device_ms"].items())) + "; pwconv by variant "
-                        f"{r['pwconv_variants']}", flush=True)
-                    check_variants(f"{arch} {plan_name} b{batch} {dtype}",
-                                   r["pwconv_variants"],
-                                   r["launches"]["pwconv"], dtype)
-                    for k, v in r["pwconv_variants"].items():
-                        variants[k] = variants.get(k, 0) + v
-                    if r["launches"] != want or plan_counts != want:
-                        raise AssertionError(
-                            f"{arch} {plan_name} b{batch} {dtype}: launches "
-                            f"{r['launches']}, plan {plan_counts}, expected "
-                            f"{want}")
-                    if not (r["finite_and_shaped"]
-                            and r["rel_err"] <= r["tol"]):
-                        raise AssertionError(
-                            f"{arch} {plan_name} b{batch} {dtype}: rel err "
-                            f"{r['rel_err']} > {r['tol']} or bad output")
-                    for k in totals:
-                        totals[k] += r["launches"][k]
-                    runs.append({"arch": arch, "plan": plan_name,
-                                 "batch": batch, "dtype": dtype,
-                                 **{k: r[k] for k in (
-                                     "ms", "peak_bytes", "device_ms",
-                                     "rel_err", "launches", "pwconv_variants",
-                                     "out_shape", "fused_ctas")}})
+                    one(arch, 112, fused, batch, dtype)
+    for dtype in ("fp32", "bf16"):
+        one("mnasnet", 224, None, 8, dtype)
     return runs, totals, variants
 
 
@@ -739,10 +811,23 @@ def main() -> int:
         kc.fused(8, 7, 7, 160, 960, 160, 1, True, dtype)
         kc.fused(1, 7, 7, 160, 960, 160, 1, True, dtype)
         kc.fused(8, 7, 7, 1024, 1024, 1024, 1, False, dtype)
+        # dwconv2d beyond 7x7: the runtime-K path, strides 1 and 2
+        for k in (9, 11):
+            for stride in (1, 2):
+                kc.dwconv2d(8, 56, 56, 72, stride, dtype, k=k)
+        # Lite0's four fused-MBConv blocks at batch 8, the last at batch 1
         kc.fused_mb(8, 112, 112, 16, 96, 24, 2, False, dtype)
         kc.fused_mb(8, 56, 56, 24, 144, 24, 1, True, dtype)
+        kc.fused_mb(8, 56, 56, 24, 144, 40, 2, False, dtype)
+        kc.fused_mb(8, 28, 28, 40, 240, 40, 1, True, dtype)
+        kc.fused_mb(1, 28, 28, 40, 240, 40, 1, True, dtype)
         kc.dw_se(8, 56, 56, 72, 6, 2, dtype, k=5)
         kc.dw_se(8, 14, 14, 672, 28, 1, dtype)
+        # the recompute mode at MnasNet's block 11 at a 224 input and block
+        # 3 at 320; both modes at block 3 at 224, bit for bit
+        kc.dw_se(8, 28, 28, 672, 28, 1, dtype, variant="recompute")
+        kc.dw_se(8, 160, 160, 72, 6, 2, dtype, k=5, variant="recompute")
+        kc.dw_se_modes_agree(8, 112, 112, 72, 6, 2, dtype, k=5)
         for b, length, d, k, rows in (
                 (8, 512, 1536, 4, None), (8, 512, 768, 4, None),
                 (2, 1000, 1000, 4, 7), (2, 1000, 1002, 4, None),

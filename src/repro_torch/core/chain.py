@@ -316,7 +316,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             pmb = blocking.plan_fused_mb(
                 ho, wo, c, mb.features, proj.features, stride=mb.stride,
                 hf=mb.hf, wf=mb.wf, dtype=dtype, smem_budget=budget,
-                residual=res_active and i + 2 == n)
+                residual=res_active and i + 2 == n, batch=b)
             if pmb is not None:
                 segments.append(ChainSegment("fusedmb", (i, i + 1), pmb))
                 h, w, c = ho, wo, proj.features
@@ -362,7 +362,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             ho, wo = s.out_dims(h, w)
             segments.append(ChainSegment("dw", (i,), blocking.plan_dwconv2d(
                 *_valid_window(s, ho, wo), ho, wo, c, s.hf, s.wf,
-                dtype=dtype, smem_budget=budget)))
+                stride=s.stride, dtype=dtype)))
             h, w = ho, wo
         i += 1
 

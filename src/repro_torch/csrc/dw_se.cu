@@ -29,6 +29,13 @@
 // read them.  The barrier is what guarantees that no gate sees a partial
 // pool.
 //
+// That is the `resident` mode.  Where even 8 CTAs cannot hold the slice
+// (MnasNet's 28x28x672 block at a 224 input: 2.1 MB of fp32 DW output),
+// the `recompute` mode keeps nothing but the sums in step 1, and in step 6
+// computes each DW value again, by the same code in the same tap order, so
+// its values are bit-identical to the resident mode's; it pays the DW's
+// multiply-adds twice and a second read of the input, mostly from L2.
+//
 // What bounds it on the H100: bytes (Hf*Wf multiply-adds per output against
 // one input read and one output write; the gate's FCs are tiny).  The
 // input window is read from device memory, not staged: neighbouring threads
@@ -62,10 +69,10 @@ struct Layout {
   size_t dw, red, pooled, gate, hpart, hid, total;
 };
 
-Layout dw_se_layout(const Geometry& g) {
+Layout dw_se_layout(const Geometry& g, bool resident) {
   Layout l{};
   size_t off = 0;
-  l.dw = off; off += align16((size_t)g.Ho * g.Wo * g.cs * 4);
+  l.dw = off; off += resident ? align16((size_t)g.Ho * g.Wo * g.cs * 4) : 0;
   l.red = off; off += align16((size_t)kThreads * 4);
   l.pooled = off; off += align16((size_t)g.cs * 4);
   l.gate = off; off += align16((size_t)g.cs * 4);
@@ -77,8 +84,10 @@ Layout dw_se_layout(const Geometry& g) {
 
 // K is 3 or 5 for a K x K filter, whose taps are held in registers and whose
 // K*K reads per pixel, unrolled without guards, are all in flight together;
-// 0 for any other filter, whose taps are read per pixel.
-template <typename T, typename O, int K>
+// 0 for any other filter, whose taps are read per pixel.  RESIDENT: keep the
+// DW output in shared memory between the pool and the scale, else compute
+// it again for the scale.
+template <typename T, typename O, int K, bool RESIDENT>
 __global__ void __launch_bounds__(kThreads) dw_se_kernel(
     const T* __restrict__ x, const T* __restrict__ f, const T* __restrict__ dwb,
     const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
@@ -103,8 +112,35 @@ __global__ void __launch_bounds__(kThreads) dw_se_kernel(
   const T* xb = x + b * g.Hi * g.Wi * g.C + c0;
   O* ob = out + b * npix * g.C + c0;
 
-  // 1-2: DW + bias + act -> dws, and the pooled mean of each channel.  A
-  // thread owns channel cb0 + lane and the pixels row, row + rows, ...
+  // DW + bias + act of channel cl at output (r, q), taps in registers for
+  // K > 0; the same code, in the same tap order, in steps 1 and 6
+  auto dw_at = [&](const float (&taps)[K > 0 ? K * K : 1], float bias, int cl, int r,
+                   int q) -> float {
+    const T* xp = xb + ((long long)r * s * g.Wi + (long long)q * s) * g.C + cl;
+    const T* fc = f + c0 + cl;
+    float sum = 0.f;
+    if (K > 0) {
+#pragma unroll
+      for (int n = 0; n < K; ++n)
+#pragma unroll
+        for (int m = 0; m < K; ++m)
+          sum = fmaf(to_f(xp[((long long)n * g.Wi + m) * g.C]), taps[n * K + m], sum);
+    } else {
+      for (int n = 0; n < g.hf; ++n)
+        for (int m = 0; m < g.wf; ++m)
+          sum = fmaf(to_f(xp[((long long)n * g.Wi + m) * g.C]),
+                     to_f(fc[(long long)(n * g.wf + m) * g.C]), sum);
+    }
+    return activate(sum + bias, g.act_dw);
+  };
+  auto load_taps = [&](float (&taps)[K > 0 ? K * K : 1], int cl) {
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) taps[t] = to_f(f[(long long)t * g.C + c0 + cl]);
+  };
+
+  // 1-2: DW + bias + act (-> dws when RESIDENT), and the pooled mean of
+  // each channel.  A thread owns channel cb0 + lane and the pixels row,
+  // row + rows, ...
   for (int cb0 = 0; cb0 < cc; cb0 += kThreads) {
     const int lanes = min(kThreads, cc - cb0);
     const int rows = kThreads / lanes;
@@ -113,29 +149,13 @@ __global__ void __launch_bounds__(kThreads) dw_se_kernel(
     float part = 0.f;
     if (row < rows) {
       const int cl = cb0 + lane;
-      const T* fc = f + c0 + cl;
       float taps[K > 0 ? K * K : 1];
-#pragma unroll
-      for (int t = 0; t < K * K; ++t) taps[t] = to_f(fc[(long long)t * g.C]);
+      load_taps(taps, cl);
       const float bias = dwb != nullptr ? to_f(dwb[c0 + cl]) : 0.f;
       int r = row / g.Wo, q = row % g.Wo;
       for (int p = row; p < npix; p += rows) {
-        const T* xp = xb + ((long long)r * s * g.Wi + (long long)q * s) * g.C + cl;
-        float sum = 0.f;
-        if (K > 0) {
-#pragma unroll
-          for (int n = 0; n < K; ++n)
-#pragma unroll
-            for (int m = 0; m < K; ++m)
-              sum = fmaf(to_f(xp[((long long)n * g.Wi + m) * g.C]), taps[n * K + m], sum);
-        } else {
-          for (int n = 0; n < g.hf; ++n)
-            for (int m = 0; m < g.wf; ++m)
-              sum = fmaf(to_f(xp[((long long)n * g.Wi + m) * g.C]),
-                         to_f(fc[(long long)(n * g.wf + m) * g.C]), sum);
-        }
-        const float v = activate(sum + bias, g.act_dw);
-        dws[p * g.cs + cl] = v;
+        const float v = dw_at(taps, bias, cl, r, q);
+        if (RESIDENT) dws[p * g.cs + cl] = v;
         part += v;
         q += rows;
         while (q >= g.Wo) {
@@ -183,7 +203,8 @@ __global__ void __launch_bounds__(kThreads) dw_se_kernel(
   }
   __syncthreads();
 
-  // 6: scale the resident slice and store it once
+  // 6: scale the resident slice (or the DW computed again) and store it
+  // once
   for (int cb0 = 0; cb0 < cc; cb0 += kThreads) {
     const int lanes = min(kThreads, cc - cb0);
     const int rows = kThreads / lanes;
@@ -192,18 +213,33 @@ __global__ void __launch_bounds__(kThreads) dw_se_kernel(
     if (row >= rows) continue;
     const int cl = cb0 + lane;
     const float gv = gate[cl];
-    for (int p = row; p < npix; p += rows)
-      ob[(long long)p * g.C + cl] = from_f<O>(dws[p * g.cs + cl] * gv);
+    if (RESIDENT) {
+      for (int p = row; p < npix; p += rows)
+        ob[(long long)p * g.C + cl] = from_f<O>(dws[p * g.cs + cl] * gv);
+    } else {
+      float taps[K > 0 ? K * K : 1];
+      load_taps(taps, cl);
+      const float bias = dwb != nullptr ? to_f(dwb[c0 + cl]) : 0.f;
+      int r = row / g.Wo, q = row % g.Wo;
+      for (int p = row; p < npix; p += rows) {
+        ob[(long long)p * g.C + cl] = from_f<O>(dw_at(taps, bias, cl, r, q) * gv);
+        q += rows;
+        while (q >= g.Wo) {
+          q -= g.Wo;
+          ++r;
+        }
+      }
+    }
   }
 }
 
-template <typename T, typename O, int K>
+template <typename T, typename O, int K, bool RESIDENT>
 int launch_k(const void* x, const void* f, const void* dwb, const void* w1, const void* b1,
              const void* w2, const void* b2, void* out, int B, int cluster, const Geometry& g,
              cudaStream_t stream) {
-  const Layout l = dw_se_layout(g);
+  const Layout l = dw_se_layout(g, RESIDENT);
   if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kern = dw_se_kernel<T, O, K>;
+  auto kern = dw_se_kernel<T, O, K, RESIDENT>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.total);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
@@ -232,17 +268,25 @@ int launch_k(const void* x, const void* f, const void* dwb, const void* w1, cons
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename O>
-int launch_io(const void* x, const void* f, const void* dwb, const void* w1, const void* b1,
-              const void* w2, const void* b2, void* out, int B, int cluster, const Geometry& g,
-              cudaStream_t stream) {
+template <typename T, typename O, bool RESIDENT>
+int launch_mode(const void* x, const void* f, const void* dwb, const void* w1, const void* b1,
+                const void* w2, const void* b2, void* out, int B, int cluster, const Geometry& g,
+                cudaStream_t stream) {
 #define REPRO_DW_SE_CASE(KK)                                                              \
   if (g.hf == KK && g.wf == KK)                                                           \
-    return launch_k<T, O, KK>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
+    return launch_k<T, O, KK, RESIDENT>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
   REPRO_DW_SE_CASE(3)
   REPRO_DW_SE_CASE(5)
 #undef REPRO_DW_SE_CASE
-  return launch_k<T, O, 0>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
+  return launch_k<T, O, 0, RESIDENT>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
+}
+
+template <typename T, typename O>
+int launch_io(const void* x, const void* f, const void* dwb, const void* w1, const void* b1,
+              const void* w2, const void* b2, void* out, int B, int cluster, int resident,
+              const Geometry& g, cudaStream_t stream) {
+  if (resident) return launch_mode<T, O, true>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
+  return launch_mode<T, O, false>(x, f, dwb, w1, b1, w2, b2, out, B, cluster, g, stream);
 }
 
 Geometry make_geometry(int Hi, int Wi, int C, int Ho, int Wo, int hf, int wf, int stride, int cse,
@@ -257,22 +301,25 @@ REPRO_EXPORT_ERROR_STRING(dw_se)
 
 // x (B, Hi, Wi, C); f (hf, wf, C); dw_bias (C) or null; w1 (C, cse);
 // b1 (cse); w2 (cse, C); b2 (C): all at the stream type.  out (B, Ho, Wo, C)
-// at the store type.  cluster CTAs per image, 1 <= cluster <= 8.
+// at the store type.  cluster CTAs per image, 1 <= cluster <= 8; resident
+// 1 for the resident mode, 0 for the recompute mode.
 extern "C" int dw_se_launch(const void* x, const void* f, const void* dw_bias, const void* w1,
                             const void* b1, const void* w2, const void* b2, void* out, int B,
                             int Hi, int Wi, int C, int Ho, int Wo, int hf, int wf, int stride,
-                            int cse, int cluster, int act_dw, int act_se, int in_dtype,
-                            int out_dtype, void* stream) {
+                            int cse, int cluster, int resident, int act_dw, int act_se,
+                            int in_dtype, int out_dtype, void* stream) {
   if (B < 1 || C < 1 || cse < 1 || cluster < 1 || cluster > 8 || hf < 1 || wf < 1)
     return (int)cudaErrorInvalidValue;
   const Geometry g = make_geometry(Hi, Wi, C, Ho, Wo, hf, wf, stride, cse, cluster, act_dw, act_se);
   REPRO_DISPATCH_IO(in_dtype, out_dtype, launch_io, x, f, dw_bias, w1, b1, w2, b2, out, B,
-                    cluster, g, static_cast<cudaStream_t>(stream));
+                    cluster, resident, g, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory one CTA of this geometry needs, in bytes: lets the wrapper
-// check the planner's model against the kernel.
-extern "C" long long dw_se_smem_bytes(int Ho, int Wo, int C, int cse, int cluster) {
+// Shared memory one CTA of this geometry and mode needs, in bytes: lets the
+// wrapper check the planner's model against the kernel.
+extern "C" long long dw_se_smem_bytes(int Ho, int Wo, int C, int cse, int cluster, int resident) {
   if (cluster < 1) return 0;
-  return (long long)dw_se_layout(make_geometry(0, 0, C, Ho, Wo, 1, 1, 1, cse, cluster, 0, 0)).total;
+  return (long long)dw_se_layout(make_geometry(0, 0, C, Ho, Wo, 1, 1, 1, cse, cluster, 0, 0),
+                                 resident != 0)
+      .total;
 }

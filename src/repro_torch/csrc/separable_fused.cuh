@@ -54,24 +54,11 @@
 //     (against bf16's 2^-9), so the output still rounds once, at its store.
 // The expanded window and the DW tile are fp32 in shared memory, as the
 // reference keeps them.
-#include <cooperative_groups.h>
-
-#include <type_traits>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "tile_gemm.cuh"
 
 namespace {
 
 using namespace repro;
-
-constexpr int kThreads = 256;
-
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCluster = 8;
-
-__host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
 struct Geometry {
   int Hi, Wi, pad_t, pad_l, ci, c, co, Ho, Wo, hf, wf, stride, slab_h, cb, cs, np, cluster;
@@ -170,164 +157,6 @@ __device__ __forceinline__ void dw_run(const float* sp, int wwin, const float (&
   }
 }
 
-// C (M x N) = A (M x K) @ B (K x N) on the CUDA cores in fp32: A stored
-// K-major (at[k * lda + m]), B row-major (b[k * ldb + n]), both with rows of
-// 16-byte multiples covering M and N rounded up to the tile.  Each thread
-// owns TM x TN micro-tiles in turn and reads each k's TM + TN operands as
-// 16-byte vectors; store(m, n, v) takes the in-range results.
-template <int TM, int TN, typename F>
-__device__ __forceinline__ void gemm_simt(const float* __restrict__ at, int lda, const float* __restrict__ bm,
-                                          int ldb, int M, int N, int K, F&& store) {
-  const int tn = (N + TN - 1) / TN;
-  const int tiles = (M + TM - 1) / TM * tn;
-  for (int t = threadIdx.x; t < tiles; t += kThreads) {
-    const int m0 = t / tn * TM, n0 = t % tn * TN;
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    const float* a = at + m0;
-    const float* b = bm + n0;
-    // register double buffering: step k + 1's operands load while step
-    // k's FMAs run
-    float a0[TM], b0[TN], a1[TM], b1[TN];
-    auto load = [&](int k, float (&av)[TM], float (&bv)[TN]) {
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(a + (size_t)k * lda + i);
-        av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int j = 0; j < TN; j += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(b + (size_t)k * ldb + j);
-        bv[j] = v.x; bv[j + 1] = v.y; bv[j + 2] = v.z; bv[j + 3] = v.w;
-      }
-    };
-    auto fma_step = [&](const float (&av)[TM], const float (&bv)[TN]) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    };
-    int k = 0;
-    if (K > 0) load(0, a0, b0);
-    for (; k + 1 < K; k += 2) {
-      load(k + 1, a1, b1);
-      fma_step(a0, b0);
-      if (k + 2 < K) load(k + 2, a0, b0);
-      fma_step(a1, b1);
-    }
-    if (k < K) fma_step(a0, b0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (m0 + i < M && n0 + j < N) store(m0 + i, n0 + j, acc[i][j]);
-  }
-}
-
-// 8x8 micro-tiles when there are enough of them to occupy half the CTA,
-// else 4x4 (four times as many).
-template <typename F>
-__device__ __forceinline__ void gemm_simt_any(const float* at, int lda, const float* bm, int ldb, int M, int N,
-                                              int K, F&& store) {
-  if ((M + 7) / 8 * ((N + 7) / 8) >= kThreads / 2)
-    gemm_simt<8, 8>(at, lda, bm, ldb, M, N, K, store);
-  else
-    gemm_simt<4, 4>(at, lda, bm, ldb, M, N, K, store);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Two 16-bit elements of a K-major B operand, (k, n) and (k + 1, n), packed
-// as the m16n8k16 fragment wants them.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
-  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + ld);
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory to shared memory without a register round
-// trip; zeros where !valid (src is then not read).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// C (M x N) = A (M x K) @ B (K x N) on the tensor cores: A row-major
-// (a[m * lda + k]) and B row-major (bt[k * ldb + n], as the weights lie in
-// device memory), bf16, K a multiple of 16 whose padding is zero in both.  With SPLIT, A is the pair
-// (a, a_lo) and C = a @ B + a_lo @ B.  A warp owns a 16 x 32 block of C at a
-// time (four m16n8k16 accumulators); store(m, n, v) takes in-range results.
-template <bool SPLIT, typename F>
-__device__ __forceinline__ void gemm_tc(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ a_lo,
-                                        int lda, const __nv_bfloat16* __restrict__ bt, int ldb, int M, int N,
-                                        int K, F&& store) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int nchunks = (N + 31) / 32;
-  const int items = (M + 15) / 16 * nchunks;
-  for (int it = warp; it < items; it += kWarps) {
-    const int m0 = it / nchunks * 16, n0 = it % nchunks * 32;
-    const int nb = min(4, (N - n0 + 7) / 8);
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t ah[4], al[4];
-      const size_t ra = (size_t)(m0 + gq) * lda + k0 + 2 * tq;
-      ah[0] = ld32(a + ra);
-      ah[1] = ld32(a + ra + 8 * lda);
-      ah[2] = ld32(a + ra + 8);
-      ah[3] = ld32(a + ra + 8 * lda + 8);
-      if (SPLIT) {
-        al[0] = ld32(a_lo + ra);
-        al[1] = ld32(a_lo + ra + 8 * lda);
-        al[2] = ld32(a_lo + ra + 8);
-        al[3] = ld32(a_lo + ra + 8 * lda + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < nb) {
-          const __nv_bfloat16* pb = bt + (size_t)(k0 + 2 * tq) * ldb + n0 + j * 8 + gq;
-          const uint32_t b0 = ld_pair(pb, ldb), b1 = ld_pair(pb + 8 * ldb, ldb);
-          mma_bf16(acc[j], ah, b0, b1);
-          if (SPLIT) mma_bf16(acc[j], al, b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j >= nb) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + gq + 8 * h;
-        const int n = n0 + j * 8 + 2 * tq;
-        if (m >= M) continue;
-        if (n < N) store(m, n, acc[j][2 * h]);
-        if (n + 1 < N) store(m, n + 1, acc[j][2 * h + 1]);
-      }
-    }
-  }
-}
-
 // Grid (cluster, slabs, batch), clusters along x: rank r owns DW channels
 // [r * cs, min(C, (r + 1) * cs)) of output rows [y * slab_h, ...) of image z.
 template <typename T, bool EXPAND, int KT>
@@ -375,7 +204,6 @@ __global__ void __launch_bounds__(kThreads, 2) sep_fused_kernel(
   const int rp = max(0, r_hi - r_lo) * nq;
   const int cin = EXPAND ? g.ci : g.c;
   const int k16 = up(g.ci, 16);
-  const int c16 = up(c_n, 16);
   auto in_at = [&](int p) -> long long {  // x offset of real window pixel p, channel 0
     const int ih = ih0 + r_lo + p / nq, iw = q_lo + p % nq - g.pad_l;
     return ((b * g.Hi + ih) * g.Wi + iw) * cin;
@@ -544,92 +372,9 @@ __global__ void __launch_bounds__(kThreads, 2) sep_fused_kernel(
   }
 
   // ---- phase B: per Co panel, project the slice, sum over the cluster, store
-  for (int n0 = 0; n0 < g.co; n0 += g.np) {
-    const int nv = min(g.np, g.co - n0);
-    // the panel's project weights, K-major as they lie in device memory:
-    // 16-byte asynchronous copies where Co allows them (a vector is then
-    // whole or past Co, and zero-filled there); and the panel's bias
-    const int npv = g.np / V;
-    for (int j = tid; j < g.np; j += kThreads) bsm[j] = pwb != nullptr && j < nv ? to_f(pwb[n0 + j]) : 0.f;
-    if constexpr (TC) {
-      if (g.vec_w) {
-        for (int e = tid; e < c16 * npv; e += kThreads) {
-          const int k = e / npv, jn = e % npv * V;
-          const bool ok = k < c_n && jn < nv;
-          cp16(wt + (size_t)k * l.lw + jn, ok ? pw + (long long)(c_lo + k) * g.co + n0 + jn : pw, ok);
-        }
-        cp_wait_all();
-      } else {
-        for (int e = tid; e < c16 * g.np; e += kThreads) {
-          const int k = e / g.np, jn = e % g.np;
-          wt[(size_t)k * l.lw + jn] =
-              k < c_n && jn < nv ? pw[(long long)(c_lo + k) * g.co + n0 + jn] : from_f<T>(0.f);
-        }
-      }
-    } else if (std::is_same<T, float>::value && g.vec_w) {
-      for (int e = tid; e < c_n * npv; e += kThreads) {
-        const int k = e / npv, jn = e % npv * V;
-        cp16(ws + (size_t)e * V, jn < nv ? pw + (long long)(c_lo + k) * g.co + n0 + jn : pw, jn < nv);
-      }
-      cp_wait_all();
-    } else {
-      for (int e = tid; e < c_n * g.np; e += kThreads) {
-        const int k = e / g.np, jn = e % g.np;
-        ws[e] = jn < nv ? to_f(pw[(long long)(c_lo + k) * g.co + n0 + jn]) : 0.f;
-      }
-    }
-    __syncthreads();
-    auto keep = [&](int p, int n, float v) { part[(size_t)p * g.np + n] = v; };
-    if constexpr (TC) gemm_tc<true>(dhi, dlo, l.sa, wt, l.lw, P, nv, c16, keep);
-    else gemm_simt_any(dwt, l.pm, ws, g.np, P, nv, c_n, keep);
-    cluster.sync();
-    // this rank's share of the tile's pixels: every rank's partial in rank
-    // order, bias, activation, residual, one store.  A thread takes four
-    // adjacent columns of a pixel (16-byte reads of the partials), several
-    // pixels apart, so their loads are in flight together.
-    const int nq4 = (nv + 3) / 4;
-    const int pp = (P + g.cluster - 1) / g.cluster;
-    const int p_lo = rank * pp, p_hi = min(P, p_lo + pp);
-    const float* parts[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) parts[r] = r < g.cluster ? cluster.map_shared_rank(part, r) : part;
-    const int n4 = tid % nq4 * 4;
-    const int prow = kThreads / nq4;  // pixels taken together
-    if (tid < prow * nq4) {
-      for (int p = p_lo + tid / nq4; p < p_hi; p += prow) {
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int r = 0; r < kMaxCluster; ++r) {
-          if (r >= g.cluster) break;
-          const float4 q = *reinterpret_cast<const float4*>(parts[r] + (size_t)p * g.np + n4);
-          v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
-        }
-        const long long o = ((b * g.Ho + oh0) * g.Wo + p) * g.co + n0 + n4;  // slabs span full rows
-        const float y[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (n4 + u >= nv) break;
-          float z = activate(y[u] + bsm[n4 + u], g.act_pw);
-          if (res != nullptr) z += to_f(res[o + u]);
-          if (g.out_f32) static_cast<float*>(out)[o + u] = z;
-          else static_cast<T*>(out)[o + u] = from_f<T>(z);
-        }
-      }
-    }
-    // keep every CTA's partial tile alive until all ranks have read it (and
-    // the panel's weights until every thread is done with them)
-    cluster.sync();
-  }
-}
-
-// Raises a kernel's dynamic shared-memory limit to the most a CTA may hold,
-// once: every launch then fits it, whatever the order of their sizes.
-template <typename K>
-cudaError_t allow_smem(K kern, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (e == cudaSuccess) done = true;
-  return e;
+  const Project pj{c_lo, c_n, g.co, g.np, P, g.Wo, g.Wo, g.cluster, l.pm, l.sa, l.lw, g.act_pw, g.out_f32,
+                   g.vec_w, ((b * g.Ho + oh0) * g.Wo) * g.co};  // slabs span full rows
+  project_store<T>(cluster, rank, pj, dwt, dhi, dlo, ws, wt, bsm, part, pw, pwb, res, out);
 }
 
 template <typename T, bool EXPAND, int KT>
@@ -641,36 +386,12 @@ int launch_mode(const void* x, const void* ew, const void* f, const void* dwb, c
   static long long placed_key = -1;
   const Layout l = sep_layout<TC>(g, EXPAND);
   if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  auto kern = sep_fused_kernel<T, EXPAND, KT>;
-  cudaError_t e = allow_smem(kern, allowed);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)g.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)g.cluster, (unsigned)((g.Ho + g.slab_h - 1) / g.slab_h), (unsigned)B);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = l.total;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // refuse a cluster the card cannot place (checked once per shared-memory
-  // size and cluster, which is all the answer depends on)
-  const long long key = (long long)l.total * 16 + g.cluster;
-  if (key != placed_key) {
-    int active = 0;
-    e = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
-    if (e != cudaSuccess) return (int)e;
-    if (active < 1) return (int)cudaErrorLaunchOutOfResources;
-    placed_key = key;
-  }
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<const T*>(ew),
-                         static_cast<const T*>(f), static_cast<const T*>(dwb), static_cast<const T*>(pw),
-                         static_cast<const T*>(pwb), static_cast<const T*>(res), out, g, l);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_clustered(sep_fused_kernel<T, EXPAND, KT>,
+                          dim3((unsigned)g.cluster, (unsigned)((g.Ho + g.slab_h - 1) / g.slab_h), (unsigned)B),
+                          l.total, g.cluster, stream, allowed, placed_key, static_cast<const T*>(x),
+                          static_cast<const T*>(ew), static_cast<const T*>(f), static_cast<const T*>(dwb),
+                          static_cast<const T*>(pw), static_cast<const T*>(pwb), static_cast<const T*>(res),
+                          out, g, l);
 }
 
 template <typename T>

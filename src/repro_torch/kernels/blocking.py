@@ -17,21 +17,20 @@ model (:func:`separable_smem_bytes`, the kernel's ``sep_layout``); the
 kernel refuses a launch whose layout exceeds the budget, so a drift fails
 loudly.  :func:`separable_macs` counts a launch's multiply-adds.
 
-The fused-MBConv kernel (``csrc/fused_mbconv.cu``) tiles the output into
-``slab_h x tile_w`` pixels (at most :data:`FUSED_MAX_PIXELS`) by a Co
-panel of at most :data:`FUSED_MAX_CO`, with a halo on both axes, and
-loops over the conv-output channels in chunks; per chunk it stages the
-dense filter chunk in fp32 as well (``fused_mb_smem_bytes``).
+The fused-MBConv kernel (``csrc/fused_mbconv.cu``) has the same shape with
+the dense conv (an implicit GEMM) in place of expand + DW: full-width slabs,
+a C-splitting cluster, chunks of the slice's filter staged double-buffered
+(:func:`plan_fused_mb`, :func:`fused_mb_smem_bytes`).
 
-The DW + squeeze-excite kernel (``csrc/dw_se.cu``) needs the WHOLE fp32 DW
-output of an image resident, because its gate mixes the pooled mean of
-every channel.  That does not fit one CTA for most MnasNet SE blocks, so
-it runs one thread-block cluster of ``n`` CTAs per image, each holding a
-``ceil(C / n)``-channel slice; :func:`plan_dw_se` takes the smallest ``n``
-in :data:`DW_SE_CLUSTERS` whose slice fits.
+The DW + squeeze-excite kernel (``csrc/dw_se.cu``) pools each image's whole
+DW output before its gate, so it runs one thread-block cluster of ``n`` CTAs
+per image, each owning a ``ceil(C / n)``-channel slice; :func:`plan_dw_se`
+decides the segment by the reference's rule, then takes the smallest ``n``
+in :data:`DW_SE_CLUSTERS` whose fp32 slice fits a CTA (``resident`` mode)
+or, where none does, the ``recompute`` mode.
 
-``dwconv2d`` uses no shared memory (one thread per output pixel and
-channel group, taps in registers).  ``pwconv`` has three variants
+``dwconv2d`` stages a padded input tile per CTA and slides a register window
+along runs of outputs (:func:`plan_dwconv2d`).  ``pwconv`` has three variants
 (``csrc/pwconv.cu``), chosen by :func:`plan_pwconv` from the shape alone:
 ``stream`` for G <= :data:`PW_STREAM_MAX_G` rows (a weight-streaming tile,
 Ci split over a cluster), ``tc`` for 16-bit operands whose rows TMA can
@@ -53,12 +52,8 @@ DEFAULT_SMEM_BUDGET = 232_448
 #: Accumulators and fused intermediates are fp32.
 ACC_BYTES = 4
 
-#: The fused-MBConv kernel's CTA tile limits (256 threads, 4x4 register
-#: micro-tile each): at most 64 output pixels by 64 output channels.
-FUSED_MAX_PIXELS = 64
-FUSED_MAX_CO = 64
-#: Largest conv-output channel chunk a fused-MBConv CTA stages at once.
-FUSED_MAX_CB = 64
+#: Largest conv-output channel chunk a ``fused_mbconv`` CTA stages at once.
+FUSED_MAX_CB = 256
 
 #: ``separable_fused`` (``csrc/separable_fused.cuh``): most output pixels a
 #: slab holds, largest cluster splitting C (the largest portable one),
@@ -74,10 +69,18 @@ SEP_MIN_CTAS = 64
 SEP_MAX_EXPAND = 2.0
 SEP_TWO_CTAS = DEFAULT_SMEM_BUDGET // 2 - 1024
 
-#: Channels per thread in ``dwconv2d`` (one 16-byte fp32 vector).
-DW_VEC = 4
-#: Largest filter the ``dwconv2d`` kernel holds in registers.
-DW_MAX_TAPS = 7
+#: ``dwconv2d`` (``csrc/dwconv2d.cu``): the square filters with a compiled
+#: path (any other runs the runtime-K path), the largest of them, output
+#: columns a thread computes from one sliding register window, the widest
+#: tile row, most 16-byte channel vectors and threads a CTA takes, and the
+#: most shared memory a tile holds (several CTAs share an SM).
+DW_TAPS = (3, 5, 7)
+DW_MAX_TAPS = DW_TAPS[-1]
+DW_RUN = 4
+DW_MAX_TILE_W = 16
+DW_MAX_VECS = 8
+DW_THREADS = 256
+DW_TILE_SMEM = 48 * 1024
 
 #: SMs of an H100 SXM: the planner sizes grids to fill them.
 SMS = 132
@@ -140,7 +143,9 @@ def dtype_bytes(dtype: torch.dtype) -> int:
 class BlockPlan:
     """One kernel launch's block choices and the shared memory behind them.
 
-    * ``dwconv2d``        — ``block_c``: channels per thread (1 or 4).
+    * ``dwconv2d``        — ``slab_h x tile_w`` output pixels by ``block_c``
+      channels a CTA, ``block_g`` channels a thread (``variant`` "vector"
+      or "scalar"); ``ctas`` per image.
     * ``separable_fused`` — ``slab_h`` full-width output rows (``tile_w``
       = Wo) per CTA, ``cluster`` CTAs splitting the DW channels into
       slices of ``block_g``, ``block_c`` the chunk of a slice staged at
@@ -151,7 +156,8 @@ class BlockPlan:
     * ``fused_mbconv``    — as ``separable_fused``; ``block_c`` chunks the
       conv output.
     * ``dw_se``           — ``cluster`` CTAs per image, ``block_c`` channels
-      each; ``block_g`` carries the SE width ``c_se``.
+      each, ``variant`` "resident" or "recompute"; ``block_g`` carries the
+      SE width ``c_se``.
     """
     block_c: int
     block_co: int
@@ -171,60 +177,98 @@ class BlockPlan:
 # dwconv2d
 # ---------------------------------------------------------------------------
 
+def dw_vector(c: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Channels a ``dwconv2d`` thread takes at once: one 16-byte vector (4
+    fp32, 8 bf16 or fp16) where C's rows are whole vectors on 16-byte
+    aligned bases, else one channel."""
+    v = 16 // dtype_bytes(dtype)
+    return v if aligned and c % v == 0 else 1
+
+
+def dw_compiled(hf: int, wf: int, stride: int) -> bool:
+    """Whether ``dwconv2d`` has a compiled path (taps of a row in registers,
+    a sliding register window) for this filter and stride; every other
+    filter takes the runtime-K path, which reads its taps from shared
+    memory."""
+    return hf == wf and hf in DW_TAPS and stride in (1, 2)
+
+
+def dwconv2d_smem_bytes(tile_h: int, tile_w: int, cg: int, hf: int, wf: int,
+                        stride: int, dtype: torch.dtype) -> int:
+    """Shared memory of one ``dwconv2d`` CTA (``dw_layout`` in
+    ``csrc/dwconv2d.cu``): the padded input tile of ``cg`` channels at the
+    stream width, ``(tile_h - 1) * stride + hf`` rows by ``(tile_w - 1) *
+    stride + wf`` columns, and the fp32 taps of those channels."""
+    hw = (tile_h - 1) * stride + hf
+    ww = (tile_w - 1) * stride + wf
+    return _a(hw * ww * cg * dtype_bytes(dtype)) + _a(hf * wf * cg * ACC_BYTES)
+
+
+def dw_threads(tile_h: int, tile_w: int, cg: int, vec: int) -> int:
+    """Threads of a ``dwconv2d`` CTA: one per channel vector and run of
+    :data:`DW_RUN` output columns of each tile row."""
+    return cg // vec * tile_h * -(-tile_w // DW_RUN)
+
+
+@functools.lru_cache(maxsize=4096)
 def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
-                  hf: int = 3, wf: int = 3, *,
+                  hf: int = 3, wf: int = 3, *, stride: int = 1,
                   dtype: torch.dtype = torch.float32,
-                  smem_budget: int = DEFAULT_SMEM_BUDGET) -> BlockPlan:
-    """Channels per thread for the depthwise kernel: a 4-wide vector when
-    ``C`` allows it.  The kernel holds no shared memory."""
+                  aligned: bool = True) -> BlockPlan:
+    """The ``dwconv2d`` CTA tile: ``slab_h x tile_w`` output pixels by
+    ``block_c`` channels, ``block_g`` channels a thread (``variant``
+    "vector" for 16-byte vectors, "scalar" for one channel).
+
+    Among tiles of whole runs of :data:`DW_RUN` columns (at most
+    :data:`DW_MAX_TILE_W`), any number of rows and up to
+    :data:`DW_MAX_VECS` channel vectors (32 scalar channels) in at most
+    :data:`DW_THREADS` threads whose staged input fits :data:`DW_TILE_SMEM`,
+    the planner takes, in order: at least a quarter of :data:`DW_THREADS`
+    threads with work; channel groups with work for at least 3/4 of their
+    lanes (a last group of mostly idle threads stages zeros: on the card a
+    64-channel group of a 72-channel bf16 layer took 1.5-1.8x the best
+    tile); the most channels (a warp's copies then cover whole rows of C);
+    the most threads with work; the fewest staged input pixels per output
+    (the halo).  The limits were read off ``bench_conv.py --kernel dwconv2d
+    --tune`` on the card (PERF.md): at the 3x3 shapes the pick is within
+    1.04x of the best tile timed, over all ten shapes a median 1.21x (the
+    9x9 and 11x11 filters want taller tiles of fewer channels).  ``hi x wi``
+    (the input before padding) does not enter: the kernel zero-fills what
+    lies outside it.  Nor does a chain's shared-memory budget (which it
+    may shrink to force the fused kernels to degrade): ``dwconv2d`` is what
+    they degrade to."""
+    vec = dw_vector(c, dtype, aligned)
+    limit = DW_TILE_SMEM
+    nvec = -(-c // vec)
+    best = None
+    for nv in range(1, min(nvec, DW_MAX_VECS if vec > 1 else 32) + 1):
+        used = nvec / (-(-nvec // nv) * nv)  # channel lanes that have work
+        for tw in range(DW_RUN, min(_up(wo, DW_RUN), DW_MAX_TILE_W) + 1,
+                        DW_RUN):
+            for th in range(1, min(ho, DW_THREADS // (nv * (tw // DW_RUN)))
+                            + 1):
+                smem = dwconv2d_smem_bytes(th, tw, nv * vec, hf, wf, stride,
+                                           dtype)
+                if smem > limit:
+                    continue
+                busy = nv * th * -(-min(tw, wo) // DW_RUN)
+                halo = (((th - 1) * stride + hf) * ((tw - 1) * stride + wf)
+                        / (th * min(tw, wo)))
+                key = (busy < DW_THREADS // 4, used < 0.75, -nv, -busy,
+                       halo)
+                if best is None or key < best[0]:
+                    best = (key, (nv, tw, th, smem))
+    if best is None:
+        raise ValueError(f"no dwconv2d tile of a {hf}x{wf} filter fits "
+                         f"{limit} B of shared memory")
+    nv, tw, th, smem = best[1]
+    n_slabs = -(-ho // th)
     return BlockPlan(
-        block_c=DW_VEC if c % DW_VEC == 0 else 1, block_co=0, slab_h=ho,
-        n_slabs=1, halo_rows=0, smem_bytes=0, dtype_bytes=dtype_bytes(dtype),
-    )
-
-
-# ---------------------------------------------------------------------------
-# fused-kernel tiles (fused_mbconv)
-# ---------------------------------------------------------------------------
-
-def tile_candidates(ho: int, wo: int) -> list[tuple[int, int]]:
-    """Output tiles ``(slab_h, tile_w)``, largest first: up to 64 pixels,
-    then halving rows and columns in turn down to one pixel."""
-    tw = min(wo, 8)
-    sh = min(ho, FUSED_MAX_PIXELS // tw)
-    cands = [(sh, tw)]
-    while (sh, tw) != (1, 1):
-        if sh >= tw and sh > 1:
-            sh = -(-sh // 2)
-        else:
-            tw = -(-tw // 2)
-        cands.append((sh, tw))
-    return cands
-
-
-def _tile_plan(ho: int, wo: int, c: int, co: int, *, stride: int, hf: int,
-               dtype: torch.dtype, smem_budget: int,
-               smem) -> Optional[BlockPlan]:
-    """The first fused tile that fits: the widest Co panel the kernel takes,
-    then a chunk of at least 32 channels (or all of C), then the largest
-    pixel tile, then the largest chunk.  ``smem(slab_h, tile_w, cb, cob)``
-    is the kernel's shared-memory model."""
-    cob = min(co, FUSED_MAX_CO)
-    for min_cb in (min(c, 32), 1):
-        for sh, tw in tile_candidates(ho, wo):
-            cb = min(c, FUSED_MAX_CB)
-            while cb >= min_cb and smem(sh, tw, cb, cob) > smem_budget:
-                cb -= 1
-            if cb < min_cb:
-                continue
-            n_slabs = -(-ho // sh)
-            return BlockPlan(
-                block_c=cb, block_co=cob, slab_h=sh, n_slabs=n_slabs,
-                halo_rows=max(hf - stride, 0) if n_slabs > 1 else 0,
-                smem_bytes=smem(sh, tw, cb, cob),
-                dtype_bytes=dtype_bytes(dtype), tile_w=tw,
-            )
-    return None
+        block_c=nv * vec, block_co=0, slab_h=th, n_slabs=n_slabs,
+        halo_rows=max(hf - stride, 0) if n_slabs > 1 else 0,
+        smem_bytes=smem, dtype_bytes=dtype_bytes(dtype), block_g=vec,
+        tile_w=tw, variant="vector" if vec > 1 else "scalar",
+        ctas=n_slabs * -(-wo // tw) * -(-c // (nv * vec)))
 
 
 # ---------------------------------------------------------------------------
@@ -448,48 +492,136 @@ def plan_separable3(ho: int, wo: int, ci: int, c: int, co: int, *,
                                 batch=batch, hi=hi, wi=wi)
 
 # ---------------------------------------------------------------------------
-# fused MBConv (dense Hf x Wf conv -> act -> PW-project)
+# fused MBConv (dense Hf x Wf conv -> act -> PW-project), csrc/fused_mbconv.cu
 # ---------------------------------------------------------------------------
 
-def fused_mb_smem_bytes(slab_h: int, tile_w: int, cb: int, cob: int, *,
-                        ci: int, hf: int = 3, wf: int = 3,
-                        stride: int = 1) -> int:
-    """Shared memory of one fused-MBConv CTA (``mb_layout`` in
-    ``csrc/fused_mbconv.cu``), each region rounded up to 16 bytes: the fp32
-    conv-output chunk stored channel-major with rows of
-    ``FUSED_MAX_PIXELS + 4``; the fp32 PW weight chunk with rows of
-    ``FUSED_MAX_CO``; the raw ``(tile + halo) x ci`` window, transposed to
-    fp32 with rows padded to a multiple of 4 pixels; and the fp32 filter
-    chunk, ``hf * wf * ci`` rows of ``cb`` rounded up to 4.  Everything is
-    staged in fp32, so the stream dtype does not enter."""
-    if cob > FUSED_MAX_CO:
-        raise ValueError(f"Co panel {cob} > {FUSED_MAX_CO}")
-    hin = (slab_h - 1) * stride + hf
-    win = (tile_w - 1) * stride + wf
-    nwp = -(-hin * win // 4) * 4
-    cbs = -(-cb // 4) * 4
-    return (_a(cb * (FUSED_MAX_PIXELS + 4) * ACC_BYTES)
-            + _a(cb * FUSED_MAX_CO * ACC_BYTES)
-            + _a(ci * nwp * ACC_BYTES)
-            + _a(hf * wf * ci * cbs * ACC_BYTES))
+def fused_mb_smem_bytes(*, ci: int, c_slice: int, cb: int, panel: int,
+                        slab_h: int, tile_w: int, hf: int = 3, wf: int = 3,
+                        stride: int = 1, tc: bool = False) -> int:
+    """Shared memory of one ``fused_mbconv`` CTA (``mb_layout`` in
+    ``csrc/fused_mbconv.cu``), each region rounded up to 16 bytes.
+
+    The resident tile of the CTA's ``c_slice`` conv-output channels for
+    its ``slab_h x tile_w`` pixels, through both phases; then the larger
+    of phase A (the tile's padded input window, pixel-major, and one
+    filter chunk of ``hf * wf * Ci`` rows by ``cb`` columns, two where the
+    slice has more than one chunk, so the next chunk's copy overlaps the
+    product) and phase B (one ``panel`` of the project weights, its fp32
+    bias and the fp32 partial output tile the cluster sums).  ``tc`` (bf16)
+    keeps 16-bit operands: the tile as a hi and lo pair with pixel rows
+    padded to 16 and K rows of the slice rounded up to 16 plus 8, Ci padded
+    to 16 plus 8 a window pixel, filter rows of ``cb`` rounded up to 8 plus
+    8; otherwise every operand is fp32, pixel rows padded to 8, Ci padded
+    to 4 and then to an odd number of 16-byte columns a window pixel, filter
+    rows of ``cb`` rounded up to 8."""
+    p = slab_h * tile_w
+    hwin = (slab_h - 1) * stride + hf
+    wwin = (tile_w - 1) * stride + wf
+    nbuf = 2 if -(-c_slice // cb) > 1 else 1
+    if tc:
+        pm, cip = _up(p, 16), _up(ci, 16)
+        tile = 2 * _a(pm * (_up(c_slice, 16) + 8) * 2)
+        phase_a = (_a(hwin * wwin * (cip + 8) * 2)
+                   + nbuf * _a(hf * wf * cip * (_up(cb, 8) + 8) * 2))
+        phase_b = _a(_up(c_slice, 16) * (panel + 8) * 2)
+    else:
+        pm, cip = _up(p, 8), _up(ci, 4)
+        tile = _a(c_slice * pm * ACC_BYTES)
+        phase_a = (_a(hwin * wwin * (cip // 4 | 1) * 4 * ACC_BYTES)
+                   + nbuf * _a(hf * wf * cip * _up(cb, 8) * ACC_BYTES))
+        phase_b = _a(c_slice * panel * ACC_BYTES)
+    phase_b += _a(panel * ACC_BYTES) + _a(pm * panel * ACC_BYTES)
+    return tile + max(phase_a, phase_b)
 
 
+def fused_mb_plan_at(ho: int, wo: int, ci: int, c: int, co: int, *,
+                     slab_h: int, cluster: int, panel: int,
+                     tile_w: Optional[int] = None, stride: int = 1,
+                     hf: int = 3, wf: int = 3,
+                     dtype: torch.dtype = torch.float32,
+                     smem_budget: int = DEFAULT_SMEM_BUDGET, batch: int = 1,
+                     min_cb: int = 1) -> Optional[BlockPlan]:
+    """The ``fused_mbconv`` plan at this tile (``tile_w`` default: full
+    width), cluster and panel with the largest chunk (at least ``min_cb``,
+    at most :data:`FUSED_MAX_CB`) that fits ``smem_budget``, or None."""
+    tile_w = tile_w or wo
+    cs = separable_slice(c, cluster)
+    n = -(-c // cs)
+    n_slabs = -(-ho // slab_h)
+    tiles = n_slabs * -(-wo // tile_w)
+    for cb in _halvings(min(cs, FUSED_MAX_CB)):
+        if cb < min_cb:
+            break
+        need = fused_mb_smem_bytes(
+            ci=ci, c_slice=cs, cb=cb, panel=panel, slab_h=slab_h,
+            tile_w=tile_w, hf=hf, wf=wf, stride=stride,
+            tc=dtype == torch.bfloat16)
+        if need <= smem_budget:
+            return BlockPlan(
+                block_c=cb, block_co=panel, slab_h=slab_h, n_slabs=n_slabs,
+                halo_rows=max(hf - stride, 0) if n_slabs > 1 else 0,
+                smem_bytes=need, dtype_bytes=dtype_bytes(dtype),
+                tile_w=tile_w, cluster=n, block_g=cs,
+                ctas=batch * tiles * n)
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
 def plan_fused_mb(ho: int, wo: int, ci: int, c: int, co: int, *,
                   stride: int = 1, hf: int = 3, wf: int = 3,
                   dtype: torch.dtype = torch.float32,
                   smem_budget: int = DEFAULT_SMEM_BUDGET,
-                  residual: bool = False) -> Optional[BlockPlan]:
-    """Tile plan for the fused-MBConv kernel, or None when even a 1x1-pixel
-    tile with a one-channel chunk exceeds the budget (the chain then
-    degrades to ``mb`` + ``pw``).  ``ci`` is the raw-input width, ``c`` the
-    conv-output (expanded) width, ``co`` the projected width.  Same
-    preference order as :func:`plan_separable`; the residual claims no
-    shared memory."""
-    return _tile_plan(
-        ho, wo, c, co, stride=stride, hf=hf, dtype=dtype,
-        smem_budget=smem_budget,
-        smem=lambda sh, tw, cb, cob: fused_mb_smem_bytes(
-            sh, tw, cb, cob, ci=ci, hf=hf, wf=wf, stride=stride))
+                  residual: bool = False,
+                  batch: int = 1) -> Optional[BlockPlan]:
+    """The plan of one ``fused_mbconv`` launch, or None when even one output
+    row with the largest cluster, a one-channel chunk and an 8-wide panel
+    exceeds ``smem_budget`` (the chain then degrades to ``mb`` + ``pw``).
+    ``ci`` is the raw-input width, ``c`` the conv-output (expanded) width,
+    ``co`` the projected width.
+
+    A CTA owns a tile of ``slab_h`` output rows by ``tile_w`` columns of
+    one image and a slice of the conv channels; a cluster of ``cluster``
+    CTAs splits C, so each conv value is computed once, and the partial
+    projections are summed across the cluster.  Tiles span the full width
+    (``tile_w = wo``) wherever one fits; narrower ones (halving the width)
+    only where a full-width window of Ci channels does not.  Among the slab
+    heights (balanced over the image), clusters of 1-8 and Co panels, each
+    with the largest chunk that fits, the planner prefers, in order: at
+    least :data:`SEP_MIN_CTAS` CTAs where the batch allows; the fewest
+    chunks (the whole slice at once); in bf16, two CTAs an SM; the smallest
+    cluster; a CTA count nearest :data:`SMS` CTAs (twice that in bf16); the
+    widest panel.  The order was read off ``bench_conv.py --kernel
+    fused_mbconv --tune`` on the card (PERF.md): at Lite0's blocks a slice
+    computed in one chunk was the fastest plan at every shape, batch and
+    type; fp32's 8x8 register tiles (about 180 registers a thread, so one
+    CTA an SM) gained from one large CTA, bf16's tensor-core tiles from
+    two.  The residual streams from device memory into the epilogue and
+    claims no shared memory."""
+    most = batch * ho * wo * SEP_MAX_CLUSTER
+    floor, target = min(SEP_MIN_CTAS, most), min(SMS, most)
+    tc = dtype == torch.bfloat16
+    best = None
+    for tw in _halvings(wo):
+        for sh in sorted({-(-ho // -(-ho // h)) for h in _halvings(
+                max(1, min(ho, SEP_MAX_PIXELS // tw)))}, reverse=True):
+            for n in (1, 2, 4, 8):
+                for panel in _halvings(separable_panel(sh * tw, co), 8):
+                    p = fused_mb_plan_at(
+                        ho, wo, ci, c, co, slab_h=sh, cluster=n,
+                        panel=panel, tile_w=tw, stride=stride, hf=hf,
+                        wf=wf, dtype=dtype, smem_budget=smem_budget,
+                        batch=batch)
+                    if p is None:
+                        continue
+                    key = (p.ctas < floor, -(-p.block_g // p.block_c),
+                           tc and p.smem_bytes > SEP_TWO_CTAS, p.cluster,
+                           abs(math.log(p.ctas / (target * (2 if tc else 1)))),
+                           -p.block_co)
+                    if best is None or key < best[0]:
+                        best = (key, p)
+        if best is not None:
+            return best[1]
+    return None
 
 
 def plan_mb(ho: int, wo: int, ci: int, c: int, hf: int = 3, wf: int = 3, *,
@@ -508,15 +640,44 @@ def plan_mb(ho: int, wo: int, ci: int, c: int, hf: int = 3, wf: int = 3, *,
 # squeeze-excite: the DW + SE-epilogue pass, and the standalone SE
 # ---------------------------------------------------------------------------
 
-def dw_se_smem_bytes(ho: int, wo: int, c: int, c_se: int,
-                     cluster: int) -> int:
+#: The reference's working-set budget of one TPU kernel (12 MiB of VMEM,
+#: ``repro/kernels/blocking.py::DEFAULT_VMEM_BUDGET``).  :func:`plan_dw_se`
+#: decides ``dw_se`` against ``dw`` + ``se`` by the reference's rule, so the
+#: two packages plan the same segments at every resolution.
+REF_VMEM_BUDGET = 12 * 1024 * 1024
+
+#: ``dw_se``'s modes (``csrc/dw_se.cu``): ``resident`` keeps each CTA's
+#: slice of the fp32 DW output in shared memory between the pool and the
+#: scale; ``recompute`` keeps only the pooled sums and computes the DW
+#: again, in the same tap order, for the scaled store.
+DW_SE_VARIANTS = ("resident", "recompute")
+
+
+def ref_dw_se_vmem_bytes(hiu: int, wiu: int, ho: int, wo: int, c: int,
+                         c_se: int, hf: int = 3, wf: int = 3,
+                         itemsize: int = 4) -> int:
+    """The reference's working set of its DW + SE kernel, a copy of
+    ``repro/kernels/blocking.py::dw_se_vmem_bytes`` (the port imports
+    nothing of the reference): the double-buffered input window and the
+    filter at all ``c`` channels, the fp32 DW accumulator and output tile,
+    and the gate weights and biases."""
+    return (c * (2 * hiu * wiu * itemsize + hf * wf * itemsize
+                 + ho * wo * (ACC_BYTES + itemsize))
+            + 4 * c * c_se * itemsize
+            + 2 * (c_se + c) * itemsize)
+
+
+def dw_se_smem_bytes(ho: int, wo: int, c: int, c_se: int, cluster: int,
+                     resident: bool = True) -> int:
     """Shared memory of one ``dw_se`` CTA (``dw_se_layout`` in
     ``csrc/dw_se.cu``) when ``cluster`` CTAs split the ``c`` channels of
-    one image: the slice's fp32 DW output for the whole image, one float
-    per thread for the pooling reduction, the slice's pooled means and
-    gates, and the partial and summed hidden vectors of the gate."""
+    one image: the slice's fp32 DW output for the whole image (``resident``
+    mode only), one float per thread for the pooling reduction, the slice's
+    pooled means and gates, and the partial and summed hidden vectors of
+    the gate."""
     cs = -(-c // cluster)
-    return (_a(ho * wo * cs * ACC_BYTES) + _a(DW_SE_THREADS * ACC_BYTES)
+    return (_a(ho * wo * cs * ACC_BYTES if resident else 0)
+            + _a(DW_SE_THREADS * ACC_BYTES)
             + 2 * _a(cs * ACC_BYTES) + 2 * _a(c_se * ACC_BYTES))
 
 
@@ -525,20 +686,31 @@ def plan_dw_se(hiu: int, wiu: int, ho: int, wo: int, c: int, c_se: int,
                dtype: torch.dtype = torch.float32,
                smem_budget: int = DEFAULT_SMEM_BUDGET
                ) -> Optional[BlockPlan]:
-    """Cluster plan for the DW + SE-epilogue pass: the smallest cluster in
-    :data:`DW_SE_CLUSTERS` whose per-CTA channel slice of the image's whole
-    fp32 DW output fits the budget, or None when 8 CTAs cannot hold it
-    (the chain then degrades to ``dw`` + ``se``).  There is no spatial
-    ladder: the gate needs the pooled mean over the whole image, so a
-    partial pool would be a wrong answer, not a slower one.  The input
-    window is read from device memory, not staged."""
-    for n in DW_SE_CLUSTERS:
-        need = dw_se_smem_bytes(ho, wo, c, c_se, n)
+    """Plan of the DW + SE-epilogue pass, or None (the chain then degrades
+    to ``dw`` + ``se``).
+
+    The segment kind follows the reference: None wherever the reference's
+    working set (:func:`ref_dw_se_vmem_bytes` at the stream width) exceeds
+    :data:`REF_VMEM_BUDGET`.  Otherwise the ``resident`` mode with the
+    smallest cluster in :data:`DW_SE_CLUSTERS` whose per-CTA slice of the
+    image's fp32 DW output fits ``smem_budget``; where not even 8 CTAs hold
+    it, the ``recompute`` mode on a cluster of 8; None when that does not
+    fit ``smem_budget`` either.  There is no spatial ladder: the gate needs
+    the pooled mean over the whole image, so a partial pool would be a
+    wrong answer, not a slower one.  The input window is read from device
+    memory, not staged."""
+    if ref_dw_se_vmem_bytes(hiu, wiu, ho, wo, c, c_se, hf, wf,
+                            dtype_bytes(dtype)) > REF_VMEM_BUDGET:
+        return None
+    modes = [(n, True) for n in DW_SE_CLUSTERS] + [(DW_SE_CLUSTERS[-1], False)]
+    for n, resident in modes:
+        need = dw_se_smem_bytes(ho, wo, c, c_se, n, resident)
         if need <= smem_budget:
             return BlockPlan(
                 block_c=-(-c // n), block_co=0, slab_h=ho, n_slabs=1,
                 halo_rows=0, smem_bytes=need, dtype_bytes=dtype_bytes(dtype),
-                block_g=c_se, cluster=n)
+                block_g=c_se, cluster=n,
+                variant=DW_SE_VARIANTS[0 if resident else 1])
     return None
 
 

@@ -76,8 +76,8 @@ def _run_fused(seg, stages, params, y, res, *, impl, stream_dtype,
             padding=d.padding, dw_activation=d.activation,
             activation=proj.activation).to(out_dtype)
     # the kernel pads as it reads: no padded copy of y is made
-    pad = (ref.same_pads(y.shape[1], y.shape[2], d.hf, d.wf, d.stride)
-           if d.padding.lower() == "same" else None)
+    pad = ref.pads(y.shape[1], y.shape[2], d.hf, d.wf, d.stride,
+                   d.padding)
     p = seg.plan
     return separable_fused(
         y, dw_f, pw_w, dw_b, pw_b, res, expand_w=expand_w,
@@ -100,11 +100,14 @@ def _run_fused_mb(seg, stages, params, y, res, *, impl, stream_dtype,
     if impl == "torch":
         return ref.fused_mbconv_ref(y, mb_f, pw_w, mb_b, pw_b, res,
                                     padding=mb.padding, **kw).to(out_dtype)
-    y = ref.apply_padding(y, mb.hf, mb.wf, mb.stride, mb.padding)
+    # the kernel pads as it reads: no padded copy of y is made
+    pad = ref.pads(y.shape[1], y.shape[2], mb.hf, mb.wf, mb.stride,
+                   mb.padding)
     p = seg.plan
-    return fused_mbconv(y, mb_f, pw_w, mb_b, pw_b, res, block_c=p.block_c,
-                        block_co=p.block_co, slab_h=p.slab_h,
-                        tile_w=p.tile_w, out_dtype=out_dtype, **kw)
+    return fused_mbconv(y, mb_f, pw_w, mb_b, pw_b, res, pad=pad,
+                        slab_h=p.slab_h, tile_w=p.tile_w,
+                        block_c=p.block_c, block_co=p.block_co,
+                        cluster=p.cluster, out_dtype=out_dtype, **kw)
 
 
 def _se_params(p, stream_dtype):
@@ -124,7 +127,7 @@ def _run_dw_se(seg, stages, params, y, *, impl, stream_dtype, out_dtype):
                              **kw).to(out_dtype)
     y = ref.apply_padding(y, d.hf, d.wf, d.stride, d.padding)
     return dw_se(y, dw_f, *gate, dw_b, cluster=seg.plan.cluster,
-                 out_dtype=out_dtype, **kw)
+                 variant=seg.plan.variant, out_dtype=out_dtype, **kw)
 
 
 def _run_se(st, p, y, *, impl, stream_dtype, out_dtype):
@@ -168,8 +171,12 @@ def _run_dw(seg, st, p, y, *, impl, stream_dtype):
     if impl == "torch":
         y = ref.dwconv2d_ref(y, f, stride=st.stride, padding=st.padding)
     else:
-        y = ref.apply_padding(y, st.hf, st.wf, st.stride, st.padding)
-        y = dwconv2d(y, f, stride=st.stride, block_c=seg.plan.block_c)
+        # the kernel pads as it reads: no padded copy of y is made
+        q = seg.plan
+        y = dwconv2d(y, f, stride=st.stride,
+                     pad=ref.pads(y.shape[1], y.shape[2], st.hf, st.wf,
+                                  st.stride, st.padding),
+                     block_c=q.block_c, slab_h=q.slab_h, tile_w=q.tile_w)
     return apply_epilogue(y, _cast(p.get("b"), stream_dtype), st.activation)
 
 

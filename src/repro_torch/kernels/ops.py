@@ -33,13 +33,14 @@ def dwconv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
              block_c: Optional[int] = None,
              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Depthwise 2-D conv, NHWC. x (B,Hi,Wi,C), f (Hf,Wf,C).  ``block_c``
-    runs the kernel at a planned channel vector width; ``out_dtype`` is the
-    store type (``None``: ``x.dtype``)."""
+    runs the kernel at a planned channel group (the kernel pads as it
+    reads); ``out_dtype`` is the store type (``None``: ``x.dtype``)."""
     if resolve_impl(impl, x.device) == "torch":
         return ref.dwconv2d_ref(x, f, stride=stride,
                                 padding=padding).to(out_dtype or x.dtype)
-    x = ref.apply_padding(x, f.shape[0], f.shape[1], stride, padding)
-    return dwconv2d_kernel(x, f, stride=stride, block_c=block_c,
+    pad = ref.pads(x.shape[1], x.shape[2], f.shape[0], f.shape[1], stride,
+                   padding)
+    return dwconv2d_kernel(x, f, stride=stride, pad=pad, block_c=block_c,
                            out_dtype=out_dtype)
 
 
@@ -127,8 +128,7 @@ def separable_fused(
         ho, wo, x.shape[-1], co, stride=stride, hf=hf, wf=wf, dtype=x.dtype,
         smem_budget=smem_budget, batch=b, hi=hi, wi=wi)
     if plan is None:
-        y = dwconv2d_kernel(ref.apply_padding(x, hf, wf, stride, padding),
-                            dw_f, stride=stride)
+        y = dwconv2d_kernel(x, dw_f, stride=stride, pad=pad)
         y = apply_epilogue(y, dw_bias, dw_activation).to(x.dtype)
         out = pwconv(y, pw_w, pw_bias, activation=activation, impl="cuda")
         return out if residual is None else out + residual

@@ -29,11 +29,7 @@ def pad_same(x: torch.Tensor, hf: int, wf: int, stride: int) -> torch.Tensor:
     """Explicit SAME zero padding of an NHWC tensor, odd row and column at
     the bottom/right (``repro/kernels/ops.py:33-46``; ``F.conv2d``'s
     ``padding="same"`` differs and rejects stride > 1)."""
-    top, left, bottom, right = same_pads(x.shape[1], x.shape[2], hf, wf,
-                                         stride)
-    if not (top or left or bottom or right):
-        return x
-    return F.pad(x, (0, 0, left, right, top, bottom))
+    return zero_pad(x, same_pads(x.shape[1], x.shape[2], hf, wf, stride))
 
 
 def same_pads(hi: int, wi: int, hf: int, wf: int,
@@ -42,6 +38,26 @@ def same_pads(hi: int, wi: int, hf: int, wf: int,
     ph = max((-(-hi // stride) - 1) * stride + hf - hi, 0)
     pw = max((-(-wi // stride) - 1) * stride + wf - wi, 0)
     return ph // 2, pw // 2, ph - ph // 2, pw - pw // 2
+
+
+def pads(hi: int, wi: int, hf: int, wf: int, stride: int,
+         padding: str) -> Optional[tuple[int, int, int, int]]:
+    """The (top, left, bottom, right) zero padding that a kernel which pads
+    as it reads applies for ``padding`` ("same"), or None ("valid")."""
+    if padding.lower() == "same":
+        return same_pads(hi, wi, hf, wf, stride)
+    if padding.lower() != "valid":
+        raise ValueError(padding)
+    return None
+
+
+def zero_pad(x: torch.Tensor, pad: Optional[tuple]) -> torch.Tensor:
+    """``x`` (NHWC) zero-padded by ``pad`` = (top, left, bottom, right),
+    or ``x`` itself for None: what a kernel that pads as it reads sees."""
+    if pad is None or not any(pad):
+        return x
+    top, left, bottom, right = pad
+    return F.pad(x, (0, 0, left, right, top, bottom))
 
 
 def apply_padding(x: torch.Tensor, hf: int, wf: int, stride: int,

@@ -14,7 +14,10 @@ CTA keeps the fp32 DW output of its channel slice resident, pools it and
 forms its partial hidden vector; the partials are summed across the
 cluster through distributed shared memory behind a cluster barrier, so
 every CTA computes its gates from the whole pooled vector.  Each CTA then
-scales its resident slice and stores it once.
+scales its resident slice and stores it once.  Where not even 8 CTAs hold
+the slice, the ``recompute`` mode keeps only the pooled sums and computes
+the DW again, in the same tap order, for the scaled store (bit-identical
+values for twice the DW's multiply-adds and a second read of the input).
 
 Bound on the H100: bytes.  Hf*Wf multiply-adds per output against one
 input read and one output write; the gate's two FCs are tiny.  At batch 1
@@ -33,12 +36,21 @@ import torch
 from repro_torch.kernels import _build, blocking, ref
 from repro_torch.kernels.epilogue import activation_code
 
-#: Kernel launches so far in this process.
+#: Kernel launches so far in this process, in all and by mode.
 launches = 0
+launches_by_variant = dict.fromkeys(blocking.DW_SE_VARIANTS, 0)
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 15
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
              + [ctypes.c_void_p])
-_SMEM_ARGTYPES = [ctypes.c_int] * 5
+_SMEM_ARGTYPES = [ctypes.c_int] * 6
+
+
+def reset_launches() -> None:
+    """Zero the launch counters."""
+    global launches
+    launches = 0
+    for k in launches_by_variant:
+        launches_by_variant[k] = 0
 
 
 def dw_se_plain(x, dw_f, w1, b1, w2, b2, dw_bias=None, *, stride=1,
@@ -53,13 +65,14 @@ def dw_se_plain(x, dw_f, w1, b1, w2, b2, dw_bias=None, *, stride=1,
     return y.to(out_dtype or x.dtype)
 
 
-def smem_bytes(ho: int, wo: int, c: int, c_se: int, cluster: int) -> int:
+def smem_bytes(ho: int, wo: int, c: int, c_se: int, cluster: int,
+               variant: str = "resident") -> int:
     """The kernel's own count of the shared memory one CTA needs (the
     planner's ``blocking.dw_se_smem_bytes`` must agree with it)."""
     lib = _build.library("dw_se")
     fn = lib.dw_se_smem_bytes
     fn.argtypes, fn.restype = _SMEM_ARGTYPES, ctypes.c_longlong
-    return int(fn(ho, wo, c, c_se, cluster))
+    return int(fn(ho, wo, c, c_se, cluster, int(variant == "resident")))
 
 
 def dw_se(
@@ -75,15 +88,18 @@ def dw_se(
     dw_activation: Optional[str] = "relu6",
     se_activation: str = "relu",
     cluster: Optional[int] = None,
+    variant: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """x (B, Hi, Wi, C); dw_f (Hf, Wf, C); w1 (C, Cse); b1 (Cse,);
     w2 (Cse, C); b2 (C,); dw_bias (C,) -> (B, Ho, Wo, C): the DW output
     scaled by its squeeze-excite gate, VALID geometry.
 
-    A CUDA tensor launches the kernel with ``cluster`` CTAs per image
-    (``None``: ``blocking.plan_dw_se``); a CPU tensor takes
-    :func:`dw_se_plain`.  A launch that cannot place its cluster raises.
+    A CUDA tensor launches the kernel with ``cluster`` CTAs per image in
+    mode ``variant`` ("resident" or "recompute"; ``None`` entries come
+    from ``blocking.plan_dw_se``); a CPU tensor takes :func:`dw_se_plain`.
+    A launch that cannot place its cluster, or whose resident slice does
+    not fit a CTA, raises.
     """
     global launches
     b, hi, wi, c = x.shape
@@ -109,17 +125,21 @@ def dw_se(
         if t is not None and t.dtype != x.dtype:
             raise ValueError(f"dw_se: x is {x.dtype} but got a {t.dtype} "
                              "operand")
-    if cluster is None:
+    if cluster is None or variant is None:
         plan = blocking.plan_dw_se((ho - 1) * stride + hf,
                                    (wo - 1) * stride + wf, ho, wo, c, c_se,
                                    hf, wf, dtype=x.dtype)
         if plan is None:
-            raise ValueError(f"dw_se: the DW output of {(ho, wo, c)} does "
-                             "not fit a cluster of 8 CTAs")
-        cluster = plan.cluster
+            raise ValueError(f"dw_se: no plan for the DW output of "
+                             f"{(ho, wo, c)}")
+        cluster = cluster or plan.cluster
+        variant = variant or plan.variant
     if cluster not in blocking.DW_SE_CLUSTERS:
         raise ValueError(f"dw_se: cluster {cluster} not in "
                          f"{blocking.DW_SE_CLUSTERS}")
+    if variant not in blocking.DW_SE_VARIANTS:
+        raise ValueError(f"dw_se: mode {variant!r} not in "
+                         f"{blocking.DW_SE_VARIANTS}")
     cin, cout = _build.dtype_codes(x.dtype, odt)
     out = torch.empty((b, ho, wo, c), dtype=odt, device=dev)
     lib = _build.library("dw_se")
@@ -128,7 +148,8 @@ def dw_se(
     _build.check(lib, "dw_se", fn(
         *(_build.ptr(t) for t in operands), _build.ptr(out),
         b, hi, wi, c, ho, wo, hf, wf, stride, c_se, cluster,
-        activation_code(dw_activation), activation_code(se_activation),
-        cin, cout, _build.stream(dev)))
+        int(variant == "resident"), activation_code(dw_activation),
+        activation_code(se_activation), cin, cout, _build.stream(dev)))
     launches += 1
+    launches_by_variant[variant] += 1
     return out

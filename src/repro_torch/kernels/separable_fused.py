@@ -50,13 +50,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 23
 _SMEM_ARGTYPES = [ctypes.c_int] * 14
 
 
-def _padded(x, pad):
-    if pad is None or not any(pad):
-        return x
-    top, left, bottom, right = pad
-    return torch.nn.functional.pad(x, (0, 0, left, right, top, bottom))
-
-
 def separable_fused_plain(
     x, dw_f, pw_w, dw_bias=None, pw_bias=None, residual=None, *,
     expand_w=None, expand_activation="relu6", stride=1,
@@ -66,7 +59,7 @@ def separable_fused_plain(
     (after the zero ``pad``, if given), fp32 intermediates, one store at
     ``out_dtype``."""
     y = ref.separable_fused_ref(
-        _padded(x, pad).float(), dw_f, pw_w, dw_bias, pw_bias, residual,
+        ref.zero_pad(x, pad).float(), dw_f, pw_w, dw_bias, pw_bias, residual,
         expand_w=expand_w, expand_activation=expand_activation,
         stride=stride, padding="valid", dw_activation=dw_activation,
         activation=activation)

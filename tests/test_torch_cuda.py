@@ -42,13 +42,54 @@ def _r(shape, dev, dtype, scale=1.0, seed=0):
 @pytest.mark.parametrize("b,h,w,c,stride,hf,vec", [
     (2, 9, 11, 12, 1, 3, 4), (1, 8, 8, 20, 2, 3, 4), (2, 7, 9, 6, 2, 5, 1),
     (1, 10, 10, 5, 1, 3, 1), (1, 12, 12, 8, 1, 7, 4),
-    (2, 56, 56, 72, 2, 5, 4), (1, 14, 14, 480, 1, 5, 4)])
+    (2, 56, 56, 72, 2, 5, 4), (1, 14, 14, 480, 1, 5, 4),
+    (2, 13, 17, 24, 1, 9, 4), (1, 20, 15, 40, 2, 9, 4),
+    (2, 12, 12, 16, 1, 11, 4), (1, 23, 21, 13, 2, 11, 1),
+    (1, 9, 9, 16, 3, 3, 4), (1, 10, 12, 8, 1, 2, 4)])
 def test_dwconv2d_kernel(dev, b, h, w, c, stride, hf, vec, dtype):
-    x = ref.pad_same(_r((b, h, w, c), dev, dtype), hf, hf, stride)
+    """The planned tile on unpadded input with SAME pads, and on input
+    padded first (pad 0); 3x3-7x7 at strides 1 and 2 take the compiled
+    paths, 9x9, 11x11, 2x2 and stride 3 the runtime-K path; ``vec`` 1 is a
+    C that is not a whole number of 16-byte vectors."""
+    x = _r((b, h, w, c), dev, dtype)
     f = _r((hf, hf, c), dev, dtype, 1 / hf)
-    got = dwconv2d.dwconv2d(x, f, stride=stride, block_c=vec)
-    want = dwconv2d.dwconv2d_plain(x, f, stride=stride)
+    pad = ref.same_pads(h, w, hf, hf, stride)
+    want = dwconv2d.dwconv2d_plain(x, f, stride=stride, pad=pad)
+    got = dwconv2d.dwconv2d(x, f, stride=stride, pad=pad)
+    plan = blocking.plan_dwconv2d(0, 0, *want.shape[1:3], c, hf, hf,
+                                  stride=stride, dtype=dtype)
+    v = 16 // x.element_size()
+    assert plan.variant == ("vector" if vec > 1 and c % v == 0 else "scalar")
     assert rel_err(got, want) <= TOL[dtype]
+    xp = ref.pad_same(x, hf, hf, stride)
+    assert torch.equal(dwconv2d.dwconv2d(xp, f, stride=stride), got)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("tile", [(1, 4, None), (3, 8, None), (5, 4, 8),
+                                  (2, 16, 16)])
+def test_dwconv2d_kernel_at_forced_tiles(dev, tile, dtype):
+    """Tiles the planner would not pick, ragged at every edge of the
+    output, and a channel group smaller than C."""
+    x = _r((2, 19, 23, 48), dev, dtype)
+    f = _r((3, 3, 48), dev, dtype, 1 / 3)
+    pad = ref.same_pads(19, 23, 3, 3, 2)
+    th, tw, cg = tile
+    got = dwconv2d.dwconv2d(x, f, stride=2, pad=pad, slab_h=th, tile_w=tw,
+                            block_c=cg)
+    want = dwconv2d.dwconv2d_plain(x, f, stride=2, pad=pad)
+    assert rel_err(got, want) <= TOL[dtype]
+
+
+def test_dwconv2d_smem_model_matches_the_kernel(dev):
+    for dtype in (torch.float32, torch.bfloat16):
+        for ho, wo, c, k, s in ((112, 112, 32, 3, 1), (56, 56, 64, 3, 2),
+                                (28, 28, 72, 5, 2), (7, 7, 1024, 3, 1),
+                                (14, 14, 61, 11, 2)):
+            p = blocking.plan_dwconv2d(0, 0, ho, wo, c, k, k, stride=s,
+                                       dtype=dtype)
+            assert dwconv2d.smem_bytes(p.slab_h, p.tile_w, p.block_c, k, k,
+                                       s, dtype) == p.smem_bytes
 
 
 #: (stream, store) pairs of pwconv's card tests.
@@ -299,50 +340,102 @@ def test_separable_fused_smem_model_matches_the_kernel(dev, dtype):
                         s.kind == "fused3", dtype), (arch, s)
 
 
-# (b, h, w, ci, c, co, stride, k, residual, tile): Lite0's four fused-MBConv
-# blocks at batch 2, then ragged C and Co, several Co panels, 5x5 taps and
-# forced small tiles.
+# (b, h, w, ci, c, co, stride, k, residual, blocks): Lite0's four
+# fused-MBConv blocks at batch 2 and block D at batch 1, then ragged C and Co,
+# several Co panels and chunks, 5x5 taps, a Ci that is not a whole 16-byte
+# vector, and forced blocks (slab_h, tile_w, block_c, cluster): narrow tiles
+# ragged at the right edge, clusters of 1-8.
 FUSED_MB_CASES = [
     (2, 112, 112, 16, 96, 24, 2, 3, False, None),
     (2, 56, 56, 24, 144, 24, 1, 3, True, None),
     (2, 56, 56, 24, 144, 40, 2, 3, False, None),
     (2, 28, 28, 40, 240, 40, 1, 3, True, None),
+    (1, 28, 28, 40, 240, 40, 1, 3, True, None),
     (1, 9, 11, 5, 37, 70, 1, 3, False, None),
-    (2, 8, 8, 6, 30, 6, 1, 5, True, (3, 2, 7)),
-    (1, 10, 10, 3, 130, 129, 2, 5, False, (1, 1, 1)),
+    (2, 8, 8, 6, 30, 6, 1, 5, True, (3, 3, 7, 2)),
+    (1, 10, 10, 3, 130, 129, 2, 5, False, (1, 2, 8, 8)),
+    (2, 14, 14, 24, 200, 300, 1, 3, False, (2, 14, 16, 1)),
+    (1, 12, 20, 8, 64, 16, 2, 3, True, None),
 ]
 
 
 @pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("b,h,w,ci,c,co,stride,k,residual,tile",
+@pytest.mark.parametrize("b,h,w,ci,c,co,stride,k,residual,blocks",
                          FUSED_MB_CASES)
 def test_fused_mbconv_kernel(dev, b, h, w, ci, c, co, stride, k, residual,
-                             tile, dtype):
-    x_raw = _r((b, h, w, ci), dev, dtype)
-    x = ref.pad_same(x_raw, k, k, stride)
+                             blocks, dtype):
+    x = _r((b, h, w, ci), dev, dtype)
     f = _r((k, k, ci, c), dev, dtype, (k * k * ci) ** -0.5)
     fb = _r((c,), dev, dtype, 0.5)
     pw, pwb = _r((c, co), dev, dtype, c ** -0.5), _r((co,), dev, dtype, 0.5)
-    res = x_raw if residual else None
+    ho, wo = -(-h // stride), -(-w // stride)
+    res = _r((b, ho, wo, co), dev, dtype) if residual else None
     kw = dict(stride=stride, mb_activation="relu6",
               activation=None if residual else "silu")
-    blocks = {}
-    if tile is not None:
-        blocks = dict(slab_h=tile[0], tile_w=tile[1], block_c=tile[2],
-                      block_co=min(co, 64))
-    got = fmb.fused_mbconv(x, f, pw, fb, pwb, res, **kw, **blocks)
-    want = fmb.fused_mbconv_plain(x, f, pw, fb, pwb, res, **kw)
+    pad = ref.same_pads(h, w, k, k, stride)
+    if blocks is not None:
+        kw.update(slab_h=blocks[0], tile_w=blocks[1], block_c=blocks[2],
+                  cluster=blocks[3])
+    got = fmb.fused_mbconv(x, f, pw, fb, pwb, res, pad=pad, **kw)
+    for key in ("slab_h", "tile_w", "block_c", "cluster"):
+        kw.pop(key, None)
+    want = fmb.fused_mbconv_plain(x, f, pw, fb, pwb, res, pad=pad, **kw)
     assert rel_err(got, want) <= TOL[dtype]
 
 
 def test_fused_mbconv_smem_model_matches_kernel(dev):
-    for ci, k, stride, sh, tw, cb, cob in [(16, 3, 2, 8, 8, 64, 24),
-                                           (40, 3, 1, 8, 8, 64, 40),
-                                           (5, 5, 1, 3, 2, 7, 6),
-                                           (3, 5, 2, 1, 1, 1, 64)]:
-        assert fmb.smem_bytes(ci, k, k, stride, sh, tw, cb, cob) == \
-            blocking.fused_mb_smem_bytes(sh, tw, cb, cob, ci=ci, hf=k, wf=k,
-                                         stride=stride)
+    """The planner's shared-memory model against the kernel's own layout
+    at Lite0's blocks (batch 1 and 8, both layouts) and at tiles the
+    planner takes when the budget shrinks."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for batch in (1, 8):
+            for ho, wo, ci, c, co, s in ((56, 56, 16, 96, 24, 2),
+                                         (56, 56, 24, 144, 24, 1),
+                                         (28, 28, 24, 144, 40, 2),
+                                         (28, 28, 40, 240, 40, 1)):
+                for budget in (blocking.DEFAULT_SMEM_BUDGET, 40_000):
+                    p = blocking.plan_fused_mb(ho, wo, ci, c, co, stride=s,
+                                               dtype=dtype, batch=batch,
+                                               smem_budget=budget)
+                    assert fmb.smem_bytes(
+                        ci, p.block_g, p.block_c, p.block_co, p.slab_h,
+                        p.tile_w, 3, 3, s, dtype) == p.smem_bytes
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_fused_mbconv_repeats_bit_for_bit(dev, dtype):
+    """The cluster's partial projections are summed in rank order: two runs
+    give the same bits."""
+    x = _r((8, 28, 28, 40), dev, dtype)
+    f = _r((3, 3, 40, 240), dev, dtype, 1 / 19)
+    pw = _r((240, 40), dev, dtype, 240 ** -0.5)
+    plan = blocking.plan_fused_mb(28, 28, 40, 240, 40, dtype=dtype, batch=8)
+    assert plan.cluster > 1
+    kw = dict(pad=(1, 1, 1, 1), residual=x)
+    assert torch.equal(fmb.fused_mbconv(x, f, pw, **kw),
+                       fmb.fused_mbconv(x, f, pw, **kw))
+
+
+def test_fused_mbconv_rounds_once_on_the_card(dev):
+    """bf16 fused-MBConv output rounds once (the project's A operand is the
+    fp32 conv output split hi + lo): it is no farther from the fp32 answer
+    for its bf16 operands than the bf16 composition of the dense conv and
+    ``pwconv``, which rounds the conv output to bf16 in between."""
+    for ci, c, co in ((16, 96, 24), (40, 240, 40)):
+        x = _r((2, 14, 14, ci), dev, torch.bfloat16)
+        f = _r((3, 3, ci, c), dev, torch.bfloat16, (9 * ci) ** -0.5)
+        pw = _r((c, co), dev, torch.bfloat16, c ** -0.5)
+        pad = (1, 1, 1, 1)
+        exact = fmb.fused_mbconv_plain(x.float(), f.float(), pw.float(),
+                                       pad=pad)
+        xb, fb, pwb = x, f, pw
+        fused = fmb.fused_mbconv(xb, fb, pwb, pad=pad)
+        conv = ref.conv2d_ref(xb, fb, padding="same", activation="relu6")
+        unfused = pwconv.pwconv(conv.reshape(-1, c), pwb).reshape(
+            exact.shape)
+        e_f = (fused.float() - exact).abs().max()
+        e_u = (unfused.float() - exact).abs().max()
+        assert e_f <= e_u
 
 
 # (b, h, w, c, c_se, stride, k): MnasNet's SE blocks 3, 4, 10, 11, 12, 13
@@ -388,6 +481,34 @@ def test_dw_se_kernel_at_each_cluster_size(dev, cluster, c):
     assert se_epilogue.smem_bytes(ho, wo, c, 6, cluster) == need
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,h,w,c,c_se,stride,k", [
+    (2, 28, 28, 672, 28, 1, 3), (2, 160, 160, 72, 6, 2, 5),
+    (1, 9, 11, 37, 5, 2, 3), (2, 12, 10, 20, 4, 2, 7)])
+def test_dw_se_recompute_matches_resident_bit_for_bit(dev, b, h, w, c, c_se,
+                                                      stride, k, dtype):
+    """The recompute mode computes each DW value again by the same code in
+    the same order: where both modes run, their outputs are the same bits;
+    where only recompute does (MnasNet's block 11 at a 224 input, block 3
+    at 320), it holds the plain version."""
+    x = ref.pad_same(_r((b, h, w, c), dev, dtype), k, k, stride)
+    f, db = _r((k, k, c), dev, dtype, 1 / k), _r((c,), dev, dtype, 0.5)
+    gate = (_r((c, c_se), dev, dtype, c ** -0.5), _r((c_se,), dev, dtype),
+            _r((c_se, c), dev, dtype, c_se ** -0.5), _r((c,), dev, dtype))
+    ho, wo = -(-h // stride), -(-w // stride)
+    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride, cluster=8,
+                            variant="recompute")
+    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride)
+    assert rel_err(got, want) <= TOL[dtype]
+    if blocking.dw_se_smem_bytes(ho, wo, c, c_se, 8) <= \
+            blocking.DEFAULT_SMEM_BUDGET:
+        resident = se_epilogue.dw_se(x, f, *gate, db, stride=stride,
+                                     cluster=8, variant="resident")
+        assert torch.equal(got, resident)
+    assert se_epilogue.smem_bytes(ho, wo, c, c_se, 8, "recompute") == \
+        blocking.dw_se_smem_bytes(ho, wo, c, c_se, 8, False)
+
+
 @pytest.mark.parametrize("budget", [64, 1500, 232_448])
 def test_ops_separable_fused_degrades_by_budget(dev, budget):
     x = _r((1, 8, 8, 16), dev, torch.float32)
@@ -427,6 +548,25 @@ NETWORK_LAUNCHES = {
                       "separable_fused3": 11},
     ("lite0", False): {"dwconv2d": 12, "pwconv": 27},
 }
+
+
+def test_mnasnet_at_224_runs_one_recompute_dw_se(dev):
+    """MnasNet-A1 at a 224 body input plans the reference's segments: 8
+    ``dw_se``, block 11's in the recompute mode."""
+    spec = ARCHS["mnasnet"]()
+    params = network.init_network(spec, seed=2, device=dev)
+    x = _r((1, 224, 224, spec.c_in), dev, torch.float32)
+    reset_launch_counts()
+    y = network.execute_network(spec, params, x)
+    torch.cuda.synchronize(dev)
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(NETWORK_LAUNCHES[("mnasnet", None)])
+    assert launch_counts() == want
+    assert se_epilogue.launches_by_variant == {"resident": 7,
+                                               "recompute": 1}
+    ref_y = network.execute_network(spec, params, x,
+                                    policy=KernelPolicy(impl="torch"))
+    assert rel_err(y, ref_y) <= 1e-4
 
 
 @pytest.mark.parametrize("fused", (None, False))

@@ -87,6 +87,31 @@ def test_dwconv2d_out_dtype_widens_once():
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,stride,hf", [
+    (2, 9, 11, 12, 1, 3), (1, 12, 10, 8, 2, 5), (2, 13, 17, 6, 1, 9),
+    (1, 20, 15, 5, 2, 9), (1, 14, 12, 7, 1, 11), (2, 23, 21, 4, 2, 11)])
+def test_dwconv2d_pads_like_reference(b, h, w, c, stride, hf, dtype):
+    """The wrapper on the unpadded input with SAME pads (as the lowering
+    calls the kernel, which pads as it reads), at filters the kernel runs
+    compiled (3x3, 5x5) and on its runtime-K path (9x9, 11x11), against the
+    reference's ``impl="xla"`` op and ``dwconv2d_pallas`` in interpret
+    mode."""
+    rng = np.random.default_rng(12)
+    x, f = rand(rng, (b, h, w, c)), rand(rng, (hf, hf, c), 1 / hf)
+    pad = ref.same_pads(h, w, hf, hf, stride)
+    got = dwconv2d.dwconv2d(to_torch(x, dtype), to_torch(f, dtype),
+                            stride=stride, pad=pad)
+    oracle = jops.dwconv2d(to_jax(x, dtype), to_jax(f, dtype), stride=stride,
+                           padding="same", impl="xla")
+    pallas = dwconv2d_pallas(jops.pad_same(to_jax(x, dtype), hf, hf, stride),
+                             to_jax(f, dtype), stride=stride, interpret=True)
+    assert_match(got, oracle, dtype)
+    assert_match(got, pallas, dtype)
+    assert_match(ops.dwconv2d(to_torch(x, dtype), to_torch(f, dtype),
+                              stride=stride), oracle, dtype)
+
+
 PW_CASES = [(37, 20, 50, "relu6", True), (64, 130, 70, "gelu", True),
             (5, 8, 3, "silu", False), (16, 33, 17, None, True),
             (9, 16, 24, "relu", True)]
@@ -230,6 +255,31 @@ def test_fused_mbconv_cpu_path_matches_reference(
     via_ref = ref.fused_mbconv_ref(t(x), t(f), t(pw), t(fb), t(pwb), t(res),
                                    padding="same", **kw)
     assert_match(via_ref, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,ci,c,co,stride,k,residual", [
+    (2, 10, 9, 6, 24, 8, 2, 3, False), (1, 8, 8, 4, 12, 4, 1, 3, True),
+    (1, 13, 11, 3, 16, 10, 2, 9, False), (2, 9, 9, 5, 10, 5, 1, 11, True)])
+def test_fused_mbconv_pads_like_reference(b, h, w, ci, c, co, stride, k,
+                                          residual, dtype):
+    """The wrapper on the unpadded input with SAME pads (the kernel pads as
+    it reads), at 3x3 and at 9x9 and 11x11, against the reference's
+    ``fused_mbconv_ref`` with SAME padding."""
+    rng = np.random.default_rng(13)
+    x = rand(rng, (b, h, w, ci))
+    f, fb = rand(rng, (k, k, ci, c), (k * k * ci) ** -0.5), rand(rng, (c,))
+    pw, pwb = rand(rng, (c, co), c ** -0.5), rand(rng, (co,), 0.5)
+    res = x if residual else None
+    t = lambda a: to_torch(a, dtype)  # noqa: E731
+    j = lambda a: to_jax(a, dtype)  # noqa: E731
+    kw = dict(stride=stride, mb_activation="relu6", activation="relu")
+    got = fmb.fused_mbconv(t(x), t(f), t(pw), t(fb), t(pwb), t(res),
+                           pad=ref.same_pads(h, w, k, k, stride), **kw)
+    want = jref.fused_mbconv_ref(j(x), j(f), j(pw), j(fb), j(pwb), j(res),
+                                 padding="same", **kw)
+    assert got.dtype == t(x).dtype
+    assert_match(got, want, dtype)
 
 
 # (b, h, w, c, c_se, stride, k, dw_bias, dw_act, se_act)

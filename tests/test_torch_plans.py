@@ -22,14 +22,18 @@ def _kinds(nplan):
     return [tuple(s.kind for s in p.segments) for p in nplan.plans]
 
 
+@pytest.mark.parametrize("res", (112, 224, 320, 448))
 @pytest.mark.parametrize("fused", (None, False))
 @pytest.mark.parametrize("stream", (None, "bfloat16"))
 @pytest.mark.parametrize("batch", (1, 8))
 @pytest.mark.parametrize("arch", tuple(SPECS))
-def test_segment_kinds_match_reference(arch, batch, stream, fused):
+def test_segment_kinds_match_reference(arch, batch, stream, fused, res):
+    """The same segments as the reference's planner at every block, at the
+    body inputs of 224 to 896 pixel images; the histogram of section 4 of
+    PERF.md at 112."""
     jspec = getattr(jnet, SPECS[arch])()
     spec = getattr(network, SPECS[arch])()
-    shape = (batch, 112, 112, spec.c_in)
+    shape = (batch, res, res, spec.c_in)
     jplan = jnet.plan_network(
         jspec, shape, dtype=jnp.float32,
         policy=JKernelPolicy(fused=fused, on_failure="raise",
@@ -46,6 +50,8 @@ def test_segment_kinds_match_reference(arch, batch, stream, fused):
     assert plan.block_shapes == jplan.block_shapes
     assert plan.block_dtypes == jplan.block_dtypes
     assert plan.out_shape == jplan.out_shape
+    if res != 112:
+        return
     want = {("v1", None): {"fused2": 13}, ("v1", False): {"dw": 13, "pw": 13},
             ("v2", None): {"fused2": 1, "fused3": 16},
             ("v2", False): {"dw": 17, "pw": 33},
@@ -83,12 +89,31 @@ def test_make_divisible_matches_reference():
 
 @pytest.mark.parametrize("ho,wo", [(112, 112), (7, 7), (14, 3), (1, 1),
                                    (5, 13)])
-def test_tile_candidates_descend_to_one_pixel(ho, wo):
-    cands = blocking.tile_candidates(ho, wo)
-    assert cands[-1] == (1, 1)
-    px = [sh * tw for sh, tw in cands]
-    assert px == sorted(px, reverse=True) and px[0] <= 64
-    assert all(sh <= ho and tw <= wo for sh, tw in cands)
+def test_dwconv2d_tiles_fit_and_cover(ho, wo):
+    """Every ``dwconv2d`` tile, at each filter (compiled and runtime-K),
+    stride and type: whole runs of columns, at most 256 threads, its staged
+    input within the tile budget and equal to the layout rule, and channel
+    groups of whole vectors (one channel where C is ragged)."""
+    for c, dtype in ((32, torch.float32), (72, torch.bfloat16),
+                     (61, torch.float32), (1024, torch.bfloat16)):
+        for k, stride in ((3, 1), (5, 2), (7, 1), (9, 2), (11, 1)):
+            p = blocking.plan_dwconv2d(0, 0, ho, wo, c, k, k, stride=stride,
+                                       dtype=dtype)
+            vec = p.block_g
+            assert vec == (16 // dtype.itemsize if c % (16 // dtype.itemsize)
+                           == 0 else 1)
+            assert p.variant == ("vector" if vec > 1 else "scalar")
+            assert p.tile_w % blocking.DW_RUN == 0
+            assert p.tile_w <= max(blocking.DW_RUN, -(-wo // 4) * 4)
+            assert 1 <= p.slab_h <= ho and p.block_c % vec == 0
+            assert blocking.dw_threads(p.slab_h, p.tile_w, p.block_c,
+                                       vec) <= blocking.DW_THREADS
+            assert p.smem_bytes == blocking.dwconv2d_smem_bytes(
+                p.slab_h, p.tile_w, p.block_c, k, k, stride, dtype)
+            assert p.smem_bytes <= blocking.DW_TILE_SMEM
+            assert p.n_slabs == -(-ho // p.slab_h)
+            assert p.ctas == p.n_slabs * -(-wo // p.tile_w) * -(
+                -c // p.block_c)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -107,8 +132,12 @@ def test_fused_plans_fit_one_cta(dtype):
                     assert seg.cluster in blocking.DW_SE_CLUSTERS
                     continue
                 if s.kind == "fusedmb":
-                    assert seg.slab_h * seg.tile_w <= blocking.FUSED_MAX_PIXELS
-                    assert 1 <= seg.block_co <= blocking.FUSED_MAX_CO
+                    # full-width slabs, a C-splitting cluster
+                    assert seg.slab_h * seg.tile_w <= blocking.SEP_MAX_PIXELS
+                    assert seg.block_co % 8 == 0 and seg.block_co >= 8
+                    assert 1 <= seg.cluster <= blocking.SEP_MAX_CLUSTER
+                    assert 1 <= seg.block_c <= min(seg.block_g,
+                                                   blocking.FUSED_MAX_CB)
                     continue
                 # separable_fused: full-width slabs, a C-splitting cluster
                 assert seg.slab_h * seg.tile_w <= blocking.SEP_MAX_PIXELS
@@ -185,32 +214,108 @@ def test_mnasnet_dw_se_clusters_at_112():
 
 
 @pytest.mark.parametrize("budget,want", [
-    (232_448, 1), (120_000, 2), (70_000, 4), (40_000, 8), (20_000, None)])
+    (232_448, 1), (120_000, 2), (70_000, 4), (40_000, 8),
+    (20_000, "recompute"), (4000, None)])
 def test_dw_se_plan_takes_the_smallest_cluster_that_fits(budget, want):
+    """The smallest cluster whose resident slice fits; where none does, the
+    recompute mode on a cluster of 8; None where even that does not."""
     p = blocking.plan_dw_se(30, 30, 28, 28, 72, 6, 3, 3, smem_budget=budget)
     if want is None:
         assert p is None
         return
-    assert p.cluster == want and p.block_c == -(-72 // want)
+    resident = want != "recompute"
+    n = want if resident else 8
+    assert p.cluster == n and p.block_c == -(-72 // n)
+    assert p.variant == ("resident" if resident else "recompute")
     assert p.smem_bytes <= budget
-    assert p.smem_bytes == blocking.dw_se_smem_bytes(28, 28, 72, 6, want)
+    assert p.smem_bytes == blocking.dw_se_smem_bytes(28, 28, 72, 6, n,
+                                                     resident)
 
 
 def test_fused_mb_plan_fits_and_degrades():
-    p = blocking.plan_fused_mb(56, 56, 16, 96, 24, stride=2)
-    assert (p.slab_h, p.tile_w, p.block_c, p.block_co) == (8, 8, 64, 24)
-    assert p.smem_bytes == blocking.fused_mb_smem_bytes(
-        8, 8, 64, 24, ci=16, stride=2)
+    """Lite0's block A at batch 8: full-width slabs, the slice in one
+    chunk and enough CTAs for the card, its shared memory the layout
+    rule's; a
+    shrinking budget gives way chunk, panel and slab first and ends in
+    narrower tiles, then None."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = blocking.plan_fused_mb(56, 56, 16, 96, 24, stride=2, dtype=dtype,
+                                   batch=8)
+        assert p.tile_w == 56 and p.block_co == 24
+        assert p.ctas >= blocking.SEP_MIN_CTAS and p.block_c == p.block_g
+        assert p.block_g == blocking.separable_slice(96, p.cluster)
+        assert p.ctas == 8 * p.n_slabs * p.cluster
+        assert p.smem_bytes == blocking.fused_mb_smem_bytes(
+            ci=16, c_slice=p.block_g, cb=p.block_c, panel=p.block_co,
+            slab_h=p.slab_h, tile_w=56, stride=2,
+            tc=dtype == torch.bfloat16)
     tiny = blocking.plan_fused_mb(56, 56, 16, 96, 24, stride=2,
-                                  smem_budget=6000)
-    assert tiny is not None and tiny.smem_bytes <= 6000
-    assert tiny.block_c < 32
+                                  smem_budget=12_000)
+    assert tiny is not None and tiny.smem_bytes <= 12_000
+    assert tiny.tile_w < 56 and tiny.block_c < 96
     assert blocking.plan_fused_mb(56, 56, 16, 96, 24, stride=2,
                                   smem_budget=600) is None
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_fused_mb_plans_fill_the_card(dtype):
+    """Lite0's four fused-MBConv blocks, at batch 8 and 1: a launch puts at
+    least 64 CTAs on the card, each computing its whole slice in one
+    chunk."""
+    for batch in (8, 1):
+        for ho, wo, ci, c, co, s in ((56, 56, 16, 96, 24, 2),
+                                     (56, 56, 24, 144, 24, 1),
+                                     (28, 28, 24, 144, 40, 2),
+                                     (28, 28, 40, 240, 40, 1)):
+            p = blocking.plan_fused_mb(ho, wo, ci, c, co, stride=s,
+                                       dtype=dtype, batch=batch)
+            assert p.ctas >= blocking.SEP_MIN_CTAS, (batch, ho, c, p)
+            assert p.tile_w == wo and p.block_c == p.block_g
+
+
 def _jkinds(cp):
     return [s.kind for s in cp.segments]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_plan_dw_se_agrees_with_reference(dtype):
+    """Over MnasNet's SE blocks at body inputs of 112 to 560 and some
+    widths around them, the port plans ``dw_se`` exactly where the
+    reference does, in the resident mode where a cluster of at most 8 CTAs
+    holds the fp32 DW output slice and in the recompute mode exactly where
+    none does."""
+    from repro.kernels import blocking as jblocking
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    seen = set()
+    for res in (112, 224, 320, 448, 560):
+        for h, c, c_se, k, s in ((res // 2, 72, 6, 5, 2),
+                                 (res // 4, 120, 10, 5, 1),
+                                 (res // 8, 480, 20, 3, 1),
+                                 (res // 8, 672, 28, 3, 1),
+                                 (res // 8, 672, 28, 5, 2),
+                                 (res // 16, 960, 40, 5, 1)):
+            ho = wo = -(-h // s)
+            hiu = wiu = (ho - 1) * s + k
+            jp = jblocking.plan_dw_se(hiu, wiu, ho, wo, c, c_se, k, k,
+                                      dtype=jdt)
+            p = blocking.plan_dw_se(hiu, wiu, ho, wo, c, c_se, k, k,
+                                    dtype=tdt)
+            assert (p is None) == (jp is None), (res, h, c)
+            if p is None:
+                continue
+            fits = blocking.dw_se_smem_bytes(
+                ho, wo, c, c_se, 8) <= blocking.DEFAULT_SMEM_BUDGET
+            assert p.variant == ("resident" if fits else "recompute")
+            seen.add(p.variant)
+            if fits:
+                assert p.cluster == min(
+                    n for n in blocking.DW_SE_CLUSTERS
+                    if blocking.dw_se_smem_bytes(ho, wo, c, c_se, n)
+                    <= blocking.DEFAULT_SMEM_BUDGET)
+            else:
+                assert p.cluster == 8
+    assert seen == {"resident", "recompute"}
 
 
 def test_dw_se_degrades_to_dw_and_se_like_reference():
