@@ -15,22 +15,24 @@ From the root of a checkout it:
    main-path shapes (3x3 and 5x5 taps, ``dwconv2d`` also at 9x9 and 11x11,
    ``separable_fused`` at every stage size of V2 and Lite0 including the
    7x7 blocks at batch 1 and 8, with the CTA count of each launch;
-   ``fused_mbconv`` at Lite0's four blocks; ``dw_se`` in both modes, and
-   the two modes bit for bit; the xLSTM conv and Linear shapes), in fp32
-   and bf16, each kernel's planned shared memory against its own count,
+   ``fused_mbconv`` at Lite0's four blocks; ``dw_se`` at MnasNet's six
+   SE block shapes and blocks 3 and 11 at a 224 input, with the CTAs of
+   each pass, two calls bit for bit and a CUDA-graph replay against the
+   eager call; the xLSTM conv and Linear shapes), in fp32 and bf16, each
+   kernel's planned shared memory (each ``dw_se`` pass's) against its own
+   count,
    and times the kernel and PyTorch library calls for the same function,
    each replayed from a CUDA graph of 20 calls and as events around one
    eager call, and the plain version;
 4. drives the CNN path, ``execute_network`` on MobileNet V1 and
    V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
    and 8, fp32 and bf16 streaming, under the default plan and
-   ``fused=False``, and MnasNet-A1 at 224x224 (batch 8, default plan, its
-   block 11 in ``dw_se``'s recompute mode): for each run it zeroes the
-   launch counters, drives one forward, checks that the counters moved by
-   exactly the expected counts (``dw_se``'s by mode too), holds the output
+   ``fused=False``, and MnasNet-A1 at 224x224 (batch 8, default plan): for
+   each run it zeroes the launch counters, drives one forward, checks that
+   the counters moved by exactly the expected counts, holds the output
    against the fp32 plain path, times the forward and prints the CTA count
-   of each ``separable_fused`` launch and the CTA count and cluster of each
-   ``fused_mbconv`` launch;
+   of each ``separable_fused`` launch, the CTA count and cluster of each
+   ``fused_mbconv`` launch and the CTAs a pass of each ``dw_se`` launch;
 5. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy ``decode_step``s, in fp32 and bf16.  Around each call it
@@ -87,14 +89,6 @@ EXPECTED_LAUNCHES = {
     ("lite0", None): {"separable_fused2": 1, "fused_mbconv": 4,
                       "separable_fused3": 11},
     ("lite0", False): {"dwconv2d": 12, "pwconv": 27},
-}
-
-#: ``dw_se`` launches by mode in one forward of the default plan (the
-#: reference plans the same 8 ``dw_se`` segments at 224x224 as at 112x112;
-#: block 11's fp32 DW output, 28x28x672, fits no cluster of 8 CTAs there).
-EXPECTED_DW_SE_MODES = {
-    ("mnasnet", 112, None): {"resident": 8, "recompute": 0},
-    ("mnasnet", 224, None): {"resident": 7, "recompute": 1},
 }
 
 SOURCES = {
@@ -403,25 +397,52 @@ class KernelChecks:
             library, ops, nbytes * x.element_size(),
             extra={"ctas": plan.ctas, "cluster": plan.cluster})
 
-    def dw_se(self, b, h, w, c, c_se, stride, dtype, k=3, variant=None):
-        """One SE block at the planner's cluster and mode (or ``variant``
-        on a cluster of 8); its shared memory against the kernel's own
-        count."""
+    def dw_se(self, b, h, w, c, c_se, stride, dtype, k=3):
+        """One SE block as the main path runs it: x unpadded, the kernel
+        applying the SAME padding itself, at the planner's tile; each
+        pass's shared memory against the kernel's own count and the CTAs a
+        pass printed; two calls give the same bits, and a CUDA graph of
+        the call replays them."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels import blocking, se_epilogue
-        x, f, gate = self.dw_se_operands(b, h, w, c, c_se, stride, dtype, k)
-        w1, b1, w2, b2 = gate
+        from repro_torch.kernels import blocking, ref, se_epilogue
+        x_raw = self.rand((b, h, w, c), dtype)
+        x = self.pad_same(x_raw, k, k, stride)
+        pad = ref.same_pads(h, w, k, k, stride)
+        f = self.rand((k, k, c), dtype, 1 / k)
+        w1, b1, w2, b2 = gate = (self.rand((c, c_se), dtype, c ** -0.5),
+                                 self.rand((c_se,), dtype, 0.1),
+                                 self.rand((c_se, c), dtype, c_se ** -0.5),
+                                 self.rand((c,), dtype, 0.1))
         ho, wo = -(-h // stride), -(-w // stride)
-        plan = blocking.plan_dw_se(x.shape[1], x.shape[2], ho, wo, c, c_se,
-                                   k, k, dtype=dtype)
-        cluster = plan.cluster if variant is None else 8
-        variant = variant or plan.variant
-        self.same_smem(
-            blocking.dw_se_smem_bytes(ho, wo, c, c_se, cluster,
-                                      variant == "resident"),
-            se_epilogue.smem_bytes(ho, wo, c, c_se, cluster, variant))
+        plan = blocking.plan_dw_se_tile(ho, wo, c, c_se, k, k, stride=stride,
+                                        dtype=dtype, batch=b)
+        tile = (plan.slab_h, plan.tile_w, plan.block_c)
+        for pass_ in (1, 2):
+            args = (pass_, *tile, k, k, stride, c_se, dtype)
+            self.same_smem(blocking.dw_se_smem_bytes(*args),
+                           se_epilogue.smem_bytes(*args))
         kw = dict(stride=stride, dw_activation="relu", se_activation="relu")
+        call = lambda: se_epilogue.dw_se(x_raw, f, *gate, pad=pad,  # noqa: E731
+                                         **kw)
+        first, second = call(), call()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        with torch.cuda.graph(graph):
+            replayed = call()
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize(self.dev)
+        repeats = bool(torch.equal(first, second))
+        replays = bool(torch.equal(first, replayed))
+        del graph
+        if not (repeats and replays):
+            raise AssertionError(f"dw_se {b}x{h}x{w}x{c}: two calls equal "
+                                 f"{repeats}, graph replay equal {replays}")
         xc = x.permute(0, 3, 1, 2)
         fc = f.permute(2, 0, 1)[:, None].contiguous()
 
@@ -433,47 +454,21 @@ class KernelChecks:
 
         npix = b * ho * wo * c
         ops = 2 * npix * k * k + 2 * npix + 4 * b * c * c_se
-        nbytes = (x.numel() + f.numel() + 2 * c * c_se + c_se + c + npix)
+        nbytes = (x_raw.numel() + f.numel() + 2 * c * c_se + c_se + c + npix)
         self.measure(
-            "dw_se", f"{b}x{h}x{w}x{c} k{k} s{stride} Cse {c_se} cluster "
-            f"{cluster} {variant}", dtype,
-            lambda: se_epilogue.dw_se(x, f, *gate, cluster=cluster,
-                                      variant=variant, **kw),
+            "dw_se", f"{b}x{h}x{w}x{c} k{k} s{stride} Cse {c_se} tile "
+            f"{plan.slab_h}x{plan.tile_w}x{plan.block_c}", dtype, call,
             lambda: se_epilogue.dw_se_plain(x, f, *gate, **kw),
             library, ops, nbytes * x.element_size(),
-            extra={"variant": variant})
-
-    def dw_se_operands(self, b, h, w, c, c_se, stride, dtype, k):
-        x = self.pad_same(self.rand((b, h, w, c), dtype), k, k, stride)
-        f = self.rand((k, k, c), dtype, 1 / k)
-        gate = (self.rand((c, c_se), dtype, c ** -0.5),
-                self.rand((c_se,), dtype, 0.1),
-                self.rand((c_se, c), dtype, c_se ** -0.5),
-                self.rand((c,), dtype, 0.1))
-        return x, f, gate
-
-    def dw_se_modes_agree(self, b, h, w, c, c_se, stride, dtype, k=3):
-        """Both modes on a cluster of 8 at a shape where both run: the
-        recompute mode computes each DW value again by the same code in the
-        same tap order, so the outputs are the same bits."""
-        from repro_torch.kernels import se_epilogue
-        x, f, gate = self.dw_se_operands(b, h, w, c, c_se, stride, dtype, k)
-        kw = dict(stride=stride, dw_activation="relu", se_activation="relu",
-                  cluster=8)
-        a = se_epilogue.dw_se(x, f, *gate, variant="resident", **kw)
-        r = se_epilogue.dw_se(x, f, *gate, variant="recompute", **kw)
-        same = bool(self.torch.equal(a, r))
-        print(f"  dw_se resident vs recompute {b}x{h}x{w}x{c} k{k} "
-              f"s{stride} {str(dtype)[6:]}: bit-identical {same}", flush=True)
-        if not same:
-            raise AssertionError("dw_se recompute differs from resident")
+            extra={"ctas_per_pass": plan.ctas,
+                   "repeats_bit_for_bit": repeats,
+                   "graph_replay_equal": replays})
 
 
 def run_networks(torch, dev):
     """The main path: execute_network on V1, V2, MnasNet-A1 and Lite0 at
     112x112, every plan, dtype and batch; then MnasNet-A1 at 224x224, batch
-    8, default plan, fp32 and bf16 (block 11's ``dw_se`` in the recompute
-    mode)."""
+    8, default plan, fp32 and bf16."""
     from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
                                                  expected_launches,
                                                  run_network)
@@ -497,8 +492,8 @@ def run_networks(torch, dev):
         if fused is None:
             print(f"    separable_fused CTAs per launch: {r['fused_ctas']}; "
                   f"fused_mbconv (CTAs, cluster) per launch: "
-                  f"{r['fused_mbconv_ctas_cluster']}; dw_se by mode "
-                  f"{r['dw_se_variants']}", flush=True)
+                  f"{r['fused_mbconv_ctas_cluster']}; dw_se CTAs a pass per "
+                  f"launch: {r['dw_se_ctas']}", flush=True)
         print(f"    device {busy:.3f} ms/forward: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(r["device_ms"].items()))
             + f"; pwconv by variant {r['pwconv_variants']}", flush=True)
@@ -509,11 +504,6 @@ def run_networks(torch, dev):
         if r["launches"] != want or plan_counts != want:
             raise AssertionError(f"{label}: launches {r['launches']}, plan "
                                  f"{plan_counts}, expected {want}")
-        modes = EXPECTED_DW_SE_MODES.get((arch, res, fused),
-                                         {"resident": 0, "recompute": 0})
-        if r["dw_se_variants"] != modes:
-            raise AssertionError(f"{label}: dw_se by mode "
-                                 f"{r['dw_se_variants']}, expected {modes}")
         if not (r["finite_and_shaped"] and r["rel_err"] <= r["tol"]):
             raise AssertionError(f"{label}: rel err {r['rel_err']} > "
                                  f"{r['tol']} or bad output")
@@ -523,7 +513,7 @@ def run_networks(torch, dev):
                      "batch": batch, "dtype": dtype,
                      **{k: r[k] for k in (
                          "ms", "peak_bytes", "device_ms", "rel_err",
-                         "launches", "pwconv_variants", "dw_se_variants",
+                         "launches", "pwconv_variants", "dw_se_ctas",
                          "out_shape", "fused_ctas",
                          "fused_mbconv_ctas_cluster")}})
 
@@ -821,13 +811,16 @@ def main() -> int:
         kc.fused_mb(8, 56, 56, 24, 144, 40, 2, False, dtype)
         kc.fused_mb(8, 28, 28, 40, 240, 40, 1, True, dtype)
         kc.fused_mb(1, 28, 28, 40, 240, 40, 1, True, dtype)
+        # MnasNet's six SE block shapes at batch 8 (blocks 3, 4-5, 10, 11,
+        # 12, 13-14), then blocks 3 and 11 at a 224 input
         kc.dw_se(8, 56, 56, 72, 6, 2, dtype, k=5)
+        kc.dw_se(8, 28, 28, 120, 10, 1, dtype, k=5)
+        kc.dw_se(8, 14, 14, 480, 20, 1, dtype)
         kc.dw_se(8, 14, 14, 672, 28, 1, dtype)
-        # the recompute mode at MnasNet's block 11 at a 224 input and block
-        # 3 at 320; both modes at block 3 at 224, bit for bit
-        kc.dw_se(8, 28, 28, 672, 28, 1, dtype, variant="recompute")
-        kc.dw_se(8, 160, 160, 72, 6, 2, dtype, k=5, variant="recompute")
-        kc.dw_se_modes_agree(8, 112, 112, 72, 6, 2, dtype, k=5)
+        kc.dw_se(8, 14, 14, 672, 28, 2, dtype, k=5)
+        kc.dw_se(8, 7, 7, 960, 40, 1, dtype, k=5)
+        kc.dw_se(8, 112, 112, 72, 6, 2, dtype, k=5)
+        kc.dw_se(8, 28, 28, 672, 28, 1, dtype)
         for b, length, d, k, rows in (
                 (8, 512, 1536, 4, None), (8, 512, 768, 4, None),
                 (2, 1000, 1000, 4, 7), (2, 1000, 1002, 4, None),

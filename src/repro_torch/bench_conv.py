@@ -1,8 +1,8 @@
-"""Time the ``fused_mbconv`` or ``dwconv2d`` kernel of one checkout at the
-main path's shapes, on the card.
+"""Time the ``fused_mbconv``, ``dwconv2d`` or ``dw_se`` kernel of one
+checkout at the main path's shapes, on the card.
 
-    python3 src/repro_torch/bench_conv.py --kernel fused_mbconv|dwconv2d
-        [--src DIR] [--reps N]
+    python3 src/repro_torch/bench_conv.py
+        --kernel fused_mbconv|dwconv2d|dw_se [--src DIR] [--reps N]
     python3 src/repro_torch/bench_conv.py --kernel ... --tune
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
@@ -18,25 +18,28 @@ parent:
 Each checkout builds its own kernels into its own ``build/`` directory.  A
 checkout whose wrapper takes ``pad`` gets the unpadded input and pads as it
 reads, as the main path calls it; an older one gets the input padded first
-(and is skipped at a filter its kernel does not take).  The shapes:
-``fused_mbconv`` at EfficientNet-Lite0's four fused-MBConv blocks at batch 8
-and its last at batch 1; ``dwconv2d`` at the three depthwise shapes of
-``chip_smoke.py`` (8x112x112x32 s1, 8x112x112x64 s2, 8x56x56x72 s2 5x5)
-and at 9x9 and 11x11.  The script prints one JSON line per shape and dtype:
+(and is skipped at a filter its kernel does not take; an older ``dw_se``
+plans its own cluster and mode).  The shapes: ``fused_mbconv`` at
+EfficientNet-Lite0's four fused-MBConv blocks at batch 8 and its last at
+batch 1; ``dwconv2d`` at the three depthwise shapes of ``chip_smoke.py``
+(8x112x112x32 s1, 8x112x112x64 s2, 8x56x56x72 s2 5x5) and at 9x9 and
+11x11; ``dw_se`` at MnasNet-A1's six SE block shapes at batch 8 and 1 and
+its blocks 3 and 11 at a 224 input at batch 8.  The script prints one JSON
+line per shape and dtype:
 the card's name and power limit, the source directory, the kernel's ms
 replayed from a CUDA graph of 20 launches (median of ``--reps`` replays, L2
 warm) and from CUDA events around one eager launch, the same two times of
 the PyTorch library call or composition of the same function
 (``F.conv2d`` with ``groups=C``; ``F.conv2d`` + bias, relu6, ``addmm`` and
-the residual add), and the kernel's largest error relative to the plain
-version.
+the residual add; ``F.conv2d``, relu, mean, two ``addmm``, sigmoid and the
+scale), and the kernel's largest error relative to the plain version.
 
 ``--tune`` times, at each of those shapes (``fused_mbconv`` also at batch 1
 for all four blocks), fp32 and bf16, the planner's plan and the plans
 around it (``fused_mbconv``: each slab height, cluster and chunk of the
-full-width tiles; ``dwconv2d``: tiles of other rows, columns and channel
-groups), graph-timed, one JSON line per shape: the planner's ms and its
-plan, and every candidate's, fastest first.
+full-width tiles; ``dwconv2d`` and ``dw_se``: tiles of other rows, columns
+and channel groups), graph-timed, one JSON line per shape: the planner's ms and its plan, and
+every candidate's, fastest first.
 """
 from __future__ import annotations
 
@@ -58,6 +61,15 @@ MB_SHAPES = ((8, 112, 112, 16, 96, 24, 2, False),
 DW_SHAPES = ((8, 112, 112, 32, 1, 3), (8, 112, 112, 64, 2, 3),
              (8, 56, 56, 72, 2, 5), (8, 56, 56, 72, 1, 9),
              (8, 56, 56, 72, 2, 11))
+#: dw_se: (batch, h, w, c, c_se, stride, k) of MnasNet-A1's SE blocks 3,
+#: 4-5, 10, 11, 12 and 13-14 at a 112 body input, batch 8 then 1, and of
+#: blocks 3 and 11 at a 224 input, batch 8.
+_SE = ((56, 56, 72, 6, 2, 5), (28, 28, 120, 10, 1, 5), (14, 14, 480, 20, 1, 3),
+       (14, 14, 672, 28, 1, 3), (14, 14, 672, 28, 2, 5), (7, 7, 960, 40, 1, 5))
+SE_SHAPES = (tuple((8,) + s for s in _SE) + tuple((1,) + s for s in _SE)
+             + ((8, 112, 112, 72, 6, 2, 5), (8, 28, 28, 672, 28, 1, 3)))
+SHAPES = {"fused_mbconv": MB_SHAPES, "dwconv2d": DW_SHAPES,
+          "dw_se": SE_SHAPES}
 
 
 def card() -> str:
@@ -122,6 +134,33 @@ class Case:
                 y = torch.addmm(pwb, y.permute(0, 2, 3, 1).reshape(-1, c), pw)
                 return y.view(res.shape).add_(res) if residual else y
             self.library = library
+        elif kernel == "dw_se":
+            from repro_torch.kernels import se_epilogue as mod
+            b, h, w, c, c_se, s, k = shape
+            self.label = f"{b}x{h}x{w}x{c} k{k} s{s} Cse {c_se}"
+            x = rand((b, h, w, c))
+            xp = ref.pad_same(x, k, k, s)
+            f = rand((k, k, c), 1 / k)
+            w1, b1, w2, b2 = gate = (rand((c, c_se), c ** -0.5),
+                                     rand((c_se,), 0.1),
+                                     rand((c_se, c), c_se ** -0.5),
+                                     rand((c,), 0.1))
+            kw = dict(stride=s, dw_activation="relu", se_activation="relu")
+            self.xin = x if takes_pad else xp
+            self.kw = dict(kw, pad=ref.same_pads(h, w, k, k, s)) \
+                if takes_pad else kw
+            self.call = lambda **blocks: mod.dw_se(self.xin, f, *gate,
+                                                   **self.kw, **blocks)
+            self.plain = lambda: mod.dw_se_plain(xp, f, *gate, **kw)
+            xc = xp.permute(0, 3, 1, 2)
+            fc = f.permute(2, 0, 1)[:, None].contiguous()
+
+            def library():
+                y = F.conv2d(xc, fc, stride=s, groups=c).relu_()
+                hid = torch.addmm(b1, y.mean(dim=(2, 3)), w1).relu_()
+                g = torch.sigmoid(torch.addmm(b2, hid, w2))
+                return y * g[:, :, None, None]
+            self.library = library
         else:
             from repro_torch.kernels import dwconv2d as mod
             b, h, w, c, s, k = shape
@@ -176,15 +215,24 @@ def candidates(case):
                             "cb": p.block_c, "ctas": p.ctas,
                             "smem": p.smem_bytes}
     else:
-        b, h, w, c, s, k = case.shape
-        ho, wo = -(-h // s), -(-w // s)
-        planned = blocking.plan_dwconv2d(0, 0, ho, wo, c, k, k, stride=s,
-                                         dtype=dt)
+        if case.kernel == "dw_se":
+            b, h, w, c, c_se, s, k = case.shape
+            ho, wo = -(-h // s), -(-w // s)
+            planned = blocking.plan_dw_se_tile(ho, wo, c, c_se, k, k,
+                                               stride=s, dtype=dt, batch=b)
+        else:
+            b, h, w, c, s, k = case.shape
+            ho, wo = -(-h // s), -(-w // s)
+            planned = blocking.plan_dwconv2d(0, 0, ho, wo, c, k, k,
+                                             stride=s, dtype=dt)
         out = {}
         vec = planned.block_g
+        heights = {1, 2, 4, 6, 8, 12, 16, 24, 32, planned.slab_h}
+        if case.kernel == "dw_se":  # and every balanced height
+            heights |= {-(-ho // n) for n in range(1, ho + 1)}
         for nv in blocking._halvings(max(1, planned.block_c // vec) * 2):
             for tw in (4, 8, 12, 16):
-                for th in sorted({1, 2, 4, 6, 8, 12, 16, 24, 32, planned.slab_h}):
+                for th in sorted(heights):
                     if (nv * vec > -(-c // vec) * vec or th > ho
                             or blocking.dw_threads(th, tw, nv * vec, vec)
                             > blocking.DW_THREADS):
@@ -193,18 +241,20 @@ def candidates(case):
                                                         k, s, dt)
                     if smem <= blocking.DW_TILE_SMEM:
                         out[(th, tw, nv * vec)] = (th, tw, nv * vec, smem)
+        planned = (planned.slab_h, planned.tile_w, planned.block_c,
+                   planned.smem_bytes)
         blocks = lambda p: dict(slab_h=p[0], tile_w=p[1],  # noqa: E731
                                 block_c=p[2])
         fields = lambda p: {"slab_h": p[0], "tile_w": p[1],  # noqa: E731
-                            "block_c": p[2], "smem": p[3]}
-        planned = (planned.slab_h, planned.tile_w, planned.block_c,
-                   planned.smem_bytes)
+                            "block_c": p[2], "smem": p[3],
+                            "ctas": b * -(-ho // p[0]) * -(-wo // p[1])
+                            * -(-c // p[2])}
     return planned, out, blocks, fields
 
 
 def tune(kernel, reps) -> int:
     import torch
-    shapes = MB_SHAPES if kernel == "fused_mbconv" else DW_SHAPES
+    shapes = SHAPES[kernel]
     if kernel == "fused_mbconv":
         shapes = shapes + tuple((1,) + s[1:] for s in MB_SHAPES[:3])
     for dtype in (torch.float32, torch.bfloat16):
@@ -227,8 +277,7 @@ def tune(kernel, reps) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("fused_mbconv", "dwconv2d"),
-                    required=True)
+    ap.add_argument("--kernel", choices=tuple(SHAPES), required=True)
     ap.add_argument("--src", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
@@ -245,10 +294,11 @@ def main(argv=None) -> int:
         return tune(args.kernel, args.reps)
     if args.kernel == "fused_mbconv":
         from repro_torch.kernels.fused_mbconv import fused_mbconv as fn
-        shapes = MB_SHAPES
+    elif args.kernel == "dw_se":
+        from repro_torch.kernels.se_epilogue import dw_se as fn
     else:
         from repro_torch.kernels.dwconv2d import dwconv2d as fn
-        shapes = DW_SHAPES
+    shapes = SHAPES[args.kernel]
     takes_pad = "pad" in inspect.signature(fn).parameters
     name = card()
     for dtype in (torch.float32, torch.bfloat16):

@@ -339,7 +339,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             ho, wo = d.out_dims(h, w)
             pse = blocking.plan_dw_se(
                 *_valid_window(d, ho, wo), ho, wo, c, se.reduce, d.hf, d.wf,
-                dtype=dtype, smem_budget=budget)
+                stride=d.stride, dtype=dtype, batch=b, smem_budget=budget)
             if pse is not None:
                 segments.append(ChainSegment("dw_se", (i, i + 1), pse))
                 h, w = ho, wo

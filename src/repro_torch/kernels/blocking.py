@@ -22,12 +22,11 @@ the dense conv (an implicit GEMM) in place of expand + DW: full-width slabs,
 a C-splitting cluster, chunks of the slice's filter staged double-buffered
 (:func:`plan_fused_mb`, :func:`fused_mb_smem_bytes`).
 
-The DW + squeeze-excite kernel (``csrc/dw_se.cu``) pools each image's whole
-DW output before its gate, so it runs one thread-block cluster of ``n`` CTAs
-per image, each owning a ``ceil(C / n)``-channel slice; :func:`plan_dw_se`
-decides the segment by the reference's rule, then takes the smallest ``n``
-in :data:`DW_SE_CLUSTERS` whose fp32 slice fits a CTA (``resident`` mode)
-or, where none does, the ``recompute`` mode.
+The DW + squeeze-excite kernel (``csrc/dw_se.cu``) spreads each image over
+many CTAs in two passes over ``dwconv2d``'s tiles (a pooling pass, then a
+scaling pass that computes the DW again); :func:`plan_dw_se` decides the
+segment by the reference's rule and takes the tile from
+:func:`plan_dw_se_tile`, ``dwconv2d``'s search in an order of its own.
 
 ``dwconv2d`` stages a padded input tile per CTA and slides a register window
 along runs of outputs (:func:`plan_dwconv2d`).  ``pwconv`` has three variants
@@ -121,11 +120,6 @@ PW_STREAM_WARPS = 8
 #: Largest split-K cluster of ``stream`` (the largest portable cluster).
 PW_STREAM_MAX_CLUSTER = 8
 
-#: Threads of one ``dw_se`` CTA, and the cluster sizes it launches with
-#: (8 is the largest portable cluster on Hopper).
-DW_SE_THREADS = 1024
-DW_SE_CLUSTERS = (1, 2, 4, 8)
-
 _ALIGN = 16
 
 
@@ -155,9 +149,9 @@ class BlockPlan:
       ``cluster`` CTAs that split Ci).
     * ``fused_mbconv``    — as ``separable_fused``; ``block_c`` chunks the
       conv output.
-    * ``dw_se``           — ``cluster`` CTAs per image, ``block_c`` channels
-      each, ``variant`` "resident" or "recompute"; ``block_g`` carries the
-      SE width ``c_se``.
+    * ``dw_se``           — as ``dwconv2d``; ``ctas`` per pass of the
+      launch (all images), ``smem_bytes`` the pooling pass's,
+      ``workspace_bytes`` the fp32 shares of the reduce FC.
     """
     block_c: int
     block_co: int
@@ -171,6 +165,7 @@ class BlockPlan:
     cluster: int = 1
     variant: str = ""
     ctas: int = 0
+    workspace_bytes: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,13 +232,40 @@ def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
     lies outside it.  Nor does a chain's shared-memory budget (which it
     may shrink to force the fused kernels to degrade): ``dwconv2d`` is what
     they degrade to."""
+    found = _dw_tile_search(ho, wo, c, hf, wf, stride, dtype, aligned,
+                            DW_TILE_SMEM)
+    if found is None:
+        raise ValueError(f"no dwconv2d tile of a {hf}x{wf} filter fits "
+                         f"{DW_TILE_SMEM} B of shared memory")
+    return _dw_plan(ho, wo, c, hf, stride, dtype, *found)
+
+
+def _dw_key(t: dict) -> tuple:
+    """:func:`plan_dwconv2d`'s preference order (see its docstring)."""
+    return (t["busy"] < DW_THREADS // 4, t["used"] < 0.75, -t["nv"],
+            -t["busy"], t["halo"])
+
+
+def _dw_tile_search(ho: int, wo: int, c: int, hf: int, wf: int, stride: int,
+                    dtype: torch.dtype, aligned: bool, limit: int,
+                    batch: int = 1, key=_dw_key, max_tile_w: int = 0):
+    """The tile search of :func:`plan_dwconv2d` and :func:`plan_dw_se_tile`:
+    ``(vec, nv, tile_w, tile_h, smem)`` of the tile whose ``key`` is least
+    among those whose shared memory fits ``limit``, or None.  ``key`` sees
+    each tile's ``nv``, ``cg`` (its channels), ``threads``, ``busy``
+    (threads with work), ``used`` (channel lanes with work), ``halo``
+    (staged input pixels per output), ``ctas`` (of ``batch`` images) and
+    ``floor`` (:data:`SEP_MIN_CTAS`, or as many as the work allows).  Tiles
+    are at most ``max_tile_w`` columns wide (default: no wider than the
+    output needs)."""
     vec = dw_vector(c, dtype, aligned)
-    limit = DW_TILE_SMEM
     nvec = -(-c // vec)
+    floor = min(SEP_MIN_CTAS, batch * ho * -(-wo // DW_RUN) * nvec)
     best = None
     for nv in range(1, min(nvec, DW_MAX_VECS if vec > 1 else 32) + 1):
         used = nvec / (-(-nvec // nv) * nv)  # channel lanes that have work
-        for tw in range(DW_RUN, min(_up(wo, DW_RUN), DW_MAX_TILE_W) + 1,
+        for tw in range(DW_RUN, (max_tile_w or min(_up(wo, DW_RUN),
+                                                    DW_MAX_TILE_W)) + 1,
                         DW_RUN):
             for th in range(1, min(ho, DW_THREADS // (nv * (tw // DW_RUN)))
                             + 1):
@@ -254,21 +276,25 @@ def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
                 busy = nv * th * -(-min(tw, wo) // DW_RUN)
                 halo = (((th - 1) * stride + hf) * ((tw - 1) * stride + wf)
                         / (th * min(tw, wo)))
-                key = (busy < DW_THREADS // 4, used < 0.75, -nv, -busy,
-                       halo)
-                if best is None or key < best[0]:
-                    best = (key, (nv, tw, th, smem))
-    if best is None:
-        raise ValueError(f"no dwconv2d tile of a {hf}x{wf} filter fits "
-                         f"{limit} B of shared memory")
-    nv, tw, th, smem = best[1]
+                k = key({"nv": nv, "cg": nv * vec, "busy": busy,
+                         "threads": nv * th * (tw // DW_RUN), "used": used,
+                         "halo": halo, "floor": floor,
+                         "ctas": batch * -(-ho // th) * -(-wo // tw)
+                         * -(-nvec // nv)})
+                if best is None or k < best[0]:
+                    best = (k, (vec, nv, tw, th, smem))
+    return None if best is None else best[1]
+
+
+def _dw_plan(ho, wo, c, hf, stride, dtype, vec, nv, tw, th, smem,
+             batch: int = 1, **fields) -> BlockPlan:
     n_slabs = -(-ho // th)
     return BlockPlan(
         block_c=nv * vec, block_co=0, slab_h=th, n_slabs=n_slabs,
         halo_rows=max(hf - stride, 0) if n_slabs > 1 else 0,
         smem_bytes=smem, dtype_bytes=dtype_bytes(dtype), block_g=vec,
         tile_w=tw, variant="vector" if vec > 1 else "scalar",
-        ctas=n_slabs * -(-wo // tw) * -(-c // (nv * vec)))
+        ctas=batch * n_slabs * -(-wo // tw) * -(-c // (nv * vec)), **fields)
 
 
 # ---------------------------------------------------------------------------
@@ -646,11 +672,11 @@ def plan_mb(ho: int, wo: int, ci: int, c: int, hf: int = 3, wf: int = 3, *,
 #: two packages plan the same segments at every resolution.
 REF_VMEM_BUDGET = 12 * 1024 * 1024
 
-#: ``dw_se``'s modes (``csrc/dw_se.cu``): ``resident`` keeps each CTA's
-#: slice of the fp32 DW output in shared memory between the pool and the
-#: scale; ``recompute`` keeps only the pooled sums and computes the DW
-#: again, in the same tap order, for the scaled store.
-DW_SE_VARIANTS = ("resident", "recompute")
+#: ``dw_se`` (``csrc/dw_se.cu``): the fewest threads with work a tile
+#: should have, and the channels a tile's group aims at (read off
+#: ``bench_conv.py --kernel dw_se --tune`` on the card, PERF.md).
+DW_SE_MIN_BUSY = 48
+DW_SE_CHANNELS = 16
 
 
 def ref_dw_se_vmem_bytes(hiu: int, wiu: int, ho: int, wo: int, c: int,
@@ -667,23 +693,88 @@ def ref_dw_se_vmem_bytes(hiu: int, wiu: int, ho: int, wo: int, c: int,
             + 2 * (c_se + c) * itemsize)
 
 
-def dw_se_smem_bytes(ho: int, wo: int, c: int, c_se: int, cluster: int,
-                     resident: bool = True) -> int:
-    """Shared memory of one ``dw_se`` CTA (``dw_se_layout`` in
-    ``csrc/dw_se.cu``) when ``cluster`` CTAs split the ``c`` channels of
-    one image: the slice's fp32 DW output for the whole image (``resident``
-    mode only), one float per thread for the pooling reduction, the slice's
-    pooled means and gates, and the partial and summed hidden vectors of
-    the gate."""
-    cs = -(-c // cluster)
-    return (_a(ho * wo * cs * ACC_BYTES if resident else 0)
-            + _a(DW_SE_THREADS * ACC_BYTES)
-            + 2 * _a(cs * ACC_BYTES) + 2 * _a(c_se * ACC_BYTES))
+def dw_se_smem_bytes(pass_: int, tile_h: int, tile_w: int, cg: int, hf: int,
+                     wf: int, stride: int, c_se: int,
+                     dtype: torch.dtype) -> int:
+    """Shared memory of one CTA of ``dw_se``'s pass ``pass_``
+    (``dw_se_smem_bytes`` in ``csrc/dw_se.cu``), each region rounded up to
+    16 bytes: 1 the pooling pass (the ``dwconv2d`` tile, the tile's fp32
+    channel sums and its channels' rows of w1 in fp32), 2 the scaling pass
+    (the tile, its channels' columns of w2 in fp32, the hidden vector and
+    the gates); both also a column-sum scratch of max(256, c_se) floats."""
+    tile = dwconv2d_smem_bytes(tile_h, tile_w, cg, hf, wf, stride, dtype)
+    return tile + _dw_se_gate_smem(pass_, cg, c_se)
+
+
+def _dw_se_gate_smem(pass_: int, cg: int, c_se: int) -> int:
+    """The regions of ``dw_se``'s pass ``pass_`` beside the tile."""
+    red = _a(max(256, c_se) * ACC_BYTES)
+    if pass_ == 1:
+        return _a(cg * ACC_BYTES) + _a(cg * c_se * ACC_BYTES) + red
+    if pass_ == 2:
+        return (_a(c_se * cg * ACC_BYTES) + _a(c_se * ACC_BYTES)
+                + _a(cg * ACC_BYTES) + red)
+    raise ValueError(f"dw_se has passes 1 and 2, not {pass_}")
+
+
+def dw_se_workspace_bytes(batch: int, ctas: int, c_se: int) -> int:
+    """``dw_se``'s fp32 workspace: each pooling CTA's share of the reduce
+    FC (``ctas`` a pass per image)."""
+    return batch * ctas * c_se * ACC_BYTES
+
+
+def _dw_se_key(t: dict) -> tuple:
+    """``dw_se``'s preference order (see :func:`plan_dw_se_tile`)."""
+    return (t["busy"] < DW_SE_MIN_BUSY, t["used"] < 0.75,
+            t["ctas"] < t["floor"], abs(math.log(t["cg"] / DW_SE_CHANNELS)),
+            -t["threads"], t["halo"])
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_dw_se_tile(ho: int, wo: int, c: int, c_se: int, hf: int = 3,
+                    wf: int = 3, *, stride: int = 1,
+                    dtype: torch.dtype = torch.float32, batch: int = 1,
+                    aligned: bool = True,
+                    smem_budget: int = DEFAULT_SMEM_BUDGET
+                    ) -> Optional[BlockPlan]:
+    """The tile of both ``dw_se`` passes, from :func:`plan_dwconv2d`'s
+    tiles (up to :data:`DW_MAX_TILE_W` columns even where the output is
+    narrower) within :data:`DW_TILE_SMEM` and, with the regions beside
+    the tile, ``smem_budget`` (None when none fits), in this order: at
+    least :data:`DW_SE_MIN_BUSY` threads with work; channel groups with
+    work for at least 3/4 of their lanes; at least :data:`SEP_MIN_CTAS`
+    CTAs a pass for the ``batch`` images, where the work allows; the
+    channel group nearest :data:`DW_SE_CHANNELS`; the most threads; the
+    least halo.  Unlike ``dwconv2d``'s, the order takes fewer channels in
+    taller and wider tiles, whose extra threads (even those whose outputs
+    fall outside a narrow image) stage the window with more copies in
+    flight.  It was read off ``bench_conv.py --kernel dw_se --tune`` on
+    the card (PERF.md): over MnasNet's SE shapes at batch 1 and 8 and two
+    at 224, fp32 and bf16, the picks sum to 1.08x the best tile timed at
+    each shape.  ``ctas`` counts the CTAs of one pass over all ``batch``
+    images."""
+    # the regions beside the tile grow with its channels: at most these
+    vec = dw_vector(c, dtype, aligned)
+    cg = min(DW_MAX_VECS * vec if vec > 1 else 32, _up(c, vec))
+    extra = max(_dw_se_gate_smem(p, cg, c_se) for p in (1, 2))
+    found = _dw_tile_search(ho, wo, c, hf, wf, stride, dtype, aligned,
+                            min(DW_TILE_SMEM, smem_budget - extra),
+                            batch=batch, key=_dw_se_key,
+                            max_tile_w=DW_MAX_TILE_W)
+    if found is None:
+        return None
+    vec, nv, tw, th, _ = found
+    ctas = -(-ho // th) * -(-wo // tw) * -(-c // (nv * vec))
+    return _dw_plan(
+        ho, wo, c, hf, stride, dtype, vec, nv, tw, th,
+        dw_se_smem_bytes(1, th, tw, nv * vec, hf, wf, stride, c_se, dtype),
+        batch=batch,
+        workspace_bytes=dw_se_workspace_bytes(batch, ctas, c_se))
 
 
 def plan_dw_se(hiu: int, wiu: int, ho: int, wo: int, c: int, c_se: int,
-               hf: int = 3, wf: int = 3, *,
-               dtype: torch.dtype = torch.float32,
+               hf: int = 3, wf: int = 3, *, stride: int = 1,
+               dtype: torch.dtype = torch.float32, batch: int = 1,
                smem_budget: int = DEFAULT_SMEM_BUDGET
                ) -> Optional[BlockPlan]:
     """Plan of the DW + SE-epilogue pass, or None (the chain then degrades
@@ -691,27 +782,15 @@ def plan_dw_se(hiu: int, wiu: int, ho: int, wo: int, c: int, c_se: int,
 
     The segment kind follows the reference: None wherever the reference's
     working set (:func:`ref_dw_se_vmem_bytes` at the stream width) exceeds
-    :data:`REF_VMEM_BUDGET`.  Otherwise the ``resident`` mode with the
-    smallest cluster in :data:`DW_SE_CLUSTERS` whose per-CTA slice of the
-    image's fp32 DW output fits ``smem_budget``; where not even 8 CTAs hold
-    it, the ``recompute`` mode on a cluster of 8; None when that does not
-    fit ``smem_budget`` either.  There is no spatial ladder: the gate needs
-    the pooled mean over the whole image, so a partial pool would be a
-    wrong answer, not a slower one.  The input window is read from device
-    memory, not staged."""
+    :data:`REF_VMEM_BUDGET`.  Otherwise the tile of
+    :func:`plan_dw_se_tile`, which fits the card's shared memory at every
+    shape; only a chain's shrunken ``smem_budget`` (which forces the fused
+    kernels to degrade) can leave none."""
     if ref_dw_se_vmem_bytes(hiu, wiu, ho, wo, c, c_se, hf, wf,
                             dtype_bytes(dtype)) > REF_VMEM_BUDGET:
         return None
-    modes = [(n, True) for n in DW_SE_CLUSTERS] + [(DW_SE_CLUSTERS[-1], False)]
-    for n, resident in modes:
-        need = dw_se_smem_bytes(ho, wo, c, c_se, n, resident)
-        if need <= smem_budget:
-            return BlockPlan(
-                block_c=-(-c // n), block_co=0, slab_h=ho, n_slabs=1,
-                halo_rows=0, smem_bytes=need, dtype_bytes=dtype_bytes(dtype),
-                block_g=c_se, cluster=n,
-                variant=DW_SE_VARIANTS[0 if resident else 1])
-    return None
+    return plan_dw_se_tile(ho, wo, c, c_se, hf, wf, stride=stride,
+                           dtype=dtype, batch=batch, smem_budget=smem_budget)
 
 
 def plan_se(b: int, c: int, c_se: int, *, dtype: torch.dtype = torch.float32,

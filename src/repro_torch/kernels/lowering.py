@@ -6,8 +6,8 @@ Counterpart of ``repro/kernels/lowering.py``:
   whole inverted residual);
 * ``fused2`` -> ``separable_fused`` (DW -> PW in one pass);
 * ``fusedmb`` -> ``fused_mbconv`` (dense conv -> PW-project in one pass);
-* ``dw_se`` -> ``dw_se`` (DW with the squeeze-excite gate as its epilogue,
-  one thread-block cluster per image);
+* ``dw_se`` -> ``dw_se`` (DW with the squeeze-excite gate as its epilogue:
+  a pooling pass and a scaling pass over many CTAs an image);
 * ``pw`` / ``dw`` -> the standalone ``pwconv`` / ``dwconv2d`` kernels;
 * ``se`` -> an fp32 mean, the two gate FCs as two ``pwconv`` launches at
   ``G = B`` rows, and the sigmoid scale in PyTorch (the reference composes
@@ -125,9 +125,13 @@ def _run_dw_se(seg, stages, params, y, *, impl, stream_dtype, out_dtype):
     if impl == "torch":
         return ref.dw_se_ref(y, dw_f, *gate, dw_b, padding=d.padding,
                              **kw).to(out_dtype)
-    y = ref.apply_padding(y, d.hf, d.wf, d.stride, d.padding)
-    return dw_se(y, dw_f, *gate, dw_b, cluster=seg.plan.cluster,
-                 variant=seg.plan.variant, out_dtype=out_dtype, **kw)
+    # the kernel pads as it reads: no padded copy of y is made
+    p = seg.plan
+    return dw_se(y, dw_f, *gate, dw_b,
+                 pad=ref.pads(y.shape[1], y.shape[2], d.hf, d.wf, d.stride,
+                              d.padding),
+                 slab_h=p.slab_h, tile_w=p.tile_w, block_c=p.block_c,
+                 out_dtype=out_dtype, **kw)
 
 
 def _run_se(st, p, y, *, impl, stream_dtype, out_dtype):

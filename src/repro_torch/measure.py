@@ -78,7 +78,7 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
 _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "pw_tc_kernel": "pwconv", "pw_simt_kernel": "pwconv",
                  "fused_mb_kernel": "fused_mbconv",
-                 "sep_fused_kernel": "separable_fused", "dw_se_kernel": "dw_se",
+                 "sep_fused_kernel": "separable_fused", "dw_se_": "dw_se",
                  "dw1d_kernel": "dwconv1d"}
 
 

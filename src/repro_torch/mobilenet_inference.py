@@ -67,7 +67,7 @@ def reset_launch_counts() -> None:
     dwconv2d.launches = 0
     pwconv.reset_launches()
     fused_mbconv.launches = 0
-    se_epilogue.reset_launches()
+    se_epilogue.launches = 0
     for k in separable_fused.launches:
         separable_fused.launches[k] = 0
 
@@ -77,8 +77,9 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 seed: int = 0) -> dict:
     """Drive one network body once, time it and hold it against the fp32
     plain path.  Returns the histogram, the launches of the counted
-    forward (and its ``pwconv`` and ``dw_se`` launches by variant), the CTA
-    count and cluster of each ``fused_mbconv`` launch, ms, peak memory
+    forward (and its ``pwconv`` launches by variant), the CTA count and
+    cluster of each ``fused_mbconv`` launch, the CTAs of each ``dw_se``
+    launch's passes, ms, peak memory
     (bytes, card only), the device time by kernel
     (card only, :func:`device_breakdown`) and the error."""
     dev = network.require_device(device)
@@ -97,7 +98,6 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
         torch.cuda.synchronize(dev)
     launches = launch_counts()
     variants = dict(pwconv.launches_by_variant)
-    dw_se_variants = dict(se_epilogue.launches_by_variant)
 
     peak = None
     if dev.type == "cuda":
@@ -121,9 +121,11 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                   if sg.kind in ("fused2", "fused3")]
     mb_plans = [(sg.plan.ctas, sg.plan.cluster) for p in nplan.plans
                 for sg in p.segments if sg.kind == "fusedmb"]
+    dw_se_ctas = [sg.plan.ctas for p in nplan.plans for sg in p.segments
+                  if sg.kind == "dw_se"]
     return {"histogram": nplan.segment_histogram(), "launches": launches,
             "fused_ctas": fused_ctas, "fused_mbconv_ctas_cluster": mb_plans,
-            "dw_se_variants": dw_se_variants,
+            "dw_se_ctas": dw_se_ctas,
             "pwconv_variants": variants, "ms": ms, "peak_bytes": peak, "device_ms": device,
             "rel_err": err,
             "tol": BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL,

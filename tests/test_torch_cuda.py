@@ -449,64 +449,109 @@ DW_SE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("b,h,w,c,c_se,stride,k", DW_SE_CASES)
-def test_dw_se_kernel(dev, b, h, w, c, c_se, stride, k, dtype):
-    x = ref.pad_same(_r((b, h, w, c), dev, dtype), k, k, stride)
+def _dw_se_operands(dev, b, h, w, c, c_se, k, dtype):
+    x = _r((b, h, w, c), dev, dtype)
     f, db = _r((k, k, c), dev, dtype, 1 / k), _r((c,), dev, dtype, 0.5)
     gate = (_r((c, c_se), dev, dtype, c ** -0.5), _r((c_se,), dev, dtype),
             _r((c_se, c), dev, dtype, c_se ** -0.5), _r((c,), dev, dtype))
-    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride)
-    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride)
+    return x, f, db, gate
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("b,h,w,c,c_se,stride,k", DW_SE_CASES)
+def test_dw_se_kernel(dev, b, h, w, c, c_se, stride, k, dtype):
+    """The planned tile on the unpadded input with SAME's pads, and on the
+    input padded first (pad 0): the same bits."""
+    x, f, db, gate = _dw_se_operands(dev, b, h, w, c, c_se, k, dtype)
+    pad = ref.same_pads(h, w, k, k, stride)
+    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride, pad=pad)
+    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride, pad=pad)
     assert rel_err(got, want) <= TOL[dtype]
+    xp = ref.pad_same(x, k, k, stride)
+    assert torch.equal(se_epilogue.dw_se(xp, f, *gate, db, stride=stride),
+                       got)
 
 
-@pytest.mark.parametrize("cluster", blocking.DW_SE_CLUSTERS)
-@pytest.mark.parametrize("c", (72, 61, 5))
-def test_dw_se_kernel_at_each_cluster_size(dev, cluster, c):
-    """Each cluster size, forced through the budget the planner sizes it
-    by; with C=5 some CTAs of a cluster of 8 own no channel."""
-    ho = wo = 28
-    need = blocking.dw_se_smem_bytes(ho, wo, c, 6, cluster)
-    plan = blocking.plan_dw_se(30, 30, ho, wo, c, 6, smem_budget=need)
-    assert plan.cluster == cluster
-    x = ref.pad_same(_r((2, ho, wo, c), dev, torch.float32), 3, 3, 1)
-    f = _r((3, 3, c), dev, torch.float32, 1 / 3)
-    gate = (_r((c, 6), dev, torch.float32, c ** -0.5),
-            _r((6,), dev, torch.float32), _r((6, c), dev, torch.float32),
-            _r((c,), dev, torch.float32))
-    got = se_epilogue.dw_se(x, f, *gate, cluster=cluster)
-    want = se_epilogue.dw_se_plain(x, f, *gate)
-    assert rel_err(got, want) <= TOL[torch.float32]
-    assert se_epilogue.smem_bytes(ho, wo, c, 6, cluster) == need
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("tile", [(1, 4, "vec"), (1, 4, None), (3, 8, 8),
+                                  (5, 16, "vec"), (2, 12, 16)])
+def test_dw_se_kernel_at_forced_tiles(dev, tile, dtype):
+    """Tiles the planner would not pick: one row of one channel vector (a
+    tile per run, many shares of the reduce FC an image), one row of the
+    planner's channels, and tiles ragged at every edge of the output;
+    C = 44 leaves the last channel group part idle."""
+    x, f, db, gate = _dw_se_operands(dev, 2, 19, 23, 44, 5, 3, dtype)
+    pad = ref.same_pads(19, 23, 3, 3, 2)
+    th, tw, cg = tile
+    cg = 16 // x.element_size() if cg == "vec" else cg
+    got = se_epilogue.dw_se(x, f, *gate, db, stride=2, pad=pad, slab_h=th,
+                            tile_w=tw, block_c=cg)
+    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=2, pad=pad)
+    assert rel_err(got, want) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("b,h,w,c,c_se,stride,k", [
-    (2, 28, 28, 672, 28, 1, 3), (2, 160, 160, 72, 6, 2, 5),
-    (1, 9, 11, 37, 5, 2, 3), (2, 12, 10, 20, 4, 2, 7)])
-def test_dw_se_recompute_matches_resident_bit_for_bit(dev, b, h, w, c, c_se,
-                                                      stride, k, dtype):
-    """The recompute mode computes each DW value again by the same code in
-    the same order: where both modes run, their outputs are the same bits;
-    where only recompute does (MnasNet's block 11 at a 224 input, block 3
-    at 320), it holds the plain version."""
-    x = ref.pad_same(_r((b, h, w, c), dev, dtype), k, k, stride)
-    f, db = _r((k, k, c), dev, dtype, 1 / k), _r((c,), dev, dtype, 0.5)
-    gate = (_r((c, c_se), dev, dtype, c ** -0.5), _r((c_se,), dev, dtype),
-            _r((c_se, c), dev, dtype, c_se ** -0.5), _r((c,), dev, dtype))
-    ho, wo = -(-h // stride), -(-w // stride)
-    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride, cluster=8,
-                            variant="recompute")
-    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride)
+    (2, 28, 28, 672, 28, 1, 3), (2, 160, 160, 72, 6, 2, 5)])
+def test_dw_se_kernel_at_big_shapes(dev, b, h, w, c, c_se, stride, k, dtype):
+    """MnasNet's block 11 at a 224 input and block 3 at 320 (where one
+    cluster an image could not hold the DW output): the planned tile
+    holds the plain version, and two calls give the same bits."""
+    x, f, db, gate = _dw_se_operands(dev, b, h, w, c, c_se, k, dtype)
+    pad = ref.same_pads(h, w, k, k, stride)
+    got = se_epilogue.dw_se(x, f, *gate, db, stride=stride, pad=pad)
+    want = se_epilogue.dw_se_plain(x, f, *gate, db, stride=stride, pad=pad)
     assert rel_err(got, want) <= TOL[dtype]
-    if blocking.dw_se_smem_bytes(ho, wo, c, c_se, 8) <= \
-            blocking.DEFAULT_SMEM_BUDGET:
-        resident = se_epilogue.dw_se(x, f, *gate, db, stride=stride,
-                                     cluster=8, variant="resident")
-        assert torch.equal(got, resident)
-    assert se_epilogue.smem_bytes(ho, wo, c, c_se, 8, "recompute") == \
-        blocking.dw_se_smem_bytes(ho, wo, c, c_se, 8, False)
+    assert torch.equal(
+        se_epilogue.dw_se(x, f, *gate, db, stride=stride, pad=pad), got)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dw_se_graph_replay_equals_eager(dev, dtype):
+    """No float atomics and no state kept between calls: a CUDA graph of
+    three calls, replayed twice, gives the eager call's bits each time, at
+    batch 1 and 8."""
+    for b in (1, 8):
+        x, f, db, gate = _dw_se_operands(dev, b, 28, 28, 120, 10, 5,
+                                         dtype)
+        pad = ref.same_pads(28, 28, 5, 5, 1)
+        eager = se_epilogue.dw_se(x, f, *gate, db, pad=pad)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            se_epilogue.dw_se(x, f, *gate, db, pad=pad)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [se_epilogue.dw_se(x, f, *gate, db, pad=pad)
+                    for _ in range(3)]
+        for _ in range(2):
+            for o in outs:
+                o.zero_()
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            for o in outs:
+                assert torch.equal(o, eager)
+        assert torch.equal(se_epilogue.dw_se(x, f, *gate, db, pad=pad),
+                           eager)
+
+
+def test_dw_se_smem_model_matches_the_kernel(dev):
+    """Each pass's shared memory, as the planner models it, is the
+    kernel's own count."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for ho, c, c_se, k, s in ((28, 72, 6, 5, 2), (28, 120, 10, 5, 1),
+                                  (14, 672, 28, 3, 1), (7, 960, 40, 5, 1),
+                                  (9, 37, 5, 7, 2)):
+            for b in (1, 8):
+                p = blocking.plan_dw_se_tile(ho, ho, c, c_se, k, k,
+                                             stride=s, dtype=dtype, batch=b)
+                args = (p.slab_h, p.tile_w, p.block_c, k, k, s, c_se)
+                for pass_ in (1, 2):
+                    assert se_epilogue.smem_bytes(pass_, *args, dtype) == \
+                        blocking.dw_se_smem_bytes(pass_, *args, dtype)
+                assert p.smem_bytes == blocking.dw_se_smem_bytes(1, *args,
+                                                                 dtype)
 
 
 @pytest.mark.parametrize("budget", [64, 1500, 232_448])
@@ -550,9 +595,9 @@ NETWORK_LAUNCHES = {
 }
 
 
-def test_mnasnet_at_224_runs_one_recompute_dw_se(dev):
+def test_mnasnet_at_224_runs_eight_dw_se(dev):
     """MnasNet-A1 at a 224 body input plans the reference's segments: 8
-    ``dw_se``, block 11's in the recompute mode."""
+    ``dw_se``, each one launch of its two passes."""
     spec = ARCHS["mnasnet"]()
     params = network.init_network(spec, seed=2, device=dev)
     x = _r((1, 224, 224, spec.c_in), dev, torch.float32)
@@ -562,8 +607,7 @@ def test_mnasnet_at_224_runs_one_recompute_dw_se(dev):
     want = dict.fromkeys(launch_counts(), 0)
     want.update(NETWORK_LAUNCHES[("mnasnet", None)])
     assert launch_counts() == want
-    assert se_epilogue.launches_by_variant == {"resident": 7,
-                                               "recompute": 1}
+    assert want["dw_se"] == 8
     ref_y = network.execute_network(spec, params, x,
                                     policy=KernelPolicy(impl="torch"))
     assert rel_err(y, ref_y) <= 1e-4

@@ -304,8 +304,9 @@ def test_dw_se_cpu_path_matches_reference(b, h, w, c, c_se, stride, k,
     gate = (w1, b1, w2, b2)
     kw = dict(stride=stride, dw_activation=dw_act, se_activation=se_act)
     got = se_epilogue.dw_se(
-        ref.pad_same(to_torch(x, dtype), k, k, stride), to_torch(f, dtype),
-        *(to_torch(a, dtype) for a in gate), to_torch(db, dtype), **kw)
+        to_torch(x, dtype), to_torch(f, dtype),
+        *(to_torch(a, dtype) for a in gate), to_torch(db, dtype),
+        pad=ref.same_pads(h, w, k, k, stride), **kw)
     pallas = dw_se_pallas(
         jops.pad_same(to_jax(x, dtype), k, k, stride), to_jax(f, dtype),
         *(to_jax(a, dtype) for a in gate), to_jax(db, dtype),
@@ -316,6 +317,33 @@ def test_dw_se_cpu_path_matches_reference(b, h, w, c, c_se, stride, k,
     assert got.dtype == to_torch(x, dtype).dtype
     assert_match(got, pallas, dtype)
     assert_match(got, oracle, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad,stride,k", [((1, 1, 2, 2), 2, 5),
+                                          ((2, 0, 1, 3), 2, 3),
+                                          ((0, 2, 3, 1), 1, 5)])
+def test_dw_se_pads_as_it_reads(pad, stride, k, dtype):
+    """The wrapper on the unpadded input with an asymmetric ``pad`` (SAME's
+    at stride 2 on an even input, then two explicit ones) equals
+    ``dw_se_pallas`` on the input zero-padded first."""
+    rng = np.random.default_rng(12)
+    c, c_se = 12, 3
+    x, f = rand(rng, (2, 8, 10, c)), rand(rng, (k, k, c), 1 / k)
+    gate = (rand(rng, (c, c_se), c ** -0.5), rand(rng, (c_se,), 0.5),
+            rand(rng, (c_se, c), c_se ** -0.5), rand(rng, (c,), 0.5))
+    db = rand(rng, (c,), 0.5)
+    top, left, bottom, right = pad
+    xp = np.pad(x, ((0, 0), (top, bottom), (left, right), (0, 0)))
+    kw = dict(stride=stride, dw_activation="relu6", se_activation="relu")
+    got = se_epilogue.dw_se(to_torch(x, dtype), to_torch(f, dtype),
+                            *(to_torch(a, dtype) for a in gate),
+                            to_torch(db, dtype), pad=pad, **kw)
+    want = dw_se_pallas(to_jax(xp, dtype), to_jax(f, dtype),
+                        *(to_jax(a, dtype) for a in gate), to_jax(db, dtype),
+                        interpret=True, **kw)
+    assert got.shape == want.shape
+    assert_match(got, want, dtype)
 
 
 def test_dw_se_out_dtype_widens_once():

@@ -129,7 +129,13 @@ def test_fused_plans_fit_one_cta(dtype):
                     continue
                 assert 0 < seg.smem_bytes <= blocking.DEFAULT_SMEM_BUDGET
                 if s.kind == "dw_se":
-                    assert seg.cluster in blocking.DW_SE_CLUSTERS
+                    # dwconv2d's tiles, two passes of ``ctas`` CTAs
+                    assert seg.tile_w % blocking.DW_RUN == 0
+                    assert blocking.dw_threads(
+                        seg.slab_h, seg.tile_w, seg.block_c,
+                        seg.block_g) <= blocking.DW_THREADS
+                    assert seg.ctas >= blocking.SEP_MIN_CTAS
+                    assert seg.workspace_bytes > 0
                     continue
                 if s.kind == "fusedmb":
                     # full-width slabs, a C-splitting cluster
@@ -196,40 +202,58 @@ def test_tiny_budget_degrades_chain_like_reference():
     assert cp.residual and not cp.residual_fused
 
 
-def test_mnasnet_dw_se_clusters_at_112():
-    """Every MnasNet SE block at 112x112 fits a cluster: the smallest that
-    holds its fp32 DW output slice, by the kernel's own model."""
+#: MnasNet-A1's SE blocks at a 112 body input: (h, c, c_se, k, stride) of
+#: blocks 3, 4-5, 10, 11, 12 and 13-14; the input halves and doubles with
+#: the body input.
+MNASNET_SE_BLOCKS = ((56, 72, 6, 5, 2), (28, 120, 10, 5, 1),
+                     (14, 480, 20, 3, 1), (14, 672, 28, 3, 1),
+                     (14, 672, 28, 5, 2), (7, 960, 40, 5, 1))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("batch", (1, 8))
+@pytest.mark.parametrize("res", (112, 224))
+def test_mnasnet_dw_se_plans(res, batch, dtype):
+    """Every MnasNet SE block's ``dw_se`` plan in the network's plan: its
+    tiles cover Ho x Wo x C exactly, with at least SEP_MIN_CTAS CTAs a
+    pass at batch 8; the CTAs, the workspace and each pass's shared memory
+    are ``blocking``'s model of them."""
     net = network.mnasnet_a1_spec()
-    for dtype in (torch.float32, torch.bfloat16):
-        nplan = network.plan_network(net, (1, 112, 112, net.c_in),
-                                     dtype=dtype)
-        segs = [s.plan for p in nplan.plans for s in p.segments
-                if s.kind == "dw_se"]
-        assert [s.cluster for s in segs] == [1, 2, 2, 2, 4, 1, 1, 1]
-        assert [s.block_g for s in segs] == [6, 10, 10, 20, 28, 28, 40, 40]
-        for s in segs:
-            assert s.smem_bytes == blocking.dw_se_smem_bytes(
-                s.slab_h, s.slab_h, s.block_c * s.cluster, s.block_g,
-                s.cluster)
-
-
-@pytest.mark.parametrize("budget,want", [
-    (232_448, 1), (120_000, 2), (70_000, 4), (40_000, 8),
-    (20_000, "recompute"), (4000, None)])
-def test_dw_se_plan_takes_the_smallest_cluster_that_fits(budget, want):
-    """The smallest cluster whose resident slice fits; where none does, the
-    recompute mode on a cluster of 8; None where even that does not."""
-    p = blocking.plan_dw_se(30, 30, 28, 28, 72, 6, 3, 3, smem_budget=budget)
-    if want is None:
-        assert p is None
-        return
-    resident = want != "recompute"
-    n = want if resident else 8
-    assert p.cluster == n and p.block_c == -(-72 // n)
-    assert p.variant == ("resident" if resident else "recompute")
-    assert p.smem_bytes <= budget
-    assert p.smem_bytes == blocking.dw_se_smem_bytes(28, 28, 72, 6, n,
-                                                     resident)
+    nplan = network.plan_network(net, (batch, res, res, net.c_in),
+                                 dtype=dtype)
+    segs = [s.plan for p in nplan.plans for s in p.segments
+            if s.kind == "dw_se"]
+    shapes = [MNASNET_SE_BLOCKS[i] for i in (0, 1, 1, 2, 3, 4, 5, 5)]
+    assert len(segs) == len(shapes) == 8
+    for seg, (h, c, c_se, k, s) in zip(segs, shapes):
+        h = h * res // 112
+        ho = wo = -(-h // s)
+        vec = 16 // dtype.itemsize
+        assert seg.block_g == vec and seg.block_c % vec == 0
+        rows, cols = -(-ho // seg.slab_h), -(-wo // seg.tile_w)
+        groups = -(-c // seg.block_c)
+        # the tiles cover the output once: the last row, column and
+        # channel group of tiles each reach past the edge by less than one
+        assert (rows - 1) * seg.slab_h < ho <= rows * seg.slab_h
+        assert (cols - 1) * seg.tile_w < wo <= cols * seg.tile_w
+        assert (groups - 1) * seg.block_c < c <= groups * seg.block_c
+        assert seg.n_slabs == rows
+        assert seg.ctas == batch * rows * cols * groups
+        # every SM has work at batch 8; batch 1 keeps 48 threads a tile
+        assert seg.ctas >= (blocking.SEP_MIN_CTAS if batch == 8 else 21)
+        # a share of the reduce FC per CTA
+        ctas = rows * cols * groups
+        assert seg.workspace_bytes == blocking.dw_se_workspace_bytes(
+            batch, ctas, c_se) == 4 * batch * ctas * c_se
+        tile = (seg.slab_h, seg.tile_w, seg.block_c, k, k, s)
+        assert seg.smem_bytes == blocking.dw_se_smem_bytes(1, *tile, c_se,
+                                                           dtype)
+        assert blocking.dwconv2d_smem_bytes(*tile, dtype) <= \
+            blocking.DW_TILE_SMEM
+        for pass_ in (1, 2):
+            assert blocking.dwconv2d_smem_bytes(*tile, dtype) < \
+                blocking.dw_se_smem_bytes(pass_, *tile, c_se, dtype) <= \
+                blocking.DEFAULT_SMEM_BUDGET
 
 
 def test_fused_mb_plan_fits_and_degrades():
@@ -277,50 +301,40 @@ def _jkinds(cp):
     return [s.kind for s in cp.segments]
 
 
+@pytest.mark.parametrize("batch", (1, 8))
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-def test_plan_dw_se_agrees_with_reference(dtype):
+def test_plan_dw_se_agrees_with_reference(dtype, batch):
     """Over MnasNet's SE blocks at body inputs of 112 to 560 and some
     widths around them, the port plans ``dw_se`` exactly where the
-    reference does, in the resident mode where a cluster of at most 8 CTAs
-    holds the fp32 DW output slice and in the recompute mode exactly where
-    none does."""
+    reference does, with a tile that fits, and at batch 8 with at least
+    SEP_MIN_CTAS CTAs a pass."""
     from repro.kernels import blocking as jblocking
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    seen = set()
+    planned = 0
     for res in (112, 224, 320, 448, 560):
-        for h, c, c_se, k, s in ((res // 2, 72, 6, 5, 2),
-                                 (res // 4, 120, 10, 5, 1),
-                                 (res // 8, 480, 20, 3, 1),
-                                 (res // 8, 672, 28, 3, 1),
-                                 (res // 8, 672, 28, 5, 2),
-                                 (res // 16, 960, 40, 5, 1)):
+        for h, c, c_se, k, s in MNASNET_SE_BLOCKS:
+            h = h * res // 112
             ho = wo = -(-h // s)
             hiu = wiu = (ho - 1) * s + k
             jp = jblocking.plan_dw_se(hiu, wiu, ho, wo, c, c_se, k, k,
                                       dtype=jdt)
             p = blocking.plan_dw_se(hiu, wiu, ho, wo, c, c_se, k, k,
-                                    dtype=tdt)
+                                    stride=s, dtype=tdt, batch=batch)
             assert (p is None) == (jp is None), (res, h, c)
             if p is None:
                 continue
-            fits = blocking.dw_se_smem_bytes(
-                ho, wo, c, c_se, 8) <= blocking.DEFAULT_SMEM_BUDGET
-            assert p.variant == ("resident" if fits else "recompute")
-            seen.add(p.variant)
-            if fits:
-                assert p.cluster == min(
-                    n for n in blocking.DW_SE_CLUSTERS
-                    if blocking.dw_se_smem_bytes(ho, wo, c, c_se, n)
-                    <= blocking.DEFAULT_SMEM_BUDGET)
-            else:
-                assert p.cluster == 8
-    assert seen == {"resident", "recompute"}
+            planned += 1
+            assert p.smem_bytes <= blocking.DEFAULT_SMEM_BUDGET
+            if batch == 8:
+                assert p.ctas >= blocking.SEP_MIN_CTAS
+    assert planned > 12
 
 
 def test_dw_se_degrades_to_dw_and_se_like_reference():
-    """An SE block whose DW output fits neither one TPU core's VMEM nor a
-    cluster of 8 CTAs plans dw + se in both packages."""
+    """An SE block whose DW output does not fit one TPU core's VMEM plans
+    dw + se in both packages; so does one whose smallest ``dw_se`` tile
+    does not fit a starved shared-memory budget."""
     spec = chain.mbconv_se_spec(16, 16, expand=6)
     jspec = jchain.mbconv_se_spec(16, 16, expand=6)
     shape = (1, 112, 112, 16)
@@ -332,7 +346,7 @@ def test_dw_se_degrades_to_dw_and_se_like_reference():
     small = chain.plan(spec, (1, 14, 14, 16))
     assert _jkinds(small) == ["pw", "dw_se", "pw"]
     starved = chain.plan(spec, (1, 14, 14, 16),
-                         policy=KernelPolicy(smem_budget=1024))
+                         policy=KernelPolicy(smem_budget=256))
     assert _jkinds(starved) == ["pw", "dw", "se", "pw"]
 
 
