@@ -24,27 +24,43 @@ From the root of a checkout it:
    and times the kernel and PyTorch library calls for the same function,
    each replayed from a CUDA graph of 20 calls and as events around one
    eager call, and the plain version;
-4. drives the CNN path, ``execute_network`` on MobileNet V1 and
-   V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0 and 112x112, batch 1
-   and 8, fp32 and bf16 streaming, under the default plan and
-   ``fused=False``, and MnasNet-A1 at 224x224 (batch 8, default plan): for
-   each run it zeroes the launch counters, drives one forward, checks that
-   the counters moved by exactly the expected counts, holds the output
-   against the fp32 plain path, times the forward and prints the CTA count
-   of each ``separable_fused`` launch, the CTA count and cluster of each
-   ``fused_mbconv`` launch and the CTAs a pass of each ``dw_se`` launch;
+4. drives the CNN path, ``execute_network`` (one CUDA graph a forward,
+   captured at its first call) and its eager runner (``build_network_fn``)
+   on MobileNet V1 and V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0
+   and 112x112, batch 1 and 8, fp32 and bf16 streaming, under the default
+   plan and ``fused=False``, and MnasNet-A1 at 224x224 (batch 8, default
+   plan): for each run it zeroes the launch counters around each call and
+   checks that the wrappers launched two forwards' kernels in the graph
+   path's first call (its warm-up and its capture), none in a later call
+   (a replay runs no wrapper) and one forward's in an eager call; counts
+   the kernels a replay ran in a profiler trace and checks they are one
+   forward's; checks that the graph's output has the eager runner's bits,
+   holds the output against the fp32 plain path (run eagerly), times both
+   paths, prints their busy shares, each forward's own peak memory, the
+   card memory the graph's first call reserved and what the graph held
+   until the cache was cleared, the capture time, the CTA count of each
+   ``separable_fused`` launch, the CTA count and cluster of each
+   ``fused_mbconv`` launch and the CTAs a pass of each ``dw_se`` launch,
+   and clears the network cache;
 5. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
-   32 greedy ``decode_step``s, in fp32 and bf16.  Around each call it
-   zeroes the counters and checks the launches (12 ``dwconv1d`` + 60
-   ``pwconv`` per prefill, 0 + 60 per decode step); it holds every call's
-   logits against the fp32 plain path (``impl="torch"`` on the card; each
-   decode step from the plain path's cache and token), reports the error
-   of the kernel path run on its own cache, holds ``prefill`` against
-   ``prefill_by_stepping`` at a 64-token prompt, and times prefill (host
-   clock around the checked call) and decode (CUDA events, median of 10)
-   with the device's busy share;
-6. prints the kernels it launched, one JSON line of per-kernel numbers, the
+   32 greedy decode steps, in fp32 and bf16, through the captured prefill
+   and decode step (``capture_prefill``, ``capture_decode_step``) and
+   through the eager ones.  Around each capture and each call it zeroes
+   the counters and checks the launches (12 ``dwconv1d`` + 60 ``pwconv``
+   per prefill, 0 + 60 per decode step: twice in a capture, none in a
+   replay, once in an eager call), and counts the kernels of a profiled
+   replay of each graph in the trace; it holds every call's logits against
+   the fp32 plain path (``impl="torch"`` on the card; each decode step from
+   the plain path's cache and token) and the graph path's against the
+   eager path's bits, reports the error of the graph path run on its own
+   cache, holds ``prefill`` against ``prefill_by_stepping`` at a 64-token
+   prompt, and prints the capture times, each path's prefill (host clock
+   around a warm call) and decode (CUDA events, median of 10) with their
+   busy shares, and each path's own peak memory;
+6. prints the kernels it launched, one JSON line of per-kernel numbers
+   (``launches``: the wrappers' counts on the main paths; beside them
+   ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -465,14 +481,28 @@ class KernelChecks:
                    "graph_replay_equal": replays})
 
 
+def pct(x):
+    """A busy share, or "not profiled" where the profiler saw no device
+    time."""
+    return "not profiled" if x is None else f"{x:.0%}"
+
+
 def run_networks(torch, dev):
-    """The main path: execute_network on V1, V2, MnasNet-A1 and Lite0 at
-    112x112, every plan, dtype and batch; then MnasNet-A1 at 224x224, batch
-    8, default plan, fp32 and bf16."""
+    """The main path: execute_network (one CUDA graph a forward) and its
+    eager runner on V1, V2, MnasNet-A1 and Lite0 at 112x112, every plan,
+    dtype and batch; then MnasNet-A1 at 224x224, batch 8, default plan,
+    fp32 and bf16.  The wrappers' counters must move by two forwards in the
+    graph path's first call (its warm-up and its capture), by none in a
+    later call (a replay runs no wrapper) and by one forward in an eager
+    call; the kernels one replay ran are counted in a profiler trace and
+    must be one forward's.  Returns the runs, the wrappers' launches by
+    kernel, the kernels the profiled replays ran, and ``pwconv``'s
+    launches by variant."""
     from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
                                                  expected_launches,
                                                  run_network)
     totals = dict.fromkeys(KERNEL_SEGMENTS, 0)
+    replayed = dict.fromkeys(KERNEL_SEGMENTS, 0)
     variants = {}
     runs = []
 
@@ -484,37 +514,70 @@ def run_networks(torch, dev):
         plan_counts = expected_launches(r["histogram"])
         plan_name = "default" if fused is None else "fused=False"
         label = f"{arch} {res}x{res} {plan_name} batch {batch} {dtype}"
-        peak = r["peak_bytes"] / 2 ** 20
-        busy = sum(r["device_ms"].values())
-        print(f"  {label}: {r['ms']:.3f} ms/forward, peak {peak:.1f} MiB, "
-              f"rel err {r['rel_err']:.2e} (tol {r['tol']:g}), launches "
-              f"{r['launches']}", flush=True)
+        print(f"  {label}: graph {r['ms']:.3f} ms/forward (busy "
+              f"{pct(r['busy'])}, own peak {r['peak_bytes'] / 2**20:.1f} MiB,"
+              f" reserved {r['reserved_bytes'] / 2**20:.1f} MiB, held "
+              f"{r['held_bytes'] / 2**20:.1f} MiB), eager "
+              f"{r['eager_ms']:.3f} ms/forward (busy {pct(r['eager_busy'])}, "
+              f"own peak {r['eager_peak_bytes'] / 2**20:.1f} MiB); captured "
+              f"in {r['capture_s'] * 1e3:.1f} ms; graph equals eager: "
+              f"{r['graph_equals_eager']}; rel err {r['rel_err']:.2e} (tol "
+              f"{r['tol']:g}), launches {r['eager_launches']} (eager), "
+              f"{r['replay_launches']} (a replay, profiler)", flush=True)
         if fused is None:
             print(f"    separable_fused CTAs per launch: {r['fused_ctas']}; "
                   f"fused_mbconv (CTAs, cluster) per launch: "
                   f"{r['fused_mbconv_ctas_cluster']}; dw_se CTAs a pass per "
                   f"launch: {r['dw_se_ctas']}", flush=True)
-        print(f"    device {busy:.3f} ms/forward: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in sorted(r["device_ms"].items()))
-            + f"; pwconv by variant {r['pwconv_variants']}", flush=True)
-        check_variants(label, r["pwconv_variants"], r["launches"]["pwconv"],
-                       dtype)
+        for name, pre in (("graph", ""), ("eager", "eager_")):
+            dms = r[pre + "device_ms"]
+            print(f"    {name} device {sum(dms.values()):.3f} ms/forward: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(dms.items())),
+                  flush=True)
+        print(f"    pwconv by variant {r['pwconv_variants']} (eager), "
+              f"{r['replay_pwconv_variants']} (a replay); traces retaken "
+              f"for lost records {r['profile_retries']}", flush=True)
+        check_variants(label, r["pwconv_variants"],
+                       r["eager_launches"]["pwconv"], dtype)
+        check_variants(label + " replay", r["replay_pwconv_variants"],
+                       r["replay_launches"]["pwconv"], dtype)
         for k, v in r["pwconv_variants"].items():
             variants[k] = variants.get(k, 0) + v
-        if r["launches"] != want or plan_counts != want:
-            raise AssertionError(f"{label}: launches {r['launches']}, plan "
-                                 f"{plan_counts}, expected {want}")
+        twice = {k: 2 * n for k, n in want.items()}
+        if (r["first_call_launches"] != twice
+                or any(r["later_call_launches"].values())
+                or r["eager_launches"] != want
+                or r["replay_launches"] != want or plan_counts != want):
+            raise AssertionError(
+                f"{label}: launches {r['first_call_launches']} (capturing "
+                f"call), {r['later_call_launches']} (later call), "
+                f"{r['eager_launches']} (eager), {r['replay_launches']} (a "
+                f"replay, profiler), plan {plan_counts}, expected {want} a "
+                f"forward")
+        if not r["graph_equals_eager"]:
+            raise AssertionError(f"{label}: the graph's output is not the "
+                                 f"eager runner's (rel "
+                                 f"{r['graph_vs_eager_rel_err']:.2e})")
         if not (r["finite_and_shaped"] and r["rel_err"] <= r["tol"]):
             raise AssertionError(f"{label}: rel err {r['rel_err']} > "
                                  f"{r['tol']} or bad output")
         for k in totals:
-            totals[k] += r["launches"][k]
+            totals[k] += (r["first_call_launches"][k]
+                          + r["later_call_launches"][k]
+                          + r["eager_launches"][k])
+            replayed[k] += r["replay_launches"][k]
         runs.append({"arch": arch, "res": res, "plan": plan_name,
                      "batch": batch, "dtype": dtype,
                      **{k: r[k] for k in (
-                         "ms", "peak_bytes", "device_ms", "rel_err",
-                         "launches", "pwconv_variants", "dw_se_ctas",
-                         "out_shape", "fused_ctas",
+                         "ms", "eager_ms", "busy", "eager_busy",
+                         "peak_bytes", "eager_peak_bytes", "reserved_bytes",
+                         "held_bytes", "profile_retries", "capture_s",
+                         "device_ms",
+                         "eager_device_ms", "rel_err", "graph_equals_eager",
+                         "first_call_launches", "later_call_launches",
+                         "eager_launches", "replay_launches",
+                         "pwconv_variants", "replay_pwconv_variants",
+                         "dw_se_ctas", "out_shape", "fused_ctas",
                          "fused_mbconv_ctas_cluster")}})
 
     for arch in ARCHS:
@@ -524,7 +587,7 @@ def run_networks(torch, dev):
                     one(arch, 112, fused, batch, dtype)
     for dtype in ("fp32", "bf16"):
         one("mnasnet", 224, None, 8, dtype)
-    return runs, totals, variants
+    return runs, totals, replayed, variants
 
 
 def check_variants(label, got, total, dtype, phase=None):
@@ -548,19 +611,27 @@ def check_variants(label, got, total, dtype, phase=None):
 
 def run_serving(torch, dev):
     """The serving path: xlstm-125m at full width, prefill + greedy decode,
-    batch 1 and 8, fp32 and bf16, each kernel-path call held against the
-    plain path's call on the same inputs: fp32 within FP32_REL_TOL; bf16
-    within BF16_REL_TOL of the bf16 plain path (random-init xLSTM does not
-    hold the fp32 plain path to 5e-2 in bf16: a 512-token prefill at batch
-    1 differs from it by about that much; PERF.md), the error against the
-    fp32 plain path reported beside it."""
+    batch 1 and 8, fp32 and bf16, through the captured prefill and decode
+    step (CUDA graphs) and through the eager ones.  Every call of either
+    path is held against the plain path's call on the same inputs: fp32
+    within FP32_REL_TOL; bf16 within BF16_REL_TOL of the bf16 plain path
+    (random-init xLSTM does not hold the fp32 plain path to 5e-2 in bf16: a
+    512-token prefill at batch 1 differs from it by about that much;
+    PERF.md), the error against the fp32 plain path reported beside it.
+    The graph path's output must have the eager path's bits, call by
+    call.  The wrappers' counters must move by two calls in each capture
+    (its warm-up and its recording), by none in a replay and by one call in
+    an eager call; the kernels a replay ran are counted in a profiler trace
+    and must be one call's.  Returns the runs, the wrappers' launches by
+    kernel, the kernels the profiled replays ran, the prefill-vs-stepping
+    errors, and ``pwconv``'s launches by variant."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import pwconv
     from repro_torch.kernels.policy import KernelPolicy
     from repro_torch.launch.serve import (expected_launches, launch_counts,
                                           reset_launch_counts)
-    from repro_torch.measure import device_breakdown, rel_err, time_ms
+    from repro_torch.measure import profile_calls, rel_err, time_ms
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import serve_step as S
     from repro_torch.serve.sampler import greedy
@@ -578,32 +649,62 @@ def run_serving(torch, dev):
             "decode": expected_launches(cfg32, "decode")}
     max_len = PROMPT_LEN + GEN_STEPS
     totals = dict.fromkeys(want["prefill"], 0)
+    replayed = dict.fromkeys(want["prefill"], 0)
     variants = {}
-    seen = {"fp32": {}, "bf16": {}}
+    seen = {}
+    lost = []
 
-    def counted(label, phase, fn):
-        """fn() on the kernel path, the counters zeroed just before and read
-        just after; the launches must be the expected ones, every decode
-        step's ``pwconv`` launch ``stream`` and every prefill's the
-        dtype's wide variant (``tc`` in bf16, ``simt`` in fp32)."""
+    def check_by(label, phase, dtype, by, total):
+        """Every decode step's ``pwconv`` launch ``stream``, every
+        prefill's the dtype's wide variant (``tc`` in bf16, ``simt`` in
+        fp32)."""
+        check_variants(label, by, total, dtype, phase)
+        if phase == "prefill" and by[
+                "tc" if dtype == "bf16" else "simt"] != total:
+            raise AssertionError(f"{label} prefill: pwconv by variant {by}")
+
+    def counted(label, phase, fn, calls=1):
+        """fn() with the counters zeroed just before and read just after;
+        they must have moved by ``calls`` calls of ``phase``: 1 for an
+        eager call, 2 for a capture (its warm-up and its recording), 0 for
+        a replay."""
+        dtype = label.split()[0]
         reset_launch_counts()
         out = fn()
         torch.cuda.synchronize(dev)
         got = launch_counts()
-        if got != want[phase]:
+        if got != {k: calls * n for k, n in want[phase].items()}:
             raise AssertionError(f"{label} {phase}: launches {got}, "
-                                 f"expected {want[phase]}")
+                                 f"expected {calls} x {want[phase]}")
         by = dict(pwconv.launches_by_variant)
-        check_variants(label, by, got["pwconv"], label, phase)
-        if phase == "prefill" and by[
-                "tc" if label == "bf16" else "simt"] != got["pwconv"]:
-            raise AssertionError(f"{label} prefill: pwconv by variant {by}")
-        seen[label][phase] = by
+        check_by(label, phase, dtype, by, got["pwconv"])
+        if calls == 1:
+            seen[(label, phase)] = by
         for k in totals:
             totals[k] += got[k]
         for k, v in by.items():
             variants[k] = variants.get(k, 0) + v
         return out
+
+    def replay_profile(label, phase, fn, reps):
+        """Device ms by kernel of ``fn()``, a call that replays a graph, and
+        a check of the kernels the replay ran, counted in the profiler's
+        trace: one call's, ``pwconv``'s by variant as :func:`counted`
+        holds them (a trace short of them is taken again,
+        :func:`profile_calls`)."""
+        ms, ran, retries = profile_calls(fn, want[phase], reps=reps)
+        if retries:
+            lost.append({"call": f"{label} {phase}", "retries": retries})
+        got = {k: ran.get(k, 0) for k in want[phase]}
+        if got != want[phase]:
+            raise AssertionError(f"{label} {phase}: a replay ran {got} "
+                                 f"(profiler), expected {want[phase]}")
+        by = {v: ran.get(f"pwconv.{v}", 0) for v in pwconv.launches_by_variant}
+        check_by(label + " replay", phase, label.split()[0], by, got["pwconv"])
+        seen[(label + " replay", phase)] = by
+        for k in replayed:
+            replayed[k] += got[k]
+        return ms
 
     def lead(prompts):
         """The fp32 plain path, free-running greedy: its logits, and the
@@ -621,37 +722,39 @@ def run_serving(torch, dev):
             raise AssertionError(f"the plain path launched {launch_counts()}")
         return outs, steps
 
-    def follow(dtype, prompts, steps, policy=None):
-        """The kernel path (or ``policy``'s): prefill, then each decode step
-        from the fp32 plain path's cache and token.  Held call by call, the
-        error does not compound along the sequence.  Returns the logits and
-        the ms of the prefill (host clock, ending in a synchronize)."""
-        m = models[dtype]
-        call = counted if policy is None else (lambda _l, _p, fn: fn())
-        policy = policy or KernelPolicy()
+    def follow(label, prompts, steps, prefill, step, calls=None):
+        """``prefill``, then each decode ``step`` from the fp32 plain path's
+        cache and token (held call by call, the error does not compound
+        along the sequence), each call counted as ``calls`` calls (0 for a
+        replay) unless ``calls`` is None.  Returns the logits and the ms of
+        the prefill (host clock, ending in a synchronize)."""
+        def call(lbl, phase, fn):
+            return fn() if calls is None else counted(lbl, phase, fn, calls)
+        torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        logits, _ = call(dtype, "prefill", lambda: S.prefill(
-            m, prompts, max_len=max_len, policy=policy))
+        logits, _ = call(label, "prefill", lambda: prefill(prompts))
+        torch.cuda.synchronize(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         outs = [logits]
         for cache, tok in steps:
-            outs.append(call(dtype, "decode", lambda: S.decode_step(
-                m, cache, tok, policy=policy))[0])
+            outs.append(call(label, "decode", lambda: step(cache, tok))[0])
         return outs, prefill_ms
 
-    def free_run(dtype, prompts, steps):
-        """The kernel path on its own cache, fed the plain path's tokens."""
-        m = models[dtype]
-        logits, cache = S.prefill(m, prompts, max_len=max_len)
+    def free_run(prefill, step, prompts, steps):
+        """A path on its own cache, fed the plain path's tokens."""
+        logits, cache = prefill(prompts)
         outs = [logits]
         for _, tok in steps:
-            logits, cache = S.decode_step(m, cache, tok)
+            logits, cache = step(cache, tok)
             outs.append(logits)
         return outs
 
     def errors(got, ref):
         e = [rel_err(a, b) for a, b in zip(got, ref)]
         return {"prefill": e[0], "decode": max(e[1:]), "max": max(e)}
+
+    def own_peak(before):
+        return torch.cuda.max_memory_allocated(dev) - before
 
     runs = []
     with torch.inference_mode():
@@ -661,53 +764,120 @@ def run_serving(torch, dev):
                 generator=torch.Generator().manual_seed(batch)).to(dev)
             ref, steps = lead(prompts)
             for dtype in ("fp32", "bf16"):
-                model = models[dtype]
+                m = models[dtype]
+                tag = f"{dtype} batch {batch}"
+                eager = (lambda p, m=m: S.prefill(m, p, max_len=max_len),
+                         lambda c, t, m=m: S.decode_step(m, c, t))
+                # graph path: capture, then every call; memory above what
+                # was allocated before the capture
+                torch.cuda.synchronize(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
-                got, prefill_ms = follow(dtype, prompts, steps)
-                peak = torch.cuda.max_memory_allocated(dev)
+                before = torch.cuda.memory_allocated(dev)
+                pre = counted(tag + " capture", "prefill",
+                              lambda: S.capture_prefill(
+                                  m, batch, PROMPT_LEN, max_len=max_len), 2)
+                dec = counted(tag + " capture", "decode",
+                              lambda: S.capture_decode_step(m, batch,
+                                                            max_len), 2)
+                got, prefill_ms = follow(tag + " graph", prompts, steps, pre,
+                                         dec, calls=0)
+                peak = own_peak(before)
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                got_eager, eager_prefill_ms = follow(tag + " eager", prompts,
+                                                     steps, *eager, calls=1)
+                eager_peak = own_peak(before)
+                same = [bool(torch.equal(a, b))
+                        for a, b in zip(got, got_eager)]
                 finite = all(bool(torch.isfinite(o).all()) and tuple(
                     o.shape) == (batch, cfg32.vocab_size) for o in got)
                 err = errors(got, ref)
                 if dtype == "bf16":
-                    gated = errors(got, follow("bf16", prompts, steps,
-                                               plain)[0])
-                    chained = errors(free_run(dtype, prompts, steps), ref)
+                    gated = errors(got, follow(
+                        tag + " plain", prompts, steps,
+                        lambda p: S.prefill(m, p, max_len=max_len,
+                                            policy=plain),
+                        lambda c, t: S.decode_step(m, c, t, policy=plain))[0])
+                    chained = errors(free_run(pre, dec, prompts, steps), ref)
                 else:
                     gated, chained = err, None
-                pre = lambda: S.prefill(model, prompts, max_len=max_len)
+                # timing: the graph and the eager path in turns; decode on
+                # the graph's own cache (replay only)
                 cache, tok = steps[-1]
-                step = lambda: S.decode_step(model, cache, tok)
-                decode_ms = time_ms(step, dev, reps=10, warmup=2)
-                # Profiling a prefill (~10^5 device events) costs more than
-                # the rest of its cell: once per batch, in fp32 (bf16 runs
-                # the same kernels at the same width, PERF.md).
-                dev_pre = (device_breakdown(pre, reps=1, warmup=False)
-                           if dtype == "fp32" else {})
-                dev_dec = device_breakdown(step, reps=5)
+                dec(cache, tok)
+                own = dec.cache
+                steady = lambda: dec(own, tok)  # noqa: E731
+                eager_step = lambda: eager[1](cache, tok)  # noqa: E731
+                decode_ms = time_ms(steady, dev, reps=10, warmup=2)
+                eager_decode_ms = time_ms(eager_step, dev, reps=10, warmup=2)
+                # a prefill is ~10^5 device events: one profiled call each
+                dev_pre = replay_profile(tag, "prefill",
+                                         lambda: pre(prompts), reps=1)
+                dev_pre_eager = profile_calls(lambda: eager[0](prompts),
+                                              want["prefill"], reps=1)[0]
+                dev_dec = replay_profile(tag, "decode", steady, reps=5)
+                dev_dec_eager = profile_calls(eager_step, want["decode"])[0]
                 tol = FP32_REL_TOL if dtype == "fp32" else BF16_REL_TOL
+
+                def busy(dms, ms):
+                    return sum(dms.values()) / ms if dms else None
                 r = {"batch": batch, "dtype": dtype,
-                     "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+                     "prefill_ms": prefill_ms,
+                     "eager_prefill_ms": eager_prefill_ms,
+                     "decode_ms": decode_ms,
+                     "eager_decode_ms": eager_decode_ms,
                      "tokens_per_s": batch * 1e3 / decode_ms,
-                     "peak_bytes": peak, "prefill_device_ms": dev_pre,
+                     "eager_tokens_per_s": batch * 1e3 / eager_decode_ms,
+                     "prefill_capture_s": pre.captured.capture_s,
+                     "decode_capture_s": dec.captured.capture_s,
+                     "peak_bytes": peak, "eager_peak_bytes": eager_peak,
+                     "prefill_device_ms": dev_pre,
+                     "eager_prefill_device_ms": dev_pre_eager,
                      "decode_device_ms": dev_dec,
-                     "prefill_busy": (sum(dev_pre.values()) / prefill_ms
-                                      if dev_pre else None),
-                     "decode_busy": sum(dev_dec.values()) / decode_ms,
+                     "eager_decode_device_ms": dev_dec_eager,
+                     "prefill_busy": busy(dev_pre, prefill_ms),
+                     # the same kernels, profiled without the graph (a
+                     # check on what the profiler sees inside a replay)
+                     "prefill_busy_by_eager_device_ms": busy(dev_pre_eager,
+                                                             prefill_ms),
+                     "eager_prefill_busy": busy(dev_pre_eager,
+                                                eager_prefill_ms),
+                     "decode_busy": busy(dev_dec, decode_ms),
+                     "eager_decode_busy": busy(dev_dec_eager,
+                                               eager_decode_ms),
+                     "graph_equals_eager": all(same),
+                     "graph_vs_eager": errors(got, got_eager),
                      "rel_err_vs_fp32_plain": err,
                      "rel_err_gated": gated, "tol": tol,
                      "rel_err_on_own_cache": chained}
                 runs.append(r)
-                busy = ("not profiled" if r["prefill_busy"] is None
-                        else f"{r['prefill_busy']:.0%}")
-                print(f"  xlstm-125m batch {batch} {dtype}: prefill "
-                      f"{batch}x{PROMPT_LEN} {prefill_ms:.1f} ms (device busy "
-                      f"{busy}), decode {decode_ms:.2f} "
-                      f"ms/token (busy {r['decode_busy']:.0%}), "
-                      f"{r['tokens_per_s']:.1f} tokens/s, peak "
-                      f"{peak / 2**20:.0f} MiB", flush=True)
+
+                print(f"  xlstm-125m batch {batch} {dtype}: captured prefill "
+                      f"in {r['prefill_capture_s'] * 1e3:.0f} ms, decode step "
+                      f"in {r['decode_capture_s'] * 1e3:.1f} ms; own peak "
+                      f"{peak / 2**20:.0f} MiB (eager {eager_peak / 2**20:.0f}"
+                      f" MiB)", flush=True)
+                print(f"    graph: prefill {batch}x{PROMPT_LEN} "
+                      f"{prefill_ms:.1f} ms (busy {pct(r['prefill_busy'])}; "
+                      f"{pct(r['prefill_busy_by_eager_device_ms'])} by the "
+                      f"eager path's device ms), decode "
+                      f"{decode_ms:.3f} ms/token (busy "
+                      f"{pct(r['decode_busy'])}), {r['tokens_per_s']:.1f} "
+                      f"tokens/s", flush=True)
+                print(f"    eager: prefill {eager_prefill_ms:.1f} ms (busy "
+                      f"{pct(r['eager_prefill_busy'])}), decode "
+                      f"{eager_decode_ms:.3f} ms/token (busy "
+                      f"{pct(r['eager_decode_busy'])}), "
+                      f"{r['eager_tokens_per_s']:.1f} tokens/s", flush=True)
+                print(f"    graph equals eager, call by call: {all(same)} "
+                      f"(rel {r['graph_vs_eager']['max']:.2e})", flush=True)
                 print(f"    pwconv by variant: prefill "
-                      f"{seen[dtype]['prefill']}, a decode step "
-                      f"{seen[dtype]['decode']}", flush=True)
+                      f"{seen[(tag + ' eager', 'prefill')]} (eager), "
+                      f"{seen[(tag + ' replay', 'prefill')]} (a replay, "
+                      f"profiler), a decode step "
+                      f"{seen[(tag + ' eager', 'decode')]} (eager), "
+                      f"{seen[(tag + ' replay', 'decode')]} (a replay)",
+                      flush=True)
                 print(f"    vs {dtype} plain path, each call from the same "
                       f"inputs: prefill {gated['prefill']:.2e}, decode steps "
                       f"{gated['decode']:.2e} (tol {tol:g})", flush=True)
@@ -717,16 +887,27 @@ def run_serving(torch, dev):
                           f"{err['prefill']:.2e}, decode steps "
                           f"{err['decode']:.2e}; on its own cache: decode "
                           f"steps {chained['decode']:.2e}", flush=True)
-                print("    device ms per prefill: " + (", ".join(
-                    f"{k} {v:.2f}" for k, v in sorted(dev_pre.items()))
-                    or "not profiled") + "; per decode step: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in sorted(dev_dec.items())),
-                    flush=True)
+                for name, dp, dd in (("graph", dev_pre, dev_dec),
+                                     ("eager", dev_pre_eager,
+                                      dev_dec_eager)):
+                    print(f"    {name} device ms per prefill: " + (", ".join(
+                        f"{k} {v:.2f}" for k, v in sorted(dp.items()))
+                        or "not profiled") + "; per decode step: "
+                        + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in sorted(dd.items())),
+                        flush=True)
                 if not (finite and gated["max"] <= tol):
                     raise AssertionError(
                         f"xlstm-125m batch {batch} {dtype}: rel err {gated} "
                         f"> {tol} or bad logits (finite and shaped: "
                         f"{finite})")
+                if not all(same):
+                    raise AssertionError(
+                        f"xlstm-125m batch {batch} {dtype}: the graph path "
+                        f"differs from the eager path at calls "
+                        f"{[i for i, ok in enumerate(same) if not ok]}")
+                del pre, dec, own, steady
+                torch.cuda.empty_cache()
             del ref, steps
 
         prompts = torch.randint(
@@ -745,7 +926,8 @@ def run_serving(torch, dev):
         if not max(e_pre, e_next) <= FP32_REL_TOL:
             raise AssertionError(f"prefill vs prefill_by_stepping: {e_pre}, "
                                  f"{e_next}")
-    return runs, totals, {"prefill": e_pre, "next_step": e_next}, variants
+    return (runs, totals, replayed, {"prefill": e_pre, "next_step": e_next,
+                                     "profiles_retried": lost}, variants)
 
 
 def main() -> int:
@@ -844,22 +1026,25 @@ def main() -> int:
     t_phase = time.perf_counter()
     print("main path: execute_network, MobileNet V1/V2, MnasNet-A1 and "
           "EfficientNet-Lite0 at width 1.0, 112x112:")
-    runs, launches, variants = run_networks(torch, dev)
+    runs, launches, replayed, variants = run_networks(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
     t_phase = time.perf_counter()
     print("serving path: xlstm-125m at full width, prefill + greedy decode:")
-    serving, serve_launches, stepping, serve_variants = run_serving(
-        torch, dev)
+    serving, serve_launches, serve_replayed, stepping, serve_variants = \
+        run_serving(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
-    launches["dwconv1d"] = 0
+    launches["dwconv1d"] = replayed["dwconv1d"] = 0
     for name, n in serve_launches.items():
         launches[name] += n
+        replayed[name] += serve_replayed[name]
     for name, n in serve_variants.items():
         variants[name] = variants.get(name, 0) + n
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was never launched on the "
-                                 "main path")
+    for name in launches:
+        if launches[name] == 0 or replayed[name] == 0:
+            raise AssertionError(f"kernel {name} was launched {launches[name]}"
+                                 f" times on the main paths and ran "
+                                 f"{replayed[name]} times in their profiled "
+                                 "graph replays")
     print(f"pwconv launches by variant on the main paths: {variants}")
     for name in ("stream", "tc", "simt"):
         if not variants.get(name):
@@ -872,6 +1057,7 @@ def main() -> int:
                      if r["name"] == name and r["dtype"] == "float32")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "replay_launches": replayed[name],
                         **{k: first[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "shape", "dtype",
@@ -882,6 +1068,7 @@ def main() -> int:
             json.dump({"card": card, "kernel_checks": kc.results,
                        "networks": runs, "serving": serving,
                        "prefill_vs_stepping": stepping, "launches": launches,
+                       "replay_launches": replayed,
                        "pwconv_variants": variants,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1)

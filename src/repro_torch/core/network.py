@@ -8,11 +8,15 @@ MnasNet-A1 and EfficientNet-Lite0 bodies:
 * :func:`plan_network` -> :class:`NetworkPlan` — every block's
   ``ChainPlan`` resolved once by walking shapes and dtypes through the
   network.
-* :func:`execute_network` — the whole body.  The (plan, runner) pair is
-  memoized per (spec, shape, dtype, policy, device), so steady-state calls
-  do no planning.  The runner launches the blocks' kernels one after the
-  other on the current stream; capturing them as one CUDA graph is a later
-  PR.  A kernel failure raises: there is no runtime ladder here.
+* :func:`build_network_fn` — the per-block runners composed into one
+  eager ``run(params, x)`` that launches the blocks' kernels one after the
+  other on the current stream.
+* :func:`execute_network` — the whole body.  On the card it is one CUDA
+  graph per memoized plan (the counterpart of the reference's one jitted
+  call): the first call for a (spec, shape, dtype, policy, device, params)
+  plans, captures the eager runner and replays it; later calls copy ``x``
+  in and replay.  On the CPU the eager runner runs.  A kernel or capture
+  failure raises: there is no runtime ladder here.
 * :class:`NetworkModule` — an ``nn.Module`` holding the parameters whose
   ``forward`` is :func:`execute_network`.
 
@@ -25,11 +29,12 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch import graphs
 from repro_torch.core import chain
 from repro_torch.kernels import lowering
 from repro_torch.kernels.blocking import ChainPlan
@@ -308,8 +313,10 @@ def plan_network(net: NetworkSpec, x_shape, *,
 def build_network_fn(net: NetworkSpec, nplan: NetworkPlan,
                      policy: KernelPolicy = DEFAULT_POLICY,
                      block_dtype_policies=None):
-    """Compose the per-block lowered runners into one ``run(params, x)``;
-    every block runs its planned blocks verbatim."""
+    """Compose the per-block lowered runners into one eager ``run(params,
+    x)``; every block runs its planned blocks verbatim.  This is what
+    :func:`execute_network` captures on the card, and the eager path to
+    hold the captured one against."""
     policies = resolve_block_policies(net, policy, block_dtype_policies)
     runners = [lowering.lower(spec, cp, pol)
                for spec, cp, pol in zip(net.blocks, nplan.plans, policies)]
@@ -325,13 +332,36 @@ def build_network_fn(net: NetworkSpec, nplan: NetworkPlan,
     return run
 
 
-#: (net, shape, dtype, policy, device, block policies, explicit plan) ->
-#: (NetworkPlan, runner).
+@dataclasses.dataclass
+class _Memo:
+    """One memoized problem: its plan, the eager runner, the parameter
+    tensors (held, so that no address a graph reads is freed and reused),
+    and on the card the captured forward and the input buffer it reads."""
+    plan: NetworkPlan
+    run: Callable
+    tensors: tuple
+    graph: Optional[graphs.Captured] = None
+    x: Optional[torch.Tensor] = None
+
+
+#: (net, shape, dtype, policy, device, block policies, explicit plan,
+#: parameter addresses) -> _Memo.
 _NETWORK_CACHE: dict = {}
 
 
 def clear_network_cache() -> None:
+    """Forget every memoized plan, and release the CUDA graphs and the
+    memory of their pools."""
     _NETWORK_CACHE.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _memo_key(net, params, x, policy, network_plan, block_dtype_policies):
+    return (net, tuple(x.shape), x.dtype, policy, x.device,
+            block_dtype_policies, network_plan,
+            tuple(v.data_ptr() for block in params for p in block
+                  for v in p.values()))
 
 
 def execute_network(net: NetworkSpec, params, x: torch.Tensor, *,
@@ -340,20 +370,61 @@ def execute_network(net: NetworkSpec, params, x: torch.Tensor, *,
                     block_dtype_policies: Optional[Tuple[DtypePolicy, ...]]
                     = None) -> torch.Tensor:
     """Run the whole body.  The first call for a given (net, input shape,
-    dtype, policy, device) plans and builds the runner; later calls reuse
-    it.  The backend follows ``x``'s device (``policy.impl="auto"``)."""
-    key = (net, tuple(x.shape), x.dtype, policy, x.device,
-           block_dtype_policies, network_plan)
-    hit = _NETWORK_CACHE.get(key)
-    if hit is None:
+    dtype, policy, device, parameter tensors) plans and builds the eager
+    runner (:func:`build_network_fn`); later calls reuse them.  The backend
+    follows ``x``'s device (``policy.impl="auto"``).
+
+    On a CUDA tensor the forward is one CUDA graph, the counterpart of the
+    reference's one jitted call: the first call captures the eager runner
+    (:func:`graphs.capture`) on a copy of ``x`` and memoizes the graph once
+    its first replay has run; every later call copies ``x`` into that input
+    buffer and replays.  Each call returns a copy of the graph's output
+    buffer, so a later call never overwrites an earlier result.  The
+    parameters are part of the key by their addresses: the graph reads them
+    where they lay when it was captured, and the memo holds them.  Weights
+    updated in place are therefore seen by the next replay, and another set
+    of tensors gets a graph of its own.  Called while a capture is under way,
+    it runs the eager runner, which the outer capture records.  On a CPU
+    tensor the eager runner runs.
+    """
+    return execute_network_graph(
+        net, params, x, policy=policy, network_plan=network_plan,
+        block_dtype_policies=block_dtype_policies)[0]
+
+
+def execute_network_graph(net: NetworkSpec, params, x: torch.Tensor, *,
+                          policy: KernelPolicy = DEFAULT_POLICY,
+                          network_plan: Optional[NetworkPlan] = None,
+                          block_dtype_policies=None):
+    """:func:`execute_network`, returning ``(output, graph)``: the
+    :class:`graphs.Captured` that gave the output (its capture time and the
+    launches it recorded), or None where the eager runner ran."""
+    key = _memo_key(net, params, x, policy, network_plan,
+                    block_dtype_policies)
+    memo = _NETWORK_CACHE.get(key)
+    if memo is None:
         nplan = network_plan or plan_network(
             net, x.shape, dtype=x.dtype, policy=policy,
             block_dtype_policies=block_dtype_policies)
-        hit = (nplan, build_network_fn(net, nplan, policy,
-                                       block_dtype_policies))
-        _NETWORK_CACHE[key] = hit
+        memo = _Memo(nplan, build_network_fn(net, nplan, policy,
+                                             block_dtype_policies),
+                     tuple(v for block in params for p in block
+                           for v in p.values()))
     with torch.inference_mode():
-        return hit[1](params, x)
+        if x.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            _NETWORK_CACHE[key] = memo
+            return memo.run(params, x), None
+        if memo.graph is None:
+            static_x = x.clone()
+            graph = graphs.capture(lambda: memo.run(params, static_x),
+                                   x.device)
+            # memoized only once the capture and its first replay ran
+            memo.graph, memo.x = graph, static_x
+            _NETWORK_CACHE[key] = memo
+        else:
+            memo.x.copy_(x)
+            memo.graph.replay()
+        return memo.graph.output.clone(), memo.graph
 
 
 class NetworkModule(nn.Module):

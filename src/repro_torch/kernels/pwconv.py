@@ -29,7 +29,8 @@ import torch
 from repro_torch.kernels import _build, blocking, ref
 from repro_torch.kernels.epilogue import activation_code
 
-#: Kernel launches so far in this process, and by variant.
+#: Kernel launches so far in this process, and by variant
+#: (``repro_torch.graphs`` snapshots, restores and resets them).
 launches = 0
 launches_by_variant = dict.fromkeys(blocking.PW_VARIANTS, 0)
 
@@ -50,14 +51,6 @@ def _launcher():
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
         _launch_fn = (lib, fn)
     return _launch_fn
-
-
-def reset_launches() -> None:
-    """Set every launch counter of this module to 0."""
-    global launches
-    launches = 0
-    for k in launches_by_variant:
-        launches_by_variant[k] = 0
 
 
 def smem_bytes(variant: str, bg: int, bco: int, bci: int, ci: int) -> int:

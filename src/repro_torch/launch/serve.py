@@ -6,11 +6,15 @@ sharding rules: one device).
         [--batch 4] [--prompt-len 32] [--gen 32] [--max-len 256] \\
         [--temperature 0] [--seed 0] [--device cuda]
 
-Weights are random, drawn from ``--seed``.  It prints the prefill time,
-the decode rate, the kernel launches of the prefill and of one decode
-step, and the first generated tokens.  It runs on the card unless
-``--device cpu`` asks for the plain PyTorch versions, and raises without
-a card.
+Weights are random, drawn from ``--seed``.  On the card the prefill and the
+decode step are CUDA graphs (``serve_step.capture_prefill`` and
+``capture_decode_step``, as the reference jits them); sampling runs
+outside the graph.  It prints the capture time, the prefill time (a warm
+replay: the capture is reported on its own), ms per token and the decode
+rate, the kernel launches of the prefill and of one decode step (on the
+card those each graph recorded, as a replay runs no wrapper), and the
+first generated tokens.  ``--device cpu`` runs the eager steps on the plain
+PyTorch versions; without a card it raises.
 """
 from __future__ import annotations
 
@@ -19,10 +23,10 @@ import time
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.network import require_device
-from repro_torch.kernels import dwconv1d, pwconv
 from repro_torch.models import transformer as T
 from repro_torch.serve import serve_step as S
 from repro_torch.serve.sampler import generate, greedy
@@ -40,12 +44,12 @@ LAYER_LAUNCHES = {
 
 def launch_counts() -> dict:
     """The launch counters of the kernels the LM stack runs."""
-    return {"dwconv1d": dwconv1d.launches, "pwconv": pwconv.launches}
+    counts = graphs.snapshot()
+    return {name: counts[name] for name in ("dwconv1d", "pwconv")}
 
 
 def reset_launch_counts() -> None:
-    dwconv1d.launches = 0
-    pwconv.reset_launches()
+    graphs.reset()
 
 
 def expected_launches(cfg: ModelConfig, phase: str) -> dict:
@@ -86,10 +90,22 @@ def main(argv=None) -> int:
     sampler = torch.Generator(device=dev).manual_seed(2)
 
     with torch.inference_mode():
+        if dev.type == "cuda":
+            t0 = time.perf_counter()
+            prefill = S.capture_prefill(model, args.batch, args.prompt_len,
+                                        max_len=args.max_len)
+            step = S.capture_decode_step(model, args.batch, args.max_len)
+            t_capture = time.perf_counter() - t0
+        else:
+            def prefill(t):
+                return S.prefill(model, t, max_len=args.max_len)
+
+            def step(c, t):
+                return S.decode_step(model, c, t)
         reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = S.prefill(model, prompts, max_len=args.max_len)
+        logits, cache = prefill(prompts)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         prefill_launches = launch_counts()
@@ -97,18 +113,29 @@ def main(argv=None) -> int:
         first = greedy(logits)[:, None]
         reset_launch_counts()
         t0 = time.perf_counter()
-        toks, cache = generate(
-            lambda c, t: S.decode_step(model, c, t), cache, first, args.gen,
-            sampler, temperature=args.temperature)
+        toks, cache = generate(step, cache, first, args.gen, sampler,
+                               temperature=args.temperature)
         _sync(dev)
         t_gen = time.perf_counter() - t0
         per_step = {k: v / max(args.gen, 1) for k, v in launch_counts().items()}
 
     tps = args.batch * args.gen / t_gen
+    launches = "kernel launches"
+    if dev.type == "cuda":
+        print(f"[serve] captured prefill and decode step as CUDA graphs in "
+              f"{t_capture * 1e3:.1f} ms (capture and instantiate: prefill "
+              f"{prefill.captured.capture_s * 1e3:.1f} ms, decode step "
+              f"{step.captured.capture_s * 1e3:.1f} ms)")
+        # a replay runs no wrapper: count what each capture recorded
+        launches = "kernel launches each graph recorded"
+        prefill_launches, per_step = (
+            {k: g.captured.launches.get(k, 0) for k in prefill_launches}
+            for g in (prefill, step))
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
           f"{args.prompt_len} in {t_prefill * 1e3:.1f} ms; generated "
-          f"{args.gen} tok/seq in {t_gen * 1e3:.1f} ms = {tps:.1f} tok/s")
-    print(f"[serve] kernel launches: prefill {prefill_launches}, per decode "
+          f"{args.gen} tok/seq in {t_gen * 1e3:.1f} ms = "
+          f"{t_gen * 1e3 / max(args.gen, 1):.3f} ms/token, {tps:.1f} tok/s")
+    print(f"[serve] {launches}: prefill {prefill_launches}, per decode "
           f"step {per_step}")
     print("[serve] sample tokens:", toks[0, :16].tolist())
     return 0

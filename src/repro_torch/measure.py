@@ -1,8 +1,9 @@
 """Measurement helpers shared by the port's entry points and
-``chip_smoke.py``: relative error, CUDA-event timing and the device time
-by kernel from ``torch.profiler``."""
+``chip_smoke.py``: relative error, CUDA-event timing, and the device time
+and the kernel instances by kernel from ``torch.profiler``."""
 from __future__ import annotations
 
+import re
 import statistics
 import time
 
@@ -81,22 +82,62 @@ _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "sep_fused_kernel": "separable_fused", "dw_se_": "dw_se",
                  "dw1d_kernel": "dwconv1d"}
 
+#: Device kernel name fragment -> the launch counters (``repro_torch.graphs``
+#: names) that one instance of it stands for: one kernel per wrapper launch,
+#: ``dw_se``'s counted by its second pass.
+_KERNEL_COUNTERS = {"dw2d_kernel": ("dwconv2d",),
+                    "pw_stream_kernel": ("pwconv", "pwconv.stream"),
+                    "pw_tc_kernel": ("pwconv", "pwconv.tc"),
+                    "pw_simt_kernel": ("pwconv", "pwconv.simt"),
+                    "fused_mb_kernel": ("fused_mbconv",),
+                    "dw_se_scale_kernel": ("dw_se",),
+                    "dw1d_kernel": ("dwconv1d",)}
 
-def device_breakdown(fn, reps: int = 5, warmup: bool = True) -> dict:
-    """Device time of ``fn()`` by kernel, from ``torch.profiler``: ms per
-    call for each of the port's kernels and for every other device kernel
-    (PyTorch's pads, casts and adds) together.  Empty when the profiler
-    records no device time.  ``warmup=False`` skips the unprofiled first
-    call (for a function that has just run)."""
+#: ``sep_fused_kernel<T, EXPAND, KT>``'s EXPAND, demangled or mangled.
+_SEP_EXPAND = re.compile(r"sep_fused_kernel(?:<[^,>]+,\s*(true|false)"
+                         r"|I\w+?Lb([01])E)")
+
+
+def _counters_of(kernel: str) -> tuple:
+    """The launch counters one instance of the device kernel named
+    ``kernel`` stands for; ``()`` for a kernel that is not the port's."""
+    if "sep_fused_kernel" in kernel:
+        m = _SEP_EXPAND.search(kernel)
+        if m is None:
+            raise ValueError(f"cannot tell the stage count of {kernel!r}")
+        return (("separable_fused3",) if (m.group(1) or m.group(2))
+                in ("true", "1") else ("separable_fused2",))
+    return next((v for k, v in _KERNEL_COUNTERS.items() if k in kernel), ())
+
+
+#: Host seconds the profiler's window is held open before the first
+#: profiled call and after the last one completes.
+_MARGIN_S = 0.02
+
+
+def device_profile(fn, reps: int = 5):
+    """``fn()`` run ``reps`` times under ``torch.profiler``: (device ms per
+    call for each of the port's kernels and for every other device kernel,
+    PyTorch's pads, casts and adds, together as "other"; the port's kernel
+    instances per call that ran on the device, by launch counter name).
+    The instances are counted in the trace, so they count the kernels of a
+    replayed CUDA graph, which no wrapper's counter sees.  Both are empty
+    when the profiler records no device time.  One unprofiled call runs
+    first."""
     from torch.profiler import ProfilerActivity, profile
-    if warmup:
-        fn()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # margins on the host clock around the calls: the profiler drops
+        # device records it places outside its window, and it places them
+        # by a conversion of the device's clock to the host's
+        time.sleep(_MARGIN_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out: dict = {}
+        time.sleep(_MARGIN_S)
+    ms: dict = {}
+    counts: dict = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -105,5 +146,25 @@ def device_breakdown(fn, reps: int = 5, warmup: bool = True) -> dict:
             us = e.self_cuda_time_total
         name = next((v for k, v in _KERNEL_NAMES.items() if k in e.key),
                     "other")
-        out[name] = out.get(name, 0.0) + us / 1e3 / reps
-    return out
+        ms[name] = ms.get(name, 0.0) + us / 1e3 / reps
+        for c in _counters_of(e.key):
+            counts[c] = counts.get(c, 0) + e.count
+    return ms, {c: n // reps if n % reps == 0 else n / reps
+                for c, n in counts.items()}
+
+
+def profile_calls(fn, expect: dict, reps: int = 5, tries: int = 3):
+    """:func:`device_profile` of ``fn()``, held to ``expect``, the port's
+    kernels one call should run, by launch counter.  A trace that holds
+    fewer of them (none at all, or part of a replay's) has lost records,
+    as the profiler on the card now and then does, and is taken again, up
+    to ``tries`` traces in all; a trace with more than ``expect`` is never
+    short of records and is returned as it is, as is the last trace.
+    Returns (ms by kernel, kernel instances per call by counter, the
+    traces taken before it)."""
+    for retries in range(tries):
+        ms, ran = device_profile(fn, reps)
+        if not any(ran.get(k, 0) < n for k, n in expect.items()) or any(
+                ran.get(k, 0) > n for k, n in expect.items()):
+            break
+    return ms, ran, retries

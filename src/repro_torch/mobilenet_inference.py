@@ -8,10 +8,16 @@ card by default.
         [--unfused]
 
 For each network it prints the plan histogram, the kernel launches of one
-forward, ms per forward (CUDA events on the card, median of 10)
-with the peak device memory, and the error against the plain path: the
-same network with ``impl="torch"`` in fp32 on the same device.  Counterpart
-of ``examples/mobilenet_inference.py``.
+eager forward and (on the card) the kernels one replay of the graph ran,
+counted in a profiler trace, and for ``execute_network`` (on the card one
+CUDA graph of the forward) and for its eager runner (``build_network_fn``,
+every block launched from the host) the ms per forward (CUDA events on the
+card, median of 10), the device time and busy share, and the forward's own
+peak device memory; then the capture time, the card memory the graph's
+first call reserved and what the graph held until the cache was cleared,
+whether the two paths give the same bits, and the error against the plain
+path: the same network with ``impl="torch"`` in fp32 on the same device,
+run eagerly.  Counterpart of ``examples/mobilenet_inference.py``.
 """
 from __future__ import annotations
 
@@ -19,11 +25,11 @@ import argparse
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core import network
-from repro_torch.kernels import (dwconv2d, fused_mbconv, pwconv,
-                                 se_epilogue, separable_fused)
+from repro_torch.kernels import pwconv
 from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
-from repro_torch.measure import device_breakdown, rel_err, time_ms
+from repro_torch.measure import profile_calls, rel_err, time_ms
 
 #: bf16-streamed network vs the fp32 plain path: one bf16 rounding per
 #: streamed operand per block, compounded over 13-17 blocks (the
@@ -55,34 +61,68 @@ def expected_launches(histogram: dict) -> dict:
 
 
 def launch_counts() -> dict:
-    """The kernel wrappers' launch counters, by kernel name."""
-    return {"dwconv2d": dwconv2d.launches, "pwconv": pwconv.launches,
-            "separable_fused2": separable_fused.launches["fused2"],
-            "separable_fused3": separable_fused.launches["fused3"],
-            "fused_mbconv": fused_mbconv.launches,
-            "dw_se": se_epilogue.launches}
+    """The launch counters of the kernels the CNN bodies run, by kernel
+    name."""
+    counts = graphs.snapshot()
+    return {name: counts[name] for name in KERNEL_SEGMENTS}
 
 
 def reset_launch_counts() -> None:
-    dwconv2d.launches = 0
-    pwconv.reset_launches()
-    fused_mbconv.launches = 0
-    se_epilogue.launches = 0
-    for k in separable_fused.launches:
-        separable_fused.launches[k] = 0
+    graphs.reset()
+
+
+def _counted(fn, dev):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after, and the memory it allocated beyond what was allocated before it:
+    (output, launches, ``pwconv`` launches by variant, own peak bytes or
+    None on the CPU)."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    reset_launch_counts()
+    y = fn()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - before if cuda else None
+    return y, launch_counts(), dict(pwconv.launches_by_variant), peak
+
+
+def _reserved(dev):
+    """Bytes the caching allocator holds on the card once every unused
+    cached block is returned."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
 
 
 def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 dtype: str = "fp32", fused=None, device="cuda",
                 seed: int = 0) -> dict:
-    """Drive one network body once, time it and hold it against the fp32
-    plain path.  Returns the histogram, the launches of the counted
-    forward (and its ``pwconv`` launches by variant), the CTA count and
-    cluster of each ``fused_mbconv`` launch, the CTAs of each ``dw_se``
-    launch's passes, ms, peak memory
-    (bytes, card only), the device time by kernel
-    (card only, :func:`device_breakdown`) and the error."""
+    """Drive one network body, through ``execute_network`` (on the card,
+    one CUDA graph of the forward) and through its eager runner
+    (``build_network_fn``), time both and hold both against the fp32 plain
+    path, run eagerly.  Returns the histogram; the launches the wrappers
+    counted in ``execute_network``'s first call (on the card its warm-up
+    and its capture, two forwards), in a later call (none on the card: a
+    replay runs no wrapper) and in one eager forward; on the card the
+    port's kernels one replay ran, counted in a profiler trace; for each
+    path its ms per forward, its device time by kernel (card only,
+    :func:`profile_calls`, which profiles again a trace that lost records;
+    ``profile_retries`` counts those traces by path) and busy share,
+    and its forward's own peak memory (bytes allocated above what was
+    allocated before it; card only; for the graph path the first call's,
+    which captures the graph); the
+    card memory the first call reserved and what the graph held until the
+    network cache was cleared; the capture time; whether the graph's output
+    has the eager runner's bits; the ``pwconv`` launches by variant of an
+    eager forward and of a replay, the CTA count and cluster of each
+    ``fused_mbconv`` launch, the CTAs of each ``dw_se`` launch's passes and
+    the error.  Ends by clearing the network cache, which releases the
+    graph and its memory pool."""
     dev = network.require_device(device)
+    cuda = dev.type == "cuda"
     params32 = network.init_network(net, seed=seed, device=dev)
     x = torch.randn((batch, res, res, net.c_in),
                     generator=torch.Generator().manual_seed(seed + 1)).to(dev)
@@ -91,42 +131,74 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     params = (network.cast_network_params(params32, torch.bfloat16)
               if dtype == "bf16" else params32)
     nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol)
+    eager = network.build_network_fn(net, nplan, pol)
 
-    reset_launch_counts()
-    y = network.execute_network(net, params, x, policy=pol)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    launches = launch_counts()
-    variants = dict(pwconv.launches_by_variant)
-
-    peak = None
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     def forward():
         return network.execute_network(net, params, x, policy=pol)
 
-    ms = time_ms(forward, dev)
-    device = {}
-    if dev.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(dev)
-        device = device_breakdown(forward)
+    def eager_forward():
+        with torch.inference_mode():
+            return eager(params, x)
 
-    ref = network.execute_network(net, params32, x,
-                                  policy=KernelPolicy(impl="torch",
-                                                      fused=fused))
+    network.clear_network_cache()
+    reserved0 = _reserved(dev) if cuda else None
+    (y, graph), first, _, peak = _counted(
+        lambda: network.execute_network_graph(net, params, x, policy=pol),
+        dev)
+    reserved = _reserved(dev) - reserved0 if cuda else None
+    _, later, _, _ = _counted(forward, dev)
+    y_eager, eager_launches, variants, eager_peak = _counted(eager_forward,
+                                                             dev)
+    ms = time_ms(forward, dev)
+    eager_ms = time_ms(eager_forward, dev)
+    retries = {}
+    device, eager_device, replayed = {}, {}, None
+    if cuda:
+        device, replayed, retries["graph"] = profile_calls(forward,
+                                                           eager_launches)
+        eager_device, _, retries["eager"] = profile_calls(eager_forward,
+                                                          eager_launches)
+
+    plain = KernelPolicy(impl="torch", fused=fused)
+    with torch.inference_mode():
+        ref = network.build_network_fn(
+            net, network.plan_network(net, x.shape, policy=plain),
+            plain)(params32, x)
     err = rel_err(y, ref)
     ok = bool(torch.isfinite(y.float()).all()) and tuple(y.shape) == \
         nplan.out_shape
+    held = _reserved(dev) if cuda else None
+    capture_s = graph.capture_s if graph is not None else None
+    del graph
+    network.clear_network_cache()
+    held = held - _reserved(dev) if cuda else None
     fused_ctas = [sg.plan.ctas for p in nplan.plans for sg in p.segments
                   if sg.kind in ("fused2", "fused3")]
     mb_plans = [(sg.plan.ctas, sg.plan.cluster) for p in nplan.plans
                 for sg in p.segments if sg.kind == "fusedmb"]
     dw_se_ctas = [sg.plan.ctas for p in nplan.plans for sg in p.segments
                   if sg.kind == "dw_se"]
-    return {"histogram": nplan.segment_histogram(), "launches": launches,
+    busy = sum(device.values())
+    eager_busy = sum(eager_device.values())
+    return {"histogram": nplan.segment_histogram(),
+            "first_call_launches": first, "later_call_launches": later,
+            "eager_launches": eager_launches,
+            "replay_launches": None if replayed is None else {
+                k: replayed.get(k, 0) for k in KERNEL_SEGMENTS},
             "fused_ctas": fused_ctas, "fused_mbconv_ctas_cluster": mb_plans,
-            "dw_se_ctas": dw_se_ctas,
-            "pwconv_variants": variants, "ms": ms, "peak_bytes": peak, "device_ms": device,
+            "dw_se_ctas": dw_se_ctas, "pwconv_variants": variants,
+            "replay_pwconv_variants": None if replayed is None else {
+                v: replayed.get(f"pwconv.{v}", 0) for v in variants},
+            "ms": ms, "eager_ms": eager_ms,
+            "device_ms": device, "eager_device_ms": eager_device,
+            "busy": busy / ms if device else None,
+            "eager_busy": eager_busy / eager_ms if eager_device else None,
+            "peak_bytes": peak, "eager_peak_bytes": eager_peak,
+            "reserved_bytes": reserved, "held_bytes": held,
+            "profile_retries": retries,
+            "capture_s": capture_s,
+            "graph_equals_eager": bool(torch.equal(y, y_eager)),
+            "graph_vs_eager_rel_err": rel_err(y, y_eager),
             "rel_err": err,
             "tol": BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL,
             "out_shape": tuple(y.shape), "out_dtype": str(y.dtype),
@@ -157,23 +229,44 @@ def main(argv=None) -> int:
                         fused=False if args.unfused else None,
                         device=args.device)
         histo = ",".join(f"{k}:{v}" for k, v in sorted(r["histogram"].items()))
-        clock = "CUDA events" if args.device.startswith("cuda") else "host"
+        cuda = torch.device(args.device).type == "cuda"
         print(f"{net.name} @{args.res}x{args.res} batch {args.batch} "
-              f"{args.dtype} on {args.device}: plan {histo}; launches "
-              f"{r['launches']}")
-        peak = ("" if r["peak_bytes"] is None
-                else f", peak {r['peak_bytes'] / 2**20:.1f} MiB")
-        print(f"  {r['ms']:.3f} ms/forward ({clock}, median of "
-              f"10){peak}; out {r['out_shape']} {r['out_dtype']}")
-        if r["device_ms"]:
-            busy = sum(r["device_ms"].values())
-            print(f"  device time {busy:.3f} ms/forward "
-                  f"({busy / r['ms']:.0%} of the forward): "
-                  + ", ".join(f"{k} {v:.3f} ms"
-                              for k, v in sorted(r["device_ms"].items())))
+              f"{args.dtype} on {args.device}: plan {histo}; launches of an "
+              f"eager forward {r['eager_launches']}")
+        if cuda:
+            print(f"  port kernels a replay ran (profiler trace): "
+                  f"{r['replay_launches']}")
+        paths = ((("graph", ""), ("eager", "eager_")) if cuda
+                 else (("eager", ""),))
+        for name, pre in paths:
+            peak = ("" if r[pre + "peak_bytes"] is None else
+                    f", own peak {r[pre + 'peak_bytes'] / 2**20:.1f} MiB")
+            print(f"  {name}: {r[pre + 'ms']:.3f} ms/forward ("
+                  f"{'CUDA events' if cuda else 'host clock'}, median of "
+                  f"10){peak}")
+            if r[pre + "device_ms"]:
+                busy = sum(r[pre + "device_ms"].values())
+                print(f"    device time {busy:.3f} ms/forward "
+                      f"({r[pre + 'busy']:.0%} busy): " + ", ".join(
+                          f"{k} {v:.3f} ms" for k, v in
+                          sorted(r[pre + "device_ms"].items())))
+        if cuda:
+            print(f"  graph captured in {r['capture_s'] * 1e3:.1f} ms; "
+                  f"the first call reserved "
+                  f"{r['reserved_bytes'] / 2**20:.1f} MiB, the graph held "
+                  f"{r['held_bytes'] / 2**20:.1f} MiB until the cache was "
+                  f"cleared; graph output equals the eager runner's: "
+                  f"{r['graph_equals_eager']}")
+        print(f"  out {r['out_shape']} {r['out_dtype']}")
         print(f"  vs fp32 plain path: max rel err {r['rel_err']:.2e} "
               f"(tol {r['tol']:g})")
-        failed |= not (r["rel_err"] <= r["tol"] and r["finite_and_shaped"])
+        if cuda:
+            counts_ok = (r["replay_launches"] == r["eager_launches"]
+                         and not any(r["later_call_launches"].values()))
+        else:
+            counts_ok = r["first_call_launches"] == r["eager_launches"]
+        failed |= not (r["rel_err"] <= r["tol"] and r["finite_and_shaped"]
+                       and r["graph_equals_eager"] and counts_ok)
     return 1 if failed else 0
 
 

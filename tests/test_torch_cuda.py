@@ -21,6 +21,20 @@ from repro_torch.mobilenet_inference import (ARCHS,  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+
+def _replay_kernels(fn, names=None):
+    """The port's kernels one call of ``fn`` (a call that replays a CUDA
+    graph) ran, by launch counter (``names``, by default the CNN bodies'),
+    counted in a profiler trace."""
+    from repro_torch.measure import device_profile
+    ran = device_profile(fn, reps=2)[1]
+    return {k: ran.get(k, 0) for k in (names or launch_counts())}
+
+
+def _twice(counts):
+    """The launches a capture makes: its warm-up's and its recording's."""
+    return {k: 2 * n for k, n in counts.items()}
+
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
@@ -575,10 +589,14 @@ def test_network_launches_the_planned_kernels(dev, arch, fused):
     x = _r((2, 32, 32, spec.c_in), dev, torch.float32)
     pol = KernelPolicy(fused=fused)
     plan = network.plan_network(spec, x.shape, policy=pol)
+    network.clear_network_cache()
     reset_launch_counts()
     y = network.execute_network(spec, params, x, policy=pol)
     torch.cuda.synchronize(dev)
-    assert launch_counts() == expected_launches(plan.segment_histogram())
+    planned = expected_launches(plan.segment_histogram())
+    assert launch_counts() == _twice(planned)
+    assert _replay_kernels(lambda: network.execute_network(
+        spec, params, x, policy=pol)) == planned
     want = network.execute_network(
         spec, params, x, policy=KernelPolicy(impl="torch", fused=fused))
     assert rel_err(y, want) <= 1e-4
@@ -601,12 +619,15 @@ def test_mnasnet_at_224_runs_eight_dw_se(dev):
     spec = ARCHS["mnasnet"]()
     params = network.init_network(spec, seed=2, device=dev)
     x = _r((1, 224, 224, spec.c_in), dev, torch.float32)
+    network.clear_network_cache()
     reset_launch_counts()
     y = network.execute_network(spec, params, x)
     torch.cuda.synchronize(dev)
     want = dict.fromkeys(launch_counts(), 0)
     want.update(NETWORK_LAUNCHES[("mnasnet", None)])
-    assert launch_counts() == want
+    assert launch_counts() == _twice(want)
+    assert _replay_kernels(lambda: network.execute_network(
+        spec, params, x)) == want
     assert want["dw_se"] == 8
     ref_y = network.execute_network(spec, params, x,
                                     policy=KernelPolicy(impl="torch"))
@@ -620,12 +641,15 @@ def test_network_launch_counts_at_full_width(dev, arch, fused):
     params = network.init_network(spec, seed=1, device=dev)
     x = _r((1, 112, 112, spec.c_in), dev, torch.float32)
     pol = KernelPolicy(fused=fused)
+    network.clear_network_cache()
     reset_launch_counts()
     y = network.execute_network(spec, params, x, policy=pol)
     torch.cuda.synchronize(dev)
     want = dict.fromkeys(launch_counts(), 0)
     want.update(NETWORK_LAUNCHES[(arch, fused)])
-    assert launch_counts() == want
+    assert launch_counts() == _twice(want)
+    assert _replay_kernels(lambda: network.execute_network(
+        spec, params, x, policy=pol)) == want
     ref_y = network.execute_network(
         spec, params, x, policy=KernelPolicy(impl="torch", fused=fused))
     assert rel_err(y, ref_y) <= 1e-4
@@ -722,3 +746,211 @@ def test_serve_launcher_on_the_card(dev, capsys):
                        "--prompt-len", "9", "--gen", "4"]) == 0
     out = capsys.readouterr().out
     assert "on cuda" in out and "'dwconv1d': 4" in out
+
+
+# ---------------------------------------------------------------------------
+# The captured calls: execute_network's CUDA graph, the captured serving
+# steps, each against the eager path
+# ---------------------------------------------------------------------------
+
+
+def _small_net(arch, dtype, dev, seed=0):
+    spec = ARCHS[arch](0.5)
+    params = network.init_network(spec, seed=seed, device=dev)
+    if dtype == torch.bfloat16:
+        params = network.cast_network_params(params, dtype)
+    x = _r((2, 32, 32, spec.c_in), dev, torch.float32, seed=seed)
+    return spec, params, x
+
+
+def _eager(spec, params, x, pol):
+    plan = network.plan_network(spec, x.shape, policy=pol)
+    with torch.inference_mode():
+        return network.build_network_fn(spec, plan, pol)(params, x)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("fused", (None, False))
+@pytest.mark.parametrize("arch", tuple(ARCHS))
+def test_network_graph_equals_eager(dev, arch, fused, dtype):
+    """The replayed graph gives the eager runner's bits, at its capture and
+    at a later call on another input.  The wrappers count two forwards in
+    the capturing call (its warm-up and its recording), none in a replay
+    and one in an eager forward; the graph recorded one forward, and a
+    replay runs one forward's kernels (profiler trace)."""
+    from repro_torch.kernels.policy import BF16_STREAM, NATIVE
+    spec, params, x = _small_net(arch, dtype, dev)
+    pol = KernelPolicy(fused=fused, dtype_policy=BF16_STREAM
+                       if dtype == torch.bfloat16 else NATIVE)
+    plan = network.plan_network(spec, x.shape, policy=pol)
+    want = expected_launches(plan.segment_histogram())
+    network.clear_network_cache()
+    counts = []
+    outs = []
+    for inp in (x, x, x.flip(1)):
+        reset_launch_counts()
+        outs.append(network.execute_network(spec, params, inp, policy=pol))
+        torch.cuda.synchronize(dev)
+        counts.append(launch_counts())
+        reset_launch_counts()
+        outs.append(_eager(spec, params, inp, pol))
+        torch.cuda.synchronize(dev)
+        counts.append(launch_counts())
+    zero = dict.fromkeys(want, 0)
+    assert counts == [_twice(want), want, zero, want, zero, want]
+    _, graph = network.execute_network_graph(spec, params, x, policy=pol)
+    assert {k: graph.launches.get(k, 0) for k in want} == want
+    assert _replay_kernels(lambda: network.execute_network(
+        spec, params, x, policy=pol)) == want
+    for graph_y, eager_y in zip(outs[::2], outs[1::2]):
+        assert torch.equal(graph_y, eager_y)
+    assert outs[0].data_ptr() != outs[2].data_ptr()
+    assert not torch.equal(outs[0], outs[4])
+    network.clear_network_cache()
+
+
+def test_network_graph_per_param_set_and_in_place_updates(dev):
+    """A second param set gets its own graph and its own output; a weight
+    updated in place is read by the next replay."""
+    spec, p1, x = _small_net("v2", torch.float32, dev)
+    _, p2, _ = _small_net("v2", torch.float32, dev, seed=1)
+    pol = KernelPolicy()
+    network.clear_network_cache()
+    y1 = network.execute_network(spec, p1, x)
+    y2 = network.execute_network(spec, p2, x)
+    assert len(network._NETWORK_CACHE) == 2
+    assert torch.equal(y1, _eager(spec, p1, x, pol))
+    assert torch.equal(y2, _eager(spec, p2, x, pol))
+    assert not torch.equal(y1, y2)
+    assert torch.equal(network.execute_network(spec, p1, x), y1)
+    with torch.inference_mode():
+        p1[3][0]["w"].mul_(1.5)
+    y3 = network.execute_network(spec, p1, x)
+    assert len(network._NETWORK_CACHE) == 2
+    assert not torch.equal(y3, y1)
+    assert torch.equal(y3, _eager(spec, p1, x, pol))
+    network.clear_network_cache()
+
+
+def test_network_call_inside_an_outer_capture(dev):
+    """Called while a capture is under way, execute_network runs its eager
+    runner, which the outer graph records and replays."""
+    spec, params, x = _small_net("mnasnet", torch.float32, dev)
+    network.clear_network_cache()
+    want = network.execute_network(spec, params, x)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        network.execute_network(spec, params, x)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    outer = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(outer):
+        got = network.execute_network(spec, params, x)
+    with torch.inference_mode():
+        got.zero_()
+    outer.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got, want)
+    del outer
+    network.clear_network_cache()
+
+
+def test_clear_network_cache_returns_the_pools_memory(dev):
+    spec, params, x = _small_net("v2", torch.float32, dev)
+    x = _r((8, 112, 112, spec.c_in), dev, torch.float32)
+    network.clear_network_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    y = network.execute_network(spec, params, x)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) - before - y.nbytes
+    assert held > x.nbytes         # the input buffer and the graph's pool
+    del y
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) > reserved   # the pool is kept
+    network.clear_network_cache()
+    assert torch.cuda.memory_allocated(dev) == before
+    assert torch.cuda.memory_reserved(dev) <= reserved
+
+
+def test_failed_capture_memoizes_nothing(dev, monkeypatch):
+    """A capture that fails raises, runs nothing eagerly in its place and
+    leaves no memo entry; the next call captures afresh."""
+    from repro_torch import graphs
+    spec, params, x = _small_net("v1", torch.float32, dev)
+    network.clear_network_cache()
+    real = graphs.capture
+
+    def fails(fn, device=None):
+        raise RuntimeError("capture failed")
+    monkeypatch.setattr(graphs, "capture", fails)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        network.execute_network(spec, params, x)
+    assert not network._NETWORK_CACHE
+    monkeypatch.setattr(graphs, "capture", real)
+    y = network.execute_network(spec, params, x)
+    assert len(network._NETWORK_CACHE) == 1
+    assert torch.equal(y, _eager(spec, params, x, KernelPolicy()))
+    network.clear_network_cache()
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_captured_prefill_and_decode_match_eager(dev, dtype):
+    """The captured prefill and 32 captured greedy decode steps against the
+    eager ones, call by call: the same bits and the same tokens.  Each
+    capture counts two calls' launches (warm-up and recording), a replay
+    none, and a replay runs one call's kernels (profiler trace).  The
+    captured step is first handed the prefill's cache (copied in), then its
+    own."""
+    import dataclasses
+
+    from repro_torch.configs import xlstm_125m
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    cfg = dataclasses.replace(xlstm_125m.smoke_config(), dtype=dtype)
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 21),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    serve.reset_launch_counts()
+    pre = S.capture_prefill(model, 2, 21, max_len=64)
+    torch.cuda.synchronize(dev)
+    want = serve.expected_launches(cfg, "prefill")
+    assert serve.launch_counts() == _twice(want)
+    serve.reset_launch_counts()
+    step = S.capture_decode_step(model, 2, 64)
+    torch.cuda.synchronize(dev)
+    want_step = serve.expected_launches(cfg, "decode")
+    assert serve.launch_counts() == _twice(want_step)
+    zero = dict.fromkeys(want, 0)
+    with torch.inference_mode():
+        assert _replay_kernels(lambda: pre(toks), want) == want
+        serve.reset_launch_counts()
+        logits, cache = pre(toks)
+        torch.cuda.synchronize(dev)
+        assert serve.launch_counts() == zero
+        ref_logits, ref_cache = S.prefill(model, toks, max_len=64)
+    assert torch.equal(logits, ref_logits)
+    for a, b in zip(cache["layers"], ref_cache["layers"]):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    own = cache
+    tok = ref_tok = greedy(logits)[:, None]
+    with torch.inference_mode():
+        for _ in range(32):
+            serve.reset_launch_counts()
+            logits, own = step(own, tok)
+            torch.cuda.synchronize(dev)
+            assert serve.launch_counts() == zero
+            ref_logits, ref_cache = S.decode_step(model, ref_cache, ref_tok)
+            assert torch.equal(logits, ref_logits)
+            tok, ref_tok = greedy(logits)[:, None], greedy(ref_logits)[:, None]
+            assert torch.equal(tok, ref_tok)
+    assert own is step.cache
+    assert torch.equal(own["pos"], ref_cache["pos"])
+    for a, b in zip(own["layers"], ref_cache["layers"]):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert _replay_kernels(lambda: step(step.cache, tok),
+                           want_step) == want_step

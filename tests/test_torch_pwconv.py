@@ -244,9 +244,10 @@ def test_lowering_passes_the_plans_variant(monkeypatch):
 
 
 def test_launch_counters_reset_together():
+    from repro_torch import graphs
     from repro_torch.launch import serve
     from repro_torch.mobilenet_inference import reset_launch_counts
-    for reset in (pwconv.reset_launches, reset_launch_counts,
+    for reset in (graphs.reset, reset_launch_counts,
                   serve.reset_launch_counts):
         pwconv.launches = 5
         pwconv.launches_by_variant["tc"] = 3
