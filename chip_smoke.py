@@ -18,12 +18,12 @@ From the root of a checkout it:
    ``fused_mbconv`` at Lite0's four blocks; ``dw_se`` at MnasNet's six
    SE block shapes and blocks 3 and 11 at a 224 input, with the CTAs of
    each pass, two calls bit for bit and a CUDA-graph replay against the
-   eager call; the xLSTM conv and Linear shapes), in fp32 and bf16, each
-   kernel's planned shared memory (each ``dw_se`` pass's) against its own
-   count,
-   and times the kernel and PyTorch library calls for the same function,
-   each replayed from a CUDA graph of 20 calls and as events around one
-   eager call, and the plain version;
+   eager call; the xLSTM and hymba conv and Linear shapes), in fp32 and
+   bf16, each kernel's planned shared memory (each ``dw_se`` pass's)
+   against its own count, and times the kernel and PyTorch library calls
+   for the same function, each replayed from a CUDA graph of 20 calls (2
+   for hymba's prefill Linears) and as events around one eager call, and
+   the plain version;
 4. drives the CNN path, ``execute_network`` (one CUDA graph a forward,
    captured at its first call) and its eager runner (``build_network_fn``)
    on MobileNet V1 and V2, MnasNet-A1 and EfficientNet-Lite0 at width 1.0
@@ -58,7 +58,23 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-6. prints the kernels it launched, one JSON line of per-kernel numbers
+6. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
+   random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
+   tokens (1664 positions with the 128 meta tokens: blockwise attention,
+   a sliding window that excludes keys, the 1152-slot ring cache), then 32
+   greedy decode steps, fp32 and bf16, through the captured prefill and
+   decode step and the eager ones (32 ``dwconv1d`` + 352 ``pwconv`` a
+   prefill, 0 + 352 a decode step, counted as in 5, and ``pwconv``'s
+   launches by variant equal to each Linear's ``blocking.pw_variant``);
+   the graph path's logits and caches bit for bit the eager path's, each
+   call within FP32_REL_TOL (fp32) or BF16_REL_TOL (bf16) of the plain
+   path of its dtype from the same inputs, ``prefill`` against
+   ``prefill_by_stepping`` at a 64-token prompt; it prints the same
+   numbers as 5 and the device ms of one layer's prefill and of its
+   attention core, selective scan and Linears at batch 8.  It runs in a
+   process of its own (the script with ``--hymba-only``), whose profiler
+   has taken no trace before;
+7. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
@@ -128,6 +144,9 @@ SOURCES = {
 #: prefill_by_stepping oracle, and the bf16 tolerance of the reference's
 #: network gate.
 PROMPT_LEN, GEN_STEPS, STEPPING_PROMPT = 512, 32, 64
+#: The hymba serving phase: prompt length (the 128 meta tokens come on
+#: top), greedy decode steps, and the prefill_by_stepping oracle's prompt.
+HYMBA_PROMPT, HYMBA_GEN, HYMBA_STEPPING = 1536, 32, 64
 BF16_REL_TOL = 5e-2
 #: fp32 kernels against the fp32 plain path (summation order).
 FP32_REL_TOL = 1e-4
@@ -164,9 +183,10 @@ class KernelChecks:
         return t.to(device=self.dev, dtype=dtype)
 
     def measure(self, name, label, dtype, kern, plain, library, ops, nbytes,
-                launches=1, extra=None):
+                launches=1, extra=None, graph_launches=20):
         """``launches``: calls timed between one pair of events (a run of
-        many for a microsecond kernel); ``extra``: more fields to keep."""
+        many for a microsecond kernel); ``graph_launches``: calls a timed
+        CUDA graph holds; ``extra``: more fields to keep."""
         torch = self.torch
         got, want = kern(), plain()
         torch.cuda.synchronize(self.dev)
@@ -179,8 +199,9 @@ class KernelChecks:
         plain_ms = self.time_ms(plain, self.dev, **kw)
         library_eager_ms = self.time_ms(library, self.dev, **kw)
         # the device's pace: a CUDA graph of 20 launches replayed
-        ms = self.graph_ms(kern, self.dev)
-        library_ms = self.graph_ms(library, self.dev)
+        ms = self.graph_ms(kern, self.dev, launches=graph_launches)
+        library_ms = self.graph_ms(library, self.dev,
+                                   launches=graph_launches)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS[dname] * 1e3
         r = {"name": name, "shape": label, "dtype": dname,
@@ -231,7 +252,7 @@ class KernelChecks:
             2 * b * ho * wo * c * k * k,
             (x_raw.numel() + f.numel() + b * ho * wo * c) * x.element_size())
 
-    def pwconv(self, g, ci, co, dtype, act="relu6"):
+    def pwconv(self, g, ci, co, dtype, act="relu6", launches=20):
         """One shape: the planner's variant and tile, its shared memory
         against the kernel's own count, times over runs of 20 launches
         (eager, and replayed from a CUDA graph, which leaves out the host's
@@ -273,7 +294,7 @@ class KernelChecks:
             lambda: torch.addmm(bias, x, w),
             2 * g * ci * co,
             (x.numel() + w.numel() + co + g * co) * x.element_size(),
-            launches=20, extra=extra)
+            launches=launches, extra=extra, graph_launches=launches)
 
     def dwconv1d(self, b, length, d, k, dtype, rows=None):
         import torch.nn.functional as F
@@ -930,10 +951,392 @@ def run_serving(torch, dev):
                                      "profiles_retried": lost}, variants)
 
 
+def pw_variants_of(model, g: int) -> dict:
+    """``pwconv``'s launches by variant in one pass of ``model``'s layers
+    over G rows: each Linear at the variant ``blocking.pw_variant`` picks
+    for its shape (operands 16-byte aligned, as the allocator leaves
+    them)."""
+    from repro_torch.kernels import blocking
+    by = dict.fromkeys(blocking.PW_VARIANTS, 0)
+    for block in model.blocks:
+        for name, p in block.named_parameters():
+            if name.rsplit(".", 1)[-1] == "w":
+                by[blocking.pw_variant(g, *p.shape, p.dtype)] += 1
+    return by
+
+
+def _trees_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(torch, a[k], b[k])
+                                        for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_trees_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def hymba_breakdown(torch, dev, model, batch):
+    """Device ms (CUDA events, median of 3) of one hymba layer's prefill
+    at full width and of its plain parts on the same inputs: the layer,
+    its attention core (blockwise, window and sink), its selective scan,
+    and its 11 Linears at their shapes (the ``pwconv`` kernel)."""
+    from repro_torch.core.pwconv import pointwise
+    from repro_torch.measure import time_ms
+    from repro_torch.models import attention as A
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_forward
+    cfg = model.cfg
+    s = cfg.meta_tokens + HYMBA_PROMPT
+    gen = torch.Generator().manual_seed(7)
+
+    def r(*shape, dtype=cfg.torch_dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+    x = r(batch, s, cfg.d_model, scale=0.5)
+    pos = torch.arange(s, device=dev)[None].expand(batch, s)
+    block = model.blocks[0]
+    hd, di, n = cfg.head_dim, cfg.d_model * cfg.ssm.expand, cfg.ssm.d_state
+    q = r(batch, s, cfg.n_heads, hd)
+    k, v = r(batch, s, cfg.n_kv_heads, hd), r(batch, s, cfg.n_kv_heads, hd)
+    u = r(batch, s, di, dtype=torch.float32)
+    dt = torch.rand((batch, s, di), generator=gen).to(dev) * 0.1
+    bc = r(batch, s, n, dtype=torch.float32)
+    a = -torch.exp(block.mamba.a_log)
+    linears = [p for name, p in block.named_parameters()
+               if name.rsplit(".", 1)[-1] == "w"]
+    xs = {ci: r(batch * s, ci) for ci in {w.shape[0] for w in linears}}
+    kw = dict(reps=3, warmup=1)
+    return {
+        "layer_ms": time_ms(lambda: layer_forward(
+            block, x, cfg, model.variant(0), positions=pos), dev, **kw),
+        "attention_core_ms": time_ms(lambda: A.blockwise_attention(
+            q, k, v, window=cfg.sliding_window, sink=cfg.meta_tokens,
+            chunk=cfg.attn_chunk), dev, **kw),
+        "selective_scan_ms": time_ms(lambda: ssm.selective_scan(
+            u, dt, a, bc, bc, block.mamba.d_skip, chunk=cfg.ssm.chunk),
+            dev, **kw),
+        "linears_ms": time_ms(lambda: [pointwise(xs[w.shape[0]], w)
+                                       for w in linears], dev, **kw)}
+
+
+def run_hymba(torch, dev):
+    """The hymba serving path: hymba-1.5b uncut (1.6B parameters, random
+    from seed 0), a 1536-token prompt (1664 positions with the 128 meta
+    tokens: blockwise attention, a window that excludes keys, the
+    1152-slot ring cache), then 32 greedy decode steps; batch 1 and 8,
+    fp32 and bf16 (the bf16 weights cast from the fp32 draw), through the
+    captured prefill and decode step and through the eager ones.
+
+    Each call of either path is held against the plain path of its dtype
+    on the same inputs (fp32 within FP32_REL_TOL, bf16 within
+    BF16_REL_TOL), and the graph path's logits and caches against the eager
+    path's bits.  The decode steps run in lockstep: each step of the three
+    paths starts from the plain path's cache and the fp32 plain path's
+    greedy token; bf16's error against the fp32 plain path is reported,
+    not gated.  Launches are counted as in :func:`run_serving`, and
+    ``pwconv``'s by variant must be each Linear's ``pw_variant`` (two bf16
+    Linears have widths TMA cannot describe: ``simt``).  Returns the runs,
+    the wrappers' launches, the profiled replays' kernels, the
+    prefill-vs-stepping errors, ``pwconv``'s launches by variant and the
+    per-layer breakdowns."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import pwconv
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.serve import (expected_launches, launch_counts,
+                                          reset_launch_counts)
+    from repro_torch.measure import profile_calls, rel_err, time_ms
+    from repro_torch.models.transformer import cast_params, init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+
+    t0 = time.perf_counter()
+    cfg16 = get_config("hymba-1.5b")
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    m32 = init_params(cfg32, seed=0, device=dev)
+    models = {"fp32": m32, "bf16": cast_params(m32, cfg16)}
+    n = sum(p.numel() for p in m32.parameters())
+    print(f"  random weights from seed 0, {n / 1e9:.3f}B parameters, fp32 "
+          f"(bf16 cast from it), in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    plain = KernelPolicy(impl="torch")
+    want = {"prefill": expected_launches(cfg32, "prefill"),
+            "decode": expected_launches(cfg32, "decode")}
+    total_len = cfg32.meta_tokens + HYMBA_PROMPT
+    max_len = total_len + HYMBA_GEN
+    ring = cfg32.sliding_window + cfg32.meta_tokens
+    totals = dict.fromkeys(want["prefill"], 0)
+    replayed = dict.fromkeys(want["prefill"], 0)
+    variants, lost, runs, breakdown = {}, [], [], {}
+
+    def counted(label, phase, fn, calls, by_want):
+        """fn() with the counters zeroed just before and read just after:
+        ``calls`` calls of ``phase`` (2 for a capture, 1 for an eager
+        call, 0 for a replay), ``pwconv``'s by variant as ``by_want``
+        says for one call."""
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = launch_counts()
+        by = dict(pwconv.launches_by_variant)
+        if (got != {k: calls * n for k, n in want[phase].items()}
+                or by != {k: calls * n for k, n in by_want.items()}):
+            raise AssertionError(f"hymba {label} {phase}: launches {got}, "
+                                 f"pwconv by variant {by}; expected {calls}"
+                                 f" x {want[phase]}, by variant {by_want}")
+        for k in totals:
+            totals[k] += got[k]
+        for k, v in by.items():
+            variants[k] = variants.get(k, 0) + v
+        return out
+
+    def replay_profile(label, phase, fn, reps, by_want):
+        """Device ms by kernel of a replay of ``phase`` and the device
+        events it ran; its port kernels checked as :func:`run_serving`
+        checks them.  A trace of thousands of events a call loses records
+        more often: up to five are taken."""
+        ms, ran, retries = profile_calls(fn, want[phase], reps=reps, tries=5)
+        if retries:
+            lost.append({"call": f"hymba {label} {phase}",
+                         "retries": retries})
+        got = {k: ran.get(k, 0) for k in want[phase]}
+        by = {v: ran.get(f"pwconv.{v}", 0) for v in by_want}
+        if got != want[phase] or by != by_want:
+            raise AssertionError(f"hymba {label} {phase}: a replay ran {got},"
+                                 f" pwconv by variant {by} (profiler); "
+                                 f"expected {want[phase]}, {by_want}")
+        for k in replayed:
+            replayed[k] += got[k]
+        return ms, ran.get("device_events")
+
+    def own_peak(before):
+        return torch.cuda.max_memory_allocated(dev) - before
+
+    def busy(dms, ms):
+        return sum(dms.values()) / ms if dms else None
+
+    with torch.inference_mode():
+        for batch in (1, 8):
+            prompts = torch.randint(
+                0, cfg32.vocab_size, (batch, HYMBA_PROMPT),
+                generator=torch.Generator().manual_seed(100 + batch)).to(dev)
+            tokens, fp32_plain = [], []
+            for dtype in ("fp32", "bf16"):
+                m = models[dtype]
+                tag = f"{dtype} batch {batch}"
+                by_want = {"prefill": pw_variants_of(m, batch * total_len),
+                           "decode": pw_variants_of(m, batch)}
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                pre = counted(tag + " capture", "prefill",
+                              lambda: S.capture_prefill(
+                                  m, batch, HYMBA_PROMPT, max_len=max_len),
+                              2, by_want["prefill"])
+                dec = counted(tag + " capture", "decode",
+                              lambda: S.capture_decode_step(m, batch,
+                                                            max_len),
+                              2, by_want["decode"])
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                g_logits, g_cache = counted(tag + " graph", "prefill",
+                                            lambda: pre(prompts), 0,
+                                            by_want["prefill"])
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                peak = own_peak(before)
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                e_logits, e_cache = counted(
+                    tag + " eager", "prefill",
+                    lambda: S.prefill(m, prompts, max_len=max_len), 1,
+                    by_want["prefill"])
+                eager_prefill_ms = (time.perf_counter() - t0) * 1e3
+                eager_peak = own_peak(before)
+                p_logits, lead = counted(
+                    tag + " plain", "prefill",
+                    lambda: S.prefill(m, prompts, max_len=max_len,
+                                      policy=plain),
+                    0, dict.fromkeys(by_want["prefill"], 0))
+                slots = g_cache["layers"][0]["k"].shape[1]
+                same = [bool(torch.equal(g_logits, e_logits))
+                        and _trees_equal(torch, g_cache, e_cache)]
+                errs = [rel_err(g_logits, p_logits)]
+                shaped = [tuple(g_logits.shape) == (batch, cfg32.vocab_size)
+                          and bool(torch.isfinite(g_logits).all())]
+                if dtype == "fp32":
+                    fp32_plain.append(p_logits)
+                    vs_fp32 = None
+                else:
+                    vs_fp32 = [rel_err(g_logits, fp32_plain[0])]
+                del g_cache, e_cache
+                logits = p_logits
+                for t in range(HYMBA_GEN):
+                    if dtype == "fp32":
+                        tokens.append(greedy(logits)[:, None])
+                    tok = tokens[t]
+                    gl = counted(tag + " graph", "decode",
+                                 lambda: dec(lead, tok), 0,
+                                 by_want["decode"])[0]
+                    el = counted(tag + " eager", "decode",
+                                 lambda: S.decode_step(m, lead, tok), 1,
+                                 by_want["decode"])[0]
+                    logits, lead = S.decode_step(m, lead, tok, policy=plain)
+                    same.append(bool(torch.equal(gl, el)))
+                    errs.append(rel_err(gl, logits))
+                    shaped.append(bool(torch.isfinite(gl).all()))
+                    if dtype == "fp32":
+                        fp32_plain.append(logits)
+                    else:
+                        vs_fp32.append(rel_err(gl, fp32_plain[t + 1]))
+                # timing: the graph's decode step on its own cache (replay
+                # only) and the eager one, in turns
+                tok = tokens[-1]
+                steady = lambda: dec(dec.cache, tok)  # noqa: E731
+                eager_step = lambda: S.decode_step(m, lead, tok)  # noqa: E731
+                decode_ms = time_ms(steady, dev, reps=10, warmup=2)
+                eager_decode_ms = time_ms(eager_step, dev, reps=10, warmup=2)
+                dev_pre, events_pre = replay_profile(
+                    tag, "prefill", lambda: pre(prompts), 1,
+                    by_want["prefill"])
+                dev_pre_eager = profile_calls(
+                    lambda: S.prefill(m, prompts, max_len=max_len),
+                    want["prefill"], reps=1)[0]
+                dev_dec, events_dec = replay_profile(tag, "decode", steady,
+                                                     2, by_want["decode"])
+                dev_dec_eager = profile_calls(eager_step, want["decode"],
+                                              reps=2)[0]
+                tol = FP32_REL_TOL if dtype == "fp32" else BF16_REL_TOL
+                r = {"batch": batch, "dtype": dtype,
+                     "positions": total_len, "cache_slots": slots,
+                     "prefill_ms": prefill_ms,
+                     "eager_prefill_ms": eager_prefill_ms,
+                     "decode_ms": decode_ms,
+                     "eager_decode_ms": eager_decode_ms,
+                     "tokens_per_s": batch * 1e3 / decode_ms,
+                     "eager_tokens_per_s": batch * 1e3 / eager_decode_ms,
+                     "prefill_capture_s": pre.captured.capture_s,
+                     "decode_capture_s": dec.captured.capture_s,
+                     "peak_bytes": peak, "eager_peak_bytes": eager_peak,
+                     "prefill_device_ms": dev_pre,
+                     "eager_prefill_device_ms": dev_pre_eager,
+                     "decode_device_ms": dev_dec,
+                     "prefill_device_events": events_pre,
+                     "decode_device_events": events_dec,
+                     "eager_decode_device_ms": dev_dec_eager,
+                     "prefill_busy": busy(dev_pre, prefill_ms),
+                     "eager_prefill_busy": busy(dev_pre_eager,
+                                                eager_prefill_ms),
+                     "decode_busy": busy(dev_dec, decode_ms),
+                     "eager_decode_busy": busy(dev_dec_eager,
+                                               eager_decode_ms),
+                     "graph_equals_eager": all(same),
+                     "rel_err_prefill": errs[0],
+                     "rel_err_decode": max(errs[1:]), "tol": tol,
+                     "rel_err_vs_fp32_plain": vs_fp32 and {
+                         "prefill": vs_fp32[0], "decode": max(vs_fp32[1:])},
+                     "pwconv_variants": by_want}
+                runs.append(r)
+                print(f"  hymba-1.5b batch {batch} {dtype}: {total_len} "
+                      f"positions, {slots}-slot cache; captured prefill in "
+                      f"{r['prefill_capture_s'] * 1e3:.0f} ms, decode step "
+                      f"in {r['decode_capture_s'] * 1e3:.1f} ms; own peak "
+                      f"{peak / 2**20:.0f} MiB (eager {eager_peak / 2**20:.0f}"
+                      f" MiB)", flush=True)
+                print(f"    graph: prefill {prefill_ms:.1f} ms (busy "
+                      f"{pct(r['prefill_busy'])}), decode {decode_ms:.3f} "
+                      f"ms/token (busy {pct(r['decode_busy'])}), "
+                      f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
+                print(f"    eager: prefill {eager_prefill_ms:.1f} ms (busy "
+                      f"{pct(r['eager_prefill_busy'])}), decode "
+                      f"{eager_decode_ms:.3f} ms/token (busy "
+                      f"{pct(r['eager_decode_busy'])}), "
+                      f"{r['eager_tokens_per_s']:.1f} tokens/s", flush=True)
+                print(f"    graph equals eager (logits and caches), call by "
+                      f"call: {all(same)}; pwconv by variant, a prefill "
+                      f"{by_want['prefill']}, a decode step "
+                      f"{by_want['decode']}", flush=True)
+                print(f"    vs {dtype} plain path, each call from the same "
+                      f"inputs: prefill {errs[0]:.2e}, decode steps "
+                      f"{max(errs[1:]):.2e} (tol {tol:g})" + (
+                          "" if vs_fp32 is None else
+                          f"; vs fp32 plain path (not gated, bf16 plain "
+                          f"cache): prefill {vs_fp32[0]:.2e}, decode steps "
+                          f"{max(vs_fp32[1:]):.2e}"), flush=True)
+                for name, dp, dd in (("graph", dev_pre, dev_dec),
+                                     ("eager", dev_pre_eager,
+                                      dev_dec_eager)):
+                    print(f"    {name} device ms per prefill: " + (", ".join(
+                        f"{k} {v:.2f}" for k, v in sorted(dp.items()))
+                        or "not profiled") + "; per decode step: "
+                        + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in sorted(dd.items())),
+                        flush=True)
+                print(f"    device events a replay ran: prefill {events_pre},"
+                      f" decode step {events_dec}", flush=True)
+                if slots != ring:
+                    raise AssertionError(f"hymba {tag}: the cache has {slots}"
+                                         f" slots, not the {ring}-slot ring")
+                if not (all(shaped) and max(errs) <= tol):
+                    raise AssertionError(f"hymba {tag}: rel err {max(errs)} "
+                                         f"> {tol} or bad logits")
+                if not all(same):
+                    raise AssertionError(
+                        f"hymba {tag}: the graph path differs from the eager"
+                        f" path at calls "
+                        f"{[i for i, ok in enumerate(same) if not ok]}")
+                if batch == 8:
+                    breakdown[dtype] = hymba_breakdown(torch, dev, m, batch)
+                    print("    one layer's prefill at batch 8 (CUDA events):"
+                          + ", ".join(f" {k} {v:.2f}" for k, v in
+                                      breakdown[dtype].items()), flush=True)
+                del pre, dec, lead, steady, eager_step
+                torch.cuda.empty_cache()
+
+        prompts = torch.randint(
+            0, cfg32.vocab_size, (1, HYMBA_STEPPING),
+            generator=torch.Generator().manual_seed(64)).to(dev)
+        lp, cp = S.prefill(m32, prompts, max_len=max_len)
+        ls, cs = S.prefill_by_stepping(m32, prompts, max_len=max_len)
+        tok = greedy(lp)[:, None]
+        e_pre = rel_err(lp, ls)
+        e_next = rel_err(S.decode_step(m32, cp, tok)[0],
+                         S.decode_step(m32, cs, tok)[0])
+        print(f"  hymba prefill vs prefill_by_stepping, fp32 1x"
+              f"{HYMBA_STEPPING} (+{cfg32.meta_tokens} meta tokens primed): "
+              f"rel err {e_pre:.2e}, next decode step {e_next:.2e} (tol "
+              f"{FP32_REL_TOL:g})", flush=True)
+        if not max(e_pre, e_next) <= FP32_REL_TOL:
+            raise AssertionError(f"hymba prefill vs prefill_by_stepping: "
+                                 f"{e_pre}, {e_next}")
+    del models, m32
+    torch.cuda.empty_cache()
+    return (runs, totals, replayed, {"prefill": e_pre, "next_step": e_next,
+                                     "profiles_retried": lost}, variants,
+            breakdown)
+
+
+def run_hymba_phase():
+    """:func:`run_hymba` in a process of its own (this script with
+    ``--hymba-only``), its results read back from a JSON file under
+    ``build/``.  A hymba replay's trace holds about 4000 device records a
+    decode step; in a process that had taken the CNN and xLSTM phases'
+    hundreds of traces, every retake of such a trace lost records
+    (PERF.md, section 6); in a fresh one a retake recovers them.  A
+    failure of the phase raises here."""
+    out = os.path.join(HERE, "build", "chip_smoke_hymba.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--hymba-only", out], check=True)
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "NVIDIA GPU.")
     ap.add_argument("--out", help="directory for chip_smoke.json")
+    ap.add_argument("--hymba-only", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -942,11 +1345,16 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.hymba_only:
+        # phase 6 in a process of its own (see run_hymba_phase)
+        with open(args.hymba_only, "w") as fh:
+            json.dump(run_hymba(torch, dev), fh)
+        return 0
     card = card_line()
     print(card)
     print(_versions(torch, _build))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
 
@@ -1021,6 +1429,14 @@ def main() -> int:
         kc.pwconv(49, 1024, 1024, dtype)
         kc.pwconv(1, 768, 3072, dtype, act=None)
         kc.pwconv(8, 1536, 8, dtype, act=None)
+        # hymba-1.5b: the Mamba conv and Linears at a batch-8 prefill of
+        # 1664 positions (w_in, w_bcdt, w_dt, the MLP's gate), decode's w_in
+        g = 8 * (128 + HYMBA_PROMPT)
+        kc.dwconv1d(8, 128 + HYMBA_PROMPT, 3200, 4, dtype)
+        for ci, co, act in ((1600, 6400, None), (3200, 132, None),
+                            (100, 3200, None), (1600, 5504, "silu")):
+            kc.pwconv(g, ci, co, dtype, act=act, launches=2)
+        kc.pwconv(8, 1600, 6400, dtype, act=None)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
 
     t_phase = time.perf_counter()
@@ -1033,12 +1449,19 @@ def main() -> int:
     serving, serve_launches, serve_replayed, stepping, serve_variants = \
         run_serving(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    t_phase = time.perf_counter()
+    print("serving path: hymba-1.5b at full width, prefill + greedy decode:")
+    (hymba, hymba_launches, hymba_replayed, hymba_stepping, hymba_variants,
+     hymba_breakdowns) = run_hymba_phase()
+    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
     launches["dwconv1d"] = replayed["dwconv1d"] = 0
-    for name, n in serve_launches.items():
-        launches[name] += n
-        replayed[name] += serve_replayed[name]
-    for name, n in serve_variants.items():
-        variants[name] = variants.get(name, 0) + n
+    for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
+                         (hymba_launches, hymba_replayed, hymba_variants)):
+        for name, n in got.items():
+            launches[name] += n
+            replayed[name] += ran[name]
+        for name, n in by.items():
+            variants[name] = variants.get(name, 0) + n
     for name in launches:
         if launches[name] == 0 or replayed[name] == 0:
             raise AssertionError(f"kernel {name} was launched {launches[name]}"
@@ -1067,7 +1490,10 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump({"card": card, "kernel_checks": kc.results,
                        "networks": runs, "serving": serving,
-                       "prefill_vs_stepping": stepping, "launches": launches,
+                       "prefill_vs_stepping": stepping, "hymba": hymba,
+                       "hymba_prefill_vs_stepping": hymba_stepping,
+                       "hymba_layer_breakdown": hymba_breakdowns,
+                       "launches": launches,
                        "replay_launches": replayed,
                        "pwconv_variants": variants,
                        "seconds": time.perf_counter() - t_start}, fh,

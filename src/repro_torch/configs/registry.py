@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["xlstm-125m"]
+ARCH_IDS = ["xlstm-125m", "hymba-1.5b"]
 
 
 def _module(arch_id: str):

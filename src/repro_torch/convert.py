@@ -6,8 +6,9 @@ keeps the same structure and layouts, so nothing is transposed.
 
 LM stack: the reference keeps nested dicts whose layer variants are
 stacked along a leading groups axis (``blocks_v0`` = mLSTM, ``blocks_v1``
-= sLSTM for xLSTM); the port's modules name their parameters by the same
-keys joined with dots, and layer ``g*period + vi`` takes
+= sLSTM for xLSTM; ``blocks_v0`` = the hymba layer); the port's modules
+name their parameters by the same keys joined with dots (``meta``, the
+meta tokens, included), and layer ``g*period + vi`` takes
 ``blocks_v{vi}[g]``.
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts (a JAX
@@ -76,7 +77,7 @@ def load_tree_(module: nn.Module, leaves: dict) -> nn.Module:
 
 def lm_params_from_numpy(jax_params, cfg, device="cuda"):
     """Reference LM params (``repro.models.transformer.init_params``) as the
-    port's ``XLSTMModel`` on ``device``."""
+    port's ``LMModel`` on ``device``."""
     from repro_torch.models.transformer import init_params
     model = init_params(cfg, device=device)
     period = len(model.pattern)

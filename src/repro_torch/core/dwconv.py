@@ -1,14 +1,16 @@
 """DWConv as a framework op.  Counterpart of ``repro/core/dwconv.py``:
 
 * :func:`depthwise2d` — NHWC spatial DWConv (the CNN bodies);
-* :func:`depthwise1d_causal` — causal sequence DWConv (the xLSTM conv
-  pre-activation), the ``dwconv1d`` kernel on the card, with
-  :func:`depthwise1d_step` for decode (the plain one-row step, as in the
-  reference, which launches no kernel).
+* :func:`depthwise1d_causal` — causal sequence DWConv (the conv
+  pre-activation of the xLSTM blocks and the Mamba heads), the
+  ``dwconv1d`` kernel on the card, with :func:`depthwise1d_step` for
+  decode (the plain one-row step, as in the reference, which launches no
+  kernel) and :func:`conv_tail`, the state a prefill hands to decode.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops, ref
@@ -38,3 +40,13 @@ def depthwise1d_step(state: torch.Tensor, x_t: torch.Tensor,
 def init_conv_state(batch: int, k: int, d: int, dtype=torch.float32,
                     device="cuda") -> torch.Tensor:
     return torch.zeros((batch, max(k - 1, 1), d), dtype=dtype, device=device)
+
+
+def conv_tail(x_pre: torch.Tensor, kc: int) -> torch.Tensor:
+    """The last K-1 pre-conv inputs (fp32), left-padded when L < K-1: the
+    conv state a decode step continues from."""
+    tail = x_pre[:, -(kc - 1):, :].float()
+    pad = (kc - 1) - tail.shape[1]
+    if pad > 0:
+        tail = F.pad(tail, (0, 0, pad, 0))
+    return tail

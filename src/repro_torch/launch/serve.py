@@ -2,9 +2,12 @@
 one card.  Counterpart of ``repro/launch/serve.py`` (no mesh and no
 sharding rules: one device).
 
-    python -m repro_torch.launch.serve --arch xlstm-125m [--smoke] \\
-        [--batch 4] [--prompt-len 32] [--gen 32] [--max-len 256] \\
-        [--temperature 0] [--seed 0] [--device cuda]
+    python -m repro_torch.launch.serve --arch xlstm-125m|hymba-1.5b \\
+        [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] \\
+        [--max-len 256] [--temperature 0] [--seed 0] [--device cuda]
+
+``--max-len`` bounds the attention caches and counts the meta tokens
+(hymba's cache is a ring of window + meta slots once it exceeds that).
 
 Weights are random, drawn from ``--seed``.  On the card the prefill and the
 decode step are CUDA graphs (``serve_step.capture_prefill`` and
@@ -31,14 +34,17 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import serve_step as S
 from repro_torch.serve.sampler import generate, greedy
 
-#: Kernel launches of one layer, by variant: ``pwconv`` runs every Linear,
-#: ``dwconv1d`` the conv pre-activation over a sequence (a decode step
-#: takes the plain one-row step instead).
+#: Kernel launches of one layer, by variant: ``pwconv`` runs every Linear
+#: (hymba: q, k, v, o; the Mamba heads' in, bcdt, dt, out; the MLP's gate,
+#: up, down), ``dwconv1d`` the conv pre-activation over a sequence (a
+#: decode step takes the plain one-row step instead).
 LAYER_LAUNCHES = {
     "prefill": {"mlstm": {"dwconv1d": 1, "pwconv": 6},
-                "slstm": {"dwconv1d": 1, "pwconv": 4}},
+                "slstm": {"dwconv1d": 1, "pwconv": 4},
+                "hymba": {"dwconv1d": 1, "pwconv": 11}},
     "decode": {"mlstm": {"dwconv1d": 0, "pwconv": 6},
-               "slstm": {"dwconv1d": 0, "pwconv": 4}},
+               "slstm": {"dwconv1d": 0, "pwconv": 4},
+               "hymba": {"dwconv1d": 0, "pwconv": 11}},
 }
 
 

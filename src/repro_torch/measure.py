@@ -119,7 +119,8 @@ def device_profile(fn, reps: int = 5):
     """``fn()`` run ``reps`` times under ``torch.profiler``: (device ms per
     call for each of the port's kernels and for every other device kernel,
     PyTorch's pads, casts and adds, together as "other"; the port's kernel
-    instances per call that ran on the device, by launch counter name).
+    instances per call that ran on the device, by launch counter name, and
+    under ``"device_events"`` every device kernel, copy and fill per call).
     The instances are counted in the trace, so they count the kernels of a
     replayed CUDA graph, which no wrapper's counter sees.  Both are empty
     when the profiler records no device time.  One unprofiled call runs
@@ -141,6 +142,7 @@ def device_profile(fn, reps: int = 5):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        counts["device_events"] = counts.get("device_events", 0) + e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total

@@ -1,0 +1,321 @@
+"""GQA attention: dense, blockwise (online-softmax) and decode paths.
+Counterpart of ``repro/models/attention.py``.
+
+* Dense path — short sequences (the whole score matrix at once).
+* Blockwise path — O(S·chunk) memory by an online softmax over a *static
+  list of (q-chunk, kv-chunk) pairs* that enumerates only the causal (or
+  sliding-window) lower triangle, so no fully masked block is computed.
+  Pairs are row-major, so the softmax state carries one q chunk at a time.
+  Only the forward is ported; the reference's custom VJP
+  (``_flash_vjp_bwd``) waits for training (ROADMAP.md, A12).
+* Decode path — one query token against a KV cache, optionally a
+  StreamingLLM-style ring (``sink`` permanent slots and a ring of window
+  slots).
+
+The products are ``torch.einsum`` and a softmax in fp32, as the reference
+leaves them to XLA; no TPU kernel exists for them.  The projections are
+Linears, so they run on the ``pwconv`` kernel.  Supports GQA, qk-norm,
+qkv-bias, sliding window with sink (meta) tokens and NoPE; the int8 KV
+cache (``scales``) raises, naming ROADMAP.md A12.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
+from repro_torch.models.layers import (apply_rope, init_linear, init_norm,
+                                       linear, rms_norm)
+
+NEG_INF = -1e30
+
+KV_QUANT = ("the int8 KV cache (kv_quant) is not ported yet: ROADMAP.md "
+            "queue A, the rest of A12")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """The reference's ``init_attention``: ``w_q``, ``w_k``, ``w_v``,
+    ``w_o`` (with biases for ``qkv_bias``) and, for ``qk_norm``,
+    ``q_norm`` / ``k_norm`` scales."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
+                 head_dim: int, *, generator: torch.Generator,
+                 qkv_bias: bool = False, qk_norm: bool = False,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        lin = dict(dtype=dtype, device=device)
+        self.w_q = init_linear(generator, d_model, n_heads * head_dim,
+                               bias=qkv_bias, **lin)
+        self.w_k = init_linear(generator, d_model, n_kv_heads * head_dim,
+                               bias=qkv_bias, **lin)
+        self.w_v = init_linear(generator, d_model, n_kv_heads * head_dim,
+                               bias=qkv_bias, **lin)
+        self.w_o = init_linear(generator, n_heads * head_dim, d_model, **lin)
+        if qk_norm:
+            self.q_norm = init_norm("rms", head_dim, device=device)
+            self.k_norm = init_norm("rms", head_dim, device=device)
+
+
+def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, *,
+                 qk_norm, policy):
+    b, s, _ = x.shape
+    q = linear(p.w_q, x, policy=policy).reshape(b, s, n_heads, head_dim)
+    k = linear(p.w_k, x, policy=policy).reshape(b, s, n_kv_heads, head_dim)
+    v = linear(p.w_v, x, policy=policy).reshape(b, s, n_kv_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, p.q_norm["scale"])
+        k = rms_norm(k, p.k_norm["scale"])
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Dense attention (small S) — also the oracle for the blockwise path
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q, k):
+    """q (B,Sq,Hq,dh), k (B,Sk,Hkv,dh) -> scores (B,Hq,Sq,Sk) fp32."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    return s.reshape(b, hkv * g, sq, k.shape[1])
+
+
+def _gqa_out(probs, v):
+    """probs (B,Hq,Sq,Sk), v (B,Sk,Hkv,dh) -> (B,Sq,Hq,dh) fp32."""
+    b, hq, sq, sk = probs.shape
+    hkv = v.shape[2]
+    g = hq // hkv
+    pg = probs.reshape(b, hkv, g, sq, sk)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pg, v.float())
+    return out.reshape(b, sq, hq, v.shape[-1])
+
+
+def dense_attention(q, k, v, *, causal: bool, window: Optional[int] = None,
+                    sink: int = 0) -> torch.Tensor:
+    """Reference/simple path. Returns (B, Sq, Hq, dh) in q.dtype.
+
+    sink: the first ``sink`` kv positions are always attendable (meta/sink
+    tokens), even outside the sliding window.
+    """
+    sq, dh = q.shape[1], q.shape[-1]
+    sk = k.shape[1]
+    scores = _gqa_scores(q, k) * (dh ** -0.5)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    kj = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= (kj > qi - window) | (kj < sink)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (online softmax over a static causal pair list)
+# ---------------------------------------------------------------------------
+
+
+def _pair_list(nq: int, nk: int, causal: bool, window_chunks: Optional[int],
+               sink_chunks: int = 0) -> list:
+    """Static (qi, ki) pairs, row-major, only not-fully-masked blocks."""
+    pairs = []
+    for qi in range(nq):
+        for ki in range(nk):
+            if causal and ki > qi:
+                continue
+            if (window_chunks is not None and ki < qi - window_chunks
+                    and ki >= sink_chunks):
+                continue
+            pairs.append((qi, ki))
+    return pairs
+
+
+def _pair_flags(pairs) -> tuple:
+    """(is_first, is_last): whether each pair opens / closes its q row."""
+    rows = [qi for qi, _ in pairs]
+    is_first = [i == 0 or rows[i - 1] != r for i, r in enumerate(rows)]
+    is_last = [i == len(rows) - 1 or rows[i + 1] != r
+               for i, r in enumerate(rows)]
+    return is_first, is_last
+
+
+def _block_mask(qi, ki, qc, kc, causal, window, sink, sk, device):
+    qpos = qi * qc + torch.arange(qc, device=device)[:, None]
+    kpos = ki * kc + torch.arange(kc, device=device)[None, :]
+    mask = (kpos < sk).expand(qc, kc)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & ((kpos > qpos - window) | (kpos < sink))
+    return mask
+
+
+def _flash_fwd(q, k, v, statics):
+    """The pair loop's forward.  q (B, nq*qc, Hq, dh), k/v (B, nk*kc, Hkv,
+    dh), padded to whole chunks.  Returns out (B, nq*qc, Hq, dh) in q.dtype.
+    (The reference also returns the log-sum-exp rows for its VJP.)
+
+    A row's first pair starts the softmax state from its block alone: the
+    reference's reset to (m = NEG_INF, l = 0, acc = 0) followed by the
+    update gives those values exactly."""
+    (causal, window, sink, qc, kc, sk, pairs, is_first, is_last) = statics
+    scale = q.shape[-1] ** -0.5
+    out = torch.empty_like(q)
+    for (qi, ki), first, last in zip(pairs, is_first, is_last):
+        qb = q[:, qi * qc:(qi + 1) * qc]
+        vb = v[:, ki * kc:(ki + 1) * kc]
+        s = _gqa_scores(qb, k[:, ki * kc:(ki + 1) * kc]) * scale
+        mask = _block_mask(qi, ki, qc, kc, causal, window, sink, sk,
+                           q.device)
+        s = torch.where(mask, s, NEG_INF)                  # (B,Hq,qc,kc)
+        if first:
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            acc = _gqa_out(p, vb)
+        else:
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr.transpose(1, 2)[..., None] + _gqa_out(p, vb)
+            m = m_new
+        if last:
+            res = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+            out[:, qi * qc:(qi + 1) * qc] = res.to(out.dtype)
+    return out
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, sink: int = 0,
+                        chunk: int = 1024) -> torch.Tensor:
+    """Flash attention's forward in plain PyTorch: an online softmax over a
+    static causal block-pair list.  q (B,Sq,Hq,dh); k/v (B,Sk,Hkv,dh)."""
+    sq, sk = q.shape[1], k.shape[1]
+    qc, kc = min(chunk, sq), min(chunk, sk)
+    pad_q, pad_k = (-sq) % qc, (-sk) % kc
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (sq + pad_q) // qc, (sk + pad_k) // kc
+    wc = None if window is None else max(1, -(-window // kc))
+    sc = 0 if not sink else -(-sink // kc)
+    pairs = _pair_list(nq, nk, causal, wc, sc)
+    statics = (causal, window, sink, qc, kc, sk, pairs, *_pair_flags(pairs))
+    return _flash_fwd(q, k, v, statics)[:, :sq]
+
+
+# ---------------------------------------------------------------------------
+# Full attention layer (self-attention; prefill)
+# ---------------------------------------------------------------------------
+
+
+def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
+              head_dim: int, positions: torch.Tensor,
+              window: Optional[int] = None, sink: int = 0,
+              rope_theta: Optional[float] = 1e4, qk_norm: bool = False,
+              chunk: int = 1024, policy: KernelPolicy = DEFAULT_POLICY,
+              return_kv: bool = False):
+    """Causal self-attention over x (B, S, d) at absolute ``positions``
+    (B, S).  Returns the block's output (B, S, d_model) [, (k, v)]: the
+    K/V after RoPE, which prefill writes into the decode cache.  (The
+    reference's cross attention, ``xkv``, serves the enc-dec layers, which
+    are not ported.)"""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim,
+                           qk_norm=qk_norm, policy=policy)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    if s <= chunk:
+        out = dense_attention(q, k, v, causal=True, window=window, sink=sink)
+    else:
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  sink=sink, chunk=chunk)
+    out = out.reshape(b, s, n_heads * head_dim).contiguous()
+    out = linear(p.w_o, out, policy=policy)
+    return (out, (k, v)) if return_kv else out
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def ring_slot(pos: torch.Tensor, smax: int, sink: int) -> torch.Tensor:
+    """The ring cache's slot of position ``pos``: ``pos`` below ``smax``,
+    else ``sink + (pos - sink) % (smax - sink)``; on the device, so a
+    captured step reads ``pos`` from its cache."""
+    return torch.where(pos < smax, pos,
+                       sink + torch.remainder(pos - sink, smax - sink))
+
+
+def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
+                     n_heads: int, n_kv_heads: int, head_dim: int,
+                     window: Optional[int] = None,
+                     rope_theta: Optional[float] = 1e4,
+                     qk_norm: bool = False, ring: bool = False,
+                     sink: int = 0, scales: Optional[tuple] = None,
+                     policy: KernelPolicy = DEFAULT_POLICY,
+                     in_place: bool = False):
+    """x_t (B,1,d); cache_k/v (B,Sc,Hkv,dh); pos (B,) current index.
+
+    ring=True: the cache is a StreamingLLM-style buffer: ``sink``
+    permanent slots + a ring of (Sc - sink) sliding-window slots.
+    Positions past the buffer wrap within the ring part; every populated
+    slot is attendable.
+
+    in_place: write the new K/V into ``cache_k``/``cache_v`` at their slot
+    (one scatter each) and return those same tensors, where the reference
+    (and the default here) returns new caches through a one-hot select.
+    The values are the same; the static-buffer decode step uses it, so
+    that a token does not rewrite the whole cache.
+    Returns (out (B,1,d), new_k, new_v).
+    """
+    if scales is not None:
+        raise NotImplementedError(KV_QUANT)
+    b = x_t.shape[0]
+    q, k, v = _project_qkv(p, x_t, n_heads, n_kv_heads, head_dim,
+                           qk_norm=qk_norm, policy=policy)
+    if rope_theta is not None:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k = apply_rope(k, pos[:, None], rope_theta)
+    smax = cache_k.shape[1]
+    slot = ring_slot(pos, smax, sink) if ring else pos
+    k_new, v_new = k.to(cache_k.dtype), v.to(cache_v.dtype)  # (B,1,Hkv,dh)
+    if in_place:
+        idx = slot.long()[:, None, None, None].expand_as(k_new)
+        cache_k.scatter_(1, idx, k_new)
+        cache_v.scatter_(1, idx, v_new)
+    else:
+        j = torch.arange(smax, device=pos.device)
+        wmask = (j[None, :] == slot[:, None])[..., None, None]
+        cache_k = torch.where(wmask, k_new, cache_k)
+        cache_v = torch.where(wmask, v_new, cache_v)
+    scores = _gqa_scores(q, cache_k) * (head_dim ** -0.5)  # (B,Hq,1,Smax)
+    j = torch.arange(smax, device=pos.device)[None, :]
+    if ring:
+        valid = j < torch.clamp(pos + 1, max=smax)[:, None]
+    else:
+        valid = j <= pos[:, None]
+        if window is not None:
+            valid &= (j > (pos[:, None] - window)) | (j < sink)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, cache_v).to(x_t.dtype)            # (B,1,Hq,dh)
+    out = out.reshape(b, 1, n_heads * head_dim).contiguous()
+    return linear(p.w_o, out, policy=policy), cache_k, cache_v

@@ -1,5 +1,5 @@
-"""Primitive layers: norms, Linear (routed through the paper's PWConv) and
-the embedding.  Counterpart of ``repro/models/layers.py``; RoPE, the
+"""Primitive layers: norms, Linear (routed through the paper's PWConv),
+RoPE and the embedding.  Counterpart of ``repro/models/layers.py``; the
 chunked cross-entropy and the backbone wrappers wait for their slices.
 
 Parameters live in ``nn.ParameterDict``s keyed as the reference's dicts
@@ -7,7 +7,10 @@ are (``{"scale"}``, ``{"w", "b"}``, ``{"table"}``), so a module's
 ``state_dict`` names are the reference's parameter paths joined by dots.
 Every init draws from an explicit ``torch.Generator`` on the host and
 moves the result to ``device``, so a seed gives the same weights on every
-device.  Parameters are inference-only (``requires_grad=False``).
+device.  On the ``meta`` device nothing is drawn: the parameters only get
+their shapes and dtypes (``transformer.cast_params`` fills them from a
+model drawn once).  Parameters are inference-only
+(``requires_grad=False``).
 """
 from __future__ import annotations
 
@@ -23,10 +26,23 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _is_meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
 def randn(generator: torch.Generator, shape, std: float, dtype, device):
     """N(0, std^2) drawn in fp32 on the host, then cast and moved."""
+    if _is_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
     return t.to(device=device, dtype=dtype)
+
+
+def rand(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """U[0, 1) drawn in fp32 on the host, then moved."""
+    if _is_meta(device):
+        return torch.empty(shape, device=device)
+    return torch.rand(shape, generator=generator).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +104,29 @@ def linear(p, x: torch.Tensor, *, activation: Optional[str] = None,
            policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     return pointwise(x, p["w"], p.get("b"), activation=activation,
                      policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) integer."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                       # (dh/2,)
+    angles = positions[..., None].float() * freqs                # (B,S,dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

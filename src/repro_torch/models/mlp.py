@@ -1,0 +1,29 @@
+"""Dense SwiGLU MLP — three PWConv (paper-op) projections.  Counterpart of
+``repro/models/mlp.py``.  The gate's SiLU is the ``pwconv`` kernel's
+epilogue, so a call is three ``pwconv`` launches and one multiply."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
+from repro_torch.models.layers import init_linear, linear
+
+
+class MLP(nn.Module):
+    """``{"w_gate", "w_up", "w_down"}``, each a Linear ``{"w"}``."""
+
+    def __init__(self, d_model: int, d_ff: int, *,
+                 generator: torch.Generator, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        lin = dict(dtype=dtype, device=device)
+        self.w_gate = init_linear(generator, d_model, d_ff, **lin)
+        self.w_up = init_linear(generator, d_model, d_ff, **lin)
+        self.w_down = init_linear(generator, d_ff, d_model, **lin)
+
+    def forward(self, x: torch.Tensor, *,
+                policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+        g = linear(self.w_gate, x, activation="silu", policy=policy)
+        u = linear(self.w_up, x, policy=policy)
+        return linear(self.w_down, g * u, policy=policy)

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import XLSTMConfig
-from repro_torch.core.dwconv import depthwise1d_causal, depthwise1d_step
+from repro_torch.core.dwconv import (conv_tail, depthwise1d_causal,
+                                     depthwise1d_step)
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models.layers import (init_linear, init_norm, linear, param,
                                        randn, rms_norm)
@@ -199,16 +200,6 @@ def slstm_step(zg, ig, fg, og, r_weights, state):
 # ---------------------------------------------------------------------------
 
 
-def _conv_tail(x_pre: torch.Tensor, kc: int) -> torch.Tensor:
-    """The last K-1 pre-conv inputs (fp32), left-padded when L < K-1: the
-    conv state a decode step continues from."""
-    tail = x_pre[:, -(kc - 1):, :].float()
-    pad = (kc - 1) - tail.shape[1]
-    if pad > 0:
-        tail = F.pad(tail, (0, 0, pad, 0))
-    return tail
-
-
 class MLSTMBlock(nn.Module):
     """x (B, L, d) -> (B, L, d) with residual (``repro``'s
     ``init_mlstm_block`` / ``mlstm_block`` / ``mlstm_block_step``)."""
@@ -259,7 +250,7 @@ class MLSTMBlock(nn.Module):
         out = x + linear(self.w_down, h, policy=policy)
         if return_cache:
             return out, {"c": c, "n": n, "m": m,
-                         "conv": _conv_tail(xv, self.cfg.conv_k)}
+                         "conv": conv_tail(xv, self.cfg.conv_k)}
         return out
 
     def step(self, x_t, cache: dict, *,
@@ -345,7 +336,7 @@ class SLSTMBlock(nn.Module):
         out = self._ffn(x + rms_norm(h, self.out_norm["scale"]), policy)
         if return_cache:
             return out, {"c": c, "n": n, "h": hs, "m": m,
-                         "conv": _conv_tail(xn, self.cfg.conv_k)}
+                         "conv": conv_tail(xn, self.cfg.conv_k)}
         return out
 
     def step(self, x_t, cache: dict, *,

@@ -1,25 +1,31 @@
 """Serving: cache construction, prefill, and the one-token decode step.
 Counterpart of ``repro/serve/serve_step.py`` for the recurrent (xLSTM)
-layers; the attention branches (KV capture, ``_ring_fill``) wait for the
-attention slice.
+and hybrid (hymba) layers.
 
 * :func:`prefill` — one full forward with per-layer state capture: the
   mLSTM ``(c, n, m)`` state carried out of the chunkwise scan, the sLSTM
-  ``(c, n, h, m)`` state out of its loop, and each layer's conv state (the
-  last K-1 pre-conv inputs).
+  ``(c, n, h, m)`` state out of its loop, the Mamba ``(h, conv)`` state
+  out of its chunked scan, each conv state (the last K-1 pre-conv inputs),
+  and every attention layer's K/V (after RoPE) written into its cache by
+  :func:`_ring_fill`.
 * :func:`decode_step` — one token through every layer with its cache.
-* :func:`prefill_by_stepping` — a loop of decode steps over the prompt;
-  the oracle for :func:`prefill`.
+* :func:`prefill_by_stepping` — a loop of decode steps over the prompt,
+  after the meta tokens primed the cache; the oracle for :func:`prefill`.
 * :func:`decode_step_into` — the static-buffer form of :func:`decode_step`:
-  it writes the new state into the cache it was given and the logits into
-  a fixed buffer, in place, and runs on any device.
+  it writes the new state into the cache it was given (each K/V slot in
+  place, the rest copied at the end of the step) and the logits into a
+  fixed buffer, and runs on any device.
 * :func:`capture_decode_step` and :func:`capture_prefill` — the card's
   counterparts of the reference's ``jax.jit`` of the decode step and of
   the prefill (``repro/launch/serve.py:54,62``): each captures its step as
   a CUDA graph once per shape (:func:`repro_torch.graphs.capture`) and
   replays it.  Sampling stays outside the graph.
 
-A cache is ``{"pos": (B,) int32, "layers": [one dict per layer]}``.
+A cache is ``{"pos": (B,) int32, "layers": [one dict per layer]}``; a
+hymba layer's dict is ``{"k", "v": (B, S_c, Hkv, dh), "mamba": {"h",
+"conv"}}``, S_c the ring of ``window + sink`` slots once ``max_len``
+exceeds it (``transformer.cache_len``).  ``max_len`` counts the meta
+tokens.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
@@ -37,8 +44,8 @@ from repro_torch.models.layers import embed, norm, unembed_logits
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Zeroed cache.  ``max_len`` bounds attention caches; the recurrent
-    layers' state does not depend on it."""
+    """Zeroed cache.  ``max_len`` (meta tokens included) bounds the
+    attention caches; the recurrent layers' state does not depend on it."""
     pattern = T.layer_pattern(cfg)
     return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": [T.init_layer_cache(cfg, pattern[i % len(pattern)],
@@ -46,38 +53,89 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        for i in range(cfg.n_layers)]}
 
 
-def decode_step(model: T.XLSTMModel, cache: dict, tokens: torch.Tensor, *,
-                policy: KernelPolicy = DEFAULT_POLICY):
-    """tokens (B, 1) -> (logits (B, V) fp32, new cache)."""
-    x = embed(model.embedding, tokens)                  # (B,1,d)
+def _layers_step(model: T.LMModel, cache: dict, x: torch.Tensor,
+                 policy: KernelPolicy, in_place: bool = False):
+    """x (B,1,d) through every layer at ``cache["pos"]`` -> (x', new
+    cache at pos + 1)."""
+    pos = cache["pos"]
     layers = []
     for i, block in enumerate(model.blocks):
-        x, c = T.layer_decode(block, x, cache["layers"][i], model.variant(i),
-                              policy=policy)
+        x, c = T.layer_decode(block, x, cache["layers"][i], pos, model.cfg,
+                              model.variant(i), policy=policy,
+                              in_place=in_place)
         layers.append(c)
+    return x, {"pos": pos + 1, "layers": layers}
+
+
+def decode_step(model: T.LMModel, cache: dict, tokens: torch.Tensor, *,
+                policy: KernelPolicy = DEFAULT_POLICY,
+                in_place: bool = False):
+    """tokens (B, 1) -> (logits (B, V) fp32, new cache).  ``in_place``
+    writes each attention layer's new K/V into ``cache``'s own tensors,
+    which the new cache then shares (:func:`decode_step_into`)."""
+    x = embed(model.embedding, tokens)                  # (B,1,d)
+    x, new_cache = _layers_step(model, cache, x, policy, in_place)
     x = norm(x, model.ln_final, model.cfg.norm_type)
-    logits = unembed_logits(x[:, 0], model.unembed_table)
-    return logits, {"pos": cache["pos"] + 1, "layers": layers}
+    return unembed_logits(x[:, 0], model.unembed_table), new_cache
 
 
-def prefill(model: T.XLSTMModel, tokens: torch.Tensor, *, max_len: int,
+def _embedded_decode_step(model: T.LMModel, cache: dict,
+                          x_embed: torch.Tensor,
+                          policy: KernelPolicy = DEFAULT_POLICY) -> dict:
+    """:func:`decode_step` from an embedding (B, 1, d) rather than a token,
+    without the logits: how :func:`prefill_by_stepping` primes the cache
+    with the meta tokens.  Returns the new cache."""
+    return _layers_step(model, cache, x_embed, policy)[1]
+
+
+def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
+    """Scatter full-sequence K or V (B, S, H, dh) into a cache of ``s_c``
+    slots (B, s_c, H, dh), matching ``attention_decode``'s slot function:
+    padded when S fits, else slot r < sink holds position r and ring slot
+    r the latest position p < S with ``ring_slot(p) == r``."""
+    s = kv_full.shape[1]
+    if s <= s_c:
+        return F.pad(kv_full, (0, 0, 0, 0, 0, s_c - s))
+    # the slots' positions on the device: the prefill is captured
+    r = torch.arange(s_c, device=kv_full.device)
+    base = s - 1 - torch.remainder(s - 1 - r, s_c - sink)
+    return kv_full.index_select(1, torch.where(r < sink, r, base))
+
+
+def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
             policy: KernelPolicy = DEFAULT_POLICY):
-    """tokens (B, S) -> (last logits (B, V), cache primed to pos = S)."""
+    """tokens (B, S) -> (last logits (B, V), cache primed to pos = P + S),
+    P the meta tokens."""
     b, s = tokens.shape
     x, prefix, aux = T.hidden_states(model, tokens, policy=policy,
                                      capture_kv=True)
+    layers = []
+    for i, captured in enumerate(aux["layers"]):
+        if "kv" not in captured:                        # mlstm / slstm
+            layers.append(captured["state"])
+            continue
+        s_c = T.cache_len(model.variant(i), max_len)
+        sink = model.variant(i).sink
+        k, v = (_ring_fill(t, s_c, sink) for t in captured["kv"])
+        layers.append({"k": k, "v": v, "mamba": captured["state"]})
     cache = {"pos": torch.full((b,), prefix + s, dtype=torch.int32,
                                device=tokens.device),
-             "layers": aux["states"]}
+             "layers": layers}
     return unembed_logits(x[:, -1], model.unembed_table), cache
 
 
-def prefill_by_stepping(model: T.XLSTMModel, tokens: torch.Tensor, *,
+def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
                         max_len: int,
                         policy: KernelPolicy = DEFAULT_POLICY):
-    """Reference prefill: one decode step per prompt token."""
+    """Reference prefill: one decode step per meta token (from its
+    embedding), then one per prompt token."""
     b, s = tokens.shape
     cache = init_cache(model.cfg, b, max_len, tokens.device)
+    if model.cfg.meta_tokens:
+        meta = model.meta_embeds(b)
+        for i in range(model.cfg.meta_tokens):
+            cache = _embedded_decode_step(model, cache, meta[:, i:i + 1],
+                                          policy)
     logits = torch.zeros((b, model.cfg.vocab_size), device=tokens.device)
     for t in range(s):
         logits, cache = decode_step(model, cache, tokens[:, t:t + 1],
@@ -85,32 +143,50 @@ def prefill_by_stepping(model: T.XLSTMModel, tokens: torch.Tensor, *,
     return logits, cache
 
 
+def _map_tree(fn, dst, src):
+    """``fn(d, s)`` on each pair of tensors at the same place of two caches
+    (dicts and lists of tensors, the same keys and lengths)."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"cache keys differ: {sorted(dst)} vs "
+                             f"{sorted(src)}")
+        for k in dst:
+            _map_tree(fn, dst[k], src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src, strict=True):
+            _map_tree(fn, d, s)
+    else:
+        fn(dst, src)
+
+
 def copy_cache_(dst: dict, src: dict) -> dict:
     """Copy every tensor of cache ``src`` into the same place of ``dst``, in
-    place; returns ``dst``."""
-    dst["pos"].copy_(src["pos"])
-    for d, s in zip(dst["layers"], src["layers"], strict=True):
-        for k, v in d.items():
-            v.copy_(s[k])
+    place (a tensor ``src`` shares with ``dst`` is already there); returns
+    ``dst``."""
+    _map_tree(lambda d, s: None if d is s else d.copy_(s), dst, src)
     return dst
 
 
-def _clone_cache(cache: dict) -> dict:
-    return {"pos": cache["pos"].clone(),
-            "layers": [{k: v.clone() for k, v in layer.items()}
-                       for layer in cache["layers"]]}
+def _clone_cache(cache):
+    if isinstance(cache, dict):
+        return {k: _clone_cache(v) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_clone_cache(v) for v in cache]
+    return cache.clone()
 
 
-def decode_step_into(model: T.XLSTMModel, cache: dict, tokens: torch.Tensor,
+def decode_step_into(model: T.LMModel, cache: dict, tokens: torch.Tensor,
                      logits: torch.Tensor, *,
                      policy: KernelPolicy = DEFAULT_POLICY):
-    """:func:`decode_step` on static buffers: the step's new state (every
-    mLSTM ``(c, n, m)``, sLSTM ``(c, n, h, m)`` and conv state, and ``pos``)
-    is copied into ``cache``'s own tensors at the end of the step, and its
-    logits into ``logits`` (B, V) fp32, in place.  It reads and writes the
-    same addresses every call, which is what a CUDA graph of it needs.
+    """:func:`decode_step` on static buffers: each attention layer's new
+    K/V slot is written into ``cache``'s K/V in place; the rest of the
+    step's new state (every recurrent and conv state, and ``pos``) is
+    copied into ``cache``'s own tensors at the end of the step, and its
+    logits into ``logits`` (B, V) fp32.  It reads and writes the same
+    addresses every call, which is what a CUDA graph of it needs.
     Returns ``(logits, cache)``."""
-    new_logits, new_cache = decode_step(model, cache, tokens, policy=policy)
+    new_logits, new_cache = decode_step(model, cache, tokens, policy=policy,
+                                        in_place=True)
     logits.copy_(new_logits)
     copy_cache_(cache, new_cache)
     return logits, cache
@@ -138,7 +214,7 @@ class CapturedDecodeStep:
             return logits.clone(), self.cache
 
 
-def capture_decode_step(model: T.XLSTMModel, batch: int, max_len: int, *,
+def capture_decode_step(model: T.LMModel, batch: int, max_len: int, *,
                         policy: KernelPolicy = DEFAULT_POLICY
                         ) -> CapturedDecodeStep:
     """Capture :func:`decode_step_into` for ``batch`` sequences on the
@@ -174,16 +250,18 @@ class CapturedPrefill:
             return logits.clone(), _clone_cache(cache)
 
 
-def capture_prefill(model: T.XLSTMModel, batch: int, prompt_len: int, *,
+def capture_prefill(model: T.LMModel, batch: int, prompt_len: int, *,
                     max_len: Optional[int] = None,
                     policy: KernelPolicy = DEFAULT_POLICY) -> CapturedPrefill:
     """Capture :func:`prefill` of ``batch`` prompts of ``prompt_len`` tokens
     on the model's device, which must be the card; raises on the CPU.  The
     sLSTM loop over the prompt is captured with the rest, so the graph holds
-    about 20 nodes a token for each sLSTM layer."""
+    about 20 nodes a token for each sLSTM layer.  ``max_len`` defaults to
+    the meta tokens and the prompt."""
     dev = model.embedding["table"].device
     tokens = torch.zeros((batch, prompt_len), dtype=torch.int64, device=dev)
+    max_len = max_len or model.cfg.meta_tokens + prompt_len
     with torch.inference_mode():
         captured = graphs.capture(lambda: prefill(
-            model, tokens, max_len=max_len or prompt_len, policy=policy), dev)
+            model, tokens, max_len=max_len, policy=policy), dev)
     return CapturedPrefill(captured, tokens)

@@ -954,3 +954,155 @@ def test_captured_prefill_and_decode_match_eager(dev, dtype):
         assert all(torch.equal(a[k], b[k]) for k in a)
     assert _replay_kernels(lambda: step(step.cache, tok),
                            want_step) == want_step
+
+
+# ---------------------------------------------------------------------------
+# hymba-1.5b serving: the kernels at its shapes, the smoke model's captured
+# prefill and decode steps, the in-place ring write, the launcher
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("g,ci,co,act", [(2 * 1664, 1600, 6400, None),
+                                         (2 * 1664, 3200, 132, None),
+                                         (2 * 1664, 100, 3200, None),
+                                         (2 * 1664, 1600, 5504, "silu"),
+                                         (8, 1600, 6400, None),
+                                         (8, 3200, 132, None),
+                                         (8, 100, 3200, None)])
+def test_pwconv_kernel_at_hymba_shapes(dev, g, ci, co, act, dtype):
+    """The Linears of a hymba layer (w_in, w_bcdt, w_dt, the MLP's gate)
+    at a prefill's and a decode step's G, at the variant the planner picks
+    (w_bcdt and w_dt are simt in bf16: 132 and 100 are not multiples of
+    8)."""
+    x = _r((g, ci), dev, dtype)
+    w = _r((ci, co), dev, dtype, ci ** -0.5)
+    variant = blocking.pw_variant(g, ci, co, dtype)
+    before = pwconv.launches_by_variant[variant]
+    got = pwconv.pwconv(x, w, activation=act)
+    assert pwconv.launches_by_variant[variant] == before + 1
+    assert rel_err(got, pwconv.pwconv_plain(x, w, activation=act)) <= TOL[
+        dtype]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dwconv1d_kernel_at_hymba_shape(dev, dtype):
+    from repro_torch.kernels import dwconv1d
+    x = _r((2, 1664, 3200), dev, dtype)
+    f = _r((4, 3200), dev, dtype, 0.5)
+    assert rel_err(dwconv1d.dwconv1d_causal(x, f),
+                   dwconv1d.dwconv1d_causal_plain(x, f)) <= TOL[dtype]
+
+
+def _hymba_smoke(dev, dtype):
+    import dataclasses
+
+    from repro_torch.configs import hymba_1_5b
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(hymba_1_5b.smoke_config(), dtype=dtype)
+    return init_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_hymba_captured_prefill_and_decode_match_eager(dev, dtype):
+    """The smoke model at a 100-token prompt (108 positions: blockwise
+    attention, the 40-slot ring) and 24 greedy steps, captured against
+    eager, call by call: the same bits and tokens; launches as counted
+    (two calls in a capture, none in a replay, one call's kernels in a
+    replay's trace); the eager calls within 1e-4 (fp32) / 5e-2 (bf16) of
+    the plain path."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    model = _hymba_smoke(dev, dtype)
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    plain = KernelPolicy(impl="torch")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    serve.reset_launch_counts()
+    pre = S.capture_prefill(model, 2, 100, max_len=160)
+    torch.cuda.synchronize(dev)
+    want = serve.expected_launches(cfg, "prefill")
+    assert want == {"dwconv1d": 2, "pwconv": 22}
+    assert serve.launch_counts() == _twice(want)
+    serve.reset_launch_counts()
+    step = S.capture_decode_step(model, 2, 160)
+    torch.cuda.synchronize(dev)
+    want_step = serve.expected_launches(cfg, "decode")
+    assert serve.launch_counts() == _twice(want_step)
+    zero = dict.fromkeys(want, 0)
+    with torch.inference_mode():
+        assert _replay_kernels(lambda: pre(toks), want) == want
+        serve.reset_launch_counts()
+        logits, cache = pre(toks)
+        torch.cuda.synchronize(dev)
+        assert serve.launch_counts() == zero
+        serve.reset_launch_counts()
+        ref_logits, ref_cache = S.prefill(model, toks, max_len=160)
+        torch.cuda.synchronize(dev)
+        assert serve.launch_counts() == want
+        plain_logits, _ = S.prefill(model, toks, max_len=160, policy=plain)
+    assert rel_err(ref_logits, plain_logits) <= tol
+    assert torch.equal(logits, ref_logits)
+    assert cache["layers"][0]["k"].shape[1] == 40
+    for a, b in zip(cache["layers"], ref_cache["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+        assert all(torch.equal(a["mamba"][k], b["mamba"][k])
+                   for k in ("h", "conv"))
+    own = cache
+    tok = ref_tok = greedy(logits)[:, None]
+    with torch.inference_mode():
+        for _ in range(24):
+            serve.reset_launch_counts()
+            logits, own = step(own, tok)
+            torch.cuda.synchronize(dev)
+            assert serve.launch_counts() == zero
+            plain_logits, _ = S.decode_step(model, ref_cache, ref_tok,
+                                            policy=plain)
+            ref_logits, ref_cache = S.decode_step(model, ref_cache, ref_tok)
+            assert torch.equal(logits, ref_logits)
+            assert rel_err(ref_logits, plain_logits) <= tol
+            tok, ref_tok = greedy(logits)[:, None], greedy(ref_logits)[:, None]
+            assert torch.equal(tok, ref_tok)
+    assert torch.equal(own["pos"], ref_cache["pos"])
+    for a, b in zip(own["layers"], ref_cache["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert _replay_kernels(lambda: step(step.cache, tok),
+                           want_step) == want_step
+
+
+def test_hymba_in_place_ring_write_matches_functional_decode_step(dev):
+    """decode_step_into (each K/V slot scattered in place at a slot
+    computed on the device) against the functional decode_step (the
+    reference's one-hot select) over steps that wrap the ring, bit for
+    bit, the static cache's tensors at their addresses."""
+    from repro_torch.serve import serve_step as S
+    model = _hymba_smoke(dev, "bfloat16")
+    toks = torch.randint(0, 128, (3, 30),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.inference_mode():
+        logits, ref = S.prefill(model, toks, max_len=160)
+        cache = S.init_cache(model.cfg, 3, 160, dev)
+        S.copy_cache_(cache, ref)
+        ks = [layer["k"].data_ptr() for layer in cache["layers"]]
+        out = torch.empty_like(logits)
+        tok = logits.argmax(-1)[:, None]
+        for _ in range(20):                    # positions 38..57: wraps 40
+            want, ref = S.decode_step(model, ref, tok)
+            got, _ = S.decode_step_into(model, cache, tok, out)
+            assert torch.equal(got, want)
+            tok = want.argmax(-1)[:, None]
+    for a, b in zip(cache["layers"], ref["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    assert ks == [layer["k"].data_ptr() for layer in cache["layers"]]
+
+
+def test_hymba_serve_launcher_on_the_card(dev, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "hymba-1.5b", "--smoke", "--batch", "2",
+                       "--prompt-len", "40", "--gen", "4",
+                       "--max-len", "60"]) == 0
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "'dwconv1d': 2" in out
+    assert "'pwconv': 22" in out

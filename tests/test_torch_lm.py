@@ -629,12 +629,12 @@ def test_configs_match_reference(smoke):
     assert t.n_params() == j.n_params()
     assert t.torch_dtype == (torch.bfloat16 if j.jax_dtype == jnp.bfloat16
                              else torch.float32)
-    assert registry.list_archs() == ["xlstm-125m"]
+    assert registry.list_archs() == ["xlstm-125m", "hymba-1.5b"]
     with pytest.raises(KeyError):
-        registry.get_config("hymba-1.5b")
+        registry.get_config("qwen3-1.7b")
 
 
-@pytest.mark.parametrize("arch", ("hymba-1.5b", "smollm-360m"))
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "smollm-360m"))
 def test_unported_architectures_raise(arch):
     j = jregistry.get_config(arch, smoke=True)
     fields = {f.name for f in dataclasses.fields(tbase.ModelConfig)}
@@ -647,11 +647,14 @@ def test_unported_architectures_raise(arch):
 
 
 def test_expected_launches_at_full_width():
-    cfg = registry.get_config("xlstm-125m")
-    assert tserve.expected_launches(cfg, "prefill") == {"dwconv1d": 12,
-                                                        "pwconv": 60}
-    assert tserve.expected_launches(cfg, "decode") == {"dwconv1d": 0,
-                                                       "pwconv": 60}
+    for arch, prefill, decode in (
+            ("xlstm-125m", {"dwconv1d": 12, "pwconv": 60},
+             {"dwconv1d": 0, "pwconv": 60}),
+            ("hymba-1.5b", {"dwconv1d": 32, "pwconv": 352},
+             {"dwconv1d": 0, "pwconv": 352})):
+        cfg = registry.get_config(arch)
+        assert tserve.expected_launches(cfg, "prefill") == prefill
+        assert tserve.expected_launches(cfg, "decode") == decode
 
 
 def test_sample_temperature_zero_is_greedy_and_top_k_masks():
