@@ -42,7 +42,21 @@ From the root of a checkout it:
    ``separable_fused`` launch, the CTA count and cluster of each
    ``fused_mbconv`` launch and the CTAs a pass of each ``dw_se`` launch,
    and clears the network cache;
-5. drives the serving path, xlstm-125m at full width on random weights
+5. drives the tuning path, the measured autotuner (``tune_network``), on
+   the same four bodies at 112x112, batch 1 and 8, fp32 and bf16, default
+   plan, each into a fresh tune cache under ``build/`` (never the user's):
+   it counts the tune's launches (the five kernels of the default plans
+   must each be launched), checks that a second ``tune_network`` on the
+   file loaded again is a hit that measures and launches nothing, holds
+   every chain plan the tuner measured, on its block's input, against the
+   block's plain version, then runs ``execute_network`` at the tuned plan
+   and at the analytic one in turns (the tuned first call captures two
+   forwards and measures nothing; its output has the tuned eager runner's
+   bits and is held against the fp32 plain path) and prints each run's
+   plans measured, tune seconds, the segments whose plan changed and in
+   which fields, the blocks' measured winners against their analytic
+   plans, and both paths' graph ms and device ms;
+6. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy decode steps, in fp32 and bf16, through the captured prefill
    and decode step (``capture_prefill``, ``capture_decode_step``) and
@@ -58,13 +72,13 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-6. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
+7. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
    random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
    tokens (1664 positions with the 128 meta tokens: blockwise attention,
    a sliding window that excludes keys, the 1152-slot ring cache), then 32
    greedy decode steps, fp32 and bf16, through the captured prefill and
    decode step and the eager ones (32 ``dwconv1d`` + 352 ``pwconv`` a
-   prefill, 0 + 352 a decode step, counted as in 5, and ``pwconv``'s
+   prefill, 0 + 352 a decode step, counted as in 6, and ``pwconv``'s
    launches by variant equal to each Linear's ``blocking.pw_variant``);
    the graph path's logits and caches bit for bit the eager path's, each
    call within FP32_REL_TOL (fp32) or BF16_REL_TOL (bf16) of the plain
@@ -74,7 +88,7 @@ From the root of a checkout it:
    attention core, selective scan and Linears at batch 8.  It runs in a
    process of its own (the script with ``--hymba-only``), whose profiler
    has taken no trace before;
-7. prints the kernels it launched, one JSON line of per-kernel numbers
+8. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
@@ -628,6 +642,197 @@ def check_variants(label, got, total, dtype, phase=None):
     if bad:
         raise AssertionError(f"{label} {phase or ''}: pwconv by variant "
                              f"{got}")
+
+
+#: The kernels the four bodies' default plans launch, which the tuning
+#: phase must launch (``dwconv2d`` runs only the ``fused=False`` plans).
+TUNED_KERNELS = ("separable_fused2", "separable_fused3", "fused_mbconv",
+                 "dw_se", "pwconv")
+#: The tuning phase's input resolution (the body input of a 224 image).
+TUNE_RES = 112
+
+
+def _plan_changes(analytic, tuned):
+    """``block.segment (kind): field old->new, ...`` for every segment whose
+    tuned plan differs from the analytic one."""
+    import dataclasses
+    out = []
+    for bi, (a, t) in enumerate(zip(analytic.plans, tuned.plans)):
+        for si, (sa, st) in enumerate(zip(a.segments, t.segments)):
+            diff = [f"{f.name} {getattr(sa.plan, f.name)}->"
+                    f"{getattr(st.plan, f.name)}"
+                    for f in dataclasses.fields(sa.plan)
+                    if getattr(sa.plan, f.name) != getattr(st.plan, f.name)]
+            if diff:
+                out.append(f"{bi}.{si} ({sa.kind}): {', '.join(diff)}")
+    return out
+
+
+def run_tuning(torch, dev):
+    """The measured autotuner on the four bodies at 112x112, batch 1 and 8,
+    fp32 and bf16, default plan, each into a fresh tune cache in a
+    temporary directory under ``build/``: ``tune_network`` (its launches
+    counted: this path's own window), then a second ``tune_network`` on the
+    file loaded again, which must be a cache hit that measures nothing and
+    launches nothing; every chain plan the tuner measured runs once more on
+    its block's input and is held against the block's plain version
+    (KERNEL_TOL); then ``execute_network`` at the tuned plan
+    (``autotune=True``) and at the analytic one, in turns (tuned,
+    analytic, analytic, tuned, tuned, analytic): the first tuned call must
+    capture exactly two forwards (no measurement), the tuned graph's output
+    must be the tuned eager runner's bits and within FP32_REL_TOL /
+    BF16_REL_TOL of the fp32 plain path; each path's graph ms (CUDA
+    events, median of 10, three readings) and the device ms of a profiled
+    replay.  Returns the runs and the launches of the tunes by kernel."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch import graphs
+    from repro_torch.core import network
+    from repro_torch.kernels import lowering
+    from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
+    from repro_torch.measure import device_profile, rel_err, time_ms
+    from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
+                                                 expected_launches)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_",
+                           dir=os.path.join(HERE, "build"))
+    launched = dict.fromkeys(KERNEL_SEGMENTS, 0)
+    runs = []
+
+    def one(arch, batch, dtype):
+        net = ARCHS[arch](1.0)
+        label = f"{arch} {TUNE_RES}x{TUNE_RES} batch {batch} {dtype}"
+        bf16 = dtype == "bf16"
+        params32 = network.init_network(net, seed=0, device=dev)
+        params = (network.cast_network_params(params32, torch.bfloat16)
+                  if bf16 else params32)
+        x = torch.randn((batch, TUNE_RES, TUNE_RES, net.c_in),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        pol = KernelPolicy(dtype_policy=BF16_STREAM if bf16 else NATIVE,
+                           autotune=True, tune_cache=os.path.join(
+                               tmp, f"{arch}_{batch}_{dtype}.json"))
+        analytic = dataclasses.replace(pol, autotune=False, tune_cache=None)
+        # the tune, counted
+        graphs.reset()
+        t0 = time.perf_counter()
+        r = network.tune_network(net, params, x, policy=pol)
+        torch.cuda.synchronize(dev)
+        tune_s = time.perf_counter() - t0
+        counts = graphs.snapshot()
+        for k in launched:
+            launched[k] += counts[k]
+        if r.cache_hit or not r.n_measured:
+            raise AssertionError(f"{label}: the first tune into a fresh "
+                                 f"cache was a hit ({r.n_measured} measured)")
+        # the replay, on the file loaded again
+        graphs.reset()
+        r2 = network.tune_network(net, params, x, policy=pol)
+        moved = {k: n for k, n in graphs.snapshot().items() if n}
+        if not r2.cache_hit or r2.n_measured or moved or r2.plan != r.plan:
+            raise AssertionError(
+                f"{label}: the second tune_network was not a hit that "
+                f"measured nothing (hit {r2.cache_hit}, {r2.n_measured} "
+                f"measured, launches {moved}, same plan "
+                f"{r2.plan == r.plan})")
+        # every measured chain plan on its block against the plain version
+        policies = network.resolve_block_policies(net, pol)
+        by_block = {}
+        for bi, cp, _ in r.measured:
+            by_block.setdefault(bi, []).append(cp)
+        tol = KERNEL_TOL["bfloat16" if bf16 else "float32"]
+        worst, checked = 0.0, 0
+        y = x
+        with torch.inference_mode():
+            for bi, (spec, p, bpol) in enumerate(zip(net.blocks, params,
+                                                     policies)):
+                want = lowering.lower(spec, r.plan.plans[bi],
+                                      dataclasses.replace(bpol, impl="torch",
+                                                          autotune=False)
+                                      )(p, y)
+                for cp in by_block.get(bi, ()):
+                    err = rel_err(lowering.lower(spec, cp, bpol)(p, y), want)
+                    checked += 1
+                    worst = max(worst, err)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{label} block {bi}: measured plan {cp} is "
+                            f"{err:.2e} from the plain version (tol {tol})")
+                y = lowering.lower(spec, r.plan.plans[bi], bpol)(p, y)
+        # the tuned and the analytic graph path, in turns
+        network.clear_network_cache()
+        nplan = network.plan_network(net, x.shape, dtype=x.dtype,
+                                     policy=analytic, device=dev)
+        want = {k: 2 * n for k, n in expected_launches(
+            r.plan.segment_histogram()).items()}
+        graphs.reset()
+        y_tuned, _ = network.execute_network_graph(net, params, x,
+                                                   policy=pol)
+        counts = {k: graphs.snapshot()[k] for k in KERNEL_SEGMENTS}
+        if counts != want:
+            raise AssertionError(f"{label}: the tuned graph's first call "
+                                 f"launched {counts}, not two forwards' "
+                                 f"{want}")
+        with torch.inference_mode():
+            y_eager = network.build_network_fn(net, r.plan, pol)(params, x)
+            plain = KernelPolicy(impl="torch")
+            ref = network.build_network_fn(
+                net, network.plan_network(net, x.shape, policy=plain),
+                plain)(params32, x)
+        forward = {name: (lambda q=q: network.execute_network(
+            net, params, x, policy=q)) for name, q in (("tuned", pol),
+                                                       ("analytic", analytic))}
+        ms = {"tuned": [], "analytic": []}
+        for name in ("tuned", "analytic", "analytic", "tuned", "tuned",
+                     "analytic"):
+            ms[name].append(time_ms(forward[name], dev))
+        device_ms = {name: sum(device_profile(fn, reps=2)[0].values())
+                     for name, fn in forward.items()}
+        err = rel_err(y_tuned, ref)
+        rel_tol = BF16_REL_TOL if bf16 else FP32_REL_TOL
+        network.clear_network_cache()
+        changes = _plan_changes(nplan, r.plan)
+        run = {"arch": arch, "batch": batch, "dtype": dtype,
+               "n_measured": r.n_measured, "tune_s": tune_s,
+               "measured_us": r.measured_us, "analytic_us": r.analytic_us,
+               "candidates_checked": checked, "candidate_worst_rel": worst,
+               "graph_ms": ms, "device_ms": device_ms,
+               "graph_equals_eager": bool(torch.equal(y_tuned, y_eager)),
+               "rel_err": err, "changes": changes}
+        print(f"  {label}: {r.n_measured} plans measured in {tune_s:.1f} s; "
+              f"sum of block winners {r.measured_us:.1f} us against "
+              f"analytic {r.analytic_us:.1f} us; {checked} measured plans "
+              f"within {worst:.2e} of the plain version; graph ms tuned "
+              f"{'/'.join(f'{v:.4f}' for v in ms['tuned'])}, analytic "
+              f"{'/'.join(f'{v:.4f}' for v in ms['analytic'])}; device ms "
+              f"tuned {device_ms['tuned']:.4f}, analytic "
+              f"{device_ms['analytic']:.4f}; rel err {err:.2e} (tol "
+              f"{rel_tol:g}); {len(changes)} segments changed plan",
+              flush=True)
+        for c in changes:
+            print(f"    {c}", flush=True)
+        if not run["graph_equals_eager"]:
+            raise AssertionError(f"{label}: the tuned graph's output is not "
+                                 "the tuned eager runner's")
+        if not (bool(torch.isfinite(y_tuned.float()).all())
+                and tuple(y_tuned.shape) == r.plan.out_shape
+                and err <= rel_tol):
+            raise AssertionError(f"{label}: tuned rel err {err} > {rel_tol} "
+                                 "or bad output")
+        runs.append(run)
+
+    try:
+        for arch in ARCHS:
+            for batch in (1, 8):
+                for dtype in ("fp32", "bf16"):
+                    one(arch, batch, dtype)
+    finally:
+        shutil.rmtree(tmp)
+    for k in TUNED_KERNELS:
+        if not launched[k]:
+            raise AssertionError(f"kernel {k} was launched no time by the "
+                                 f"tunes: {launched}")
+    return runs, launched
 
 
 def run_serving(torch, dev):
@@ -1348,7 +1553,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.hymba_only:
-        # phase 6 in a process of its own (see run_hymba_phase)
+        # phase 7 in a process of its own (see run_hymba_phase)
         with open(args.hymba_only, "w") as fh:
             json.dump(run_hymba(torch, dev), fh)
         return 0
@@ -1445,6 +1650,13 @@ def main() -> int:
     runs, launches, replayed, variants = run_networks(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
     t_phase = time.perf_counter()
+    print("tuning path: tune_network on V1/V2/MnasNet-A1/Lite0 at 112x112, "
+          "default plan, then the tuned against the analytic graph path:")
+    tuning, tune_launches = run_tuning(torch, dev)
+    tuning_s = time.perf_counter() - t_phase
+    print(f"  launches of the tunes: {tune_launches}")
+    print(f"  ({tuning_s:.0f} s)")
+    t_phase = time.perf_counter()
     print("serving path: xlstm-125m at full width, prefill + greedy decode:")
     serving, serve_launches, serve_replayed, stepping, serve_variants = \
         run_serving(torch, dev)
@@ -1489,7 +1701,9 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump({"card": card, "kernel_checks": kc.results,
-                       "networks": runs, "serving": serving,
+                       "networks": runs, "tuning": tuning,
+                       "tuning_launches": tune_launches,
+                       "tuning_seconds": tuning_s, "serving": serving,
                        "prefill_vs_stepping": stepping, "hymba": hymba,
                        "hymba_prefill_vs_stepping": hymba_stepping,
                        "hymba_layer_breakdown": hymba_breakdowns,

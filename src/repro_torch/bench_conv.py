@@ -35,11 +35,12 @@ the residual add; ``F.conv2d``, relu, mean, two ``addmm``, sigmoid and the
 scale), and the kernel's largest error relative to the plain version.
 
 ``--tune`` times, at each of those shapes (``fused_mbconv`` also at batch 1
-for all four blocks), fp32 and bf16, the planner's plan and the plans
-around it (``fused_mbconv``: each slab height, cluster and chunk of the
-full-width tiles; ``dwconv2d`` and ``dw_se``: tiles of other rows, columns
-and channel groups), graph-timed, one JSON line per shape: the planner's ms and its plan, and
-every candidate's, fastest first.
+for all four blocks), fp32 and bf16, every plan of the planner's own
+search (``blocking.fused_mb_ladder``: each slab height, cluster and panel
+of the full-width tiles; ``dwconv2d_ladder`` and ``dw_se_ladder``: tiles of
+other rows, columns and channel groups; the ladders the autotuner draws
+its candidates from), graph-timed, one JSON line per shape: the planner's
+ms and its plan, and every candidate's, fastest first.
 """
 from __future__ import annotations
 
@@ -187,27 +188,16 @@ class Case:
 
 
 def candidates(case):
-    """The planner's plan and the plans around it, as keyword blocks."""
-    import torch  # noqa: F401
+    """The planner's plan and every plan of its search (the ladder of
+    ``blocking.fused_mb_ladder``, ``dw_se_ladder`` or ``dwconv2d_ladder``,
+    which the autotuner also measures), as keyword blocks."""
     from repro_torch.kernels import blocking
     dt = case.dtype
     if case.kernel == "fused_mbconv":
         b, h, w, ci, c, co, s, _ = case.shape
         ho, wo = -(-h // s), -(-w // s)
-        planned = blocking.plan_fused_mb(ho, wo, ci, c, co, stride=s,
-                                         dtype=dt, batch=b)
-        out = {}
-        top = min(ho, max(1, blocking.SEP_MAX_PIXELS // wo))
-        for sh in {-(-ho // -(-ho // h)) for h in blocking._halvings(top)}:
-            for n in (1, 2, 4, 8):
-                cs = blocking.separable_slice(c, n)
-                for min_cb in sorted({cs, max(8, cs // 2)}):
-                    q = blocking.fused_mb_plan_at(
-                        ho, wo, ci, c, co, slab_h=sh, cluster=n,
-                        panel=planned.block_co, stride=s, dtype=dt,
-                        batch=b, min_cb=min(min_cb, cs))
-                    if q is not None:
-                        out[(q.slab_h, q.cluster, q.block_c)] = q
+        ladder = blocking.fused_mb_ladder(ho, wo, ci, c, co, stride=s,
+                                          dtype=dt, batch=b)
         blocks = lambda p: dict(slab_h=p.slab_h, tile_w=p.tile_w,  # noqa: E731
                                 block_c=p.block_c, block_co=p.block_co,
                                 cluster=p.cluster)
@@ -218,38 +208,20 @@ def candidates(case):
         if case.kernel == "dw_se":
             b, h, w, c, c_se, s, k = case.shape
             ho, wo = -(-h // s), -(-w // s)
-            planned = blocking.plan_dw_se_tile(ho, wo, c, c_se, k, k,
-                                               stride=s, dtype=dt, batch=b)
+            ladder = blocking.dw_se_ladder(ho, wo, c, c_se, k, k, stride=s,
+                                           dtype=dt, batch=b)
         else:
             b, h, w, c, s, k = case.shape
             ho, wo = -(-h // s), -(-w // s)
-            planned = blocking.plan_dwconv2d(0, 0, ho, wo, c, k, k,
-                                             stride=s, dtype=dt)
-        out = {}
-        vec = planned.block_g
-        heights = {1, 2, 4, 6, 8, 12, 16, 24, 32, planned.slab_h}
-        if case.kernel == "dw_se":  # and every balanced height
-            heights |= {-(-ho // n) for n in range(1, ho + 1)}
-        for nv in blocking._halvings(max(1, planned.block_c // vec) * 2):
-            for tw in (4, 8, 12, 16):
-                for th in sorted(heights):
-                    if (nv * vec > -(-c // vec) * vec or th > ho
-                            or blocking.dw_threads(th, tw, nv * vec, vec)
-                            > blocking.DW_THREADS):
-                        continue
-                    smem = blocking.dwconv2d_smem_bytes(th, tw, nv * vec, k,
-                                                        k, s, dt)
-                    if smem <= blocking.DW_TILE_SMEM:
-                        out[(th, tw, nv * vec)] = (th, tw, nv * vec, smem)
-        planned = (planned.slab_h, planned.tile_w, planned.block_c,
-                   planned.smem_bytes)
-        blocks = lambda p: dict(slab_h=p[0], tile_w=p[1],  # noqa: E731
-                                block_c=p[2])
-        fields = lambda p: {"slab_h": p[0], "tile_w": p[1],  # noqa: E731
-                            "block_c": p[2], "smem": p[3],
-                            "ctas": b * -(-ho // p[0]) * -(-wo // p[1])
-                            * -(-c // p[2])}
-    return planned, out, blocks, fields
+            ladder = blocking.dwconv2d_ladder(ho, wo, c, k, k, stride=s,
+                                              dtype=dt)
+        blocks = lambda p: dict(slab_h=p.slab_h, tile_w=p.tile_w,  # noqa: E731
+                                block_c=p.block_c)
+        fields = lambda p: {"slab_h": p.slab_h, "tile_w": p.tile_w,  # noqa: E731
+                            "block_c": p.block_c, "smem": p.smem_bytes,
+                            "ctas": b * -(-ho // p.slab_h)
+                            * -(-wo // p.tile_w) * -(-c // p.block_c)}
+    return ladder[0], ladder[1:], blocks, fields
 
 
 def tune(kernel, reps) -> int:
@@ -262,7 +234,7 @@ def tune(kernel, reps) -> int:
             case = Case(kernel, shape, dtype, True)
             planned, cands, blocks, fields = candidates(case)
             rows = []
-            for q in cands.values():
+            for q in cands:
                 ms = _graph_ms(lambda: case.call(**blocks(q)), reps, 10)
                 rows.append({**fields(q), "ms": ms})
             rows.sort(key=lambda r: r["ms"])

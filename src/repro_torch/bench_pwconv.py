@@ -29,7 +29,8 @@ and its largest error relative to the plain version.
 
 ``--tune`` instead sweeps what ``blocking.plan_pwconv`` decides for this
 checkout, CUDA-graph timed: the ``stream`` variant's Co slice and split-K
-cluster at the decode shapes (L2 warm and cold), and ``stream`` forced
+cluster at the decode shapes (L2 warm and cold; the ``stream`` plans of
+``blocking.pwconv_ladder``, which the autotuner draws from), and ``stream`` forced
 against the wide variant (``simt`` in fp32, ``tc`` in bf16) at G from 8 to
 96, which set ``blocking.PW_STREAM_MAX_G``.
 """
@@ -117,28 +118,22 @@ def tune(torch, pwconv, card, rand) -> None:
             n = max(6, -(-COLD_BYTES // (w.numel() * w.element_size())))
             copies = [w] + [w.clone() for _ in range(n - 1)]
             plan = blocking.plan_pwconv(g, ci, co, dtype=dtype)
-            vec = blocking.pw_vector(co, dtype)
-            for bco in (32, 64, 128, 256):
-                for cluster in (1, 2, 4, 8):
-                    bci = -(-ci // cluster)
-                    if blocking.pwconv_tile_error(
-                            "stream", plan.block_g, bco, bci, ci=ci,
-                            vector=vec):
-                        continue
-                    kw = dict(variant="stream", block_co=bco, block_ci=bci)
-                    turn = iter(range(10 ** 9))
-                    print(json.dumps({
-                        "card": card, "tune": "stream",
-                        "dtype": str(dtype).replace("torch.", ""),
-                        "shape": [g, ci, co], "block_co": bco,
-                        "cluster": cluster,
-                        "planned": [plan.block_co, plan.cluster] == [
-                            bco, cluster],
-                        "ms": _graph_ms(
-                            torch, lambda: pwconv.pwconv(x, w, **kw), 20),
-                        "cold_ms": _graph_ms(torch, lambda: pwconv.pwconv(
-                            x, copies[next(turn) % n], **kw), n)}),
-                        flush=True)
+            for q in blocking.pwconv_ladder(g, ci, co, dtype=dtype):
+                if q.variant != "stream":
+                    continue
+                kw = dict(variant="stream", block_g=q.block_g,
+                          block_co=q.block_co, block_ci=q.block_c)
+                turn = iter(range(10 ** 9))
+                print(json.dumps({
+                    "card": card, "tune": "stream",
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "shape": [g, ci, co], "block_co": q.block_co,
+                    "cluster": q.cluster, "planned": q == plan,
+                    "ms": _graph_ms(
+                        torch, lambda: pwconv.pwconv(x, w, **kw), 20),
+                    "cold_ms": _graph_ms(torch, lambda: pwconv.pwconv(
+                        x, copies[next(turn) % n], **kw), n)}),
+                    flush=True)
             del copies
         for ci, co in TUNE_WIDE:
             wide = blocking.pw_variant(10 ** 6, ci, co, dtype)

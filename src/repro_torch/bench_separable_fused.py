@@ -26,10 +26,12 @@ relu6, matmul + bias, activation, residual add), and the kernel's largest
 error relative to the plain version.
 
 ``--tune`` times, for every fused block of the four CNN bodies at 112x112
-(batch 1 and 8, or ``--batch``), fp32 and bf16, the planner's plan and the
-plans at each slab height, cluster and Co panel around it (each with the
-largest chunk that fits), graph-timed, one JSON line per block: the
-planner's ms and its plan, and every candidate's, fastest first.
+(batch 1 and 8, or ``--batch``), fp32 and bf16, every plan of the
+planner's own search (``blocking.separable_fused_ladder``: each slab
+height, cluster and Co panel, each with the largest chunk that fits; the
+ladder the autotuner draws its candidates from), graph-timed, one JSON
+line per block: the planner's ms and its plan, and every candidate's,
+fastest first.  A candidate that fails to launch raises.
 """
 from __future__ import annotations
 
@@ -163,32 +165,15 @@ def tune(batches, reps) -> int:
                     else None, slab_h=p.slab_h, block_c=p.block_c,
                     block_co=p.block_co, cluster=p.cluster)
 
-            cands = {}
-            top = min(ho, max(1, blocking.SEP_MAX_PIXELS // wo))
-            for sh in blocking._halvings(top):
-                for n in (1, 2, 4, 8):
-                    p0 = blocking.separable_panel(sh * wo, co)
-                    for panel in sorted({p0, max(8, -(-p0 // 16) * 8)}):
-                        q = blocking.separable_plan_at(
-                            ho, wo, ci, c, co, slab_h=sh, cluster=n,
-                            panel=panel, min_cb=min(16, blocking.
-                                                    separable_slice(c, n)),
-                            **geo)
-                        if q is not None:
-                            cands[(q.slab_h, q.cluster, q.block_co,
-                                   q.block_c)] = q
             rows = []
-            for key_, q in cands.items():
-                try:
-                    ms = _graph_ms(run(q), reps, launches=10)
-                except RuntimeError as e:
-                    ms = None
-                    print(f"# {arch} {key_}: {e}", file=sys.stderr)
+            for q in blocking.separable_fused_ladder(ho, wo, ci, c, co,
+                                                     **geo)[1:]:
+                ms = _graph_ms(run(q), reps, launches=10)
                 rows.append({"slab_h": q.slab_h, "cluster": q.cluster,
                              "panel": q.block_co, "cb": q.block_c,
                              "ctas": q.ctas, "smem": q.smem_bytes,
                              "ms": ms})
-            rows.sort(key=lambda r: (r["ms"] is None, r["ms"] or 0.0))
+            rows.sort(key=lambda r: r["ms"])
             print(json.dumps({
                 "arch": arch, "dtype": str(dtype).replace("torch.", ""),
                 "shape": [b, ho, wo, ci, c, co, stride, k, residual],

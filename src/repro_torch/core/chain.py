@@ -13,8 +13,11 @@ fuse; ``kernels/lowering.lower`` maps that onto kernel passes;
                         device="cuda")
     y = execute(spec, params, x)        # x (B, H, W, 32) on the card
 
-The reference's plan-quarantine and autotune branches (``chain.py:332-339``)
-belong to the runtime and autotuner slices.
+With ``policy.autotune`` the measured autotuner (``kernels/autotune.py``)
+answers as in the reference (``chain.py:336-339``, ``:474-522``):
+:func:`plan` consults the tune cache, :func:`execute` tunes on its first
+call and replays the cached winner afterwards.  The reference's
+plan-quarantine branch belongs to the runtime slice.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import blocking, lowering
+from repro_torch.kernels import autotune, blocking, lowering
 from repro_torch.kernels.blocking import ChainPlan, ChainSegment
 from repro_torch.kernels.epilogue import ACTIVATIONS
 from repro_torch.kernels.policy import DEFAULT_POLICY, KernelPolicy
@@ -265,8 +268,14 @@ def _valid_window(s, ho: int, wo: int) -> Tuple[int, int]:
 
 def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
          dtype: torch.dtype = torch.float32,
-         policy: KernelPolicy = DEFAULT_POLICY) -> ChainPlan:
+         policy: KernelPolicy = DEFAULT_POLICY, device=None) -> ChainPlan:
     """Budget the chain at ``x_shape`` and decide which stages fuse.
+
+    With ``policy.autotune`` the persistent tune cache is consulted first:
+    a measured winner for this problem on ``device`` (the device the input
+    will be on; default the card where there is one) wins over the
+    analytic walk.  On a miss this still answers analytically:
+    measurement needs data, and happens in :func:`execute`.
 
     Greedy longest-run-first, in the reference's window order: at each
     position try the (bias-free PW-expand, DW, PW) window
@@ -277,6 +286,13 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
     stream dtype.  The residual folds into the final segment when that
     segment is fused, else it is a separate add.
     """
+    if policy.autotune:
+        analytic = plan(spec, x_shape, dtype=dtype,
+                        policy=dataclasses.replace(policy, autotune=False))
+        cached = autotune.lookup_cached_plan(spec, x_shape, dtype, policy,
+                                             base_plan=analytic,
+                                             device=device)
+        return analytic if cached is None else cached
     b, h, w, c = x_shape
     dtype = policy.dtype_policy.stream_dtype(dtype)
     stages = spec.stages
@@ -380,10 +396,28 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
 lower = lowering.lower
 
 
+def resolve_plan(spec: SeparableSpec, params: Sequence[dict],
+                 x: torch.Tensor, *, policy: KernelPolicy = DEFAULT_POLICY,
+                 chain_plan: Optional[ChainPlan] = None) -> ChainPlan:
+    """The plan :func:`execute` runs: the one supplied, else the measured
+    winner when ``policy.autotune`` (tuned on a cache miss), else the
+    analytic :func:`plan`."""
+    if chain_plan is not None:
+        return chain_plan
+    if policy.autotune:
+        base = plan(spec, x.shape, dtype=x.dtype,
+                    policy=dataclasses.replace(policy, autotune=False))
+        return autotune.autotune_chain(spec, params, x, policy=policy,
+                                       base_plan=base).plan
+    return plan(spec, x.shape, dtype=x.dtype, policy=policy)
+
+
 def execute(spec: SeparableSpec, params: Sequence[dict], x: torch.Tensor, *,
             policy: KernelPolicy = DEFAULT_POLICY,
             chain_plan: Optional[ChainPlan] = None) -> torch.Tensor:
-    """Run the chain: plan (unless given), lower, execute.  A kernel
-    failure raises."""
-    cp = chain_plan or plan(spec, x.shape, dtype=x.dtype, policy=policy)
+    """Run the chain: resolve the plan (:func:`resolve_plan`: with
+    ``policy.autotune`` the first call for a problem measures the
+    candidates and persists the winner, later calls and processes replay
+    it), lower, execute.  A kernel failure raises."""
+    cp = resolve_plan(spec, params, x, policy=policy, chain_plan=chain_plan)
     return lower(spec, cp, policy)(params, x)

@@ -19,6 +19,11 @@ MnasNet-A1 and EfficientNet-Lite0 bodies:
   failure raises: there is no runtime ladder here.
 * :class:`NetworkModule` — an ``nn.Module`` holding the parameters whose
   ``forward`` is :func:`execute_network`.
+* :func:`tune_network` — the measured autotuner over a whole body: each
+  block tuned on its real input (``kernels/autotune.py``), the assembled
+  plan persisted under :func:`network_key`.  With ``policy.autotune``,
+  :func:`plan_network` consults that entry and :func:`execute_network`
+  tunes on a memo miss before it captures its graph.
 
     net = mobilenet_v2_spec()
     params = init_network(net, seed=0)                # on the card
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -36,7 +42,7 @@ from torch import nn
 
 from repro_torch import graphs
 from repro_torch.core import chain
-from repro_torch.kernels import lowering
+from repro_torch.kernels import autotune, lowering
 from repro_torch.kernels.blocking import ChainPlan
 from repro_torch.kernels.policy import (DEFAULT_POLICY, DTYPES, DtypePolicy,
                                         KernelPolicy)
@@ -220,12 +226,14 @@ def cast_network_params(params, dtype: torch.dtype) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class NetworkPlan:
-    """Per-block ``ChainPlan``s and the shape/dtype walk they were planned
-    at."""
+    """Per-block ``ChainPlan``s, the shape/dtype walk they were planned at,
+    and the :func:`network_key` of the problem (the unit the network-level
+    tune-cache entry stores)."""
     plans: Tuple[ChainPlan, ...]
     block_shapes: Tuple[Tuple[int, int, int, int], ...]
     block_dtypes: Tuple[str, ...]
     out_shape: Tuple[int, int, int, int]
+    key: str
 
     @property
     def n_blocks(self) -> int:
@@ -291,23 +299,224 @@ def _block_problems(net: NetworkSpec, x_shape, dtype: torch.dtype,
     return problems, (b, h, w, c)
 
 
+def network_signature(net: NetworkSpec, x_shape, dtype: torch.dtype,
+                      policy: KernelPolicy, block_dtype_policies=None,
+                      device=None) -> dict:
+    """The whole-network identity a tuned NetworkPlan is valid for: the
+    per-block problem signatures (``autotune.problem_signature``) on
+    ``device``."""
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    problems, _ = _block_problems(net, x_shape, dtype, policies)
+    return {
+        "name": net.name,
+        "blocks": [
+            autotune.problem_signature(spec, shape, DTYPES[dt], pol, device)
+            for spec, (shape, dt), pol in zip(net.blocks, problems, policies)
+        ],
+    }
+
+
+def network_key(net: NetworkSpec, x_shape, dtype: torch.dtype,
+                policy: KernelPolicy, block_dtype_policies=None,
+                device=None) -> str:
+    return "net:" + autotune.signature_digest(network_signature(
+        net, x_shape, dtype, policy, block_dtype_policies, device))
+
+
 def plan_network(net: NetworkSpec, x_shape, *,
                  dtype: torch.dtype = torch.float32,
                  policy: KernelPolicy = DEFAULT_POLICY,
                  block_dtype_policies: Optional[Sequence[DtypePolicy]] = None,
-                 ) -> NetworkPlan:
-    """Resolve every block's ChainPlan once."""
+                 device=None) -> NetworkPlan:
+    """Resolve every block's ChainPlan once.
+
+    With ``policy.autotune`` the network-level tune-cache entry for this
+    problem on ``device`` (default the card where there is one) wins when
+    it is valid; otherwise each block's ``chain.plan`` answers, itself
+    consulting the per-block entries, so a partly tuned cache still helps.
+    Nothing is measured here: :func:`tune_network` does that."""
+    key = network_key(net, x_shape, dtype, policy, block_dtype_policies,
+                      device)
+    if policy.autotune:
+        found = _lookup_network_entry(net, key, x_shape, dtype, policy,
+                                      block_dtype_policies)
+        if found is not None:
+            return found[0]
     policies = resolve_block_policies(net, policy, block_dtype_policies)
     problems, out_shape = _block_problems(net, x_shape, dtype, policies)
     return NetworkPlan(
         plans=tuple(
-            chain.plan(spec, shape, dtype=DTYPES[dt], policy=pol)
+            chain.plan(spec, shape, dtype=DTYPES[dt], policy=pol,
+                       device=device)
             for spec, (shape, dt), pol in zip(net.blocks, problems,
                                               policies)),
         block_shapes=tuple(shape for shape, _ in problems),
         block_dtypes=tuple(dt for _, dt in problems),
         out_shape=out_shape,
+        key=key,
     )
+
+
+def _network_mismatch(net: NetworkSpec, nplan: NetworkPlan, x_shape,
+                      dtype: torch.dtype, policy: KernelPolicy,
+                      block_dtype_policies=None) -> Optional[str]:
+    """Why a replayed network entry is not one the tuner could have
+    written for this problem, or None: it must walk the network's shapes
+    and dtypes, and each block's plan must pass ``autotune.plan_mismatch``
+    against the block's analytic plan."""
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    problems, out_shape = _block_problems(net, x_shape, dtype, policies)
+    if (len(nplan.plans) != net.n_blocks
+            or nplan.block_shapes != tuple(sh for sh, _ in problems)
+            or nplan.block_dtypes != tuple(dt for _, dt in problems)
+            or nplan.out_shape != out_shape):
+        return "its shapes and dtypes are not the network's walk"
+    for i, (spec, cp, (shape, dt), pol) in enumerate(zip(
+            net.blocks, nplan.plans, problems, policies)):
+        base = chain.plan(spec, shape, dtype=DTYPES[dt],
+                          policy=dataclasses.replace(pol, autotune=False))
+        why = autotune.plan_mismatch(
+            spec, cp, shape, base, pol.dtype_policy.stream_dtype(DTYPES[dt]))
+        if why is not None:
+            return f"block {i}: {why}"
+    return None
+
+
+def _serialize_network_plan(nplan: NetworkPlan) -> dict:
+    return {
+        "plans": [autotune.serialize_chain_plan(p) for p in nplan.plans],
+        "block_shapes": [list(s) for s in nplan.block_shapes],
+        "block_dtypes": list(nplan.block_dtypes),
+        "out_shape": list(nplan.out_shape),
+    }
+
+
+def _deserialize_network_plan(key: str, d: dict) -> NetworkPlan:
+    return NetworkPlan(
+        plans=tuple(autotune.deserialize_chain_plan(p) for p in d["plans"]),
+        block_shapes=tuple(tuple(int(v) for v in s)
+                           for s in d["block_shapes"]),
+        block_dtypes=tuple(str(v) for v in d["block_dtypes"]),
+        out_shape=tuple(int(v) for v in d["out_shape"]),
+        key=key,
+    )
+
+
+def _lookup_network_entry(net: NetworkSpec, key: str, x_shape,
+                          dtype: torch.dtype, policy: KernelPolicy,
+                          block_dtype_policies=None):
+    """(the valid NetworkPlan, its raw entry) stored under ``key``, or
+    None on a miss or an undecodable or stale entry."""
+    entry = autotune.TuneCache.load(autotune.cache_path(policy)).get(key)
+    if entry is None:
+        return None
+    try:
+        nplan = _deserialize_network_plan(key, entry["network_plan"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    why = _network_mismatch(net, nplan, x_shape, dtype, policy,
+                            block_dtype_policies)
+    if why is not None:
+        # a stale entry is a performance artifact: drop it and re-plan
+        warnings.warn(f"dropping network tune-cache entry {key} from "
+                      f"{autotune.cache_path(policy)}: {why}; re-planning "
+                      "(the entry is stale: delete the cache or re-tune)",
+                      stacklevel=3)
+        return None
+    return nplan, entry
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkTuneResult:
+    """What :func:`tune_network` answered: the plan, whether the network
+    entry replayed (``n_measured == 0`` then), the sums over blocks of the
+    winners' and the analytic plans' measured microseconds (on a hit, as
+    recorded at tune time) and, on a miss, every chain plan measured as
+    ``(block, ChainPlan, seconds)``."""
+    plan: NetworkPlan
+    cache_hit: bool
+    n_measured: int
+    key: str
+    cache_path: str
+    measured_us: float
+    analytic_us: float
+    measured: tuple = ()
+
+
+def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
+                 policy: KernelPolicy,
+                 block_dtype_policies: Optional[Sequence[DtypePolicy]] = None,
+                 warmup: int = 1, repeats: int = 5) -> NetworkTuneResult:
+    """Measured whole-network plan: tune each block
+    (``autotune.autotune_chain``) on its real input, produced by running the
+    blocks before it at their tuned plans, then persist the assembled plan
+    under :func:`network_key`.
+
+    A valid network entry replays with ZERO measurements and no launch;
+    per-block entries (from another network that shares a block) skip
+    measurement block by block.  A candidate failure raises and the
+    network entry is not written; so does a miss inside a CUDA-graph
+    capture."""
+    path = autotune.cache_path(policy)
+    key = network_key(net, x.shape, x.dtype, policy, block_dtype_policies,
+                      x.device)
+    found = _lookup_network_entry(net, key, x.shape, x.dtype, policy,
+                                  block_dtype_policies)
+    if found is not None:
+        nplan, entry = found
+        return NetworkTuneResult(
+            plan=nplan, cache_hit=True, n_measured=0, key=key,
+            cache_path=path,
+            measured_us=float(entry.get("measured_us", 0.0)),
+            analytic_us=float(entry.get("analytic_us", 0.0)))
+    if autotune.capturing():
+        raise RuntimeError(f"tune_network: tune-cache miss for {key} inside "
+                           "a CUDA-graph capture (tune before capturing)")
+    if len(params) != net.n_blocks:
+        raise ValueError(f"{len(params)} param blocks for {net.n_blocks} "
+                         "blocks")
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    problems, out_shape = _block_problems(net, x.shape, x.dtype, policies)
+    plans, measured = [], []
+    n_measured, measured_us, analytic_us = 0, 0.0, 0.0
+    y = x
+    with torch.inference_mode():
+        for i, (spec, p, pol) in enumerate(zip(net.blocks, params,
+                                               policies)):
+            base = chain.plan(spec, y.shape, dtype=y.dtype,
+                              policy=dataclasses.replace(pol,
+                                                         autotune=False))
+            r = autotune.autotune_chain(spec, p, y, policy=pol,
+                                        base_plan=base, warmup=warmup,
+                                        repeats=repeats)
+            plans.append(r.plan)
+            n_measured += r.n_measured
+            measured_us += r.measured_us
+            analytic_us += r.analytic_us
+            measured.extend((i, cp, t) for cp, t in r.measured)
+            y = lowering.lower(spec, r.plan, pol)(p, y)
+    nplan = NetworkPlan(
+        plans=tuple(plans),
+        block_shapes=tuple(shape for shape, _ in problems),
+        block_dtypes=tuple(dt for _, dt in problems),
+        out_shape=out_shape,
+        key=key,
+    )
+    cache = autotune.TuneCache.load(path)
+    cache.put(key, {
+        "signature": network_signature(net, x.shape, x.dtype, policy,
+                                       block_dtype_policies, x.device),
+        "network_plan": _serialize_network_plan(nplan),
+        "n_measured": n_measured,
+        "measured_us": measured_us,
+        "analytic_us": analytic_us,
+    })
+    cache.save()
+    return NetworkTuneResult(plan=nplan, cache_hit=False,
+                             n_measured=n_measured, key=key, cache_path=path,
+                             measured_us=measured_us,
+                             analytic_us=analytic_us,
+                             measured=tuple(measured))
 
 
 def build_network_fn(net: NetworkSpec, nplan: NetworkPlan,
@@ -372,7 +581,11 @@ def execute_network(net: NetworkSpec, params, x: torch.Tensor, *,
     """Run the whole body.  The first call for a given (net, input shape,
     dtype, policy, device, parameter tensors) plans and builds the eager
     runner (:func:`build_network_fn`); later calls reuse them.  The backend
-    follows ``x``'s device (``policy.impl="auto"``).
+    follows ``x``'s device (``policy.impl="auto"``).  With
+    ``policy.autotune`` the first call's plan comes from
+    :func:`tune_network` (which replays the tune cache when it can), before
+    any graph is captured; inside an outer capture it comes from
+    :func:`plan_network`, which never measures.
 
     On a CUDA tensor the forward is one CUDA graph, the counterpart of the
     reference's one jitted call: the first call captures the eager runner
@@ -402,16 +615,24 @@ def execute_network_graph(net: NetworkSpec, params, x: torch.Tensor, *,
     key = _memo_key(net, params, x, policy, network_plan,
                     block_dtype_policies)
     memo = _NETWORK_CACHE.get(key)
+    capturing = (x.device.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
     if memo is None:
-        nplan = network_plan or plan_network(
-            net, x.shape, dtype=x.dtype, policy=policy,
-            block_dtype_policies=block_dtype_policies)
+        nplan = network_plan
+        if nplan is None and policy.autotune and not capturing:
+            nplan = tune_network(
+                net, params, x, policy=policy,
+                block_dtype_policies=block_dtype_policies).plan
+        elif nplan is None:
+            nplan = plan_network(
+                net, x.shape, dtype=x.dtype, policy=policy,
+                block_dtype_policies=block_dtype_policies, device=x.device)
         memo = _Memo(nplan, build_network_fn(net, nplan, policy,
                                              block_dtype_policies),
                      tuple(v for block in params for p in block
                            for v in p.values()))
     with torch.inference_mode():
-        if x.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        if x.device.type != "cuda" or capturing:
             _NETWORK_CACHE[key] = memo
             return memo.run(params, x), None
         if memo.graph is None:

@@ -205,7 +205,6 @@ def dw_threads(tile_h: int, tile_w: int, cg: int, vec: int) -> int:
     return cg // vec * tile_h * -(-tile_w // DW_RUN)
 
 
-@functools.lru_cache(maxsize=4096)
 def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
                   hf: int = 3, wf: int = 3, *, stride: int = 1,
                   dtype: torch.dtype = torch.float32,
@@ -232,12 +231,24 @@ def plan_dwconv2d(hi: int, wi: int, ho: int, wo: int, c: int,
     lies outside it.  Nor does a chain's shared-memory budget (which it
     may shrink to force the fused kernels to degrade): ``dwconv2d`` is what
     they degrade to."""
-    found = _dw_tile_search(ho, wo, c, hf, wf, stride, dtype, aligned,
-                            DW_TILE_SMEM)
-    if found is None:
+    ladder = dwconv2d_ladder(ho, wo, c, hf, wf, stride=stride, dtype=dtype,
+                             aligned=aligned)
+    if not ladder:
         raise ValueError(f"no dwconv2d tile of a {hf}x{wf} filter fits "
                          f"{DW_TILE_SMEM} B of shared memory")
-    return _dw_plan(ho, wo, c, hf, stride, dtype, *found)
+    return ladder[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def dwconv2d_ladder(ho: int, wo: int, c: int, hf: int = 3, wf: int = 3, *,
+                    stride: int = 1, dtype: torch.dtype = torch.float32,
+                    aligned: bool = True) -> tuple:
+    """Every tile of :func:`plan_dwconv2d`'s search, as plans, in its
+    preference order (its plan first).  The autotuner's ``dw`` ladder and
+    ``bench_conv.py --kernel dwconv2d --tune``'s candidates."""
+    return tuple(_dw_plan(ho, wo, c, hf, stride, dtype, *t) for t in
+                 _dw_tiles(ho, wo, c, hf, wf, stride, dtype, aligned,
+                           DW_TILE_SMEM))
 
 
 def _dw_key(t: dict) -> tuple:
@@ -246,13 +257,14 @@ def _dw_key(t: dict) -> tuple:
             -t["busy"], t["halo"])
 
 
-def _dw_tile_search(ho: int, wo: int, c: int, hf: int, wf: int, stride: int,
-                    dtype: torch.dtype, aligned: bool, limit: int,
-                    batch: int = 1, key=_dw_key, max_tile_w: int = 0):
+@functools.lru_cache(maxsize=4096)
+def _dw_tiles(ho: int, wo: int, c: int, hf: int, wf: int, stride: int,
+              dtype: torch.dtype, aligned: bool, limit: int, batch: int = 1,
+              key=_dw_key, max_tile_w: int = 0) -> tuple:
     """The tile search of :func:`plan_dwconv2d` and :func:`plan_dw_se_tile`:
-    ``(vec, nv, tile_w, tile_h, smem)`` of the tile whose ``key`` is least
-    among those whose shared memory fits ``limit``, or None.  ``key`` sees
-    each tile's ``nv``, ``cg`` (its channels), ``threads``, ``busy``
+    ``(vec, nv, tile_w, tile_h, smem)`` of every tile whose shared memory
+    fits ``limit``, least ``key`` first (ties in search order).  ``key``
+    sees each tile's ``nv``, ``cg`` (its channels), ``threads``, ``busy``
     (threads with work), ``used`` (channel lanes with work), ``halo``
     (staged input pixels per output), ``ctas`` (of ``batch`` images) and
     ``floor`` (:data:`SEP_MIN_CTAS`, or as many as the work allows).  Tiles
@@ -261,7 +273,7 @@ def _dw_tile_search(ho: int, wo: int, c: int, hf: int, wf: int, stride: int,
     vec = dw_vector(c, dtype, aligned)
     nvec = -(-c // vec)
     floor = min(SEP_MIN_CTAS, batch * ho * -(-wo // DW_RUN) * nvec)
-    best = None
+    ranked = []
     for nv in range(1, min(nvec, DW_MAX_VECS if vec > 1 else 32) + 1):
         used = nvec / (-(-nvec // nv) * nv)  # channel lanes that have work
         for tw in range(DW_RUN, (max_tile_w or min(_up(wo, DW_RUN),
@@ -281,9 +293,9 @@ def _dw_tile_search(ho: int, wo: int, c: int, hf: int, wf: int, stride: int,
                          "halo": halo, "floor": floor,
                          "ctas": batch * -(-ho // th) * -(-wo // tw)
                          * -(-nvec // nv)})
-                if best is None or k < best[0]:
-                    best = (k, (vec, nv, tw, th, smem))
-    return None if best is None else best[1]
+                ranked.append((k, (vec, nv, tw, th, smem)))
+    ranked.sort(key=lambda r: r[0])
+    return tuple(t for _, t in ranked)
 
 
 def _dw_plan(ho, wo, c, hf, stride, dtype, vec, nv, tw, th, smem,
@@ -394,7 +406,6 @@ def _halvings(n: int, floor: int = 1):
     return out
 
 
-@functools.lru_cache(maxsize=4096)
 def plan_separable_fused(ho: int, wo: int, ci: int, c: int, co: int, *,
                          stride: int = 1, hf: int = 3, wf: int = 3,
                          dtype: torch.dtype = torch.float32,
@@ -421,11 +432,29 @@ def plan_separable_fused(ho: int, wo: int, ci: int, c: int, co: int, *,
     --tune`` on the card (PERF.md).  ``hi x wi`` is the input the kernel
     reads (default: the VALID window of the output).
     """
+    ladder = separable_fused_ladder(
+        ho, wo, ci, c, co, stride=stride, hf=hf, wf=wf, dtype=dtype,
+        smem_budget=smem_budget, batch=batch, hi=hi, wi=wi)
+    return ladder[0] if ladder else None
+
+
+@functools.lru_cache(maxsize=4096)
+def separable_fused_ladder(ho: int, wo: int, ci: int, c: int, co: int, *,
+                           stride: int = 1, hf: int = 3, wf: int = 3,
+                           dtype: torch.dtype = torch.float32,
+                           smem_budget: int = DEFAULT_SMEM_BUDGET,
+                           batch: int = 1, hi: Optional[int] = None,
+                           wi: Optional[int] = None) -> tuple:
+    """Every plan of :func:`plan_separable_fused`'s search (slab height x
+    cluster x Co panel, each through :func:`separable_plan_at`), in its
+    preference order (its plan first, ties in search order).  The
+    autotuner's ``fused2`` / ``fused3`` ladder and
+    ``bench_separable_fused.py --tune``'s candidates."""
     hi = hi or (ho - 1) * stride + hf
     wi = wi or (wo - 1) * stride + wf
     most = batch * ho * SEP_MAX_CLUSTER  # one-row slabs, the largest cluster
     floor, target = min(SEP_MIN_CTAS, most), min(SMS, most)
-    best = None
+    ranked: dict = {}
     for sh in sorted({-(-ho // -(-ho // h)) for h in _halvings(
             max(1, min(ho, SEP_MAX_PIXELS // wo)))}, reverse=True):
         excess = False
@@ -439,14 +468,12 @@ def plan_separable_fused(ho: int, wo: int, ci: int, c: int, co: int, *,
                     ho, wo, ci, c, co, slab_h=sh, cluster=n, panel=panel,
                     stride=stride, hf=hf, wf=wf, dtype=dtype,
                     smem_budget=smem_budget, batch=batch, hi=hi, wi=wi)
-                if p is None:
-                    continue
-                key = (p.ctas < floor, excess, p.smem_bytes > SEP_TWO_CTAS,
-                       abs(math.log(p.ctas / target)),
-                       -(-p.block_g // p.block_c), -p.block_co)
-                if best is None or key < best[0]:
-                    best = (key, p)
-    return None if best is None else best[1]
+                if p is not None:
+                    ranked.setdefault(p, (
+                        p.ctas < floor, excess, p.smem_bytes > SEP_TWO_CTAS,
+                        abs(math.log(p.ctas / target)),
+                        -(-p.block_g // p.block_c), -p.block_co))
+    return tuple(sorted(ranked, key=ranked.__getitem__))
 
 
 def separable_panel(pixels: int, co: int) -> int:
@@ -592,7 +619,6 @@ def fused_mb_plan_at(ho: int, wo: int, ci: int, c: int, co: int, *,
     return None
 
 
-@functools.lru_cache(maxsize=4096)
 def plan_fused_mb(ho: int, wo: int, ci: int, c: int, co: int, *,
                   stride: int = 1, hf: int = 3, wf: int = 3,
                   dtype: torch.dtype = torch.float32,
@@ -623,11 +649,28 @@ def plan_fused_mb(ho: int, wo: int, ci: int, c: int, co: int, *,
     CTA an SM) gained from one large CTA, bf16's tensor-core tiles from
     two.  The residual streams from device memory into the epilogue and
     claims no shared memory."""
+    ladder = fused_mb_ladder(ho, wo, ci, c, co, stride=stride, hf=hf, wf=wf,
+                             dtype=dtype, smem_budget=smem_budget,
+                             batch=batch)
+    return ladder[0] if ladder else None
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_mb_ladder(ho: int, wo: int, ci: int, c: int, co: int, *,
+                    stride: int = 1, hf: int = 3, wf: int = 3,
+                    dtype: torch.dtype = torch.float32,
+                    smem_budget: int = DEFAULT_SMEM_BUDGET,
+                    batch: int = 1) -> tuple:
+    """Every plan of :func:`plan_fused_mb`'s search at its tile width (slab
+    height x cluster x Co panel, each through :func:`fused_mb_plan_at`), in
+    its preference order (its plan first, ties in search order).  The
+    autotuner's ``fusedmb`` ladder and ``bench_conv.py --kernel
+    fused_mbconv --tune``'s candidates."""
     most = batch * ho * wo * SEP_MAX_CLUSTER
     floor, target = min(SEP_MIN_CTAS, most), min(SMS, most)
     tc = dtype == torch.bfloat16
-    best = None
     for tw in _halvings(wo):
+        ranked: dict = {}
         for sh in sorted({-(-ho // -(-ho // h)) for h in _halvings(
                 max(1, min(ho, SEP_MAX_PIXELS // tw)))}, reverse=True):
             for n in (1, 2, 4, 8):
@@ -637,17 +680,16 @@ def plan_fused_mb(ho: int, wo: int, ci: int, c: int, co: int, *,
                         panel=panel, tile_w=tw, stride=stride, hf=hf,
                         wf=wf, dtype=dtype, smem_budget=smem_budget,
                         batch=batch)
-                    if p is None:
-                        continue
-                    key = (p.ctas < floor, -(-p.block_g // p.block_c),
-                           tc and p.smem_bytes > SEP_TWO_CTAS, p.cluster,
-                           abs(math.log(p.ctas / (target * (2 if tc else 1)))),
-                           -p.block_co)
-                    if best is None or key < best[0]:
-                        best = (key, p)
-        if best is not None:
-            return best[1]
-    return None
+                    if p is not None:
+                        ranked.setdefault(p, (
+                            p.ctas < floor, -(-p.block_g // p.block_c),
+                            tc and p.smem_bytes > SEP_TWO_CTAS, p.cluster,
+                            abs(math.log(p.ctas / (target * (2 if tc
+                                                              else 1)))),
+                            -p.block_co))
+        if ranked:
+            return tuple(sorted(ranked, key=ranked.__getitem__))
+    return ()
 
 
 def plan_mb(ho: int, wo: int, ci: int, c: int, hf: int = 3, wf: int = 3, *,
@@ -730,7 +772,6 @@ def _dw_se_key(t: dict) -> tuple:
             -t["threads"], t["halo"])
 
 
-@functools.lru_cache(maxsize=4096)
 def plan_dw_se_tile(ho: int, wo: int, c: int, c_se: int, hf: int = 3,
                     wf: int = 3, *, stride: int = 1,
                     dtype: torch.dtype = torch.float32, batch: int = 1,
@@ -753,23 +794,38 @@ def plan_dw_se_tile(ho: int, wo: int, c: int, c_se: int, hf: int = 3,
     at 224, fp32 and bf16, the picks sum to 1.08x the best tile timed at
     each shape.  ``ctas`` counts the CTAs of one pass over all ``batch``
     images."""
+    ladder = dw_se_ladder(ho, wo, c, c_se, hf, wf, stride=stride,
+                          dtype=dtype, batch=batch, aligned=aligned,
+                          smem_budget=smem_budget)
+    return ladder[0] if ladder else None
+
+
+@functools.lru_cache(maxsize=4096)
+def dw_se_ladder(ho: int, wo: int, c: int, c_se: int, hf: int = 3,
+                 wf: int = 3, *, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, batch: int = 1,
+                 aligned: bool = True,
+                 smem_budget: int = DEFAULT_SMEM_BUDGET) -> tuple:
+    """Every tile of :func:`plan_dw_se_tile`'s search, as plans, in its
+    preference order (its plan first).  The autotuner's ``dw_se`` ladder
+    and ``bench_conv.py --kernel dw_se --tune``'s candidates."""
     # the regions beside the tile grow with its channels: at most these
     vec = dw_vector(c, dtype, aligned)
     cg = min(DW_MAX_VECS * vec if vec > 1 else 32, _up(c, vec))
     extra = max(_dw_se_gate_smem(p, cg, c_se) for p in (1, 2))
-    found = _dw_tile_search(ho, wo, c, hf, wf, stride, dtype, aligned,
-                            min(DW_TILE_SMEM, smem_budget - extra),
-                            batch=batch, key=_dw_se_key,
-                            max_tile_w=DW_MAX_TILE_W)
-    if found is None:
-        return None
-    vec, nv, tw, th, _ = found
-    ctas = -(-ho // th) * -(-wo // tw) * -(-c // (nv * vec))
-    return _dw_plan(
-        ho, wo, c, hf, stride, dtype, vec, nv, tw, th,
-        dw_se_smem_bytes(1, th, tw, nv * vec, hf, wf, stride, c_se, dtype),
-        batch=batch,
-        workspace_bytes=dw_se_workspace_bytes(batch, ctas, c_se))
+    out = []
+    for vec, nv, tw, th, _ in _dw_tiles(
+            ho, wo, c, hf, wf, stride, dtype, aligned,
+            min(DW_TILE_SMEM, smem_budget - extra), batch=batch,
+            key=_dw_se_key, max_tile_w=DW_MAX_TILE_W):
+        ctas = -(-ho // th) * -(-wo // tw) * -(-c // (nv * vec))
+        out.append(_dw_plan(
+            ho, wo, c, hf, stride, dtype, vec, nv, tw, th,
+            dw_se_smem_bytes(1, th, tw, nv * vec, hf, wf, stride, c_se,
+                             dtype),
+            batch=batch,
+            workspace_bytes=dw_se_workspace_bytes(batch, ctas, c_se)))
+    return tuple(out)
 
 
 def plan_dw_se(hiu: int, wiu: int, ho: int, wo: int, c: int, c_se: int,
@@ -955,12 +1011,88 @@ def plan_pwconv(g: int, ci: int, co: int, *,
         bg, bco, bci = _fill_tile(g, co, PW_TILES[variant])
     else:
         raise ValueError(f"unknown pwconv variant {variant!r}")
-    smem = pwconv_smem_bytes(variant, bg, bco, bci, ci)
+    return _pw_plan(variant, bg, bco, bci, ci, dtype, cluster)
+
+
+def _pw_plan(variant: str, bg: int, bco: int, bci: int, ci: int,
+             dtype: torch.dtype, cluster: int = 1) -> BlockPlan:
     return BlockPlan(
         block_c=bci, block_co=bco, slab_h=0, n_slabs=1, halo_rows=0,
-        smem_bytes=smem, dtype_bytes=dtype_bytes(dtype), block_g=bg,
-        cluster=cluster, variant=variant,
+        smem_bytes=pwconv_smem_bytes(variant, bg, bco, bci, ci),
+        dtype_bytes=dtype_bytes(dtype), block_g=bg, cluster=cluster,
+        variant=variant,
     )
+
+
+#: The largest G whose ``pwconv`` ladder holds ``stream`` tiles:
+#: ``bench_pwconv.py --tune`` timed ``stream`` against the wide variants up
+#: to G = 96 (PERF.md); above that every CTA of at most 16 rows reads all
+#: of w again.
+PW_STREAM_LADDER_MAX_G = 128
+
+
+def _pw_variant_fits(variant: str, g: int, ci: int, co: int,
+                     dtype: torch.dtype, aligned: bool) -> bool:
+    """Whether ``variant`` takes a (G, Ci) x (Ci, Co) product at ``dtype``:
+    ``tc`` only 16-bit operands TMA can describe (Ci and Co multiples of
+    8, 16-byte aligned bases), ``stream`` only G up to
+    :data:`PW_STREAM_LADDER_MAX_G`."""
+    if variant == "tc":
+        return (dtype in (torch.bfloat16, torch.float16) and aligned
+                and ci % 8 == 0 and co % 8 == 0)
+    if variant == "stream":
+        return g <= PW_STREAM_LADDER_MAX_G
+    return variant == "simt"
+
+
+def _pw_tiles(variant: str, g: int, ci: int, co: int, dtype: torch.dtype,
+              aligned: bool) -> list:
+    """The variant's compiled tiles for this product, as plans, in table
+    order: ``tc`` / ``simt`` tiles no wider than G and Co need (rounded up
+    to 64, as :func:`_fill_tile` takes them); ``stream`` at its planned
+    ``block_g``, each ``block_co`` up to Co's width by each split-K
+    cluster, where :func:`pwconv_tile_error` accepts the tile."""
+    if variant != "stream":
+        need_g, need_co = max(64, _up(g, 64)), max(64, _up(co, 64))
+        return [_pw_plan(variant, *t, ci, dtype) for t in PW_TILES[variant]
+                if t[0] <= need_g and t[1] <= need_co]
+    bg = plan_pwconv(g, ci, co, dtype=dtype, variant="stream",
+                     aligned=aligned).block_g
+    vec = pw_vector(co, dtype, aligned)
+    out = []
+    for tile_g, bco, _ in PW_TILES["stream"]:
+        if tile_g != bg or (bco > 32 and bco > _up(co, 32)):
+            continue
+        for cluster in (1, 2, 4, 8):
+            bci = -(-ci // cluster)
+            if pwconv_tile_error("stream", bg, bco, bci, ci=ci,
+                                 vector=vec) is None:
+                out.append(_pw_plan("stream", bg, bco, bci, ci, dtype,
+                                    -(-ci // bci)))
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def pwconv_ladder(g: int, ci: int, co: int, *,
+                  dtype: torch.dtype = torch.float32,
+                  aligned: bool = True) -> tuple:
+    """``pwconv``'s variants x tiles for a (G, Ci) x (Ci, Co) product, in
+    this order: :func:`plan_pwconv`'s plan; every other variant that takes
+    the product (:func:`_pw_variant_fits`) at its own planned tile; then
+    the other tiles of the planned variant and of the others
+    (:func:`_pw_tiles`).  The autotuner's ``pw`` ladder and
+    ``bench_pwconv.py --tune``'s ``stream`` candidates."""
+    first = plan_pwconv(g, ci, co, dtype=dtype, aligned=aligned)
+    variants = [first.variant] + [
+        v for v in PW_VARIANTS if v != first.variant
+        and _pw_variant_fits(v, g, ci, co, dtype, aligned)]
+    ranked = dict.fromkeys(
+        plan_pwconv(g, ci, co, dtype=dtype, variant=v, aligned=aligned)
+        for v in variants)
+    for v in variants:
+        ranked.update(dict.fromkeys(_pw_tiles(v, g, ci, co, dtype,
+                                              aligned)))
+    return tuple(ranked)
 
 
 # ---------------------------------------------------------------------------

@@ -5,11 +5,11 @@ TENSOR, not the host: a CUDA tensor runs the hand-written kernels, a CPU
 tensor runs the plain PyTorch versions.  Nothing falls back: a kernel that
 fails to build or launch raises, and ``impl="cuda"`` on a CPU tensor raises.
 
-``KernelPolicy`` keeps only what this slice uses: ``impl``, the ``fused``
-opt-out, the ``dtype_policy``, the GEMM tile overrides and the per-CTA
-shared-memory budget the planner sizes fused tiles against.  The reference's
-autotune / verify / tune-cache / runtime-ladder fields belong to the slices
-that port those layers.
+``KernelPolicy`` keeps what the port uses: ``impl``, the ``fused``
+opt-out, the ``dtype_policy``, the GEMM tile overrides, the per-CTA
+shared-memory budget the planner sizes fused tiles against, and the
+measured autotuner's ``autotune`` / ``tune_cache``.  The reference's verify
+and runtime-ladder fields belong to the slices that port those layers.
 """
 from __future__ import annotations
 
@@ -52,6 +52,11 @@ class DtypePolicy:
     def out_dtype(self, native: torch.dtype) -> torch.dtype:
         return DTYPES[self.out] if self.out else self.stream_dtype(native)
 
+    def signature(self) -> dict:
+        """Serialized identity for the autotune cache key: a bf16-streamed
+        measured plan must never replay onto a native run."""
+        return {"stream": self.stream, "out": self.out}
+
 
 #: Stream at the input's native dtype.
 NATIVE = DtypePolicy()
@@ -89,6 +94,14 @@ class KernelPolicy:
     fused: ``False`` forces the unfused composition; ``None``/``True`` let
     the planner fuse whatever fits.
     dtype_policy: mixed-precision streaming (:class:`DtypePolicy`).
+    autotune: measured plan selection (``kernels/autotune.py``).  ``True``
+    makes ``core/chain.plan`` / ``execute`` and ``core/network.plan_network``
+    / ``execute_network`` consult the persistent tune cache and, on a miss,
+    ``execute`` and ``execute_network`` measure the candidate ladder on
+    their first call (the winner is persisted, so later runs replay it
+    without measuring).  ``False`` (default) keeps the analytic planner.
+    tune_cache: path of the JSON tune cache; ``None`` uses
+    ``kernels/autotune.default_cache_path()``.
     """
     impl: str = "auto"
     smem_budget: int = DEFAULT_SMEM_BUDGET
@@ -97,6 +110,8 @@ class KernelPolicy:
     block_co: Optional[int] = None
     block_ci: Optional[int] = None
     dtype_policy: DtypePolicy = NATIVE
+    autotune: bool = False
+    tune_cache: Optional[str] = None
 
     def __post_init__(self):
         if self.impl not in IMPLS:

@@ -45,11 +45,12 @@ def time_ms(fn, device: torch.device, reps: int = 10,
 
 
 def graph_ms(fn, device: torch.device, launches: int = 20,
-             reps: int = 5) -> float:
+             reps: int = 5, warmup: int = 1) -> float:
     """Median ms per call of ``fn()`` replayed from a CUDA graph that
-    captured ``launches`` calls, CUDA events around each replay: the
-    device's pace for a microsecond kernel, without the host's launch
-    overhead between calls."""
+    captured ``launches`` calls, CUDA events around each of ``reps``
+    replays after ``warmup`` untimed ones: the device's pace for a
+    microsecond kernel, without the host's launch overhead between calls.
+    The graph and its memory pool are released before it returns."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -60,7 +61,8 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
     with torch.cuda.graph(graph):
         for _ in range(launches):
             fn()
-    graph.replay()
+    for _ in range(warmup):
+        graph.replay()
     torch.cuda.synchronize(device)
     times = []
     for _ in range(reps):

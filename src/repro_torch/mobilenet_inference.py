@@ -5,7 +5,7 @@ card by default.
     python -m repro_torch.mobilenet_inference
         [--arch v1|v2|mnasnet|lite0|all]
         [--dtype fp32|bf16] [--res N] [--batch B] [--device cuda|cpu]
-        [--unfused]
+        [--unfused] [--autotune [--tune-cache PATH]]
 
 For each network it prints the plan histogram, the kernel launches of one
 eager forward and (on the card) the kernels one replay of the graph ran,
@@ -18,10 +18,21 @@ first call reserved and what the graph held until the cache was cleared,
 whether the two paths give the same bits, and the error against the plain
 path: the same network with ``impl="torch"`` in fp32 on the same device,
 run eagerly.  Counterpart of ``examples/mobilenet_inference.py``.
+
+``--autotune`` runs each network at its measured plans
+(``KernelPolicy(autotune=True)``, ``core/network.tune_network``): the
+first run of a problem measures every block's candidate plans and persists
+the winners in the tune cache (``--tune-cache PATH``, default
+``kernels/autotune.default_cache_path()``: ``$REPRO_TORCH_TUNE_CACHE``,
+else ``build/repro_torch/autotune.json`` in the checkout); a later run
+replays them with no measurement.  The tune runs before any counted or
+timed call, and the script prints whether it was a cache hit, the plans
+it measured and its seconds.
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
@@ -99,7 +110,8 @@ def _reserved(dev):
 
 def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 dtype: str = "fp32", fused=None, device="cuda",
-                seed: int = 0) -> dict:
+                seed: int = 0, autotune: bool = False,
+                tune_cache=None) -> dict:
     """Drive one network body, through ``execute_network`` (on the card,
     one CUDA graph of the forward) and through its eager runner
     (``build_network_fn``), time both and hold both against the fp32 plain
@@ -119,18 +131,33 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     has the eager runner's bits; the ``pwconv`` launches by variant of an
     eager forward and of a replay, the CTA count and cluster of each
     ``fused_mbconv`` launch, the CTAs of each ``dw_se`` launch's passes and
-    the error.  Ends by clearing the network cache, which releases the
-    graph and its memory pool."""
+    the error.  With ``autotune`` the network is first tuned
+    (``network.tune_network``, into ``tune_cache``), outside every counted
+    and timed call, and the paths run its measured plans; ``tune`` then
+    holds the tune's cache hit, plans measured and seconds.  Ends by
+    clearing the network cache, which releases the graph and its memory
+    pool."""
     dev = network.require_device(device)
     cuda = dev.type == "cuda"
     params32 = network.init_network(net, seed=seed, device=dev)
     x = torch.randn((batch, res, res, net.c_in),
                     generator=torch.Generator().manual_seed(seed + 1)).to(dev)
     pol = KernelPolicy(fused=fused,
-                       dtype_policy=BF16_STREAM if dtype == "bf16" else NATIVE)
+                       dtype_policy=BF16_STREAM if dtype == "bf16" else NATIVE,
+                       autotune=autotune, tune_cache=tune_cache)
     params = (network.cast_network_params(params32, torch.bfloat16)
               if dtype == "bf16" else params32)
-    nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol)
+    tune = None
+    if autotune:
+        t0 = time.perf_counter()
+        tuned = network.tune_network(net, params, x, policy=pol)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        tune = {"cache_hit": tuned.cache_hit, "n_measured": tuned.n_measured,
+                "seconds": time.perf_counter() - t0,
+                "cache_path": tuned.cache_path}
+    nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol,
+                                 device=dev)
     eager = network.build_network_fn(net, nplan, pol)
 
     def forward():
@@ -180,7 +207,7 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                   if sg.kind == "dw_se"]
     busy = sum(device.values())
     eager_busy = sum(eager_device.values())
-    return {"histogram": nplan.segment_histogram(),
+    return {"histogram": nplan.segment_histogram(), "tune": tune,
             "first_call_launches": first, "later_call_launches": later,
             "eager_launches": eager_launches,
             "replay_launches": None if replayed is None else {
@@ -216,7 +243,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--unfused", action="store_true",
                     help="plan with KernelPolicy(fused=False)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run the measured plans (tuned on a cache miss)")
+    ap.add_argument("--tune-cache", metavar="PATH",
+                    help="the tune cache (default: "
+                         "kernels/autotune.default_cache_path())")
     args = ap.parse_args(argv)
+    if args.tune_cache and not args.autotune:
+        ap.error("--tune-cache needs --autotune")
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -227,9 +261,16 @@ def main(argv=None) -> int:
         r = run_network(net, res=args.res, batch=args.batch,
                         dtype=args.dtype,
                         fused=False if args.unfused else None,
-                        device=args.device)
+                        device=args.device, autotune=args.autotune,
+                        tune_cache=args.tune_cache)
         histo = ",".join(f"{k}:{v}" for k, v in sorted(r["histogram"].items()))
         cuda = torch.device(args.device).type == "cuda"
+        if r["tune"] is not None:
+            t = r["tune"]
+            print(f"{net.name}: autotune cache "
+                  f"{'hit' if t['cache_hit'] else 'miss'}, "
+                  f"{t['n_measured']} plans measured in {t['seconds']:.1f} s "
+                  f"(cache {t['cache_path']})")
         print(f"{net.name} @{args.res}x{args.res} batch {args.batch} "
               f"{args.dtype} on {args.device}: plan {histo}; launches of an "
               f"eager forward {r['eager_launches']}")

@@ -896,6 +896,89 @@ def test_failed_capture_memoizes_nothing(dev, monkeypatch):
     network.clear_network_cache()
 
 
+#: A tuning candidate's block against its plain version: the kernel
+#: tolerances of ``chip_smoke.py`` (summation order in fp32; one bf16
+#: rounding of a kernel's output in bf16).
+BLOCK_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("fused", (None, False))
+@pytest.mark.parametrize("arch", tuple(ARCHS))
+def test_every_tuning_candidate_launches_and_matches(dev, arch, fused):
+    """Every candidate the autotuner may measure, for every segment of the
+    four bodies at 112x112, batch 1 and 8, fp32 and bf16, launches on its
+    block's real input and matches the block's plain version."""
+    import dataclasses
+    from repro_torch.kernels import autotune, lowering
+    from repro_torch.kernels.policy import BF16_STREAM, NATIVE
+    net = ARCHS[arch](1.0)
+    params32 = network.init_network(net, seed=0, device=dev)
+    checked = 0
+    for batch in (1, 8):
+        x = _r((batch, 112, 112, net.c_in), dev, torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            params = (network.cast_network_params(params32, dtype) if bf16
+                      else params32)
+            pol = KernelPolicy(fused=fused,
+                               dtype_policy=BF16_STREAM if bf16 else NATIVE)
+            nplan = network.plan_network(net, x.shape, policy=pol)
+            policies = network.resolve_block_policies(net, pol)
+            y = x
+            with torch.inference_mode():
+                for spec, cp, p, bpol in zip(net.blocks, nplan.plans, params,
+                                             policies):
+                    want = lowering.lower(spec, cp, dataclasses.replace(
+                        bpol, impl="torch"))(p, y)
+                    geoms = autotune._segment_geoms(spec.stages, cp, y.shape)
+                    for si, geom in enumerate(geoms):
+                        for cand in autotune.segment_candidates(
+                                geom, cp.segments[si].plan, dtype,
+                                cp.smem_budget)[1:]:
+                            got = lowering.lower(
+                                spec, autotune._with_segment_plan(
+                                    cp, si, cand), bpol)(p, y)
+                            torch.cuda.synchronize(dev)
+                            assert rel_err(got, want) <= BLOCK_TOL[dtype], (
+                                si, geom, cand)
+                            checked += 1
+                    y = lowering.lower(spec, cp, bpol)(p, y)
+    assert checked > 0
+
+
+def test_tune_network_then_replay_measures_nothing(dev, tmp_path,
+                                                   monkeypatch):
+    """``tune_network`` measures on the card and persists; a second one on
+    the file loaded again measures and launches nothing; the tuned graph
+    path captures two forwards (no measurement) and gives the tuned eager
+    runner's bits."""
+    from repro_torch import graphs
+    from repro_torch.kernels import autotune
+    spec, params, x = _small_net("mnasnet", torch.float32, dev)
+    pol = KernelPolicy(autotune=True, tune_cache=str(tmp_path / "t.json"))
+    r = network.tune_network(spec, params, x, policy=pol)
+    assert not r.cache_hit and r.n_measured > 0
+    assert all(t > 0 for _, _, t in r.measured)
+
+    def boom(*a, **k):
+        raise AssertionError("a replay must not measure")
+    monkeypatch.setattr(autotune, "measure_run", boom)
+    graphs.reset()
+    r2 = network.tune_network(spec, params, x, policy=pol)
+    assert r2.cache_hit and r2.n_measured == 0 and r2.plan == r.plan
+    assert not any(graphs.snapshot().values())
+    network.clear_network_cache()
+    reset_launch_counts()
+    y = network.execute_network(spec, params, x, policy=pol)
+    torch.cuda.synchronize(dev)
+    assert launch_counts() == _twice(expected_launches(
+        r.plan.segment_histogram()))
+    with torch.inference_mode():
+        y_eager = network.build_network_fn(spec, r.plan, pol)(params, x)
+    assert torch.equal(y, y_eager)
+    network.clear_network_cache()
+
+
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_captured_prefill_and_decode_match_eager(dev, dtype):
     """The captured prefill and 32 captured greedy decode steps against the
