@@ -56,7 +56,21 @@ From the root of a checkout it:
    plans measured, tune seconds, the segments whose plan changed and in
    which fields, the blocks' measured winners against their analytic
    plans, and both paths' graph ms and device ms;
-6. drives the serving path, xlstm-125m at full width on random weights
+6. drives the runtime ladder, an opt-in
+   (``KernelPolicy(on_failure="degrade")``; the default raises), with the
+   quarantine pinned in a temporary directory (:func:`run_runtime`): the
+   four bodies at 112x112, batch 1 and 8, fp32 and bf16, give the same
+   plan, launches and bits under both policies with no fallback and no
+   quarantine file (graph ms of both in turns at batch 1); then, per
+   injected fault (:data:`RECOVERY_ROWS`, batch 8, fp32 and bf16), the
+   first call recovers within tolerance of the plain path with every
+   fallback injected and counted, the file holds the bans, and the next
+   call re-plans and captures a graph that launches the kernel of every
+   segment not at the plain rung and equals the eager runner; then a real
+   launch the driver refuses (``pwconv``), eagerly and inside a capture,
+   classifies as a ``LoweringFailure``, after which the kernel launches and
+   matches its plain version; the code table against ``driver_types.h``;
+7. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy decode steps, in fp32 and bf16, through the captured prefill
    and decode step (``capture_prefill``, ``capture_decode_step``) and
@@ -72,23 +86,23 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-7. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
+8. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
    random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
    tokens (1664 positions with the 128 meta tokens: blockwise attention,
    a sliding window that excludes keys, the 1152-slot ring cache), then 32
    greedy decode steps, fp32 and bf16, through the captured prefill and
    decode step and the eager ones (32 ``dwconv1d`` + 352 ``pwconv`` a
-   prefill, 0 + 352 a decode step, counted as in 6, and ``pwconv``'s
+   prefill, 0 + 352 a decode step, counted as in 7, and ``pwconv``'s
    launches by variant equal to each Linear's ``blocking.pw_variant``);
    the graph path's logits and caches bit for bit the eager path's, each
    call within FP32_REL_TOL (fp32) or BF16_REL_TOL (bf16) of the plain
    path of its dtype from the same inputs, ``prefill`` against
    ``prefill_by_stepping`` at a 64-token prompt; it prints the same
-   numbers as 5 and the device ms of one layer's prefill and of its
+   numbers as 7 and the device ms of one layer's prefill and of its
    attention core, selective scan and Linears at batch 8.  It runs in a
    process of its own (the script with ``--hymba-only``), whose profiler
    has taken no trace before;
-8. prints the kernels it launched, one JSON line of per-kernel numbers
+9. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
@@ -102,9 +116,11 @@ import argparse
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -683,13 +699,15 @@ def run_tuning(torch, dev):
     must be the tuned eager runner's bits and within FP32_REL_TOL /
     BF16_REL_TOL of the fp32 plain path; each path's graph ms (CUDA
     events, median of 10, three readings) and the device ms of a profiled
-    replay.  Returns the runs and the launches of the tunes by kernel."""
+    replay.  Every tune must fold no candidate's failure: its result's and
+    every cache entry's ``failed`` list is empty.  Returns the runs and the
+    launches of the tunes by kernel."""
     import dataclasses
     import shutil
     import tempfile
     from repro_torch import graphs
     from repro_torch.core import network
-    from repro_torch.kernels import lowering
+    from repro_torch.kernels import autotune, lowering
     from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
     from repro_torch.measure import device_profile, rel_err, time_ms
     from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
@@ -725,6 +743,13 @@ def run_tuning(torch, dev):
         if r.cache_hit or not r.n_measured:
             raise AssertionError(f"{label}: the first tune into a fresh "
                                  f"cache was a hit ({r.n_measured} measured)")
+        # no candidate failed: the tuner folded nothing into an infinite time
+        entries = autotune.TuneCache.load(pol.tune_cache).entries
+        folded = {k: e.get("failed") for k, e in entries.items()
+                  if e.get("failed") != []}
+        if r.failed or folded:
+            raise AssertionError(f"{label}: the tune folded failures "
+                                 f"{list(r.failed)[:3]} (entries {folded})")
         # the replay, on the file loaded again
         graphs.reset()
         r2 = network.tune_network(net, params, x, policy=pol)
@@ -833,6 +858,316 @@ def run_tuning(torch, dev):
             raise AssertionError(f"kernel {k} was launched no time by the "
                                  f"tunes: {launched}")
     return runs, launched
+
+
+#: The runtime phase's recovery rows: (body, fused, point armed, times,
+#: numeric guard, the rungs the quarantine must then ban).  The lowering
+#: points stay armed (persistent) through both calls; the whole-network
+#: points fire once.
+RECOVERY_ROWS = (
+    ("v2", None, "lowering:separable_fused", -1, False, {"fused2", "fused3"}),
+    ("mnasnet", None, "lowering:se_epilogue", -1, False, {"dw_se", "unfused"}),
+    ("lite0", None, "lowering:fused_mbconv", -1, False, {"fusedmb", "unfused"}),
+    ("v1", False, "lowering:pwconv", -1, False, {"unfused"}),
+    ("v1", False, "lowering:dwconv2d", -1, False, {"unfused"}),
+    ("v2", None, "compile:network", 1, False, set()),
+    ("v1", None, "numeric:network", 1, True, set()),
+)
+#: A ``pwconv`` problem whose ``simt`` grid needs more than 65535 CTAs in
+#: y: a launch the driver refuses for its configuration.
+BAD_PW_CO = 65535 * 128 + 1
+#: A one-block network whose ``pw`` segment (G = 1, the ``stream`` variant,
+#: at most 256 columns a CTA) needs more than 65535 CTAs in y.
+BAD_NET_CO = 65535 * 256 + 1
+
+
+def _check_code_table(build, failures) -> str:
+    """Every code of ``runtime/failures.CUDA_ERRORS`` against the toolkit's
+    ``driver_types.h``: the path checked."""
+    header = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.realpath(build.nvcc()))), "include", "driver_types.h")
+    with open(header) as fh:
+        table = {name: int(code) for name, code in re.findall(
+            r"\b(cudaError\w+)\s*=\s*(\d+)", fh.read())}
+    wrong = {code: name for code, name in failures.CUDA_ERRORS.items()
+             if table.get(name) != code}
+    if wrong:
+        raise AssertionError(f"runtime/failures.CUDA_ERRORS disagrees with "
+                             f"{header}: {wrong}")
+    return header
+
+
+def run_runtime(torch, dev):
+    """The runtime ladder, an opt-in (``KernelPolicy(on_failure="degrade")``;
+    the default raises).  The quarantine and tune cache are pinned in a
+    temporary directory under ``build/``.
+
+    1. Steady state: V1, V2, MnasNet-A1 and Lite0 at 112x112, batch 1 and 8,
+       fp32 and bf16, under the default policy and under ``"degrade"``:
+       the same plan, the same launches in the graph's first call (two
+       forwards) and the same output bits, no fallback and no quarantine
+       file; at batch 1 both graphs' ms per forward in turns.
+    2. Recovery (:data:`RECOVERY_ROWS`, batch 8, fp32 and bf16,
+       ``mobilenet_inference.run_recovery``): the first call recovers
+       within FP32_REL_TOL / BF16_REL_TOL of the fp32 plain path, every
+       fallback injected and as many as the points fired, the quarantine
+       file holds the row's bans; the next call re-plans and captures a
+       graph that launches the kernel of every segment not at the plain
+       rung (two forwards) and gives the eager runner's bits; its ms per
+       forward.
+    3. A real launch error: ``pwconv`` at a grid the driver refuses, eagerly
+       and inside a capture: a ``KernelLaunchError`` with a
+       launch-configuration code, classified as a ``LoweringFailure``.
+       Under ``"degrade"`` the same refusal in a ``fused=False`` network
+       raises that ``LoweringFailure``, with nothing quarantined, memoized
+       or recovered: no kernel rung is left below ``pwconv``, and only an
+       injected fault may reach the plain version.  Then the same kernel
+       launches and matches its plain version, eagerly and from a graph;
+       the code table against ``driver_types.h``.
+
+    A fallback not injected, or a sticky error, fails the run."""
+    import dataclasses
+    import tempfile
+    from repro_torch import graphs
+    from repro_torch.core import chain, network
+    from repro_torch.kernels import _build, pwconv
+    from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
+    from repro_torch.measure import rel_err, time_ms
+    from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
+                                                 expected_launches,
+                                                 recovery_ok, run_recovery)
+    from repro_torch.runtime import failures, faultinject, quarantine, telemetry
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    out = {"steady": [], "recovery": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_",
+                                     dir=os.path.join(HERE, "build")) as tmp:
+        for arch in ARCHS:
+            net = ARCHS[arch](1.0)
+            params32 = network.init_network(net, seed=0, device=dev)
+            for batch in (1, 8):
+                x = torch.randn((batch, 112, 112, net.c_in),
+                                generator=torch.Generator().manual_seed(1)
+                                ).to(dev)
+                for dtype in ("fp32", "bf16"):
+                    bf16 = dtype == "bf16"
+                    params = (network.cast_network_params(params32,
+                                                          torch.bfloat16)
+                              if bf16 else params32)
+                    raise_pol = KernelPolicy(
+                        dtype_policy=BF16_STREAM if bf16 else NATIVE)
+                    degrade = dataclasses.replace(
+                        raise_pol, on_failure="degrade",
+                        tune_cache=os.path.join(tmp, "steady", "tune.json"))
+                    label = f"{arch} 112x112 batch {batch} {dtype}"
+                    plans = {name: network.plan_network(
+                        net, x.shape, dtype=x.dtype, policy=q, device=dev)
+                        for name, q in (("raise", raise_pol),
+                                        ("degrade", degrade))}
+                    want = {k: 2 * n for k, n in expected_launches(
+                        plans["raise"].segment_histogram()).items()}
+                    network.clear_network_cache()
+                    telemetry.reset_runtime_telemetry()
+                    got, launched = {}, {}
+                    for name, q in (("raise", raise_pol),
+                                    ("degrade", degrade)):
+                        graphs.reset()
+                        got[name], _ = network.execute_network_graph(
+                            net, params, x, policy=q)
+                        torch.cuda.synchronize(dev)
+                        counts = graphs.snapshot()
+                        launched[name] = {k: counts[k]
+                                          for k in KERNEL_SEGMENTS}
+                    ms = {"raise": [], "degrade": []}
+                    if batch == 1:
+                        fwd = {name: (lambda q=q: network.execute_network(
+                            net, params, x, policy=q))
+                            for name, q in (("raise", raise_pol),
+                                            ("degrade", degrade))}
+                        for name in ("raise", "degrade", "degrade", "raise",
+                                     "raise", "degrade"):
+                            ms[name].append(time_ms(fwd[name], dev))
+                    network.clear_network_cache()
+                    fallbacks = telemetry.fallback_count()
+                    qfile = os.path.exists(quarantine.quarantine_path(
+                        degrade))
+                    same = (plans["raise"].plans == plans["degrade"].plans
+                            and launched["raise"] == launched["degrade"]
+                            == want
+                            and bool(torch.equal(got["raise"],
+                                                 got["degrade"])))
+                    print(f"  steady {label}: same plan, launches and bits "
+                          f"{same}; {fallbacks} fallbacks, "
+                          f"{'a' if qfile else 'no'} quarantine file"
+                          + (f"; graph ms raise "
+                             f"{'/'.join(f'{v:.4f}' for v in ms['raise'])}, "
+                             f"degrade "
+                             f"{'/'.join(f'{v:.4f}' for v in ms['degrade'])}"
+                             f" (ratio of medians "
+                             f"{statistics.median(ms['degrade']) / statistics.median(ms['raise']):.3f})"
+                             if ms["raise"] else ""), flush=True)
+                    if not same or fallbacks or qfile:
+                        raise AssertionError(
+                            f"steady {label}: launches {launched} (want "
+                            f"{want}), same plan "
+                            f"{plans['raise'].plans == plans['degrade'].plans}"
+                            f", {fallbacks} fallbacks, quarantine file "
+                            f"{qfile}")
+                    out["steady"].append({"arch": arch, "batch": batch,
+                                          "dtype": dtype, "graph_ms": ms,
+                                          "launches": launched["raise"]})
+        for i, (arch, fused, point, times, guard, bans) in enumerate(
+                RECOVERY_ROWS):
+            for dtype in ("fp32", "bf16"):
+                label = (f"{arch} 112x112{' fused=False' if fused is False else ''}"
+                         f" batch 8 {dtype}, {point} armed"
+                         f"{' (persistent)' if times < 0 else f' ({times}x)'}")
+                faultinject.disarm_all()
+                faultinject.arm(point, times=times)
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore", RuntimeWarning)
+                        r = run_recovery(
+                            ARCHS[arch](1.0), res=112, batch=8, dtype=dtype,
+                            fused=fused, device=dev, numeric_guard=guard,
+                            tune_cache=os.path.join(tmp, f"row{i}_{dtype}",
+                                                    "tune.json"))
+                finally:
+                    faultinject.disarm_all()
+                rep = r["report"]
+                banned = {b for v in r["bans"].values() for b in v}
+                histo = {k: v for k, v in sorted(r["histogram"].items())}
+                print(f"  recovery {label}: first call {r['first_s'] * 1e3:.1f}"
+                      f" ms ({sum(r['fired'].values())} faults fired, "
+                      f"{rep['fallbacks']} fallbacks, "
+                      f"{rep['injected_fallbacks']} injected, "
+                      f"{rep['recoveries']} recoveries; bans "
+                      f"{sorted(banned)} over {len(r['bans'])} problems in "
+                      f"the file; rel err {r['first_rel_err']:.2e}); next "
+                      f"call re-planned and captured in "
+                      f"{r['second_s'] * 1e3:.1f} ms (capture "
+                      f"{(r['capture_s'] or 0) * 1e3:.1f} ms, "
+                      f"{r['replan_report']['quarantine_hits']} quarantine "
+                      f"hits, {r['replan_report']['fallbacks']} fallbacks, "
+                      f"plan {histo} with {r['plain_blocks']} blocks at the "
+                      f"plain rung, launches {r['second_launches']}, graph "
+                      f"equals eager {r['graph_equals_eager']}, rel err "
+                      f"{r['rel_err']:.2e} (tol {r['tol']:g})); new graph "
+                      f"{r['ms']:.4f} ms/forward", flush=True)
+                if not (recovery_ok(r, True) and banned == bans
+                        and rep["fallbacks"] > 0):
+                    seen = {k: r[k] for k in (
+                        "first_rel_err", "rel_err", "fired",
+                        "graph_equals_eager", "second_captured",
+                        "second_launches", "want_launches",
+                        "eager_launches")}
+                    seen["report"] = {k: v for k, v in rep.items()
+                                      if k != "events"}
+                    raise AssertionError(
+                        f"recovery {label}: {seen}, bans {sorted(banned)} "
+                        f"(want {sorted(bans)})")
+                out["recovery"].append({
+                    "arch": arch, "fused": fused, "point": point,
+                    "dtype": dtype, "bans": sorted(banned),
+                    **{k: r[k] for k in (
+                        "first_s", "first_rel_err", "fired", "histogram",
+                        "plain_blocks", "second_s", "capture_s",
+                        "second_launches", "rel_err", "ms")},
+                    "fallbacks": rep["fallbacks"],
+                    "recoveries": rep["recoveries"]})
+    # a real launch error, eagerly and inside a capture
+    x1 = torch.ones((1, 1), device=dev)
+    w1 = torch.ones((1, BAD_PW_CO), device=dev)
+    errors = []
+    try:
+        pwconv.pwconv(x1, w1, variant="simt")
+    except _build.KernelLaunchError as e:
+        errors.append(e)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        graphs.record(graph, lambda: pwconv.pwconv(x1, w1, variant="simt"),
+                      dev)
+    except _build.KernelLaunchError as e:
+        errors.append(e)
+    del graph
+    if len(errors) != 2 or torch.cuda.is_current_stream_capturing():
+        raise AssertionError(f"the invalid pwconv launch raised "
+                             f"{len(errors)} KernelLaunchErrors of 2 (eager, "
+                             "in a capture)")
+    kinds = [failures.classify(e) for e in errors]
+    if not all(isinstance(k, failures.LoweringFailure) for k in kinds):
+        raise AssertionError(f"the launch errors {errors} classified as "
+                             f"{kinds}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    # under degrade, a real refused launch of a standalone kernel raises
+    refused = network.NetworkSpec(name="refused-pw", c_in=1, blocks=(
+        chain.SeparableSpec((chain.PW(BAD_NET_CO),)),))
+    rparams = network.init_network(refused, seed=0, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refused_",
+                                     dir=os.path.join(HERE, "build")) as tmp:
+        rpol = KernelPolicy(fused=False, on_failure="degrade",
+                            tune_cache=os.path.join(tmp, "tune.json"))
+        network.clear_network_cache()
+        telemetry.reset_runtime_telemetry()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                network.execute_network(refused, rparams,
+                                        torch.ones((1, 1, 1, 1), device=dev),
+                                        policy=rpol)
+            net_error = None
+        except failures.LoweringFailure as e:
+            net_error = e
+        rqfile = os.path.exists(quarantine.quarantine_path(rpol))
+    rmemo = len(network._NETWORK_CACHE)
+    rrep = telemetry.runtime_report()
+    network.clear_network_cache()
+    del rparams
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    print(f"  launch error under degrade: a fused=False network whose pw "
+          f"segment ({BAD_NET_CO} channels) the driver refuses raised "
+          f"{type(net_error).__name__} (CUDA error "
+          f"{getattr(getattr(net_error, 'original', None), 'code', None)}, "
+          f"segment {getattr(net_error, 'segment_kind', None)}, injected "
+          f"{getattr(net_error, 'injected', None)}); "
+          f"{'a' if rqfile else 'no'} quarantine file, {rmemo} memoized "
+          f"plans, {rrep['recoveries']} recoveries", flush=True)
+    if (net_error is None or net_error.injected
+            or net_error.segment_kind != "pw" or rqfile or rmemo
+            or rrep["recoveries"]):
+        raise AssertionError(
+            f"a real refused pwconv launch under degrade: raised "
+            f"{net_error!r}, quarantine file {rqfile}, {rmemo} memoized, "
+            f"{rrep['recoveries']} recoveries (want a LoweringFailure and "
+            "none of these)")
+    gen = torch.Generator().manual_seed(0)
+    xa = torch.randn((8 * 56 * 56, 128), generator=gen).to(dev)
+    wa = (torch.randn((128, 256), generator=gen) / 128 ** 0.5).to(dev)
+    ba = torch.randn((256,), generator=gen).to(dev)
+    got = pwconv.pwconv(xa, wa, ba, activation="relu6")
+    want = pwconv.pwconv_plain(xa, wa, ba, activation="relu6")
+    replayed = graphs.capture(lambda: pwconv.pwconv(xa, wa, ba,
+                                                    activation="relu6"), dev)
+    torch.cuda.synchronize(dev)
+    err = rel_err(got, want)
+    header = _check_code_table(_build, failures)
+    ok = err <= KERNEL_TOL["float32"] and torch.equal(replayed.output, got)
+    print(f"  launch error: {errors[0]} (code {errors[0].code}, "
+          f"{failures.CUDA_ERRORS.get(errors[0].code)}) -> "
+          f"{kinds[0].kind}, and the same inside a capture -> {kinds[1].kind}"
+          f" ({errors[1]}); then pwconv {8 * 56 * 56}x128x256 within "
+          f"{err:.2e} of its plain version (tol {KERNEL_TOL['float32']:g}), "
+          f"a graph of it gives its bits {torch.equal(replayed.output, got)}"
+          f"; code table vs {header}: all {len(failures.CUDA_ERRORS)} match",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"pwconv after the launch error: rel err {err}")
+    out["launch_error"] = {"code": errors[0].code, "message": str(errors[0]),
+                           "capture_message": str(errors[1]),
+                           "degrade_network_raised": str(net_error),
+                           "after_rel_err": err, "header": header}
+    return out
 
 
 def run_serving(torch, dev):
@@ -1553,7 +1888,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.hymba_only:
-        # phase 7 in a process of its own (see run_hymba_phase)
+        # phase 8 in a process of its own (see run_hymba_phase)
         with open(args.hymba_only, "w") as fh:
             json.dump(run_hymba(torch, dev), fh)
         return 0
@@ -1657,6 +1992,13 @@ def main() -> int:
     print(f"  launches of the tunes: {tune_launches}")
     print(f"  ({tuning_s:.0f} s)")
     t_phase = time.perf_counter()
+    print("runtime ladder (an opt-in): the default policy's steady state "
+          "against on_failure='degrade', recovery and re-capture after "
+          "injected faults, a real launch error:")
+    runtime = run_runtime(torch, dev)
+    runtime_s = time.perf_counter() - t_phase
+    print(f"  ({runtime_s:.0f} s)")
+    t_phase = time.perf_counter()
     print("serving path: xlstm-125m at full width, prefill + greedy decode:")
     serving, serve_launches, serve_replayed, stepping, serve_variants = \
         run_serving(torch, dev)
@@ -1703,7 +2045,8 @@ def main() -> int:
             json.dump({"card": card, "kernel_checks": kc.results,
                        "networks": runs, "tuning": tuning,
                        "tuning_launches": tune_launches,
-                       "tuning_seconds": tuning_s, "serving": serving,
+                       "tuning_seconds": tuning_s, "runtime": runtime,
+                       "runtime_seconds": runtime_s, "serving": serving,
                        "prefill_vs_stepping": stepping, "hymba": hymba,
                        "hymba_prefill_vs_stepping": hymba_stepping,
                        "hymba_layer_breakdown": hymba_breakdowns,

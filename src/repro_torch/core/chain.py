@@ -16,8 +16,14 @@ fuse; ``kernels/lowering.lower`` maps that onto kernel passes;
 With ``policy.autotune`` the measured autotuner (``kernels/autotune.py``)
 answers as in the reference (``chain.py:336-339``, ``:474-522``):
 :func:`plan` consults the tune cache, :func:`execute` tunes on its first
-call and replays the cached winner afterwards.  The reference's
-plan-quarantine branch belongs to the runtime slice.
+call and replays the cached winner afterwards.
+
+Under an explicit ``KernelPolicy(on_failure="degrade")`` (the reference's
+default, the port's opt-in) :func:`plan` consults the persistent plan
+quarantine (``runtime/quarantine.py``) and skips the windows a previous run
+failed at, and :func:`execute` runs through the runtime ladder
+(``runtime/executor.execute_chain``), as it also does with
+``numeric_guard``.  Under the default ``"raise"`` neither happens.
 """
 from __future__ import annotations
 
@@ -285,14 +291,25 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
     ``dw`` stage.  Budgets are taken at the policy's
     stream dtype.  The residual folds into the final segment when that
     segment is fused, else it is a separate add.
+
+    Under ``policy.on_failure == "degrade"`` the persistent plan quarantine
+    is consulted (keyed like the tune cache, on the native input dtype and
+    ``device``) and the windows a previous run failed at on this backend
+    are left out of the walk: the plan degrades at plan time, with zero
+    retries.  Under the default ``"raise"`` the quarantine is never read.
     """
     if policy.autotune:
         analytic = plan(spec, x_shape, dtype=dtype,
-                        policy=dataclasses.replace(policy, autotune=False))
+                        policy=dataclasses.replace(policy, autotune=False),
+                        device=device)
         cached = autotune.lookup_cached_plan(spec, x_shape, dtype, policy,
                                              base_plan=analytic,
                                              device=device)
         return analytic if cached is None else cached
+    banned: frozenset = frozenset()
+    if policy.on_failure == "degrade":
+        from repro_torch.runtime import quarantine  # runtime sits above core
+        banned = quarantine.banned_kinds(spec, x_shape, dtype, policy, device)
     b, h, w, c = x_shape
     dtype = policy.dtype_policy.stream_dtype(dtype)
     stages = spec.stages
@@ -313,7 +330,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
     i = 0
     while i < n:
         s = stages[i]
-        if allowed and _fusable3(stages, i):
+        if allowed and "fused3" not in banned and _fusable3(stages, i):
             d, proj = stages[i + 1], stages[i + 2]
             ho, wo = d.out_dims(h, w)
             p3 = blocking.plan_separable3(
@@ -326,7 +343,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
                 h, w, c = ho, wo, proj.features
                 i += 3
                 continue
-        if allowed and _fusable_mb(stages, i):
+        if allowed and "fusedmb" not in banned and _fusable_mb(stages, i):
             mb, proj = stages[i], stages[i + 1]
             ho, wo = mb.out_dims(h, w)
             pmb = blocking.plan_fused_mb(
@@ -338,7 +355,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
                 h, w, c = ho, wo, proj.features
                 i += 2
                 continue
-        if allowed and _fusable2(stages, i):
+        if allowed and "fused2" not in banned and _fusable2(stages, i):
             d, proj = stages[i], stages[i + 1]
             ho, wo = d.out_dims(h, w)
             p2 = blocking.plan_separable(
@@ -350,7 +367,7 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
                 h, w, c = ho, wo, proj.features
                 i += 2
                 continue
-        if allowed and _fusable_dw_se(stages, i):
+        if allowed and "dw_se" not in banned and _fusable_dw_se(stages, i):
             d, se = stages[i], stages[i + 1]
             ho, wo = d.out_dims(h, w)
             pse = blocking.plan_dw_se(
@@ -418,6 +435,14 @@ def execute(spec: SeparableSpec, params: Sequence[dict], x: torch.Tensor, *,
     """Run the chain: resolve the plan (:func:`resolve_plan`: with
     ``policy.autotune`` the first call for a problem measures the
     candidates and persists the winner, later calls and processes replay
-    it), lower, execute.  A kernel failure raises."""
+    it), lower, execute.  A kernel failure raises, unless
+    ``policy.on_failure == "degrade"``: then (and with
+    ``policy.numeric_guard``) the call runs through the runtime ladder
+    (``runtime/executor.execute_chain``), whose steady state is this same
+    plan, lowering and output plus one ``try``."""
+    if policy.on_failure == "degrade" or policy.numeric_guard:
+        from repro_torch.runtime import executor  # runtime sits above core
+        return executor.execute_chain(spec, params, x, policy=policy,
+                                      chain_plan=chain_plan)
     cp = resolve_plan(spec, params, x, policy=policy, chain_plan=chain_plan)
     return lower(spec, cp, policy)(params, x)

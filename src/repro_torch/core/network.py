@@ -16,7 +16,11 @@ MnasNet-A1 and EfficientNet-Lite0 bodies:
   call): the first call for a (spec, shape, dtype, policy, device, params)
   plans, captures the eager runner and replays it; later calls copy ``x``
   in and replay.  On the CPU the eager runner runs.  A kernel or capture
-  failure raises: there is no runtime ladder here.
+  failure raises, unless the policy opts into the runtime ladder
+  (``KernelPolicy(on_failure="degrade")``, ``runtime/executor.run_network``):
+  then a classified failure quarantines the failing rungs, the failing
+  blocks recover one by one, and the next call re-plans and captures a new
+  graph.  A plan is memoized only after its first call returned.
 * :class:`NetworkModule` — an ``nn.Module`` holding the parameters whose
   ``forward`` is :func:`execute_network`.
 * :func:`tune_network` — the measured autotuner over a whole body: each
@@ -46,6 +50,7 @@ from repro_torch.kernels import autotune, lowering
 from repro_torch.kernels.blocking import ChainPlan
 from repro_torch.kernels.policy import (DEFAULT_POLICY, DTYPES, DtypePolicy,
                                         KernelPolicy)
+from repro_torch.runtime import faultinject
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,7 +344,7 @@ def plan_network(net: NetworkSpec, x_shape, *,
                       device)
     if policy.autotune:
         found = _lookup_network_entry(net, key, x_shape, dtype, policy,
-                                      block_dtype_policies)
+                                      block_dtype_policies, device)
         if found is not None:
             return found[0]
     policies = resolve_block_policies(net, policy, block_dtype_policies)
@@ -402,17 +407,46 @@ def _deserialize_network_plan(key: str, d: dict) -> NetworkPlan:
     )
 
 
+def _block_bans(net: NetworkSpec, nplan: NetworkPlan, policy: KernelPolicy,
+                block_dtype_policies=None, device=None) -> tuple:
+    """The rungs quarantined for each block's problem on ``device``
+    (default: ``autotune.default_device()``) under
+    ``on_failure="degrade"``; none under ``"raise"``, which never reads the
+    quarantine."""
+    if policy.on_failure != "degrade":
+        return (frozenset(),) * net.n_blocks
+    from repro_torch.runtime import quarantine  # runtime sits above core
+    policies = resolve_block_policies(net, policy, block_dtype_policies)
+    return tuple(
+        quarantine.banned_kinds(spec, shape, DTYPES[dt], pol, device)
+        for spec, pol, shape, dt in zip(net.blocks, policies,
+                                        nplan.block_shapes,
+                                        nplan.block_dtypes))
+
+
 def _lookup_network_entry(net: NetworkSpec, key: str, x_shape,
                           dtype: torch.dtype, policy: KernelPolicy,
-                          block_dtype_policies=None):
+                          block_dtype_policies=None, device=None):
     """(the valid NetworkPlan, its raw entry) stored under ``key``, or
-    None on a miss or an undecodable or stale entry."""
+    None on a miss, an undecodable or stale entry, or (under
+    ``on_failure="degrade"``) an entry whose plan uses a quarantined rung
+    on ``device``."""
     entry = autotune.TuneCache.load(autotune.cache_path(policy)).get(key)
     if entry is None:
         return None
     try:
         nplan = _deserialize_network_plan(key, entry["network_plan"])
     except (KeyError, TypeError, ValueError):
+        return None
+    from repro_torch.runtime.quarantine import uses_banned
+    bad = [i for i, (cp, banned) in enumerate(zip(
+        nplan.plans, _block_bans(net, nplan, policy, block_dtype_policies,
+                                 device))) if uses_banned(cp, banned)]
+    if bad:
+        warnings.warn(f"dropping network tune-cache entry {key} from "
+                      f"{autotune.cache_path(policy)}: blocks {bad} use "
+                      "quarantined rungs; re-planning around them",
+                      stacklevel=3)
         return None
     why = _network_mismatch(net, nplan, x_shape, dtype, policy,
                             block_dtype_policies)
@@ -432,7 +466,8 @@ class NetworkTuneResult:
     entry replayed (``n_measured == 0`` then), the sums over blocks of the
     winners' and the analytic plans' measured microseconds (on a hit, as
     recorded at tune time) and, on a miss, every chain plan measured as
-    ``(block, ChainPlan, seconds)``."""
+    ``(block, ChainPlan, seconds)`` and every candidate that failed as
+    ``(block, {"candidate", "error"})``."""
     plan: NetworkPlan
     cache_hit: bool
     n_measured: int
@@ -441,6 +476,7 @@ class NetworkTuneResult:
     measured_us: float
     analytic_us: float
     measured: tuple = ()
+    failed: tuple = ()
 
 
 def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
@@ -454,14 +490,17 @@ def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
 
     A valid network entry replays with ZERO measurements and no launch;
     per-block entries (from another network that shares a block) skip
-    measurement block by block.  A candidate failure raises and the
-    network entry is not written; so does a miss inside a CUDA-graph
-    capture."""
+    measurement block by block.  A candidate whose failure is classified
+    loses (``autotune.autotune_chain``) and is listed in the block's entry
+    and in the network entry's ``failed``; when every candidate of a block
+    failed, the network entry is not written.  Any other candidate failure
+    raises and the network entry is not written; so does a miss inside a
+    CUDA-graph capture."""
     path = autotune.cache_path(policy)
     key = network_key(net, x.shape, x.dtype, policy, block_dtype_policies,
                       x.device)
     found = _lookup_network_entry(net, key, x.shape, x.dtype, policy,
-                                  block_dtype_policies)
+                                  block_dtype_policies, x.device)
     if found is not None:
         nplan, entry = found
         return NetworkTuneResult(
@@ -477,7 +516,7 @@ def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
                          "blocks")
     policies = resolve_block_policies(net, policy, block_dtype_policies)
     problems, out_shape = _block_problems(net, x.shape, x.dtype, policies)
-    plans, measured = [], []
+    plans, measured, failed = [], [], []
     n_measured, measured_us, analytic_us = 0, 0.0, 0.0
     y = x
     with torch.inference_mode():
@@ -494,6 +533,7 @@ def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
             measured_us += r.measured_us
             analytic_us += r.analytic_us
             measured.extend((i, cp, t) for cp, t in r.measured)
+            failed.extend((i, f) for f in r.failed)
             y = lowering.lower(spec, r.plan, pol)(p, y)
     nplan = NetworkPlan(
         plans=tuple(plans),
@@ -502,38 +542,75 @@ def tune_network(net: NetworkSpec, params, x: torch.Tensor, *,
         out_shape=out_shape,
         key=key,
     )
-    cache = autotune.TuneCache.load(path)
-    cache.put(key, {
-        "signature": network_signature(net, x.shape, x.dtype, policy,
-                                       block_dtype_policies, x.device),
-        "network_plan": _serialize_network_plan(nplan),
-        "n_measured": n_measured,
-        "measured_us": measured_us,
-        "analytic_us": analytic_us,
-    })
-    cache.save()
+    if measured_us != float("inf"):
+        # a block whose every candidate failed is not persisted; neither
+        # is the network that holds it
+        cache = autotune.TuneCache.load(path)
+        cache.put(key, {
+            "signature": network_signature(net, x.shape, x.dtype, policy,
+                                           block_dtype_policies, x.device),
+            "network_plan": _serialize_network_plan(nplan),
+            "n_measured": n_measured,
+            "measured_us": measured_us,
+            "analytic_us": analytic_us,
+            "failed": [dict(f, block=b) for b, f in failed],
+        })
+        cache.save()
     return NetworkTuneResult(plan=nplan, cache_hit=False,
                              n_measured=n_measured, key=key, cache_path=path,
                              measured_us=measured_us,
                              analytic_us=analytic_us,
-                             measured=tuple(measured))
+                             measured=tuple(measured), failed=tuple(failed))
+
+
+def _plain_rung(run):
+    """A block's plain runner with fault injection suppressed: the ladder's
+    last rung must not be injectable."""
+    def plain(params, x):
+        with faultinject.suppressed():
+            return run(params, x)
+    return plain
+
+
+def plain_blocks(net: NetworkSpec, nplan: NetworkPlan, policy: KernelPolicy,
+                 block_dtype_policies=None, device=None) -> Tuple[bool, ...]:
+    """For each block, whether it runs at the ladder's ``ref`` rung: under
+    ``policy.on_failure == "degrade"``, whether its problem on ``device``
+    has ``unfused`` quarantined.  All False under ``"raise"``."""
+    return tuple("unfused" in banned for banned in _block_bans(
+        net, nplan, policy, block_dtype_policies, device))
 
 
 def build_network_fn(net: NetworkSpec, nplan: NetworkPlan,
                      policy: KernelPolicy = DEFAULT_POLICY,
-                     block_dtype_policies=None):
+                     block_dtype_policies=None, device=None):
     """Compose the per-block lowered runners into one eager ``run(params,
     x)``; every block runs its planned blocks verbatim.  This is what
     :func:`execute_network` captures on the card, and the eager path to
-    hold the captured one against."""
+    hold the captured one against.  The runner passes the
+    ``compile:network`` fault-injection point before its first block: on
+    the card that is the graph's warm-up and capture, never a replay.
+
+    Under ``policy.on_failure == "degrade"`` a block whose problem on
+    ``device`` has ``unfused`` quarantined (:func:`plain_blocks`) — its
+    standalone kernels failed too, which a ChainPlan cannot express — runs
+    its plain version (``impl="torch"``) on the same
+    tensors, with fault injection suppressed: the ladder's ``ref`` rung,
+    inside the same captured graph as the other blocks' kernels."""
     policies = resolve_block_policies(net, policy, block_dtype_policies)
-    runners = [lowering.lower(spec, cp, pol)
-               for spec, cp, pol in zip(net.blocks, nplan.plans, policies)]
+    plain = plain_blocks(net, nplan, policy, block_dtype_policies, device)
+    runners = [
+        _plain_rung(lowering.lower(spec, cp,
+                                   dataclasses.replace(pol, impl="torch")))
+        if ref else lowering.lower(spec, cp, pol)
+        for spec, cp, pol, ref in zip(net.blocks, nplan.plans, policies,
+                                      plain)]
 
     def run(params, x):
         if len(params) != len(runners):
             raise ValueError(f"{len(params)} param blocks for "
                              f"{len(runners)} blocks")
+        faultinject.check("compile:network")
         for r, p in zip(runners, params):
             x = r(p, x)
         return x
@@ -598,7 +675,17 @@ def execute_network(net: NetworkSpec, params, x: torch.Tensor, *,
     updated in place are therefore seen by the next replay, and another set
     of tensors gets a graph of its own.  Called while a capture is under way,
     it runs the eager runner, which the outer capture records.  On a CPU
-    tensor the eager runner runs.
+    tensor the eager runner runs.  A plan is memoized only after its first
+    call returned (its capture and first replay on the card), so a plan
+    that failed is planned again on the next call.
+
+    Under ``policy.on_failure == "degrade"`` (and with
+    ``policy.numeric_guard``) the call runs through the runtime ladder
+    (``runtime/executor.run_network``): the steady state is this same graph
+    plus one ``try``; a classified failure quarantines the failing rungs
+    and recovers block by block, eagerly, and the next call re-plans around
+    the bans and captures a new graph.  Inside an outer capture nothing
+    can recover: a failure there propagates.
     """
     return execute_network_graph(
         net, params, x, policy=policy, network_plan=network_plan,
@@ -611,7 +698,26 @@ def execute_network_graph(net: NetworkSpec, params, x: torch.Tensor, *,
                           block_dtype_policies=None):
     """:func:`execute_network`, returning ``(output, graph)``: the
     :class:`graphs.Captured` that gave the output (its capture time and the
-    launches it recorded), or None where the eager runner ran."""
+    launches it recorded), or None where the eager runner ran (or the
+    runtime ladder recovered block by block)."""
+    if policy.on_failure == "degrade" or policy.numeric_guard:
+        from repro_torch.runtime import executor  # runtime sits above core
+        return executor.run_network(
+            net, params, x, policy=policy, network_plan=network_plan,
+            block_dtype_policies=block_dtype_policies)
+    return _execute_network_raw(net, params, x, policy=policy,
+                                network_plan=network_plan,
+                                block_dtype_policies=block_dtype_policies)
+
+
+def _execute_network_raw(net: NetworkSpec, params, x: torch.Tensor, *,
+                         policy: KernelPolicy = DEFAULT_POLICY,
+                         network_plan: Optional[NetworkPlan] = None,
+                         block_dtype_policies=None):
+    """The unguarded engine behind :func:`execute_network_graph`: plan,
+    capture, memoize, replay.  The memo is written only after the first
+    call returned, on every branch: a plan whose call failed must not stay
+    memoized, or the re-plan after a quarantine write could never happen."""
     key = _memo_key(net, params, x, policy, network_plan,
                     block_dtype_policies)
     memo = _NETWORK_CACHE.get(key)
@@ -628,13 +734,14 @@ def execute_network_graph(net: NetworkSpec, params, x: torch.Tensor, *,
                 net, x.shape, dtype=x.dtype, policy=policy,
                 block_dtype_policies=block_dtype_policies, device=x.device)
         memo = _Memo(nplan, build_network_fn(net, nplan, policy,
-                                             block_dtype_policies),
+                                             block_dtype_policies, x.device),
                      tuple(v for block in params for p in block
                            for v in p.values()))
     with torch.inference_mode():
         if x.device.type != "cuda" or capturing:
+            y = memo.run(params, x)
             _NETWORK_CACHE[key] = memo
-            return memo.run(params, x), None
+            return y, None
         if memo.graph is None:
             static_x = x.clone()
             graph = graphs.capture(lambda: memo.run(params, static_x),

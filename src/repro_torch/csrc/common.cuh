@@ -2,8 +2,8 @@
 //
 // Every kernel library exposes a plain C interface (loaded with ctypes by
 // repro_torch/kernels/_build.py): each launch function returns
-// cudaGetLastError() as an int, and the Python wrapper raises when it is
-// not 0.  Element types are passed as integer codes (DType below); the
+// cudaGetLastError() as an int, through launch_status below, and the Python
+// wrapper raises when it is not 0.  Element types are passed as integer codes (DType below); the
 // wrappers accept the (stream, store) pairs listed in REPRO_DISPATCH_IO.
 #pragma once
 
@@ -58,6 +58,16 @@ struct alignas(sizeof(T) * V) Vec {
 
 inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
+// A runtime call that fails (a launch the driver refuses, a shared-memory
+// limit it will not raise) also keeps its code as this library's last
+// error, which the next launch's cudaGetLastError() would report as its
+// own.  Every launch function returns through here, so that a refused
+// launch fails only itself.  A sticky error stays: the context is lost.
+inline int launch_status(int code) {
+  if (code != 0) (void)cudaGetLastError();
+  return code;
+}
+
 }  // namespace repro
 
 // Calls FN<T, O>(args...) for the (stream, store) dtype pair (in, out):
@@ -66,12 +76,16 @@ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 #define REPRO_DISPATCH_IO(in, out, FN, ...)                                       \
   do {                                                                            \
     using namespace repro;                                                        \
-    if ((in) == kF32 && (out) == kF32) return FN<float, float>(__VA_ARGS__);      \
+    if ((in) == kF32 && (out) == kF32)                                            \
+      return launch_status(FN<float, float>(__VA_ARGS__));                        \
     if ((in) == kBF16 && (out) == kBF16)                                          \
-      return FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);                       \
-    if ((in) == kBF16 && (out) == kF32) return FN<__nv_bfloat16, float>(__VA_ARGS__); \
-    if ((in) == kF16 && (out) == kF16) return FN<__half, __half>(__VA_ARGS__);    \
-    if ((in) == kF16 && (out) == kF32) return FN<__half, float>(__VA_ARGS__);     \
+      return launch_status(FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__));        \
+    if ((in) == kBF16 && (out) == kF32)                                           \
+      return launch_status(FN<__nv_bfloat16, float>(__VA_ARGS__));               \
+    if ((in) == kF16 && (out) == kF16)                                            \
+      return launch_status(FN<__half, __half>(__VA_ARGS__));                      \
+    if ((in) == kF16 && (out) == kF32)                                            \
+      return launch_status(FN<__half, float>(__VA_ARGS__));                       \
     return (int)cudaErrorInvalidValue;                                            \
   } while (0)
 

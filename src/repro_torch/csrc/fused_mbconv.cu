@@ -466,9 +466,12 @@ extern "C" int fused_mbconv_launch(const void* x, const void* f, const void* mb_
                                    cs, np, cluster, act_mb, act_pw, out_dtype == kF32);
   if (!valid(g, B)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kF32) return launch_t<float>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st);
-  if (in_dtype == kBF16) return launch_t<__nv_bfloat16>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st);
-  if (in_dtype == kF16) return launch_t<__half>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st);
+  if (in_dtype == kF32)
+    return launch_status(launch_t<float>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st));
+  if (in_dtype == kBF16)
+    return launch_status(launch_t<__nv_bfloat16>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st));
+  if (in_dtype == kF16)
+    return launch_status(launch_t<__half>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st));
   return (int)cudaErrorInvalidValue;
 }
 

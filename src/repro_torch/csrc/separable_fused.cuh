@@ -460,7 +460,8 @@ int sep_launch(const void* x, const void* expand_w, const void* f, const void* d
       int out_dtype, void* stream) {                                                                \
     if (in_dtype != (CODE) || (out_dtype != (CODE) && out_dtype != repro::kF32))                    \
       return (int)cudaErrorInvalidValue;                                                            \
-    return sep_launch<T>(x, expand_w, f, dw_bias, pw_w, pw_bias, residual, out, B, Hi, Wi, pad_t,   \
-                         pad_l, ci, c, co, Ho, Wo, hf, wf, stride, slab_h, cb, cs, np, cluster,     \
-                         act_exp, act_dw, act_pw, out_dtype == repro::kF32, stream);                \
+    return repro::launch_status(sep_launch<T>(                                                      \
+        x, expand_w, f, dw_bias, pw_w, pw_bias, residual, out, B, Hi, Wi, pad_t, pad_l, ci, c, co,  \
+        Ho, Wo, hf, wf, stride, slab_h, cb, cs, np, cluster, act_exp, act_dw, act_pw,               \
+        out_dtype == repro::kF32, stream));                                                         \
   }

@@ -21,7 +21,9 @@ counted in a profiler trace instead (``measure.device_profile``).
 the counters.
 
 A capture or a replay that fails raises; nothing runs the eager function in
-its place.
+its place.  :func:`record` ends a capture that ``fn`` failed in, so that the
+stream can capture again, and lets ``fn``'s own exception (a kernel's launch
+error, say) propagate rather than the capture's "invalidated" error.
 """
 from __future__ import annotations
 
@@ -84,6 +86,30 @@ def delta(before: dict, after: dict) -> dict:
     return {name: after[name] - before[name] for name in before}
 
 
+def record(graph: torch.cuda.CUDAGraph, fn: Callable[[], Any],
+           device: torch.device) -> Any:
+    """``fn()`` captured into ``graph`` (``torch.cuda.graph``); returns what
+    ``fn`` returned.  Where ``fn`` raises during the capture, the capture is
+    ended (the error that ending it gives, that the capture was
+    invalidated, becomes a note), the current stream is restored, and
+    ``fn``'s exception propagates as it was raised."""
+    prev = torch.cuda.current_stream(device)
+    ctx = torch.cuda.graph(graph)
+    ctx.__enter__()
+    try:
+        out = fn()
+    except BaseException as err:
+        try:
+            ctx.__exit__(type(err), err, err.__traceback__)
+        except Exception as end:
+            err.add_note(f"the CUDA graph capture was abandoned: {end}")
+            # the capture's stream context was not left: leave it here
+            torch.cuda.set_stream(prev)
+        raise
+    ctx.__exit__(None, None, None)
+    return out
+
+
 @dataclasses.dataclass
 class Captured:
     """A captured call: ``output`` is what the call returned while it was
@@ -108,7 +134,8 @@ def capture(fn: Callable[[], Any],
     CUDA graph in a private memory pool, then replay it once.  The warm-up
     and the capture each move the launch counters by one call.  Raises on
     a device that is not a CUDA device, and when the capture or the replay
-    fails."""
+    fails (a failure of ``fn`` during the capture as ``fn`` raised it:
+    :func:`record`)."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type != "cuda":
         raise ValueError(f"a CUDA graph is captured on the card, not on "
@@ -124,8 +151,7 @@ def capture(fn: Callable[[], Any],
     graph = torch.cuda.CUDAGraph()
     before = snapshot()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph):
-        output = fn()
+    output = record(graph, fn, dev)
     capture_s = time.perf_counter() - t0
     recorded = {k: n for k, n in delta(before, snapshot()).items() if n}
     captured = Captured(graph, output, recorded, capture_s)

@@ -113,12 +113,25 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+class KernelLaunchError(RuntimeError):
+    """A launch function returned a CUDA error code: ``code`` is the
+    runtime's ``cudaError_t``, ``kernel`` the library's name.  Whether the
+    runtime ladder may degrade around it is decided from the code alone
+    (``runtime/failures.classify``)."""
+
+    def __init__(self, message: str, *, kernel: str, code: int):
+        super().__init__(message)
+        self.kernel = kernel
+        self.code = int(code)
+
+
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
-    """Raise if a launch function returned a CUDA error code."""
+    """Raise :class:`KernelLaunchError` if a launch function returned a
+    CUDA error code."""
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
-                           f"({msg})")
+        raise KernelLaunchError(f"{name} kernel launch failed: CUDA error "
+                                f"{code} ({msg})", kernel=name, code=code)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -41,9 +41,23 @@ closes that gap for a declared chain by measuring a pruned candidate set:
 A candidate must beat the incumbent by more than :data:`REL_IMPROVEMENT`
 to win, so measurement noise cannot flip plans between runs.
 
-There is no runtime ladder in the port (the reference's A8): a candidate
-that fails to launch raises, naming the segment and the plan, and nothing
-is written to the cache.  Measuring inside a CUDA-graph capture raises.
+Failures: under the default ``KernelPolicy(on_failure="raise")`` a
+candidate that fails to launch raises, naming the segment and the plan,
+and nothing is written to the cache: every ladder candidate is meant to be
+feasible, so a failing one is a kernel or planner bug.  Under
+``on_failure="degrade"``, as in the reference
+(``repro/kernels/autotune.py:520-560``), a candidate whose failure the
+runtime's whitelist recognizes (``runtime/failures.classify``: an injected
+fault, a launch the driver refused for its configuration, an out-of-memory
+error) loses at its first attempt with an infinite time and is recorded in
+the entry's ``failed`` list (empty when every candidate ran); when every
+candidate failed, the analytic plan is returned and nothing is persisted.
+Unlike the reference, a failed measurement is not retried: the refused
+launches are deterministic for a plan.  Any other exception (a bug, a
+failed build, a sticky CUDA error) raises under either policy.  Measuring
+inside a CUDA-graph capture raises.  Under ``"degrade"`` a cached winner
+that uses a quarantined rung (``runtime/quarantine.py``) is dropped with a
+warning and the caller re-plans around the ban.
 
 Entry points: ``core/chain.execute(policy=KernelPolicy(autotune=True))``
 measures on the first call and replays the cache afterwards;
@@ -69,6 +83,7 @@ from repro_torch.kernels import _build, blocking, lowering
 from repro_torch.kernels.blocking import BlockPlan, ChainPlan, ChainSegment
 from repro_torch.kernels.diskstore import VersionedJsonStore
 from repro_torch.kernels.policy import KernelPolicy
+from repro_torch.runtime import failures
 
 #: Cache-file schema version of the port's own cache; bump on an
 #: incompatible layout change (old files then read as empty and re-tune).
@@ -443,16 +458,36 @@ def validate_cached_plan(spec, cp: ChainPlan, x_shape: Sequence[int],
     return None
 
 
+def _quarantined(cp: ChainPlan, key: str, path: str,
+                 policy: KernelPolicy) -> bool:
+    """Under ``on_failure="degrade"``: whether ``cp`` uses a rung that the
+    quarantine bans for ``key`` (warned about: the winner must not replay,
+    the planner degrades around it).  Never true under ``"raise"``."""
+    if policy.on_failure != "degrade":
+        return False
+    from repro_torch.runtime import quarantine  # runtime sits above
+    banned = quarantine.load(quarantine.quarantine_path(policy)).banned(key)
+    if not quarantine.uses_banned(cp, banned):
+        return False
+    warnings.warn(
+        f"dropping tune-cache entry {key} from {path}: its plan uses "
+        f"quarantined rungs ({sorted(banned)} banned); the analytic planner "
+        "will degrade around them", stacklevel=4)
+    return True
+
+
 def _cached_plan(spec, entry: Optional[dict], x_shape, key: str, path: str,
-                 base_plan: ChainPlan,
-                 dtype: torch.dtype) -> Optional[ChainPlan]:
-    """The entry's plan, decoded and validated, or None."""
+                 base_plan: ChainPlan, dtype: torch.dtype,
+                 policy: KernelPolicy) -> Optional[ChainPlan]:
+    """The entry's plan, decoded, not quarantined, and validated; or None."""
     if entry is None:
         return None
     try:
         cp = deserialize_chain_plan(entry["plan"])
     except (KeyError, TypeError, ValueError):
         return None  # undecodable: re-tune and overwrite
+    if _quarantined(cp, key, path, policy):
+        return None
     return validate_cached_plan(spec, cp, x_shape, key, path, base_plan,
                                 dtype)
 
@@ -461,13 +496,14 @@ def lookup_cached_plan(spec, x_shape: Sequence[int], dtype: torch.dtype,
                        policy: KernelPolicy, *, base_plan: ChainPlan,
                        device=None) -> Optional[ChainPlan]:
     """Pure cache consult (no measurement): the tuned ChainPlan for this
-    problem on ``device``, or None on a miss or an undecodable or invalid
-    entry.  ``base_plan`` is the chain's analytic plan."""
+    problem on ``device``, or None on a miss, an undecodable or invalid
+    entry, or (under ``on_failure="degrade"``) a winner that uses a
+    quarantined rung.  ``base_plan`` is the chain's analytic plan."""
     path = cache_path(policy)
     key = problem_key(spec, x_shape, dtype, policy, device)
     return _cached_plan(spec, TuneCache.load(path).get(key), x_shape, key,
-                        path, base_plan, policy.dtype_policy.stream_dtype(
-                            dtype))
+                        path, base_plan,
+                        policy.dtype_policy.stream_dtype(dtype), policy)
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +549,10 @@ class AutotuneResult:
     """What one autotune consult answered: the plan to execute, whether it
     replayed the cache (``n_measured == 0`` then), the timings behind the
     decision (microseconds; on a hit, as recorded at tune time) and, on a
-    miss, every chain plan measured with its seconds."""
+    miss, every chain plan measured with its seconds and every candidate
+    that failed (``{"candidate", "error"}`` records, as in the entry's
+    ``failed`` list).  ``n_measured`` counts the plans timed, failed ones
+    included; ``measured_us`` is infinite when every one failed."""
     plan: ChainPlan
     cache_hit: bool
     measured_us: float
@@ -522,6 +561,7 @@ class AutotuneResult:
     key: str
     cache_path: str
     measured: tuple = ()
+    failed: tuple = ()
 
 
 def autotune_chain(spec, params, x: torch.Tensor, *, policy: KernelPolicy,
@@ -534,10 +574,16 @@ def autotune_chain(spec, params, x: torch.Tensor, *, policy: KernelPolicy,
     measurements.  Miss: time the analytic ``base_plan``, then
     coordinate-descend over the per-segment candidates (vary one segment,
     the others at the incumbent), timing the WHOLE chain each time, and
-    persist the winner.  The analytic plan is always a candidate.  A
-    candidate that fails raises with a note naming the segment and the
-    plan, and nothing is written; so does a miss inside a CUDA-graph
-    capture.
+    persist the winner.  The analytic plan is always a candidate.  Under
+    ``policy.on_failure == "degrade"`` a candidate whose failure is
+    classified (``runtime/failures.classify``) loses with an infinite time
+    and is recorded in the entry's ``failed`` list; when every candidate
+    failed, ``base_plan`` is returned and nothing is persisted.  Any other
+    failure, and under the default ``"raise"`` every failure, raises with a
+    note naming the segment and the plan, and nothing is written; so does a
+    miss inside a CUDA-graph capture.  Under ``on_failure="degrade"`` a cached winner
+    that uses a quarantined rung is a miss, and the tune runs again around
+    ``base_plan`` (which the caller planned around the ban).
     """
     path = cache_path(policy)
     if cache is None:
@@ -545,7 +591,8 @@ def autotune_chain(spec, params, x: torch.Tensor, *, policy: KernelPolicy,
     key = problem_key(spec, x.shape, x.dtype, policy, x.device)
     entry = cache.get(key)
     sdt = policy.dtype_policy.stream_dtype(x.dtype)
-    plan = _cached_plan(spec, entry, x.shape, key, path, base_plan, sdt)
+    plan = _cached_plan(spec, entry, x.shape, key, path, base_plan, sdt,
+                        policy)
     if plan is not None:
         return AutotuneResult(
             plan=plan, cache_hit=True,
@@ -558,16 +605,22 @@ def autotune_chain(spec, params, x: torch.Tensor, *, policy: KernelPolicy,
             "capture; measuring there would record the candidates into the "
             "graph (tune before capturing)")
 
-    measured = []
+    measured, failed = [], []
 
     def timed(cp: ChainPlan, what: str) -> float:
         try:
             t = measure_run(lowering.lower(spec, cp, policy), params, x,
                             warmup=warmup, repeats=repeats)
         except Exception as e:
-            e.add_note(f"autotune: while timing {what} of tune-cache key "
-                       f"{key}; nothing was written to {path}")
-            raise
+            if (policy.on_failure != "degrade"
+                    or failures.classify(e) is None):
+                e.add_note(f"autotune: while timing {what} of tune-cache "
+                           f"key {key}; nothing was written to {path}")
+                raise
+            # a candidate that cannot run loses; the failure is recorded
+            failed.append({"candidate": what,
+                           "error": f"{type(e).__name__}: {e}"[:200]})
+            return float("inf")
         measured.append((cp, t))
         return t
 
@@ -585,16 +638,29 @@ def autotune_chain(spec, params, x: torch.Tensor, *, policy: KernelPolicy,
             t = timed(cp, f"segment {si} ({geom.kind}) at {cand}")
             if t < t_best * (1.0 - REL_IMPROVEMENT):
                 best, t_best = cp, t
+    n_measured = len(measured) + len(failed)
+    if t_best == float("inf"):
+        # every candidate failed: nothing to persist; the analytic plan
+        # goes back unpersisted, for the caller's own failure handling
+        warnings.warn(
+            f"autotune: every candidate failed to run for {key} "
+            f"({len(failed)} failures, first: {failed[0]['error']}); "
+            "returning the analytic plan unpersisted", stacklevel=2)
+        return AutotuneResult(plan=base_plan, cache_hit=False,
+                              measured_us=t_best, analytic_us=t_base,
+                              n_measured=n_measured, key=key,
+                              cache_path=path, failed=tuple(failed))
     cache.put(key, {
         "signature": problem_signature(spec, x.shape, x.dtype, policy,
                                        x.device),
         "plan": serialize_chain_plan(best),
         "measured_us": t_best * 1e6,
         "analytic_us": t_base * 1e6,
-        "n_measured": len(measured),
+        "n_measured": n_measured,
+        "failed": failed,
     })
     cache.save()
     return AutotuneResult(plan=best, cache_hit=False,
                           measured_us=t_best * 1e6, analytic_us=t_base * 1e6,
-                          n_measured=len(measured), key=key, cache_path=path,
-                          measured=tuple(measured))
+                          n_measured=n_measured, key=key, cache_path=path,
+                          measured=tuple(measured), failed=tuple(failed))

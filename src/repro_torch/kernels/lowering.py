@@ -25,7 +25,13 @@ the stream dtype with its bias and activation applied after it, in the
 stream dtype — which is where bf16 rounding differs between the fused and
 unfused plans, exactly as in the reference.
 
-There is no runtime ladder in this slice: a kernel failure raises.
+Before each segment dispatches, its fault-injection point is checked
+(:data:`_INJECT`, ``runtime/faultinject.py``).  A failure the runtime's
+whitelist recognizes (``runtime/failures.classify``) is re-raised tagged
+with its segment, so that the ladder knows which rung to quarantine; any
+other exception propagates untouched.  Nothing here catches a failure to
+run something else in its place: that is the ladder's job, and only under
+``KernelPolicy(on_failure="degrade")``.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.kernels.policy import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels.pwconv import pwconv
 from repro_torch.kernels.se_epilogue import dw_se
 from repro_torch.kernels.separable_fused import separable_fused
+from repro_torch.runtime import failures, faultinject
 
 #: Per-stage parameter leaves, the reference's layouts: PW ``{"w": (Ci,
 #: Co)[, "b": (Co,)]}``, DW ``{"f": (Hf, Wf, C)[, "b": (C,)]}``, SE
@@ -49,6 +56,18 @@ from repro_torch.kernels.separable_fused import separable_fused
 #: ``{"f": (Hf, Wf, Ci, C)[, "b": (C,)]}``.
 PARAM_KEYS = {"pw": ("w", "b"), "dw": ("f", "b"),
               "se": ("w1", "b1", "w2", "b2"), "mb": ("f", "b")}
+
+#: Fault-injection point per segment kind, checked before each dispatch;
+#: fused2 and fused3 share one point because they share the kernel, as do
+#: fusedmb/mb and dw_se/se.
+_INJECT = {"fused3": "lowering:separable_fused",
+           "fused2": "lowering:separable_fused",
+           "fusedmb": "lowering:fused_mbconv",
+           "mb": "lowering:fused_mbconv",
+           "dw_se": "lowering:se_epilogue",
+           "se": "lowering:se_epilogue",
+           "pw": "lowering:pwconv",
+           "dw": "lowering:dwconv2d"}
 
 
 def _cast(a, dtype):
@@ -184,6 +203,33 @@ def _run_dw(seg, st, p, y, *, impl, stream_dtype):
     return apply_epilogue(y, _cast(p.get("b"), stream_dtype), st.activation)
 
 
+def _run_segment(seg, stages, params, y, seg_res, policy, *, impl,
+                 stream_dtype, out_dtype, last):
+    """One segment's kernel pass (its plain version with ``impl="torch"``),
+    after its fault-injection point."""
+    faultinject.check(_INJECT[seg.kind])
+    i = seg.stages[0]
+    kw = dict(impl=impl, stream_dtype=stream_dtype)
+    if seg.kind in ("fused3", "fused2"):
+        return _run_fused(seg, stages, params, y, seg_res,
+                          out_dtype=out_dtype, **kw)
+    if seg.kind == "fusedmb":
+        return _run_fused_mb(seg, stages, params, y, seg_res,
+                             out_dtype=out_dtype, **kw)
+    if seg.kind == "dw_se":
+        return _run_dw_se(seg, stages, params, y, out_dtype=out_dtype, **kw)
+    if seg.kind == "pw":
+        return _run_pw(seg, stages[i], params[i], y, policy,
+                       out_dtype=out_dtype, **kw)
+    if seg.kind == "se":
+        return _run_se(stages[i], params[i], y, out_dtype=out_dtype, **kw)
+    if seg.kind == "mb":
+        return _run_mb(stages[i], params[i], y, stream_dtype=stream_dtype,
+                       out_dtype=out_dtype)
+    y = _run_dw(seg, stages[i], params[i], y, **kw)  # "dw"
+    return y.to(out_dtype) if last else y
+
+
 def lower(spec, chain_plan: ChainPlan,
           policy: KernelPolicy = DEFAULT_POLICY,
           ) -> Callable[[Sequence[dict], torch.Tensor], torch.Tensor]:
@@ -212,30 +258,20 @@ def lower(spec, chain_plan: ChainPlan,
             last = si == len(segments) - 1
             k_out = odt if (last and not sep_res) else sdt
             seg_res = res if (chain_plan.residual_fused and last) else None
-            i = seg.stages[0]
-            if seg.kind in ("fused3", "fused2"):
-                y = _run_fused(seg, stages, params, y, seg_res, impl=impl,
-                               stream_dtype=sdt, out_dtype=k_out)
-            elif seg.kind == "fusedmb":
-                y = _run_fused_mb(seg, stages, params, y, seg_res, impl=impl,
-                                  stream_dtype=sdt, out_dtype=k_out)
-            elif seg.kind == "dw_se":
-                y = _run_dw_se(seg, stages, params, y, impl=impl,
-                               stream_dtype=sdt, out_dtype=k_out)
-            elif seg.kind == "pw":
-                y = _run_pw(seg, stages[i], params[i], y, policy, impl=impl,
-                            stream_dtype=sdt, out_dtype=k_out)
-            elif seg.kind == "se":
-                y = _run_se(stages[i], params[i], y, impl=impl,
-                            stream_dtype=sdt, out_dtype=k_out)
-            elif seg.kind == "mb":
-                y = _run_mb(stages[i], params[i], y, stream_dtype=sdt,
-                            out_dtype=k_out)
-            else:  # "dw"
-                y = _run_dw(seg, stages[i], params[i], y, impl=impl,
-                            stream_dtype=sdt)
-                if last:
-                    y = y.to(k_out)
+            try:
+                y = _run_segment(seg, stages, params, y, seg_res, policy,
+                                 impl=impl, stream_dtype=sdt, out_dtype=k_out,
+                                 last=last)
+            except Exception as e:
+                # tag a recognized failure with the segment that raised it
+                # (the ladder keys its quarantine decision on this); any
+                # other exception propagates untouched
+                f = failures.classify(e, segment_kind=seg.kind,
+                                      segment_index=si,
+                                      stage_indices=seg.stages)
+                if f is None or f is e:
+                    raise
+                raise f from e
         if sep_res:
             y = (y + res).to(odt)
         return y

@@ -8,8 +8,14 @@ fails to build or launch raises, and ``impl="cuda"`` on a CPU tensor raises.
 ``KernelPolicy`` keeps what the port uses: ``impl``, the ``fused``
 opt-out, the ``dtype_policy``, the GEMM tile overrides, the per-CTA
 shared-memory budget the planner sizes fused tiles against, and the
-measured autotuner's ``autotune`` / ``tune_cache``.  The reference's verify
-and runtime-ladder fields belong to the slices that port those layers.
+measured autotuner's ``autotune`` / ``tune_cache``, and the runtime
+ladder's ``on_failure`` / ``numeric_guard``.  The reference's verify field
+belongs to the slice that ports that layer.
+
+``on_failure`` is where the port departs from the reference's default: the
+reference degrades (``"degrade"``), the port raises (``"raise"``), so that
+no fallback can hide a kernel failure on the main path.  The ladder
+(``runtime/``) is an explicit opt-in.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 STREAMABLE_DTYPES = tuple(DTYPES)
 
 IMPLS = ("auto", "cuda", "torch")
+
+#: What a classified kernel failure does (``runtime/executor.py``).
+ON_FAILURE = ("raise", "degrade")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +110,19 @@ class KernelPolicy:
     their first call (the winner is persisted, so later runs replay it
     without measuring).  ``False`` (default) keeps the analytic planner.
     tune_cache: path of the JSON tune cache; ``None`` uses
-    ``kernels/autotune.default_cache_path()``.
+    ``kernels/autotune.default_cache_path()``.  A pinned cache also pins
+    the quarantine store beside it (``runtime/quarantine.py``).
+    on_failure: ``"raise"`` (default) — a kernel failure raises, as it
+    is; no plan consults the quarantine.  ``"degrade"`` — the runtime
+    ladder (``runtime/executor.py``): a classified failure
+    (``runtime/failures.classify``) quarantines the failing rung in a
+    persistent store, recovers by running the failing blocks again one by
+    one at lower rungs (the plain version last), and the next call re-plans
+    around the ban.  The reference defaults to ``"degrade"``; the port
+    does not, so that no fallback hides a kernel failure unless asked to.
+    numeric_guard: check that every chain and network output is finite
+    (a host sync after the call, never inside a captured graph); a
+    non-finite output is a ``NumericalFailure``.
     """
     impl: str = "auto"
     smem_budget: int = DEFAULT_SMEM_BUDGET
@@ -112,10 +133,15 @@ class KernelPolicy:
     dtype_policy: DtypePolicy = NATIVE
     autotune: bool = False
     tune_cache: Optional[str] = None
+    on_failure: str = "raise"
+    numeric_guard: bool = False
 
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}")
+        if self.on_failure not in ON_FAILURE:
+            raise ValueError(f"unknown on_failure {self.on_failure!r} (want "
+                             f"{'|'.join(ON_FAILURE)})")
 
     def resolved(self, device: torch.device) -> str:
         return resolve_impl(self.impl, device)

@@ -50,7 +50,9 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
     captured ``launches`` calls, CUDA events around each of ``reps``
     replays after ``warmup`` untimed ones: the device's pace for a
     microsecond kernel, without the host's launch overhead between calls.
-    The graph and its memory pool are released before it returns."""
+    The graph and its memory pool are released before it returns.  A
+    failure of ``fn`` during the capture propagates as ``fn`` raised it
+    (``graphs.record``)."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -58,9 +60,8 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
             fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
+    from repro_torch.graphs import record  # graphs imports the kernels
+    record(graph, lambda: [fn() for _ in range(launches)], device)
     for _ in range(warmup):
         graph.replay()
     torch.cuda.synchronize(device)

@@ -6,6 +6,7 @@ card by default.
         [--arch v1|v2|mnasnet|lite0|all]
         [--dtype fp32|bf16] [--res N] [--batch B] [--device cuda|cpu]
         [--unfused] [--autotune [--tune-cache PATH]]
+        [--fault-inject POINTS [--numeric-guard]]
 
 For each network it prints the plan histogram, the kernel launches of one
 eager forward and (on the card) the kernels one replay of the graph ran,
@@ -28,19 +29,41 @@ else ``build/repro_torch/autotune.json`` in the checkout); a later run
 replays them with no measurement.  The tune runs before any counted or
 timed call, and the script prints whether it was a cache hit, the plans
 it measured and its seconds.
+
+``--fault-inject POINTS`` arms the runtime's fault-injection points
+(comma-separated ``point[:times]``, persistent without ``times``; the
+catalog is ``runtime/faultinject.INJECTION_POINTS``) and, since the port's
+default policy raises, runs each network under
+``KernelPolicy(on_failure="degrade")`` for that run (:func:`run_recovery`):
+the first forward meets the faults and recovers block by block, the
+second plans around the quarantine (``runtime/quarantine.py``) and
+captures a new graph.  The quarantine is the run's own: beside
+``--tune-cache`` where given (delete that ``quarantine.json`` to clear the
+bans), else in a temporary directory under ``build/repro_torch/`` that
+goes at exit, so injected bans never reach the default store that real
+``on_failure="degrade"`` runs read.  At the end it prints ``runtime_report()`` and
+``fired_counts()``, and fails unless every fallback was injected.
+``--numeric-guard`` adds the finite check on each output (the
+``numeric:*`` points need it).
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import json
+import os
+import tempfile
 import time
 
 import torch
 
 from repro_torch import graphs
 from repro_torch.core import network
-from repro_torch.kernels import pwconv
+from repro_torch.kernels import _build, pwconv
 from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
 from repro_torch.measure import profile_calls, rel_err, time_ms
+from repro_torch.runtime import faultinject, quarantine, telemetry
 
 #: bf16-streamed network vs the fp32 plain path: one bf16 rounding per
 #: streamed operand per block, compounded over 13-17 blocks (the
@@ -232,6 +255,129 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
             "finite_and_shaped": ok}
 
 
+def _plain_path(net, params32, x, fused):
+    """The fp32 plain path, run eagerly, with fault injection suppressed."""
+    plain = KernelPolicy(impl="torch", fused=fused)
+    with torch.inference_mode(), faultinject.suppressed():
+        return network.build_network_fn(
+            net, network.plan_network(net, x.shape, policy=plain),
+            plain)(params32, x)
+
+
+def quarantine_bans(path: str) -> dict:
+    """``{problem key: [banned rungs]}`` of the quarantine store at
+    ``path`` (empty where there is no file)."""
+    q = quarantine.Quarantine.load(path)
+    return {k: sorted(q.banned(k)) for k in sorted(q.entries)}
+
+
+def run_recovery(net: network.NetworkSpec, *, res: int = 112, batch: int = 8,
+                 dtype: str = "fp32", fused=None, device="cuda",
+                 seed: int = 0, tune_cache=None,
+                 numeric_guard: bool = False) -> dict:
+    """Drive one network body under ``KernelPolicy(on_failure="degrade")``
+    with whatever fault-injection points are armed: two calls of
+    ``execute_network_graph``.  The first meets the faults and recovers
+    (block by block, eagerly) or, where no point fires, captures its graph;
+    the second plans around the quarantine (``tune_cache`` pins the store
+    beside it) and captures a new graph, in which a block with ``unfused``
+    banned runs its plain version.  Both outputs are held against the fp32
+    plain path (run eagerly with injection suppressed), the second graph's
+    against its eager runner's bits.  The launch counters are zeroed
+    around each call: the second call's must be its warm-up's and its
+    capture's, two forwards of the new plan's kernel segments (a block at
+    the plain rung launches none; on the CPU nothing launches).  The
+    runtime telemetry is reset at the start and after the first call.
+    Returns the runtime report and the
+    points' fire counts after the first call, the quarantine's bans, and
+    the second call's plan, launches, graph ms (CUDA events, median of 10,
+    on the card) and errors."""
+    dev = network.require_device(device)
+    cuda = dev.type == "cuda"
+    params32 = network.init_network(net, seed=seed, device=dev)
+    x = torch.randn((batch, res, res, net.c_in),
+                    generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    pol = KernelPolicy(fused=fused,
+                       dtype_policy=BF16_STREAM if dtype == "bf16" else NATIVE,
+                       tune_cache=tune_cache, on_failure="degrade",
+                       numeric_guard=numeric_guard)
+    params = (network.cast_network_params(params32, torch.bfloat16)
+              if dtype == "bf16" else params32)
+    ref = _plain_path(net, params32, x, fused)
+    tol = BF16_REL_TOL if dtype == "bf16" else FP32_REL_TOL
+    network.clear_network_cache()
+    telemetry.reset_runtime_telemetry()
+    fired0 = faultinject.fired_counts()
+    t0 = time.perf_counter()
+    (y1, graph1), first, _, _ = _counted(
+        lambda: network.execute_network_graph(net, params, x, policy=pol),
+        dev)
+    first_s = time.perf_counter() - t0
+    report = telemetry.runtime_report()
+    fired = {p: n - fired0.get(p, 0)
+             for p, n in faultinject.fired_counts().items()}
+    telemetry.reset_runtime_telemetry()
+    # the next call: a memo miss (a failing plan is never memoized), a
+    # re-plan around the bans and a new capture
+    nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol,
+                                 device=dev)
+    plain = network.plain_blocks(net, nplan, pol, device=dev)
+    histogram = dict(collections.Counter(
+        seg.kind for p, at_ref in zip(nplan.plans, plain) if not at_ref
+        for seg in p.segments))
+    want = (expected_launches(histogram) if cuda
+            else dict.fromkeys(KERNEL_SEGMENTS, 0))
+    t0 = time.perf_counter()
+    (y2, graph2), second, _, _ = _counted(
+        lambda: network.execute_network_graph(net, params, x, policy=pol),
+        dev)
+    second_s = time.perf_counter() - t0
+    eager = network.build_network_fn(net, nplan, pol, device=dev)
+    with torch.inference_mode():
+        y_eager, eager_launches, _, _ = _counted(lambda: eager(params, x),
+                                                 dev)
+    replan = telemetry.runtime_report()
+
+    def forward():
+        return network.execute_network(net, params, x, policy=pol)
+
+    ms = time_ms(forward, dev) if cuda else None
+    network.clear_network_cache()
+    return {
+        "first_s": first_s, "first_rel_err": rel_err(y1, ref),
+        "first_captured": graph1 is not None, "first_launches": first,
+        "report": report, "fired": fired,
+        "bans": quarantine_bans(quarantine.quarantine_path(pol)),
+        "histogram": histogram, "plain_blocks": sum(plain),
+        "second_s": second_s, "second_captured": graph2 is not None,
+        "capture_s": graph2.capture_s if graph2 is not None else None,
+        "second_launches": second, "eager_launches": eager_launches,
+        "want_launches": want, "replan_report": replan,
+        "graph_equals_eager": bool(torch.equal(y2, y_eager)),
+        "rel_err": rel_err(y2, ref), "tol": tol, "ms": ms,
+        "finite_and_shaped": bool(torch.isfinite(y2.float()).all())
+        and tuple(y2.shape) == nplan.out_shape}
+
+
+def recovery_ok(r: dict, cuda: bool) -> bool:
+    """Whether a :func:`run_recovery` run recovered within tolerance with
+    every fallback injected, and its second call captured the new plan
+    (on the card: two forwards launched, one per eager call) and gave the
+    eager runner's bits."""
+    rep = r["report"]
+    twice = {k: (2 if cuda else 1) * n for k, n in r["want_launches"].items()}
+    return (r["first_rel_err"] <= r["tol"] and r["rel_err"] <= r["tol"]
+            and r["finite_and_shaped"] and r["graph_equals_eager"]
+            and rep["fallbacks"] == rep["injected_fallbacks"]
+            == sum(r["fired"].values())
+            and all(e["injected"] for e in rep["events"]
+                    if e["event"] == "fallback")
+            and r["replan_report"]["fallbacks"] == 0
+            and r["second_captured"] == cuda
+            and r["second_launches"] == twice
+            and r["eager_launches"] == r["want_launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=(*ARCHS, "all"), default="all")
@@ -247,15 +393,32 @@ def main(argv=None) -> int:
                     help="run the measured plans (tuned on a cache miss)")
     ap.add_argument("--tune-cache", metavar="PATH",
                     help="the tune cache (default: "
-                         "kernels/autotune.default_cache_path())")
+                         "kernels/autotune.default_cache_path()); the "
+                         "quarantine store lives beside it")
+    ap.add_argument("--fault-inject", metavar="POINTS",
+                    help="arm fault-injection points (comma-separated "
+                         "point[:times], persistent without times) and run "
+                         "under KernelPolicy(on_failure='degrade') for this "
+                         "run (the port's default raises), with a quarantine "
+                         "of its own (beside --tune-cache, else temporary); "
+                         "prints the runtime report and the points' fire "
+                         "counts")
+    ap.add_argument("--numeric-guard", action="store_true",
+                    help="with --fault-inject: check every output is finite")
     args = ap.parse_args(argv)
-    if args.tune_cache and not args.autotune:
-        ap.error("--tune-cache needs --autotune")
+    if args.tune_cache and not (args.autotune or args.fault_inject):
+        ap.error("--tune-cache needs --autotune or --fault-inject")
+    if args.fault_inject and args.autotune:
+        ap.error("--fault-inject runs the analytic plans; drop --autotune")
+    if args.numeric_guard and not args.fault_inject:
+        ap.error("--numeric-guard needs --fault-inject")
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     nets = [spec() for name, spec in ARCHS.items()
             if args.arch in (name, "all")]
+    if args.fault_inject:
+        return _main_faulted(args, nets)
     failed = False
     for net in nets:
         r = run_network(net, res=args.res, batch=args.batch,
@@ -308,6 +471,61 @@ def main(argv=None) -> int:
             counts_ok = r["first_call_launches"] == r["eager_launches"]
         failed |= not (r["rel_err"] <= r["tol"] and r["finite_and_shaped"]
                        and r["graph_equals_eager"] and counts_ok)
+    return 1 if failed else 0
+
+
+def _main_faulted(args, nets) -> int:
+    with contextlib.ExitStack() as stack:
+        tune_cache = args.tune_cache
+        if tune_cache is None:
+            # the run's own store: injected bans must not reach the default
+            # quarantine, which every real degrade run reads
+            os.makedirs(_build.BUILD_DIR, exist_ok=True)
+            tune_cache = os.path.join(stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="fault_inject_",
+                                            dir=_build.BUILD_DIR)),
+                "autotune.json")
+        try:
+            return _run_faulted(args, nets, tune_cache)
+        finally:
+            faultinject.disarm_all()
+
+
+def _run_faulted(args, nets, tune_cache) -> int:
+    points = faultinject.arm_from_spec(args.fault_inject)
+    print(f"fault injection armed: {', '.join(points)}; on_failure='degrade'"
+          " for this run, quarantine "
+          f"{quarantine.quarantine_path(KernelPolicy(tune_cache=tune_cache))}"
+          + ("" if args.tune_cache else " (removed at exit)"))
+    cuda = torch.device(args.device).type == "cuda"
+    failed = False
+    for net in nets:
+        r = run_recovery(net, res=args.res, batch=args.batch,
+                         dtype=args.dtype,
+                         fused=False if args.unfused else None,
+                         device=args.device, tune_cache=tune_cache,
+                         numeric_guard=args.numeric_guard)
+        rep = r["report"]
+        histo = ",".join(f"{k}:{v}" for k, v in sorted(r["histogram"].items()))
+        print(f"{net.name} @{args.res}x{args.res} batch {args.batch} "
+              f"{args.dtype} on {args.device}: first call {r['first_s']:.3f}"
+              f" s, {rep['fallbacks']} fallbacks ({rep['injected_fallbacks']}"
+              f" injected), {rep['recoveries']} recoveries, rel err "
+              f"{r['first_rel_err']:.2e}; fired {r['fired']}")
+        print(f"  quarantine: {sum(len(b) for b in r['bans'].values())} bans "
+              f"over {len(r['bans'])} problems")
+        print(f"  next call: plan {histo} with {r['plain_blocks']} blocks at "
+              f"the plain rung, launches {r['second_launches']}, graph "
+              f"equals eager {r['graph_equals_eager']}, rel err "
+              f"{r['rel_err']:.2e} (tol {r['tol']:g})"
+              + (f", {r['ms']:.3f} ms/forward" if r["ms"] is not None
+                 else ""))
+        for when, rep in (("first call", r["report"]),
+                          ("next call", r["replan_report"])):
+            print(f"  runtime report, {when}: " + json.dumps(
+                {k: v for k, v in rep.items() if k != "events"}))
+        failed |= not recovery_ok(r, cuda)
+    print(f"fired: {faultinject.fired_counts()}")
     return 1 if failed else 0
 
 

@@ -3,8 +3,10 @@ the CPU, where every candidate runs the plain versions: the reference's
 ``tests/test_autotune.py`` cases mirrored on the port (cache round trip,
 ``plan`` consulting the cache, serialization of every ``BlockPlan`` field,
 winner parity, key sensitivity, corrupted files and entries), the ladders
-the tuner draws from, the rules of the port (a candidate failure raises and
-writes nothing, no measurement inside a capture, stale entries dropped
+the tuner draws from, the rules of the port (a candidate failure raises
+and writes nothing — only under ``on_failure="degrade"`` do the classified
+ones fold, ``tests/test_torch_runtime.py`` — no measurement inside a
+capture, stale entries dropped
 with a warning), ``tune_network`` and its replay, and parity with the JAX
 package: the stage signatures and a tuned network's output and segments.
 """
@@ -491,9 +493,10 @@ def test_ladders_start_with_the_planners_plan(dtype):
 
 def test_candidate_failure_propagates_and_writes_no_cache(tmp_path,
                                                           monkeypatch):
-    """The port has no failure taxonomy to fold a candidate's failure
-    into an infinite time: it raises, naming the segment, and the cache
-    file is never written."""
+    """A candidate failure that the runtime's whitelist does not
+    recognize (a plain ``RuntimeError``: a bug, not a refused launch) is
+    never folded into an infinite time: it raises, naming the segment,
+    and the cache file is never written."""
     spec, params, x = _problem()
     pol = _policy(tmp_path, fused=False)
     analytic = _analytic(spec, x, pol)

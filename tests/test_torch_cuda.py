@@ -896,6 +896,233 @@ def test_failed_capture_memoizes_nothing(dev, monkeypatch):
     network.clear_network_cache()
 
 
+#: A pwconv problem whose ``simt`` grid needs more than 65535 CTAs in y:
+#: a launch the driver refuses for its configuration (the context
+#: survives it).
+BAD_PW_CO = 65535 * 128 + 1
+
+
+def _invalid_pwconv_launch(dev):
+    x = torch.ones((1, 1), device=dev)
+    w = torch.ones((1, BAD_PW_CO), device=dev)
+    return pwconv.pwconv(x, w, variant="simt")
+
+
+def test_captured_forward_recaptures_after_a_quarantine_write(dev, tmp_path):
+    """Under ``on_failure="degrade"`` an injected fused-kernel fault fails
+    the first call's warm-up; the call recovers block by block, eagerly,
+    and writes the bans; the next call re-plans around them and captures a
+    new graph, which launches the unfused kernels and gives the eager
+    runner's bits."""
+    from repro_torch.runtime import faultinject, quarantine, telemetry
+    spec, params, x = _small_net("v2", torch.float32, dev)
+    pol = KernelPolicy(on_failure="degrade",
+                       tune_cache=str(tmp_path / "tune.json"))
+    network.clear_network_cache()
+    telemetry.reset_runtime_telemetry()
+    want = _eager(spec, params, x, KernelPolicy())
+    faultinject.arm("lowering:separable_fused", times=faultinject.PERSISTENT)
+    try:
+        with pytest.warns(RuntimeWarning, match="runtime ladder"):
+            y1, g1 = network.execute_network_graph(spec, params, x,
+                                                   policy=pol)
+        rep = telemetry.runtime_report()
+        assert g1 is None and not network._NETWORK_CACHE
+        assert rep["fallbacks"] == rep["injected_fallbacks"] == sum(
+            faultinject.fired_counts().values()) > 0
+        assert rel_err(y1, want) <= 1e-4
+        q = quarantine.Quarantine.load(quarantine.quarantine_path(pol))
+        assert {b for k in q.entries for b in q.banned(k)} == {"fused2",
+                                                               "fused3"}
+        plan = network.plan_network(spec, x.shape, policy=pol)
+        hist = plan.segment_histogram()
+        assert set(hist) == {"pw", "dw"}
+        telemetry.reset_runtime_telemetry()
+        reset_launch_counts()
+        y2, g2 = network.execute_network_graph(spec, params, x, policy=pol)
+        torch.cuda.synchronize(dev)
+        assert g2 is not None and len(network._NETWORK_CACHE) == 1
+        assert launch_counts() == _twice(expected_launches(hist))
+        assert telemetry.fallback_count() == 0
+        assert torch.equal(y2, _eager(spec, params, x, pol))
+        assert rel_err(y2, want) <= 1e-4
+        assert torch.equal(network.execute_network(spec, params, x,
+                                                   policy=pol), y2)
+    finally:
+        faultinject.disarm_all()
+        quarantine.clear_memo()
+        network.clear_network_cache()
+
+
+def test_launch_error_in_a_tuning_capture_folds_to_inf(dev, tmp_path,
+                                                       monkeypatch):
+    """Under ``on_failure="degrade"``, a candidate whose capture makes a
+    launch the driver refuses reaches the tuner as the launch error itself
+    (not the capture's "invalidated" error) and loses at its first attempt
+    with an infinite time, listed in the entry's ``failed``; the
+    candidates after it capture and time as before, and a capture and
+    ``empty_cache`` after the tune work.  Under the default ``"raise"``
+    the same refusal raises and writes no cache."""
+    import warnings
+    from repro_torch import graphs
+    from repro_torch.core import chain
+    from repro_torch.kernels import _build, autotune, lowering
+    spec = chain.SeparableSpec((chain.PW(64),))
+    params = chain.init_chain(torch.Generator().manual_seed(0), spec, 32,
+                              device=dev)
+    x = _r((2, 16, 16, 32), dev, torch.float32)
+    pol = KernelPolicy(autotune=True, tune_cache=str(tmp_path / "t.json"),
+                       on_failure="degrade")
+    base = chain.plan(spec, x.shape, policy=KernelPolicy())
+    real = lowering.lower
+    bad = []
+
+    def lower(spec_, cp, policy=None):
+        run = real(spec_, cp, policy)
+        if cp == base or bad:
+            return run
+        bad.append(cp)
+
+        def refused(p, y):
+            if torch.cuda.is_current_stream_capturing():
+                _invalid_pwconv_launch(dev)
+            return run(p, y)
+        return refused
+    monkeypatch.setattr(lowering, "lower", lower)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        r = autotune.autotune_chain(spec, params, x, policy=pol,
+                                    base_plan=base)
+    assert len(bad) == 1 and len(r.failed) == 1
+    assert "KernelLaunchError" in r.failed[0]["error"]
+    # the default policy folds nothing
+    bad.clear()
+    raising = KernelPolicy(autotune=True,
+                           tune_cache=str(tmp_path / "raise.json"))
+    with pytest.raises(_build.KernelLaunchError) as info:
+        autotune.autotune_chain(spec, params, x, policy=raising,
+                                base_plan=base)
+    assert any("nothing was written" in n for n in info.value.__notes__)
+    assert not (tmp_path / "raise.json").exists()
+    torch.cuda.synchronize(dev)
+    assert "pwconv kernel launch failed: CUDA error" in r.failed[0]["error"]
+    assert r.measured_us < float("inf")
+    assert len(r.measured) == r.n_measured - 1 >= 1
+    entry = autotune.TuneCache.load(pol.tune_cache).get(r.key)
+    assert entry["failed"] == list(r.failed)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(lowering, "lower", real)
+    y = real(spec, r.plan, KernelPolicy())(params, x)
+    g = graphs.capture(lambda: real(spec, r.plan, KernelPolicy())(params, x),
+                       dev)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(g.output, y)
+
+
+def test_real_launch_error_is_a_lowering_failure_and_the_context_lives(dev):
+    """A launch the driver refuses raises ``KernelLaunchError`` with a
+    launch-configuration code, which the runtime classifies as a
+    ``LoweringFailure``; inside a capture the same error, not the
+    capture's, propagates; the kernel then launches and matches its plain
+    version."""
+    from repro_torch import graphs
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import failures
+    with pytest.raises(_build.KernelLaunchError) as info:
+        _invalid_pwconv_launch(dev)
+    assert info.value.code in failures.LOWERING_CODES
+    assert isinstance(failures.classify(info.value),
+                      failures.LoweringFailure)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(_build.KernelLaunchError):
+        graphs.record(graph, lambda: _invalid_pwconv_launch(dev), dev)
+    assert not torch.cuda.is_current_stream_capturing()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    x, w, b = _pw_operands(dev, 300, 64, 96, torch.float32)
+    got = pwconv.pwconv(x, w, b, activation="relu6")
+    want = pwconv.pwconv_plain(x, w, b, activation="relu6")
+    assert rel_err(got, want) <= TOL[torch.float32]
+    g = graphs.capture(lambda: pwconv.pwconv(x, w, b, activation="relu6"),
+                       dev)
+    assert torch.equal(g.output, got)
+
+
+def test_real_launch_error_in_an_unfused_network_raises_under_degrade(
+        dev, tmp_path):
+    """A network whose ``pw`` segment the driver refuses (more than 65535
+    CTAs in y at any ``stream`` tile): under ``on_failure="degrade"`` no
+    kernel rung is left below ``pwconv`` and only an injected fault may
+    reach the plain version, so the ``LoweringFailure`` raises with
+    nothing quarantined, memoized or recovered.  The refusal fails only
+    itself: the next network, whose ``pw`` segments launch the same
+    library, captures its graph with no fallback and gives the eager
+    runner's bits, and ``pwconv`` matches its plain version."""
+    import os
+    import warnings
+    from repro_torch.core import chain
+    from repro_torch.runtime import failures, quarantine, telemetry
+    net = network.NetworkSpec(name="refused-pw", c_in=1, blocks=(
+        chain.SeparableSpec((chain.PW(65535 * 256 + 1),)),))
+    params = network.init_network(net, seed=0, device=dev)
+    pol = KernelPolicy(fused=False, on_failure="degrade",
+                       tune_cache=str(tmp_path / "tune.json"))
+    network.clear_network_cache()
+    telemetry.reset_runtime_telemetry()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with pytest.raises(failures.LoweringFailure) as info:
+            network.execute_network(net, params,
+                                    torch.ones((1, 1, 1, 1), device=dev),
+                                    policy=pol)
+    assert info.value.segment_kind == "pw" and not info.value.injected
+    assert info.value.original.code in failures.LOWERING_CODES
+    assert not os.path.exists(quarantine.quarantine_path(pol))
+    assert not network._NETWORK_CACHE
+    assert telemetry.runtime_report()["recoveries"] == 0
+    del params
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    spec, params, x = _small_net("v1", torch.float32, dev)
+    telemetry.reset_runtime_telemetry()
+    y, graph = network.execute_network_graph(spec, params, x, policy=pol)
+    assert graph is not None and telemetry.fallback_count() == 0
+    assert torch.equal(y, _eager(spec, params, x, pol))
+    network.clear_network_cache()
+    xp, w, b = _pw_operands(dev, 300, 64, 96, torch.float32)
+    assert rel_err(pwconv.pwconv(xp, w, b, activation="relu6"),
+                   pwconv.pwconv_plain(xp, w, b, activation="relu6")
+                   ) <= TOL[torch.float32]
+
+
+def test_record_survives_an_invalidated_capture(dev):
+    """A captured function that invalidates the capture (a sync while
+    capturing): ``graphs.record`` lets the function's own error out, with
+    the capture's as a note, leaves the stream out of capture mode and
+    restored; the allocator, ``empty_cache`` and a new capture then work
+    without releasing the failed graph's pool."""
+    from repro_torch import graphs
+    a = torch.ones(1000, device=dev)
+
+    def syncs():
+        b = a * 2
+        torch.cuda.synchronize(dev)
+        return b
+    before = torch.cuda.current_stream(dev)
+    with pytest.raises(RuntimeError, match="not permitted") as info:
+        graphs.record(torch.cuda.CUDAGraph(), syncs, dev)
+    assert any("capture was abandoned" in n for n in info.value.__notes__)
+    assert not torch.cuda.is_current_stream_capturing()
+    assert torch.cuda.current_stream(dev) == before
+    torch.cuda.empty_cache()
+    assert float(torch.ones(10 ** 6, device=dev).sum()) == 10 ** 6
+    g = graphs.capture(lambda: a * 3, dev)
+    torch.cuda.synchronize(dev)
+    assert float(g.output.sum()) == 3000.0
+    torch.cuda.empty_cache()
+
+
 #: A tuning candidate's block against its plain version: the kernel
 #: tolerances of ``chip_smoke.py`` (summation order in fp32; one bf16
 #: rounding of a kernel's output in bf16).
