@@ -56,6 +56,19 @@ From the root of a checkout it:
    plans measured, tune seconds, the segments whose plan changed and in
    which fields, the blocks' measured winners against their analytic
    plans, and both paths' graph ms and device ms;
+5b. static verification, traffic models and shims (:func:`run_static`,
+   run after phase 7 so that phase 7's profiled traces come as early in
+   the process as before):
+   the static verifier (``repro_torch.analysis``) finds no error in any
+   plan the main path and the tuning phase ran (the tuned winners too)
+   nor in any ladder candidate of their segments; every launch model of
+   those (``kernels/gridspec.py``) equals its library's own
+   ``<kernel>_launch_dims``; the trace audit on the card is silent;
+   ``KernelPolicy(verify=True)`` gives the default's plan, launches and
+   bits; it prints the modeled device-memory MB of a forward
+   (``core/intensity.py``) of each body at batch 8 beside the graph
+   path's device ms, and runs ``separable_block`` and
+   ``inverted_residual`` through the kernels against their plain path;
 6. drives the runtime ladder, an opt-in
    (``KernelPolicy(on_failure="degrade")``; the default raises), with the
    quarantine pinned in a temporary directory (:func:`run_runtime`): the
@@ -69,7 +82,9 @@ From the root of a checkout it:
    segment not at the plain rung and equals the eager runner; then a real
    launch the driver refuses (``pwconv``), eagerly and inside a capture,
    classifies as a ``LoweringFailure``, after which the kernel launches and
-   matches its plain version; the code table against ``driver_types.h``;
+   matches its plain version (each refused launch predicted by the static
+   verifier's LC201 before it is made); the code table against
+   ``driver_types.h``;
 7. drives the serving path, xlstm-125m at full width on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy decode steps, in fp32 and bf16, through the captured prefill
@@ -700,8 +715,9 @@ def run_tuning(torch, dev):
     BF16_REL_TOL of the fp32 plain path; each path's graph ms (CUDA
     events, median of 10, three readings) and the device ms of a profiled
     replay.  Every tune must fold no candidate's failure: its result's and
-    every cache entry's ``failed`` list is empty.  Returns the runs and the
-    launches of the tunes by kernel."""
+    every cache entry's ``failed`` list is empty.  Returns the runs, the
+    launches of the tunes by kernel, and each run's tuned network plan as
+    ``(label, net, plan, policy)`` for :func:`run_static`."""
     import dataclasses
     import shutil
     import tempfile
@@ -845,7 +861,9 @@ def run_tuning(torch, dev):
             raise AssertionError(f"{label}: tuned rel err {err} > {rel_tol} "
                                  "or bad output")
         runs.append(run)
+        tuned.append((label, net, r.plan, analytic))
 
+    tuned = []
     try:
         for arch in ARCHS:
             for batch in (1, 8):
@@ -857,7 +875,219 @@ def run_tuning(torch, dev):
         if not launched[k]:
             raise AssertionError(f"kernel {k} was launched no time by the "
                                  f"tunes: {launched}")
-    return runs, launched
+    return runs, launched, tuned
+
+
+def run_static(torch, dev, runs, tuned):
+    """Static verification, traffic models and shims:
+
+    1. ``analysis.analyze_network`` (static passes) on every plan the main
+       path and the tuning phase run (four bodies at 112x112, batch 1 and
+       8, fp32 and bf16, default and ``fused=False``; MnasNet-A1 at
+       224x224 batch 8; every tuned winner) and on every ladder candidate
+       of their segments (``autotune.segment_candidates``): no error;
+    2. every launch model of those plans and candidates
+       (``gridspec.segment_models``) equal to its library's own
+       ``<kernel>_launch_dims`` (the function its launch calls): grid,
+       block, cluster and shared memory;
+    3. the trace audit run on the card (JX301 counted from the launch
+       counters) on the four bodies at batch 1, fp32, default plan;
+    4. ``execute_network`` under ``KernelPolicy(verify=True)`` against the
+       default on the four bodies at batch 8, fp32 and bf16: the same plan,
+       launches (the graph's first call) and output bits;
+    5. the modeled device-memory MB of a forward (``core/intensity``,
+       ``mobilenet_inference.modeled_traffic``) of each body at batch 8 in
+       both dtypes, beside the graph path's device ms from the main-path
+       phase and the resulting modeled GB/s (no bar);
+    6. the block shims ``separable_block`` (V1's 56x56x128 block) and
+       ``inverted_residual`` (V2's 56x56x24 expand-6 block with its
+       residual), batch 8, fp32 and bf16, through the kernels (one
+       ``separable_fused`` launch each) against their plain path
+       (KERNEL_TOL)."""
+    import dataclasses
+    from repro_torch import analysis, graphs
+    from repro_torch.analysis import launch_check, planlint
+    from repro_torch.core import network, separable
+    from repro_torch.kernels import autotune, gridspec
+    from repro_torch.kernels.policy import (BF16_STREAM, DTYPES, NATIVE,
+                                            KernelPolicy)
+    from repro_torch.measure import rel_err
+    from repro_torch.mobilenet_inference import (ARCHS, KERNEL_SEGMENTS,
+                                                 modeled_traffic)
+    plans = []
+    for arch in ARCHS:
+        net = ARCHS[arch](1.0)
+        for fused in (None, False):
+            for batch in (1, 8):
+                for dtype in ("fp32", "bf16"):
+                    pol = KernelPolicy(fused=fused, dtype_policy=(
+                        BF16_STREAM if dtype == "bf16" else NATIVE))
+                    plans.append((
+                        f"{arch} 112x112 {'default' if fused is None else 'fused=False'}"
+                        f" batch {batch} {dtype}", net,
+                        network.plan_network(net, (batch, 112, 112, net.c_in),
+                                             policy=pol, device=dev), pol))
+    net = ARCHS["mnasnet"](1.0)
+    for dtype in ("fp32", "bf16"):
+        pol = KernelPolicy(dtype_policy=BF16_STREAM if dtype == "bf16"
+                           else NATIVE)
+        plans.append((f"mnasnet 224x224 default batch 8 {dtype}", net,
+                      network.plan_network(net, (8, 224, 224, net.c_in),
+                                           policy=pol, device=dev), pol))
+    plans += [(f"tuned {label}", n, p, q) for label, n, p, q in tuned]
+    # 1. the plans and every ladder candidate of their segments
+    models, n_cands, errors, infos = {}, 0, [], 0
+    for label, net, nplan, pol in plans:
+        rep = analysis.analyze_network(net, nplan, policy=pol, trace=False)
+        errors += [f"{label}: {d.format()}" for d in rep.errors]
+        infos += sum(d.severity == "info" for d in rep.diagnostics)
+        for spec, cp, shape, dt, bpol in zip(
+                net.blocks, nplan.plans, nplan.block_shapes,
+                nplan.block_dtypes, network.resolve_block_policies(net, pol)):
+            sdt = bpol.dtype_policy.stream_dtype(DTYPES[dt])
+            geoms = planlint.walk_segments(spec, cp, shape)
+            for si, (geom, seg) in enumerate(zip(geoms, cp.segments)):
+                for cand in autotune.segment_candidates(
+                        geom, seg.plan, sdt, cp.smem_budget):
+                    for m in gridspec.segment_models(geom, cand, sdt):
+                        models.setdefault((m.library, m.library_args), m)
+                    if cand == seg.plan:
+                        continue
+                    n_cands += 1
+                    ccp = autotune._with_segment_plan(cp, si, cand)
+                    diags = planlint.lint_chain(spec, ccp, shape, dtype=sdt)
+                    for m in gridspec.segment_models(geom, cand, sdt):
+                        diags += launch_check.lint_model(m)
+                    errors += [f"{label} candidate {cand}: {d.format()}"
+                               for d in diags if d.severity == "error"]
+    # 2. every launch model against its library's own launch
+    mismatches = []
+    for (lib, args), m in models.items():
+        got = gridspec.library_dims(m)
+        if got != m.dims():
+            mismatches.append(f"{m.name}{args}: model {m.dims()}, library "
+                              f"{got}")
+    print(f"  static passes: {len(plans)} network plans "
+          f"({sum(p.n_blocks for _, _, p, _ in plans)} chains) and "
+          f"{n_cands} ladder candidates linted, {len(errors)} errors, "
+          f"{infos} info diagnostics on the plans; {len(models)} distinct "
+          f"launch models against their libraries' <kernel>_launch_dims: "
+          f"{len(mismatches)} mismatches", flush=True)
+    if errors or mismatches:
+        raise AssertionError(f"static verification: errors {errors[:5]}, "
+                             f"launch-dims mismatches {mismatches[:5]}")
+    # 3. the trace audit on the card
+    for arch in ARCHS:
+        net = ARCHS[arch](1.0)
+        nplan = network.plan_network(net, (1, 112, 112, net.c_in),
+                                     device=dev)
+        rep = analysis.analyze_network(net, nplan, device=dev)
+        jx = [d.format() for d in rep.diagnostics if d.rule.startswith("JX")]
+        if jx or not rep.ok:
+            raise AssertionError(f"{arch}: the trace audit on the card: "
+                                 f"{jx or rep.format()}")
+    print(f"  trace audit on the card (JX301 from the launch counters): "
+          f"{', '.join(ARCHS)} at batch 1, no JX diagnostic", flush=True)
+    # 4. verify=True against the default
+    verified = []
+    for arch in ARCHS:
+        net = ARCHS[arch](1.0)
+        params32 = network.init_network(net, seed=0, device=dev)
+        x = torch.randn((8, 112, 112, net.c_in),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+        for dtype in ("fp32", "bf16"):
+            bf16 = dtype == "bf16"
+            params = (network.cast_network_params(params32, torch.bfloat16)
+                      if bf16 else params32)
+            base = KernelPolicy(dtype_policy=BF16_STREAM if bf16 else NATIVE)
+            got = {}
+            for name, q in (("default", base),
+                            ("verify", dataclasses.replace(base,
+                                                           verify=True))):
+                network.clear_network_cache()
+                graphs.reset()
+                y, _ = network.execute_network_graph(net, params, x, policy=q)
+                torch.cuda.synchronize(dev)
+                counts = graphs.snapshot()
+                got[name] = (network.plan_network(net, x.shape,
+                                                  dtype=x.dtype, policy=q,
+                                                  device=dev).plans,
+                             {k: counts[k] for k in KERNEL_SEGMENTS}, y)
+            network.clear_network_cache()
+            same = (got["default"][0] == got["verify"][0]
+                    and got["default"][1] == got["verify"][1]
+                    and bool(torch.equal(got["default"][2],
+                                         got["verify"][2])))
+            verified.append({"arch": arch, "dtype": dtype, "same": same,
+                             "launches": got["verify"][1]})
+            if not same:
+                raise AssertionError(f"{arch} batch 8 {dtype}: verify=True "
+                                     "changed the plan, the launches or the "
+                                     "bits")
+    print(f"  verify=True: the same plan, launches and bits as the default "
+          f"on {len(verified)} runs ({', '.join(ARCHS)} at batch 8, fp32 and "
+          f"bf16)", flush=True)
+    # 5. the modeled device-memory traffic beside the measured device time
+    traffic = []
+    for arch in ARCHS:
+        net = ARCHS[arch](1.0)
+        for dtype in ("fp32", "bf16"):
+            pol = KernelPolicy(dtype_policy=BF16_STREAM if dtype == "bf16"
+                               else NATIVE)
+            nplan = network.plan_network(net, (8, 112, 112, net.c_in),
+                                         policy=pol, device=dev)
+            t = modeled_traffic(net, nplan, pol)
+            run = next(r for r in runs if r["arch"] == arch
+                       and r["res"] == 112 and r["plan"] == "default"
+                       and r["batch"] == 8 and r["dtype"] == dtype)
+            ms = sum(run["device_ms"].values())
+            gbs = t["bytes"] / (ms * 1e-3) / 1e9 if ms else None
+            traffic.append({"arch": arch, "dtype": dtype,
+                            "modeled_mb": t["bytes"] / 1e6,
+                            "fp32_fused_mb": t["fp32_fused_bytes"] / 1e6,
+                            "unfused_mb": t["unfused_bytes"] / 1e6,
+                            "intensity": t["intensity"],
+                            "device_ms": ms, "modeled_gb_s": gbs})
+            print(f"  modeled HBM {arch} 112x112 batch 8 {dtype}: "
+                  f"{t['bytes'] / 1e6:.2f} MB a forward (fp32 fused "
+                  f"{t['fp32_fused_bytes'] / 1e6:.2f}, per-block unfused "
+                  f"{t['unfused_bytes'] / 1e6:.2f}; AI {t['intensity']:.1f} "
+                  f"FLOPs/B), graph path device {ms:.4f} ms -> modeled "
+                  + (f"{gbs:.1f} GB/s" if gbs else "not measured"),
+                  flush=True)
+    # 6. the block shims on the card
+    shims = []
+    gen = torch.Generator().manual_seed(2)
+    for name, init, call, c_in, c_out, counter in (
+            ("separable_block", separable.init_separable,
+             separable.separable_block, 128, 128, "separable_fused2"),
+            ("inverted_residual", separable.init_inverted_residual,
+             separable.inverted_residual, 24, 24, "separable_fused3")):
+        p32 = init(gen, c_in, c_out, device=dev)
+        x32 = torch.randn((8, 56, 56, c_in), generator=gen).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            p = {k: v.to(dtype) for k, v in p32.items()}
+            x = x32.to(dtype)
+            graphs.reset()
+            y = call(p, x)
+            torch.cuda.synchronize(dev)
+            launched = graphs.snapshot()[counter]
+            want = call(p, x, policy=KernelPolicy(impl="torch"))
+            dname = str(dtype).removeprefix("torch.")
+            err = rel_err(y, want)
+            shims.append({"shim": name, "dtype": dname, "rel_err": err,
+                          "launches": launched})
+            print(f"  {name} 8x56x56x{c_in}->{c_out} {dname}: {counter} "
+                  f"launched {launched}x, rel err {err:.2e} against the "
+                  f"plain path (tol {KERNEL_TOL[dname]:g})", flush=True)
+            if (launched != 1 or not err <= KERNEL_TOL[dname]
+                    or not bool(torch.isfinite(y.float()).all())):
+                raise AssertionError(f"{name} {dname}: {launched} launches, "
+                                     f"rel err {err}")
+    return {"plans": len(plans), "candidates": n_cands,
+            "launch_models": len(models), "mismatches": len(mismatches),
+            "info": infos, "verify": verified, "traffic": traffic,
+            "shims": shims}
 
 
 #: The runtime phase's recovery rows: (body, fused, point armed, times,
@@ -1074,7 +1304,20 @@ def run_runtime(torch, dev):
                         "second_launches", "rel_err", "ms")},
                     "fallbacks": rep["fallbacks"],
                     "recoveries": rep["recoveries"]})
-    # a real launch error, eagerly and inside a capture
+    # a real launch error, eagerly and inside a capture; the static
+    # verifier predicts it (LC201) before it is made
+    from repro_torch import analysis
+    from repro_torch.analysis import launch_check
+    from repro_torch.kernels import blocking, gridspec
+    bad = blocking.plan_pwconv(1, 1, BAD_PW_CO, variant="simt")
+    lc = launch_check.lint_model(gridspec.pwconv_model(
+        g=1, ci=1, co=BAD_PW_CO, variant="simt", bg=bad.block_g,
+        bco=bad.block_co, bci=bad.block_c, dtype=torch.float32))
+    if "LC201" not in {d.rule for d in lc if d.severity == "error"}:
+        raise AssertionError(f"the static verifier did not predict the "
+                             f"refused pwconv launch: {lc}")
+    print(f"  predicted before the launch: "
+          f"{next(d for d in lc if d.rule == 'LC201').format()}", flush=True)
     x1 = torch.ones((1, 1), device=dev)
     w1 = torch.ones((1, BAD_PW_CO), device=dev)
     errors = []
@@ -1107,6 +1350,15 @@ def run_runtime(torch, dev):
                                      dir=os.path.join(HERE, "build")) as tmp:
         rpol = KernelPolicy(fused=False, on_failure="degrade",
                             tune_cache=os.path.join(tmp, "tune.json"))
+        lrep = analysis.analyze_network(refused, network.plan_network(
+            refused, (1, 1, 1, 1), policy=rpol, device=dev), policy=rpol,
+            trace=False)
+        if "LC201" not in lrep.rules("error"):
+            raise AssertionError(f"the static verifier did not predict the "
+                                 f"refused network launch: {lrep.format()}")
+        print(f"  predicted before the launch: "
+              f"{next(d for d in lrep.errors if d.rule == 'LC201').format()}",
+              flush=True)
         network.clear_network_cache()
         telemetry.reset_runtime_telemetry()
         try:
@@ -1987,7 +2239,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     print("tuning path: tune_network on V1/V2/MnasNet-A1/Lite0 at 112x112, "
           "default plan, then the tuned against the analytic graph path:")
-    tuning, tune_launches = run_tuning(torch, dev)
+    tuning, tune_launches, tuned = run_tuning(torch, dev)
     tuning_s = time.perf_counter() - t_phase
     print(f"  launches of the tunes: {tune_launches}")
     print(f"  ({tuning_s:.0f} s)")
@@ -2003,6 +2255,13 @@ def main() -> int:
     serving, serve_launches, serve_replayed, stepping, serve_variants = \
         run_serving(torch, dev)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    # after the profiled serving phase: its decode traces lost records
+    # when this phase ran before it (PERF.md, section 6)
+    t_phase = time.perf_counter()
+    print("static verification, traffic models and shims:")
+    static = run_static(torch, dev, runs, tuned)
+    static_s = time.perf_counter() - t_phase
+    print(f"  ({static_s:.0f} s)")
     t_phase = time.perf_counter()
     print("serving path: hymba-1.5b at full width, prefill + greedy decode:")
     (hymba, hymba_launches, hymba_replayed, hymba_stepping, hymba_variants,
@@ -2045,7 +2304,8 @@ def main() -> int:
             json.dump({"card": card, "kernel_checks": kc.results,
                        "networks": runs, "tuning": tuning,
                        "tuning_launches": tune_launches,
-                       "tuning_seconds": tuning_s, "runtime": runtime,
+                       "tuning_seconds": tuning_s, "static": static,
+                       "static_seconds": static_s, "runtime": runtime,
                        "runtime_seconds": runtime_s, "serving": serving,
                        "prefill_vs_stepping": stepping, "hymba": hymba,
                        "hymba_prefill_vs_stepping": hymba_stepping,

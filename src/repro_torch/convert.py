@@ -2,7 +2,8 @@
 
 CNN bodies: the reference keeps per-block lists of per-stage dicts of
 arrays (DW ``f`` (Hf, Wf, C), PW ``w`` (Ci, Co), biases (C,)); the port
-keeps the same structure and layouts, so nothing is transposed.
+keeps the same structure and layouts, so nothing is transposed.  The block
+shims' flat dicts (``dw_filter``, ``pw_weight``, ...) likewise.
 
 LM stack: the reference keeps nested dicts whose layer variants are
 stacked along a leading groups axis (``blocks_v0`` = mLSTM, ``blocks_v1``
@@ -36,6 +37,12 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     if name not in _DTYPES:
         raise ValueError(f"unsupported parameter dtype {name}")
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def dict_from_numpy(params: dict, device="cuda") -> dict:
+    """A flat ``{name: array}`` (the block shims' parameters,
+    ``core/separable.py``) as ``{name: tensor}`` on ``device``."""
+    return {k: tensor_from_numpy(v, device) for k, v in params.items()}
 
 
 def params_from_numpy(jax_params, device="cuda") -> list:

@@ -24,6 +24,12 @@ quarantine (``runtime/quarantine.py``) and skips the windows a previous run
 failed at, and :func:`execute` runs through the runtime ladder
 (``runtime/executor.execute_chain``), as it also does with
 ``numeric_guard``.  Under the default ``"raise"`` neither happens.
+
+Under ``KernelPolicy(verify=True)`` every plan :func:`plan` and
+:func:`resolve_plan` answer (a supplied one too) is held to the static
+verifier (``repro_torch.analysis``) first, and a plan with an error
+raises ``analysis.PlanVerificationError``.  :func:`chain_traffic` is the
+reference's traffic model of a planned chain (``core/intensity.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import intensity as it
 from repro_torch.kernels import autotune, blocking, lowering
 from repro_torch.kernels.blocking import ChainPlan, ChainSegment
 from repro_torch.kernels.epilogue import ACTIVATIONS
@@ -300,18 +307,20 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
     """
     if policy.autotune:
         analytic = plan(spec, x_shape, dtype=dtype,
-                        policy=dataclasses.replace(policy, autotune=False),
+                        policy=dataclasses.replace(policy, autotune=False,
+                                                   verify=False),
                         device=device)
         cached = autotune.lookup_cached_plan(spec, x_shape, dtype, policy,
                                              base_plan=analytic,
                                              device=device)
-        return analytic if cached is None else cached
+        return _maybe_verify(spec, analytic if cached is None else cached,
+                             x_shape, dtype, policy)
     banned: frozenset = frozenset()
     if policy.on_failure == "degrade":
         from repro_torch.runtime import quarantine  # runtime sits above core
         banned = quarantine.banned_kinds(spec, x_shape, dtype, policy, device)
     b, h, w, c = x_shape
-    dtype = policy.dtype_policy.stream_dtype(dtype)
+    native, dtype = dtype, policy.dtype_policy.stream_dtype(dtype)
     stages = spec.stages
     n = len(stages)
     ho_f, wo_f = h, w
@@ -399,14 +408,27 @@ def plan(spec: SeparableSpec, x_shape: Sequence[int], *,
             h, w = ho, wo
         i += 1
 
-    return ChainPlan(
+    return _maybe_verify(spec, ChainPlan(
         segments=tuple(segments),
         residual=res_active,
         residual_fused=bool(res_active and segments
                             and segments[-1].kind in blocking.FUSED_KINDS),
         dtype_bytes=blocking.dtype_bytes(dtype),
         smem_budget=budget,
-    )
+    ), x_shape, native, policy)
+
+
+def _maybe_verify(spec: SeparableSpec, cp: ChainPlan, x_shape,
+                  dtype: torch.dtype, policy: KernelPolicy) -> ChainPlan:
+    """``policy.verify``: the static verifier's planlint and launch
+    passes (no trace) over ``cp`` for an input of ``dtype``, raising
+    ``analysis.PlanVerificationError`` on an error; ``cp`` unchanged
+    otherwise (the reference's ``chain.py:453-463``)."""
+    if policy.verify:
+        from repro_torch import analysis  # the analysis sits above core
+        analysis.verify_or_raise(analysis.analyze_chain(
+            spec, cp, x_shape, dtype=dtype, policy=policy, trace=False))
+    return cp
 
 
 #: Re-export: lowering lives at the kernel layer.
@@ -418,14 +440,17 @@ def resolve_plan(spec: SeparableSpec, params: Sequence[dict],
                  chain_plan: Optional[ChainPlan] = None) -> ChainPlan:
     """The plan :func:`execute` runs: the one supplied, else the measured
     winner when ``policy.autotune`` (tuned on a cache miss), else the
-    analytic :func:`plan`."""
+    analytic :func:`plan`; under ``policy.verify`` verified before it is
+    returned (a supplied plan too)."""
     if chain_plan is not None:
-        return chain_plan
+        return _maybe_verify(spec, chain_plan, x.shape, x.dtype, policy)
     if policy.autotune:
         base = plan(spec, x.shape, dtype=x.dtype,
-                    policy=dataclasses.replace(policy, autotune=False))
-        return autotune.autotune_chain(spec, params, x, policy=policy,
-                                       base_plan=base).plan
+                    policy=dataclasses.replace(policy, autotune=False,
+                                               verify=False))
+        return _maybe_verify(spec, autotune.autotune_chain(
+            spec, params, x, policy=policy, base_plan=base).plan,
+            x.shape, x.dtype, policy)
     return plan(spec, x.shape, dtype=x.dtype, policy=policy)
 
 
@@ -446,3 +471,109 @@ def execute(spec: SeparableSpec, params: Sequence[dict], x: torch.Tensor, *,
                                       chain_plan=chain_plan)
     cp = resolve_plan(spec, params, x, policy=policy, chain_plan=chain_plan)
     return lower(spec, cp, policy)(params, x)
+
+
+# ---------------------------------------------------------------------------
+# ChainPlan traffic model (core/intensity.py per-segment terms)
+# ---------------------------------------------------------------------------
+
+def chain_traffic(spec: SeparableSpec, chain_plan: ChainPlan,
+                  x_shape: Sequence[int], *,
+                  dtype_bytes: Optional[int] = None) -> it.Traffic:
+    """Modeled HBM traffic + FLOPs of the planned chain: the sum of each
+    segment's kernel-level model (``core/intensity.py``), plus the separate
+    residual add when it is not folded into a fused pass, plus the
+    standalone-DW bias/activation epilogue (``apply_epilogue`` in
+    ``kernels/lowering.py`` is a separate elementwise op that reads and
+    re-writes the whole ``(B,Ho,Wo,C)`` tensor — fused segments apply it
+    inside the kernel for free).  The reference's walk
+    (``repro/core/chain.py:528-626``) over the port's plans;
+    ``core/intensity.py`` says which plan fields it reads."""
+    nb = dtype_bytes or chain_plan.dtype_bytes
+    b, h, w, c = x_shape
+    stages = spec.stages
+    flops = 0.0
+    bytes_ = 0.0
+    for seg in chain_plan.segments:
+        if seg.kind == "fused3":
+            d, proj = stages[seg.stages[1]], stages[seg.stages[2]]
+            ho, wo = d.out_dims(h, w)
+            hi_v = (ho - 1) * d.stride + d.hf
+            wi_v = (wo - 1) * d.stride + d.wf
+            t = it.separable_traffic_fused3(
+                b, hi_v, wi_v, c, stages[seg.stages[0]].features,
+                proj.features, d.hf, d.wf, d.stride,
+                block_co=seg.plan.block_co, slab_h=seg.plan.slab_h,
+                dtype_bytes=nb)
+            h, w, c = ho, wo, proj.features
+        elif seg.kind == "fused2":
+            d, proj = stages[seg.stages[0]], stages[seg.stages[1]]
+            ho, wo = d.out_dims(h, w)
+            hi_v = (ho - 1) * d.stride + d.hf
+            wi_v = (wo - 1) * d.stride + d.wf
+            t = it.separable_traffic_fused(
+                b, hi_v, wi_v, c, proj.features, d.hf, d.wf, d.stride,
+                block_co=seg.plan.block_co, slab_h=seg.plan.slab_h,
+                dtype_bytes=nb)
+            h, w, c = ho, wo, proj.features
+        elif seg.kind == "fusedmb":
+            mb, proj = stages[seg.stages[0]], stages[seg.stages[1]]
+            ho, wo = mb.out_dims(h, w)
+            hi_v = (ho - 1) * mb.stride + mb.hf
+            wi_v = (wo - 1) * mb.stride + mb.wf
+            t = it.fused_mb_traffic(
+                b, hi_v, wi_v, c, mb.features, proj.features, mb.hf,
+                mb.wf, mb.stride, block_co=seg.plan.block_co,
+                slab_h=seg.plan.slab_h, dtype_bytes=nb)
+            h, w, c = ho, wo, proj.features
+        elif seg.kind == "dw_se":
+            d, se = stages[seg.stages[0]], stages[seg.stages[1]]
+            ho, wo = d.out_dims(h, w)
+            hi_v = (ho - 1) * d.stride + d.hf
+            wi_v = (wo - 1) * d.stride + d.wf
+            t = it.dw_se_traffic(b, hi_v, wi_v, c, se.reduce, d.hf, d.wf,
+                                 d.stride, dtype_bytes=nb)
+            h, w = ho, wo
+        elif seg.kind == "se":
+            se = stages[seg.stages[0]]
+            t = it.se_traffic(b, h, w, c, se.reduce, dtype_bytes=nb)
+        elif seg.kind == "mb":
+            mb = stages[seg.stages[0]]
+            ho, wo = mb.out_dims(h, w)
+            t = it.mb_traffic(b, h, w, c, mb.features, mb.hf, mb.wf,
+                              mb.stride, dtype_bytes=nb)
+            h, w, c = ho, wo, mb.features
+        elif seg.kind == "pw":
+            st = stages[seg.stages[0]]
+            t = it.pwconv_traffic_rtrd(
+                b * h * w, c, st.features, seg.plan.block_g,
+                seg.plan.block_c, seg.plan.block_co, dtype_bytes=nb)
+            c = st.features
+        else:
+            st = stages[seg.stages[0]]
+            ho, wo = st.out_dims(h, w)
+            hi_v = (ho - 1) * st.stride + st.hf
+            wi_v = (wo - 1) * st.stride + st.wf
+            t = it.dwconv2d_traffic(b, hi_v, wi_v, c, st.hf, st.wf,
+                                    st.stride, dtype_bytes=nb)
+            if st.bias or st.activation is not None:
+                # standalone-DW epilogue: a separate elementwise op in the
+                # lowering that re-reads and re-writes the whole output
+                # tensor (+ the bias vector); with neither bias nor
+                # activation it is a no-op, so only count it then
+                epi = nb * (2 * b * ho * wo * c + (c if st.bias else 0))
+                t = it.Traffic(t.flops + b * ho * wo * c,
+                               t.bytes_hbm + epi)
+            h, w = ho, wo
+        flops += t.flops
+        bytes_ += t.bytes_hbm
+    if chain_plan.residual:
+        if chain_plan.residual_fused:
+            # the kernel streams the residual operand once; the accumulate
+            # and store are already inside the fused pass
+            bytes_ += nb * b * h * w * c
+        else:
+            # separate elementwise add: read both operands, write the sum
+            bytes_ += nb * 3 * b * h * w * c
+        flops += b * h * w * c
+    return it.Traffic(flops, bytes_)

@@ -23,6 +23,10 @@ MnasNet-A1 and EfficientNet-Lite0 bodies:
   graph.  A plan is memoized only after its first call returned.
 * :class:`NetworkModule` — an ``nn.Module`` holding the parameters whose
   ``forward`` is :func:`execute_network`.
+* under ``KernelPolicy(verify=True)``, :func:`plan_network` (and
+  :func:`execute_network` with an explicit plan) holds every block's plan
+  to the static verifier (``repro_torch.analysis``) before anything is
+  captured;
 * :func:`tune_network` — the measured autotuner over a whole body: each
   block tuned on its real input (``kernels/autotune.py``), the assembled
   plan persisted under :func:`network_key`.  With ``policy.autotune``,
@@ -339,17 +343,21 @@ def plan_network(net: NetworkSpec, x_shape, *,
     problem on ``device`` (default the card where there is one) wins when
     it is valid; otherwise each block's ``chain.plan`` answers, itself
     consulting the per-block entries, so a partly tuned cache still helps.
-    Nothing is measured here: :func:`tune_network` does that."""
+    Nothing is measured here: :func:`tune_network` does that.  Under
+    ``policy.verify`` the plan, cached or fresh, is verified once, block by
+    block (:func:`_maybe_verify_network`), before it is returned."""
     key = network_key(net, x_shape, dtype, policy, block_dtype_policies,
                       device)
     if policy.autotune:
         found = _lookup_network_entry(net, key, x_shape, dtype, policy,
                                       block_dtype_policies, device)
         if found is not None:
-            return found[0]
-    policies = resolve_block_policies(net, policy, block_dtype_policies)
+            return _maybe_verify_network(net, found[0], policy,
+                                         block_dtype_policies)
+    policies = resolve_block_policies(
+        net, dataclasses.replace(policy, verify=False), block_dtype_policies)
     problems, out_shape = _block_problems(net, x_shape, dtype, policies)
-    return NetworkPlan(
+    return _maybe_verify_network(net, NetworkPlan(
         plans=tuple(
             chain.plan(spec, shape, dtype=DTYPES[dt], policy=pol,
                        device=device)
@@ -359,7 +367,22 @@ def plan_network(net: NetworkSpec, x_shape, *,
         block_dtypes=tuple(dt for _, dt in problems),
         out_shape=out_shape,
         key=key,
-    )
+    ), policy, block_dtype_policies)
+
+
+def _maybe_verify_network(net: NetworkSpec, nplan: NetworkPlan,
+                          policy: KernelPolicy,
+                          block_dtype_policies=None) -> NetworkPlan:
+    """``policy.verify`` at network scope: the static verifier (no trace)
+    over every block's plan, raising ``analysis.PlanVerificationError`` on
+    an error; ``nplan`` unchanged otherwise (the reference's
+    ``network.py:419-427``)."""
+    if policy.verify:
+        from repro_torch import analysis  # the analysis sits above core
+        analysis.verify_or_raise(analysis.analyze_network(
+            net, nplan, policy=policy,
+            block_dtype_policies=block_dtype_policies, trace=False))
+    return nplan
 
 
 def _network_mismatch(net: NetworkSpec, nplan: NetworkPlan, x_shape,
@@ -367,8 +390,9 @@ def _network_mismatch(net: NetworkSpec, nplan: NetworkPlan, x_shape,
                       block_dtype_policies=None) -> Optional[str]:
     """Why a replayed network entry is not one the tuner could have
     written for this problem, or None: it must walk the network's shapes
-    and dtypes, and each block's plan must pass ``autotune.plan_mismatch``
-    against the block's analytic plan."""
+    and dtypes, and each block's plan must pass planlint and
+    ``autotune.plan_mismatch`` against the block's analytic plan
+    (``autotune.cached_plan_problem``)."""
     policies = resolve_block_policies(net, policy, block_dtype_policies)
     problems, out_shape = _block_problems(net, x_shape, dtype, policies)
     if (len(nplan.plans) != net.n_blocks
@@ -379,8 +403,9 @@ def _network_mismatch(net: NetworkSpec, nplan: NetworkPlan, x_shape,
     for i, (spec, cp, (shape, dt), pol) in enumerate(zip(
             net.blocks, nplan.plans, problems, policies)):
         base = chain.plan(spec, shape, dtype=DTYPES[dt],
-                          policy=dataclasses.replace(pol, autotune=False))
-        why = autotune.plan_mismatch(
+                          policy=dataclasses.replace(pol, autotune=False,
+                                                     verify=False))
+        why = autotune.cached_plan_problem(
             spec, cp, shape, base, pol.dtype_policy.stream_dtype(DTYPES[dt]))
         if why is not None:
             return f"block {i}: {why}"
@@ -725,11 +750,14 @@ def _execute_network_raw(net: NetworkSpec, params, x: torch.Tensor, *,
                  and torch.cuda.is_current_stream_capturing())
     if memo is None:
         nplan = network_plan
-        if nplan is None and policy.autotune and not capturing:
-            nplan = tune_network(
+        if nplan is not None:
+            _maybe_verify_network(net, nplan, policy, block_dtype_policies)
+        elif policy.autotune and not capturing:
+            nplan = _maybe_verify_network(net, tune_network(
                 net, params, x, policy=policy,
-                block_dtype_policies=block_dtype_policies).plan
-        elif nplan is None:
+                block_dtype_policies=block_dtype_policies).plan, policy,
+                block_dtype_policies)
+        else:
             nplan = plan_network(
                 net, x.shape, dtype=x.dtype, policy=policy,
                 block_dtype_policies=block_dtype_policies, device=x.device)

@@ -58,6 +58,43 @@ struct alignas(sizeof(T) * V) Vec {
 
 inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
+// One launch's configuration: the grid, the CTA, the thread-block cluster
+// (CTAs along x) and the dynamic shared memory.  Each library computes it
+// in one function per kernel, which both its launch and its
+// <kernel>_launch_dims export call (repro_torch/kernels/gridspec.py models
+// the same numbers).
+struct LaunchDims {
+  long long grid[3];
+  int block[3];
+  int cluster;
+  size_t smem;
+  dim3 grid_dim() const { return dim3((unsigned)grid[0], (unsigned)grid[1], (unsigned)grid[2]); }
+  dim3 block_dim() const { return dim3((unsigned)block[0], (unsigned)block[1], (unsigned)block[2]); }
+};
+
+inline LaunchDims launch_dims(long long gx, long long gy, long long gz, int threads, int cluster, size_t smem) {
+  LaunchDims d{};
+  d.grid[0] = gx;
+  d.grid[1] = gy;
+  d.grid[2] = gz;
+  d.block[0] = threads;
+  d.block[1] = d.block[2] = 1;
+  d.cluster = cluster;
+  d.smem = smem;
+  return d;
+}
+
+// d as ten numbers: grid x, y, z; block x, y, z; cluster x, y, z; dynamic
+// shared memory.  Returns 0.
+inline int write_dims(const LaunchDims& d, long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = d.grid[i];
+  for (int i = 0; i < 3; ++i) out[3 + i] = d.block[i];
+  out[6] = d.cluster;
+  out[7] = out[8] = 1;
+  out[9] = (long long)d.smem;
+  return 0;
+}
+
 // A runtime call that fails (a launch the driver refuses, a shared-memory
 // limit it will not raise) also keeps its code as this library's last
 // error, which the next launch's cudaGetLastError() would report as its

@@ -252,12 +252,21 @@ struct Operands {
   float* hpart;
 };
 
+// The launch of pass 1 (pooling) or 2 (scaling) over B images: both on
+// dw_tile.cuh's grid, each with its own layout's shared memory.
+template <typename T>
+LaunchDims dw_se_dims(int pass, int B, const DwGeometry& g, int cse, int V) {
+  return dw_tile_dims(B, g, V, pass == 1 ? pool_layout<T>(g, cse).total : scale_layout<T>(g, cse).total);
+}
+
 template <typename T, typename O, int V, int KT, int S>
 int launch_k(const Operands& a, int B, const DwGeometry& g, const SeShape& se, cudaStream_t stream) {
   static bool allowed = false;
   const PoolLayout pl = pool_layout<T>(g, se.cse);
   const ScaleLayout sl = scale_layout<T>(g, se.cse);
-  if (pl.total > (size_t)kMaxSmem || sl.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const LaunchDims dp = dw_se_dims<T>(1, B, g, se.cse, V);
+  const LaunchDims ds = dw_se_dims<T>(2, B, g, se.cse, V);
+  if (dp.smem > (size_t)kMaxSmem || ds.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   auto pool = dw_se_pool_kernel<T, V, KT, S>;
   auto scale = dw_se_scale_kernel<T, O, V, KT, S>;
   if (!allowed) {
@@ -267,21 +276,19 @@ int launch_k(const Operands& a, int B, const DwGeometry& g, const SeShape& se, c
     }
     allowed = true;
   }
-  const int threads = dw_tile_threads(g, V);
-  const long long tiles = dw_spatial_tiles(g);
-  const int groups = (g.C + g.cg - 1) / g.cg;
-  if (threads < 1 || threads > 256 || tiles * groups > 0x7fffffffLL || groups > 65535 || B > 65535)
+  if (dp.block[0] < 1 || dp.block[0] > 256 || dp.grid[0] * dp.grid[1] > 0x7fffffffLL || dp.grid[1] > 65535 ||
+      dp.grid[2] > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)groups, (unsigned)B);
   const T* x = static_cast<const T*>(a.x);
   const T* f = static_cast<const T*>(a.f);
   const T* dwb = static_cast<const T*>(a.dwb);
-  pool<<<grid, threads, pl.total, stream>>>(x, f, dwb, static_cast<const T*>(a.w1), a.hpart, g, pl, se);
+  pool<<<dp.grid_dim(), dp.block_dim(), dp.smem, stream>>>(x, f, dwb, static_cast<const T*>(a.w1), a.hpart, g, pl,
+                                                           se);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  scale<<<grid, threads, sl.total, stream>>>(x, f, dwb, static_cast<const T*>(a.b1), static_cast<const T*>(a.w2),
-                                             static_cast<const T*>(a.b2), a.hpart, static_cast<O*>(a.out), g,
-                                             sl, se);
+  scale<<<ds.grid_dim(), ds.block_dim(), ds.smem, stream>>>(x, f, dwb, static_cast<const T*>(a.b1),
+                                                            static_cast<const T*>(a.w2), static_cast<const T*>(a.b2),
+                                                            a.hpart, static_cast<O*>(a.out), g, sl, se);
   return (int)cudaGetLastError();
 }
 
@@ -338,6 +345,19 @@ extern "C" int dw_se_launch(const void* x, const void* f, const void* dw_bias, c
   const SeShape se{cse, Ho * Wo, act_dw, act_se};
   const Operands a{x, f, dw_bias, w1, b1, w2, b2, out, hpart};
   REPRO_DISPATCH_IO(in_dtype, out_dtype, launch_io, a, B, g, se, vec, static_cast<cudaStream_t>(stream));
+}
+
+// The launch of pass 1 (pooling) or 2 (scaling) that dw_se_launch
+// configures for this geometry over B images (vec channels a thread), as
+// write_dims' ten numbers in out; cudaErrorInvalidValue for an unknown
+// dtype or pass, or a tile that is not whole vectors.
+extern "C" int dw_se_launch_dims(int pass, int B, int C, int Ho, int Wo, int hf, int wf, int stride, int tile_h,
+                                 int tile_w, int cg, int vec, int cse, int in_dtype, long long* out) {
+  if ((pass != 1 && pass != 2) || vec < 1 || cg % vec != 0) return (int)cudaErrorInvalidValue;
+  const DwGeometry g{0, 0, C, Ho, Wo, hf, wf, stride, 0, 0, tile_h, tile_w, cg};
+  if (in_dtype == kF32) return write_dims(dw_se_dims<float>(pass, B, g, cse, vec), out);
+  if (in_dtype == kBF16 || in_dtype == kF16) return write_dims(dw_se_dims<__half>(pass, B, g, cse, vec), out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Shared memory one CTA of a pass needs, in bytes (0 for an unknown dtype

@@ -58,6 +58,12 @@ inline long long dw_spatial_tiles(const DwGeometry& g) {
   return (long long)((g.Ho + g.tile_h - 1) / g.tile_h) * ((g.Wo + g.tile_w - 1) / g.tile_w);
 }
 
+// The launch of a tile kernel over B images: grid (spatial tiles, channel
+// groups, images), dw_tile_threads threads, smem bytes of shared memory.
+inline LaunchDims dw_tile_dims(int B, const DwGeometry& g, int V, size_t smem) {
+  return launch_dims(dw_spatial_tiles(g), (g.C + g.cg - 1) / g.cg, B, dw_tile_threads(g, V), 1, smem);
+}
+
 // V consecutive elements at p, widened to fp32.
 template <int V, typename T>
 __device__ __forceinline__ void load_f(const T* p, float (&o)[V]) {

@@ -54,24 +54,28 @@ __global__ void __launch_bounds__(256) dw2d_kernel(const T* __restrict__ x, cons
   dw_store<O, V>(out, g, th, b, acc);
 }
 
+// The launch of the kernel: dw_tile.cuh's tile, its layout's shared memory.
+template <typename T>
+LaunchDims dw2d_dims(int B, const Geometry& g, int V) {
+  return dw_tile_dims(B, g, V, dw_tile_layout<T>(g).total);
+}
+
 template <typename T, typename O, int V, int KT, int S>
 int launch_k(const void* x, const void* f, void* out, int B, const Geometry& g, cudaStream_t stream) {
   static bool allowed = false;
   const DwLayout l = dw_tile_layout<T>(g);
-  if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  const LaunchDims d = dw2d_dims<T>(B, g, V);
+  if (d.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   auto kern = dw2d_kernel<T, O, V, KT, S>;
   if (!allowed) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     allowed = true;
   }
-  const int threads = dw_tile_threads(g, V);
-  const long long tiles = dw_spatial_tiles(g);
-  const int groups = (g.C + g.cg - 1) / g.cg;
-  if (threads < 1 || threads > 256 || tiles > 0x7fffffffLL || groups > 65535 || B > 65535)
+  if (d.block[0] < 1 || d.block[0] > 256 || d.grid[0] > 0x7fffffffLL || d.grid[1] > 65535 || d.grid[2] > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  kern<<<dim3((unsigned)tiles, (unsigned)groups, (unsigned)B), threads, l.total, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(f), static_cast<O*>(out), g, l);
+  kern<<<d.grid_dim(), d.block_dim(), d.smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(f),
+                                                        static_cast<O*>(out), g, l);
   return (int)cudaGetLastError();
 }
 
@@ -125,6 +129,18 @@ extern "C" int dwconv2d_launch(const void* x, const void* f, void* out, int B, i
   const Geometry g{Hi, Wi, C, Ho, Wo, hf, wf, stride, pad_t, pad_l, tile_h, tile_w, cg};
   REPRO_DISPATCH_IO(in_dtype, out_dtype, launch_io, x, f, out, B, g, vec,
                     static_cast<cudaStream_t>(stream));
+}
+
+// The launch dwconv2d_launch configures for this geometry (vec channels a
+// thread), as write_dims' ten numbers in out; cudaErrorInvalidValue for an
+// unknown dtype or a tile that is not whole vectors.
+extern "C" int dwconv2d_launch_dims(int B, int C, int Ho, int Wo, int hf, int wf, int stride, int tile_h,
+                                    int tile_w, int cg, int vec, int in_dtype, long long* out) {
+  if (vec < 1 || cg % vec != 0) return (int)cudaErrorInvalidValue;
+  const Geometry g{0, 0, C, Ho, Wo, hf, wf, stride, 0, 0, tile_h, tile_w, cg};
+  if (in_dtype == repro::kF32) return repro::write_dims(dw2d_dims<float>(B, g, vec), out);
+  if (in_dtype == repro::kBF16 || in_dtype == repro::kF16) return repro::write_dims(dw2d_dims<__half>(B, g, vec), out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Shared memory one CTA of this tile needs, in bytes (0 for an unknown

@@ -406,6 +406,14 @@ __global__ void __launch_bounds__(kThreads, std::is_same<T, __nv_bfloat16>::valu
   project_store<T>(cluster, rank, pj, dwt, dhi, dlo, ws, wt, bsm, part, pw, pwb, res, out);
 }
 
+// The launch of B images: grid (cluster, tiles, batch), clusters of
+// g.cluster CTAs along x, the layout's shared memory.
+template <bool TC>
+LaunchDims mb_dims(int B, const Geometry& g) {
+  const long long tiles = (long long)((g.Ho + g.slab_h - 1) / g.slab_h) * ((g.Wo + g.tile_w - 1) / g.tile_w);
+  return launch_dims(g.cluster, tiles, B, kThreads, g.cluster, mb_layout<TC>(g).total);
+}
+
 template <typename T>
 int launch_t(const void* x, const void* f, const void* mbb, const void* pw, const void* pwb,
              const void* res, void* out, int B, Geometry g, cudaStream_t stream) {
@@ -418,11 +426,10 @@ int launch_t(const void* x, const void* f, const void* mbb, const void* pw, cons
   g.vec_f = g.c % V == 0 && aligned(f);
   g.vec_w = g.co % V == 0 && aligned(pw);
   const Layout l = mb_layout<TC>(g);
-  if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)((g.Ho + g.slab_h - 1) / g.slab_h) * ((g.Wo + g.tile_w - 1) / g.tile_w);
-  if (tiles > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
-  return launch_clustered(fused_mb_kernel<T>, dim3((unsigned)g.cluster, (unsigned)tiles, (unsigned)B),
-                          l.total, g.cluster, stream, allowed, placed_key, static_cast<const T*>(x),
+  const LaunchDims d = mb_dims<TC>(B, g);
+  if (d.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  if (d.grid[1] > 65535 || d.grid[2] > 65535) return (int)cudaErrorInvalidConfiguration;
+  return launch_clustered(fused_mb_kernel<T>, d, stream, allowed, placed_key, static_cast<const T*>(x),
                           static_cast<const T*>(f), static_cast<const T*>(mbb), static_cast<const T*>(pw),
                           static_cast<const T*>(pwb), static_cast<const T*>(res), out, g, l);
 }
@@ -472,6 +479,19 @@ extern "C" int fused_mbconv_launch(const void* x, const void* f, const void* mb_
     return launch_status(launch_t<__nv_bfloat16>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st));
   if (in_dtype == kF16)
     return launch_status(launch_t<__half>(x, f, mb_bias, pw_w, pw_bias, residual, out, B, g, st));
+  return (int)cudaErrorInvalidValue;
+}
+
+// The launch fused_mbconv_launch configures for this geometry over B
+// images, as write_dims' ten numbers in out; cudaErrorInvalidValue for an
+// unknown dtype.
+extern "C" int fused_mbconv_launch_dims(int B, int ci, int cs, int cb, int np, int cluster, int slab_h,
+                                        int tile_w, int Ho, int Wo, int hf, int wf, int stride, int in_dtype,
+                                        long long* out) {
+  const Geometry g = make_geometry(0, 0, 0, 0, ci, 0, 0, Ho, Wo, hf, wf, stride, slab_h, tile_w, cb, cs, np,
+                                   cluster, 0, 0, 0);
+  if (in_dtype == repro::kBF16) return repro::write_dims(mb_dims<true>(B, g), out);
+  if (in_dtype == repro::kF32 || in_dtype == repro::kF16) return repro::write_dims(mb_dims<false>(B, g), out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -243,31 +243,39 @@ __global__ void __launch_bounds__(kStreamThreads, 2) pw_stream_kernel(
   cluster.sync();
 }
 
+// The launch of a stream tile: grid (cluster, ceil(Co / bn), ceil(G / gt)),
+// clusters of `cluster` CTAs along x, the layout's shared memory.
+LaunchDims stream_dims(int G, int Co, int gt, int bn, int kslice, int cluster) {
+  return launch_dims(cluster, (Co + bn - 1) / bn, (G + gt - 1) / gt, kStreamThreads, cluster,
+                     stream_layout(gt, bn, kslice).total);
+}
+
 template <typename T, typename O, int GT, int V>
 int launch_stream_t(const void* x, const void* w, const void* bias, void* out, int G, int Ci,
                     int Co, int bn, int kslice, int cluster, int act, cudaStream_t stream) {
   static size_t allowed = 0;
   static long long placed_key = -1;
   const StreamLayout l = stream_layout(GT, bn, kslice);
-  if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const LaunchDims d = stream_dims(G, Co, GT, bn, kslice, cluster);
+  if (d.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kern = pw_stream_kernel<T, O, GT, V>;
-  cudaError_t e = allow_smem(kern, l.total, allowed);
+  cudaError_t e = allow_smem(kern, d.smem, allowed);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.x = (unsigned)d.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster, (unsigned)((Co + bn - 1) / bn), (unsigned)((G + GT - 1) / GT));
-  cfg.blockDim = dim3(kStreamThreads, 1, 1);
-  cfg.dynamicSmemBytes = l.total;
+  cfg.gridDim = d.grid_dim();
+  cfg.blockDim = d.block_dim();
+  cfg.dynamicSmemBytes = d.smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // refuse a cluster the card cannot place (checked once per shared-memory
   // size and cluster, which is all the answer depends on)
-  const long long key = (long long)l.total * 16 + cluster;
+  const long long key = (long long)d.smem * 16 + d.cluster;
   if (key != placed_key) {
     int active = 0;
     e = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
@@ -616,6 +624,13 @@ bool encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_c
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The launch of a tc tile: grid (ceil(G / bm), ceil(Co / bn)), a consumer
+// warpgroup per 64 rows and a producer warp, the ring's shared memory.
+LaunchDims tc_dims(int G, int Ci, int Co, int bm, int bn) {
+  return launch_dims((G + bm - 1) / bm, (Co + bn - 1) / bn, 1, bm / 64 * 128 + 32, 1,
+                     tc_smem_bytes(bm, bn, tc_stages(bm, bn, Ci)));
+}
+
 template <typename T, typename O, int BM, int BN>
 int launch_tc_t(const void* x, const void* w, const void* bias, void* out, int G, int Ci, int Co,
                 int act, cudaStream_t stream) {
@@ -624,13 +639,12 @@ int launch_tc_t(const void* x, const void* w, const void* bias, void* out, int G
   if (!encode_map<T>(&mx, x, G, Ci, kTcBK, BM) || !encode_map<T>(&mw, w, Ci, Co, 64, kTcBK))
     return (int)cudaErrorInvalidValue;
   const int stages = tc_stages(BM, BN, Ci);
-  const size_t smem = tc_smem_bytes(BM, BN, stages);
+  const LaunchDims d = tc_dims(G, Ci, Co, BM, BN);
   auto kern = pw_tc_kernel<T, O, BM, BN>;
-  cudaError_t e = allow_smem(kern, smem, allowed);
+  cudaError_t e = allow_smem(kern, d.smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((G + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN));
-  kern<<<grid, BM / 64 * 128 + 32, smem, stream>>>(mx, mw, static_cast<const T*>(bias),
-                                                    static_cast<O*>(out), G, Ci, Co, stages, act);
+  kern<<<d.grid_dim(), d.block_dim(), d.smem, stream>>>(mx, mw, static_cast<const T*>(bias),
+                                                        static_cast<O*>(out), G, Ci, Co, stages, act);
   return (int)cudaGetLastError();
 }
 
@@ -788,20 +802,25 @@ __global__ void __launch_bounds__(kSimtThreads) pw_simt_kernel(
   }
 }
 
+// The launch of a simt tile: grid (ceil(G / bm), ceil(Co / bn)), 256
+// threads, the two A and B buffers.
+LaunchDims simt_dims(int G, int Co, int bm, int bn) {
+  return launch_dims((G + bm - 1) / bm, (Co + bn - 1) / bn, 1, kSimtThreads, 1, simt_smem_bytes(bm, bn));
+}
+
 template <typename T, typename O, int BM, int BN>
 int launch_simt_t(const void* x, const void* w, const void* bias, void* out, int G, int Ci, int Co,
                   bool vec, int act, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(BM, BN);
-  const dim3 grid((unsigned)((G + BM - 1) / BM), (unsigned)((Co + BN - 1) / BN));
+  const LaunchDims d = simt_dims(G, Co, BM, BN);
   if constexpr (std::is_same<T, float>::value) {
     if (vec) {
-      pw_simt_kernel<T, O, BM, BN, true><<<grid, kSimtThreads, smem, stream>>>(
+      pw_simt_kernel<T, O, BM, BN, true><<<d.grid_dim(), d.block_dim(), d.smem, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
           static_cast<O*>(out), G, Ci, Co, act);
       return (int)cudaGetLastError();
     }
   }
-  pw_simt_kernel<T, O, BM, BN, false><<<grid, kSimtThreads, smem, stream>>>(
+  pw_simt_kernel<T, O, BM, BN, false><<<d.grid_dim(), d.block_dim(), d.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<O*>(out), G, Ci, Co, act);
   return (int)cudaGetLastError();
@@ -852,6 +871,25 @@ extern "C" int pwconv_launch(const void* x, const void* w, const void* bias, voi
                              int vec, int act, int in_dtype, int out_dtype, void* stream) {
   REPRO_DISPATCH_IO(in_dtype, out_dtype, launch_io, x, w, bias, out, G, Ci, Co, variant, bg, bco,
                     bci, cluster, vec, act, static_cast<cudaStream_t>(stream));
+}
+
+// The launch pwconv_launch configures for this variant and tile (for
+// stream: bg rows of G and bco columns a CTA, bci Ci rows of each of the
+// cluster's CTAs), as write_dims' ten numbers in out;
+// cudaErrorInvalidValue for an unknown variant or an empty tile.
+extern "C" int pwconv_launch_dims(int G, int Ci, int Co, int variant, int bg, int bco, int bci, int cluster,
+                                  long long* out) {
+  if (G < 1 || Ci < 1 || Co < 1 || bg < 1 || bco < 1 || bci < 1) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case kStream:
+      return write_dims(stream_dims(G, Co, bg, bco, bci, cluster), out);
+    case kTc:
+      return write_dims(tc_dims(G, Ci, Co, bg, bco), out);
+    case kSimt:
+      return write_dims(simt_dims(G, Co, bg, bco), out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Shared memory one CTA of this variant and tile needs for a reduction over

@@ -377,6 +377,14 @@ __global__ void __launch_bounds__(kThreads, 2) sep_fused_kernel(
   project_store<T>(cluster, rank, pj, dwt, dhi, dlo, ws, wt, bsm, part, pw, pwb, res, out);
 }
 
+// The launch of B images: grid (cluster, slabs, batch), clusters of
+// g.cluster CTAs along x, the layout's shared memory.
+template <bool TC>
+LaunchDims sep_dims(int B, const Geometry& g, bool expand) {
+  return launch_dims(g.cluster, (g.Ho + g.slab_h - 1) / g.slab_h, B, kThreads, g.cluster,
+                     sep_layout<TC>(g, expand).total);
+}
+
 template <typename T, bool EXPAND, int KT>
 int launch_mode(const void* x, const void* ew, const void* f, const void* dwb, const void* pw,
                 const void* pwb, const void* res, void* out, int B, const Geometry& g,
@@ -385,10 +393,10 @@ int launch_mode(const void* x, const void* ew, const void* f, const void* dwb, c
   static bool allowed = false;
   static long long placed_key = -1;
   const Layout l = sep_layout<TC>(g, EXPAND);
-  if (l.total > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  return launch_clustered(sep_fused_kernel<T, EXPAND, KT>,
-                          dim3((unsigned)g.cluster, (unsigned)((g.Ho + g.slab_h - 1) / g.slab_h), (unsigned)B),
-                          l.total, g.cluster, stream, allowed, placed_key, static_cast<const T*>(x),
+  const LaunchDims d = sep_dims<TC>(B, g, EXPAND);
+  if (d.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  return launch_clustered(sep_fused_kernel<T, EXPAND, KT>, d, stream, allowed, placed_key,
+                          static_cast<const T*>(x),
                           static_cast<const T*>(ew), static_cast<const T*>(f), static_cast<const T*>(dwb),
                           static_cast<const T*>(pw), static_cast<const T*>(pwb), static_cast<const T*>(res),
                           out, g, l);

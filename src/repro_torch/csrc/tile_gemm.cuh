@@ -306,13 +306,13 @@ __device__ __forceinline__ void project_store(cg::cluster_group& cluster, int ra
   }
 }
 
-// Launches kern on a grid whose x dimension is `cluster` CTAs of one
+// Launches kern at d, whose grid's x dimension is d.cluster CTAs of one
 // thread-block cluster, after raising its dynamic shared-memory limit to
 // the most a CTA may hold (once) and checking that the card can place such
 // a cluster (once per shared-memory size and cluster).
 template <typename K, typename... Args>
-int launch_clustered(K kern, dim3 grid, size_t smem, int cluster, cudaStream_t stream, bool& allowed,
-                     long long& placed_key, Args... args) {
+int launch_clustered(K kern, const LaunchDims& d, cudaStream_t stream, bool& allowed, long long& placed_key,
+                     Args... args) {
   cudaError_t e;
   if (!allowed) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -321,17 +321,17 @@ int launch_clustered(K kern, dim3 grid, size_t smem, int cluster, cudaStream_t s
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.x = (unsigned)d.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = d.grid_dim();
+  cfg.blockDim = d.block_dim();
+  cfg.dynamicSmemBytes = d.smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const long long key = (long long)smem * 16 + cluster;
+  const long long key = (long long)d.smem * 16 + d.cluster;
   if (key != placed_key) {
     int active = 0;
     e = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);

@@ -35,8 +35,10 @@ closes that gap for a declared chain by measuring a pruned candidate set:
   and compute capability, the torch and CUDA versions and, for the
   kernels, a digest of their build identity (``_build.library_path``), so
   that a winner measured with other kernel sources never replays.  A
-  corrupted file loads as empty; a cached plan that is no longer one of its
-  segments' candidates is dropped with a warning and the caller re-plans.
+  corrupted file loads as empty; a cached plan that fails the static
+  verifier's planlint (``analysis.lint_cached_plan``, as the reference
+  holds its cache) or is no longer one of its segments' candidates is
+  dropped with a warning and the caller re-plans.
 
 A candidate must beat the incumbent by more than :data:`REL_IMPROVEMENT`
 to win, so measurement noise cannot flip plans between runs.
@@ -440,15 +442,30 @@ def plan_mismatch(spec, cp: ChainPlan, x_shape: Sequence[int],
     return None
 
 
+def cached_plan_problem(spec, cp: ChainPlan, x_shape: Sequence[int],
+                        base_plan: ChainPlan,
+                        dtype: torch.dtype) -> Optional[str]:
+    """Why a replayed plan must not run, or None: first the static
+    verifier's planlint (``analysis.lint_cached_plan``, as the reference
+    holds its cache, ``repro/kernels/autotune.py:208-209``), then
+    :func:`plan_mismatch`."""
+    from repro_torch.analysis import lint_cached_plan  # analysis sits above
+    rules = lint_cached_plan(spec, cp, x_shape, dtype=dtype)
+    if rules is not None:
+        return f"it failed planlint ({rules})"
+    return plan_mismatch(spec, cp, x_shape, base_plan, dtype)
+
+
 def validate_cached_plan(spec, cp: ChainPlan, x_shape: Sequence[int],
                          key: str, path: str, base_plan: ChainPlan,
                          dtype: torch.dtype) -> Optional[ChainPlan]:
-    """``cp`` when :func:`plan_mismatch` finds nothing, else None with a
-    warning naming the cache path and the key: an entry that a planner or
-    kernel change left behind, or one edited by hand, is dropped and the
-    caller re-plans (a stale cache is a performance artifact; the kernel
-    still runs)."""
-    why = plan_mismatch(spec, cp, x_shape, base_plan, dtype)
+    """``cp`` when :func:`cached_plan_problem` finds nothing, else None
+    with a warning naming the cache path, the key and the problem (the
+    planlint rule ids, or the mismatch): an entry that a planner or kernel
+    change left behind, or one edited by hand, is dropped and the caller
+    re-plans (a stale cache is a performance artifact; the kernel still
+    runs)."""
+    why = cached_plan_problem(spec, cp, x_shape, base_plan, dtype)
     if why is None:
         return cp
     warnings.warn(

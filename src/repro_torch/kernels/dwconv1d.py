@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.spans import marks_span
 
 #: Kernel launches so far in this process.
 launches = 0
@@ -47,6 +48,7 @@ def vector_width(x: torch.Tensor, f: torch.Tensor) -> int:
     return vec
 
 
+@marks_span("dwconv1d")
 def dwconv1d_causal(x: torch.Tensor, f: torch.Tensor, *,
                     rows: int = ROWS) -> torch.Tensor:
     """x (B, L, D), f (K, D) in x's dtype -> (B, L, D) in x's dtype.

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, blocking, ref
+from repro_torch.kernels.spans import marks_span
 
 #: Kernel launches so far in this process (``chip_smoke.py`` zeroes it
 #: before it drives the main path and reads it after).
@@ -57,6 +58,7 @@ def smem_bytes(tile_h: int, tile_w: int, cg: int, hf: int, wf: int,
                   _build.DTYPE_CODES[dtype]))
 
 
+@marks_span("dwconv2d")
 def dwconv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
              pad: Optional[tuple] = None,
              block_c: Optional[int] = None, slab_h: Optional[int] = None,

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, blocking, ref
+from repro_torch.kernels.spans import marks_span
 from repro_torch.kernels.epilogue import activation_code
 
 #: Kernel launches so far in this process.
@@ -69,6 +70,7 @@ def smem_bytes(ci: int, c_slice: int, cb: int, panel: int, slab_h: int,
                   _build.DTYPE_CODES[dtype]))
 
 
+@marks_span("fused_mbconv")
 def fused_mbconv(
     x: torch.Tensor,
     mb_f: torch.Tensor,

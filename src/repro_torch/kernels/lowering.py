@@ -25,6 +25,11 @@ the stream dtype with its bias and activation applied after it, in the
 stream dtype — which is where bf16 rounding differs between the fused and
 unfused plans, exactly as in the reference.
 
+Each kernel pass, its plain version included, runs inside a kernel span
+(``kernels/spans.py``), as the kernel wrappers mark theirs: the static
+verifier's trace audit (``analysis/trace_audit.py``) counts the passes
+and tells in-kernel ops from the glue between them.
+
 Before each segment dispatches, its fault-injection point is checked
 (:data:`_INJECT`, ``runtime/faultinject.py``).  A failure the runtime's
 whitelist recognizes (``runtime/failures.classify``) is re-raised tagged
@@ -47,6 +52,7 @@ from repro_torch.kernels.fused_mbconv import fused_mbconv
 from repro_torch.kernels.policy import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels.pwconv import pwconv
 from repro_torch.kernels.se_epilogue import dw_se
+from repro_torch.kernels.spans import span
 from repro_torch.kernels.separable_fused import separable_fused
 from repro_torch.runtime import failures, faultinject
 
@@ -89,11 +95,12 @@ def _run_fused(seg, stages, params, y, res, *, impl, stream_dtype,
     pw_w = params[i_pw]["w"].to(stream_dtype)
     pw_b = _cast(params[i_pw].get("b"), stream_dtype)
     if impl == "torch":
-        return ref.separable_fused_ref(
-            y, dw_f, pw_w, dw_b, pw_b, res, expand_w=expand_w,
-            expand_activation=expand_act, stride=d.stride,
-            padding=d.padding, dw_activation=d.activation,
-            activation=proj.activation).to(out_dtype)
+        with span("separable_fused"):
+            return ref.separable_fused_ref(
+                y, dw_f, pw_w, dw_b, pw_b, res, expand_w=expand_w,
+                expand_activation=expand_act, stride=d.stride,
+                padding=d.padding, dw_activation=d.activation,
+                activation=proj.activation).to(out_dtype)
     # the kernel pads as it reads: no padded copy of y is made
     pad = ref.pads(y.shape[1], y.shape[2], d.hf, d.wf, d.stride,
                    d.padding)
@@ -117,8 +124,10 @@ def _run_fused_mb(seg, stages, params, y, res, *, impl, stream_dtype,
     kw = dict(stride=mb.stride, mb_activation=mb.activation,
               activation=proj.activation)
     if impl == "torch":
-        return ref.fused_mbconv_ref(y, mb_f, pw_w, mb_b, pw_b, res,
-                                    padding=mb.padding, **kw).to(out_dtype)
+        with span("fused_mbconv"):
+            return ref.fused_mbconv_ref(y, mb_f, pw_w, mb_b, pw_b, res,
+                                        padding=mb.padding, **kw
+                                        ).to(out_dtype)
     # the kernel pads as it reads: no padded copy of y is made
     pad = ref.pads(y.shape[1], y.shape[2], mb.hf, mb.wf, mb.stride,
                    mb.padding)
@@ -142,8 +151,9 @@ def _run_dw_se(seg, stages, params, y, *, impl, stream_dtype, out_dtype):
     kw = dict(stride=d.stride, dw_activation=d.activation,
               se_activation=se.activation)
     if impl == "torch":
-        return ref.dw_se_ref(y, dw_f, *gate, dw_b, padding=d.padding,
-                             **kw).to(out_dtype)
+        with span("dw_se"):
+            return ref.dw_se_ref(y, dw_f, *gate, dw_b, padding=d.padding,
+                                 **kw).to(out_dtype)
     # the kernel pads as it reads: no padded copy of y is made
     p = seg.plan
     return dw_se(y, dw_f, *gate, dw_b,
@@ -158,7 +168,7 @@ def _run_se(st, p, y, *, impl, stream_dtype, out_dtype):
     rows (stored at the stream width), then the sigmoid scale."""
     w1, b1, w2, b2 = _se_params(p, stream_dtype)
     pooled = y.float().mean(dim=(1, 2)).to(stream_dtype)
-    fc = ref.pwconv_ref if impl == "torch" else pwconv
+    fc = _plain_pwconv if impl == "torch" else pwconv
     hid = fc(pooled, w1, bias=b1, activation=st.activation)
     pre = fc(hid, w2, bias=b2)
     gate = torch.sigmoid(pre.float()).to(stream_dtype)
@@ -173,12 +183,20 @@ def _run_mb(st, p, y, *, stream_dtype, out_dtype):
                           activation=st.activation).to(out_dtype)
 
 
+def _plain_pwconv(x, w, bias=None, activation=None):
+    """``pwconv``'s plain version as the lowering calls it: one kernel
+    pass's span."""
+    with span("pwconv"):
+        return ref.pwconv_ref(x, w, bias=bias, activation=activation)
+
+
 def _run_pw(seg, st, p, y, policy, *, impl, stream_dtype, out_dtype):
     w = p["w"].to(stream_dtype)
     b = _cast(p.get("b"), stream_dtype)
     if impl == "torch":
-        return ref.pwconv_ref(y, w, bias=b,
-                              activation=st.activation).to(out_dtype)
+        with span("pwconv"):
+            return ref.pwconv_ref(y, w, bias=b,
+                                  activation=st.activation).to(out_dtype)
     lead = y.shape[:-1]
     out = pwconv(y.reshape(-1, y.shape[-1]), w, b, activation=st.activation,
                  variant=seg.plan.variant,
@@ -192,7 +210,8 @@ def _run_pw(seg, st, p, y, policy, *, impl, stream_dtype, out_dtype):
 def _run_dw(seg, st, p, y, *, impl, stream_dtype):
     f = p["f"].to(stream_dtype)
     if impl == "torch":
-        y = ref.dwconv2d_ref(y, f, stride=st.stride, padding=st.padding)
+        with span("dwconv2d"):
+            y = ref.dwconv2d_ref(y, f, stride=st.stride, padding=st.padding)
     else:
         # the kernel pads as it reads: no padded copy of y is made
         q = seg.plan

@@ -5,12 +5,12 @@ TENSOR, not the host: a CUDA tensor runs the hand-written kernels, a CPU
 tensor runs the plain PyTorch versions.  Nothing falls back: a kernel that
 fails to build or launch raises, and ``impl="cuda"`` on a CPU tensor raises.
 
-``KernelPolicy`` keeps what the port uses: ``impl``, the ``fused``
+``KernelPolicy`` keeps the reference's fields: ``impl``, the ``fused``
 opt-out, the ``dtype_policy``, the GEMM tile overrides, the per-CTA
-shared-memory budget the planner sizes fused tiles against, and the
-measured autotuner's ``autotune`` / ``tune_cache``, and the runtime
-ladder's ``on_failure`` / ``numeric_guard``.  The reference's verify field
-belongs to the slice that ports that layer.
+shared-memory budget the planner sizes fused tiles against (in place of the
+reference's VMEM budget), the measured autotuner's ``autotune`` /
+``tune_cache``, the runtime ladder's ``on_failure`` / ``numeric_guard``,
+and the static verifier's ``verify``.
 
 ``on_failure`` is where the port departs from the reference's default: the
 reference degrades (``"degrade"``), the port raises (``"raise"``), so that
@@ -123,6 +123,12 @@ class KernelPolicy:
     numeric_guard: check that every chain and network output is finite
     (a host sync after the call, never inside a captured graph); a
     non-finite output is a ``NumericalFailure``.
+    verify: run the static verifier (``repro_torch.analysis``: planlint and
+    the launch limits, no trace) on every plan where it is made, in
+    ``core/chain.plan`` / ``resolve_plan`` and ``core/network.plan_network``
+    / ``execute_network``, before any warm-up or capture; a plan with an
+    error raises ``analysis.PlanVerificationError``, under either
+    ``on_failure`` (it never degrades).  It changes no plan and no launch.
     """
     impl: str = "auto"
     smem_budget: int = DEFAULT_SMEM_BUDGET
@@ -135,6 +141,7 @@ class KernelPolicy:
     tune_cache: Optional[str] = None
     on_failure: str = "raise"
     numeric_guard: bool = False
+    verify: bool = False
 
     def __post_init__(self):
         if self.impl not in IMPLS:

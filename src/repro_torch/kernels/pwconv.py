@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, blocking, ref
+from repro_torch.kernels.spans import marks_span
 from repro_torch.kernels.epilogue import activation_code
 
 #: Kernel launches so far in this process, and by variant
@@ -76,6 +77,7 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+@marks_span("pwconv")
 def pwconv(x: torch.Tensor, w: torch.Tensor,
            bias: Optional[torch.Tensor] = None, *,
            activation: Optional[str] = None,

@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/ref.py`` (``dwconv2d_ref`` :24,
 ``pwconv_ref`` :141, ``separable_fused_ref`` :158, ``conv2d_ref`` :201,
 ``fused_mbconv_ref`` :224, ``se_ref`` :258, ``dw_se_ref`` :281,
-``dwconv1d_causal_ref`` :76, ``dwconv1d_step_ref`` :92), with the same
+``dwconv1d_causal_ref`` :76, ``dwconv1d_step_ref`` :92, and the paper's
+loop oracles ``dwconv2d_loops_ref`` :47 and ``matmul_rtra_ref`` :314,
+which only the tests call), with the same
 rounding
 points: every operand is upcast to fp32 explicitly (bf16 and fp16 products
 never run in the narrow type), the fused intermediates stay fp32, and the
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -114,6 +117,47 @@ def dwconv1d_step_ref(state: torch.Tensor, x_t: torch.Tensor,
     window = torch.cat([state, x_t[:, None, :]], dim=1)  # (B, K, D)
     y = (window.float() * f.float()).sum(dim=1)          # contiguous (B, D)
     return (window[:, 1:, :] if k > 1 else state), y.to(x_t.dtype)
+
+
+def dwconv2d_loops_ref(x: np.ndarray, f: np.ndarray, *,
+                       stride: int = 1) -> np.ndarray:
+    """The paper's Alg. 1 (the unoptimized five-nested-loop MAC), VALID
+    padding, numpy, accumulated in float64: deliberately literal, the
+    oracle of the oracle ``dwconv2d_ref``."""
+    b, hi, wi, c = x.shape
+    hf, wf, _ = f.shape
+    ho = (hi - hf) // stride + 1
+    wo = (wi - wf) // stride + 1
+    out = np.zeros((b, ho, wo, c), dtype=np.float64)
+    for bb in range(b):
+        for l in range(ho):
+            for k in range(wo):
+                for i in range(c):
+                    for n in range(hf):
+                        for m in range(wf):
+                            out[bb, l, k, i] += (
+                                x[bb, l * stride + n, k * stride + m, i]
+                                * f[n, m, i])
+    return out.astype(x.dtype)
+
+
+def matmul_rtra_ref(a: torch.Tensor, b: torch.Tensor, *,
+                    block_k: int = 128) -> torch.Tensor:
+    """The paper's Alg. 5 loop structure (A-stationary, k outermost): the
+    BLAS/RTRA baseline, ``a @ b`` with the fp32 output tile read and
+    written again at every ``block_k`` step of the reduction (the traffic
+    flaw the paper's RTRD kernel removes).  A second oracle of
+    ``pwconv_ref``, and the shape of ``intensity.pwconv_traffic_rtra``."""
+    g, ci = a.shape
+    if b.shape[0] != ci:
+        raise ValueError(f"matmul_rtra_ref shapes {tuple(a.shape)} "
+                         f"{tuple(b.shape)}")
+    nk = max(1, -(-ci // block_k))
+    out = torch.zeros((g, b.shape[1]), dtype=torch.float32, device=a.device)
+    for k in range(nk):
+        ks = slice(k * block_k, min((k + 1) * block_k, ci))
+        out = out + a[:, ks].float() @ b[ks].float()
+    return out.to(a.dtype)
 
 
 def pwconv_ref(x: torch.Tensor, w: torch.Tensor, *,

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, blocking, ref
+from repro_torch.kernels.spans import marks_span
 from repro_torch.kernels.epilogue import activation_code
 
 #: Kernel launches so far in this process, one per call (``chip_smoke.py``
@@ -78,6 +79,7 @@ def smem_bytes(pass_: int, tile_h: int, tile_w: int, cg: int, hf: int,
                   _build.DTYPE_CODES[dtype]))
 
 
+@marks_span("dw_se")
 def dw_se(
     x: torch.Tensor,
     dw_f: torch.Tensor,

@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, blocking, ref
+from repro_torch.kernels.spans import marks_span
 from repro_torch.kernels.epilogue import activation_code
 
 #: Kernel launches so far in this process, per mode.
@@ -78,6 +79,7 @@ def smem_bytes(ci: int, c_slice: int, cb: int, panel: int, cluster: int,
                   wf, stride, int(expand), _build.DTYPE_CODES[dtype]))
 
 
+@marks_span("separable_fused")
 def separable_fused(
     x: torch.Tensor,
     dw_f: torch.Tensor,

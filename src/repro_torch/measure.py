@@ -158,7 +158,7 @@ def device_profile(fn, reps: int = 5):
                 for c, n in counts.items()}
 
 
-def profile_calls(fn, expect: dict, reps: int = 5, tries: int = 3):
+def profile_calls(fn, expect: dict, reps: int = 5, tries: int = 5):
     """:func:`device_profile` of ``fn()``, held to ``expect``, the port's
     kernels one call should run, by launch counter.  A trace that holds
     fewer of them (none at all, or part of a replay's) has lost records,

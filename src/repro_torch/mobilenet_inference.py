@@ -5,7 +5,7 @@ card by default.
     python -m repro_torch.mobilenet_inference
         [--arch v1|v2|mnasnet|lite0|all]
         [--dtype fp32|bf16] [--res N] [--batch B] [--device cuda|cpu]
-        [--unfused] [--autotune [--tune-cache PATH]]
+        [--unfused] [--autotune [--tune-cache PATH]] [--verify]
         [--fault-inject POINTS [--numeric-guard]]
 
 For each network it prints the plan histogram, the kernel launches of one
@@ -19,6 +19,16 @@ first call reserved and what the graph held until the cache was cleared,
 whether the two paths give the same bits, and the error against the plain
 path: the same network with ``impl="torch"`` in fp32 on the same device,
 run eagerly.  Counterpart of ``examples/mobilenet_inference.py``.
+
+For every network it also prints the reference's "modeled HBM" line
+(``examples/mobilenet_inference.py:77-89``): the device-memory bytes of a
+forward that ``core/intensity.network_traffic`` models for the plan run,
+for the fp32 fused plan and for the per-block unfused plan, and the
+plan's arithmetic intensity.  The model prices the reference's tiling at
+the plans' fields (``core/intensity.py``), not the Hopper kernels' own
+traffic.  ``--verify`` runs the static verifier (``repro_torch.analysis``:
+planlint and the launch limits) on each network's plan before anything
+runs, prints its summary and raises on an error.
 
 ``--autotune`` runs each network at its measured plans
 (``KernelPolicy(autotune=True)``, ``core/network.tune_network``): the
@@ -59,7 +69,7 @@ import time
 import torch
 
 from repro_torch import graphs
-from repro_torch.core import network
+from repro_torch.core import intensity, network
 from repro_torch.kernels import _build, pwconv
 from repro_torch.kernels.policy import BF16_STREAM, NATIVE, KernelPolicy
 from repro_torch.measure import profile_calls, rel_err, time_ms
@@ -123,6 +133,23 @@ def _counted(fn, dev):
     return y, launch_counts(), dict(pwconv.launches_by_variant), peak
 
 
+def modeled_traffic(net: network.NetworkSpec, nplan: network.NetworkPlan,
+                    policy: KernelPolicy) -> dict:
+    """The modeled device-memory bytes of one forward
+    (``intensity.network_traffic``) of ``nplan``, of the fp32 plan with
+    the default fusion and of the fp32 per-block unfused plan at the same
+    input, and ``nplan``'s FLOPs and arithmetic intensity (FLOPs a byte)."""
+    x_shape = nplan.block_shapes[0]
+    t = intensity.network_traffic(net, nplan)
+    fp32, unfused = (
+        intensity.network_traffic(net, network.plan_network(
+            net, x_shape, device="cpu", policy=KernelPolicy(fused=fused)))
+        for fused in (None, False))
+    return {"bytes": t.bytes_hbm, "flops": t.flops,
+            "intensity": t.intensity, "fp32_fused_bytes": fp32.bytes_hbm,
+            "unfused_bytes": unfused.bytes_hbm}
+
+
 def _reserved(dev):
     """Bytes the caching allocator holds on the card once every unused
     cached block is returned."""
@@ -134,7 +161,7 @@ def _reserved(dev):
 def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 dtype: str = "fp32", fused=None, device="cuda",
                 seed: int = 0, autotune: bool = False,
-                tune_cache=None) -> dict:
+                tune_cache=None, verify: bool = False) -> dict:
     """Drive one network body, through ``execute_network`` (on the card,
     one CUDA graph of the forward) and through its eager runner
     (``build_network_fn``), time both and hold both against the fp32 plain
@@ -157,7 +184,11 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     the error.  With ``autotune`` the network is first tuned
     (``network.tune_network``, into ``tune_cache``), outside every counted
     and timed call, and the paths run its measured plans; ``tune`` then
-    holds the tune's cache hit, plans measured and seconds.  Ends by
+    holds the tune's cache hit, plans measured and seconds.  ``traffic``
+    holds :func:`modeled_traffic`.  With ``verify`` the plan is first held
+    to the static verifier (``analysis.analyze_network``, no trace):
+    ``planlint`` holds its summary, and an error raises
+    ``analysis.PlanVerificationError`` before anything runs.  Ends by
     clearing the network cache, which releases the graph and its memory
     pool."""
     dev = network.require_device(device)
@@ -181,6 +212,16 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
                 "cache_path": tuned.cache_path}
     nplan = network.plan_network(net, x.shape, dtype=x.dtype, policy=pol,
                                  device=dev)
+    planlint = None
+    if verify:
+        from repro_torch import analysis
+        report = analysis.analyze_network(net, nplan, policy=pol,
+                                          trace=False)
+        planlint = report.summary() + ("" if report.ok else " -> " + ",".join(
+            report.rules(analysis.ERROR)))
+        print(f"{net.name}: planlint {planlint}")
+        analysis.verify_or_raise(report)
+    traffic = modeled_traffic(net, nplan, pol)
     eager = network.build_network_fn(net, nplan, pol)
 
     def forward():
@@ -231,6 +272,7 @@ def run_network(net: network.NetworkSpec, *, res: int = 112, batch: int = 1,
     busy = sum(device.values())
     eager_busy = sum(eager_device.values())
     return {"histogram": nplan.segment_histogram(), "tune": tune,
+            "traffic": traffic, "planlint": planlint,
             "first_call_launches": first, "later_call_launches": later,
             "eager_launches": eager_launches,
             "replay_launches": None if replayed is None else {
@@ -395,6 +437,10 @@ def main(argv=None) -> int:
                     help="the tune cache (default: "
                          "kernels/autotune.default_cache_path()); the "
                          "quarantine store lives beside it")
+    ap.add_argument("--verify", action="store_true",
+                    help="hold each network's plan to the static verifier "
+                         "(repro_torch.analysis) before running it; raises "
+                         "on an error")
     ap.add_argument("--fault-inject", metavar="POINTS",
                     help="arm fault-injection points (comma-separated "
                          "point[:times], persistent without times) and run "
@@ -412,6 +458,9 @@ def main(argv=None) -> int:
         ap.error("--fault-inject runs the analytic plans; drop --autotune")
     if args.numeric_guard and not args.fault_inject:
         ap.error("--numeric-guard needs --fault-inject")
+    if args.verify and args.fault_inject:
+        ap.error("--verify holds the analytic run's plans; drop "
+                 "--fault-inject")
     if torch.device(args.device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -425,7 +474,7 @@ def main(argv=None) -> int:
                         dtype=args.dtype,
                         fused=False if args.unfused else None,
                         device=args.device, autotune=args.autotune,
-                        tune_cache=args.tune_cache)
+                        tune_cache=args.tune_cache, verify=args.verify)
         histo = ",".join(f"{k}:{v}" for k, v in sorted(r["histogram"].items()))
         cuda = torch.device(args.device).type == "cuda"
         if r["tune"] is not None:
@@ -437,6 +486,11 @@ def main(argv=None) -> int:
         print(f"{net.name} @{args.res}x{args.res} batch {args.batch} "
               f"{args.dtype} on {args.device}: plan {histo}; launches of an "
               f"eager forward {r['eager_launches']}")
+        t = r["traffic"]
+        print(f"  modeled HBM: {t['bytes'] / 1e6:.2f} MB (fp32 fused "
+              f"{t['fp32_fused_bytes'] / 1e6:.2f} MB, per-block unfused "
+              f"{t['unfused_bytes'] / 1e6:.2f} MB); AI {t['intensity']:.1f} "
+              "FLOPs/B")
         if cuda:
             print(f"  port kernels a replay ran (profiler trace): "
                   f"{r['replay_launches']}")

@@ -1416,3 +1416,133 @@ def test_hymba_serve_launcher_on_the_card(dev, capsys):
     out = capsys.readouterr().out
     assert "on cuda" in out and "'dwconv1d': 2" in out
     assert "'pwconv': 22" in out
+
+
+# ---------------------------------------------------------------------------
+# the static verifier against the libraries' own launches, and the shims
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", (None, False))
+@pytest.mark.parametrize("arch", tuple(ARCHS))
+def test_launch_dims_match_the_models(dev, arch, fused):
+    """Every launch of the body's plans (batch 1 and 8, fp32 and bf16,
+    112x112) and of every ladder candidate of their segments: the
+    library's ``<kernel>_launch_dims``, the function its launch calls,
+    gives the gridspec model's grid, block, cluster and shared memory."""
+    from repro_torch.analysis import planlint
+    from repro_torch.kernels import autotune, gridspec
+    from repro_torch.kernels.policy import BF16_STREAM, NATIVE
+    net = ARCHS[arch](1.0)
+    seen = {}
+    for batch in (1, 8):
+        for dp in (NATIVE, BF16_STREAM):
+            pol = KernelPolicy(fused=fused, dtype_policy=dp)
+            nplan = network.plan_network(net, (batch, 112, 112, net.c_in),
+                                         policy=pol, device=dev)
+            sdt = dp.stream_dtype(torch.float32)
+            for spec, cp, shape in zip(net.blocks, nplan.plans,
+                                       nplan.block_shapes):
+                for geom, seg in zip(planlint.walk_segments(spec, cp, shape),
+                                     cp.segments):
+                    for cand in autotune.segment_candidates(
+                            geom, seg.plan, sdt, cp.smem_budget):
+                        for m in gridspec.segment_models(geom, cand, sdt):
+                            seen.setdefault((m.library, m.library_args), m)
+    bad = [(m.name, m.library_args, m.dims(), gridspec.library_dims(m))
+           for m in seen.values() if gridspec.library_dims(m) != m.dims()]
+    assert seen and not bad, bad[:5]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16,
+                                   torch.float16))
+def test_launch_dims_at_odd_shapes(dev, dtype):
+    """Each kernel's model at odd shapes (a stream split of 3, a scalar
+    depthwise channel group, a partial cluster, narrow tiles) against its
+    library, and the launch itself runs and matches its plain version."""
+    from repro_torch.kernels import gridspec
+    models = [
+        gridspec.pwconv_model(g=5, ci=300, co=72, variant="stream", bg=8,
+                              bco=32, bci=100, dtype=dtype),
+        gridspec.pwconv_model(g=77, ci=24, co=40, variant="simt", bg=64,
+                              bco=64, bci=8, dtype=dtype),
+        gridspec.dwconv2d_model(b=2, hi=9, wi=11, c=13, ho=9, wo=11, hf=3,
+                                wf=3, stride=1, tile_h=3, tile_w=8, cg=13,
+                                vec=1, dtype=dtype),
+        *gridspec.dw_se_models(b=2, hi=14, wi=14, c=40, ho=7, wo=7, hf=5,
+                               wf=5, stride=2, tile_h=2, tile_w=4, cg=16,
+                               vec=8 if dtype != torch.float32 else 4,
+                               c_se=10, dtype=dtype),
+        gridspec.separable_fused_model(
+            b=2, hi=13, wi=11, ci=12, c=72, co=40, ho=13, wo=11, hf=3, wf=3,
+            stride=1, slab_h=5, cb=9, cs=blocking.separable_slice(72, 8),
+            panel=24, cluster=8, expand=True, dtype=dtype),
+        gridspec.fused_mbconv_model(
+            b=2, hi=14, wi=14, ci=16, c=48, co=24, ho=7, wo=7, hf=3, wf=3,
+            stride=2, slab_h=3, tile_w=4, cb=16, cs=16, panel=24, cluster=3,
+            dtype=dtype),
+    ]
+    if dtype != torch.float32:
+        models.append(gridspec.pwconv_model(g=300, ci=64, co=192,
+                                            variant="tc", bg=128, bco=64,
+                                            bci=64, dtype=dtype))
+    for m in models:
+        assert gridspec.library_dims(m) == m.dims(), m.name
+    x = _r((5, 300), dev, dtype)
+    w = _r((300, 72), dev, dtype, 300 ** -0.5)
+    got = pwconv.pwconv(x, w, variant="stream", block_g=8, block_co=32,
+                        block_ci=100)
+    assert rel_err(got, pwconv.pwconv_plain(x, w)) <= TOL[dtype] * 10
+
+
+def test_lc201_predicts_a_refused_launch(dev):
+    """The verifier's LC201 on a ``simt`` grid of 65,536 CTAs in y, and the
+    CUDA driver's refusal of the same launch."""
+    from repro_torch.analysis import launch_check
+    from repro_torch.kernels import _build, gridspec
+    co = 65535 * 128 + 1
+    p = blocking.plan_pwconv(1, 1, co, variant="simt")
+    m = gridspec.pwconv_model(g=1, ci=1, co=co, variant="simt",
+                              bg=p.block_g, bco=p.block_co, bci=p.block_c,
+                              dtype=torch.float32)
+    assert {d.rule for d in launch_check.lint_model(m)
+            if d.severity == "error"} == {"LC201"}
+    assert gridspec.library_dims(m) == m.dims()
+    with pytest.raises(_build.KernelLaunchError):
+        pwconv.pwconv(torch.ones((1, 1), device=dev),
+                      torch.ones((1, co), device=dev), variant="simt")
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.parametrize("arch", ("v2", "mnasnet"))
+def test_verify_and_trace_audit_on_the_card(dev, arch):
+    """``verify=True`` gives the default's bits; the trace audit on the
+    card (JX301 from the launch counters) finds nothing."""
+    from repro_torch import analysis
+    net = ARCHS[arch](1.0)
+    params = network.init_network(net, seed=0, device=dev)
+    x = _r((2, 56, 56, net.c_in), dev, torch.float32)
+    a = network.execute_network(net, params, x)
+    b = network.execute_network(net, params, x,
+                                policy=KernelPolicy(verify=True))
+    network.clear_network_cache()
+    assert torch.equal(a, b)
+    nplan = network.plan_network(net, x.shape, device=dev)
+    rep = analysis.analyze_network(net, nplan, device=dev)
+    assert rep.ok and not [d for d in rep.diagnostics
+                           if d.rule.startswith("JX")], rep.format()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_block_shims_on_the_card(dev, dtype):
+    from repro_torch.core import separable
+    gen = torch.Generator().manual_seed(4)
+    for init, call, c_in, c_out, stride in (
+            (separable.init_separable, separable.separable_block, 32, 64, 2),
+            (separable.init_inverted_residual, separable.inverted_residual,
+             24, 24, 1)):
+        p = {k: v.to(dtype) for k, v in
+             init(gen, c_in, c_out, device=dev).items()}
+        x = _r((2, 28, 28, c_in), dev, dtype)
+        got = call(p, x, stride=stride)
+        want = call(p, x, stride=stride, policy=KernelPolicy(impl="torch"))
+        assert rel_err(got, want) <= TOL[dtype] * 10

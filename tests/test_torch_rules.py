@@ -36,6 +36,23 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+#: The modules of the static verifier, the traffic models and the shims:
+#: each must stand in PORT_FILES, so the rule above holds them too.
+NEW_MODULES = ("analysis/__init__.py", "analysis/__main__.py",
+               "analysis/diagnostics.py", "analysis/planlint.py",
+               "analysis/launch_check.py", "analysis/trace_audit.py",
+               "kernels/gridspec.py", "kernels/spans.py",
+               "core/intensity.py", "core/separable.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_modules_are_held_to_the_import_rule(module):
+    path = PORT / module
+    assert path in PORT_FILES
+    assert not {m.split(".")[0] for m in _imported_modules(path)} & {
+        "jax", "jaxlib", "repro"}
+
+
 def test_port_imports_with_jax_and_reference_blocked_and_no_nvcc(tmp_path):
     code = (
         "import sys, pkgutil, importlib\n"
