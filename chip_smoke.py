@@ -117,6 +117,25 @@ From the root of a checkout it:
    attention core, selective scan and Linears at batch 8.  It runs in a
    process of its own (the script with ``--hymba-only``), whose profiler
    has taken no trace before;
+8b. drives the attention-MLP serving path (:func:`run_attn_mlp`), in a
+   process of its own (``--attn-mlp-only``), every model random from seed
+   0 drawn on the card: qwen3-1.7b at full width and depth (28 layers,
+   1.72B parameters), fp32 and bf16, batch 1 and 8, 512-token prompts and
+   32 greedy steps (196 ``pwconv`` a prefill and a decode step, by
+   variant each Linear's ``pw_variant``, printed by shape), ``prefill``
+   against ``prefill_by_stepping`` at a 64-token prompt, and bf16 with the
+   int8 KV cache at batch 8 against its plain path and beside the bf16
+   cache (the logits' gap, ms per token); smollm-360m and internvl2-1b
+   (its 256 frontend embeddings) at full width and depth, bf16, batch 8;
+   command-r-35b, qwen1.5-110b and qwen3-moe-235b-a22b at full width cut
+   to 2, 1 and 2 layers (printed as ``reduced`` notes), bf16, batch 8,
+   qwen3-moe's drop fraction and its MoE block against ``moe_dense_ref``
+   where no copy was dropped (bf16 and fp32 weights); llama4-maverick at
+   its smoke config.  Each run as in 8: launches counted, the graph path
+   bit for bit the eager path, each call against the plain path, a
+   profiled replay of each graph; and one layer's prefill broken down
+   (CUDA events) for qwen3-1.7b and qwen3-moe (the MoE dispatch's
+   plain-op share);
 9. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
@@ -1747,12 +1766,12 @@ def pw_variants_of(model, g: int) -> dict:
     """``pwconv``'s launches by variant in one pass of ``model``'s layers
     over G rows: each Linear at the variant ``blocking.pw_variant`` picks
     for its shape (operands 16-byte aligned, as the allocator leaves
-    them)."""
+    them); a MoE router is a plain fp32 product."""
     from repro_torch.kernels import blocking
     by = dict.fromkeys(blocking.PW_VARIANTS, 0)
     for block in model.blocks:
         for name, p in block.named_parameters():
-            if name.rsplit(".", 1)[-1] == "w":
+            if name.rsplit(".", 1)[-1] == "w" and "router" not in name:
                 by[blocking.pw_variant(g, *p.shape, p.dtype)] += 1
     return by
 
@@ -1810,33 +1829,249 @@ def hymba_breakdown(torch, dev, model, batch):
                                        for w in linears], dev, **kw)}
 
 
+class LMServe:
+    """One LM serving run after another on the card, each checked the same
+    way (:meth:`run`), with the launches the wrappers counted, the kernels
+    the profiled replays ran, ``pwconv``'s launches by variant and the
+    profiles retaken kept across runs."""
+
+    def __init__(self, torch, dev):
+        from repro_torch.kernels.policy import KernelPolicy
+        self.torch, self.dev = torch, dev
+        self.plain = KernelPolicy(impl="torch")
+        self.totals = {"dwconv1d": 0, "pwconv": 0}
+        self.replayed = dict(self.totals)
+        self.variants, self.lost = {}, []
+
+    def counted(self, label, want, fn, calls, by_want):
+        """fn() with the counters zeroed just before and read just after:
+        ``calls`` calls' launches (2 for a capture, 1 for an eager call, 0
+        for a replay), ``pwconv``'s by variant as ``by_want`` says for one
+        call."""
+        from repro_torch.kernels import pwconv
+        from repro_torch.launch.serve import launch_counts, reset_launch_counts
+        reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize(self.dev)
+        got = launch_counts()
+        by = dict(pwconv.launches_by_variant)
+        if (got != {k: calls * n for k, n in want.items()}
+                or by != {k: calls * n for k, n in by_want.items()}):
+            raise AssertionError(f"{label}: launches {got}, pwconv by "
+                                 f"variant {by}; expected {calls} x {want}, "
+                                 f"by variant {by_want}")
+        for k in self.totals:
+            self.totals[k] += got[k]
+        for k, v in by.items():
+            self.variants[k] = self.variants.get(k, 0) + v
+        return out
+
+    def replay_profile(self, label, want, fn, reps, by_want):
+        """Device ms by kernel of ``fn()``, a call that replays a graph, and
+        the device events it ran; the port's kernels it ran, counted in
+        the trace, must be one call's, ``pwconv``'s by variant too.  A
+        trace of thousands of events loses records now and then: up to
+        five are taken."""
+        from repro_torch.measure import profile_calls
+        ms, ran, retries = profile_calls(fn, want, reps=reps, tries=5)
+        if retries:
+            self.lost.append({"call": label, "retries": retries})
+        got = {k: ran.get(k, 0) for k in want}
+        by = {v: ran.get(f"pwconv.{v}", 0) for v in by_want}
+        if got != want or by != by_want:
+            raise AssertionError(f"{label}: a replay ran {got}, pwconv by "
+                                 f"variant {by} (profiler); expected {want}"
+                                 f", {by_want}")
+        for k in self.replayed:
+            self.replayed[k] += got[k]
+        return ms, ran.get("device_events")
+
+    def run(self, m, prompts, tag, *, gen, frontend=None, tokens=None):
+        """``m`` serving ``prompts`` (B, S) [with the frontend's embeddings]:
+        the captured prefill and decode step and the eager ones, launches
+        counted (each Linear's ``pw_variant``), the graph path's logits and
+        caches bit for bit the eager path's, every call held against the
+        plain path of its dtype from the same inputs (fp32 within
+        FP32_REL_TOL, bf16 within BF16_REL_TOL; a MoE model's decode steps
+        by their median), ``gen`` decode steps in lockstep, each from the
+        plain path's cache, taking ``tokens[t]`` if given, else the plain
+        path's greedy token; the graph's and the eager decode step timed
+        (CUDA events, median of 10), a profiled replay of each graph
+        running one call's kernels.  Returns the record, the graph path's
+        logits call by call, and the plain path's (``"logits"``) with the
+        tokens its steps took (``"tokens"``)."""
+        torch, dev = self.torch, self.dev
+        from repro_torch.launch.serve import expected_launches
+        from repro_torch.measure import rel_err, time_ms
+        from repro_torch.serve import serve_step as S
+        from repro_torch.serve.sampler import greedy
+        counted, replay_profile, plain = (self.counted, self.replay_profile,
+                                          self.plain)
+        cfg = m.cfg
+        batch, prompt_len = prompts.shape
+        prefix = cfg.meta_tokens + cfg.fusion_tokens
+        max_len = prefix + prompt_len + gen
+        want = {ph: expected_launches(cfg, ph) for ph in ("prefill",
+                                                          "decode")}
+        by_want = {"prefill": pw_variants_of(m, batch * (prefix
+                                                         + prompt_len)),
+                   "decode": pw_variants_of(m, batch)}
+        label = f"{cfg.name} batch {batch} {tag}"
+        if gen < 16:
+            raise ValueError("the decode timing takes 15 steps")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        pre = counted(label + " prefill capture", want["prefill"],
+                      lambda: S.capture_prefill(
+                          m, batch, prompt_len, max_len=max_len,
+                          frontend_len=0 if frontend is None
+                          else cfg.fusion_tokens), 2, by_want["prefill"])
+        dec = counted(label + " decode capture", want["decode"],
+                      lambda: S.capture_decode_step(m, batch, max_len), 2,
+                      by_want["decode"])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        g_logits, g_cache = counted(label + " graph prefill",
+                                    want["prefill"],
+                                    lambda: pre(prompts, frontend), 0,
+                                    by_want["prefill"])
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        t0 = time.perf_counter()
+        e_logits, e_cache = counted(
+            label + " eager prefill", want["prefill"],
+            lambda: S.prefill(m, prompts, max_len=max_len, frontend=frontend),
+            1, by_want["prefill"])
+        eager_prefill_ms = (time.perf_counter() - t0) * 1e3
+        p_logits, p_cache = counted(
+            label + " plain prefill", want["prefill"],
+            lambda: S.prefill(m, prompts, max_len=max_len, frontend=frontend,
+                              policy=plain), 0,
+            dict.fromkeys(by_want["prefill"], 0))
+        same = [bool(torch.equal(g_logits, e_logits))
+                and _trees_equal(torch, g_cache, e_cache)]
+        errs = [rel_err(g_logits, p_logits)]
+        shaped = [tuple(g_logits.shape) == (batch, cfg.vocab_size)
+                  and bool(torch.isfinite(g_logits).all())]
+        slots = [layer["k"].shape[1] for layer in g_cache["layers"]]
+        del g_cache, e_cache
+        graph_logits, taken, logits = [g_logits], [], p_logits
+        plain_logits = [p_logits]
+        for t in range(gen):
+            tok = tokens[t] if tokens is not None else greedy(logits)[:, None]
+            taken.append(tok)
+            gl = counted(label + " graph decode", want["decode"],
+                         lambda: dec(p_cache, tok), 0, by_want["decode"])[0]
+            el = counted(label + " eager decode", want["decode"],
+                         lambda: S.decode_step(m, p_cache, tok), 1,
+                         by_want["decode"])[0]
+            logits, p_cache = S.decode_step(m, p_cache, tok, policy=plain)
+            plain_logits.append(logits)
+            same.append(bool(torch.equal(gl, el)))
+            errs.append(rel_err(gl, logits))
+            shaped.append(bool(torch.isfinite(gl).all()))
+            graph_logits.append(gl)
+        # timing: the graph's decode step on its own cache (replay only)
+        # and the eager one on the same cache, rewound to the first decode
+        # position before each run of at most 15 steps (the cache has
+        # room for ``gen`` >= 16 more tokens; no ring past the window)
+        steady = lambda: dec(dec.cache, tok)  # noqa: E731
+        eager_step = lambda: S.decode_step(m, dec.cache, tok)  # noqa: E731
+
+        def rewind():
+            dec.cache["pos"].fill_(prefix + prompt_len)
+        rewind()
+        decode_ms = time_ms(steady, dev, reps=10, warmup=2)
+        rewind()
+        eager_decode_ms = time_ms(eager_step, dev, reps=10, warmup=2)
+        dev_pre, events_pre = replay_profile(
+            label + " prefill replay", want["prefill"],
+            lambda: pre(prompts, frontend), 1, by_want["prefill"])
+        rewind()
+        dev_dec, events_dec = replay_profile(
+            label + " decode replay", want["decode"], steady, 2,
+            by_want["decode"])
+        tol = FP32_REL_TOL if cfg.dtype == "float32" else BF16_REL_TOL
+        # a MoE decode step's logits against the plain path: where the
+        # kernel's and the plain product's roundings reorder a token's
+        # router near a tie, its top-k differs and so does its row; the
+        # MoE block itself is held to moe_dense_ref (:func:`moe_oracle`),
+        # so the steps' median is gated and the worst one reported
+        gated = (statistics.median(errs[1:]) if cfg.moe is not None
+                 else max(errs[1:]))
+        r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+             "dtype": cfg.dtype, "kv_quant": cfg.kv_quant,
+             "positions": prefix + prompt_len,
+             "cache_slots": sorted(set(slots)),
+             "prefill_ms": prefill_ms, "eager_prefill_ms": eager_prefill_ms,
+             "decode_ms": decode_ms, "eager_decode_ms": eager_decode_ms,
+             "tokens_per_s": batch * 1e3 / decode_ms,
+             "prefill_capture_s": pre.captured.capture_s,
+             "decode_capture_s": dec.captured.capture_s,
+             "peak_bytes": peak, "prefill_device_ms": dev_pre,
+             "decode_device_ms": dev_dec,
+             "prefill_device_events": events_pre,
+             "decode_device_events": events_dec,
+             "prefill_busy": sum(dev_pre.values()) / prefill_ms
+             if dev_pre else None,
+             "decode_busy": sum(dev_dec.values()) / decode_ms
+             if dev_dec else None,
+             "graph_equals_eager": all(same), "rel_err_prefill": errs[0],
+             "rel_err_decode": max(errs[1:]),
+             "rel_err_decode_median": statistics.median(errs[1:]),
+             "decode_steps_over_tol": sum(e > tol for e in errs[1:]),
+             "tol": tol, "pwconv_variants": by_want}
+        print(f"    {label}: {prefix + prompt_len} positions, "
+              f"caches of {sorted(set(slots))} slots; capture prefill "
+              f"{r['prefill_capture_s'] * 1e3:.0f} ms, decode "
+              f"{r['decode_capture_s'] * 1e3:.1f} ms; own peak "
+              f"{peak / 2**20:.0f} MiB", flush=True)
+        print(f"      graph: prefill {prefill_ms:.1f} ms (busy "
+              f"{pct(r['prefill_busy'])}), decode {decode_ms:.3f} ms/token "
+              f"(busy {pct(r['decode_busy'])}), {r['tokens_per_s']:.1f} "
+              f"tokens/s; eager: prefill {eager_prefill_ms:.1f} ms, decode "
+              f"{eager_decode_ms:.3f} ms/token", flush=True)
+        print(f"      graph equals eager (logits and caches), call by call: "
+              f"{all(same)}; vs {cfg.dtype} plain path: prefill "
+              f"{errs[0]:.2e}, decode steps {max(errs[1:]):.2e} (median "
+              f"{r['rel_err_decode_median']:.2e}, "
+              f"{r['decode_steps_over_tol']} of {gen} over the tol "
+              f"{tol:g}" + (", the median gated: MoE routing" if cfg.moe
+                            is not None else "")
+              + "); device ms a prefill " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(dev_pre.items()))
+              + "; a decode step " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(dev_dec.items()))
+              + f"; device events a replay: prefill {events_pre}, decode "
+              f"step {events_dec}", flush=True)
+        if not (all(shaped) and max(errs[0], gated) <= tol):
+            raise AssertionError(f"{label}: rel err {errs} > {tol} or bad "
+                                 "logits")
+        if not all(same):
+            raise AssertionError(
+                f"{label}: the graph path differs from the eager path at "
+                f"calls {[i for i, ok in enumerate(same) if not ok]}")
+        del pre, dec, steady, eager_step, p_cache
+        torch.cuda.empty_cache()
+        return r, graph_logits, {"tokens": taken, "logits": plain_logits}
+
+
 def run_hymba(torch, dev):
     """The hymba serving path: hymba-1.5b uncut (1.6B parameters, random
     from seed 0), a 1536-token prompt (1664 positions with the 128 meta
     tokens: blockwise attention, a window that excludes keys, the
     1152-slot ring cache), then 32 greedy decode steps; batch 1 and 8,
-    fp32 and bf16 (the bf16 weights cast from the fp32 draw), through the
-    captured prefill and decode step and through the eager ones.
-
-    Each call of either path is held against the plain path of its dtype
-    on the same inputs (fp32 within FP32_REL_TOL, bf16 within
-    BF16_REL_TOL), and the graph path's logits and caches against the eager
-    path's bits.  The decode steps run in lockstep: each step of the three
-    paths starts from the plain path's cache and the fp32 plain path's
-    greedy token; bf16's error against the fp32 plain path is reported,
-    not gated.  Launches are counted as in :func:`run_serving`, and
-    ``pwconv``'s by variant must be each Linear's ``pw_variant`` (two bf16
-    Linears have widths TMA cannot describe: ``simt``).  Returns the runs,
-    the wrappers' launches, the profiled replays' kernels, the
-    prefill-vs-stepping errors, ``pwconv``'s launches by variant and the
-    per-layer breakdowns."""
+    fp32 and bf16 (the bf16 weights cast from the fp32 draw), each run
+    checked as :meth:`LMServe.run` checks it (two bf16 Linears have widths
+    TMA cannot describe: ``simt``); bf16 takes the fp32 plain path's
+    tokens, and its error against the fp32 plain path is reported, not
+    gated.  Returns the runs, the wrappers' launches, the profiled
+    replays' kernels, the prefill-vs-stepping errors, ``pwconv``'s
+    launches by variant and the per-layer breakdowns."""
     import dataclasses
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import pwconv
-    from repro_torch.kernels.policy import KernelPolicy
-    from repro_torch.launch.serve import (expected_launches, launch_counts,
-                                          reset_launch_counts)
-    from repro_torch.measure import profile_calls, rel_err, time_ms
+    from repro_torch.measure import rel_err
     from repro_torch.models.transformer import cast_params, init_params
     from repro_torch.serve import serve_step as S
     from repro_torch.serve.sampler import greedy
@@ -1850,243 +2085,45 @@ def run_hymba(torch, dev):
     print(f"  random weights from seed 0, {n / 1e9:.3f}B parameters, fp32 "
           f"(bf16 cast from it), in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    plain = KernelPolicy(impl="torch")
-    want = {"prefill": expected_launches(cfg32, "prefill"),
-            "decode": expected_launches(cfg32, "decode")}
-    total_len = cfg32.meta_tokens + HYMBA_PROMPT
-    max_len = total_len + HYMBA_GEN
+    srv = LMServe(torch, dev)
     ring = cfg32.sliding_window + cfg32.meta_tokens
-    totals = dict.fromkeys(want["prefill"], 0)
-    replayed = dict.fromkeys(want["prefill"], 0)
-    variants, lost, runs, breakdown = {}, [], [], {}
-
-    def counted(label, phase, fn, calls, by_want):
-        """fn() with the counters zeroed just before and read just after:
-        ``calls`` calls of ``phase`` (2 for a capture, 1 for an eager
-        call, 0 for a replay), ``pwconv``'s by variant as ``by_want``
-        says for one call."""
-        reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize(dev)
-        got = launch_counts()
-        by = dict(pwconv.launches_by_variant)
-        if (got != {k: calls * n for k, n in want[phase].items()}
-                or by != {k: calls * n for k, n in by_want.items()}):
-            raise AssertionError(f"hymba {label} {phase}: launches {got}, "
-                                 f"pwconv by variant {by}; expected {calls}"
-                                 f" x {want[phase]}, by variant {by_want}")
-        for k in totals:
-            totals[k] += got[k]
-        for k, v in by.items():
-            variants[k] = variants.get(k, 0) + v
-        return out
-
-    def replay_profile(label, phase, fn, reps, by_want):
-        """Device ms by kernel of a replay of ``phase`` and the device
-        events it ran; its port kernels checked as :func:`run_serving`
-        checks them.  A trace of thousands of events a call loses records
-        more often: up to five are taken."""
-        ms, ran, retries = profile_calls(fn, want[phase], reps=reps, tries=5)
-        if retries:
-            lost.append({"call": f"hymba {label} {phase}",
-                         "retries": retries})
-        got = {k: ran.get(k, 0) for k in want[phase]}
-        by = {v: ran.get(f"pwconv.{v}", 0) for v in by_want}
-        if got != want[phase] or by != by_want:
-            raise AssertionError(f"hymba {label} {phase}: a replay ran {got},"
-                                 f" pwconv by variant {by} (profiler); "
-                                 f"expected {want[phase]}, {by_want}")
-        for k in replayed:
-            replayed[k] += got[k]
-        return ms, ran.get("device_events")
-
-    def own_peak(before):
-        return torch.cuda.max_memory_allocated(dev) - before
-
-    def busy(dms, ms):
-        return sum(dms.values()) / ms if dms else None
-
+    runs, breakdown = [], {}
     with torch.inference_mode():
         for batch in (1, 8):
             prompts = torch.randint(
                 0, cfg32.vocab_size, (batch, HYMBA_PROMPT),
                 generator=torch.Generator().manual_seed(100 + batch)).to(dev)
-            tokens, fp32_plain = [], []
-            for dtype in ("fp32", "bf16"):
-                m = models[dtype]
-                tag = f"{dtype} batch {batch}"
-                by_want = {"prefill": pw_variants_of(m, batch * total_len),
-                           "decode": pw_variants_of(m, batch)}
-                torch.cuda.synchronize(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-                before = torch.cuda.memory_allocated(dev)
-                pre = counted(tag + " capture", "prefill",
-                              lambda: S.capture_prefill(
-                                  m, batch, HYMBA_PROMPT, max_len=max_len),
-                              2, by_want["prefill"])
-                dec = counted(tag + " capture", "decode",
-                              lambda: S.capture_decode_step(m, batch,
-                                                            max_len),
-                              2, by_want["decode"])
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                g_logits, g_cache = counted(tag + " graph", "prefill",
-                                            lambda: pre(prompts), 0,
-                                            by_want["prefill"])
-                prefill_ms = (time.perf_counter() - t0) * 1e3
-                peak = own_peak(before)
-                torch.cuda.reset_peak_memory_stats(dev)
-                before = torch.cuda.memory_allocated(dev)
-                t0 = time.perf_counter()
-                e_logits, e_cache = counted(
-                    tag + " eager", "prefill",
-                    lambda: S.prefill(m, prompts, max_len=max_len), 1,
-                    by_want["prefill"])
-                eager_prefill_ms = (time.perf_counter() - t0) * 1e3
-                eager_peak = own_peak(before)
-                p_logits, lead = counted(
-                    tag + " plain", "prefill",
-                    lambda: S.prefill(m, prompts, max_len=max_len,
-                                      policy=plain),
-                    0, dict.fromkeys(by_want["prefill"], 0))
-                slots = g_cache["layers"][0]["k"].shape[1]
-                same = [bool(torch.equal(g_logits, e_logits))
-                        and _trees_equal(torch, g_cache, e_cache)]
-                errs = [rel_err(g_logits, p_logits)]
-                shaped = [tuple(g_logits.shape) == (batch, cfg32.vocab_size)
-                          and bool(torch.isfinite(g_logits).all())]
-                if dtype == "fp32":
-                    fp32_plain.append(p_logits)
-                    vs_fp32 = None
-                else:
-                    vs_fp32 = [rel_err(g_logits, fp32_plain[0])]
-                del g_cache, e_cache
-                logits = p_logits
-                for t in range(HYMBA_GEN):
-                    if dtype == "fp32":
-                        tokens.append(greedy(logits)[:, None])
-                    tok = tokens[t]
-                    gl = counted(tag + " graph", "decode",
-                                 lambda: dec(lead, tok), 0,
-                                 by_want["decode"])[0]
-                    el = counted(tag + " eager", "decode",
-                                 lambda: S.decode_step(m, lead, tok), 1,
-                                 by_want["decode"])[0]
-                    logits, lead = S.decode_step(m, lead, tok, policy=plain)
-                    same.append(bool(torch.equal(gl, el)))
-                    errs.append(rel_err(gl, logits))
-                    shaped.append(bool(torch.isfinite(gl).all()))
-                    if dtype == "fp32":
-                        fp32_plain.append(logits)
-                    else:
-                        vs_fp32.append(rel_err(gl, fp32_plain[t + 1]))
-                # timing: the graph's decode step on its own cache (replay
-                # only) and the eager one, in turns
-                tok = tokens[-1]
-                steady = lambda: dec(dec.cache, tok)  # noqa: E731
-                eager_step = lambda: S.decode_step(m, lead, tok)  # noqa: E731
-                decode_ms = time_ms(steady, dev, reps=10, warmup=2)
-                eager_decode_ms = time_ms(eager_step, dev, reps=10, warmup=2)
-                dev_pre, events_pre = replay_profile(
-                    tag, "prefill", lambda: pre(prompts), 1,
-                    by_want["prefill"])
-                dev_pre_eager = profile_calls(
-                    lambda: S.prefill(m, prompts, max_len=max_len),
-                    want["prefill"], reps=1)[0]
-                dev_dec, events_dec = replay_profile(tag, "decode", steady,
-                                                     2, by_want["decode"])
-                dev_dec_eager = profile_calls(eager_step, want["decode"],
-                                              reps=2)[0]
-                tol = FP32_REL_TOL if dtype == "fp32" else BF16_REL_TOL
-                r = {"batch": batch, "dtype": dtype,
-                     "positions": total_len, "cache_slots": slots,
-                     "prefill_ms": prefill_ms,
-                     "eager_prefill_ms": eager_prefill_ms,
-                     "decode_ms": decode_ms,
-                     "eager_decode_ms": eager_decode_ms,
-                     "tokens_per_s": batch * 1e3 / decode_ms,
-                     "eager_tokens_per_s": batch * 1e3 / eager_decode_ms,
-                     "prefill_capture_s": pre.captured.capture_s,
-                     "decode_capture_s": dec.captured.capture_s,
-                     "peak_bytes": peak, "eager_peak_bytes": eager_peak,
-                     "prefill_device_ms": dev_pre,
-                     "eager_prefill_device_ms": dev_pre_eager,
-                     "decode_device_ms": dev_dec,
-                     "prefill_device_events": events_pre,
-                     "decode_device_events": events_dec,
-                     "eager_decode_device_ms": dev_dec_eager,
-                     "prefill_busy": busy(dev_pre, prefill_ms),
-                     "eager_prefill_busy": busy(dev_pre_eager,
-                                                eager_prefill_ms),
-                     "decode_busy": busy(dev_dec, decode_ms),
-                     "eager_decode_busy": busy(dev_dec_eager,
-                                               eager_decode_ms),
-                     "graph_equals_eager": all(same),
-                     "rel_err_prefill": errs[0],
-                     "rel_err_decode": max(errs[1:]), "tol": tol,
-                     "rel_err_vs_fp32_plain": vs_fp32 and {
-                         "prefill": vs_fp32[0], "decode": max(vs_fp32[1:])},
-                     "pwconv_variants": by_want}
-                runs.append(r)
-                print(f"  hymba-1.5b batch {batch} {dtype}: {total_len} "
-                      f"positions, {slots}-slot cache; captured prefill in "
-                      f"{r['prefill_capture_s'] * 1e3:.0f} ms, decode step "
-                      f"in {r['decode_capture_s'] * 1e3:.1f} ms; own peak "
-                      f"{peak / 2**20:.0f} MiB (eager {eager_peak / 2**20:.0f}"
-                      f" MiB)", flush=True)
-                print(f"    graph: prefill {prefill_ms:.1f} ms (busy "
-                      f"{pct(r['prefill_busy'])}), decode {decode_ms:.3f} "
-                      f"ms/token (busy {pct(r['decode_busy'])}), "
-                      f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
-                print(f"    eager: prefill {eager_prefill_ms:.1f} ms (busy "
-                      f"{pct(r['eager_prefill_busy'])}), decode "
-                      f"{eager_decode_ms:.3f} ms/token (busy "
-                      f"{pct(r['eager_decode_busy'])}), "
-                      f"{r['eager_tokens_per_s']:.1f} tokens/s", flush=True)
-                print(f"    graph equals eager (logits and caches), call by "
-                      f"call: {all(same)}; pwconv by variant, a prefill "
-                      f"{by_want['prefill']}, a decode step "
-                      f"{by_want['decode']}", flush=True)
-                print(f"    vs {dtype} plain path, each call from the same "
-                      f"inputs: prefill {errs[0]:.2e}, decode steps "
-                      f"{max(errs[1:]):.2e} (tol {tol:g})" + (
-                          "" if vs_fp32 is None else
-                          f"; vs fp32 plain path (not gated, bf16 plain "
-                          f"cache): prefill {vs_fp32[0]:.2e}, decode steps "
-                          f"{max(vs_fp32[1:]):.2e}"), flush=True)
-                for name, dp, dd in (("graph", dev_pre, dev_dec),
-                                     ("eager", dev_pre_eager,
-                                      dev_dec_eager)):
-                    print(f"    {name} device ms per prefill: " + (", ".join(
-                        f"{k} {v:.2f}" for k, v in sorted(dp.items()))
-                        or "not profiled") + "; per decode step: "
-                        + ", ".join(f"{k} {v:.3f}"
-                                    for k, v in sorted(dd.items())),
-                        flush=True)
-                print(f"    device events a replay ran: prefill {events_pre},"
-                      f" decode step {events_dec}", flush=True)
-                if slots != ring:
-                    raise AssertionError(f"hymba {tag}: the cache has {slots}"
-                                         f" slots, not the {ring}-slot ring")
-                if not (all(shaped) and max(errs) <= tol):
-                    raise AssertionError(f"hymba {tag}: rel err {max(errs)} "
-                                         f"> {tol} or bad logits")
-                if not all(same):
-                    raise AssertionError(
-                        f"hymba {tag}: the graph path differs from the eager"
-                        f" path at calls "
-                        f"{[i for i, ok in enumerate(same) if not ok]}")
-                if batch == 8:
+            r32, _, lead = srv.run(models["fp32"], prompts, "fp32",
+                                   gen=HYMBA_GEN)
+            r16, logits16, _ = srv.run(models["bf16"], prompts, "bf16",
+                                       gen=HYMBA_GEN, tokens=lead["tokens"])
+            vs = [rel_err(a, b) for a, b in zip(logits16, lead["logits"],
+                                                strict=True)]
+            r16["rel_err_vs_fp32_plain"] = {"prefill": vs[0],
+                                            "decode": max(vs[1:])}
+            print(f"      bf16 vs the fp32 plain path (not gated, bf16 "
+                  f"plain cache): prefill {vs[0]:.2e}, decode steps "
+                  f"{max(vs[1:]):.2e}", flush=True)
+            for r in (r32, r16):
+                if r["cache_slots"] != [ring]:
+                    raise AssertionError(f"hymba {r['dtype']} batch {batch}:"
+                                         f" caches of {r['cache_slots']} "
+                                         f"slots, not the {ring}-slot ring")
+            runs += [r32, r16]
+            del lead, logits16
+            if batch == 8:
+                for dtype, m in models.items():
                     breakdown[dtype] = hymba_breakdown(torch, dev, m, batch)
-                    print("    one layer's prefill at batch 8 (CUDA events):"
-                          + ", ".join(f" {k} {v:.2f}" for k, v in
-                                      breakdown[dtype].items()), flush=True)
-                del pre, dec, lead, steady, eager_step
-                torch.cuda.empty_cache()
+                    print(f"    one layer's prefill at batch 8, {dtype} "
+                          "(CUDA events):" + ", ".join(
+                              f" {k} {v:.2f}"
+                              for k, v in breakdown[dtype].items()),
+                          flush=True)
 
         prompts = torch.randint(
             0, cfg32.vocab_size, (1, HYMBA_STEPPING),
             generator=torch.Generator().manual_seed(64)).to(dev)
+        max_len = cfg32.meta_tokens + HYMBA_PROMPT + HYMBA_GEN
         lp, cp = S.prefill(m32, prompts, max_len=max_len)
         ls, cs = S.prefill_by_stepping(m32, prompts, max_len=max_len)
         tok = greedy(lp)[:, None]
@@ -2102,9 +2139,9 @@ def run_hymba(torch, dev):
                                  f"{e_pre}, {e_next}")
     del models, m32
     torch.cuda.empty_cache()
-    return (runs, totals, replayed, {"prefill": e_pre, "next_step": e_next,
-                                     "profiles_retried": lost}, variants,
-            breakdown)
+    return (runs, srv.totals, srv.replayed,
+            {"prefill": e_pre, "next_step": e_next,
+             "profiles_retried": srv.lost}, srv.variants, breakdown)
 
 
 def run_hymba_phase():
@@ -2124,11 +2161,350 @@ def run_hymba_phase():
         return json.load(fh)
 
 
+#: The attention-MLP serving phase (:func:`run_attn_mlp`): prompt length,
+#: greedy steps, the prefill_by_stepping oracle's prompt, llama4's smoke
+#: run, and the depth each full-width config is cut to (the run's time:
+#: drawing and moving 30-110 B weights; qwen1.5-110b does not fit one card)
+#: with why.
+ATTN_PROMPT, ATTN_GEN, ATTN_STEPPING = 512, 32, 64
+LLAMA4_SMOKE_PROMPT, LLAMA4_SMOKE_MAX_LEN = 40, 80
+DEPTH_CUTS = {
+    "command-r-35b": (2, "35 B parameters at 40 layers: the run's time"),
+    "qwen1.5-110b": (1, "111 B parameters at 80 layers do not fit one "
+                        "80 GB card, and the run's time"),
+    "qwen3-moe-235b-a22b": (2, "2.49 B parameters a layer, 235 B at 94 "
+                               "layers: one card and the run's time"),
+}
+#: llama4-maverick's full width waits for the four-chip work: one MoE
+#: layer holds 16.1 B expert parameters (32 GB in bf16).
+LLAMA4_NOTE = ("llama4-maverick-400b-a17b at its smoke config only: one "
+               "full-width MoE layer holds 16.1 B expert parameters (32 GB "
+               "in bf16); its full width waits for the four-chip work")
+
+
+def lm_linears(model) -> list:
+    """(name, weight) of every Linear of layer 0 that runs on ``pwconv``
+    (a MoE router is a plain fp32 product)."""
+    return [(n[:-2], p) for n, p in model.blocks[0].named_parameters()
+            if n.endswith(".w") and "router" not in n]
+
+
+def lm_breakdown(torch, dev, model, batch, prompt_len):
+    """Device ms (CUDA events, median of 3) of layer 0's prefill at full
+    width and of its parts on the same inputs: the attention core (dense
+    below ``attn_chunk``), the Linears on ``pwconv`` and, for a MoE layer,
+    ``moe_forward`` and its expert products alone (three ``bmm``s on the
+    capacity buffers, fp32 operands), the rest of it being the router and
+    the dispatch's plain ops."""
+    from repro_torch.core.pwconv import pointwise
+    from repro_torch.measure import time_ms
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_forward
+    cfg = model.cfg
+    s = prompt_len + cfg.fusion_tokens
+    gen = torch.Generator().manual_seed(7)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(
+            dev, cfg.torch_dtype)
+    x = r(batch, s, cfg.d_model, scale=0.5)
+    pos = torch.arange(s, device=dev)[None].expand(batch, s)
+    q = r(batch, s, cfg.n_heads, cfg.head_dim)
+    k, v = (r(batch, s, cfg.n_kv_heads, cfg.head_dim) for _ in range(2))
+    block = model.blocks[0]
+    linears = [w for _, w in lm_linears(model)]
+    xs = {ci: r(batch * s, ci) for ci in {w.shape[0] for w in linears}}
+    kw = dict(reps=3, warmup=1)
+    out = {"layer_ms": time_ms(lambda: layer_forward(
+               block, x, cfg, model.variant(0), positions=pos), dev, **kw),
+           "attention_core_ms": time_ms(lambda: A.dense_attention(
+               q, k, v, causal=True) if s <= cfg.attn_chunk else
+               A.blockwise_attention(q, k, v, chunk=cfg.attn_chunk), dev,
+               **kw),
+           "linears_ms": time_ms(lambda: [pointwise(xs[w.shape[0]], w)
+                                          for w in linears], dev, **kw)}
+    if model.variant(0).use_moe:
+        p, e = block.moe, cfg.moe.n_experts
+        cap = moe._capacity(batch * s * cfg.moe.top_k, e,
+                            cfg.moe.capacity_factor)
+        eb = r(e, cap, cfg.d_model)
+
+        def experts():
+            g = torch.bmm(eb.float(), p.w_gate_e.float())
+            u = torch.bmm(eb.float(), p.w_up_e.float())
+            h = (torch.nn.functional.silu(g) * u).to(eb.dtype)
+            return torch.bmm(h.float(), p.w_down_e.float())
+        out["moe_ms"] = time_ms(lambda: moe.moe_forward(p, x, cfg.moe), dev,
+                                **kw)
+        out["moe_experts_ms"] = time_ms(experts, dev, **kw)
+        out["moe_dispatch_share"] = 1 - out["moe_experts_ms"] / out["moe_ms"]
+    return out
+
+
+def run_attn_mlp(torch, dev):
+    """The attention-MLP serving path (dense, VLM and MoE transformers):
+    qwen3-1.7b at full width and depth (1.72 B parameters, random from a
+    seed drawn on the card), fp32 and bf16, batch 1 and 8, a 512-token
+    prompt and 32 greedy steps; qwen3-1.7b bf16 with the int8 KV cache at
+    batch 8; smollm-360m and internvl2-1b (its 256 frontend embeddings) at
+    full width and depth, bf16, batch 8; command-r-35b, qwen1.5-110b and
+    qwen3-moe-235b-a22b at full width, cut in depth (:data:`DEPTH_CUTS`),
+    bf16, batch 8; llama4-maverick at its smoke config (:data:`LLAMA4_NOTE`).
+
+    Each run goes through the captured prefill and decode step and through
+    the eager ones: launches counted as in :func:`run_serving` (and
+    ``pwconv``'s by variant as each Linear's ``pw_variant``), the graph
+    path's logits and caches bit for bit the eager path's, every call held
+    against the plain path of its dtype from the same inputs (fp32 within
+    FP32_REL_TOL, bf16 and int8 within BF16_REL_TOL), the decode steps in
+    lockstep from the plain path's cache and the fp32 plain path's greedy
+    token (bf16's error against fp32 reported, not gated), a profiled
+    replay of each graph running one call's kernels.  qwen3-1.7b's prefill
+    is also held against ``prefill_by_stepping`` at a 64-token prompt, and
+    qwen3-moe's MoE layer against ``moe_dense_ref`` where no copy was
+    dropped.  Returns the runs, the wrappers' launches, the profiled
+    replays' kernels, ``pwconv``'s launches by variant and the checks."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import blocking
+    from repro_torch.measure import rel_err
+    from repro_torch.models.transformer import (cast_params, hidden_states,
+                                                init_params)
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+
+    srv = LMServe(torch, dev)
+    runs, checks = [], {}
+
+    def serve(m, prompts, tag, *, gen=ATTN_GEN, **kw):
+        return srv.run(m, prompts, tag, gen=gen, **kw)
+
+    def draw(cfg):
+        t0 = time.perf_counter()
+        m = init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+        n = sum(p.numel() for p in m.parameters())
+        print(f"  {cfg.name}: {cfg.n_layers} layers, random weights from "
+              f"seed 0 drawn on the card, {n / 1e9:.3f}B parameters, "
+              f"{cfg.dtype}, in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return m
+
+    with torch.inference_mode():
+        # qwen3-1.7b at full width and depth
+        cfg16 = get_config("qwen3-1.7b")
+        m32 = draw(dataclasses.replace(cfg16, dtype="float32"))
+        models = {"fp32": m32, "bf16": cast_params(m32, cfg16)}
+        shapes = {}
+        for name, w in lm_linears(m32):
+            ci, co = w.shape
+            shapes[name] = {f"{ph} G={g} {dt}": blocking.pw_variant(
+                g, ci, co, torch.float32 if dt == "fp32" else torch.bfloat16)
+                for ph, g in (("prefill", 8 * ATTN_PROMPT), ("decode", 8))
+                for dt in ("fp32", "bf16")}
+            print(f"    pwconv {name} {ci}->{co}: " + ", ".join(
+                f"{k} {v}" for k, v in shapes[name].items()), flush=True)
+        checks["qwen3_pwconv_variants"] = shapes
+        bf16_b8 = None
+        for batch in (1, 8):
+            prompts = torch.randint(
+                0, cfg16.vocab_size, (batch, ATTN_PROMPT),
+                generator=torch.Generator().manual_seed(200 + batch)).to(dev)
+            r32, _, lead32 = serve(models["fp32"], prompts, "fp32")
+            runs.append(r32)
+            r16, logits16, _ = serve(models["bf16"], prompts, "bf16",
+                                     tokens=lead32["tokens"])
+            r16["rel_err_vs_fp32_plain_prefill"] = rel_err(
+                logits16[0], lead32["logits"][0])
+            print(f"      bf16 prefill vs the fp32 plain path (not gated): "
+                  f"{r16['rel_err_vs_fp32_plain_prefill']:.2e}", flush=True)
+            runs.append(r16)
+            if batch == 8:
+                bf16_b8 = (prompts, lead32["tokens"], logits16, r16)
+                checks["qwen3_breakdown"] = {
+                    dt: lm_breakdown(torch, dev, models[dt], 8, ATTN_PROMPT)
+                    for dt in ("fp32", "bf16")}
+                print("    qwen3-1.7b layer 0's prefill at batch 8 (CUDA "
+                      "events): " + "; ".join(
+                          f"{dt} " + ", ".join(f"{k} {v:.3f}"
+                                               for k, v in b.items())
+                          for dt, b in checks["qwen3_breakdown"].items()),
+                      flush=True)
+            del lead32
+        # prefill against prefill_by_stepping, fp32 1x64
+        prompts = torch.randint(
+            0, cfg16.vocab_size, (1, ATTN_STEPPING),
+            generator=torch.Generator().manual_seed(64)).to(dev)
+        lp, cp = S.prefill(m32, prompts, max_len=ATTN_STEPPING + 1)
+        ls, cs = S.prefill_by_stepping(m32, prompts,
+                                       max_len=ATTN_STEPPING + 1)
+        tok = greedy(lp)[:, None]
+        e_pre = rel_err(lp, ls)
+        e_next = rel_err(S.decode_step(m32, cp, tok)[0],
+                         S.decode_step(m32, cs, tok)[0])
+        checks["qwen3_prefill_vs_stepping"] = {"prefill": e_pre,
+                                               "next_step": e_next}
+        print(f"    qwen3-1.7b prefill vs prefill_by_stepping, fp32 1x"
+              f"{ATTN_STEPPING}: rel err {e_pre:.2e}, next decode step "
+              f"{e_next:.2e} (tol {FP32_REL_TOL:g})", flush=True)
+        if not max(e_pre, e_next) <= FP32_REL_TOL:
+            raise AssertionError(f"qwen3-1.7b prefill vs prefill_by_stepping:"
+                                 f" {e_pre}, {e_next}")
+        # the int8 KV cache: bf16 weights, batch 8, the same prompts and
+        # tokens as the bf16 run
+        prompts, tokens, logits16, r16 = bf16_b8
+        m8 = cast_params(m32, dataclasses.replace(cfg16, kv_quant=True))
+        del models, m32
+        torch.cuda.empty_cache()
+        r8, logits8, _ = serve(m8, prompts, "bf16 int8 cache", tokens=tokens)
+        gap = [rel_err(a, b) for a, b in zip(logits8, logits16)]
+        r8["rel_err_vs_bf16_cache"] = {"prefill": gap[0],
+                                       "decode": max(gap[1:])}
+        runs.append(r8)
+        print(f"    int8 cache against the bf16 cache (graph logits, the "
+              f"same tokens): prefill {gap[0]:.2e}, decode steps "
+              f"{max(gap[1:]):.2e}; ms per token int8 {r8['decode_ms']:.3f}"
+              f", bf16 {r16['decode_ms']:.3f}", flush=True)
+        del m8, logits8, logits16, bf16_b8
+        torch.cuda.empty_cache()
+
+        # smollm-360m and internvl2-1b at full width and depth, bf16, batch 8
+        for arch in ("smollm-360m", "internvl2-1b"):
+            m = draw(get_config(arch))
+            prompts = torch.randint(
+                0, m.cfg.vocab_size, (8, ATTN_PROMPT),
+                generator=torch.Generator().manual_seed(300)).to(dev)
+            frontend = None
+            if m.cfg.fusion_tokens:
+                frontend = (torch.randn(
+                    (8, m.cfg.fusion_tokens, m.cfg.d_model),
+                    generator=torch.Generator().manual_seed(301)) * 0.5).to(
+                        dev, m.cfg.torch_dtype)
+            runs.append(serve(m, prompts, "bf16", frontend=frontend)[0])
+            del m
+            torch.cuda.empty_cache()
+
+        # full width, depth cut
+        reduced = []
+        for arch in ("command-r-35b", "qwen1.5-110b", "qwen3-moe-235b-a22b"):
+            full = get_config(arch)
+            layers, why = DEPTH_CUTS[arch]
+            note = (f"reduced: {arch} n_layers {full.n_layers} -> {layers} "
+                    f"({why}); widths as published")
+            print(f"    {note}", flush=True)
+            reduced.append(note)
+            m = draw(dataclasses.replace(full, n_layers=layers))
+            prompts = torch.randint(
+                0, m.cfg.vocab_size, (8, ATTN_PROMPT),
+                generator=torch.Generator().manual_seed(400)).to(dev)
+            if m.cfg.moe is not None:
+                _, _, aux = hidden_states(m, prompts)
+                checks["moe_prefill"] = {k: float(v) for k, v in aux.items()}
+                checks["moe_oracle"] = moe_oracle(torch, dev, m)
+                checks["moe_breakdown"] = lm_breakdown(torch, dev, m, 8,
+                                                       ATTN_PROMPT)
+                print(f"    {arch} prefill 8x{ATTN_PROMPT}: drop fraction "
+                      f"{checks['moe_prefill']['drop_frac']:.4e}, aux loss "
+                      f"{checks['moe_prefill']['aux_loss']:.4f}; layer 0 "
+                      f"(CUDA events): " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in
+                          checks["moe_breakdown"].items()), flush=True)
+            runs.append(serve(m, prompts, "bf16")[0])
+            del m
+            torch.cuda.empty_cache()
+        checks["reduced"] = reduced
+
+        # llama4-maverick at its smoke config
+        print(f"    {LLAMA4_NOTE}", flush=True)
+        m = draw(get_config("llama4-maverick-400b-a17b", smoke=True))
+        prompts = torch.randint(
+            0, m.cfg.vocab_size, (8, LLAMA4_SMOKE_PROMPT),
+            generator=torch.Generator().manual_seed(500)).to(dev)
+        frontend = (torch.randn((8, m.cfg.fusion_tokens, m.cfg.d_model),
+                                generator=torch.Generator().manual_seed(501))
+                    * 0.5).to(dev, m.cfg.torch_dtype)
+        r = serve(m, prompts, m.cfg.dtype, frontend=frontend,
+                  gen=LLAMA4_SMOKE_MAX_LEN - LLAMA4_SMOKE_PROMPT
+                  - m.cfg.fusion_tokens)[0]
+        if r["cache_slots"] != [m.cfg.sliding_window, LLAMA4_SMOKE_MAX_LEN]:
+            raise AssertionError(f"llama4 smoke: caches of {r['cache_slots']}"
+                                 " slots, not the window's ring and the "
+                                 "global layer's whole sequence")
+        runs.append(r)
+        del m
+        torch.cuda.empty_cache()
+    checks["profiles_retried"] = srv.lost
+    return runs, srv.totals, srv.replayed, srv.variants, checks
+
+
+def moe_oracle(torch, dev, model):
+    """Layer 0's MoE block (``moe_forward``) against ``moe_dense_ref`` on
+    the card, on seeded inputs of a batch-8 decode step (8 tokens) and a
+    batch-1 512-token prefill, in bf16 (within BF16_REL_TOL) and with the
+    block's weights in fp32 (within FP32_REL_TOL), each where no copy was
+    dropped; at least one input of each dtype must drop nothing."""
+    from repro_torch.measure import rel_err
+    from repro_torch.models import moe
+    cfg = model.cfg.moe
+    p16 = model.blocks[0].moe
+    p32 = moe.MoE(model.cfg.d_model, cfg, model.cfg.d_ff,
+                  generator=torch.Generator(), dtype=torch.float32,
+                  device="meta").to_empty(device=dev)
+    for a, b in zip(p32.parameters(), p16.parameters(), strict=True):
+        a.copy_(b)
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for dt, p, tol in (("bf16", p16, BF16_REL_TOL),
+                       ("fp32", p32, FP32_REL_TOL)):
+        compared = 0
+        for shape in ((8, 1), (1, ATTN_PROMPT)):
+            x = (torch.randn((*shape, model.cfg.d_model), generator=gen)
+                 * 0.5).to(dev, p.w_gate_e.dtype)
+            y, aux = moe.moe_forward(p, x, cfg)
+            ref, _ = moe.moe_dense_ref(p, x, cfg)
+            drop = float(aux["drop_frac"])
+            e = rel_err(y, ref) if drop == 0 else None
+            out[f"{dt} {shape[0]}x{shape[1]}"] = {"drop_frac": drop,
+                                                  "rel_err": e, "tol": tol}
+            print(f"    moe_forward vs moe_dense_ref, {dt} {shape[0]}x"
+                  f"{shape[1]}: drop fraction {drop:.4e}, rel err "
+                  + (f"{e:.2e} (tol {tol:g})" if e is not None else
+                     "not compared (copies dropped)"), flush=True)
+            if e is not None:
+                compared += 1
+                if not e <= tol:
+                    raise AssertionError(f"moe_forward vs moe_dense_ref {dt}"
+                                         f" {shape}: {e} > {tol}")
+        if not compared:
+            raise AssertionError(f"moe_forward vs moe_dense_ref {dt}: every "
+                                 "input dropped copies")
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_attn_mlp_phase():
+    """:func:`run_attn_mlp` in a process of its own (this script with
+    ``--attn-mlp-only``), as :func:`run_hymba_phase`, so that its profiled
+    replays come in a process whose profiler has taken no trace before.  A
+    failure of the phase raises here."""
+    out = os.path.join(HERE, "build", "chip_smoke_attn_mlp.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--attn-mlp-only", out], check=True)
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "NVIDIA GPU.")
     ap.add_argument("--out", help="directory for chip_smoke.json")
     ap.add_argument("--hymba-only", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--attn-mlp-only", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -2143,6 +2519,11 @@ def main() -> int:
         # phase 8 in a process of its own (see run_hymba_phase)
         with open(args.hymba_only, "w") as fh:
             json.dump(run_hymba(torch, dev), fh)
+        return 0
+    if args.attn_mlp_only:
+        # phase 8b in a process of its own (see run_attn_mlp_phase)
+        with open(args.attn_mlp_only, "w") as fh:
+            json.dump(run_attn_mlp(torch, dev), fh)
         return 0
     card = card_line()
     print(card)
@@ -2229,6 +2610,13 @@ def main() -> int:
                             (100, 3200, None), (1600, 5504, "silu")):
             kc.pwconv(g, ci, co, dtype, act=act, launches=2)
         kc.pwconv(8, 1600, 6400, dtype, act=None)
+        # qwen3-1.7b: a batch-8 512-token prefill's q/o, k/v and the MLP's
+        # gate, and decode's gate and q at batch 8
+        for ci, co, act in ((2048, 2048, None), (2048, 1024, None),
+                            (2048, 6144, "silu")):
+            kc.pwconv(8 * ATTN_PROMPT, ci, co, dtype, act=act, launches=5)
+        kc.pwconv(8, 2048, 6144, dtype, act="silu")
+        kc.pwconv(8, 2048, 2048, dtype, act=None)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
 
     t_phase = time.perf_counter()
@@ -2267,9 +2655,17 @@ def main() -> int:
     (hymba, hymba_launches, hymba_replayed, hymba_stepping, hymba_variants,
      hymba_breakdowns) = run_hymba_phase()
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    t_phase = time.perf_counter()
+    print("serving path: attention-MLP transformers (dense, VLM, MoE), "
+          "prefill + greedy decode:")
+    attn, attn_launches, attn_replayed, attn_variants, attn_checks = \
+        run_attn_mlp_phase()
+    attn_s = time.perf_counter() - t_phase
+    print(f"  ({attn_s:.0f} s)")
     launches["dwconv1d"] = replayed["dwconv1d"] = 0
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
-                         (hymba_launches, hymba_replayed, hymba_variants)):
+                         (hymba_launches, hymba_replayed, hymba_variants),
+                         (attn_launches, attn_replayed, attn_variants)):
         for name, n in got.items():
             launches[name] += n
             replayed[name] += ran[name]
@@ -2310,6 +2706,8 @@ def main() -> int:
                        "prefill_vs_stepping": stepping, "hymba": hymba,
                        "hymba_prefill_vs_stepping": hymba_stepping,
                        "hymba_layer_breakdown": hymba_breakdowns,
+                       "attn_mlp": attn, "attn_mlp_checks": attn_checks,
+                       "attn_mlp_seconds": attn_s,
                        "launches": launches,
                        "replay_launches": replayed,
                        "pwconv_variants": variants,

@@ -1,8 +1,10 @@
 """Config schema for every architecture of the LM stack.
 
 Counterpart of ``repro/configs/base.py``: the same frozen dataclasses and
-fields, with ``torch_dtype`` in place of ``jax_dtype``.  The TPU dry run's
-``SHAPES`` and ``input_specs`` are not carried.  Each
+fields, with ``torch_dtype`` in place of ``jax_dtype``; the assigned
+shape set (``SHAPES``, ``shape_skip_reason``) and ``input_specs``, whose
+stand-ins are ``meta``-device tensors where the reference's are
+``jax.ShapeDtypeStruct``s.  Each
 ``configs/<arch>.py`` exports ``CONFIG`` (the exact assigned config) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).
 """
@@ -161,3 +163,68 @@ class ModelConfig:
         all_experts = n_moe_layers * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
         active = n_moe_layers * self.moe.top_k * 3 * d * self.moe.d_ff_expert
         return full - all_experts + active
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned shape set) + meta-tensor stand-ins
+# ---------------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def shape_skip_reason(cfg: ModelConfig, shape: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else reason (recorded in docs)."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return (
+            "full-attention arch: 500k-token decode needs sub-quadratic "
+            "attention (DESIGN.md §Arch-applicability)"
+        )
+    return None
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in: a tensor on the ``meta`` device, which
+    holds no storage."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell, with the
+    reference's shapes and dtypes (tokens int32).
+
+    Training: {tokens, labels [, frontend]}.
+    Prefill:  {tokens [, frontend]}.
+    Decode:   {tokens (B,1), pos (B,)} — the KV cache is built separately
+              (``serve_step.cache_specs``; it is carried state, not an
+              input here).
+    """
+    meta = SHAPES[shape]
+    b, s = meta["global_batch"], meta["seq_len"]
+    i32 = torch.int32
+    act = cfg.torch_dtype
+    if meta["kind"] == "train":
+        specs = {"tokens": _spec((b, s), i32), "labels": _spec((b, s), i32)}
+        if cfg.family in ("vlm",) or (cfg.fusion_tokens
+                                      and cfg.family == "moe"):
+            specs["frontend"] = _spec((b, cfg.fusion_tokens, cfg.d_model),
+                                      act)
+        if cfg.encdec is not None:
+            specs["frontend"] = _spec((b, cfg.encdec.enc_seq, cfg.d_model),
+                                      act)
+        return specs
+    if meta["kind"] == "prefill":
+        specs = {"tokens": _spec((b, s), i32)}
+        if cfg.fusion_tokens:
+            specs["frontend"] = _spec((b, cfg.fusion_tokens, cfg.d_model),
+                                      act)
+        if cfg.encdec is not None:
+            specs["frontend"] = _spec((b, cfg.encdec.enc_seq, cfg.d_model),
+                                      act)
+        return specs
+    # decode: one new token against a cache of seq_len
+    return {"tokens": _spec((b, 1), i32), "pos": _spec((b,), i32)}

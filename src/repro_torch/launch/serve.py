@@ -2,12 +2,17 @@
 one card.  Counterpart of ``repro/launch/serve.py`` (no mesh and no
 sharding rules: one device).
 
-    python -m repro_torch.launch.serve --arch xlstm-125m|hymba-1.5b \\
+    python -m repro_torch.launch.serve --arch <id> \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] \\
         [--max-len 256] [--temperature 0] [--seed 0] [--device cuda]
 
-``--max-len`` bounds the attention caches and counts the meta tokens
-(hymba's cache is a ring of window + meta slots once it exceeds that).
+``<id>`` is any of ``configs.registry.ARCH_IDS`` (every reference
+architecture but whisper-small).  ``--max-len`` bounds the attention
+caches and counts the prefix: the meta tokens and a frontend's embeddings
+(a sliding-window cache is a ring of window + meta slots once it exceeds
+that).  An architecture with ``fusion_tokens`` (internvl2-1b's 256 patch
+embeddings, llama4's 64 fusion embeddings) gets a zero frontend stub of
+that many embeddings, as the reference's launcher gives it.
 
 Weights are random, drawn from ``--seed``.  On the card the prefill and the
 decode step are CUDA graphs (``serve_step.capture_prefill`` and
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
@@ -36,16 +42,24 @@ from repro_torch.serve.sampler import generate, greedy
 
 #: Kernel launches of one layer, by variant: ``pwconv`` runs every Linear
 #: (hymba: q, k, v, o; the Mamba heads' in, bcdt, dt, out; the MLP's gate,
-#: up, down), ``dwconv1d`` the conv pre-activation over a sequence (a
-#: decode step takes the plain one-row step instead).
+#: up, down; ``attn_mlp``: q, k, v, o, gate, up, down; a MoE layer,
+#: ``attn_moe``: q, k, v, o, its router and experts being plain products),
+#: ``dwconv1d`` the conv pre-activation over a sequence (a decode step
+#: takes the plain one-row step instead).
 LAYER_LAUNCHES = {
     "prefill": {"mlstm": {"dwconv1d": 1, "pwconv": 6},
                 "slstm": {"dwconv1d": 1, "pwconv": 4},
-                "hymba": {"dwconv1d": 1, "pwconv": 11}},
+                "hymba": {"dwconv1d": 1, "pwconv": 11},
+                "attn_mlp": {"dwconv1d": 0, "pwconv": 7},
+                "attn_moe": {"dwconv1d": 0, "pwconv": 4}},
     "decode": {"mlstm": {"dwconv1d": 0, "pwconv": 6},
                "slstm": {"dwconv1d": 0, "pwconv": 4},
-               "hymba": {"dwconv1d": 0, "pwconv": 11}},
+               "hymba": {"dwconv1d": 0, "pwconv": 11},
+               "attn_mlp": {"dwconv1d": 0, "pwconv": 7},
+               "attn_moe": {"dwconv1d": 0, "pwconv": 4}},
 }
+#: A MoE layer's shared expert, an MLP: gate, up, down.
+SHARED_EXPERT_LAUNCHES = {"dwconv1d": 0, "pwconv": 3}
 
 
 def launch_counts() -> dict:
@@ -61,12 +75,28 @@ def reset_launch_counts() -> None:
 def expected_launches(cfg: ModelConfig, phase: str) -> dict:
     """Launches of one prefill (``phase="prefill"``) or one decode step
     (``"decode"``) on the card, by kernel."""
-    pattern = T.layer_pattern(cfg)
+    pattern = T.model_pattern(cfg)
     out = {"dwconv1d": 0, "pwconv": 0}
     for i in range(cfg.n_layers):
-        for name, n in LAYER_LAUNCHES[phase][pattern[i % len(pattern)].kind].items():
-            out[name] += n
+        variant = pattern[i % len(pattern)]
+        counts = [LAYER_LAUNCHES[phase][
+            "attn_moe" if variant.use_moe else variant.kind]]
+        if variant.use_moe and cfg.moe.n_shared:
+            counts.append(SHARED_EXPERT_LAUNCHES)
+        for c in counts:
+            for name, n in c.items():
+                out[name] += n
     return out
+
+
+def frontend_stub(cfg: ModelConfig, batch: int, device) -> Optional[
+        torch.Tensor]:
+    """Zero modality embeddings (B, fusion_tokens, d) for an architecture
+    with a stubbed frontend, else None (``repro/launch/serve.py:44-47``)."""
+    if not cfg.fusion_tokens:
+        return None
+    return torch.zeros((batch, cfg.fusion_tokens, cfg.d_model),
+                       dtype=cfg.torch_dtype, device=device)
 
 
 def _sync(dev: torch.device) -> None:
@@ -94,24 +124,26 @@ def main(argv=None) -> int:
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)
     sampler = torch.Generator(device=dev).manual_seed(2)
+    frontend = frontend_stub(cfg, args.batch, dev)
 
     with torch.inference_mode():
         if dev.type == "cuda":
             t0 = time.perf_counter()
-            prefill = S.capture_prefill(model, args.batch, args.prompt_len,
-                                        max_len=args.max_len)
+            prefill = S.capture_prefill(
+                model, args.batch, args.prompt_len, max_len=args.max_len,
+                frontend_len=cfg.fusion_tokens)
             step = S.capture_decode_step(model, args.batch, args.max_len)
             t_capture = time.perf_counter() - t0
         else:
-            def prefill(t):
-                return S.prefill(model, t, max_len=args.max_len)
+            def prefill(t, f):
+                return S.prefill(model, t, max_len=args.max_len, frontend=f)
 
             def step(c, t):
                 return S.decode_step(model, c, t)
         reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(prompts)
+        logits, cache = prefill(prompts, frontend)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         prefill_launches = launch_counts()

@@ -15,8 +15,9 @@ Counterpart of ``repro/models/attention.py``.
 The products are ``torch.einsum`` and a softmax in fp32, as the reference
 leaves them to XLA; no TPU kernel exists for them.  The projections are
 Linears, so they run on the ``pwconv`` kernel.  Supports GQA, qk-norm,
-qkv-bias, sliding window with sink (meta) tokens and NoPE; the int8 KV
-cache (``scales``) raises, naming ROADMAP.md A12.
+qkv-bias, sliding window with sink (meta) tokens, NoPE and the int8 KV
+cache (``scales``: int8 vectors with a fp32 scale per (B, S, Hkv),
+dequantized to bf16 whatever the model's dtype, as the reference does).
 """
 from __future__ import annotations
 
@@ -30,9 +31,6 @@ from repro_torch.models.layers import (apply_rope, init_linear, init_norm,
                                        linear, rms_norm)
 
 NEG_INF = -1e30
-
-KV_QUANT = ("the int8 KV cache (kv_quant) is not ported yet: ROADMAP.md "
-            "queue A, the rest of A12")
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +262,38 @@ def ring_slot(pos: torch.Tensor, smax: int, sink: int) -> torch.Tensor:
                        sink + torch.remainder(pos - sink, smax - sink))
 
 
+def _quantize_vec(x: torch.Tensor):
+    """x (..., dh) -> (int8 values, fp32 scale (...,)): the vector's
+    largest magnitude maps to 127.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                in_place: bool) -> torch.Tensor:
+    """``new`` (B, 1, ...) written at sequence slot ``slot`` (B,) of
+    ``cache`` (B, S, ...): a scatter into ``cache`` itself, or the
+    reference's one-hot select into a new tensor.  A slot past the cache
+    writes nothing either way (the one-hot matches no slot; the scatter
+    writes the last slot's own value back), so a step past ``max_len``
+    never indexes out of the cache."""
+    if in_place:
+        smax = cache.shape[1]
+        shape = (-1, *[1] * (cache.dim() - 1))
+        idx = torch.clamp(slot, max=smax - 1).long().view(shape).expand_as(
+            new)
+        new = torch.where((slot < smax).view(shape), new,
+                          torch.gather(cache, 1, idx))
+        return cache.scatter_(1, idx, new)
+    j = torch.arange(cache.shape[1], device=slot.device)
+    wmask = (j[None, :] == slot[:, None]).view(*cache.shape[:2],
+                                               *[1] * (cache.dim() - 2))
+    return torch.where(wmask, new, cache)
+
+
 def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      window: Optional[int] = None,
@@ -279,15 +309,18 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
     Positions past the buffer wrap within the ring part; every populated
     slot is attendable.
 
-    in_place: write the new K/V into ``cache_k``/``cache_v`` at their slot
-    (one scatter each) and return those same tensors, where the reference
-    (and the default here) returns new caches through a one-hot select.
-    The values are the same; the static-buffer decode step uses it, so
-    that a token does not rewrite the whole cache.
-    Returns (out (B,1,d), new_k, new_v).
+    scales: ``(k_scale, v_scale)`` (B,Sc,Hkv) fp32 of an int8 cache: the
+    new K/V vectors are quantized (:func:`_quantize_vec`) into their slot
+    and the cache is read as bf16 ``int8 * scale``, which halves the
+    cache's bytes a token against bf16.
+
+    in_place: write the new K/V (and scales) into the cache's own tensors
+    at their slot (one scatter each) and return those same tensors, where
+    the reference (and the default here) returns new caches through a
+    one-hot select.  The values are the same; the static-buffer decode
+    step uses it, so that a token does not rewrite the whole cache.
+    Returns (out (B,1,d), new_k, new_v[, (new_k_scale, new_v_scale)]).
     """
-    if scales is not None:
-        raise NotImplementedError(KV_QUANT)
     b = x_t.shape[0]
     q, k, v = _project_qkv(p, x_t, n_heads, n_kv_heads, head_dim,
                            qk_norm=qk_norm, policy=policy)
@@ -296,17 +329,23 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
         k = apply_rope(k, pos[:, None], rope_theta)
     smax = cache_k.shape[1]
     slot = ring_slot(pos, smax, sink) if ring else pos
-    k_new, v_new = k.to(cache_k.dtype), v.to(cache_v.dtype)  # (B,1,Hkv,dh)
-    if in_place:
-        idx = slot.long()[:, None, None, None].expand_as(k_new)
-        cache_k.scatter_(1, idx, k_new)
-        cache_v.scatter_(1, idx, v_new)
+    if scales is not None:
+        k_scale, v_scale = scales
+        (k8, ks_new), (v8, vs_new) = _quantize_vec(k), _quantize_vec(v)
+        cache_k = _write_slot(cache_k, k8, slot, in_place)
+        cache_v = _write_slot(cache_v, v8, slot, in_place)
+        k_scale = _write_slot(k_scale, ks_new, slot, in_place)
+        v_scale = _write_slot(v_scale, vs_new, slot, in_place)
+        k_eff = cache_k.to(torch.bfloat16) * k_scale[..., None].to(
+            torch.bfloat16)
+        v_eff = cache_v.to(torch.bfloat16) * v_scale[..., None].to(
+            torch.bfloat16)
     else:
-        j = torch.arange(smax, device=pos.device)
-        wmask = (j[None, :] == slot[:, None])[..., None, None]
-        cache_k = torch.where(wmask, k_new, cache_k)
-        cache_v = torch.where(wmask, v_new, cache_v)
-    scores = _gqa_scores(q, cache_k) * (head_dim ** -0.5)  # (B,Hq,1,Smax)
+        # (B,1,Hkv,dh) in the cache's dtype
+        cache_k = _write_slot(cache_k, k.to(cache_k.dtype), slot, in_place)
+        cache_v = _write_slot(cache_v, v.to(cache_v.dtype), slot, in_place)
+        k_eff, v_eff = cache_k, cache_v
+    scores = _gqa_scores(q, k_eff) * (head_dim ** -0.5)    # (B,Hq,1,Smax)
     j = torch.arange(smax, device=pos.device)[None, :]
     if ring:
         valid = j < torch.clamp(pos + 1, max=smax)[:, None]
@@ -316,6 +355,9 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
             valid &= (j > (pos[:, None] - window)) | (j < sink)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, cache_v).to(x_t.dtype)            # (B,1,Hq,dh)
+    out = _gqa_out(probs, v_eff).to(x_t.dtype)              # (B,1,Hq,dh)
     out = out.reshape(b, 1, n_heads * head_dim).contiguous()
-    return linear(p.w_o, out, policy=policy), cache_k, cache_v
+    proj = linear(p.w_o, out, policy=policy)
+    if scales is not None:
+        return proj, cache_k, cache_v, (k_scale, v_scale)
+    return proj, cache_k, cache_v

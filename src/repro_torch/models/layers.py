@@ -5,11 +5,13 @@ chunked cross-entropy and the backbone wrappers wait for their slices.
 Parameters live in ``nn.ParameterDict``s keyed as the reference's dicts
 are (``{"scale"}``, ``{"w", "b"}``, ``{"table"}``), so a module's
 ``state_dict`` names are the reference's parameter paths joined by dots.
-Every init draws from an explicit ``torch.Generator`` on the host and
-moves the result to ``device``, so a seed gives the same weights on every
-device.  On the ``meta`` device nothing is drawn: the parameters only get
-their shapes and dtypes (``transformer.cast_params`` fills them from a
-model drawn once).  Parameters are inference-only
+Every init draws from an explicit ``torch.Generator``, on the generator's
+own device (the host unless the caller hands a CUDA generator, which
+draws billions of weights in a fraction of the host's time), and moves
+the result to ``device``, so a host generator's seed gives the same
+weights on every device.  On the ``meta`` device nothing is drawn: the
+parameters only get their shapes and dtypes (``transformer.cast_params``
+fills them from a model drawn once).  Parameters are inference-only
 (``requires_grad=False``).
 """
 from __future__ import annotations
@@ -31,18 +33,21 @@ def _is_meta(device) -> bool:
 
 
 def randn(generator: torch.Generator, shape, std: float, dtype, device):
-    """N(0, std^2) drawn in fp32 on the host, then cast and moved."""
+    """N(0, std^2) drawn in fp32 on the generator's device, then cast and
+    moved."""
     if _is_meta(device):
         return torch.empty(shape, dtype=dtype, device=device)
-    t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-    return t.to(device=device, dtype=dtype)
+    t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return t.mul_(std).to(device=device, dtype=dtype)
 
 
 def rand(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """U[0, 1) drawn in fp32 on the host, then moved."""
+    """U[0, 1) drawn in fp32 on the generator's device, then moved."""
     if _is_meta(device):
         return torch.empty(shape, device=device)
-    return torch.rand(shape, generator=generator).to(device)
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
 
 
 # ---------------------------------------------------------------------------

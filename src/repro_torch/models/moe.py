@@ -1,0 +1,238 @@
+"""Mixture-of-Experts on one device.  Counterpart of ``repro/models/moe.py``
+with ``mesh=None``: the reference's per-device body (``_moe_local``) at a
+tensor-parallel width of 1, where its two ``all_to_all``s are the identity.
+Expert parallelism across cards waits for the sharding slice (ROADMAP.md,
+queue A).
+
+Dispatch is the reference's sort-free rank-by-position scheme with fixed
+capacities: each routed copy of a token takes the rank of its position
+among the copies bound for the same expert; copies ranked past the
+expert's capacity are dropped.  Every shape is static and nothing reads a
+value back to the host (no boolean indexing, ``nonzero`` or ``.item()``),
+so a prefill or decode step with MoE layers captures as a CUDA graph.
+The reference scatters with ``mode="drop"``; here a dropped copy is
+written to a dump row past the end of the buffer, which is then cut off.
+
+The router is a plain fp32 product, as the reference's (``moe.py:145``),
+not a ``pwconv`` launch.  The expert GEMMs are batched ``torch.bmm``s over
+the capacity buffers: the reference computes them as plain einsums outside
+any Pallas kernel, with fp32 products (``preferred_element_type``), so
+here both operands are upcast to fp32 (exact for bf16) and the product is
+fp32.  The shared expert is an :class:`~repro_torch.models.mlp.MLP`, whose
+three projections run on the ``pwconv`` kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
+from repro_torch.models.layers import init_linear, param, randn
+from repro_torch.models.mlp import MLP
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The reference's ``init_moe``: ``router`` (a fp32 Linear ``{"w"}``,
+    d -> E), ``w_gate_e`` / ``w_up_e`` (E, d, ff), ``w_down_e`` (E, ff, d)
+    and, with shared experts, ``shared`` (an MLP of width ``d_ff_shared``)."""
+
+    def __init__(self, d_model: int, cfg: MoEConfig, d_ff_shared: int, *,
+                 generator: torch.Generator, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        e, ff = cfg.n_experts, cfg.d_ff_expert
+        std = d_model ** -0.5
+        self.router = init_linear(generator, d_model, e, dtype=torch.float32,
+                                  device=device)
+        self.w_gate_e = param(randn(generator, (e, d_model, ff), std, dtype,
+                                    device))
+        self.w_up_e = param(randn(generator, (e, d_model, ff), std, dtype,
+                                  device))
+        self.w_down_e = param(randn(generator, (e, ff, d_model), ff ** -0.5,
+                                    dtype, device))
+        if cfg.n_shared:
+            self.shared = MLP(d_model, d_ff_shared, generator=generator,
+                              dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Router
+# ---------------------------------------------------------------------------
+
+
+def router_topk(logits: torch.Tensor, top_k: int, norm_topk: bool):
+    """logits (T, E) -> (weights (T,k) f32, ids (T,k) int64, probs (T,E)
+    f32)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, ids = torch.topk(probs, top_k, dim=-1)
+    if norm_topk:
+        weights = weights / torch.clamp(weights.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return weights, ids, probs
+
+
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """ids (...) -> (..., n) bool, by comparison: ``F.one_hot`` may read
+    the ids' range back to the host, which a capture forbids."""
+    return ids[..., None] == torch.arange(n, device=ids.device)
+
+
+def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e f_e * p_e."""
+    f = _one_hot(ids, n_experts).float().sum(1).mean(0)
+    pbar = probs.mean(0)
+    return n_experts * torch.sum(f * pbar)
+
+
+def _router_logits(p: MoE, xt: torch.Tensor) -> torch.Tensor:
+    return xt.float() @ p.router["w"]
+
+
+# ---------------------------------------------------------------------------
+# Dense reference (exact; no capacity) — test oracle
+# ---------------------------------------------------------------------------
+
+
+def moe_dense_ref(p: MoE, x: torch.Tensor, cfg: MoEConfig,
+                  policy: KernelPolicy = DEFAULT_POLICY):
+    """x (..., d).  Computes every expert for every token in fp32 and
+    combines by router weights.  O(E) flops — oracle only."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    weights, ids, probs = router_topk(_router_logits(p, xt), cfg.top_k,
+                                      cfg.norm_topk)
+    xf = xt.float()
+    g = torch.einsum("td,edf->tef", xf, p.w_gate_e.float())
+    u = torch.einsum("td,edf->tef", xf, p.w_up_e.float())
+    h = F.silu(g) * u
+    y_all = torch.einsum("tef,efd->ted", h, p.w_down_e.float())
+    onehot = _one_hot(ids, cfg.n_experts).float()
+    cw = (onehot * weights[..., None]).sum(1)            # (T, E)
+    y = torch.einsum("te,ted->td", cw, y_all)
+    out = y.to(x.dtype).reshape(*lead, d)
+    if cfg.n_shared:
+        out = out + p.shared(x, policy=policy)
+    aux = load_balance_loss(probs, ids, cfg.n_experts)
+    return out, {"aux_loss": aux,
+                 "drop_frac": torch.zeros((), device=x.device)}
+
+
+# ---------------------------------------------------------------------------
+# Capacity dispatch (one device)
+# ---------------------------------------------------------------------------
+
+
+def _ranks_by_group(group_ids: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Rank of each element within its group (stable, by position)."""
+    onehot = _one_hot(group_ids, n_groups).long()           # (N, G)
+    ranks = torch.cumsum(onehot, dim=0) - 1                 # (N, G)
+    return torch.gather(ranks, 1, group_ids[:, None])[:, 0]
+
+
+def _capacity(n: int, share: int, capacity_factor: float) -> int:
+    """The reference's capacity of ``share`` equal parts of ``n`` copies:
+    the balanced share times the capacity factor, rounded up to a multiple
+    of 8 (at least 8) and at most ``n``."""
+    cap = int(-(-n // share) * capacity_factor)
+    return min(max(8, (cap + 7) // 8 * 8), n)
+
+
+def _scatter_rows(rows: torch.Tensor, index: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """A (n, ...) buffer of zeros with ``rows[i]`` at row ``index[i]``; an
+    index of ``n`` (a dropped row) lands in a dump row that is cut off (the
+    reference's ``.at[].set(mode="drop")``)."""
+    buf = rows.new_zeros((n + 1, *rows.shape[1:]))
+    buf.index_copy_(0, index, rows)
+    return buf[:n]
+
+
+def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
+               axis_name=None):
+    """The reference's per-device MoE body at ``tp=1`` (one device, no
+    collectives).  xt (T, d) -> (y (T, d) f32, aux loss, drop fraction),
+    both fp32 scalars on the device."""
+    if tp != 1 or axis_name is not None:
+        raise NotImplementedError("expert parallelism across cards is not "
+                                  "ported yet: ROADMAP.md queue A, item 4")
+    t_l, d = xt.shape
+    e = e_local = cfg.n_experts
+    k = cfg.top_k
+
+    weights, ids, probs = router_topk(_router_logits(p, xt), k,
+                                      cfg.norm_topk)
+    aux = load_balance_loss(probs, ids, e)
+
+    # ---- copies -> send slots (one destination: the identity exchange) ---
+    n_copies = t_l * k
+    flat_ids = ids.reshape(-1)                       # expert id per copy
+    flat_w = weights.reshape(-1)
+    src_token = torch.arange(n_copies, device=xt.device) // k
+    owner = flat_ids // e_local                      # destination device
+    cap_send = _capacity(n_copies, tp, cfg.capacity_factor)
+    rank = _ranks_by_group(owner, tp)
+    keep = rank < cap_send
+    slot = owner * cap_send + torch.clamp(rank, 0, cap_send - 1)
+    t_r = tp * cap_send
+    send_slot = torch.where(keep, slot, t_r)
+    recv_x = _scatter_rows(xt[src_token], send_slot, t_r)
+    # metadata: local expert id (+1, 0 = invalid)
+    recv_e = _scatter_rows(flat_ids % e_local + 1, send_slot, t_r)
+
+    # ---- pack into per-expert capacity buffers ----------------------------
+    cap_e = _capacity(t_r, max(e_local, 1), cfg.capacity_factor)
+    valid_r = recv_e > 0
+    eloc = torch.clamp(recv_e - 1, 0, e_local - 1)
+    rank_e = _ranks_by_group(torch.where(valid_r, eloc, e_local),
+                             e_local + 1)
+    keep_r = valid_r & (rank_e < cap_e)
+    pos = eloc * cap_e + torch.clamp(rank_e, 0, cap_e - 1)
+    ebuf = _scatter_rows(recv_x, torch.where(keep_r, pos, e_local * cap_e),
+                         e_local * cap_e)
+
+    # ---- expert compute (batched over local experts), fp32 products -------
+    eb = ebuf.reshape(e_local, cap_e, d).float()
+    g = torch.bmm(eb, p.w_gate_e.float())
+    u = torch.bmm(eb, p.w_up_e.float())
+    h = (F.silu(g) * u).to(xt.dtype)
+    y_e = torch.bmm(h.float(), p.w_down_e.float())
+    # the routed outputs in the payload dtype; the combine stays fp32
+    y_e = y_e.to(xt.dtype).reshape(e_local * cap_e, d)
+
+    # ---- route back ---------------------------------------------------------
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    y_recv = torch.where(keep_r[:, None],
+                         y_e[torch.clamp(pos, 0, e_local * cap_e - 1)], zero)
+    y_copy = torch.where(keep[:, None],
+                         y_recv[torch.clamp(slot, 0, t_r - 1)].float(), 0.0)
+    # combine: copy c of token t sits at row t*k + c, so the reference's
+    # scatter-add over src_token is a sum over each token's k rows
+    y = (y_copy * flat_w[:, None]).reshape(t_l, k, d).sum(1)
+    send_keep = keep.float().mean()
+    recv_keep = keep_r.float().sum() / torch.clamp(valid_r.float().sum(),
+                                                   min=1.0)
+    drop = 1.0 - send_keep * recv_keep
+    return y, aux, drop
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
+                policy: KernelPolicy = DEFAULT_POLICY):
+    """x (B, S, d) -> (y (B, S, d), {"aux_loss", "drop_frac"}), one
+    device.  ``mesh`` must be None (expert parallelism is not ported)."""
+    if mesh is not None:
+        raise NotImplementedError("expert parallelism across cards is not "
+                                  "ported yet: ROADMAP.md queue A, item 4")
+    b, s, d = x.shape
+    y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
+    out = y.to(x.dtype).reshape(b, s, d)
+    if cfg.n_shared:
+        out = out + p.shared(x, policy=policy)
+    return out, {"aux_loss": aux, "drop_frac": drop}

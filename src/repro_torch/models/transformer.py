@@ -1,46 +1,50 @@
-"""Model assembly for the architectures the port runs: xLSTM and hymba so
-far.  Counterpart of ``repro/models/transformer.py``.
+"""Model assembly for every architecture the port runs.  Counterpart of
+``repro/models/transformer.py``.
 
 A config expands to a repeating pattern of layer variants (xLSTM:
 ``[mLSTM, sLSTM]`` for ``slstm_every=2``; hymba: ``[hymba]``, a
 sliding-window attention branch and a Mamba branch side by side, then a
-SwiGLU MLP).  Layer ``i`` is variant ``i % period``.  The reference stacks
-each variant's parameters along a leading groups axis and scans over the
-groups; here :class:`LMModel` holds the layers in order in an
-``nn.ModuleList`` and the forward is a Python loop
-(``convert.lm_params_from_numpy`` maps layer ``g*period + vi`` to the
-reference's ``blocks_v{vi}[g]``).
+SwiGLU MLP; the attention-MLP transformers: a period of
+``lcm(global_every, moe_every)`` ``attn_mlp`` layers, e.g. llama4's three
+sliding-window layers and one global NoPE layer with MoE on every other
+layer, or one layer for a dense model).  Layer ``i`` is variant
+``i % period``.  The reference stacks each variant's parameters along a
+leading groups axis and scans over the groups; here :class:`LMModel`
+holds the layers in order in an ``nn.ModuleList`` and the forward is a
+Python loop (``convert.lm_params_from_numpy`` maps layer ``g*period +
+vi`` to the reference's ``blocks_v{vi}[g]``).
 
-The ``attn_mlp`` (dense and sliding-window transformer), MoE and enc-dec
-branches are not ported: they raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+An ``attn_mlp`` layer is sequential (attention, then the MLP or MoE, each
+with its own norm and residual) or, for ``parallel_block`` (command-r),
+one shared norm feeding attention and MLP whose outputs join the residual
+together.  The enc-dec (whisper) layers are not ported: the registry
+refuses whisper-small and :func:`model_pattern` any config with
+``encdec``, naming the ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import ENC_DEC_NOT_PORTED
 from repro_torch.core.network import require_device
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (embed, init_embedding, init_norm,
                                        norm, param, randn)
 from repro_torch.models.mlp import MLP
 
-_ATTENTION = ("attention-MLP layers (dense and sliding-window transformers, "
-              "MoE, enc-dec) are not ported yet: ROADMAP.md queue A, the "
-              "rest of A12")
-
-
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
-    kind: str                      # mlstm | slstm | hymba (| attn_mlp)
+    kind: str                      # attn_mlp | hymba | mlstm | slstm
     window: Optional[int] = None
     rope: bool = True
     use_moe: bool = False
@@ -55,7 +59,27 @@ def layer_pattern(cfg: ModelConfig) -> list:
     if cfg.family == "hybrid":
         return [LayerVariant(kind="hymba", window=cfg.sliding_window,
                              sink=cfg.meta_tokens)]
-    raise NotImplementedError(_ATTENTION)
+    ge = cfg.global_every if (cfg.global_every and cfg.sliding_window) else 1
+    me = cfg.moe_every if cfg.moe is not None else 1
+    variants = []
+    for i in range(math.lcm(ge, me)):
+        is_global = ge > 1 and (i % ge == ge - 1)
+        variants.append(LayerVariant(
+            kind="attn_mlp",
+            window=None if is_global else cfg.sliding_window,
+            rope=not (is_global and cfg.nope_on_global),
+            use_moe=cfg.moe is not None and (i % me == me - 1),
+        ))
+    return variants
+
+
+def model_pattern(cfg: ModelConfig) -> list:
+    """The pattern a model of ``cfg`` stacks: :func:`layer_pattern`, which
+    an encoder-decoder (the reference's ``dec`` layers) does not use; such
+    a config raises."""
+    if cfg.encdec is not None:
+        raise NotImplementedError(ENC_DEC_NOT_PORTED)
+    return layer_pattern(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +116,42 @@ class HymbaLayer(nn.Module):
                             policy=policy)
 
 
+class AttnMLPLayer(nn.Module):
+    """The reference's attention-MLP layer dict: ``ln_attn``, ``attn``,
+    ``ln_mlp`` (absent for ``parallel_block``, whose one norm feeds both
+    branches) and ``mlp`` or, on a MoE layer, ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, variant: LayerVariant, *,
+                 generator: torch.Generator, device="cuda"):
+        super().__init__()
+        kw = dict(generator=generator, dtype=cfg.torch_dtype, device=device)
+        d = cfg.d_model
+        self.ln_attn = init_norm(cfg.norm_type, d, device=device)
+        self.attn = attn_lib.Attention(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
+        if not cfg.parallel_block:
+            self.ln_mlp = init_norm(cfg.norm_type, d, device=device)
+        if variant.use_moe:
+            self.moe = moe_lib.MoE(d, cfg.moe, cfg.d_ff, **kw)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, **kw)
+
+    def finish(self, x, xn, attn_out, cfg: ModelConfig,
+               variant: LayerVariant, policy):
+        """The rest of the layer after its attention: ``(x', aux)``, aux
+        holding a MoE layer's ``aux_loss`` and ``drop_frac``."""
+        if cfg.parallel_block:      # command-r: shared norm, parallel residual
+            return x + attn_out + self.mlp(xn, policy=policy), {}
+        x = x + attn_out
+        xn2 = norm(x, self.ln_mlp, cfg.norm_type)
+        if variant.use_moe:
+            y, aux = moe_lib.moe_forward(self.moe, xn2, cfg.moe,
+                                         policy=policy)
+            return x + y, aux
+        return x + self.mlp(xn2, policy=policy), {}
+
+
 def init_layer(cfg: ModelConfig, variant: LayerVariant,
                generator: torch.Generator, device="cuda") -> nn.Module:
     kw = dict(generator=generator, dtype=cfg.torch_dtype, device=device)
@@ -101,7 +161,7 @@ def init_layer(cfg: ModelConfig, variant: LayerVariant,
         return xlstm_lib.SLSTMBlock(cfg.d_model, cfg.n_heads, cfg.xlstm, **kw)
     if variant.kind == "hymba":
         return HymbaLayer(cfg, generator=generator, device=device)
-    raise NotImplementedError(_ATTENTION)
+    return AttnMLPLayer(cfg, variant, generator=generator, device=device)
 
 
 def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:
@@ -119,25 +179,30 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                   capture_kv: bool = False):
     """x (B,S,d) -> (x', aux); with ``capture_kv``, aux["kv"] is the
     attention's (k, v) after RoPE and aux["state"] the recurrent decode
-    state (xLSTM: the layer's cache; hymba: the Mamba state)."""
+    state (xLSTM: the layer's cache; hymba: the Mamba state).  A MoE layer's
+    aux also holds its ``aux_loss`` and ``drop_frac``."""
     aux: dict[str, Any] = {}
     if variant.kind == "mlstm":
         res = block(x, chunk=cfg.attn_chunk // 8, policy=policy,
                     return_cache=capture_kv)
     elif variant.kind == "slstm":
         res = block(x, policy=policy, return_cache=capture_kv)
-    elif variant.kind == "hymba":
+    else:
         xn = norm(x, block.ln_attn, cfg.norm_type)
         ares = attn_lib.attention(
             block.attn, xn, positions=positions, chunk=cfg.attn_chunk,
             policy=policy, return_kv=capture_kv, **_attn_kwargs(cfg, variant))
+        if capture_kv:
+            ares, aux["kv"] = ares
+        if variant.kind == "attn_mlp":
+            x, moe_aux = block.finish(x, xn, ares, cfg, variant, policy)
+            aux.update(moe_aux)
+            return x, aux
         mres = ssm_lib.mamba_mixer(block.mamba, xn, cfg.ssm, policy=policy,
                                    return_state=capture_kv)
         if capture_kv:
-            (ares, aux["kv"]), (mres, aux["state"]) = ares, mres
+            mres, aux["state"] = mres
         return block.mix(x, ares, mres, cfg, policy), aux
-    else:
-        raise NotImplementedError(_ATTENTION)
     if capture_kv:
         res, aux["state"] = res
     return res, aux
@@ -154,22 +219,27 @@ def cache_len(variant: LayerVariant, max_len: int) -> int:
 def init_layer_cache(cfg: ModelConfig, variant: LayerVariant, batch: int,
                      max_len: int, device="cuda") -> dict:
     """A zeroed decode cache for one layer.  The recurrent layers' state
-    does not grow with ``max_len``; hymba's is ``{"k", "v", "mamba"}``."""
+    does not grow with ``max_len``.  An attention layer's is ``{"k", "v"}``
+    (B, S_c, Hkv, dh) in the model's dtype, or with ``kv_quant`` int8 with
+    ``{"k_scale", "v_scale"}`` (B, S_c, Hkv) fp32; hymba's adds
+    ``"mamba"``."""
     if variant.kind == "mlstm":
         return xlstm_lib.init_mlstm_cache(batch, cfg.d_model, cfg.n_heads,
                                           cfg.xlstm, device)
     if variant.kind == "slstm":
         return xlstm_lib.init_slstm_cache(batch, cfg.d_model, cfg.n_heads,
                                           cfg.xlstm, device)
-    if variant.kind != "hymba":
-        raise NotImplementedError(_ATTENTION)
-    if cfg.kv_quant:
-        raise NotImplementedError(attn_lib.KV_QUANT)
     shape = (batch, cache_len(variant, max_len), cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "mamba": ssm_lib.init_mamba_state(batch, cfg.d_model, cfg.ssm,
-                                              device)}
+    kdtype = torch.int8 if cfg.kv_quant else cfg.torch_dtype
+    cache = {"k": torch.zeros(shape, dtype=kdtype, device=device),
+             "v": torch.zeros(shape, dtype=kdtype, device=device)}
+    if cfg.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], device=device)
+    if variant.kind == "hymba":
+        cache["mamba"] = ssm_lib.init_mamba_state(batch, cfg.d_model,
+                                                  cfg.ssm, device)
+    return cache
 
 
 def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
@@ -177,24 +247,26 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
                  *, policy: KernelPolicy = DEFAULT_POLICY,
                  in_place: bool = False):
     """x_t (B,1,d), the layer's cache, pos (B,) -> (x_t', cache').
-    ``in_place`` writes the new K/V slot into the cache's own tensors
-    (``attention_decode``)."""
+    ``in_place`` writes the new K/V slot (and scales) into the cache's own
+    tensors (``attention_decode``)."""
     if variant.kind in ("mlstm", "slstm"):
         return block.step(x_t, cache, policy=policy)
-    if variant.kind != "hymba":
-        raise NotImplementedError(_ATTENTION)
-    if cfg.kv_quant:
-        raise NotImplementedError(attn_lib.KV_QUANT)
     ring = (variant.window is not None
             and cache["k"].shape[1] == variant.window + variant.sink)
     xn = norm(x_t, block.ln_attn, cfg.norm_type)
-    attn_out, new_k, new_v = attn_lib.attention_decode(
+    scales = (cache["k_scale"], cache["v_scale"]) if cfg.kv_quant else None
+    res = attn_lib.attention_decode(
         block.attn, xn, cache["k"], cache["v"], pos, ring=ring,
-        policy=policy, in_place=in_place, **_attn_kwargs(cfg, variant))
-    mamba_out, mstate = ssm_lib.mamba_mixer_step(
+        scales=scales, policy=policy, in_place=in_place,
+        **_attn_kwargs(cfg, variant))
+    attn_out, new = res[0], {"k": res[1], "v": res[2]}
+    if cfg.kv_quant:
+        new["k_scale"], new["v_scale"] = res[3]
+    if variant.kind == "attn_mlp":
+        return block.finish(x_t, xn, attn_out, cfg, variant, policy)[0], new
+    mamba_out, new["mamba"] = ssm_lib.mamba_mixer_step(
         block.mamba, xn, cache["mamba"], cfg.ssm, policy=policy)
-    return (block.mix(x_t, attn_out, mamba_out, cfg, policy),
-            {"k": new_k, "v": new_v, "mamba": mstate})
+    return block.mix(x_t, attn_out, mamba_out, cfg, policy), new
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +283,7 @@ class LMModel(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device="cuda"):
         super().__init__()
-        pattern = layer_pattern(cfg)
+        pattern = model_pattern(cfg)
         if cfg.n_layers % len(pattern):
             raise ValueError(f"{cfg.n_layers} layers do not divide into the "
                              f"pattern of {len(pattern)}")
@@ -276,27 +348,43 @@ def cast_params(model: LMModel, cfg: ModelConfig) -> LMModel:
 
 
 def hidden_states(model: LMModel, tokens: torch.Tensor, *,
+                  frontend: Optional[torch.Tensor] = None,
                   policy: KernelPolicy = DEFAULT_POLICY,
                   capture_kv: bool = False):
     """tokens (B, S) -> (hidden (B, P+S, d), prefix_len P, aux): the meta
-    tokens, if any, are prepended (P of them) and every position is
-    absolute (RoPE).  With ``capture_kv``, ``aux["layers"]`` holds each
-    layer's captured ``{"kv"?, "state"}`` (:func:`layer_forward`)."""
+    tokens, if any, then the stubbed modality embeddings ``frontend`` (B,
+    F, d), if given (InternVL2's patches, llama4's fusion embeddings), are
+    prepended (P of them in all) and every position is absolute (RoPE).
+    ``aux["aux_loss"]`` and ``aux["drop_frac"]`` are the MoE layers' sums
+    over the number of layers (0 without MoE); with ``capture_kv``,
+    ``aux["layers"]`` holds each layer's captured ``{"kv"?, "state"?}``
+    (:func:`layer_forward`)."""
     cfg = model.cfg
     b = tokens.shape[0]
     x = embed(model.embedding, tokens)
-    prefix = 0
+    pieces = []
     if cfg.meta_tokens:
-        x = torch.cat([model.meta_embeds(b), x], dim=1)
-        prefix = cfg.meta_tokens
+        pieces.append(model.meta_embeds(b))
+    if frontend is not None:
+        pieces.append(frontend.to(x.dtype))
+    prefix = sum(p.shape[1] for p in pieces)
+    if pieces:
+        x = torch.cat(pieces + [x], dim=1)
     total = x.shape[1]
     positions = torch.arange(total, device=x.device)[None].expand(b, total)
+    aux = {k: torch.zeros((), device=x.device)
+           for k in ("aux_loss", "drop_frac")}
     captured = []
     for i, block in enumerate(model.blocks):
         x, a = layer_forward(block, x, cfg, model.variant(i),
                              positions=positions, policy=policy,
                              capture_kv=capture_kv)
+        if "aux_loss" in a:
+            aux = {k: aux[k] + a[k] for k in aux}
         if capture_kv:
-            captured.append(a)
+            captured.append({k: a[k] for k in ("kv", "state") if k in a})
     x = norm(x, model.ln_final, cfg.norm_type)
-    return x, prefix, ({"layers": captured} if capture_kv else {})
+    aux = {k: v / max(cfg.n_layers, 1) for k, v in aux.items()}
+    if capture_kv:
+        aux["layers"] = captured
+    return x, prefix, aux

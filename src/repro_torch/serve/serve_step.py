@@ -1,13 +1,19 @@
 """Serving: cache construction, prefill, and the one-token decode step.
-Counterpart of ``repro/serve/serve_step.py`` for the recurrent (xLSTM)
-and hybrid (hymba) layers.
+Counterpart of ``repro/serve/serve_step.py`` for the recurrent (xLSTM),
+hybrid (hymba) and attention-MLP (dense, VLM, MoE) layers.
 
 * :func:`prefill` — one full forward with per-layer state capture: the
   mLSTM ``(c, n, m)`` state carried out of the chunkwise scan, the sLSTM
   ``(c, n, h, m)`` state out of its loop, the Mamba ``(h, conv)`` state
   out of its chunked scan, each conv state (the last K-1 pre-conv inputs),
   and every attention layer's K/V (after RoPE) written into its cache by
-  :func:`_ring_fill`.
+  :func:`_ring_fill`.  Under ``kv_quant`` each captured K/V vector is
+  first quantized to int8 with its scale (``attention._quantize_vec``),
+  which is what a decode step writes for it.  This departs from the
+  reference, whose ``prefill`` casts the captured K/V straight to int8 and
+  leaves the scales at zero (``repro/serve/serve_step.py:163-164``), so
+  that its prefilled slots read back as zero: here the prefilled cache is
+  what the reference's ``prefill_by_stepping`` writes.
 * :func:`decode_step` — one token through every layer with its cache.
 * :func:`prefill_by_stepping` — a loop of decode steps over the prompt,
   after the meta tokens primed the cache; the oracle for :func:`prefill`.
@@ -21,11 +27,13 @@ and hybrid (hymba) layers.
   a CUDA graph once per shape (:func:`repro_torch.graphs.capture`) and
   replays it.  Sampling stays outside the graph.
 
-A cache is ``{"pos": (B,) int32, "layers": [one dict per layer]}``; a
-hymba layer's dict is ``{"k", "v": (B, S_c, Hkv, dh), "mamba": {"h",
-"conv"}}``, S_c the ring of ``window + sink`` slots once ``max_len``
-exceeds it (``transformer.cache_len``).  ``max_len`` counts the meta
-tokens.
+A cache is ``{"pos": (B,) int32, "layers": [one dict per layer]}``; an
+attention layer's dict is ``{"k", "v": (B, S_c, Hkv, dh)}`` (int8 with
+``"k_scale", "v_scale": (B, S_c, Hkv)`` fp32 under ``kv_quant``), a hymba
+layer's adds ``"mamba": {"h", "conv"}``; S_c is the ring of ``window +
+sink`` slots once ``max_len`` exceeds it (``transformer.cache_len``).
+``max_len`` counts the prefix: the meta tokens and the frontend's
+embeddings.
 """
 from __future__ import annotations
 
@@ -39,18 +47,25 @@ from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import _quantize_vec
 from repro_torch.models.layers import embed, norm, unembed_logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Zeroed cache.  ``max_len`` (meta tokens included) bounds the
+    """Zeroed cache.  ``max_len`` (the prefix included) bounds the
     attention caches; the recurrent layers' state does not depend on it."""
-    pattern = T.layer_pattern(cfg)
+    pattern = T.model_pattern(cfg)
     return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": [T.init_layer_cache(cfg, pattern[i % len(pattern)],
                                           batch, max_len, device)
                        for i in range(cfg.n_layers)]}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The cache's shapes and dtypes as ``meta``-device tensors (the
+    reference's ``jax.eval_shape`` of ``init_cache``)."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def _layers_step(model: T.LMModel, cache: dict, x: torch.Tensor,
@@ -89,13 +104,14 @@ def _embedded_decode_step(model: T.LMModel, cache: dict,
 
 
 def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
-    """Scatter full-sequence K or V (B, S, H, dh) into a cache of ``s_c``
-    slots (B, s_c, H, dh), matching ``attention_decode``'s slot function:
-    padded when S fits, else slot r < sink holds position r and ring slot
-    r the latest position p < S with ``ring_slot(p) == r``."""
+    """Scatter full-sequence K or V (B, S, H, dh), or their int8 scales (B,
+    S, H), into a cache of ``s_c`` slots (B, s_c, ...), matching
+    ``attention_decode``'s slot function: padded when S fits, else slot r <
+    sink holds position r and ring slot r the latest position p < S with
+    ``ring_slot(p) == r``."""
     s = kv_full.shape[1]
     if s <= s_c:
-        return F.pad(kv_full, (0, 0, 0, 0, 0, s_c - s))
+        return F.pad(kv_full, (0, 0) * (kv_full.dim() - 2) + (0, s_c - s))
     # the slots' positions on the device: the prefill is captured
     r = torch.arange(s_c, device=kv_full.device)
     base = s - 1 - torch.remainder(s - 1 - r, s_c - sink)
@@ -103,12 +119,14 @@ def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
 
 
 def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
+            frontend: Optional[torch.Tensor] = None,
             policy: KernelPolicy = DEFAULT_POLICY):
     """tokens (B, S) -> (last logits (B, V), cache primed to pos = P + S),
-    P the meta tokens."""
+    P the prefix: the meta tokens and the stubbed modality embeddings
+    ``frontend`` (B, F, d), if given."""
     b, s = tokens.shape
-    x, prefix, aux = T.hidden_states(model, tokens, policy=policy,
-                                     capture_kv=True)
+    x, prefix, aux = T.hidden_states(model, tokens, frontend=frontend,
+                                     policy=policy, capture_kv=True)
     layers = []
     for i, captured in enumerate(aux["layers"]):
         if "kv" not in captured:                        # mlstm / slstm
@@ -116,8 +134,15 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
             continue
         s_c = T.cache_len(model.variant(i), max_len)
         sink = model.variant(i).sink
-        k, v = (_ring_fill(t, s_c, sink) for t in captured["kv"])
-        layers.append({"k": k, "v": v, "mamba": captured["state"]})
+        k, v = captured["kv"]
+        full = {"k": k, "v": v}
+        if model.cfg.kv_quant:
+            (full["k"], full["k_scale"]), (full["v"], full["v_scale"]) = (
+                _quantize_vec(k), _quantize_vec(v))
+        layer = {name: _ring_fill(t, s_c, sink) for name, t in full.items()}
+        if "state" in captured:                         # hymba
+            layer["mamba"] = captured["state"]
+        layers.append(layer)
     cache = {"pos": torch.full((b,), prefix + s, dtype=torch.int32,
                                device=tokens.device),
              "layers": layers}
@@ -231,37 +256,58 @@ def capture_decode_step(model: T.LMModel, batch: int, max_len: int, *,
     return CapturedDecodeStep(captured, tokens, cache)
 
 
+def _check_shape(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if got.shape != want.shape:
+        raise ValueError(f"prefill captured for {name} of shape "
+                         f"{tuple(want.shape)}, got {tuple(got.shape)}")
+
+
 @dataclasses.dataclass
 class CapturedPrefill:
-    """A prefill captured as a CUDA graph for one (batch, prompt length):
-    ``tokens (B, S) -> (last logits (B, V), cache)``, both copies of the
-    graph's buffers, as :func:`prefill` returns them."""
+    """A prefill captured as a CUDA graph for one (batch, prompt length,
+    frontend length): ``(tokens (B, S)[, frontend (B, F, d)]) -> (last
+    logits (B, V), cache)``, both copies of the graph's buffers, as
+    :func:`prefill` returns them.  A graph captured with a frontend takes
+    one at every call (its static :attr:`frontend` buffer), and one
+    captured without refuses one."""
     captured: graphs.Captured
     tokens: torch.Tensor
+    frontend: Optional[torch.Tensor] = None
 
-    def __call__(self, tokens: torch.Tensor):
-        if tokens.shape != self.tokens.shape:
-            raise ValueError(f"prefill captured for tokens of shape "
-                             f"{tuple(self.tokens.shape)}, got "
-                             f"{tuple(tokens.shape)}")
+    def __call__(self, tokens: torch.Tensor,
+                 frontend: Optional[torch.Tensor] = None):
+        _check_shape("tokens", tokens, self.tokens)
+        if (frontend is None) != (self.frontend is None):
+            raise ValueError("prefill captured "
+                             + ("with" if self.frontend is not None
+                                else "without") + " a frontend")
         with torch.inference_mode():
             self.tokens.copy_(tokens)
+            if frontend is not None:
+                _check_shape("frontend", frontend, self.frontend)
+                self.frontend.copy_(frontend)
             logits, cache = self.captured.replay()
             return logits.clone(), _clone_cache(cache)
 
 
 def capture_prefill(model: T.LMModel, batch: int, prompt_len: int, *,
-                    max_len: Optional[int] = None,
+                    max_len: Optional[int] = None, frontend_len: int = 0,
                     policy: KernelPolicy = DEFAULT_POLICY) -> CapturedPrefill:
     """Capture :func:`prefill` of ``batch`` prompts of ``prompt_len`` tokens
-    on the model's device, which must be the card; raises on the CPU.  The
-    sLSTM loop over the prompt is captured with the rest, so the graph holds
-    about 20 nodes a token for each sLSTM layer.  ``max_len`` defaults to
-    the meta tokens and the prompt."""
+    (after ``frontend_len`` embeddings of a stubbed frontend, read from a
+    static buffer, when it is not 0) on the model's device, which must be
+    the card; raises on the CPU.  The sLSTM loop over the prompt is
+    captured with the rest, so the graph holds about 20 nodes a token for
+    each sLSTM layer.  ``max_len`` defaults to the prefix and the prompt."""
+    cfg = model.cfg
     dev = model.embedding["table"].device
     tokens = torch.zeros((batch, prompt_len), dtype=torch.int64, device=dev)
-    max_len = max_len or model.cfg.meta_tokens + prompt_len
+    frontend = (torch.zeros((batch, frontend_len, cfg.d_model),
+                            dtype=cfg.torch_dtype, device=dev)
+                if frontend_len else None)
+    max_len = max_len or cfg.meta_tokens + frontend_len + prompt_len
     with torch.inference_mode():
         captured = graphs.capture(lambda: prefill(
-            model, tokens, max_len=max_len, policy=policy), dev)
-    return CapturedPrefill(captured, tokens)
+            model, tokens, max_len=max_len, frontend=frontend,
+            policy=policy), dev)
+    return CapturedPrefill(captured, tokens, frontend)

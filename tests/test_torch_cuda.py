@@ -1419,6 +1419,210 @@ def test_hymba_serve_launcher_on_the_card(dev, capsys):
 
 
 # ---------------------------------------------------------------------------
+# attention-MLP serving (dense, VLM, MoE): the kernel at qwen3-1.7b's
+# shapes, each new arch's smoke model captured against eager, the MoE
+# dispatch with no host sync, the int8 cache against its plain path
+# ---------------------------------------------------------------------------
+
+ATTN_MLP_ARCHS = ("smollm-360m", "qwen3-1.7b", "internvl2-1b",
+                  "command-r-35b", "qwen1.5-110b", "qwen3-moe-235b-a22b",
+                  "llama4-maverick-400b-a17b")
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("g,ci,co,act", [(2 * 512, 2048, 2048, None),
+                                         (2 * 512, 2048, 1024, None),
+                                         (2 * 512, 2048, 6144, "silu"),
+                                         (2 * 512, 6144, 2048, None),
+                                         (8, 2048, 6144, "silu"),
+                                         (1, 6144, 2048, None)])
+def test_pwconv_kernel_at_qwen3_shapes(dev, g, ci, co, act, dtype):
+    """qwen3-1.7b's Linears (q/o, k/v, gate, down) at a prefill's and a
+    decode step's G, at the variant the planner picks."""
+    x = _r((g, ci), dev, dtype)
+    w = _r((ci, co), dev, dtype, ci ** -0.5)
+    variant = blocking.pw_variant(g, ci, co, dtype)
+    before = pwconv.launches_by_variant[variant]
+    got = pwconv.pwconv(x, w, activation=act)
+    assert pwconv.launches_by_variant[variant] == before + 1
+    assert rel_err(got, pwconv.pwconv_plain(x, w, activation=act)) <= TOL[
+        dtype]
+
+
+def _attn_mlp_smoke(dev, arch, dtype, **kw):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype, **kw)
+    return init_params(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", ATTN_MLP_ARCHS)
+def test_attn_mlp_captured_prefill_and_decode_match_eager(dev, arch, dtype):
+    """Each new arch's smoke model at a 100-token prompt (blockwise
+    attention; with its frontend embeddings where it has them; llama4's
+    sliding-window layers on 32-slot rings) and 24 greedy steps, captured
+    against eager, call by call: the same bits and tokens; launches as
+    counted (two calls in a capture, none in a replay, one call's kernels
+    in a replay's trace); the eager calls within 1e-4 (fp32) / 5e-2 (bf16)
+    of the plain path; the profiled replays step past ``max_len``, which
+    writes nothing."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    model = _attn_mlp_smoke(dev, arch, dtype)
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    frontend = serve.frontend_stub(cfg, 2, dev)
+    if frontend is not None:
+        frontend.normal_(generator=torch.Generator(dev).manual_seed(1))
+    flen = cfg.fusion_tokens
+    max_len = flen + 100 + 24
+    plain = KernelPolicy(impl="torch")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    serve.reset_launch_counts()
+    pre = S.capture_prefill(model, 2, 100, max_len=max_len,
+                            frontend_len=flen)
+    torch.cuda.synchronize(dev)
+    want = serve.expected_launches(cfg, "prefill")
+    assert serve.launch_counts() == _twice(want)
+    serve.reset_launch_counts()
+    step = S.capture_decode_step(model, 2, max_len)
+    torch.cuda.synchronize(dev)
+    want_step = serve.expected_launches(cfg, "decode")
+    assert serve.launch_counts() == _twice(want_step)
+    zero = dict.fromkeys(want, 0)
+    with torch.inference_mode():
+        assert _replay_kernels(lambda: pre(toks, frontend), want) == want
+        serve.reset_launch_counts()
+        logits, cache = pre(toks, frontend)
+        torch.cuda.synchronize(dev)
+        assert serve.launch_counts() == zero
+        serve.reset_launch_counts()
+        ref_logits, ref_cache = S.prefill(model, toks, max_len=max_len,
+                                          frontend=frontend)
+        torch.cuda.synchronize(dev)
+        assert serve.launch_counts() == want
+        plain_logits, _ = S.prefill(model, toks, max_len=max_len,
+                                    frontend=frontend, policy=plain)
+    assert rel_err(ref_logits, plain_logits) <= tol
+    assert torch.equal(logits, ref_logits)
+    for a, b in zip(cache["layers"], ref_cache["layers"], strict=True):
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    own = cache
+    tok = ref_tok = greedy(logits)[:, None]
+    with torch.inference_mode():
+        for _ in range(24):
+            serve.reset_launch_counts()
+            logits, own = step(own, tok)
+            torch.cuda.synchronize(dev)
+            assert serve.launch_counts() == zero
+            plain_logits, _ = S.decode_step(model, ref_cache, ref_tok,
+                                            policy=plain)
+            ref_logits, ref_cache = S.decode_step(model, ref_cache, ref_tok)
+            assert torch.equal(logits, ref_logits)
+            assert rel_err(ref_logits, plain_logits) <= tol
+            tok, ref_tok = greedy(logits)[:, None], greedy(ref_logits)[:, None]
+            assert torch.equal(tok, ref_tok)
+    for a, b in zip(own["layers"], ref_cache["layers"], strict=True):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert _replay_kernels(lambda: step(step.cache, tok),
+                           want_step) == want_step
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_moe_dispatch_captures_with_no_host_sync(dev, dtype):
+    """``moe_forward`` (a router skewed to one expert at a capacity that
+    drops its copies, a shared expert) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    host sync; captured, its replay equals the eager call's bits, and its
+    output the dense oracle's on tokens with no drop."""
+    import dataclasses
+
+    from repro_torch import graphs
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=64, n_shared=1,
+                    capacity_factor=1.0)
+    p = moe.MoE(32, cfg, 48, generator=torch.Generator().manual_seed(0),
+                dtype=dtype, device=dev)
+    p.router["w"][:, 0] += 2.0        # positive inputs crowd expert 0
+    x = _r((4, 25, 32), dev, dtype).abs()
+    static = x.clone()
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_forward(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        captured = graphs.capture(lambda: moe.moe_forward(p, static, cfg),
+                                  dev)
+        yg, auxg = captured.replay()
+    assert torch.equal(yg, y) and torch.equal(auxg["drop_frac"],
+                                              aux["drop_frac"])
+    assert float(aux["drop_frac"]) > 0
+    nodrop = dataclasses.replace(cfg, capacity_factor=8.0)
+    y8, aux8 = moe.moe_forward(p, x, nodrop)
+    ref, _ = moe.moe_dense_ref(p, x, nodrop)
+    assert float(aux8["drop_frac"]) == 0.0
+    assert rel_err(y8, ref) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "llama4-maverick-400b-a17b"))
+def test_int8_decode_matches_its_plain_path(dev, arch):
+    """bf16 weights with the int8 cache: the captured prefill and 20 decode
+    steps equal the eager ones bit for bit and stay within 5e-2 of the
+    plain path (int8 cache too) call by call; the cache is int8 with fp32
+    scales, the prefilled scales positive."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    model = _attn_mlp_smoke(dev, arch, "bfloat16", kv_quant=True)
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (3, 40),
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    frontend = serve.frontend_stub(cfg, 3, dev)
+    max_len = cfg.fusion_tokens + 40 + 20
+    plain = KernelPolicy(impl="torch")
+    pre = S.capture_prefill(model, 3, 40, max_len=max_len,
+                            frontend_len=cfg.fusion_tokens)
+    step = S.capture_decode_step(model, 3, max_len)
+    with torch.inference_mode():
+        logits, cache = pre(toks, frontend)
+        ref_logits, ref_cache = S.prefill(model, toks, max_len=max_len,
+                                          frontend=frontend)
+        plain_logits, plain_cache = S.prefill(
+            model, toks, max_len=max_len, frontend=frontend, policy=plain)
+        assert torch.equal(logits, ref_logits)
+        assert rel_err(logits, plain_logits) <= 5e-2
+        layer = cache["layers"][0]
+        assert layer["k"].dtype == torch.int8
+        assert layer["k_scale"].dtype == torch.float32
+        assert bool((layer["k_scale"][:, :cfg.fusion_tokens + 40] > 0).all())
+        tok = greedy(plain_logits)[:, None]
+        for _ in range(20):
+            gl, _ = step(plain_cache, tok)
+            el, _ = S.decode_step(model, plain_cache, tok)
+            pl, plain_cache = S.decode_step(model, plain_cache, tok,
+                                            policy=plain)
+            assert torch.equal(gl, el)
+            assert rel_err(gl, pl) <= 5e-2
+            tok = greedy(pl)[:, None]
+
+
+def test_attn_mlp_serve_launcher_on_the_card(dev, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "internvl2-1b", "--smoke", "--batch", "2",
+                       "--prompt-len", "40", "--gen", "4",
+                       "--max-len", "60"]) == 0
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "'pwconv': 14" in out
+
+
+# ---------------------------------------------------------------------------
 # the static verifier against the libraries' own launches, and the shims
 # ---------------------------------------------------------------------------
 

@@ -391,18 +391,32 @@ def test_attention_decode_matches_reference(ring, pos, dtype):
 
 
 def test_ring_slot_and_int8_cache():
+    """The ring's slot function, and the int8 cache now that it runs: a
+    hymba cache under ``kv_quant`` is int8 K/V with fp32 scales per (B, S,
+    Hkv) beside the Mamba state, and ``attention_decode`` with scales
+    writes the quantized vector and its scale at the ring's slot."""
     pos = torch.tensor([0, 39, 40, 41, 71, 72, 1000], dtype=torch.int32)
     want = np.where(pos.numpy() < 40, pos.numpy(),
                     8 + (pos.numpy() - 8) % 32)
     assert ta.ring_slot(pos, 40, 8).tolist() == want.tolist()
     cfg = dataclasses.replace(tcfg_mod.smoke_config(), kv_quant=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TS.init_cache(cfg, 1, 16, device="cpu")
+    layer = TS.init_cache(cfg, 1, 60, device="cpu")["layers"][0]
+    assert set(layer) == {"k", "v", "k_scale", "v_scale", "mamba"}
+    assert layer["k"].dtype == torch.int8 and layer["k"].shape == (1, 40, 1,
+                                                                   8)
+    assert layer["v_scale"].dtype == torch.float32
+    assert layer["v_scale"].shape == (1, 40, 1)
     _, m = _attention_pair("float32", False, False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ta.attention_decode(m, torch.zeros(1, 1, 40), torch.zeros(1, 4, 1, 8),
-                            torch.zeros(1, 4, 1, 8), torch.zeros(1), **_HEADS,
-                            scales=(None, None))
+    x = torch.from_numpy(rand(np.random.default_rng(0), (1, 1, 40)))
+    out, k, v, (ks, vs) = ta.attention_decode(
+        m, x, layer["k"], layer["v"], torch.tensor([41]), **_HEADS,
+        window=32, sink=8, ring=True, scales=(layer["k_scale"],
+                                              layer["v_scale"]))
+    slot = int(ta.ring_slot(torch.tensor(41), 40, 8))
+    assert slot == 9 and k.dtype == torch.int8
+    assert int(k[0, slot].abs().max()) == 127 and float(ks[0, slot]) > 0
+    assert not k[0, :slot].any() and not ks[0, slot + 1:].any()
+    assert out.shape == (1, 1, 40) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("s,s_c,sink", [(20, 40, 8), (40, 40, 8),

@@ -42,7 +42,7 @@ NEW_MODULES = ("analysis/__init__.py", "analysis/__main__.py",
                "analysis/diagnostics.py", "analysis/planlint.py",
                "analysis/launch_check.py", "analysis/trace_audit.py",
                "kernels/gridspec.py", "kernels/spans.py",
-               "core/intensity.py", "core/separable.py")
+               "core/intensity.py", "core/separable.py", "models/moe.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
