@@ -8,7 +8,7 @@ From the root of a checkout it:
 1. prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions; turns TF32 off for matmul and cuDNN (cuDNN's
    fp32 convolutions default to TF32, which would spoil the plain DW
-   yardstick);
+   yardstick) and bf16 products' reduced-precision reduction off;
 2. builds every kernel from ``src/repro_torch/csrc`` (one nvcc per source,
    all at once) and prints the build seconds and ptxas' register report;
 3. holds each kernel against its plain PyTorch version on the card at
@@ -101,8 +101,8 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-8. drives the hymba serving path, hymba-1.5b uncut (1.6B parameters,
-   random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
+8. drives the hymba serving path, hymba-1.5b at full width cut to 16 of
+   its 32 layers (printed as a ``reduced`` note; random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
    tokens (1664 positions with the 128 meta tokens: blockwise attention,
    a sliding window that excludes keys, the 1152-slot ring cache), then 32
    greedy decode steps, fp32 and bf16, through the captured prefill and
@@ -136,7 +136,21 @@ From the root of a checkout it:
    profiled replay of each graph; and one layer's prefill broken down
    (CUDA events) for qwen3-1.7b and qwen3-moe (the MoE dispatch's
    plain-op share);
-9. prints the kernels it launched, one JSON line of per-kernel numbers
+9. drives whisper-small's serving path uncut (:func:`run_whisper`, a
+   process of its own): 12 encoder and 12 decoder layers, frames from
+   seed 0, a 32-token prompt and 64 greedy steps, caches of 448
+   positions, bf16 at batch 1 and 8 and fp32 at batch 1, each run as in
+   8 (216 ``pwconv`` a prefill, 108 a decode step, by variant), the
+   captured decode step never writing the encoder's K/V; the encoder's
+   own time beside the prefill's;
+10. trains on one card (:func:`run_training`, a process of its own,
+   deterministic): smollm-360m uncut in bf16, 8 x 256 tokens, 20 steps of
+   the fault-tolerant loop (480 ``pwconv`` a step), the loss finite and
+   falling, a second run with a fault at step 15 ending with the same
+   parameters bit for bit, a step's parts; step-1 gradients of the kernel
+   path against the plain path (smollm cut to 2 layers, fp32; one
+   whisper-small step at full width, fp32);
+11. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
@@ -211,6 +225,12 @@ PROMPT_LEN, GEN_STEPS, STEPPING_PROMPT = 512, 32, 64
 #: The hymba serving phase: prompt length (the 128 meta tokens come on
 #: top), greedy decode steps, and the prefill_by_stepping oracle's prompt.
 HYMBA_PROMPT, HYMBA_GEN, HYMBA_STEPPING = 1536, 32, 64
+#: hymba's depth in that phase, cut so that the script stays near 900 s
+#: with the whisper and training phases (the whole model took about 220 s
+#: of 707); widths, window, meta tokens and prompt as published.
+HYMBA_LAYERS = 16
+HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 16 (the script's time, "
+              "with the whisper and training phases); widths as published")
 BF16_REL_TOL = 5e-2
 #: fp32 kernels against the fp32 plain path (summation order).
 FP32_REL_TOL = 1e-4
@@ -1886,7 +1906,8 @@ class LMServe:
             self.replayed[k] += got[k]
         return ms, ran.get("device_events")
 
-    def run(self, m, prompts, tag, *, gen, frontend=None, tokens=None):
+    def run(self, m, prompts, tag, *, gen, frontend=None, tokens=None,
+            max_len=None, by_want=None):
         """``m`` serving ``prompts`` (B, S) [with the frontend's embeddings]:
         the captured prefill and decode step and the eager ones, launches
         counted (each Linear's ``pw_variant``), the graph path's logits and
@@ -1899,9 +1920,15 @@ class LMServe:
         (CUDA events, median of 10), a profiled replay of each graph
         running one call's kernels.  Returns the record, the graph path's
         logits call by call, and the plain path's (``"logits"``) with the
-        tokens its steps took (``"tokens"``)."""
+        tokens its steps took (``"tokens"``).  ``max_len`` defaults to the
+        prefix, the prompt and ``gen``; ``by_want`` to each Linear's
+        ``pw_variant`` at the prefill's and decode's rows.  An
+        encoder-decoder's ``frontend`` is its frames (no prefix); its
+        encoder's K/V in the captured decode step's cache must keep their
+        bits and addresses over the timed and profiled replays (the graph
+        never writes them)."""
         torch, dev = self.torch, self.dev
-        from repro_torch.launch.serve import expected_launches
+        from repro_torch.launch.serve import expected_launches, frontend_len
         from repro_torch.measure import rel_err, time_ms
         from repro_torch.serve import serve_step as S
         from repro_torch.serve.sampler import greedy
@@ -1909,13 +1936,14 @@ class LMServe:
                                           self.plain)
         cfg = m.cfg
         batch, prompt_len = prompts.shape
-        prefix = cfg.meta_tokens + cfg.fusion_tokens
-        max_len = prefix + prompt_len + gen
+        prefix = (0 if cfg.encdec is not None
+                  else cfg.meta_tokens + cfg.fusion_tokens)
+        max_len = max_len or prefix + prompt_len + gen
         want = {ph: expected_launches(cfg, ph) for ph in ("prefill",
                                                           "decode")}
-        by_want = {"prefill": pw_variants_of(m, batch * (prefix
-                                                         + prompt_len)),
-                   "decode": pw_variants_of(m, batch)}
+        by_want = by_want or {
+            "prefill": pw_variants_of(m, batch * (prefix + prompt_len)),
+            "decode": pw_variants_of(m, batch)}
         label = f"{cfg.name} batch {batch} {tag}"
         if gen < 16:
             raise ValueError("the decode timing takes 15 steps")
@@ -1926,7 +1954,7 @@ class LMServe:
                       lambda: S.capture_prefill(
                           m, batch, prompt_len, max_len=max_len,
                           frontend_len=0 if frontend is None
-                          else cfg.fusion_tokens), 2, by_want["prefill"])
+                          else frontend_len(cfg)), 2, by_want["prefill"])
         dec = counted(label + " decode capture", want["decode"],
                       lambda: S.capture_decode_step(m, batch, max_len), 2,
                       by_want["decode"])
@@ -1982,6 +2010,8 @@ class LMServe:
         def rewind():
             dec.cache["pos"].fill_(prefix + prompt_len)
         rewind()
+        enc = {k: (dec.cache[k].data_ptr(), dec.cache[k].clone())
+               for k in ("enc_k", "enc_v") if k in dec.cache}
         decode_ms = time_ms(steady, dev, reps=10, warmup=2)
         rewind()
         eager_decode_ms = time_ms(eager_step, dev, reps=10, warmup=2)
@@ -1992,6 +2022,10 @@ class LMServe:
         dev_dec, events_dec = replay_profile(
             label + " decode replay", want["decode"], steady, 2,
             by_want["decode"])
+        enc_read_only = all(dec.cache[k].data_ptr() == ptr
+                            and bool(torch.equal(dec.cache[k], before))
+                            for k, (ptr, before) in enc.items())
+        del enc
         tol = FP32_REL_TOL if cfg.dtype == "float32" else BF16_REL_TOL
         # a MoE decode step's logits against the plain path: where the
         # kernel's and the plain product's roundings reorder a token's
@@ -2018,6 +2052,8 @@ class LMServe:
              "decode_busy": sum(dev_dec.values()) / decode_ms
              if dev_dec else None,
              "graph_equals_eager": all(same), "rel_err_prefill": errs[0],
+             "encoder_cache_read_only": enc_read_only if cfg.encdec
+             is not None else None,
              "rel_err_decode": max(errs[1:]),
              "rel_err_decode_median": statistics.median(errs[1:]),
              "decode_steps_over_tol": sum(e > tol for e in errs[1:]),
@@ -2052,14 +2088,17 @@ class LMServe:
             raise AssertionError(
                 f"{label}: the graph path differs from the eager path at "
                 f"calls {[i for i, ok in enumerate(same) if not ok]}")
+        if not enc_read_only:
+            raise AssertionError(f"{label}: the captured decode step wrote "
+                                 "the encoder's K/V")
         del pre, dec, steady, eager_step, p_cache
         torch.cuda.empty_cache()
         return r, graph_logits, {"tokens": taken, "logits": plain_logits}
 
 
 def run_hymba(torch, dev):
-    """The hymba serving path: hymba-1.5b uncut (1.6B parameters, random
-    from seed 0), a 1536-token prompt (1664 positions with the 128 meta
+    """The hymba serving path: hymba-1.5b at full width cut to
+    :data:`HYMBA_LAYERS` layers (random from seed 0), a 1536-token prompt (1664 positions with the 128 meta
     tokens: blockwise attention, a window that excludes keys, the
     1152-slot ring cache), then 32 greedy decode steps; batch 1 and 8,
     fp32 and bf16 (the bf16 weights cast from the fp32 draw), each run
@@ -2077,7 +2116,9 @@ def run_hymba(torch, dev):
     from repro_torch.serve.sampler import greedy
 
     t0 = time.perf_counter()
-    cfg16 = get_config("hymba-1.5b")
+    print(f"    {HYMBA_NOTE}", flush=True)
+    cfg16 = dataclasses.replace(get_config("hymba-1.5b"),
+                                n_layers=HYMBA_LAYERS)
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     m32 = init_params(cfg32, seed=0, device=dev)
     models = {"fp32": m32, "bf16": cast_params(m32, cfg16)}
@@ -2141,7 +2182,8 @@ def run_hymba(torch, dev):
     torch.cuda.empty_cache()
     return (runs, srv.totals, srv.replayed,
             {"prefill": e_pre, "next_step": e_next,
-             "profiles_retried": srv.lost}, srv.variants, breakdown)
+             "profiles_retried": srv.lost, "reduced": HYMBA_NOTE},
+            srv.variants, breakdown)
 
 
 def run_hymba_phase():
@@ -2498,6 +2540,372 @@ def run_attn_mlp_phase():
         return json.load(fh)
 
 
+#: Phase 9, whisper-small serving: prompt, greedy steps, the caches'
+#: length (the decoder's context), the frames' seed.
+WHISPER_PROMPT, WHISPER_GEN, WHISPER_MAX_LEN = 32, 64, 448
+WHISPER_FRAMES = 1500
+
+
+def whisper_pw_variants(model, batch: int, prompt_len: int) -> dict:
+    """``pwconv``'s launches by variant in one whisper prefill and one
+    decode step: the encoder's Linears and each cross attention's K/V
+    projections over the B x 1500 frames, the rest over the B x S prompt
+    (a decode step: over B rows, without the cross attention's K/V)."""
+    from repro_torch.kernels import blocking
+    enc_g = batch * model.cfg.encdec.enc_seq
+    out = {ph: dict.fromkeys(blocking.PW_VARIANTS, 0)
+           for ph in ("prefill", "decode")}
+
+    def add(ph, g, w):
+        out[ph][blocking.pw_variant(g, *w.shape, w.dtype)] += 1
+    for block in model.enc_blocks:
+        for name, p in block.named_parameters():
+            if name.endswith(".w"):
+                add("prefill", enc_g, p)
+    for block in model.blocks:
+        for name, p in block.named_parameters():
+            if not name.endswith(".w"):
+                continue
+            if name in ("cross.w_k.w", "cross.w_v.w"):
+                add("prefill", enc_g, p)
+                continue
+            add("prefill", batch * prompt_len, p)
+            add("decode", batch, p)
+    return out
+
+
+def run_whisper(torch, dev):
+    """Phase 9, whisper-small serving uncut (12 encoder and 12 decoder
+    layers, d 768, 1500 encoder frames; random weights from seed 0 drawn
+    on the card, bf16 cast from the fp32 draw): frames from seed 0
+    (``launch.serve.frontend_stub``), a 32-token prompt, 64 greedy steps,
+    caches of 448 positions; bf16 at batch 1 and 8, fp32 at batch 1.  Each
+    run is :meth:`LMServe.run`'s: the captured prefill (encoder and
+    decoder, the frames a static buffer) and decode step against the eager
+    ones bit for bit, every call against the plain path (``impl="torch"``),
+    216 ``pwconv`` a prefill and 108 a decode step (each Linear's
+    ``pw_variant``: the cross attention's K/V are cached, so a step
+    projects its query alone), the encoder's K/V written by the prefill
+    and never by a replayed decode step.  Also the encoder's own device ms
+    (CUDA events, eager) beside the prefill's.  Returns the runs, the
+    wrappers' launches, the profiled replays' kernels and ``pwconv``'s
+    launches by variant."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import frontend_stub
+    from repro_torch.measure import graph_ms
+    from repro_torch.models.transformer import (cast_params, init_params,
+                                                run_encoder)
+    srv = LMServe(torch, dev)
+    runs = []
+    with torch.inference_mode():
+        cfg16 = get_config("whisper-small")
+        t0 = time.perf_counter()
+        m32 = init_params(dataclasses.replace(cfg16, dtype="float32"),
+                          generator=torch.Generator(dev).manual_seed(0),
+                          device=dev)
+        n = sum(p.numel() for p in m32.parameters())
+        print(f"  whisper-small: {cfg16.encdec.n_enc_layers} encoder + "
+              f"{cfg16.n_layers} decoder layers, {n / 1e6:.1f}M random "
+              f"parameters from seed 0 drawn on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        models = {"float32": m32, "bfloat16": cast_params(m32, cfg16)}
+        for dtype, batch in (("bfloat16", 1), ("bfloat16", 8),
+                             ("float32", 1)):
+            m = models[dtype]
+            frames = frontend_stub(m.cfg, batch, dev, seed=0)
+            prompts = torch.randint(
+                0, m.cfg.vocab_size, (batch, WHISPER_PROMPT),
+                generator=torch.Generator().manual_seed(600 + batch)).to(dev)
+            r, _, _ = srv.run(m, prompts, dtype, gen=WHISPER_GEN,
+                              frontend=frames, max_len=WHISPER_MAX_LEN,
+                              by_want=whisper_pw_variants(m, batch,
+                                                          WHISPER_PROMPT))
+            r["encoder_ms"] = graph_ms(lambda: run_encoder(m, frames), dev,
+                                       launches=1, reps=3)
+            pre = sum(r["prefill_device_ms"].values()) if r[
+                "prefill_device_ms"] else None
+            r["encoder_share"] = r["encoder_ms"] / pre if pre else None
+            r["enc_kv_mib"] = 2 * m.cfg.n_layers * batch * (
+                m.cfg.encdec.enc_seq * m.cfg.d_model
+                * torch.empty((), dtype=m.cfg.torch_dtype).element_size()
+            ) / 2**20
+            print(f"      encoder (a CUDA graph's replay) "
+                  f"{r['encoder_ms']:.2f} ms = {pct(r['encoder_share'])} of "
+                  f"the prefill's device time; the encoder's K/V in the cache "
+                  f"{r['enc_kv_mib']:.1f} MiB", flush=True)
+            runs.append(r)
+        del models, m32
+        torch.cuda.empty_cache()
+    return runs, srv.totals, srv.replayed, srv.variants
+
+
+def run_whisper_phase():
+    """:func:`run_whisper` in a process of its own (``--whisper-only``), as
+    :func:`run_hymba_phase`.  A failure of the phase raises here."""
+    out = os.path.join(HERE, "build", "chip_smoke_whisper.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--whisper-only", out], check=True)
+    with open(out) as fh:
+        return json.load(fh)
+
+
+#: Phase 10, training: smollm-360m's batch, sequence, steps, checkpoint
+#: period and the step the fault is injected at; the learning rate.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT = 8, 256, 20, \
+    10, 15
+TRAIN_LR = 1e-3
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each gradient's largest difference over its largest magnitude; a
+    gradient below 1e-6 of the largest of all (zero in exact arithmetic,
+    as a cross attention's key bias) over that largest instead."""
+    top = max(float(w.abs().max()) for w in want.values())
+    out = {}
+    for name, g in got.items():
+        w = want[name].float()
+        scale = float(w.abs().max())
+        scale = top if scale < 1e-6 * top else scale
+        out[name] = float((g.float() - w).abs().max()) / scale
+    return out
+
+
+def run_training(torch, dev):
+    """Phase 10, training on one card, deterministic
+    (``torch.use_deterministic_algorithms(True)``, the process started
+    with ``CUBLAS_WORKSPACE_CONFIG``):
+
+    * step-1 gradients, the kernel path against the plain path
+      (``impl="torch"``): smollm-360m at full width cut to 2 layers, fp32,
+      the first 8 x 256 batch, every gradient within FP32_REL_TOL of its
+      largest magnitude;
+    * smollm-360m uncut, bf16, 8 x 256 tokens, 20 steps of the
+      fault-tolerant loop (AdamW, checkpoints every 10 steps): the loss
+      finite and falling (the mean of the last 5 below the first 5's);
+      ``pwconv`` launches a step equal to
+      ``launch.train.expected_train_launches``; then the same run with a
+      fault injected at step 15 (restored from step 10) ends with the
+      first run's parameters bit for bit;
+    * one whisper-small step at full width (fp32, 2 x 64 tokens and 1500
+      frames): a finite loss, its gradients kernel against plain.
+
+    Returns the records and the wrappers' launches."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch.serve import (frontend_stub, launch_counts,
+                                          reset_launch_counts)
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.layers import trainable_
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, accumulate_grads,
+                                              init_train_state,
+                                              make_train_step)
+    from repro_torch.train.trainer import (FaultInjector, LoopConfig,
+                                           train_loop)
+    torch.use_deterministic_algorithms(True)
+    plain = KernelPolicy(impl="torch")
+    totals = {"dwconv1d": 0, "pwconv": 0}
+    out = {}
+
+    def counted(fn, want=None, label=""):
+        reset_launch_counts()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        got = launch_counts()
+        if want is not None and got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        for k in totals:
+            totals[k] += got[k]
+        return r, got
+
+    def draw(cfg):
+        return trainable_(init_params(
+            cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
+
+    def params_of(m):
+        return {n: p.detach() for n, p in m.named_parameters()}
+
+    def gated_grads(label, m, batch):
+        params = params_of(m)
+        (lk, _, gk), got = counted(
+            lambda: accumulate_grads(m, params, batch), label=label)
+        want = expected_train_launches(m.cfg)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        lp, _, gp = accumulate_grads(m, params, batch, policy=plain)
+        errs = grad_errors(gk, gp)
+        worst = max(errs, key=errs.get)
+        r = {"loss": float(lk), "plain_loss": float(lp),
+             "max_grad_rel_err": errs[worst], "worst": worst,
+             "tol": FP32_REL_TOL, "pwconv_launches": got["pwconv"]}
+        print(f"    {label}: loss {r['loss']:.6f} (plain {r['plain_loss']:.6f})"
+              f", gradients kernel vs plain: worst {errs[worst]:.2e} at "
+              f"{worst} (tol {FP32_REL_TOL:g}); {got['pwconv']} pwconv "
+              "launches (forward, remat, gates' pre-activations)", flush=True)
+        if not (np_isfinite(r["loss"]) and errs[worst] <= FP32_REL_TOL):
+            raise AssertionError(f"{label}: {r}")
+        return r
+
+    cfg = get_config("smollm-360m")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    first = next(DataIterator(dcfg, prefetch=0))
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    note = ("reduced: smollm-360m n_layers 32 -> 2 and fp32 for the step-1 "
+            "gradient check only (the kernel-vs-plain oracle); widths as "
+            "published")
+    print(f"    {note}", flush=True)
+    m2 = draw(cut)
+    out["smollm_step1_grads"] = dict(gated_grads(
+        f"smollm-360m (2 layers, fp32) step 1, {TRAIN_BATCH}x{TRAIN_SEQ}",
+        m2, first), reduced=note)
+    del m2
+    torch.cuda.empty_cache()
+
+    # smollm-360m uncut, bf16: 20 steps, then again with a fault at 15
+    m = draw(cfg)
+    n = sum(p.numel() for p in m.parameters())
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS))
+    step_fn = make_train_step(m, tcfg)
+    want = expected_train_launches(cfg)
+    per_step = []
+
+    def step(state, batch):
+        r, got = counted(lambda: step_fn(state, batch), want,
+                         "smollm-360m train step")
+        per_step.append(got["pwconv"])
+        return r
+    state0 = init_train_state(m, tcfg)
+    loop = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+                      log_every=5, keep_ckpts=1)
+    runs = []
+    for fault in (None, TRAIN_FAULT):
+        ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt",
+                            f"fault_{fault}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        final, info = train_loop(
+            step, state0, dcfg, loop, ckpt,
+            fault_injector=FaultInjector({fault: "sim-device-loss"})
+            if fault else None,
+            log=lambda line: print("      " + line, flush=True))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        shutil.rmtree(ckpt, ignore_errors=True)
+        hist = info["history"]
+        losses = [h["loss"] for h in hist]
+        ms = statistics.median(h["time_s"] for h in hist) * 1e3
+        runs.append({"fault_at": fault, "steps": len(hist),
+                     "failures": info["failures"], "losses": losses,
+                     "ms_per_step": ms,
+                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / ms,
+                     "own_peak_bytes": peak, "seconds": wall,
+                     "pwconv_per_step": per_step[-1],
+                     "stragglers": info["stragglers"]})
+        runs[-1]["final"] = final["params"]
+        print(f"    smollm-360m ({n / 1e6:.1f}M parameters, bf16) "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ}, {len(hist)} steps"
+              + (f", fault at step {fault}" if fault else "")
+              + f": {ms:.1f} ms a step (median), "
+              f"{runs[-1]['tokens_per_s']:.0f} trained tokens/s, own peak "
+              f"{peak / 2**30:.2f} GiB, {per_step[-1]} pwconv launches a "
+              f"step; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"{wall:.1f} s with checkpoints", flush=True)
+    clean, faulty = runs
+    last = clean["final"]
+    same = all(torch.equal(clean["final"][k], faulty["final"][k])
+               for k in clean["final"])
+    falling = (statistics.mean(clean["losses"][-5:])
+               < statistics.mean(clean["losses"][:5]))
+    finite = all(np_isfinite(x) for x in clean["losses"])
+    for r in runs:
+        del r["final"]
+    out["smollm_runs"] = runs
+    out["fault_recovery_bit_exact"] = same
+    print(f"    loss finite {finite}, falling {falling} (mean of the first "
+          f"5 {statistics.mean(clean['losses'][:5]):.4f}, last 5 "
+          f"{statistics.mean(clean['losses'][-5:]):.4f}); the run with the "
+          f"fault at step {TRAIN_FAULT} ({faulty['failures']} failure) ends "
+          f"with the same parameters bit for bit: {same}", flush=True)
+    if not (finite and falling and same and faulty["failures"] == 1):
+        raise AssertionError(f"training: finite {finite}, falling "
+                             f"{falling}, bit-exact recovery {same}")
+    # where a step's time goes, one more step from the trained state: the
+    # loss and backward and AdamW apart (host clock around each, synced),
+    # and the whole step's device time by kernel (profiler)
+    from repro_torch.measure import device_profile
+    from repro_torch.optim import adamw
+    state = {"params": last, "opt": adamw.init_state(last, tcfg.optimizer)}
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        return r, (time.perf_counter() - t0) * 1e3
+    (_, _, grads), grad_ms = timed(
+        lambda: accumulate_grads(m, last, first))
+    _, opt_ms = timed(lambda: adamw.apply_updates(last, grads, state["opt"],
+                                                  tcfg.optimizer))
+    del grads
+    step_dev, ran = device_profile(lambda: step_fn(state, first), reps=1)
+    busy = sum(step_dev.values()) / clean["ms_per_step"] if step_dev \
+        else None
+    out["smollm_step_breakdown"] = {
+        "grad_ms": grad_ms, "adamw_ms": opt_ms, "device_ms": step_dev,
+        "device_events": ran.get("device_events"), "busy": busy}
+    print(f"    a smollm-360m step's parts: loss and backward {grad_ms:.1f} "
+          f"ms, AdamW {opt_ms:.1f} ms (host clock); device ms " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(step_dev.items()))
+          + f" (busy {pct(busy)} of the median step), "
+          f"{ran.get('device_events')} device events", flush=True)
+    del m, step_fn, state0, state, last
+    torch.cuda.empty_cache()
+
+    # one whisper-small step at full width, fp32
+    wcfg = dataclasses.replace(get_config("whisper-small"), dtype="float32")
+    wm = draw(wcfg)
+    wb = next(DataIterator(DataConfig(vocab_size=wcfg.vocab_size, seq_len=64,
+                                      global_batch=2, seed=0), prefetch=0))
+    wb["frontend"] = frontend_stub(wcfg, 2, dev, seed=0)
+    out["whisper_step"] = gated_grads(
+        "whisper-small (12+12 layers, fp32) step 1, 2x64 tokens, 1500 "
+        "frames", wm, wb)
+    del wm
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def np_isfinite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def run_training_phase():
+    """:func:`run_training` in a process of its own (``--train-only``),
+    started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` so that cuBLAS is
+    deterministic from its first call.  A failure of the phase raises
+    here."""
+    out = os.path.join(HERE, "build", "chip_smoke_train.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--train-only", out], check=True,
+                   env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "NVIDIA GPU.")
@@ -2505,6 +2913,8 @@ def main() -> int:
     ap.add_argument("--hymba-only", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--attn-mlp-only", metavar="JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--whisper-only", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--train-only", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -2515,6 +2925,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if args.hymba_only:
         # phase 8 in a process of its own (see run_hymba_phase)
         with open(args.hymba_only, "w") as fh:
@@ -2525,11 +2936,22 @@ def main() -> int:
         with open(args.attn_mlp_only, "w") as fh:
             json.dump(run_attn_mlp(torch, dev), fh)
         return 0
+    if args.whisper_only:
+        # phase 9 in a process of its own (see run_whisper_phase)
+        with open(args.whisper_only, "w") as fh:
+            json.dump(run_whisper(torch, dev), fh)
+        return 0
+    if args.train_only:
+        # phase 10 in a process of its own (see run_training_phase)
+        with open(args.train_only, "w") as fh:
+            json.dump(run_training(torch, dev), fh)
+        return 0
     card = card_line()
     print(card)
     print(_versions(torch, _build))
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-          "torch.backends.cudnn.allow_tf32 = False")
+          "torch.backends.cudnn.allow_tf32 = False; bf16 products reduce "
+          "in fp32: allow_bf16_reduced_precision_reduction = False")
 
     t0 = time.perf_counter()
     paths = _build.build()
@@ -2617,6 +3039,16 @@ def main() -> int:
             kc.pwconv(8 * ATTN_PROMPT, ci, co, dtype, act=act, launches=5)
         kc.pwconv(8, 2048, 6144, dtype, act="silu")
         kc.pwconv(8, 2048, 2048, dtype, act=None)
+        # whisper-small: a batch-8 prefill's encoder (1500 frames) q/k/v/o
+        # with their biases and the MLP's gate, and decode's gate at batch 8
+        g = 8 * WHISPER_FRAMES
+        kc.pwconv(g, 768, 768, dtype, act=None, launches=5)
+        kc.pwconv(g, 768, 3072, dtype, act="silu", launches=5)
+        kc.pwconv(8, 768, 3072, dtype, act="silu")
+        # smollm-360m training: a step's 8 x 256 rows, q/o and the gate
+        for ci, co, act in ((960, 960, None), (960, 2560, "silu")):
+            kc.pwconv(TRAIN_BATCH * TRAIN_SEQ, ci, co, dtype, act=act,
+                      launches=5)
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
 
     t_phase = time.perf_counter()
@@ -2651,7 +3083,8 @@ def main() -> int:
     static_s = time.perf_counter() - t_phase
     print(f"  ({static_s:.0f} s)")
     t_phase = time.perf_counter()
-    print("serving path: hymba-1.5b at full width, prefill + greedy decode:")
+    print(f"serving path: hymba-1.5b at full width, {HYMBA_LAYERS} of 32 "
+          "layers, prefill + greedy decode:")
     (hymba, hymba_launches, hymba_replayed, hymba_stepping, hymba_variants,
      hymba_breakdowns) = run_hymba_phase()
     print(f"  ({time.perf_counter() - t_phase:.0f} s)")
@@ -2662,10 +3095,27 @@ def main() -> int:
         run_attn_mlp_phase()
     attn_s = time.perf_counter() - t_phase
     print(f"  ({attn_s:.0f} s)")
+    t_phase = time.perf_counter()
+    print("serving path: whisper-small at full width (encoder-decoder), "
+          "prefill + greedy decode:")
+    whisper, whisper_launches, whisper_replayed, whisper_variants = \
+        run_whisper_phase()
+    whisper_s = time.perf_counter() - t_phase
+    print(f"  ({whisper_s:.0f} s)")
+    t_phase = time.perf_counter()
+    print("training path: smollm-360m at full width on one card, a "
+          "whisper-small step:")
+    training, train_launches = run_training_phase()
+    train_s = time.perf_counter() - t_phase
+    print(f"  ({train_s:.0f} s)")
     launches["dwconv1d"] = replayed["dwconv1d"] = 0
+    for name, n in train_launches.items():
+        launches[name] += n
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
                          (hymba_launches, hymba_replayed, hymba_variants),
-                         (attn_launches, attn_replayed, attn_variants)):
+                         (attn_launches, attn_replayed, attn_variants),
+                         (whisper_launches, whisper_replayed,
+                          whisper_variants)):
         for name, n in got.items():
             launches[name] += n
             replayed[name] += ran[name]
@@ -2707,7 +3157,9 @@ def main() -> int:
                        "hymba_prefill_vs_stepping": hymba_stepping,
                        "hymba_layer_breakdown": hymba_breakdowns,
                        "attn_mlp": attn, "attn_mlp_checks": attn_checks,
-                       "attn_mlp_seconds": attn_s,
+                       "attn_mlp_seconds": attn_s, "whisper": whisper,
+                       "whisper_seconds": whisper_s, "training": training,
+                       "training_seconds": train_s,
                        "launches": launches,
                        "replay_launches": replayed,
                        "pwconv_variants": variants,

@@ -7,10 +7,11 @@ shims' flat dicts (``dw_filter``, ``pw_weight``, ...) likewise.
 
 LM stack: the reference keeps nested dicts whose layer variants are
 stacked along a leading groups axis (``blocks_v0`` = mLSTM, ``blocks_v1``
-= sLSTM for xLSTM; ``blocks_v0`` = the hymba layer); the port's modules
-name their parameters by the same keys joined with dots (``meta``, the
-meta tokens, included), and layer ``g*period + vi`` takes
-``blocks_v{vi}[g]``.
+= sLSTM for xLSTM; ``blocks_v0`` = the hymba layer or whisper's ``dec``
+layer); the port's modules name their parameters by the same keys joined
+with dots (``meta``, the meta tokens, and whisper's ``enc_pos`` and
+``enc_ln_final`` included), layer ``g*period + vi`` takes
+``blocks_v{vi}[g]`` and encoder layer ``g`` ``enc_blocks[g]``.
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts (a JAX
 array converts on the host); this module imports neither JAX nor the
@@ -82,20 +83,30 @@ def load_tree_(module: nn.Module, leaves: dict) -> nn.Module:
     return module
 
 
+def lm_leaves(jax_params, period: int) -> dict:
+    """Reference LM params (or anything of their tree, e.g. their
+    gradients) as ``{port parameter name: leaf}`` for a model whose
+    pattern has ``period`` layers."""
+    leaves = {}
+    for key, sub in jax_params.items():
+        if key == "enc_blocks":
+            stacked, period_of, vi = "enc_blocks", 1, 0
+        elif key.startswith("blocks_v"):
+            stacked, period_of = "blocks", period
+            vi = int(key[len("blocks_v"):])
+        else:
+            leaves.update(flatten_tree({key: sub}))
+            continue
+        for name, arr in flatten_tree(sub).items():
+            arr = np.asarray(arr)
+            for g in range(arr.shape[0]):
+                leaves[f"{stacked}.{g * period_of + vi}.{name}"] = arr[g]
+    return leaves
+
+
 def lm_params_from_numpy(jax_params, cfg, device="cuda"):
     """Reference LM params (``repro.models.transformer.init_params``) as the
     port's ``LMModel`` on ``device``."""
     from repro_torch.models.transformer import init_params
     model = init_params(cfg, device=device)
-    period = len(model.pattern)
-    leaves = {}
-    for key, sub in jax_params.items():
-        if not key.startswith("blocks_v"):
-            leaves.update(flatten_tree({key: sub}))
-            continue
-        vi = int(key[len("blocks_v"):])
-        for name, arr in flatten_tree(sub).items():
-            arr = np.asarray(arr)
-            for g in range(arr.shape[0]):
-                leaves[f"blocks.{g * period + vi}.{name}"] = arr[g]
-    return load_tree_(model, leaves)
+    return load_tree_(model, lm_leaves(jax_params, len(model.pattern)))

@@ -7,12 +7,15 @@ sharding rules: one device).
         [--max-len 256] [--temperature 0] [--seed 0] [--device cuda]
 
 ``<id>`` is any of ``configs.registry.ARCH_IDS`` (every reference
-architecture but whisper-small).  ``--max-len`` bounds the attention
-caches and counts the prefix: the meta tokens and a frontend's embeddings
-(a sliding-window cache is a ring of window + meta slots once it exceeds
-that).  An architecture with ``fusion_tokens`` (internvl2-1b's 256 patch
-embeddings, llama4's 64 fusion embeddings) gets a zero frontend stub of
-that many embeddings, as the reference's launcher gives it.
+architecture).  ``--max-len`` bounds the attention caches and counts the
+prefix: the meta tokens and a frontend's embeddings (a sliding-window
+cache is a ring of window + meta slots once it exceeds that).  An
+architecture with ``fusion_tokens`` (internvl2-1b's 256 patch embeddings,
+llama4's 64 fusion embeddings) gets a zero frontend stub of that many
+embeddings, as the reference's launcher gives it.  An encoder-decoder
+(whisper-small) gets encoder frames (B, 1500, d) drawn from ``--seed``
+(the reference's launcher gives zeros, which with ``enc_pos`` would test
+little); they are no prefix, and the prefill runs the encoder.
 
 Weights are random, drawn from ``--seed``.  On the card the prefill and the
 decode step are CUDA graphs (``serve_step.capture_prefill`` and
@@ -43,7 +46,9 @@ from repro_torch.serve.sampler import generate, greedy
 #: Kernel launches of one layer, by variant: ``pwconv`` runs every Linear
 #: (hymba: q, k, v, o; the Mamba heads' in, bcdt, dt, out; the MLP's gate,
 #: up, down; ``attn_mlp``: q, k, v, o, gate, up, down; a MoE layer,
-#: ``attn_moe``: q, k, v, o, its router and experts being plain products),
+#: ``attn_moe``: q, k, v, o, its router and experts being plain products;
+#: ``dec``: the self-attention's q, k, v, o, the cross attention's q, k, v,
+#: o (a decode step: q and o, its K/V being cached) and the MLP's three),
 #: ``dwconv1d`` the conv pre-activation over a sequence (a decode step
 #: takes the plain one-row step instead).
 LAYER_LAUNCHES = {
@@ -51,12 +56,14 @@ LAYER_LAUNCHES = {
                 "slstm": {"dwconv1d": 1, "pwconv": 4},
                 "hymba": {"dwconv1d": 1, "pwconv": 11},
                 "attn_mlp": {"dwconv1d": 0, "pwconv": 7},
-                "attn_moe": {"dwconv1d": 0, "pwconv": 4}},
+                "attn_moe": {"dwconv1d": 0, "pwconv": 4},
+                "dec": {"dwconv1d": 0, "pwconv": 11}},
     "decode": {"mlstm": {"dwconv1d": 0, "pwconv": 6},
                "slstm": {"dwconv1d": 0, "pwconv": 4},
                "hymba": {"dwconv1d": 0, "pwconv": 11},
                "attn_mlp": {"dwconv1d": 0, "pwconv": 7},
-               "attn_moe": {"dwconv1d": 0, "pwconv": 4}},
+               "attn_moe": {"dwconv1d": 0, "pwconv": 4},
+               "dec": {"dwconv1d": 0, "pwconv": 9}},
 }
 #: A MoE layer's shared expert, an MLP: gate, up, down.
 SHARED_EXPERT_LAUNCHES = {"dwconv1d": 0, "pwconv": 3}
@@ -73,12 +80,15 @@ def reset_launch_counts() -> None:
 
 
 def expected_launches(cfg: ModelConfig, phase: str) -> dict:
-    """Launches of one prefill (``phase="prefill"``) or one decode step
-    (``"decode"``) on the card, by kernel."""
+    """Launches of one prefill (``phase="prefill"``, an encoder-decoder's
+    encoder included) or one decode step (``"decode"``) on the card, by
+    kernel."""
     pattern = T.model_pattern(cfg)
     out = {"dwconv1d": 0, "pwconv": 0}
-    for i in range(cfg.n_layers):
-        variant = pattern[i % len(pattern)]
+    variants = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    if cfg.encdec is not None and phase == "prefill":
+        variants += [T.ENC_VARIANT] * cfg.encdec.n_enc_layers
+    for variant in variants:
         counts = [LAYER_LAUNCHES[phase][
             "attn_moe" if variant.use_moe else variant.kind]]
         if variant.use_moe and cfg.moe.n_shared:
@@ -89,10 +99,24 @@ def expected_launches(cfg: ModelConfig, phase: str) -> dict:
     return out
 
 
-def frontend_stub(cfg: ModelConfig, batch: int, device) -> Optional[
-        torch.Tensor]:
-    """Zero modality embeddings (B, fusion_tokens, d) for an architecture
-    with a stubbed frontend, else None (``repro/launch/serve.py:44-47``)."""
+def frontend_len(cfg: ModelConfig) -> int:
+    """Rows of a config's stubbed frontend: an encoder-decoder's encoder
+    frames, else its ``fusion_tokens`` (0: none)."""
+    if cfg.encdec is not None:
+        return cfg.encdec.enc_seq
+    return cfg.fusion_tokens
+
+
+def frontend_stub(cfg: ModelConfig, batch: int, device,
+                  seed: int = 0) -> Optional[torch.Tensor]:
+    """The stubbed frontend's input, else None (``repro/launch/
+    serve.py:44-50``): zero modality embeddings (B, fusion_tokens, d), or
+    an encoder-decoder's encoder frames (B, S_enc, d), N(0, 1) drawn from
+    ``seed`` by a host generator in fp32 and cast."""
+    if cfg.encdec is not None:
+        frames = torch.randn((batch, cfg.encdec.enc_seq, cfg.d_model),
+                             generator=torch.Generator().manual_seed(seed))
+        return frames.to(device=device, dtype=cfg.torch_dtype)
     if not cfg.fusion_tokens:
         return None
     return torch.zeros((batch, cfg.fusion_tokens, cfg.d_model),
@@ -124,14 +148,14 @@ def main(argv=None) -> int:
         0, cfg.vocab_size, (args.batch, args.prompt_len),
         generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)
     sampler = torch.Generator(device=dev).manual_seed(2)
-    frontend = frontend_stub(cfg, args.batch, dev)
+    frontend = frontend_stub(cfg, args.batch, dev, seed=args.seed)
 
     with torch.inference_mode():
         if dev.type == "cuda":
             t0 = time.perf_counter()
             prefill = S.capture_prefill(
                 model, args.batch, args.prompt_len, max_len=args.max_len,
-                frontend_len=cfg.fusion_tokens)
+                frontend_len=frontend_len(cfg))
             step = S.capture_decode_step(model, args.batch, args.max_len)
             t_capture = time.perf_counter() - t0
         else:

@@ -1,0 +1,170 @@
+"""Training launcher, one card.  Counterpart of ``repro/launch/train.py``
+without its mesh: the model, its optimizer state and every batch live on
+one device.
+
+    python -m repro_torch.launch.train --arch <id> [--smoke] \\
+        [--steps 100] [--seq-len 256] [--global-batch 8] [--lr 3e-4] \\
+        [--microbatches 1] [--ckpt-dir DIR] [--ckpt-every 50] \\
+        [--compress none|topk|int8] [--seed 0] [--device cuda]
+
+``<id>`` is any id of ``configs.registry.ARCH_IDS`` whose layers train
+(the attention-MLP transformers and whisper-small; xLSTM and hymba raise,
+naming the ROADMAP item).  Weights are random, drawn from ``--seed``; the
+data is the synthetic pipeline (``data/pipeline.py``) from ``--seed``; an
+encoder-decoder gets one fixed set of encoder frames drawn from
+``--seed`` (``launch.serve.frontend_stub``) for every step.  The loop is
+the fault-tolerant ``train_loop``: it resumes from the newest committed
+checkpoint under ``--ckpt-dir`` (default ``build/repro_torch/ckpt/<arch>``
+in the checkout), so a second run of the same command continues the
+first.  On the card the kernels and the embedding's backward run
+deterministically (``torch.use_deterministic_algorithms``), as the
+loop's bit-exact recovery needs.  It prints ms per step, trained tokens/s,
+the process's peak device memory and the ``pwconv`` launches of one step
+(forward, the per-layer remat's recomputed forward, and the backward's
+recomputed pre-activations).  ``--device cpu`` runs the plain PyTorch
+versions; without a card the default raises.
+
+The reference's ``--model-parallel`` (above 1), ``--production-mesh`` and
+``--multi-pod`` shard over a mesh: they raise here, naming ROADMAP.md
+queue A item 4.3.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+MESH_NOT_PORTED = ("sharding over a mesh (--model-parallel, "
+                   "--production-mesh, --multi-pod) is not ported yet: "
+                   "ROADMAP.md queue A, item 4.3")
+
+
+def expected_train_launches(cfg) -> dict:
+    """``pwconv`` launches of one microbatch's loss and backward on the
+    card: every Linear of the forward (an encoder-decoder's encoder
+    included), again in the per-layer remat's recomputed forward
+    (``remat="block"``), and once more for each Linear with an activation
+    (the MLP's gate), whose backward recomputes its pre-activation."""
+    from repro_torch.launch.serve import (LAYER_LAUNCHES,
+                                          SHARED_EXPERT_LAUNCHES)
+    from repro_torch.models import transformer as T
+    T.require_trainable(cfg)
+    pattern = T.model_pattern(cfg)
+    variants = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    if cfg.encdec is not None:
+        variants += [T.ENC_VARIANT] * cfg.encdec.n_enc_layers
+    passes = 2 if cfg.remat == "block" else 1
+    n = 0
+    for v in variants:
+        fwd = LAYER_LAUNCHES["prefill"]["attn_moe" if v.use_moe
+                                        else v.kind]["pwconv"]
+        gates = 0 if v.use_moe else 1
+        if v.use_moe and cfg.moe.n_shared:
+            fwd += SHARED_EXPERT_LAUNCHES["pwconv"]
+            gates += 1
+        n += passes * fwd + gates
+    return {"dwconv1d": 0, "pwconv": n}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    from repro_torch.configs.registry import ARCH_IDS
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "topk", "int8"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.model_parallel != 1 or args.production_mesh or args.multi_pod:
+        raise NotImplementedError(MESH_NOT_PORTED)
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.network import require_device
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import (frontend_stub, launch_counts,
+                                          reset_launch_counts)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    from repro_torch.train.trainer import LoopConfig, train_loop
+
+    dev = require_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    T.require_trainable(cfg)
+    if dev.type == "cuda":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+    ckpt_dir = args.ckpt_dir or str(_build.BUILD_DIR / "ckpt" / cfg.name)
+    tcfg = TrainConfig(
+        optimizer=AdamWConfig(lr=args.lr, total_steps=args.steps,
+                              warmup_steps=max(args.steps // 20, 5)),
+        microbatches=args.microbatches,
+        compression=CompressionConfig(kind=args.compress))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                      global_batch=args.global_batch, seed=args.seed)
+    model = T.init_params(cfg, seed=args.seed, device=dev)
+    state = init_train_state(model, tcfg)
+    step_fn = make_train_step(model, tcfg, seed=args.seed)
+    frames = (frontend_stub(cfg, args.global_batch, dev, seed=args.seed)
+              if cfg.encdec is not None else None)
+    per_step = []
+
+    def run_step(state, batch):
+        if frames is not None:
+            batch = dict(batch, frontend=frames)
+        reset_launch_counts()
+        out = step_fn(state, batch)
+        per_step.append(launch_counts()["pwconv"])
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, info = train_loop(
+        run_step, state, dcfg,
+        LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every),
+        ckpt_dir)
+    wall = time.perf_counter() - t0
+    hist = info["history"]
+    if not hist:
+        print(f"[train] nothing to do: {ckpt_dir} holds step {args.steps}")
+        return 0
+    times = sorted(h["time_s"] for h in hist)
+    ms = times[len(times) // 2] * 1e3
+    tokens = args.global_batch * args.seq_len
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if dev.type == "cuda" else "not measured on the CPU")
+    want = (expected_train_launches(cfg)["pwconv"] * args.microbatches
+            if dev.type == "cuda" else 0)
+    print(f"[train] {cfg.name} on {dev}: {len(hist)} steps in {wall:.1f} s, "
+          f"median {ms:.1f} ms/step = {tokens * 1e3 / ms:.0f} trained "
+          f"tokens/s; peak device memory {peak}; pwconv launches a step "
+          f"{per_step[-1]} (expected {want})")
+    print(f"[train] done: {len(hist)} steps, final loss "
+          f"{hist[-1]['loss']:.4f}, stragglers {info['stragglers']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

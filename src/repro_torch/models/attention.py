@@ -1,16 +1,23 @@
 """GQA attention: dense, blockwise (online-softmax) and decode paths.
 Counterpart of ``repro/models/attention.py``.
 
-* Dense path — short sequences (the whole score matrix at once).
+* Dense path — short sequences (the whole score matrix at once), plain
+  autograd.
 * Blockwise path — O(S·chunk) memory by an online softmax over a *static
   list of (q-chunk, kv-chunk) pairs* that enumerates only the causal (or
   sliding-window) lower triangle, so no fully masked block is computed.
   Pairs are row-major, so the softmax state carries one q chunk at a time.
-  Only the forward is ported; the reference's custom VJP
-  (``_flash_vjp_bwd``) waits for training (ROADMAP.md, A12).
+  Its backward (:class:`_Flash`, the reference's ``_flash_vjp_bwd``)
+  recomputes each pair's probabilities from the saved log-sum-exp rows:
+  O(S) residuals, never the S x S scores.
 * Decode path — one query token against a KV cache, optionally a
   StreamingLLM-style ring (``sink`` permanent slots and a ring of window
   slots).
+
+Self-attention is causal or (whisper's encoder) bidirectional; cross
+attention (whisper's decoder, ``xkv``) reads its K/V from the encoder's
+output, unmasked and without RoPE.  Keys padded to a whole chunk are
+masked.
 
 The products are ``torch.einsum`` and a softmax in fp32, as the reference
 leaves them to XLA; no TPU kernel exists for them.  The projections are
@@ -61,16 +68,29 @@ class Attention(nn.Module):
             self.k_norm = init_norm("rms", head_dim, device=device)
 
 
-def _project_qkv(p: Attention, x, n_heads, n_kv_heads, head_dim, *,
+def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
                  qk_norm, policy):
+    """q from ``x``, k and v from ``xkv`` (``x`` itself for
+    self-attention)."""
     b, s, _ = x.shape
+    skv = xkv.shape[1]
     q = linear(p.w_q, x, policy=policy).reshape(b, s, n_heads, head_dim)
-    k = linear(p.w_k, x, policy=policy).reshape(b, s, n_kv_heads, head_dim)
-    v = linear(p.w_v, x, policy=policy).reshape(b, s, n_kv_heads, head_dim)
+    k = linear(p.w_k, xkv, policy=policy).reshape(b, skv, n_kv_heads,
+                                                  head_dim)
+    v = linear(p.w_v, xkv, policy=policy).reshape(b, skv, n_kv_heads,
+                                                  head_dim)
     if qk_norm:
         q = rms_norm(q, p.q_norm["scale"])
         k = rms_norm(k, p.k_norm["scale"])
     return q, k, v
+
+
+def project_q(p: Attention, x, n_heads, head_dim, *, qk_norm, policy):
+    """The query projection alone (with its qk-norm): what a decode step's
+    cross attention needs, its K/V being the encoder's, cached."""
+    b, s, _ = x.shape
+    q = linear(p.w_q, x, policy=policy).reshape(b, s, n_heads, head_dim)
+    return rms_norm(q, p.q_norm["scale"]) if qk_norm else q
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +182,9 @@ def _block_mask(qi, ki, qc, kc, causal, window, sink, sk, device):
 
 def _flash_fwd(q, k, v, statics):
     """The pair loop's forward.  q (B, nq*qc, Hq, dh), k/v (B, nk*kc, Hkv,
-    dh), padded to whole chunks.  Returns out (B, nq*qc, Hq, dh) in q.dtype.
-    (The reference also returns the log-sum-exp rows for its VJP.)
+    dh), padded to whole chunks.  Returns out (B, nq*qc, Hq, dh) in q.dtype
+    and the log-sum-exp rows lse (B, Hq, nq*qc) fp32 that the backward
+    recomputes the probabilities from.
 
     A row's first pair starts the softmax state from its block alone: the
     reference's reset to (m = NEG_INF, l = 0, acc = 0) followed by the
@@ -171,6 +192,8 @@ def _flash_fwd(q, k, v, statics):
     (causal, window, sink, qc, kc, sk, pairs, is_first, is_last) = statics
     scale = q.shape[-1] ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32, device=q.device)
     for (qi, ki), first, last in zip(pairs, is_first, is_last):
         qb = q[:, qi * qc:(qi + 1) * qc]
         vb = v[:, ki * kc:(ki + 1) * kc]
@@ -191,16 +214,76 @@ def _flash_fwd(q, k, v, statics):
             acc = acc * corr.transpose(1, 2)[..., None] + _gqa_out(p, vb)
             m = m_new
         if last:
-            res = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+            lc = torch.clamp(l, min=1e-30)
+            res = acc / lc.transpose(1, 2)[..., None]
             out[:, qi * qc:(qi + 1) * qc] = res.to(out.dtype)
-    return out
+            lse[:, :, qi * qc:(qi + 1) * qc] = m + torch.log(lc)
+    return out, lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, statics):
+    """The reference's ``_flash_vjp_bwd``: for each block pair, P =
+    exp(S - lse) from the saved rows; dV_j += P^T dO; dS = P (dO V^T - D)
+    scale with D = rowsum(dO * O); dQ_i += dS K_j; dK_j += dS^T Q_i.  dK and
+    dV accumulate in fp32 over the q rows, dQ over a row's pairs; each is
+    cast to its input's dtype at the end."""
+    (causal, window, sink, qc, kc, sk, pairs, is_first, is_last) = statics
+    b, _, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = dh ** -0.5
+    d_term = torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float())
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for qi, ki in pairs:
+        rows, cols = slice(qi * qc, (qi + 1) * qc), slice(ki * kc,
+                                                          (ki + 1) * kc)
+        qb, kb, vb = q[:, rows], k[:, cols], v[:, cols]
+        s = _gqa_scores(qb, kb) * scale                    # (B,Hq,qc,kc)
+        mask = _block_mask(qi, ki, qc, kc, causal, window, sink, sk,
+                           q.device)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - lse[:, :, rows, None])
+        pg = p.reshape(b, hkv, g, qc, kc)
+        dog = dout[:, rows].float().reshape(b, qc, hkv, g, dh)
+        dv[:, cols] += torch.einsum("bhgqk,bqhgd->bkhd", pg, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vb.float())
+        dt = d_term[:, :, rows].reshape(b, hkv, g, qc)[..., None]
+        ds = pg * (dp - dt) * scale
+        dq[:, rows] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                    kb.float()).reshape(b, qc, hq, dh)
+        dk[:, cols] += torch.einsum(
+            "bhgqk,bqhgd->bkhd", ds, qb.float().reshape(b, qc, hkv, g, dh))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The blockwise attention with the reference's custom VJP
+    (``_flash`` with ``_flash_vjp_fwd`` / ``_flash_vjp_bwd``): residuals q,
+    k, v, out and the lse rows."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, statics):
+        out, lse = _flash_fwd(q, k, v, statics)
+        ctx.statics = statics
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                            ctx.statics), None)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, sink: int = 0,
                         chunk: int = 1024) -> torch.Tensor:
-    """Flash attention's forward in plain PyTorch: an online softmax over a
-    static causal block-pair list.  q (B,Sq,Hq,dh); k/v (B,Sk,Hkv,dh)."""
+    """Flash attention in plain PyTorch: an online softmax over a static
+    causal (or, ``causal=False``, full) block-pair list, keys padded to a
+    whole chunk masked; differentiable through :class:`_Flash`.  q
+    (B,Sq,Hq,dh); k/v (B,Sk,Hkv,dh)."""
     sq, sk = q.shape[1], k.shape[1]
     qc, kc = min(chunk, sq), min(chunk, sk)
     pad_q, pad_k = (-sq) % qc, (-sk) % kc
@@ -214,35 +297,45 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     sc = 0 if not sink else -(-sink // kc)
     pairs = _pair_list(nq, nk, causal, wc, sc)
     statics = (causal, window, sink, qc, kc, sk, pairs, *_pair_flags(pairs))
-    return _flash_fwd(q, k, v, statics)[:, :sq]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, statics)[:, :sq]
+    return _flash_fwd(q, k, v, statics)[0][:, :sq]
 
 
 # ---------------------------------------------------------------------------
-# Full attention layer (self-attention; prefill)
+# Full attention layer (self / cross; train or prefill)
 # ---------------------------------------------------------------------------
 
 
 def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
-              head_dim: int, positions: torch.Tensor,
-              window: Optional[int] = None, sink: int = 0,
-              rope_theta: Optional[float] = 1e4, qk_norm: bool = False,
+              head_dim: int, positions: Optional[torch.Tensor] = None,
+              causal: bool = True, window: Optional[int] = None,
+              sink: int = 0, rope_theta: Optional[float] = 1e4,
+              qk_norm: bool = False, xkv: Optional[torch.Tensor] = None,
               chunk: int = 1024, policy: KernelPolicy = DEFAULT_POLICY,
               return_kv: bool = False):
-    """Causal self-attention over x (B, S, d) at absolute ``positions``
-    (B, S).  Returns the block's output (B, S, d_model) [, (k, v)]: the
-    K/V after RoPE, which prefill writes into the decode cache.  (The
-    reference's cross attention, ``xkv``, serves the enc-dec layers, which
-    are not ported.)"""
+    """Attention over x (B, S, d): self-attention at absolute ``positions``
+    (B, S) (``None``: ``arange(S)``, as the reference falls back to),
+    causal unless ``causal=False``; or, with ``xkv`` (B, S_src, d), cross
+    attention to it, unmasked and without RoPE.  Dense when both lengths
+    fit one ``chunk``, else blockwise.  Returns the block's output (B, S,
+    d_model) [, (k, v)]: the K/V (after RoPE), which prefill writes into
+    the decode cache (a cross attention's: the encoder's cached K/V)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim,
+    src = x if xkv is None else xkv
+    q, k, v = _project_qkv(p, x, src, n_heads, n_kv_heads, head_dim,
                            qk_norm=qk_norm, policy=policy)
-    if rope_theta is not None:
+    if rope_theta is not None and xkv is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    if s <= chunk:
-        out = dense_attention(q, k, v, causal=True, window=window, sink=sink)
+    causal = causal and xkv is None
+    if s <= chunk and src.shape[1] <= chunk:
+        out = dense_attention(q, k, v, causal=causal, window=window,
+                              sink=sink)
     else:
-        out = blockwise_attention(q, k, v, causal=True, window=window,
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
                                   sink=sink, chunk=chunk)
     out = out.reshape(b, s, n_heads * head_dim).contiguous()
     out = linear(p.w_o, out, policy=policy)
@@ -322,7 +415,7 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
     Returns (out (B,1,d), new_k, new_v[, (new_k_scale, new_v_scale)]).
     """
     b = x_t.shape[0]
-    q, k, v = _project_qkv(p, x_t, n_heads, n_kv_heads, head_dim,
+    q, k, v = _project_qkv(p, x_t, x_t, n_heads, n_kv_heads, head_dim,
                            qk_norm=qk_norm, policy=policy)
     if rope_theta is not None:
         q = apply_rope(q, pos[:, None], rope_theta)

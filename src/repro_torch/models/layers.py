@@ -1,6 +1,7 @@
 """Primitive layers: norms, Linear (routed through the paper's PWConv),
-RoPE and the embedding.  Counterpart of ``repro/models/layers.py``; the
-chunked cross-entropy and the backbone wrappers wait for their slices.
+RoPE, the embedding and the chunked cross-entropy.  Counterpart of
+``repro/models/layers.py`` (its backbone wrappers are the CNN side's
+``core/network.py``).
 
 Parameters live in ``nn.ParameterDict``s keyed as the reference's dicts
 are (``{"scale"}``, ``{"w", "b"}``, ``{"table"}``), so a module's
@@ -11,14 +12,16 @@ draws billions of weights in a fraction of the host's time), and moves
 the result to ``device``, so a host generator's seed gives the same
 weights on every device.  On the ``meta`` device nothing is drawn: the
 parameters only get their shapes and dtypes (``transformer.cast_params``
-fills them from a model drawn once).  Parameters are inference-only
-(``requires_grad=False``).
+fills them from a model drawn once).  Parameters are built with
+``requires_grad=False``, which serving keeps; training turns them on
+with :func:`trainable_`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy, pointwise
@@ -26,6 +29,14 @@ from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy, pointwise
 
 def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable_(module: nn.Module) -> nn.Module:
+    """Turn on ``requires_grad`` for every parameter of ``module``, in
+    place (what training calls; serving never does).  Returns ``module``."""
+    for p in module.parameters():
+        p.requires_grad_(True)
+    return module
 
 
 def _is_meta(device) -> bool:
@@ -156,3 +167,45 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     A plain product outside any kernel, left to ``torch.matmul`` as the
     reference leaves it to XLA."""
     return torch.matmul(x.float(), table.float().T)
+
+
+def _chunk_loss(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor):
+    """One chunk's (sum NLL, valid tokens, sum lse^2) from its fp32 logits
+    (B, chunk, V)."""
+    logits = unembed_logits(xc, table)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1,
+                       torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return ((lse - tgt) * valid).sum(), valid.sum(), (lse.square()
+                                                      * valid).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512,
+                          z_loss: float = 0.0):
+    """(sum NLL, token count) of hidden states x (B, S, d) against
+    ``labels`` (B, S) (-1 ignored) over the unembedding ``table`` (V, d),
+    in sequence chunks of ``chunk``: the sequence padded with ignored
+    labels to whole chunks, each chunk's (B, chunk, V) fp32 logits
+    recomputed in the backward (``torch.utils.checkpoint``), never the
+    whole (B, S, V).  ``z_loss`` adds ``z_loss * sum(lse^2)`` over the
+    valid tokens to the sum.  The reference's, chunk for chunk."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    nll_sum = n_tok = zsum = torch.zeros((), device=x.device)
+    for c in range(0, s + pad, chunk):
+        xc, lc = x[:, c:c + chunk], labels[:, c:c + chunk]
+        if torch.is_grad_enabled():
+            nll, nv, zs = torch.utils.checkpoint.checkpoint(
+                _chunk_loss, xc, table, lc, use_reentrant=False)
+        else:
+            nll, nv, zs = _chunk_loss(xc, table, lc)
+        nll_sum, n_tok, zsum = nll_sum + nll, n_tok + nv, zsum + zs
+    if z_loss:
+        nll_sum = nll_sum + z_loss * zsum
+    return nll_sum, n_tok

@@ -17,9 +17,17 @@ vi`` to the reference's ``blocks_v{vi}[g]``).
 An ``attn_mlp`` layer is sequential (attention, then the MLP or MoE, each
 with its own norm and residual) or, for ``parallel_block`` (command-r),
 one shared norm feeding attention and MLP whose outputs join the residual
-together.  The enc-dec (whisper) layers are not ported: the registry
-refuses whisper-small and :func:`model_pattern` any config with
-``encdec``, naming the ROADMAP item.
+together.  An encoder-decoder (whisper) stacks ``dec`` layers (causal
+self-attention, cross attention to the encoder's output, the MLP) over an
+encoder of ``attn_mlp`` layers run bidirectionally on the stubbed frames
+(``enc_blocks``, ``enc_ln_final``, ``enc_pos``).
+
+Training: :func:`loss_fn` is the reference's chunked cross-entropy over
+the final hidden states (plus the MoE's weighted aux loss); with
+``remat="block"`` every layer runs under ``torch.utils.checkpoint``, so
+its activations are recomputed in the backward, as the reference's
+``jax.checkpoint`` does.  xLSTM and hymba do not train yet
+(:data:`TRAIN_NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -28,23 +36,31 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import ENC_DEC_NOT_PORTED
 from repro_torch.core.network import require_device
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (embed, init_embedding, init_norm,
+from repro_torch.models.layers import (chunked_cross_entropy, embed,
+                                       init_embedding, init_norm, linear,
                                        norm, param, randn)
 from repro_torch.models.mlp import MLP
 
+#: What refuses training a recurrent model, and the item of ROADMAP.md that
+#: ports it.
+TRAIN_NOT_PORTED = ("training xLSTM and hymba (gradients through dwconv1d's "
+                    "kernel and the chunked recurrent scans) is not ported "
+                    "yet: ROADMAP.md queue A, item 4.2")
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
-    kind: str                      # attn_mlp | hymba | mlstm | slstm
+    kind: str                      # attn_mlp | hymba | mlstm | slstm | dec
     window: Optional[int] = None
     rope: bool = True
     use_moe: bool = False
@@ -74,12 +90,16 @@ def layer_pattern(cfg: ModelConfig) -> list:
 
 
 def model_pattern(cfg: ModelConfig) -> list:
-    """The pattern a model of ``cfg`` stacks: :func:`layer_pattern`, which
-    an encoder-decoder (the reference's ``dec`` layers) does not use; such
-    a config raises."""
+    """The pattern a model of ``cfg`` stacks: :func:`layer_pattern`, or for
+    an encoder-decoder one ``dec`` layer (its encoder's layers are
+    ``attn_mlp``, :data:`ENC_VARIANT`)."""
     if cfg.encdec is not None:
-        raise NotImplementedError(ENC_DEC_NOT_PORTED)
+        return [LayerVariant(kind="dec")]
     return layer_pattern(cfg)
+
+
+#: The encoder's layers: attention (bidirectional) and the MLP.
+ENC_VARIANT = LayerVariant(kind="attn_mlp")
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +172,35 @@ class AttnMLPLayer(nn.Module):
         return x + self.mlp(xn2, policy=policy), {}
 
 
+class DecLayer(nn.Module):
+    """The reference's ``dec`` layer dict: ``ln_attn``, ``attn`` (causal
+    self-attention), ``ln_cross``, ``cross`` (attention to the encoder's
+    output), ``ln_mlp`` and ``mlp``, each with its residual."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device="cuda"):
+        super().__init__()
+        kw = dict(generator=generator, dtype=cfg.torch_dtype, device=device)
+        d = cfg.d_model
+        self.ln_attn = init_norm(cfg.norm_type, d, device=device)
+        self.attn = attn_lib.Attention(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
+        self.ln_cross = init_norm(cfg.norm_type, d, device=device)
+        self.cross = attn_lib.Attention(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, **kw)
+        self.ln_mlp = init_norm(cfg.norm_type, d, device=device)
+        self.mlp = MLP(d, cfg.d_ff, **kw)
+
+    def finish(self, x, cross_out, cfg: ModelConfig, policy):
+        """The cross attention's output into the residual, then the MLP
+        with its own."""
+        x = x + cross_out
+        return x + self.mlp(norm(x, self.ln_mlp, cfg.norm_type),
+                            policy=policy)
+
+
 def init_layer(cfg: ModelConfig, variant: LayerVariant,
                generator: torch.Generator, device="cuda") -> nn.Module:
     kw = dict(generator=generator, dtype=cfg.torch_dtype, device=device)
@@ -161,6 +210,8 @@ def init_layer(cfg: ModelConfig, variant: LayerVariant,
         return xlstm_lib.SLSTMBlock(cfg.d_model, cfg.n_heads, cfg.xlstm, **kw)
     if variant.kind == "hymba":
         return HymbaLayer(cfg, generator=generator, device=device)
+    if variant.kind == "dec":
+        return DecLayer(cfg, generator=generator, device=device)
     return AttnMLPLayer(cfg, variant, generator=generator, device=device)
 
 
@@ -175,12 +226,16 @@ def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:
 def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                   variant: LayerVariant, *,
                   positions: Optional[torch.Tensor] = None,
+                  xkv: Optional[torch.Tensor] = None, causal: bool = True,
                   policy: KernelPolicy = DEFAULT_POLICY,
                   capture_kv: bool = False):
     """x (B,S,d) -> (x', aux); with ``capture_kv``, aux["kv"] is the
-    attention's (k, v) after RoPE and aux["state"] the recurrent decode
-    state (xLSTM: the layer's cache; hymba: the Mamba state).  A MoE layer's
-    aux also holds its ``aux_loss`` and ``drop_frac``."""
+    attention's (k, v) after RoPE, aux["cross_kv"] a ``dec`` layer's cross
+    attention's (k, v) of the encoder's output ``xkv``, and aux["state"]
+    the recurrent decode state (xLSTM: the layer's cache; hymba: the Mamba
+    state).  A MoE layer's aux also holds its ``aux_loss`` and
+    ``drop_frac``.  ``causal=False`` makes the self-attention
+    bidirectional (the encoder's)."""
     aux: dict[str, Any] = {}
     if variant.kind == "mlstm":
         res = block(x, chunk=cfg.attn_chunk // 8, policy=policy,
@@ -188,16 +243,25 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     elif variant.kind == "slstm":
         res = block(x, policy=policy, return_cache=capture_kv)
     else:
+        kw = dict(chunk=cfg.attn_chunk, policy=policy, return_kv=capture_kv,
+                  **_attn_kwargs(cfg, variant))
         xn = norm(x, block.ln_attn, cfg.norm_type)
-        ares = attn_lib.attention(
-            block.attn, xn, positions=positions, chunk=cfg.attn_chunk,
-            policy=policy, return_kv=capture_kv, **_attn_kwargs(cfg, variant))
+        ares = attn_lib.attention(block.attn, xn, positions=positions,
+                                  causal=causal, **kw)
         if capture_kv:
             ares, aux["kv"] = ares
         if variant.kind == "attn_mlp":
             x, moe_aux = block.finish(x, xn, ares, cfg, variant, policy)
             aux.update(moe_aux)
             return x, aux
+        if variant.kind == "dec":
+            x = x + ares
+            xc = norm(x, block.ln_cross, cfg.norm_type)
+            kw.update(window=None, sink=0)
+            cres = attn_lib.attention(block.cross, xc, xkv=xkv, **kw)
+            if capture_kv:
+                cres, aux["cross_kv"] = cres
+            return block.finish(x, cres, cfg, policy), aux
         mres = ssm_lib.mamba_mixer(block.mamba, xn, cfg.ssm, policy=policy,
                                    return_state=capture_kv)
         if capture_kv:
@@ -244,11 +308,17 @@ def init_layer_cache(cfg: ModelConfig, variant: LayerVariant, batch: int,
 
 def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
                  pos: torch.Tensor, cfg: ModelConfig, variant: LayerVariant,
-                 *, policy: KernelPolicy = DEFAULT_POLICY,
+                 *, enc_kv: Optional[tuple] = None,
+                 policy: KernelPolicy = DEFAULT_POLICY,
                  in_place: bool = False):
     """x_t (B,1,d), the layer's cache, pos (B,) -> (x_t', cache').
     ``in_place`` writes the new K/V slot (and scales) into the cache's own
-    tensors (``attention_decode``)."""
+    tensors (``attention_decode``).  A ``dec`` layer's cross attention
+    reads the encoder's K/V ``enc_kv`` = (k, v) (B, S_enc, Hkv, dh),
+    unmasked.  It projects the token's query alone: the reference also
+    projects it through the cross attention's ``w_k`` and ``w_v`` and
+    discards both (``repro/models/transformer.py:296-299``), which changes
+    no number and would cost two ``pwconv`` launches a layer a step."""
     if variant.kind in ("mlstm", "slstm"):
         return block.step(x_t, cache, policy=policy)
     ring = (variant.window is not None
@@ -264,6 +334,16 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
         new["k_scale"], new["v_scale"] = res[3]
     if variant.kind == "attn_mlp":
         return block.finish(x_t, xn, attn_out, cfg, variant, policy)[0], new
+    if variant.kind == "dec":
+        x_t = x_t + attn_out
+        xc = norm(x_t, block.ln_cross, cfg.norm_type)
+        q = attn_lib.project_q(block.cross, xc, cfg.n_heads, cfg.head_dim,
+                               qk_norm=cfg.qk_norm, policy=policy)
+        cross = attn_lib.dense_attention(q, *enc_kv, causal=False)
+        cross = cross.reshape(x_t.shape[0], 1,
+                              cfg.n_heads * cfg.head_dim).contiguous()
+        return block.finish(x_t, linear(block.cross.w_o, cross,
+                                        policy=policy), cfg, policy), new
     mamba_out, new["mamba"] = ssm_lib.mamba_mixer_step(
         block.mamba, xn, cache["mamba"], cfg.ssm, policy=policy)
     return block.mix(x_t, attn_out, mamba_out, cfg, policy), new
@@ -277,8 +357,10 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
 class LMModel(nn.Module):
     """The stack of any pattern the port runs: embedding, the layers in
     order, the final norm, an unembedding table when the embeddings are not
-    tied, and the learnable meta tokens (``meta``, (M, d)) when the config
-    has them."""
+    tied, the learnable meta tokens (``meta``, (M, d)) when the config
+    has them, and an encoder-decoder's encoder: ``enc_blocks`` (its
+    ``attn_mlp`` layers), ``enc_ln_final`` and the frames' positional
+    embedding ``enc_pos`` (S_enc, d)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device="cuda"):
@@ -302,6 +384,15 @@ class LMModel(nn.Module):
         if cfg.meta_tokens:
             self.meta = param(randn(generator, (cfg.meta_tokens, cfg.d_model),
                                     0.02, dt, device))
+        if cfg.encdec is not None:
+            self.enc_blocks = nn.ModuleList(
+                init_layer(cfg, ENC_VARIANT, generator, device)
+                for _ in range(cfg.encdec.n_enc_layers))
+            self.enc_ln_final = init_norm(cfg.norm_type, cfg.d_model,
+                                          device=device)
+            self.enc_pos = param(randn(
+                generator, (cfg.encdec.enc_seq, cfg.d_model), 0.02, dt,
+                device))
 
     def variant(self, i: int) -> LayerVariant:
         return self.pattern[i % len(self.pattern)]
@@ -347,6 +438,32 @@ def cast_params(model: LMModel, cfg: ModelConfig) -> LMModel:
     return out
 
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` (its activations recomputed
+    in the backward) when the config asks for per-layer remat and autograd
+    records; the reference's ``jax.checkpoint`` of each layer."""
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return fn
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
+def run_encoder(model: LMModel, frames: torch.Tensor,
+                policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """The encoder over stubbed frame embeddings (B, S_enc, d): ``frames +
+    enc_pos``, every ``enc_blocks`` layer bidirectional (its attention's
+    RoPE at positions ``arange(S_enc)``, as the reference's falls back
+    to), then ``enc_ln_final``."""
+    cfg = model.cfg
+    x = frames + model.enc_pos[None].to(frames.dtype)
+    for block in model.enc_blocks:
+        def blk(x, block=block):
+            return layer_forward(block, x, cfg, ENC_VARIANT, causal=False,
+                                 policy=policy)[0]
+        x = _maybe_remat(blk, cfg)(x)
+    return norm(x, model.enc_ln_final, cfg.norm_type)
+
+
 def hidden_states(model: LMModel, tokens: torch.Tensor, *,
                   frontend: Optional[torch.Tensor] = None,
                   policy: KernelPolicy = DEFAULT_POLICY,
@@ -355,18 +472,26 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     tokens, if any, then the stubbed modality embeddings ``frontend`` (B,
     F, d), if given (InternVL2's patches, llama4's fusion embeddings), are
     prepended (P of them in all) and every position is absolute (RoPE).
+    An encoder-decoder takes ``frontend`` as the encoder's frames instead
+    (no prefix) and returns the encoder's output in ``aux["enc_out"]``.
     ``aux["aux_loss"]`` and ``aux["drop_frac"]`` are the MoE layers' sums
     over the number of layers (0 without MoE); with ``capture_kv``,
-    ``aux["layers"]`` holds each layer's captured ``{"kv"?, "state"?}``
-    (:func:`layer_forward`)."""
+    ``aux["layers"]`` holds each layer's captured ``{"kv"?, "cross_kv"?,
+    "state"?}`` (:func:`layer_forward`)."""
     cfg = model.cfg
     b = tokens.shape[0]
     x = embed(model.embedding, tokens)
+    enc_out = None
     pieces = []
-    if cfg.meta_tokens:
-        pieces.append(model.meta_embeds(b))
-    if frontend is not None:
-        pieces.append(frontend.to(x.dtype))
+    if cfg.encdec is not None:
+        if frontend is None:
+            raise ValueError("an encoder-decoder model needs encoder frames")
+        enc_out = run_encoder(model, frontend.to(x.dtype), policy)
+    else:
+        if cfg.meta_tokens:
+            pieces.append(model.meta_embeds(b))
+        if frontend is not None:
+            pieces.append(frontend.to(x.dtype))
     prefix = sum(p.shape[1] for p in pieces)
     if pieces:
         x = torch.cat(pieces + [x], dim=1)
@@ -376,15 +501,52 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
            for k in ("aux_loss", "drop_frac")}
     captured = []
     for i, block in enumerate(model.blocks):
-        x, a = layer_forward(block, x, cfg, model.variant(i),
-                             positions=positions, policy=policy,
-                             capture_kv=capture_kv)
+        def blk(x, block=block, variant=model.variant(i)):
+            return layer_forward(block, x, cfg, variant, positions=positions,
+                                 xkv=enc_out, policy=policy,
+                                 capture_kv=capture_kv)
+        x, a = _maybe_remat(blk, cfg)(x)
         if "aux_loss" in a:
             aux = {k: aux[k] + a[k] for k in aux}
         if capture_kv:
-            captured.append({k: a[k] for k in ("kv", "state") if k in a})
+            captured.append({k: a[k] for k in ("kv", "cross_kv", "state")
+                             if k in a})
     x = norm(x, model.ln_final, cfg.norm_type)
     aux = {k: v / max(cfg.n_layers, 1) for k, v in aux.items()}
     if capture_kv:
         aux["layers"] = captured
+    if enc_out is not None:
+        aux["enc_out"] = enc_out
     return x, prefix, aux
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config whose layers do not train yet (xLSTM, hymba)."""
+    if any(v.kind not in ("attn_mlp", "dec") for v in model_pattern(cfg)):
+        raise NotImplementedError(f"{cfg.name}: {TRAIN_NOT_PORTED}")
+
+
+def loss_fn(model: LMModel, batch: dict, *,
+            policy: KernelPolicy = DEFAULT_POLICY):
+    """batch: {tokens (B, S), labels (B, S) (-1 ignored) [, frontend]} on
+    the model's device -> (loss, metrics): the mean token NLL of the
+    hidden states after the prefix, over the tied or untied table, plus
+    ``router_aux_weight * aux_loss`` for MoE; metrics ``nll``, ``tokens``,
+    ``loss`` [, ``moe_aux``, ``moe_drop``], as the reference's."""
+    cfg = model.cfg
+    require_trainable(cfg)
+    x, prefix, aux = hidden_states(model, batch["tokens"],
+                                   frontend=batch.get("frontend"),
+                                   policy=policy)
+    x = x[:, prefix:, :]
+    nll_sum, n_tok = chunked_cross_entropy(x, model.unembed_table,
+                                           batch["labels"],
+                                           chunk=cfg.loss_chunk)
+    loss = nll_sum / torch.clamp(n_tok, min=1.0)
+    metrics = {"nll": loss, "tokens": n_tok}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["aux_loss"]
+        metrics["moe_aux"] = aux["aux_loss"]
+        metrics["moe_drop"] = aux["drop_frac"]
+    metrics["loss"] = loss
+    return loss, metrics

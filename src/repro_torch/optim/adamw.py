@@ -1,0 +1,113 @@
+"""AdamW from scratch, number for number the reference's
+(``repro/optim/adamw.py``); ``torch.optim.AdamW`` orders its update
+differently, so it is not used.
+
+* fp32 moments whatever the parameters' dtype (or bf16, ``moments_dtype``).
+* Decoupled weight decay with a name-based mask (no decay on norms and
+  biases): a parameter's name is its path in the model joined with dots,
+  whose last part is the reference's last key.
+* Global-norm clipping, linear warmup and a cosine decay.
+
+Parameters, gradients and moments are ``{name: tensor}`` dicts of the same
+keys.  :func:`apply_updates` is functional: it returns new tensors and
+leaves its inputs as they were.  The step counter and the learning rate
+stay on the parameters' device, so a step needs no host sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    # moment storage dtype: float32, or bfloat16 to halve the optimizer's
+    # memory (a coarse 8-bit-Adam-style state compression)
+    moments_dtype: str = "float32"
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (an integer tensor), fp32: linear
+    warmup over ``warmup_steps``, then a cosine from ``lr`` down to
+    ``min_lr_frac * lr`` at ``total_steps``."""
+    step = step.float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+#: Last name parts that take no weight decay.
+NO_DECAY = ("scale", "bias", "b", "dt_bias", "d_skip", "m")
+
+
+def decays(name: str) -> bool:
+    """Whether the parameter ``name`` (dotted path) takes weight decay."""
+    return name.rsplit(".", 1)[-1] not in NO_DECAY
+
+
+def _moments_dtype(cfg) -> torch.dtype:
+    return (torch.bfloat16 if cfg is not None
+            and cfg.moments_dtype == "bfloat16" else torch.float32)
+
+
+def init_state(params: dict, cfg: "AdamWConfig | None" = None) -> dict:
+    """Zeroed moments of every parameter and a step counter of 0 (int32),
+    on the parameters' device."""
+    dt = _moments_dtype(cfg)
+    dev = next(iter(params.values())).device
+    return {"mu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                   for k, p in params.items()},
+            "nu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+                   for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of every tensor's squares, in fp32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree.values()))
+
+
+def apply_updates(params: dict, grads: dict, state: dict,
+                  cfg: AdamWConfig):
+    """Returns (new params, new state, metrics {grad_norm, lr,
+    param_norm}); each new parameter in its own dtype, each moment in
+    ``moments_dtype``."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+    new_p, new_mu, new_nu = {}, {}, {}
+    for name, p in params.items():
+        mu, nu = state["mu"][name], state["nu"][name]
+        mdt = mu.dtype
+        g = grads[name].float() * scale
+        mu = b1 * mu.float() + (1 - b1) * g
+        nu = b2 * nu.float() + (1 - b2) * torch.square(g)
+        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+        if cfg.weight_decay and decays(name):
+            upd = upd + cfg.weight_decay * p.float()
+        new_p[name] = (p.float() - lr * upd).to(p.dtype)
+        new_mu[name] = mu.to(mdt)
+        new_nu[name] = nu.to(mdt)
+    metrics = {"grad_norm": gnorm, "lr": lr,
+               "param_norm": global_norm(new_p)}
+    return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, metrics

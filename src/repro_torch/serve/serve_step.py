@@ -1,13 +1,16 @@
 """Serving: cache construction, prefill, and the one-token decode step.
 Counterpart of ``repro/serve/serve_step.py`` for the recurrent (xLSTM),
-hybrid (hymba) and attention-MLP (dense, VLM, MoE) layers.
+hybrid (hymba), attention-MLP (dense, VLM, MoE) and encoder-decoder
+(whisper) models.
 
 * :func:`prefill` — one full forward with per-layer state capture: the
   mLSTM ``(c, n, m)`` state carried out of the chunkwise scan, the sLSTM
   ``(c, n, h, m)`` state out of its loop, the Mamba ``(h, conv)`` state
   out of its chunked scan, each conv state (the last K-1 pre-conv inputs),
   and every attention layer's K/V (after RoPE) written into its cache by
-  :func:`_ring_fill`.  Under ``kv_quant`` each captured K/V vector is
+  :func:`_ring_fill`; an encoder-decoder's prefill also runs the encoder
+  and keeps each ``dec`` layer's cross attention K/V of its output.
+  Under ``kv_quant`` each captured K/V vector is
   first quantized to int8 with its scale (``attention._quantize_vec``),
   which is what a decode step writes for it.  This departs from the
   reference, whose ``prefill`` casts the captured K/V straight to int8 and
@@ -33,7 +36,10 @@ attention layer's dict is ``{"k", "v": (B, S_c, Hkv, dh)}`` (int8 with
 layer's adds ``"mamba": {"h", "conv"}``; S_c is the ring of ``window +
 sink`` slots once ``max_len`` exceeds it (``transformer.cache_len``).
 ``max_len`` counts the prefix: the meta tokens and the frontend's
-embeddings.
+embeddings.  An encoder-decoder's cache adds ``"enc_k", "enc_v":
+(n_layers, B, S_enc, Hkv, dh)`` in the model's dtype (never int8, also
+under ``kv_quant``): written once by the prefill and only read by the
+decode steps, which pass them on as they are.
 """
 from __future__ import annotations
 
@@ -56,10 +62,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed cache.  ``max_len`` (the prefix included) bounds the
     attention caches; the recurrent layers' state does not depend on it."""
     pattern = T.model_pattern(cfg)
-    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
-            "layers": [T.init_layer_cache(cfg, pattern[i % len(pattern)],
-                                          batch, max_len, device)
-                       for i in range(cfg.n_layers)]}
+    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+             "layers": [T.init_layer_cache(cfg, pattern[i % len(pattern)],
+                                           batch, max_len, device)
+                        for i in range(cfg.n_layers)]}
+    if cfg.encdec is not None:
+        shape = (cfg.n_layers, batch, cfg.encdec.enc_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        for name in ("enc_k", "enc_v"):
+            cache[name] = torch.zeros(shape, dtype=cfg.torch_dtype,
+                                      device=device)
+    return cache
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -71,15 +84,18 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 def _layers_step(model: T.LMModel, cache: dict, x: torch.Tensor,
                  policy: KernelPolicy, in_place: bool = False):
     """x (B,1,d) through every layer at ``cache["pos"]`` -> (x', new
-    cache at pos + 1)."""
+    cache at pos + 1).  The encoder's K/V pass through unchanged."""
     pos = cache["pos"]
     layers = []
+    enc = {k: cache[k] for k in ("enc_k", "enc_v") if k in cache}
     for i, block in enumerate(model.blocks):
         x, c = T.layer_decode(block, x, cache["layers"][i], pos, model.cfg,
                               model.variant(i), policy=policy,
-                              in_place=in_place)
+                              in_place=in_place,
+                              enc_kv=(enc["enc_k"][i], enc["enc_v"][i])
+                              if enc else None)
         layers.append(c)
-    return x, {"pos": pos + 1, "layers": layers}
+    return x, {"pos": pos + 1, "layers": layers, **enc}
 
 
 def decode_step(model: T.LMModel, cache: dict, tokens: torch.Tensor, *,
@@ -123,7 +139,10 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
             policy: KernelPolicy = DEFAULT_POLICY):
     """tokens (B, S) -> (last logits (B, V), cache primed to pos = P + S),
     P the prefix: the meta tokens and the stubbed modality embeddings
-    ``frontend`` (B, F, d), if given."""
+    ``frontend`` (B, F, d), if given.  An encoder-decoder takes
+    ``frontend`` as its encoder's frames (B, S_enc, d) (P = 0) and its
+    cache holds each layer's cross attention K/V of the encoder's
+    output."""
     b, s = tokens.shape
     x, prefix, aux = T.hidden_states(model, tokens, frontend=frontend,
                                      policy=policy, capture_kv=True)
@@ -146,6 +165,11 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
     cache = {"pos": torch.full((b,), prefix + s, dtype=torch.int32,
                                device=tokens.device),
              "layers": layers}
+    if model.cfg.encdec is not None:
+        dt = model.cfg.torch_dtype
+        for j, name in enumerate(("enc_k", "enc_v")):
+            cache[name] = torch.stack([c["cross_kv"][j]
+                                       for c in aux["layers"]]).to(dt)
     return unembed_logits(x[:, -1], model.unembed_table), cache
 
 
@@ -153,7 +177,10 @@ def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
                         max_len: int,
                         policy: KernelPolicy = DEFAULT_POLICY):
     """Reference prefill: one decode step per meta token (from its
-    embedding), then one per prompt token."""
+    embedding), then one per prompt token.  Like the reference's, it never
+    runs an encoder: an encoder-decoder's cross attention reads the zeroed
+    ``enc_k``/``enc_v`` of :func:`init_cache`, so it is no oracle for
+    one."""
     b, s = tokens.shape
     cache = init_cache(model.cfg, b, max_len, tokens.device)
     if model.cfg.meta_tokens:
@@ -294,18 +321,20 @@ def capture_prefill(model: T.LMModel, batch: int, prompt_len: int, *,
                     max_len: Optional[int] = None, frontend_len: int = 0,
                     policy: KernelPolicy = DEFAULT_POLICY) -> CapturedPrefill:
     """Capture :func:`prefill` of ``batch`` prompts of ``prompt_len`` tokens
-    (after ``frontend_len`` embeddings of a stubbed frontend, read from a
-    static buffer, when it is not 0) on the model's device, which must be
-    the card; raises on the CPU.  The sLSTM loop over the prompt is
-    captured with the rest, so the graph holds about 20 nodes a token for
-    each sLSTM layer.  ``max_len`` defaults to the prefix and the prompt."""
+    (after ``frontend_len`` embeddings of a stubbed frontend, or an
+    encoder-decoder's ``frontend_len`` encoder frames, read from a static
+    buffer, when it is not 0) on the model's device, which must be the
+    card; raises on the CPU.  The sLSTM loop over the prompt is captured
+    with the rest, so the graph holds about 20 nodes a token for each
+    sLSTM layer.  ``max_len`` defaults to the prefix and the prompt."""
     cfg = model.cfg
     dev = model.embedding["table"].device
     tokens = torch.zeros((batch, prompt_len), dtype=torch.int64, device=dev)
     frontend = (torch.zeros((batch, frontend_len, cfg.d_model),
                             dtype=cfg.torch_dtype, device=dev)
                 if frontend_len else None)
-    max_len = max_len or cfg.meta_tokens + frontend_len + prompt_len
+    prefix = 0 if cfg.encdec is not None else cfg.meta_tokens + frontend_len
+    max_len = max_len or prefix + prompt_len
     with torch.inference_mode():
         captured = graphs.capture(lambda: prefill(
             model, tokens, max_len=max_len, frontend=frontend,

@@ -1,0 +1,179 @@
+"""Checkpointing: atomic, checksummed, async, with a corruption fallback.
+Counterpart of ``repro/train/checkpoint.py``, in numpy files of its own.
+
+Layout (one directory per step):
+
+    ckpt_dir/
+      step_000000123/
+        arrays.npz            # flat {path -> array}
+        manifest.json         # step, extra (the data state), per-key
+                              # sha256 prefix, each key's torch dtype
+      step_000000123.COMMITTED  # atomic marker written last
+      latest                  # text file: the last committed step's name
+
+* The state is a nested dict of tensors; a key is the dict path joined
+  by ``/`` (a parameter's own name keeps its dots).  bf16 tensors, which
+  numpy cannot hold, are stored as their 16-bit patterns and the manifest
+  names the dtype.
+* An atomic commit marker: a job killed mid-save never corrupts
+  ``latest``; restore scans for the newest committed step and verifies
+  every checksum, falling back to the step before on a mismatch or an
+  unreadable file.
+* Async: :meth:`Checkpointer.save` copies the state to the host at once
+  (the step's tensors may be freed after) and writes in a thread.
+* ``keep`` committed steps are kept; older ones are removed.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+SEP = "/"
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten(v, key + SEP))
+        else:
+            flat[key] = v
+    return flat
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a))
+    if dtype == str(torch.bfloat16):
+        t = t.view(torch.bfloat16)
+    return t
+
+
+def _unflatten_into(template, flat: dict, dtypes: dict, prefix: str = ""):
+    out = {}
+    for k, v in template.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out[k] = _unflatten_into(v, flat, dtypes, key + SEP)
+            continue
+        t = _from_numpy(flat[key], dtypes[key])
+        if tuple(t.shape) != tuple(v.shape):
+            raise ValueError(f"{key}: stored {tuple(t.shape)}, template "
+                             f"{tuple(v.shape)}")
+        out[k] = t.to(device=v.device, dtype=v.dtype)
+    return out
+
+
+def _checksum(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+class Checkpointer:
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.dir = ckpt_dir
+        self.keep = keep
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    # ----------------------------------------------------------------- save
+    def save(self, step: int, state, extra: Optional[dict] = None,
+             blocking: bool = True):
+        flat = _flatten(state)
+        # snapshot now (to the host); write later
+        host = {k: _to_numpy(v) for k, v in flat.items()}
+        dtypes = {k: str(v.dtype) for k, v in flat.items()}
+        if blocking:
+            self._write(step, host, dtypes, extra or {})
+        else:
+            self.wait()
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, dtypes, extra or {}),
+                daemon=True)
+            self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, flat: dict, dtypes: dict, extra: dict):
+        name = f"step_{step:09d}"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        final = os.path.join(self.dir, name)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        manifest = {"step": step, "extra": extra, "dtypes": dtypes,
+                    "checksums": {k: _checksum(v) for k, v in flat.items()}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        with open(os.path.join(self.dir, name + ".COMMITTED"), "w") as f:
+            f.write(str(step))
+        with open(os.path.join(self.dir, "latest.tmp"), "w") as f:
+            f.write(name)
+        os.replace(os.path.join(self.dir, "latest.tmp"),
+                   os.path.join(self.dir, "latest"))
+        self._gc()
+
+    def _gc(self):
+        steps = sorted(self.committed_steps())
+        for s in steps[: -self.keep]:
+            name = f"step_{s:09d}"
+            shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
+            try:
+                os.remove(os.path.join(self.dir, name + ".COMMITTED"))
+            except FileNotFoundError:
+                pass
+
+    # -------------------------------------------------------------- restore
+    def committed_steps(self) -> list:
+        out = []
+        for fn in os.listdir(self.dir):
+            if fn.endswith(".COMMITTED"):
+                out.append(int(fn[len("step_"):-len(".COMMITTED")]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.committed_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, template, step: Optional[int] = None
+                ) -> tuple[Any, int, dict]:
+        """Returns (state, step, extra): new tensors on the template's
+        devices in its dtypes.  Verifies checksums; falls back to the
+        previous committed step on corruption."""
+        steps = self.committed_steps()
+        if step is not None:
+            steps = [s for s in steps if s <= step]
+        while steps:
+            s = steps.pop()
+            name = f"step_{s:09d}"
+            try:
+                with open(os.path.join(self.dir, name, "manifest.json")) as f:
+                    manifest = json.load(f)
+                with np.load(os.path.join(self.dir, name, "arrays.npz")) as z:
+                    flat = {k: z[k] for k in z.files}
+                for k, v in flat.items():
+                    if _checksum(v) != manifest["checksums"][k]:
+                        raise IOError(f"checksum mismatch at {k}")
+                state = _unflatten_into(template, flat, manifest["dtypes"])
+                return state, manifest["step"], manifest.get("extra", {})
+            except Exception as e:  # corrupted -> try previous
+                print(f"[ckpt] step {s} unusable ({e}); trying previous")
+        raise FileNotFoundError(f"no usable checkpoint in {self.dir}")

@@ -196,9 +196,13 @@ def port_cache(cj, cfg) -> dict:
         if a.dtype.name in TORCH:
             return convert.tensor_from_numpy(a, "cpu")
         return torch.from_numpy(a)                      # int8 / int32
-    return {"pos": torch.from_numpy(np.array(cj["pos"])),
-            "layers": [jax.tree_util.tree_map(leaf, _ref_layer(cj, cfg, i))
-                       for i in range(cfg.n_layers)]}
+    out = {"pos": torch.from_numpy(np.array(cj["pos"])),
+           "layers": [jax.tree_util.tree_map(leaf, _ref_layer(cj, cfg, i))
+                      for i in range(cfg.n_layers)]}
+    for name in ("enc_k", "enc_v"):                     # enc-dec
+        if name in cj:
+            out[name] = leaf(cj[name])
+    return out
 
 
 def int8_diff(got, want) -> tuple:
@@ -231,6 +235,12 @@ def assert_caches(ct, cj, dtype: str, cfg, int8_flips: int = 0):
     flips = sum(assert_layer_cache(layer, _ref_layer(cj, cfg, i), dtype)
                 for i, layer in enumerate(ct["layers"]))
     assert flips <= int8_flips, flips
+    assert set(ct) - {"pos", "layers"} == set(cj) - {"pos"} - {
+        f"v{vi}" for vi in range(len(JT.layer_pattern(cfg)))}
+    for name in ("enc_k", "enc_v"):                     # enc-dec
+        if name in cj:
+            assert ct[name].dtype == TORCH[cfg.dtype]
+            assert_close(ct[name], cj[name], dtype, fp32_tol=BLOCK_TOL)
 
 
 def assert_moe_aux(got: dict, want: dict, dtype: str):

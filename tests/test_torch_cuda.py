@@ -44,6 +44,7 @@ def dev():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda", 0)
 
 
@@ -1750,3 +1751,160 @@ def test_block_shims_on_the_card(dev, dtype):
         got = call(p, x, stride=stride)
         want = call(p, x, stride=stride, policy=KernelPolicy(impl="torch"))
         assert rel_err(got, want) <= TOL[dtype] * 10
+
+
+# ---------------------------------------------------------------------------
+# Whisper serving and training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("variant,g,dtype", [
+    ("stream", 8, torch.float32), ("stream", 8, torch.bfloat16),
+    ("tc", 96, torch.bfloat16), ("simt", 96, torch.float32)])
+@pytest.mark.parametrize("act,bias", [(None, False), ("silu", True),
+                                      ("relu6", True)])
+def test_pwconv_function_gradients_kernel_vs_plain(dev, variant, g, dtype,
+                                                   act, bias):
+    """The ``pwconv`` autograd Function on the card: its forward and the
+    backward's recomputed pre-activation launch the kernel (of the
+    variant the shape plans), and dx, dw, db equal the plain path's within
+    the kernel tolerance, in the operands' dtypes."""
+    from repro_torch.core.pwconv import pointwise
+    from repro_torch.kernels.policy import KernelPolicy
+    x0 = _r((g, 64), dev, dtype)
+    w0 = _r((64, 48), dev, dtype, 64 ** -0.5)
+    b0 = _r((48,), dev, dtype, 0.1) if bias else None
+    gy = _r((g, 48), dev, dtype, seed=3)
+    grads = {}
+    for impl in ("auto", "torch"):
+        x, w = (t.clone().requires_grad_(True) for t in (x0, w0))
+        b = b0.clone().requires_grad_(True) if bias else None
+        before = dict(pwconv.launches_by_variant)
+        y = pointwise(x, w, b, activation=act,
+                      policy=KernelPolicy(impl=impl))
+        y.backward(gy)
+        torch.cuda.synchronize(dev)
+        ran = {k: pwconv.launches_by_variant[k] - before[k] for k in before}
+        want = (1 + (act is not None)) if impl == "auto" else 0
+        assert ran == {k: want if k == variant else 0 for k in ran}, ran
+        grads[impl] = [t.grad for t in (x, w, b) if t is not None]
+    for got, ref_ in zip(grads["auto"], grads["torch"], strict=True):
+        assert got.dtype == dtype
+        assert rel_err(got, ref_) <= TOL[dtype] * 10
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_whisper_captured_prefill_and_decode_match_eager(dev, dtype):
+    """whisper-small's smoke model (24 frames; the encoder and the cross
+    attention blockwise at ``attn_chunk`` 16, keys padded) captured against
+    eager, call by call: the same bits (logits, self-attention cache, the
+    encoder's K/V), launches as counted, the eager calls within 1e-4 /
+    5e-2 of the plain path, and the captured decode step never writing the
+    encoder's K/V."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    cfg = dataclasses.replace(get_config("whisper-small", smoke=True),
+                              dtype=dtype, attn_chunk=16)
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    frames = serve.frontend_stub(cfg, 2, dev, seed=0)
+    max_len, plain = 40, KernelPolicy(impl="torch")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    serve.reset_launch_counts()
+    pre = S.capture_prefill(model, 2, 20, max_len=max_len,
+                            frontend_len=serve.frontend_len(cfg))
+    torch.cuda.synchronize(dev)
+    want = serve.expected_launches(cfg, "prefill")
+    assert serve.launch_counts() == _twice(want)
+    serve.reset_launch_counts()
+    step = S.capture_decode_step(model, 2, max_len)
+    want_step = serve.expected_launches(cfg, "decode")
+    assert serve.launch_counts() == _twice(want_step)
+    with torch.inference_mode():
+        logits, cache = pre(toks, frames)
+        ref_logits, ref_cache = S.prefill(model, toks, max_len=max_len,
+                                          frontend=frames)
+        plain_logits, _ = S.prefill(model, toks, max_len=max_len,
+                                    frontend=frames, policy=plain)
+    assert torch.equal(logits, ref_logits)
+    assert rel_err(ref_logits, plain_logits) <= tol
+    for k in ("enc_k", "enc_v"):
+        assert torch.equal(cache[k], ref_cache[k])
+    own, tok = cache, greedy(logits)[:, None]
+    with torch.inference_mode():
+        for i in range(12):
+            logits, own = step(own, tok)
+            if i == 0:
+                enc = [own[k].clone() for k in ("enc_k", "enc_v")]
+            ref_logits, ref_cache = S.decode_step(model, ref_cache, tok)
+            plain_logits, _ = S.decode_step(model, ref_cache, tok,
+                                            policy=plain)
+            assert torch.equal(logits, ref_logits)
+            tok = greedy(logits)[:, None]
+    assert all(torch.equal(own[k], e) for k, e in zip(("enc_k", "enc_v"),
+                                                      enc))
+    for a, b in zip(own["layers"], ref_cache["layers"], strict=True):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert _replay_kernels(lambda: step(step.cache, tok),
+                           want_step) == want_step
+
+
+def test_smollm_train_step_kernel_vs_plain(dev):
+    """One smollm train step at its smoke config, fp32, deterministic: the
+    kernel path's loss, gradients and updated parameters against the plain
+    path's, and the step's ``pwconv`` launches as counted."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.launch.serve import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
+                              attn_chunk=16)
+    batch = next(DataIterator(DataConfig(cfg.vocab_size, 40, 4, seed=0),
+                              prefetch=0))
+    out = {}
+    for impl in ("auto", "torch"):
+        model = init_params(cfg, seed=0, device=dev)
+        tcfg = TS.TrainConfig()
+        step = TS.make_train_step(model, tcfg, KernelPolicy(impl=impl))
+        state = TS.init_train_state(model, tcfg)
+        _, _, grads = TS.accumulate_grads(model, state["params"], batch, 1,
+                                          KernelPolicy(impl=impl))
+        reset_launch_counts()
+        new, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        assert launch_counts() == (expected_train_launches(cfg)
+                                   if impl == "auto" else
+                                   {"dwconv1d": 0, "pwconv": 0})
+        out[impl] = (float(m["loss"]), grads, new["params"])
+    (lk, gk, pk), (lp, gp, pp) = out["auto"], out["torch"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for k in gp:
+        assert rel_err(gk[k], gp[k]) <= 1e-4, k
+        assert rel_err(pk[k], pp[k]) <= 1e-4, k
+
+
+def test_train_launcher_on_the_card(dev, tmp_path):
+    """``launch.train`` on the card by default, in a process of its own
+    (it turns deterministic algorithms on for its process)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "whisper-small", "--smoke", "--steps", "3", "--seq-len", "16",
+         "--global-batch", "2", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stderr
+    assert "[train] done: 3 steps" in out.stdout
+    assert "on cuda" in out.stdout

@@ -81,20 +81,22 @@ def test_configs_match_reference(arch, smoke):
                              else torch.float32)
 
 
-def test_registry_lists_every_reference_arch_but_whisper():
-    assert registry.ARCH_IDS == [a for a in jregistry.ARCH_IDS
-                                 if a != "whisper-small"]
+def test_registry_lists_every_reference_arch():
+    assert registry.ARCH_IDS == jregistry.ARCH_IDS
     assert registry.list_archs() == registry.ARCH_IDS
     assert 1.70e9 < registry.get_config("qwen3-1.7b").n_params() < 1.75e9
 
 
 @pytest.mark.parametrize("smoke", (False, True))
-def test_whisper_small_still_raises(smoke):
-    """The encoder-decoder is the one reference architecture left: the
-    registry refuses it, naming the ROADMAP item, and an unknown id is a
-    KeyError."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        registry.get_config("whisper-small", smoke=smoke)
+def test_whisper_small_config_matches_reference(smoke):
+    """The encoder-decoder, which the registry refused until it was
+    ported, resolves to the reference's config field for field; an
+    unknown id is a KeyError."""
+    t = registry.get_config("whisper-small", smoke=smoke)
+    j = jregistry.get_config("whisper-small", smoke=smoke)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.n_params() == j.n_params()
+    assert TT.model_pattern(t) == [TT.LayerVariant(kind="dec")]
     with pytest.raises(KeyError):
         registry.get_config("whisper-tiny", smoke=smoke)
 

@@ -629,38 +629,47 @@ def test_configs_match_reference(smoke):
     assert t.n_params() == j.n_params()
     assert t.torch_dtype == (torch.bfloat16 if j.jax_dtype == jnp.bfloat16
                              else torch.float32)
-    assert registry.list_archs() == [a for a in jregistry.list_archs()
-                                     if a != "whisper-small"]
+    assert registry.list_archs() == jregistry.list_archs()
     with pytest.raises(KeyError):
         registry.get_config("xlstm-350m")
 
 
 @pytest.mark.parametrize("where", ("registry", "model"))
-def test_unported_architectures_raise(where):
-    """The encoder-decoder is what the port does not run yet: the registry
-    refuses whisper-small, and a model or cache of an enc-dec config
-    raises, each naming the ROADMAP item."""
+def test_encoder_decoder_is_ported(where):
+    """The encoder-decoder, which the port refused until it was ported:
+    the registry gives whisper-small the reference's config, and a model,
+    a cache and the launch counts of an enc-dec config built from the
+    reference's fields exist (its encoder and ``dec`` layers, the
+    encoder's K/V in the cache)."""
     if where == "registry":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_config("whisper-small", smoke=True)
+        t = registry.get_config("whisper-small", smoke=True)
+        j = jregistry.get_config("whisper-small", smoke=True)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
         return
     j = jregistry.get_config("whisper-small", smoke=True)
     fields = {f.name for f in dataclasses.fields(tbase.ModelConfig)}
     kw = {k: v for k, v in dataclasses.asdict(j).items() if k in fields}
     kw["encdec"] = tbase.EncDecConfig(**kw["encdec"])
     cfg = tbase.ModelConfig(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.init_cache(cfg, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.expected_launches(cfg, "decode")
+    model = TT.init_params(cfg, device="cpu")
+    assert len(model.enc_blocks) == cfg.encdec.n_enc_layers
+    assert tuple(model.enc_pos.shape) == (cfg.encdec.enc_seq, cfg.d_model)
+    cache = TS.init_cache(cfg, 1, 16, device="cpu")
+    assert tuple(cache["enc_k"].shape) == (cfg.n_layers, 1,
+                                           cfg.encdec.enc_seq,
+                                           cfg.n_kv_heads, cfg.head_dim)
+    assert tserve.expected_launches(cfg, "decode") == {
+        "dwconv1d": 0, "pwconv": 9 * cfg.n_layers}
 
 
 #: Launches of one prefill and one decode step at full width and depth:
 #: per layer 7 ``pwconv`` (q, k, v, o, gate, up, down) for an attention-MLP
-#: layer, 4 (q, k, v, o) for a MoE layer plus 3 for a shared expert.
+#: layer, 4 (q, k, v, o) for a MoE layer plus 3 for a shared expert;
+#: whisper-small's prefill 7 an encoder layer and 11 a decoder layer, its
+#: decode step 9 a decoder layer (the cross attention's K/V are cached).
 FULL_WIDTH_LAUNCHES = {
+    "whisper-small": ({"dwconv1d": 0, "pwconv": 12 * 7 + 12 * 11},
+                      {"dwconv1d": 0, "pwconv": 12 * 9}),
     "xlstm-125m": ({"dwconv1d": 12, "pwconv": 60},
                    {"dwconv1d": 0, "pwconv": 60}),
     "hymba-1.5b": ({"dwconv1d": 32, "pwconv": 352},

@@ -53,6 +53,24 @@ def test_new_modules_are_held_to_the_import_rule(module):
         "jax", "jaxlib", "repro"}
 
 
+#: The training slice's modules and whisper's config: held to the same
+#: rule.
+TRAINING_MODULES = ("optim/__init__.py", "optim/adamw.py",
+                    "optim/compress.py", "data/__init__.py",
+                    "data/pipeline.py", "train/__init__.py",
+                    "train/train_step.py", "train/checkpoint.py",
+                    "train/trainer.py", "launch/train.py",
+                    "configs/whisper_small.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_held_to_the_import_rule(module):
+    path = PORT / module
+    assert path in PORT_FILES
+    assert not {m.split(".")[0] for m in _imported_modules(path)} & {
+        "jax", "jaxlib", "repro"}
+
+
 def test_port_imports_with_jax_and_reference_blocked_and_no_nvcc(tmp_path):
     code = (
         "import sys, pkgutil, importlib\n"
@@ -99,6 +117,27 @@ def test_serving_entry_points_default_to_the_card():
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "[serve]" not in out.stdout
+
+
+@pytest.mark.parametrize("argv", (
+    ("repro_torch.launch.serve", "--arch", "whisper-small", "--smoke",
+     "--prompt-len", "4", "--gen", "2"),
+    ("repro_torch.launch.train", "--arch", "smollm-360m", "--smoke",
+     "--steps", "1"),
+    ("repro_torch.launch.train", "--arch", "whisper-small", "--smoke",
+     "--steps", "1")))
+def test_whisper_and_training_entry_points_default_to_the_card(argv,
+                                                                tmp_path):
+    _skip_if_card()
+    out = subprocess.run(
+        [sys.executable, "-m", *argv, *(("--ckpt-dir", str(tmp_path))
+                                        if "train" in argv[0] else ())],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "[serve]" not in out.stdout and "[train]" not in out.stdout
+    assert not list(tmp_path.iterdir())
 
 
 def test_backend_follows_the_tensor():
