@@ -18,8 +18,10 @@ From the root of a checkout it:
    ``fused_mbconv`` at Lite0's four blocks; ``dw_se`` at MnasNet's six
    SE block shapes and blocks 3 and 11 at a 224 input, with the CTAs of
    each pass, two calls bit for bit and a CUDA-graph replay against the
-   eager call; the xLSTM and hymba conv and Linear shapes), in fp32 and
-   bf16, each kernel's planned shared memory (each ``dw_se`` pass's)
+   eager call; the xLSTM and hymba conv and Linear shapes; ``dwconv1d``'s
+   backward kernels at xLSTM's and hymba's training shapes, two calls bit
+   for bit and a CUDA-graph replay of both launches, beside cuDNN's
+   backward of the same conv), in fp32 and bf16, each kernel's planned shared memory (each ``dw_se`` pass's)
    against its own count, and times the kernel and PyTorch library calls
    for the same function, each replayed from a CUDA graph of 20 calls (2
    for hymba's prefill Linears) and as events around one eager call, and
@@ -147,9 +149,14 @@ From the root of a checkout it:
    deterministic): smollm-360m uncut in bf16, 8 x 256 tokens, 20 steps of
    the fault-tolerant loop (480 ``pwconv`` a step), the loss finite and
    falling, a second run with a fault at step 15 ending with the same
-   parameters bit for bit, a step's parts; step-1 gradients of the kernel
-   path against the plain path (smollm cut to 2 layers, fp32; one
-   whisper-small step at full width, fp32);
+   parameters bit for bit, a step's parts; xlstm-125m uncut the same way
+   (4 steps, a fault at step 3; ``dwconv1d`` forward, remat and its two
+   backward kernels in every step); hymba-1.5b at full width cut to 4
+   layers (a ``reduced`` note; 2 x 512 tokens and the 128 meta tokens, 6
+   steps) and its selective scan's forward and backward device ms in one
+   layer; step-1 gradients of the kernel path against the plain path
+   (smollm and xlstm cut to 2 layers, hymba to 1, fp32; one whisper-small
+   step at full width, fp32);
 11. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
@@ -216,6 +223,12 @@ SOURCES = {
               "src/repro/kernels/se_epilogue.py:143"),
     "dwconv1d": ("src/repro_torch/csrc/dwconv1d.cu",
                  "src/repro/kernels/dwconv1d.py:51"),
+    # the backward has no TPU kernel: the reference differentiates its XLA
+    # oracle of the op (src/repro/kernels/ref.py:76)
+    "dwconv1d_bwd": ("src/repro_torch/csrc/dwconv1d.cu",
+                     "src/repro/kernels/dwconv1d.py:51"),
+    "dwconv1d_bwd_reduce": ("src/repro_torch/csrc/dwconv1d.cu",
+                            "src/repro/kernels/dwconv1d.py:51"),
 }
 
 #: The serving phase: prompt length, greedy decode steps, the prompt of the
@@ -395,6 +408,115 @@ class KernelChecks:
             lambda: F.conv1d(xt, ft, groups=d, padding=k - 1)[..., :length],
             2 * b * length * d * k,
             (2 * x.numel() + f.numel()) * x.element_size())
+
+    def dwconv1d_bwd(self, b, length, d, k, dtype):
+        """``dwconv1d``'s backward at a training shape: dx and df of its
+        two kernels against ``dwconv1d_causal_bwd_plain`` (and the
+        library's, as a check of the yardstick), two calls bit for bit (df
+        deterministic) and a CUDA-graph replay of both launches against
+        the eager call; times (CUDA graphs of 20 calls): the first kernel
+        alone (row ``dwconv1d_bwd``), the reduction alone (row
+        ``dwconv1d_bwd_reduce``) and both, beside the plain backward and
+        the library's (cuDNN's backward of the same grouped conv, dx and
+        df in one ``convolution_backward`` call; for the reduction, one
+        ``ws.sum(0)`` and its cast, timed as the kernel is).  Bounds: the backward's
+        bytes (x, dy, f read, dx, df written) and 4BLDK operations; the
+        reduction's (the fp32 partials read, df written)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import dwconv1d
+        x = self.rand((b, length, d), dtype)
+        f = self.rand((k, d), dtype, k ** -0.5)
+        dy = self.rand((b, length, d), dtype)
+        dname = str(dtype).replace("torch.", "")
+        label = f"{b}x{length}x{d} k{k} vec {dwconv1d.vector_width(x, f, dy)}"
+
+        def bwd():
+            return dwconv1d.dwconv1d_causal_bwd(x, f, dy)
+        got, again = bwd(), bwd()
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(side):
+            bwd()
+        torch.cuda.current_stream(self.dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = bwd()
+        for t in replayed:
+            t.zero_()
+        graph.replay()
+        want = dwconv1d.dwconv1d_causal_bwd_plain(x, f, dy)
+        xt = F.pad(x, (0, 0, k - 1, 0)).transpose(1, 2).contiguous()
+        gt = dy.transpose(1, 2).contiguous()
+        wt = f.T[:, None, :].contiguous()
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                gt, xt, wt, None, [1], [0], [1], False, [0], d,
+                [True, True, False])
+        lib_dx, lib_df = library()[:2]
+        torch.cuda.synchronize(self.dev)
+        del graph
+        repeats = all(torch.equal(a, c) for a, c in zip(got, again))
+        replays = all(torch.equal(a, c) for a, c in zip(got, replayed))
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        rel = max(self.rel_err(g, w) for g, w in zip(got, want))
+        lib_rel = max(self.rel_err(lib_dx[..., k - 1:].transpose(1, 2),
+                                   want[0]),
+                      self.rel_err(lib_df[:, 0].T, want[1]))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        tol = KERNEL_TOL[dname]
+        ws = dwconv1d.bwd_partials(x, f, dy)[1]
+        first_ms = self.graph_ms(lambda: dwconv1d.bwd_partials(x, f, dy),
+                                 self.dev)
+        reduce_ms = self.graph_ms(lambda: dwconv1d.reduce_partials(ws, dtype),
+                                  self.dev)
+        both_ms = self.graph_ms(bwd, self.dev)
+        plain_ms = self.time_ms(
+            lambda: dwconv1d.dwconv1d_causal_bwd_plain(x, f, dy), self.dev,
+            reps=20, warmup=3)
+        reduce_plain_ms = self.time_ms(lambda: ws.sum(dim=0).to(dtype),
+                                       self.dev, reps=20, warmup=3)
+        reduce_library_ms = self.graph_ms(lambda: ws.sum(dim=0).to(dtype),
+                                          self.dev)
+        library_ms = self.graph_ms(library, self.dev)
+        es = x.element_size()
+        rows = []
+        for name, ms, pms, lms, nbytes, ops in (
+                ("dwconv1d_bwd", first_ms, plain_ms, library_ms,
+                 (3 * x.numel() + 2 * f.numel()) * es,
+                 4 * b * length * d * k),
+                ("dwconv1d_bwd_reduce", reduce_ms, reduce_plain_ms,
+                 reduce_library_ms,
+                 ws.numel() * 4 + f.numel() * es, ws.numel())):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS[dname] * 1e3
+            rows.append({
+                "name": name, "shape": label, "dtype": dname,
+                "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
+                "ms": ms, "plain_ms": pms, "library_ms": lms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": ops, "backward_ms": both_ms,
+                "splits": ws.shape[0], "repeats_bit_for_bit": repeats,
+                "graph_replay_equal": replays, "library_rel_err": lib_rel})
+        print(f"  {'dwconv1d backward':17s} {label:44s} {dname:8s} rel err "
+              f"{rel:.2e} (tol {tol:g}; library {lib_rel:.2e}), "
+              f"{ws.shape[0]} partial slots; both kernels {both_ms:.4f} ms "
+              f"(dx + partials {first_ms:.4f}, reduce {reduce_ms:.4f}), "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"{rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']}); "
+              f"reduce bound {rows[1]['bound_ms']:.4f} ms, plain "
+              f"{reduce_plain_ms:.4f} ms, library {reduce_library_ms:.4f} "
+              f"ms; two calls equal {repeats}, graph "
+              f"replay equal {replays}", flush=True)
+        if not (finite and rel <= tol and repeats and replays):
+            raise AssertionError(f"dwconv1d backward {label} {dname}: rel "
+                                 f"err {rel} > {tol} (finite={finite}), two "
+                                 f"calls equal {repeats}, graph replay "
+                                 f"equal {replays}")
+        self.results.extend(rows)
 
     def fused(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
         """One block as the main path runs it: x unpadded, the kernel
@@ -2652,11 +2774,32 @@ def run_whisper_phase():
         return json.load(fh)
 
 
+#: The whole script's time budget on one H100, in seconds: the paths
+#: before the recurrent models' training took 690-720 s, and their training
+#: may add about 120.  Printed against the run's total; the limit that
+#: fails a run is the caller's.
+TIME_BUDGET_S = 840
+
 #: Phase 10, training: smollm-360m's batch, sequence, steps, checkpoint
 #: period and the step the fault is injected at; the learning rate.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT = 8, 256, 20, \
     10, 15
 TRAIN_LR = 1e-3
+#: xlstm-125m uncut in the same loop (8 x 256 tokens): steps, checkpoint
+#: period, the step the fault is injected at.  Fewer than smollm's: a step
+#: takes seconds on the host (the sLSTM loop's ~20 small launches a time
+#: step, run forward, again in the remat, in the chunk checkpoint's
+#: recompute and backward).  The fault comes at the step after a
+#: checkpoint, so the recovery reloads the state from disk and reruns no
+#: step it had taken.
+XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT = 3, 2, 2
+#: hymba-1.5b at full width, its depth cut for the script's time: layers,
+#: batch, tokens (the 128 meta tokens come on top), steps.
+HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = \
+    4, 2, 512, 6
+HYMBA_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 for the training "
+                    "run (the script's time); widths, window and meta "
+                    "tokens as published")
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -2679,31 +2822,47 @@ def run_training(torch, dev):
     with ``CUBLAS_WORKSPACE_CONFIG``):
 
     * step-1 gradients, the kernel path against the plain path
-      (``impl="torch"``): smollm-360m at full width cut to 2 layers, fp32,
-      the first 8 x 256 batch, every gradient within FP32_REL_TOL of its
-      largest magnitude;
-    * smollm-360m uncut, bf16, 8 x 256 tokens, 20 steps of the
-      fault-tolerant loop (AdamW, checkpoints every 10 steps): the loss
-      finite and falling (the mean of the last 5 below the first 5's);
-      ``pwconv`` launches a step equal to
-      ``launch.train.expected_train_launches``; then the same run with a
-      fault injected at step 15 (restored from step 10) ends with the
-      first run's parameters bit for bit;
+      (``impl="torch"``), fp32, every gradient within FP32_REL_TOL of its
+      largest magnitude, and the step's launches as
+      ``launch.train.expected_train_launches`` counts them: smollm-360m at
+      full width cut to 2 layers (8 x 256), xlstm-125m cut to 2 layers
+      (one mLSTM, one sLSTM; 8 x 256), hymba-1.5b cut to 1 layer (2 x 512
+      tokens and the 128 meta tokens);
+    * the fault-tolerant loop (AdamW, fp32 moments) on smollm-360m uncut
+      (bf16, 8 x 256, 20 steps, checkpoints every 10, then again with a
+      fault at step 15) and xlstm-125m uncut (bf16, 8 x 256, 3 steps,
+      checkpoints every 2, a fault at step 2): the loss finite and falling
+      (the mean of the last quarter of the steps below the first
+      quarter's), the launches of every step as expected, the run with the
+      fault ending with the first run's parameters bit for bit; and
+      hymba-1.5b at full width cut to 4 layers (bf16, 2 x 512 tokens, 6
+      steps, no fault run);
+    * for each loop: ms a step (host clock, median), trained tokens/s, own
+      peak memory, the parts of its last step (loss and backward, AdamW;
+      host clock), a step's device ms by kernel, busy share and device
+      events (profiler);
+      hymba's selective scan in one layer (device ms forward and backward,
+      and its own peak memory);
     * one whisper-small step at full width (fp32, 2 x 64 tokens and 1500
       frames): a finite loss, its gradients kernel against plain.
 
-    Returns the records and the wrappers' launches."""
+    Returns the records, the wrappers' launches, and the kernels the
+    profiled steps ran (by launch counter)."""
     import dataclasses
     import shutil
+    import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, DataIterator
     from repro_torch.kernels.policy import KernelPolicy
-    from repro_torch.launch.serve import (frontend_stub, launch_counts,
-                                          reset_launch_counts)
-    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.launch.serve import frontend_stub, reset_launch_counts
+    from repro_torch.launch.train import (TRAIN_COUNTERS,
+                                          expected_train_launches,
+                                          train_launch_counts)
+    from repro_torch.measure import device_profile
     from repro_torch.models.layers import trainable_
+    from repro_torch.models.ssm import selective_scan
     from repro_torch.models.transformer import init_params
-    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim import adamw
     from repro_torch.train.train_step import (TrainConfig, accumulate_grads,
                                               init_train_state,
                                               make_train_step)
@@ -2711,14 +2870,15 @@ def run_training(torch, dev):
                                            train_loop)
     torch.use_deterministic_algorithms(True)
     plain = KernelPolicy(impl="torch")
-    totals = {"dwconv1d": 0, "pwconv": 0}
+    totals = dict.fromkeys(TRAIN_COUNTERS, 0)
+    profiled = dict.fromkeys(TRAIN_COUNTERS, 0)
     out = {}
 
     def counted(fn, want=None, label=""):
         reset_launch_counts()
         r = fn()
         torch.cuda.synchronize(dev)
-        got = launch_counts()
+        got = train_launch_counts()
         if want is not None and got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         for k in totals:
@@ -2729,124 +2889,29 @@ def run_training(torch, dev):
         return trainable_(init_params(
             cfg, generator=torch.Generator(dev).manual_seed(0), device=dev))
 
-    def params_of(m):
-        return {n: p.detach() for n, p in m.named_parameters()}
+    def data(cfg, seq, batch):
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch, seed=0)
+        return dcfg, next(DataIterator(dcfg, prefetch=0))
 
     def gated_grads(label, m, batch):
-        params = params_of(m)
-        (lk, _, gk), got = counted(
-            lambda: accumulate_grads(m, params, batch), label=label)
+        params = {n: p.detach() for n, p in m.named_parameters()}
         want = expected_train_launches(m.cfg)
-        if got != want:
-            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        (lk, _, gk), got = counted(
+            lambda: accumulate_grads(m, params, batch), want, label)
         lp, _, gp = accumulate_grads(m, params, batch, policy=plain)
         errs = grad_errors(gk, gp)
         worst = max(errs, key=errs.get)
         r = {"loss": float(lk), "plain_loss": float(lp),
              "max_grad_rel_err": errs[worst], "worst": worst,
-             "tol": FP32_REL_TOL, "pwconv_launches": got["pwconv"]}
+             "tol": FP32_REL_TOL, "launches": got}
         print(f"    {label}: loss {r['loss']:.6f} (plain {r['plain_loss']:.6f})"
               f", gradients kernel vs plain: worst {errs[worst]:.2e} at "
-              f"{worst} (tol {FP32_REL_TOL:g}); {got['pwconv']} pwconv "
-              "launches (forward, remat, gates' pre-activations)", flush=True)
+              f"{worst} (tol {FP32_REL_TOL:g}); launches {got} (forward, "
+              "remat, backward)", flush=True)
         if not (np_isfinite(r["loss"]) and errs[worst] <= FP32_REL_TOL):
             raise AssertionError(f"{label}: {r}")
         return r
-
-    cfg = get_config("smollm-360m")
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, seed=0)
-    first = next(DataIterator(dcfg, prefetch=0))
-    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    note = ("reduced: smollm-360m n_layers 32 -> 2 and fp32 for the step-1 "
-            "gradient check only (the kernel-vs-plain oracle); widths as "
-            "published")
-    print(f"    {note}", flush=True)
-    m2 = draw(cut)
-    out["smollm_step1_grads"] = dict(gated_grads(
-        f"smollm-360m (2 layers, fp32) step 1, {TRAIN_BATCH}x{TRAIN_SEQ}",
-        m2, first), reduced=note)
-    del m2
-    torch.cuda.empty_cache()
-
-    # smollm-360m uncut, bf16: 20 steps, then again with a fault at 15
-    m = draw(cfg)
-    n = sum(p.numel() for p in m.parameters())
-    tcfg = TrainConfig(optimizer=AdamWConfig(
-        lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS))
-    step_fn = make_train_step(m, tcfg)
-    want = expected_train_launches(cfg)
-    per_step = []
-
-    def step(state, batch):
-        r, got = counted(lambda: step_fn(state, batch), want,
-                         "smollm-360m train step")
-        per_step.append(got["pwconv"])
-        return r
-    state0 = init_train_state(m, tcfg)
-    loop = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
-                      log_every=5, keep_ckpts=1)
-    runs = []
-    for fault in (None, TRAIN_FAULT):
-        ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt",
-                            f"fault_{fault}")
-        shutil.rmtree(ckpt, ignore_errors=True)
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        before = torch.cuda.memory_allocated(dev)
-        t0 = time.perf_counter()
-        final, info = train_loop(
-            step, state0, dcfg, loop, ckpt,
-            fault_injector=FaultInjector({fault: "sim-device-loss"})
-            if fault else None,
-            log=lambda line: print("      " + line, flush=True))
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(dev) - before
-        shutil.rmtree(ckpt, ignore_errors=True)
-        hist = info["history"]
-        losses = [h["loss"] for h in hist]
-        ms = statistics.median(h["time_s"] for h in hist) * 1e3
-        runs.append({"fault_at": fault, "steps": len(hist),
-                     "failures": info["failures"], "losses": losses,
-                     "ms_per_step": ms,
-                     "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / ms,
-                     "own_peak_bytes": peak, "seconds": wall,
-                     "pwconv_per_step": per_step[-1],
-                     "stragglers": info["stragglers"]})
-        runs[-1]["final"] = final["params"]
-        print(f"    smollm-360m ({n / 1e6:.1f}M parameters, bf16) "
-              f"{TRAIN_BATCH}x{TRAIN_SEQ}, {len(hist)} steps"
-              + (f", fault at step {fault}" if fault else "")
-              + f": {ms:.1f} ms a step (median), "
-              f"{runs[-1]['tokens_per_s']:.0f} trained tokens/s, own peak "
-              f"{peak / 2**30:.2f} GiB, {per_step[-1]} pwconv launches a "
-              f"step; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-              f"{wall:.1f} s with checkpoints", flush=True)
-    clean, faulty = runs
-    last = clean["final"]
-    same = all(torch.equal(clean["final"][k], faulty["final"][k])
-               for k in clean["final"])
-    falling = (statistics.mean(clean["losses"][-5:])
-               < statistics.mean(clean["losses"][:5]))
-    finite = all(np_isfinite(x) for x in clean["losses"])
-    for r in runs:
-        del r["final"]
-    out["smollm_runs"] = runs
-    out["fault_recovery_bit_exact"] = same
-    print(f"    loss finite {finite}, falling {falling} (mean of the first "
-          f"5 {statistics.mean(clean['losses'][:5]):.4f}, last 5 "
-          f"{statistics.mean(clean['losses'][-5:]):.4f}); the run with the "
-          f"fault at step {TRAIN_FAULT} ({faulty['failures']} failure) ends "
-          f"with the same parameters bit for bit: {same}", flush=True)
-    if not (finite and falling and same and faulty["failures"] == 1):
-        raise AssertionError(f"training: finite {finite}, falling "
-                             f"{falling}, bit-exact recovery {same}")
-    # where a step's time goes, one more step from the trained state: the
-    # loss and backward and AdamW apart (host clock around each, synced),
-    # and the whole step's device time by kernel (profiler)
-    from repro_torch.measure import device_profile
-    from repro_torch.optim import adamw
-    state = {"params": last, "opt": adamw.init_state(last, tcfg.optimizer)}
 
     def timed(fn):
         torch.cuda.synchronize(dev)
@@ -2854,37 +2919,236 @@ def run_training(torch, dev):
         r = fn()
         torch.cuda.synchronize(dev)
         return r, (time.perf_counter() - t0) * 1e3
-    (_, _, grads), grad_ms = timed(
-        lambda: accumulate_grads(m, last, first))
-    _, opt_ms = timed(lambda: adamw.apply_updates(last, grads, state["opt"],
-                                                  tcfg.optimizer))
-    del grads
-    step_dev, ran = device_profile(lambda: step_fn(state, first), reps=1)
-    busy = sum(step_dev.values()) / clean["ms_per_step"] if step_dev \
-        else None
-    out["smollm_step_breakdown"] = {
-        "grad_ms": grad_ms, "adamw_ms": opt_ms, "device_ms": step_dev,
-        "device_events": ran.get("device_events"), "busy": busy}
-    print(f"    a smollm-360m step's parts: loss and backward {grad_ms:.1f} "
-          f"ms, AdamW {opt_ms:.1f} ms (host clock); device ms " + ", ".join(
-              f"{k} {v:.2f}" for k, v in sorted(step_dev.items()))
-          + f" (busy {pct(busy)} of the median step), "
-          f"{ran.get('device_events')} device events", flush=True)
-    del m, step_fn, state0, state, last
+
+    def train_runs(name, m, dcfg, first, steps, ckpt_every, fault=None):
+        """The loop from the model's weights, then (``fault``) again with a
+        fault injected at that step.  The first run's last step is taken in
+        its two parts, each timed; then one more step's device profile
+        from the trained state."""
+        n = sum(p.numel() for p in m.parameters())
+        tcfg = TrainConfig(optimizer=AdamWConfig(
+            lr=TRAIN_LR, warmup_steps=max(2, steps // 4), total_steps=steps))
+        step_fn = make_train_step(m, tcfg)
+        want = expected_train_launches(m.cfg)
+        per_step = []
+        tokens = dcfg.global_batch * dcfg.seq_len
+        parts = {}
+
+        def in_parts(state, batch):
+            # make_train_step's step (no compression), the loss and
+            # backward and AdamW apart, on the host clock, synced
+            (loss, metrics, grads), parts["grad_ms"] = timed(
+                lambda: accumulate_grads(m, state["params"], batch))
+            (params, opt, opt_metrics), parts["adamw_ms"] = timed(
+                lambda: adamw.apply_updates(state["params"], grads,
+                                            state["opt"], tcfg.optimizer))
+            return ({"params": params, "opt": opt},
+                    dict(metrics, **opt_metrics, loss=loss))
+
+        def step(state, batch):
+            fn = (in_parts if not runs and len(per_step) == steps - 1
+                  else step_fn)
+            r, got = counted(lambda: fn(state, batch), want,
+                             f"{name} train step")
+            per_step.append(got)
+            return r
+        state0 = init_train_state(m, tcfg)
+        loop = LoopConfig(total_steps=steps, ckpt_every=ckpt_every,
+                          log_every=5, keep_ckpts=1)
+        runs = []
+        for f in (None, fault) if fault else (None,):
+            ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt",
+                                f"{name}_fault_{f}")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            final, info = train_loop(
+                step, state0, dcfg, loop, ckpt,
+                fault_injector=FaultInjector({f: "sim-device-loss"})
+                if f else None,
+                log=lambda line: print("      " + line, flush=True))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            shutil.rmtree(ckpt, ignore_errors=True)
+            hist = info["history"]
+            losses = [h["loss"] for h in hist]
+            ms = statistics.median(h["time_s"] for h in hist) * 1e3
+            runs.append({"fault_at": f, "steps": len(hist),
+                         "failures": info["failures"], "losses": losses,
+                         "ms_per_step": ms, "tokens_per_s": tokens * 1e3 / ms,
+                         "own_peak_bytes": peak, "seconds": wall,
+                         "launches_per_step": per_step[-1],
+                         "stragglers": info["stragglers"],
+                         "final": final["params"]})
+            print(f"    {name} ({n / 1e6:.1f}M parameters, "
+                  f"{m.cfg.dtype}) {dcfg.global_batch}x{dcfg.seq_len}, "
+                  f"{len(hist)} steps" + (f", fault at step {f}" if f else "")
+                  + f": {ms:.1f} ms a step (median), "
+                  f"{runs[-1]['tokens_per_s']:.0f} trained tokens/s, own peak "
+                  f"{peak / 2**30:.2f} GiB, launches a step {per_step[-1]}; "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.1f} s "
+                  "with checkpoints", flush=True)
+        clean = runs[0]
+        last = clean["final"]
+        q = max(1, steps // 4)
+        head = statistics.mean(clean["losses"][:q])
+        tail = statistics.mean(clean["losses"][-q:])
+        falling = tail < head
+        finite = all(np_isfinite(x) for x in clean["losses"])
+        same = None
+        if fault:
+            faulty = runs[1]
+            same = (faulty["failures"] == 1 and all(
+                torch.equal(last[k], faulty["final"][k]) for k in last))
+        for r in runs:
+            del r["final"]
+        print(f"    {name}: loss finite {finite}, falling {falling} (mean of "
+              f"the first {q} {head:.4f}, last {q} {tail:.4f})"
+              + (f"; the run with the fault at step {fault} ends with the "
+                 f"same parameters bit for bit: {same}" if fault else ""),
+              flush=True)
+        if not (finite and falling and same is not False):
+            raise AssertionError(f"{name} training: finite {finite}, "
+                                 f"falling {falling}, bit-exact recovery "
+                                 f"{same}")
+        # where a step's time goes: the parts of the first run's last step,
+        # and one more step's device time by kernel (profiler; the step has
+        # run at its shapes, so no unprofiled call first)
+        grad_ms, opt_ms = parts["grad_ms"], parts["adamw_ms"]
+        state = {"params": last, "opt": adamw.init_state(last,
+                                                         tcfg.optimizer)}
+        step_dev, ran = device_profile(lambda: step_fn(state, first), reps=1,
+                                       warmup=False)
+        for k in profiled:
+            profiled[k] += ran.get(k, 0)
+        busy = (sum(step_dev.values()) / clean["ms_per_step"] if step_dev
+                else None)
+        breakdown = {"grad_ms": grad_ms, "adamw_ms": opt_ms,
+                     "device_ms": step_dev, "busy": busy,
+                     "device_events": ran.get("device_events"),
+                     "profiled_launches": {k: ran.get(k, 0)
+                                           for k in TRAIN_COUNTERS}}
+        print(f"    a {name} step's parts: loss and backward {grad_ms:.1f} "
+              f"ms, AdamW {opt_ms:.1f} ms (host clock); device ms "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(step_dev.items()))
+              + f" (busy {pct(busy)} of the median step), "
+              f"{ran.get('device_events')} device events, kernels "
+              f"{breakdown['profiled_launches']}", flush=True)
+        return {"parameters": n, "runs": runs, "bit_exact_recovery": same,
+                "breakdown": breakdown}
+
+    def scan_profile(m, batch, length):
+        """hymba's selective scan at one layer's training shape (the first
+        layer's ``a_log``, fp32 inputs from a seed): device ms of the
+        forward under autograd and of its backward (profiler)."""
+        mm = m.blocks[0].mamba
+        di, n = mm.a_log.shape
+        g = torch.Generator(dev).manual_seed(1)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        ins = [rnd(batch, length, di), F.softplus(rnd(batch, length, di) - 4),
+               -torch.exp(mm.a_log.detach()), rnd(batch, length, n),
+               rnd(batch, length, n), mm.d_skip.detach().clone()]
+        ins = [t.requires_grad_(True) for t in ins]
+        fwd = lambda: selective_scan(*ins, chunk=m.cfg.ssm.chunk)  # noqa: E731
+        gy = rnd(batch, length, di)
+        # the layer's own peak: one forward under autograd and its backward
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.autograd.grad(fwd()[0], ins, gy)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        y, _ = fwd()
+        fwd_ms, _ = device_profile(fwd, reps=3)
+        bwd_ms, ran = device_profile(lambda: torch.autograd.grad(
+            y, ins, gy, retain_graph=True), reps=3)
+        r = {"shape": [batch, length, di, n], "chunk": m.cfg.ssm.chunk,
+             "forward_device_ms": sum(fwd_ms.values()),
+             "backward_device_ms": sum(bwd_ms.values()),
+             "backward_device_events": ran.get("device_events"),
+             "own_peak_bytes": peak}
+        print(f"    hymba's selective scan, one layer ({batch}x{length}, "
+              f"d_inner {di}, N {n}, chunk {r['chunk']}, fp32): forward "
+              f"{r['forward_device_ms']:.2f} device ms under autograd, "
+              f"backward {r['backward_device_ms']:.2f} device ms "
+              f"({r['backward_device_events']} device events); own peak of "
+              f"a forward and its backward {peak / 2**20:.0f} MiB",
+              flush=True)
+        return r
+
+    from repro_torch.optim.adamw import AdamWConfig
+    seconds = out["seconds"] = {}
+    t_part = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        seconds[label] = now - t_part[0]
+        t_part[0] = now
+        print(f"    ({label}: {seconds[label]:.1f} s)", flush=True)
+
+    # step-1 gradients, kernel against plain, fp32, depth cut
+    cfg = get_config("smollm-360m")
+    xcfg = get_config("xlstm-125m")
+    hcfg = get_config("hymba-1.5b")
+    for label, c, layers, seq, batch in (
+            ("smollm-360m", cfg, 2, TRAIN_SEQ, TRAIN_BATCH),
+            ("xlstm-125m", xcfg, 2, TRAIN_SEQ, TRAIN_BATCH),
+            ("hymba-1.5b", hcfg, 1, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH)):
+        cut = dataclasses.replace(c, n_layers=layers, dtype="float32")
+        note = (f"reduced: {label} n_layers {c.n_layers} -> {layers} and "
+                "fp32 for the step-1 gradient check only (the kernel-vs-"
+                "plain oracle); widths as published")
+        print(f"    {note}", flush=True)
+        m = draw(cut)
+        _, first = data(cut, seq, batch)
+        out[f"{label}_step1_grads"] = dict(gated_grads(
+            f"{label} ({layers} layers, fp32) step 1, {batch}x{seq}", m,
+            first), reduced=note)
+        del m
+        torch.cuda.empty_cache()
+        lap(f"{label} step-1 gradients")
+
+    # smollm-360m and xlstm-125m uncut, bf16, each with a fault run
+    for label, c, steps, ckpt_every, fault in (
+            ("smollm-360m", cfg, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT),
+            ("xlstm-125m", xcfg, XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT)):
+        m = draw(c)
+        dcfg, first = data(c, TRAIN_SEQ, TRAIN_BATCH)
+        out[label] = train_runs(label, m, dcfg, first, steps, ckpt_every,
+                                fault)
+        del m
+        torch.cuda.empty_cache()
+        lap(f"{label} training")
+
+    # hymba-1.5b at full width, HYMBA_TRAIN_LAYERS layers, bf16
+    print(f"    {HYMBA_TRAIN_NOTE}", flush=True)
+    hcut = dataclasses.replace(hcfg, n_layers=HYMBA_TRAIN_LAYERS)
+    m = draw(hcut)
+    dcfg, first = data(hcut, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH)
+    out["hymba-1.5b"] = dict(train_runs(
+        "hymba-1.5b", m, dcfg, first, HYMBA_TRAIN_STEPS, HYMBA_TRAIN_STEPS),
+        reduced=HYMBA_TRAIN_NOTE, scan=scan_profile(
+            m, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ + hcfg.meta_tokens))
+    del m
     torch.cuda.empty_cache()
+    lap("hymba-1.5b training and scan")
 
     # one whisper-small step at full width, fp32
     wcfg = dataclasses.replace(get_config("whisper-small"), dtype="float32")
     wm = draw(wcfg)
-    wb = next(DataIterator(DataConfig(vocab_size=wcfg.vocab_size, seq_len=64,
-                                      global_batch=2, seed=0), prefetch=0))
+    _, wb = data(wcfg, 64, 2)
     wb["frontend"] = frontend_stub(wcfg, 2, dev, seed=0)
     out["whisper_step"] = gated_grads(
         "whisper-small (12+12 layers, fp32) step 1, 2x64 tokens, 1500 "
         "frames", wm, wb)
     del wm
     torch.cuda.empty_cache()
-    return out, totals
+    lap("whisper-small step")
+    return out, totals, profiled
 
 
 def np_isfinite(x: float) -> bool:
@@ -2966,6 +3230,13 @@ def main() -> int:
               f"{max(regs, default=0)} registers, {spills} bytes of spill "
               "stores in all")
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def took(name):
+        phase_s[name] = time.perf_counter() - t_phase
+        print(f"  ({phase_s[name]:.0f} s)", flush=True)
+        return phase_s[name]
+
     t_phase = time.perf_counter()
     print("kernels vs plain versions:")
     kc = KernelChecks(torch, dev)
@@ -3028,6 +3299,14 @@ def main() -> int:
         # 1664 positions (w_in, w_bcdt, w_dt, the MLP's gate), decode's w_in
         g = 8 * (128 + HYMBA_PROMPT)
         kc.dwconv1d(8, 128 + HYMBA_PROMPT, 3200, 4, dtype)
+        # dwconv1d's backward at the training shapes: xLSTM's 8 x 256 at
+        # the mLSTM's d_inner 1536 and the sLSTM's d_model 768, hymba's
+        # 512 tokens + 128 meta at batch 4 and at phase 10's batch
+        kc.dwconv1d_bwd(TRAIN_BATCH, TRAIN_SEQ, 1536, 4, dtype)
+        kc.dwconv1d_bwd(TRAIN_BATCH, TRAIN_SEQ, 768, 4, dtype)
+        kc.dwconv1d_bwd(4, 640, 3200, 4, dtype)
+        kc.dwconv1d_bwd(HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ + 128, 3200, 4,
+                        dtype)
         for ci, co, act in ((1600, 6400, None), (3200, 132, None),
                             (100, 3200, None), (1600, 5504, "silu")):
             kc.pwconv(g, ci, co, dtype, act=act, launches=2)
@@ -3049,66 +3328,67 @@ def main() -> int:
         for ci, co, act in ((960, 960, None), (960, 2560, "silu")):
             kc.pwconv(TRAIN_BATCH * TRAIN_SEQ, ci, co, dtype, act=act,
                       launches=5)
-    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    took("kernel checks")
 
     t_phase = time.perf_counter()
     print("main path: execute_network, MobileNet V1/V2, MnasNet-A1 and "
           "EfficientNet-Lite0 at width 1.0, 112x112:")
     runs, launches, replayed, variants = run_networks(torch, dev)
-    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    took("CNN main path")
     t_phase = time.perf_counter()
     print("tuning path: tune_network on V1/V2/MnasNet-A1/Lite0 at 112x112, "
           "default plan, then the tuned against the analytic graph path:")
     tuning, tune_launches, tuned = run_tuning(torch, dev)
-    tuning_s = time.perf_counter() - t_phase
+    tuning_s = took("tuning")
     print(f"  launches of the tunes: {tune_launches}")
-    print(f"  ({tuning_s:.0f} s)")
     t_phase = time.perf_counter()
     print("runtime ladder (an opt-in): the default policy's steady state "
           "against on_failure='degrade', recovery and re-capture after "
           "injected faults, a real launch error:")
     runtime = run_runtime(torch, dev)
-    runtime_s = time.perf_counter() - t_phase
-    print(f"  ({runtime_s:.0f} s)")
+    runtime_s = took("runtime ladder")
     t_phase = time.perf_counter()
     print("serving path: xlstm-125m at full width, prefill + greedy decode:")
     serving, serve_launches, serve_replayed, stepping, serve_variants = \
         run_serving(torch, dev)
-    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    took("xlstm serving")
     # after the profiled serving phase: its decode traces lost records
     # when this phase ran before it (PERF.md, section 6)
     t_phase = time.perf_counter()
     print("static verification, traffic models and shims:")
     static = run_static(torch, dev, runs, tuned)
-    static_s = time.perf_counter() - t_phase
-    print(f"  ({static_s:.0f} s)")
+    static_s = took("static verification")
     t_phase = time.perf_counter()
     print(f"serving path: hymba-1.5b at full width, {HYMBA_LAYERS} of 32 "
           "layers, prefill + greedy decode:")
     (hymba, hymba_launches, hymba_replayed, hymba_stepping, hymba_variants,
      hymba_breakdowns) = run_hymba_phase()
-    print(f"  ({time.perf_counter() - t_phase:.0f} s)")
+    took("hymba serving")
     t_phase = time.perf_counter()
     print("serving path: attention-MLP transformers (dense, VLM, MoE), "
           "prefill + greedy decode:")
     attn, attn_launches, attn_replayed, attn_variants, attn_checks = \
         run_attn_mlp_phase()
-    attn_s = time.perf_counter() - t_phase
-    print(f"  ({attn_s:.0f} s)")
+    attn_s = took("attention-MLP serving")
     t_phase = time.perf_counter()
     print("serving path: whisper-small at full width (encoder-decoder), "
           "prefill + greedy decode:")
     whisper, whisper_launches, whisper_replayed, whisper_variants = \
         run_whisper_phase()
-    whisper_s = time.perf_counter() - t_phase
-    print(f"  ({whisper_s:.0f} s)")
+    whisper_s = took("whisper serving")
     t_phase = time.perf_counter()
-    print("training path: smollm-360m at full width on one card, a "
+    print("training path on one card: smollm-360m and xlstm-125m at full "
+          f"width, hymba-1.5b at full width ({HYMBA_TRAIN_LAYERS} layers), a "
           "whisper-small step:")
-    training, train_launches = run_training_phase()
-    train_s = time.perf_counter() - t_phase
-    print(f"  ({train_s:.0f} s)")
-    launches["dwconv1d"] = replayed["dwconv1d"] = 0
+    training, train_launches, train_profiled = run_training_phase()
+    train_s = took("training")
+    # dwconv1d's kernels run on the LM paths only; its backward's in
+    # training alone, whose steps are eager: what a profiled step ran
+    # stands for their replay count
+    for name in ("dwconv1d", "dwconv1d_bwd", "dwconv1d_bwd_reduce"):
+        launches[name] = replayed[name] = 0
+    for name in ("dwconv1d_bwd", "dwconv1d_bwd_reduce"):
+        replayed[name] = train_profiled[name]
     for name, n in train_launches.items():
         launches[name] += n
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
@@ -3160,13 +3440,19 @@ def main() -> int:
                        "attn_mlp_seconds": attn_s, "whisper": whisper,
                        "whisper_seconds": whisper_s, "training": training,
                        "training_seconds": train_s,
+                       "phase_seconds": phase_s,
                        "launches": launches,
                        "replay_launches": replayed,
                        "pwconv_variants": variants,
                        "seconds": time.perf_counter() - t_start}, fh,
                       indent=1)
+    total = time.perf_counter() - t_start
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in phase_s.items())
+          + f"; total {total:.0f} s against a budget of {TIME_BUDGET_S} s "
+          f"({'within' if total <= TIME_BUDGET_S else 'over'})")
     print(f"kernels launched and checked: {', '.join(SOURCES)} "
-          f"({time.perf_counter() - t_start:.0f} s)")
+          f"({total:.0f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,8 @@ def depthwise2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
 def depthwise1d_causal(x: torch.Tensor, f: torch.Tensor, *,
                        policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """x (B, L, D) * f (K, D) -> (B, L, D), causal; both contiguous on the
-    card, f in x's dtype."""
+    card, f in x's dtype.  Differentiable: under autograd the backward is
+    the ``dwconv1d`` backward kernels on the card."""
     return ops.dwconv1d_causal(x, f, impl=policy.impl)
 
 

@@ -13,7 +13,8 @@ replayed:
 
 The kernel wrappers count their launches in plain integers (``launches``
 in ``kernels/{dwconv2d,pwconv,separable_fused,fused_mbconv,se_epilogue,
-dwconv1d}.py``), where they call the launch.  The warm-up and the capture
+dwconv1d}.py``; ``dwconv1d``'s backward also ``bwd_launches`` and
+``reduce_launches``), where they call the launch.  The warm-up and the capture
 each run the wrappers once, so each moves the counters by one call; a
 replay runs no wrapper and moves none.  What a replay ran on the device is
 counted in a profiler trace instead (``measure.device_profile``).
@@ -48,6 +49,8 @@ _COUNTERS = {
     "fused_mbconv": (fused_mbconv, "launches", None),
     "dw_se": (se_epilogue, "launches", None),
     "dwconv1d": (dwconv1d, "launches", None),
+    "dwconv1d_bwd": (dwconv1d, "bwd_launches", None),
+    "dwconv1d_bwd_reduce": (dwconv1d, "reduce_launches", None),
 }
 
 

@@ -15,8 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import blocking, ref
-from repro_torch.kernels.dwconv1d import (
-    dwconv1d_causal as dwconv1d_causal_kernel)
+from repro_torch.kernels.dwconv1d import DwConv1dFn
 from repro_torch.kernels.dwconv2d import dwconv2d as dwconv2d_kernel
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.kernels.policy import resolve_impl
@@ -46,10 +45,10 @@ def dwconv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
 
 def dwconv1d_causal(x: torch.Tensor, f: torch.Tensor, *,
                     impl: str = "auto") -> torch.Tensor:
-    """Causal depthwise 1-D conv. x (B, L, D), f (K, D) in x's dtype."""
-    if resolve_impl(impl, x.device) == "torch":
-        return ref.dwconv1d_causal_ref(x, f)
-    return dwconv1d_causal_kernel(x, f)
+    """Causal depthwise 1-D conv. x (B, L, D), f (K, D) in x's dtype:
+    ``kernels/dwconv1d.py::DwConv1dFn``, the kernel (one launch) and,
+    under autograd, the backward's kernels on the card."""
+    return DwConv1dFn.apply(x, f, impl)
 
 
 def pwconv(x: torch.Tensor, w: torch.Tensor,

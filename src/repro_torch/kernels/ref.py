@@ -100,11 +100,18 @@ def dwconv1d_causal_ref(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     if x.ndim != 3 or f.ndim != 2 or x.shape[-1] != f.shape[-1]:
         raise ValueError(f"dwconv1d shapes {tuple(x.shape)} {tuple(f.shape)}")
     k, length = f.shape[0], x.shape[1]
-    xp = F.pad(x.float(), (0, 0, k - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    acc = acc_dtype(x.dtype)
+    xp = F.pad(x.to(acc), (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=acc, device=x.device)
     for i in range(k):  # K is tiny (3..5): unrolled shifts
-        out = out + xp[:, i:i + length, :] * f[i].float()
+        out = out + xp[:, i:i + length, :] * f[i].to(acc)
     return out.to(x.dtype)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation type of the plain versions: fp32, or fp64 for fp64
+    operands (``torch.autograd.gradcheck``'s)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def dwconv1d_step_ref(state: torch.Tensor, x_t: torch.Tensor,

@@ -7,9 +7,9 @@ one device.
         [--microbatches 1] [--ckpt-dir DIR] [--ckpt-every 50] \\
         [--compress none|topk|int8] [--seed 0] [--device cuda]
 
-``<id>`` is any id of ``configs.registry.ARCH_IDS`` whose layers train
-(the attention-MLP transformers and whisper-small; xLSTM and hymba raise,
-naming the ROADMAP item).  Weights are random, drawn from ``--seed``; the
+``<id>`` is any id of ``configs.registry.ARCH_IDS``: the attention-MLP
+transformers, whisper-small, xlstm-125m and hymba-1.5b all train.  Weights
+are random, drawn from ``--seed``; the
 data is the synthetic pipeline (``data/pipeline.py``) from ``--seed``; an
 encoder-decoder gets one fixed set of encoder frames drawn from
 ``--seed`` (``launch.serve.frontend_stub``) for every step.  The loop is
@@ -19,10 +19,12 @@ in the checkout), so a second run of the same command continues the
 first.  On the card the kernels and the embedding's backward run
 deterministically (``torch.use_deterministic_algorithms``), as the
 loop's bit-exact recovery needs.  It prints ms per step, trained tokens/s,
-the process's peak device memory and the ``pwconv`` launches of one step
-(forward, the per-layer remat's recomputed forward, and the backward's
-recomputed pre-activations).  ``--device cpu`` runs the plain PyTorch
-versions; without a card the default raises.
+the process's peak device memory and the kernel launches of one step
+(:func:`expected_train_launches`: ``pwconv`` in the forward, the per-layer
+remat's recomputed forward and the backward's recomputed pre-activations;
+``dwconv1d`` in the forward and the remat, and its backward's two kernels
+once each).  ``--device cpu`` runs the plain PyTorch versions; without a
+card the default raises.
 
 The reference's ``--model-parallel`` (above 1), ``--production-mesh`` and
 ``--multi-pod`` shard over a mesh: they raise here, naming ROADMAP.md
@@ -39,31 +41,54 @@ MESH_NOT_PORTED = ("sharding over a mesh (--model-parallel, "
                    "ROADMAP.md queue A, item 4.3")
 
 
+#: The launch counters of a train step (``repro_torch.graphs`` names).
+TRAIN_COUNTERS = ("dwconv1d", "dwconv1d_bwd", "dwconv1d_bwd_reduce",
+                  "pwconv")
+
+#: Linears with an activation a layer has, by variant: each one's backward
+#: recomputes its pre-activation with one more ``pwconv`` launch (the
+#: MLP's gate; the sLSTM block's FFN gate; none in an mLSTM block).
+GATED_LINEARS = {"mlstm": 0, "slstm": 1, "hymba": 1, "attn_mlp": 1,
+                 "attn_moe": 0, "dec": 1}
+
+
 def expected_train_launches(cfg) -> dict:
-    """``pwconv`` launches of one microbatch's loss and backward on the
-    card: every Linear of the forward (an encoder-decoder's encoder
-    included), again in the per-layer remat's recomputed forward
-    (``remat="block"``), and once more for each Linear with an activation
-    (the MLP's gate), whose backward recomputes its pre-activation."""
+    """Kernel launches of one microbatch's loss and backward on the card,
+    by :data:`TRAIN_COUNTERS`: ``pwconv`` for every Linear of the forward
+    (an encoder-decoder's encoder included), again in the per-layer
+    remat's recomputed forward (``remat="block"``), and once more for each
+    Linear with an activation, whose backward recomputes its
+    pre-activation; ``dwconv1d`` for each conv pre-activation (one an
+    mLSTM, sLSTM or hymba layer) in the forward and again in the remat,
+    and its backward's two kernels once each."""
     from repro_torch.launch.serve import (LAYER_LAUNCHES,
                                           SHARED_EXPERT_LAUNCHES)
     from repro_torch.models import transformer as T
-    T.require_trainable(cfg)
     pattern = T.model_pattern(cfg)
     variants = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
     if cfg.encdec is not None:
         variants += [T.ENC_VARIANT] * cfg.encdec.n_enc_layers
     passes = 2 if cfg.remat == "block" else 1
-    n = 0
+    out = dict.fromkeys(TRAIN_COUNTERS, 0)
     for v in variants:
-        fwd = LAYER_LAUNCHES["prefill"]["attn_moe" if v.use_moe
-                                        else v.kind]["pwconv"]
-        gates = 0 if v.use_moe else 1
+        kind = "attn_moe" if v.use_moe else v.kind
+        fwd = dict(LAYER_LAUNCHES["prefill"][kind])
+        gates = GATED_LINEARS[kind]
         if v.use_moe and cfg.moe.n_shared:
-            fwd += SHARED_EXPERT_LAUNCHES["pwconv"]
+            fwd["pwconv"] += SHARED_EXPERT_LAUNCHES["pwconv"]
             gates += 1
-        n += passes * fwd + gates
-    return {"dwconv1d": 0, "pwconv": n}
+        out["pwconv"] += passes * fwd["pwconv"] + gates
+        out["dwconv1d"] += passes * fwd["dwconv1d"]
+        out["dwconv1d_bwd"] += fwd["dwconv1d"]
+        out["dwconv1d_bwd_reduce"] += fwd["dwconv1d"]
+    return out
+
+
+def train_launch_counts() -> dict:
+    """The launch counters of a train step, by :data:`TRAIN_COUNTERS`."""
+    from repro_torch import graphs
+    counts = graphs.snapshot()
+    return {name: counts[name] for name in TRAIN_COUNTERS}
 
 
 def main(argv=None) -> int:
@@ -96,8 +121,7 @@ def main(argv=None) -> int:
     from repro_torch.core.network import require_device
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import _build
-    from repro_torch.launch.serve import (frontend_stub, launch_counts,
-                                          reset_launch_counts)
+    from repro_torch.launch.serve import frontend_stub, reset_launch_counts
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compress import CompressionConfig
@@ -107,7 +131,6 @@ def main(argv=None) -> int:
 
     dev = require_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    T.require_trainable(cfg)
     if dev.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
@@ -135,7 +158,7 @@ def main(argv=None) -> int:
             batch = dict(batch, frontend=frames)
         reset_launch_counts()
         out = step_fn(state, batch)
-        per_step.append(launch_counts()["pwconv"])
+        per_step.append(train_launch_counts())
         return out
 
     if dev.type == "cuda":
@@ -155,11 +178,11 @@ def main(argv=None) -> int:
     tokens = args.global_batch * args.seq_len
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if dev.type == "cuda" else "not measured on the CPU")
-    want = (expected_train_launches(cfg)["pwconv"] * args.microbatches
-            if dev.type == "cuda" else 0)
+    want = {k: n * args.microbatches if dev.type == "cuda" else 0
+            for k, n in expected_train_launches(cfg).items()}
     print(f"[train] {cfg.name} on {dev}: {len(hist)} steps in {wall:.1f} s, "
           f"median {ms:.1f} ms/step = {tokens * 1e3 / ms:.0f} trained "
-          f"tokens/s; peak device memory {peak}; pwconv launches a step "
+          f"tokens/s; peak device memory {peak}; kernel launches a step "
           f"{per_step[-1]} (expected {want})")
     print(f"[train] done: {len(hist)} steps, final loss "
           f"{hist[-1]['loss']:.4f}, stragglers {info['stragglers']}")

@@ -83,7 +83,9 @@ _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "pw_tc_kernel": "pwconv", "pw_simt_kernel": "pwconv",
                  "fused_mb_kernel": "fused_mbconv",
                  "sep_fused_kernel": "separable_fused", "dw_se_": "dw_se",
-                 "dw1d_kernel": "dwconv1d"}
+                 "dw1d_kernel": "dwconv1d",
+                 "dw1d_bwd_kernel": "dwconv1d_bwd",
+                 "dw1d_df_reduce_kernel": "dwconv1d_bwd_reduce"}
 
 #: Device kernel name fragment -> the launch counters (``repro_torch.graphs``
 #: names) that one instance of it stands for: one kernel per wrapper launch,
@@ -94,7 +96,9 @@ _KERNEL_COUNTERS = {"dw2d_kernel": ("dwconv2d",),
                     "pw_simt_kernel": ("pwconv", "pwconv.simt"),
                     "fused_mb_kernel": ("fused_mbconv",),
                     "dw_se_scale_kernel": ("dw_se",),
-                    "dw1d_kernel": ("dwconv1d",)}
+                    "dw1d_kernel": ("dwconv1d",),
+                    "dw1d_bwd_kernel": ("dwconv1d_bwd",),
+                    "dw1d_df_reduce_kernel": ("dwconv1d_bwd_reduce",)}
 
 #: ``sep_fused_kernel<T, EXPAND, KT>``'s EXPAND, demangled or mangled.
 _SEP_EXPAND = re.compile(r"sep_fused_kernel(?:<[^,>]+,\s*(true|false)"
@@ -118,7 +122,7 @@ def _counters_of(kernel: str) -> tuple:
 _MARGIN_S = 0.02
 
 
-def device_profile(fn, reps: int = 5):
+def device_profile(fn, reps: int = 5, warmup: bool = True):
     """``fn()`` run ``reps`` times under ``torch.profiler``: (device ms per
     call for each of the port's kernels and for every other device kernel,
     PyTorch's pads, casts and adds, together as "other"; the port's kernel
@@ -127,9 +131,11 @@ def device_profile(fn, reps: int = 5):
     The instances are counted in the trace, so they count the kernels of a
     replayed CUDA graph, which no wrapper's counter sees.  Both are empty
     when the profiler records no device time.  One unprofiled call runs
-    first."""
+    first unless ``warmup`` is false (a call that has already run at its
+    shapes)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # margins on the host clock around the calls: the profiler drops

@@ -1,7 +1,8 @@
 """Primitive layers: norms, Linear (routed through the paper's PWConv),
-RoPE, the embedding and the chunked cross-entropy.  Counterpart of
-``repro/models/layers.py`` (its backbone wrappers are the CNN side's
-``core/network.py``).
+RoPE, the embedding, the chunked cross-entropy and the separable-conv
+backbone wrappers (:func:`init_backbone`, :func:`backbone`: thin layers
+over the CNN side's ``core/network.py``).  Counterpart of
+``repro/models/layers.py``.
 
 Parameters live in ``nn.ParameterDict``s keyed as the reference's dicts
 are (``{"scale"}``, ``{"w", "b"}``, ``{"table"}``), so a module's
@@ -209,3 +210,30 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     if z_loss:
         nll_sum = nll_sum + z_loss * zsum
     return nll_sum, n_tok
+
+
+# ---------------------------------------------------------------------------
+# Separable-conv backbones (the paper's workload, network-level)
+# ---------------------------------------------------------------------------
+
+
+def init_backbone(net, generator: Optional[torch.Generator] = None, *,
+                  seed: int = 0, dtype: torch.dtype = torch.float32,
+                  device="cuda") -> dict:
+    """Parameters of a declared separable backbone (a
+    ``core.network.NetworkSpec``, e.g. ``mobilenet_v2_spec()``):
+    ``{"blocks": init_network(...)}``, on the card unless the caller asks
+    for the CPU (``repro/models/layers.py:169-173``)."""
+    from repro_torch.core import network
+    return {"blocks": network.init_network(net, generator, seed=seed,
+                                           dtype=dtype, device=device)}
+
+
+def backbone(p: dict, x: torch.Tensor, *, net,
+             policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Run a declared separable-conv backbone end to end:
+    ``execute_network`` on ``p["blocks"]`` (every block's plan resolved
+    once; on the card one CUDA graph a forward) (``repro/models/
+    layers.py:176-180``)."""
+    from repro_torch.core import network
+    return network.execute_network(net, p["blocks"], x, policy=policy)

@@ -10,6 +10,14 @@ chunked as the reference chunks it: a loop over time chunks carrying the
 (B, d_inner, N) state, with a log-depth scan inside each chunk, which
 bounds the (B, chunk, d_inner, N) discretized tensors.  It is never a
 loop over tokens: a captured prefill holds every node of it.
+
+Training differentiates each chunk's scan through :class:`ChunkScanFn`:
+its forward is the serving scan on fresh tensors (the same bits), its
+backward the reverse linear recurrence ``g_t = dh_t + a_{t+1} g_{t+1}``
+(``db_t = g_t``, ``da_t = g_t h_{t-1}``, the carried state's ``a_0 g_0``)
+by the same doubling steps run from the chunk's end.  It keeps the chunk's
+states, one (B, chunk, d_inner, N) fp32 tensor, where autograd through the
+doubling steps would keep two for every step.
 """
 from __future__ import annotations
 
@@ -73,6 +81,46 @@ def _chunk_scan(da: torch.Tensor, dbu: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _chunk_scan_rev(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g_t = g_t + a_t * g_{t+1}`` along dim 1 from the chunk's end, for
+    every t: :func:`_chunk_scan` mirrored, each element combined with the
+    one ``k`` after it.  Overwrites its arguments; returns ``g``."""
+    n, k = g.shape[1], 1
+    while k < n:
+        g[:, :-k].add_(a[:, :-k] * g[:, k:])
+        if 2 * k < n:
+            a[:, :-k].copy_(a[:, :-k] * a[:, k:])
+        k *= 2
+    return g
+
+
+class ChunkScanFn(torch.autograd.Function):
+    """One chunk's states ``h_t = da_t h_{t-1} + dbu_t`` (``h_{-1}`` the
+    carried state h, (B, di, N)) for da, dbu (B, chunk, di, N), with their
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, da, dbu, h):
+        hs = dbu.clone()
+        hs[:, 0].addcmul_(da[:, 0], h)
+        _chunk_scan(da.clone(), hs)
+        ctx.save_for_backward(da, hs, h)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        da, hs, h = ctx.saved_tensors
+        a = torch.empty_like(da)
+        a[:, :-1].copy_(da[:, 1:])
+        a[:, -1].zero_()
+        g = _chunk_scan_rev(a, dhs.clone())
+        dda = torch.empty_like(g)
+        torch.mul(g[:, 1:], hs[:, :-1], out=dda[:, 1:])
+        torch.mul(g[:, 0], h, out=dda[:, 0])
+        dh = da[:, 0] * g[:, 0] if ctx.needs_input_grad[2] else None
+        return dda, g, dh
+
+
 def selective_scan(u, dt, a, b, c, d_skip, *, chunk: int = 128,
                    h0: Optional[torch.Tensor] = None):
     """u (B, L, di) conv+silu output; dt (B, L, di) softplus'd step sizes;
@@ -83,7 +131,8 @@ def selective_scan(u, dt, a, b, c, d_skip, *, chunk: int = 128,
     h_carry + dbu_0``), where the reference adds ``a_cum * h_carry`` to
     every step after its scan: the same sums, rounded in another order.
     The padded tail has dt = 0, so it carries the state through
-    unchanged."""
+    unchanged.  Under autograd each chunk's scan is :class:`ChunkScanFn`
+    (the same bits); otherwise it runs in place on the chunk's tensors."""
     nb, l, di = u.shape
     chunk = min(chunk, l)
     pad = (-l) % chunk
@@ -91,13 +140,18 @@ def selective_scan(u, dt, a, b, c, d_skip, *, chunk: int = 128,
                        for t in (u, dt, b, c))
     h = (torch.zeros((nb, di, a.shape[1]), device=u.device) if h0 is None
          else h0.float())
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (u, dt, a, b, c, h0))
     ys = []
     for j in range(0, l + pad, chunk):
         uc, dtc, bc, cc = (t[:, j:j + chunk] for t in (uf, dtf, bf, cf))
         da = torch.exp(dtc[..., None] * a)                     # (nb,c,di,N)
         dbu = (dtc * uc)[..., None] * bc[:, :, None, :]        # (nb,c,di,N)
-        dbu[:, 0].addcmul_(da[:, 0], h)
-        hs = _chunk_scan(da, dbu)
+        if grad:
+            hs = ChunkScanFn.apply(da, dbu, h)
+        else:
+            dbu[:, 0].addcmul_(da[:, 0], h)
+            hs = _chunk_scan(da, dbu)
         ys.append(torch.einsum("bcdn,bcn->bcd", hs, cc))
         h = hs[:, -1]
     y = torch.cat(ys, dim=1)[:, :l] + uf[:, :l] * d_skip

@@ -23,11 +23,15 @@ encoder of ``attn_mlp`` layers run bidirectionally on the stubbed frames
 (``enc_blocks``, ``enc_ln_final``, ``enc_pos``).
 
 Training: :func:`loss_fn` is the reference's chunked cross-entropy over
-the final hidden states (plus the MoE's weighted aux loss); with
-``remat="block"`` every layer runs under ``torch.utils.checkpoint``, so
-its activations are recomputed in the backward, as the reference's
-``jax.checkpoint`` does.  xLSTM and hymba do not train yet
-(:data:`TRAIN_NOT_PORTED`).
+the final hidden states (plus the MoE's weighted aux loss) for every
+family the reference trains; with ``remat="block"`` every layer (the
+mLSTM, sLSTM and hymba layers included) runs under
+``torch.utils.checkpoint``, so its activations are recomputed in the
+backward, as the reference's ``jax.checkpoint`` does.  The recurrent
+layers' gradients go through ``dwconv1d``'s backward kernels, the
+differentiable selective scan (``ssm.ChunkScanFn``) and the chunk
+checkpoint of the sLSTM loop; hymba's meta tokens get theirs through the
+prefix the loss drops.
 """
 from __future__ import annotations
 
@@ -50,13 +54,6 @@ from repro_torch.models.layers import (chunked_cross_entropy, embed,
                                        init_embedding, init_norm, linear,
                                        norm, param, randn)
 from repro_torch.models.mlp import MLP
-
-#: What refuses training a recurrent model, and the item of ROADMAP.md that
-#: ports it.
-TRAIN_NOT_PORTED = ("training xLSTM and hymba (gradients through dwconv1d's "
-                    "kernel and the chunked recurrent scans) is not ported "
-                    "yet: ROADMAP.md queue A, item 4.2")
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
@@ -241,7 +238,8 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
         res = block(x, chunk=cfg.attn_chunk // 8, policy=policy,
                     return_cache=capture_kv)
     elif variant.kind == "slstm":
-        res = block(x, policy=policy, return_cache=capture_kv)
+        res = block(x, chunk=cfg.attn_chunk // 8, policy=policy,
+                    return_cache=capture_kv)
     else:
         kw = dict(chunk=cfg.attn_chunk, policy=policy, return_kv=capture_kv,
                   **_attn_kwargs(cfg, variant))
@@ -520,12 +518,6 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     return x, prefix, aux
 
 
-def require_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config whose layers do not train yet (xLSTM, hymba)."""
-    if any(v.kind not in ("attn_mlp", "dec") for v in model_pattern(cfg)):
-        raise NotImplementedError(f"{cfg.name}: {TRAIN_NOT_PORTED}")
-
-
 def loss_fn(model: LMModel, batch: dict, *,
             policy: KernelPolicy = DEFAULT_POLICY):
     """batch: {tokens (B, S), labels (B, S) (-1 ignored) [, frontend]} on
@@ -534,7 +526,6 @@ def loss_fn(model: LMModel, batch: dict, *,
     ``router_aux_weight * aux_loss`` for MoE; metrics ``nll``, ``tokens``,
     ``loss`` [, ``moe_aux``, ``moe_drop``], as the reference's."""
     cfg = model.cfg
-    require_trainable(cfg)
     x, prefix, aux = hidden_states(model, batch["tokens"],
                                    frontend=batch.get("frontend"),
                                    policy=policy)

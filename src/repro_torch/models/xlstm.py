@@ -14,9 +14,21 @@ semantics: ``mlstm_recurrent`` (a loop over time; decode and oracle),
 (C, n, m) state between chunks) and ``slstm_scan``.  The running maxima
 start at ``-inf`` and the chunk pad sets the input gate to ``NEG_INF``;
 ``exp(-inf)`` is 0 and no ``-inf - -inf`` is formed, so a fresh state or a
-padded chunk gives no NaN.  The reference checkpoints ``slstm_scan`` in
-chunks to bound the memory of its gradient; in inference that equals the
-plain loop over L, which is what runs here.
+padded chunk gives no NaN, in the values or in their gradients (the
+``-inf`` entries only ever reach an ``exp`` whose gradient is 0, and
+``torch.maximum`` splits a tie's gradient in half, as ``lax.max`` does).
+
+Both cells train: autograd differentiates them as they stand (no op
+writes in place into a tensor autograd saved).  A chunk's cumulative log
+forget gate is a product with a lower-triangular matrix of ones in fp64,
+rounded once to fp32 (the sums ``torch.cumsum`` gives on the CPU, which
+accumulates in fp64), rather than ``torch.cumsum``, which has no
+deterministic CUDA implementation (training on the card runs with
+deterministic algorithms).  Under autograd
+``slstm_scan`` checkpoints its loop in chunks of ``chunk`` steps when
+``L % chunk == 0 and L > chunk``, as the reference does
+(``repro/models/xlstm.py:180-190``), so its gradient keeps one chunk's
+activations at a time; the values are the plain loop's.
 
 The blocks are ``nn.Module``s whose parameter names are the reference's
 dict keys.  Every Linear runs through ``pointwise`` (the ``pwconv``
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import XLSTMConfig
@@ -103,12 +116,13 @@ def mlstm_chunkwise(q, k, v, igate, logf, *, chunk: int = 128, state=None):
         return t.float().reshape(b, nc, chunk, *t.shape[2:])
 
     qs_, ks_, vs_, is_, fs_ = (to_chunks(t) for t in (q, k, v, igate, logf))
-    mask = torch.ones((chunk, chunk), dtype=torch.bool,
-                      device=q.device).tril()[None, :, :, None]
+    tri = torch.ones((chunk, chunk), dtype=torch.float64,
+                     device=q.device).tril()
+    mask = tri.bool()[None, :, :, None]
     outs = []
     for j in range(nc):
         qc, kc, vc, ic, fc = (t[:, j] for t in (qs_, ks_, vs_, is_, fs_))
-        fcum = torch.cumsum(fc, dim=1)                 # F_i inclusive (B,c,H)
+        fcum = torch.matmul(tri, fc.double()).float()  # F_i inclusive (B,c,H)
         # intra log-decay D[i,j] = F_i - F_j + i_j  (j <= i)
         d = fcum[:, :, None] - fcum[:, None, :] + ic[:, None, :]
         d = torch.where(mask, d, NEG_INF)              # (B,c,c,H)
@@ -153,24 +167,12 @@ def init_slstm_state(b: int, h: int, dh: int, device) -> tuple:
     return z(), z(), z(), torch.full((b, h, dh), -float("inf"), device=device)
 
 
-def slstm_scan(zg, ig, fg, og, r_weights, *, state=None):
-    """Gate pre-activations zg/ig/fg/og: (B, L, H, dh).  Recurrent weights
-    r_weights: (H, dh, 4*dh), block-diagonal per head.  Returns (h, state)
-    with state = (c, n, h, m), each (B, H, dh).
-
-    The loop runs head-major, (H, B, ...), so each step's recurrent product
-    is one ``bmm`` on contiguous operands and one add takes all four gates
-    (``rec``'s chunks are z, i, f, o in that order).  A step is ~20 small
-    launches, and they set the time of a long prompt on the card."""
-    b, l, h, dh = zg.shape
-    if state is None:
-        state = init_slstm_state(b, h, dh, zg.device)
-    c, n, hprev, m = (s.transpose(0, 1) for s in state)
-    r = r_weights.float()
-    xs = torch.cat([zg, ig, fg, og], dim=-1).float().permute(1, 2, 0, 3)
-    xs = xs.contiguous()                               # (L, H, B, 4dh)
+def _slstm_steps(xs, r, c, n, hprev, m):
+    """The sLSTM recurrence over xs (T, H, B, 4dh) from the state (c, n,
+    hprev, m), each (H, B, dh): (the T outputs (T, H, B, dh), c, n, hprev,
+    m)."""
     hs = []
-    for t in range(l):
+    for t in range(xs.shape[0]):
         pre = xs[t] + torch.bmm(hprev, r)
         z_t, i_t, f_t, o_t = torch.chunk(pre, 4, dim=-1)
         z = torch.tanh(z_t)
@@ -184,8 +186,41 @@ def slstm_scan(zg, ig, fg, og, r_weights, *, state=None):
         hprev = o * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(hprev)
-    out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)  # (B, L, H, dh)
-    return out, tuple(s.transpose(0, 1) for s in (c, n, hprev, m))
+    return torch.stack(hs, dim=0), c, n, hprev, m
+
+
+def slstm_scan(zg, ig, fg, og, r_weights, *, state=None, chunk: int = 128):
+    """Gate pre-activations zg/ig/fg/og: (B, L, H, dh).  Recurrent weights
+    r_weights: (H, dh, 4*dh), block-diagonal per head.  Returns (h, state)
+    with state = (c, n, h, m), each (B, H, dh).
+
+    The loop runs head-major, (H, B, ...), so each step's recurrent product
+    is one ``bmm`` on contiguous operands and one add takes all four gates
+    (``rec``'s chunks are z, i, f, o in that order).  A step is ~20 small
+    launches, and they set the time of a long prompt on the card.  Under
+    autograd, with ``L % chunk == 0 and L > chunk``, each chunk of steps
+    runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): recomputed in the backward, the same values."""
+    b, l, h, dh = zg.shape
+    if state is None:
+        state = init_slstm_state(b, h, dh, zg.device)
+    carry = tuple(s.transpose(0, 1) for s in state)
+    r = r_weights.float()
+    xs = torch.cat([zg, ig, fg, og], dim=-1).float().permute(1, 2, 0, 3)
+    xs = xs.contiguous()                               # (L, H, B, 4dh)
+    chunk = min(chunk, l)
+    if torch.is_grad_enabled() and l % chunk == 0 and l > chunk:
+        outs = []
+        for j in range(0, l, chunk):
+            out, *carry = torch.utils.checkpoint.checkpoint(
+                _slstm_steps, xs[j:j + chunk], r, *carry,
+                use_reentrant=False)
+            outs.append(out)
+        out = torch.cat(outs, dim=0)
+    else:
+        out, *carry = _slstm_steps(xs, r, *carry)
+    return (out.permute(2, 0, 1, 3),                   # (B, L, H, dh)
+            tuple(s.transpose(0, 1) for s in carry))
 
 
 def slstm_step(zg, ig, fg, og, r_weights, state):
@@ -321,7 +356,8 @@ class SLSTMBlock(nn.Module):
         u = linear(self.w_ff_up, xn, policy=policy)
         return x + linear(self.w_ff_down, g * u, policy=policy)
 
-    def forward(self, x, *, policy: KernelPolicy = DEFAULT_POLICY,
+    def forward(self, x, *, chunk: int = 128,
+                policy: KernelPolicy = DEFAULT_POLICY,
                 return_cache: bool = False):
         b, l, d = x.shape
         dh = d // self.n_heads
@@ -331,7 +367,7 @@ class SLSTMBlock(nn.Module):
         gates = linear(self.w_gates, xc, policy=policy).float()
         zg, ig, fg, og = (g.reshape(b, l, self.n_heads, dh)
                           for g in torch.chunk(gates, 4, dim=-1))
-        h, (c, n, hs, m) = slstm_scan(zg, ig, fg, og, self.r)
+        h, (c, n, hs, m) = slstm_scan(zg, ig, fg, og, self.r, chunk=chunk)
         h = h.reshape(b, l, d).to(x.dtype)
         out = self._ffn(x + rms_norm(h, self.out_norm["scale"]), policy)
         if return_cache:

@@ -98,8 +98,9 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
     ``{tokens, labels [, frontend]}`` on any device (moved to the model's).
     The int8 compressor draws its noise from ``generator``, by default one
     on the model's device seeded from ``seed`` and the state's step, so a
-    replayed step draws the same noise.  xLSTM and hymba raise."""
-    T.require_trainable(model.cfg)
+    replayed step draws the same noise.  Every family trains: the
+    attention-MLP transformers, whisper's encoder-decoder, xLSTM and
+    hymba."""
     trainable_(model)
     dev = model.embedding["table"].device
 

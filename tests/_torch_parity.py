@@ -47,6 +47,33 @@ def rel_err(got, want) -> float:
     return float(np.abs(g - w).max() / (np.abs(w).max() + 1e-30))
 
 
+#: Gradients: each within 1e-4 of its own largest magnitude (fp32).
+GRAD_TOL = 1e-4
+
+
+def np32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def assert_grads(got: dict, want: dict, tol: float = GRAD_TOL):
+    """Each gradient within ``tol`` of its largest magnitude; one whose
+    largest magnitude is below 1e-6 of the largest of all (zero in exact
+    arithmetic) within 1e-6 of that largest."""
+    assert set(got) == set(want)
+    top = max(float(np.abs(np32(w)).max()) for w in want.values())
+    for name, g in got.items():
+        g, w = np32(g), np32(want[name])
+        assert g.shape == w.shape, name
+        scale = float(np.abs(w).max())
+        if scale < 1e-6 * top:
+            assert float(np.abs(g - w).max()) <= 1e-6 * top, name
+        else:
+            assert float(np.abs(g - w).max()) <= tol * scale, (
+                name, float(np.abs(g - w).max()) / scale)
+
+
 def assert_match(got, want, dtype: str, bf16_tol: float = BF16_KERNEL_TOL):
     """fp32: rtol = atol = 2e-5.  bf16: max error relative to the largest
     magnitude within ``bf16_tol``."""

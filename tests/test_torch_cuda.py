@@ -1861,8 +1861,9 @@ def test_smollm_train_step_kernel_vs_plain(dev):
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, DataIterator
-    from repro_torch.launch.serve import launch_counts, reset_launch_counts
-    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.launch.serve import reset_launch_counts
+    from repro_torch.launch.train import (expected_train_launches,
+                                          train_launch_counts)
     from repro_torch.models.transformer import init_params
     from repro_torch.train import train_step as TS
     cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
@@ -1880,9 +1881,9 @@ def test_smollm_train_step_kernel_vs_plain(dev):
         reset_launch_counts()
         new, m = step(state, batch)
         torch.cuda.synchronize(dev)
-        assert launch_counts() == (expected_train_launches(cfg)
-                                   if impl == "auto" else
-                                   {"dwconv1d": 0, "pwconv": 0})
+        assert train_launch_counts() == (
+            expected_train_launches(cfg) if impl == "auto" else
+            dict.fromkeys(expected_train_launches(cfg), 0))
         out[impl] = (float(m["loss"]), grads, new["params"])
     (lk, gk, pk), (lp, gp, pp) = out["auto"], out["torch"]
     assert abs(lk - lp) <= 1e-5 * abs(lp)
@@ -1908,3 +1909,132 @@ def test_train_launcher_on_the_card(dev, tmp_path):
     assert out.returncode == 0, out.stderr
     assert "[train] done: 3 steps" in out.stdout
     assert "on cuda" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# xLSTM and hymba training on the card: dwconv1d's backward kernels
+# ---------------------------------------------------------------------------
+
+#: The backward kernels against their plain version: dx and df relative to
+#: each one's largest magnitude (df sums B*L products in another order).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", list(BWD_TOL))
+@pytest.mark.parametrize("b,l,d,k,rows", [
+    (2, 37, 72, 4, 8), (1, 2, 33, 5, 8), (2, 19, 40, 1, 3),
+    (2, 50, 70, 7, 2), (3, 64, 264, 3, 8), (2, 45, 130, 2, 5),
+    (8, 256, 1536, 4, 8), (4, 640, 3200, 4, 8)])
+def test_dwconv1d_bwd_kernels_match_plain(dev, b, l, d, k, rows, dtype):
+    """dx and df of the backward's two kernels against
+    ``dwconv1d_causal_bwd_plain``: exact-K and runtime-K taps (K = 1, 7),
+    L < K - 1, odd and misaligned widths (a vector of 1), several CTAs
+    along the rows and the channels, xLSTM's and hymba's training shapes;
+    one launch of each kernel, df in f's dtype."""
+    from repro_torch.kernels import dwconv1d
+    x, dy = _r((b, l, d), dev, dtype), _r((b, l, d), dev, dtype, seed=1)
+    f = _r((k, d), dev, dtype, k ** -0.5)
+    before = (dwconv1d.bwd_launches, dwconv1d.reduce_launches)
+    dx, df = dwconv1d.dwconv1d_causal_bwd(x, f, dy, rows=rows)
+    torch.cuda.synchronize(dev)
+    assert (dwconv1d.bwd_launches, dwconv1d.reduce_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = dwconv1d.dwconv1d_causal_bwd_plain(x, f, dy)
+    for got, ref_ in zip((dx, df), want, strict=True):
+        assert got.dtype == dtype and got.shape == ref_.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert rel_err(got, ref_) <= BWD_TOL[dtype], rel_err(got, ref_)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dwconv1d_bwd_is_bit_identical_and_replays(dev, dtype):
+    """df (and dx) have the same bits at every call, and a CUDA graph of
+    the Function's whole backward (``torch.autograd.grad`` through
+    ``DwConv1dFn``) replays the eager call's bits."""
+    from repro_torch.kernels import dwconv1d
+    x0 = _r((8, 256, 1536), dev, dtype)
+    f0 = _r((4, 1536), dev, dtype, 0.5)
+    dy = _r((8, 256, 1536), dev, dtype, seed=2)
+    first = dwconv1d.dwconv1d_causal_bwd(x0, f0, dy)
+    second = dwconv1d.dwconv1d_causal_bwd(x0, f0, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    x, f = x0.clone().requires_grad_(True), f0.clone().requires_grad_(True)
+
+    def backward():
+        y = dwconv1d.DwConv1dFn.apply(x, f, "auto")
+        return torch.autograd.grad(y, (x, f), dy)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        backward()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = backward()
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(a, b) for a, b in zip(first, replayed))
+
+
+@pytest.mark.parametrize("arch", ("xlstm-125m", "hymba-1.5b"))
+def test_recurrent_gradients_kernel_vs_plain(dev, arch):
+    """The xLSTM and hymba smoke configs (32 tokens: xLSTM's sLSTM loop
+    chunk-checkpointed; hymba's flash backward with window and sink at
+    ``attn_chunk`` 16), fp32: the kernel path's loss and every gradient
+    against the plain path's, and the launches of one loss and backward
+    as ``expected_train_launches`` counts them."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.launch.serve import reset_launch_counts
+    from repro_torch.launch.train import (expected_train_launches,
+                                          train_launch_counts)
+    from repro_torch.models.layers import trainable_
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get_config(arch, smoke=True), attn_chunk=16)
+    batch = next(DataIterator(DataConfig(cfg.vocab_size, 32, 2, seed=0),
+                              prefetch=0))
+    model = trainable_(init_params(cfg, seed=0, device=dev))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    out = {}
+    for impl in ("auto", "torch"):
+        reset_launch_counts()
+        loss, _, grads = TS.accumulate_grads(model, params, batch, 1,
+                                             KernelPolicy(impl=impl))
+        torch.cuda.synchronize(dev)
+        want = expected_train_launches(cfg)
+        assert train_launch_counts() == (
+            want if impl == "auto" else dict.fromkeys(want, 0))
+        out[impl] = (float(loss), grads)
+    (lk, gk), (lp, gp) = out["auto"], out["torch"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    top = max(float(g.abs().max()) for g in gp.values())
+    for k in gp:
+        scale = max(float(gp[k].abs().max()), 1e-6 * top)
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("arch", ("xlstm-125m", "hymba-1.5b"))
+def test_recurrent_train_launcher_on_the_card(dev, arch, tmp_path):
+    """``launch.train`` trains xLSTM and hymba on the card, in a process of
+    its own with deterministic algorithms on (no op of the recurrent path
+    refuses them), the launches a step as expected."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--steps", "3", "--seq-len", "32", "--global-batch", "2",
+         "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stderr
+    assert "[train] done: 3 steps" in out.stdout and "on cuda" in out.stdout
+    line = next(s for s in out.stdout.splitlines() if "launches a step" in s)
+    got, want = line.split("launches a step ")[1].split(" (expected ")
+    assert got == want.rstrip(")"), line
