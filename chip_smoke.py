@@ -103,13 +103,13 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-8. drives the hymba serving path, hymba-1.5b at full width cut to 16 of
+8. drives the hymba serving path, hymba-1.5b at full width cut to 8 of
    its 32 layers (printed as a ``reduced`` note; random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
    tokens (1664 positions with the 128 meta tokens: blockwise attention,
    a sliding window that excludes keys, the 1152-slot ring cache), then 32
    greedy decode steps, fp32 and bf16, through the captured prefill and
-   decode step and the eager ones (32 ``dwconv1d`` + 352 ``pwconv`` a
-   prefill, 0 + 352 a decode step, counted as in 7, and ``pwconv``'s
+   decode step and the eager ones (8 ``dwconv1d`` + 88 ``pwconv`` a
+   prefill, 0 + 88 a decode step, counted as in 7, and ``pwconv``'s
    launches by variant equal to each Linear's ``blocking.pw_variant``);
    the graph path's logits and caches bit for bit the eager path's, each
    call within FP32_REL_TOL (fp32) or BF16_REL_TOL (bf16) of the plain
@@ -146,17 +146,29 @@ From the root of a checkout it:
    captured decode step never writing the encoder's K/V; the encoder's
    own time beside the prefill's;
 10. trains on one card (:func:`run_training`, a process of its own,
-   deterministic): smollm-360m uncut in bf16, 8 x 256 tokens, 20 steps of
-   the fault-tolerant loop (480 ``pwconv`` a step), the loss finite and
-   falling, a second run with a fault at step 15 ending with the same
-   parameters bit for bit, a step's parts; xlstm-125m uncut the same way
-   (4 steps, a fault at step 3; ``dwconv1d`` forward, remat and its two
-   backward kernels in every step); hymba-1.5b at full width cut to 4
-   layers (a ``reduced`` note; 2 x 512 tokens and the 128 meta tokens, 6
-   steps) and its selective scan's forward and backward device ms in one
-   layer; step-1 gradients of the kernel path against the plain path
-   (smollm and xlstm cut to 2 layers, hymba to 1, fp32; one whisper-small
-   step at full width, fp32);
+   deterministic): step-1 gradients of the kernel path against the plain
+   path (smollm and xlstm cut to 2 layers, hymba to 1, whisper-small
+   uncut, fp32); then the captured train step (one CUDA graph of loss,
+   backward, compression and AdamW, the state updated in place) against
+   the eager step, from one state on the same batches, in turns, every
+   tensor of the state and every metric bit for bit after each step, the
+   graph's recorded launches and a profiled replay's
+   ``expected_train_launches``: the fault-tolerant loop on smollm-360m
+   uncut (bf16, 8 x 256, 20 steps, 480 ``pwconv`` a step) with the eager
+   step beside the graph, then through the graph with a fault at step
+   15, ending with the clean graph run's state and the clean eager run's
+   bit for bit; xlstm-125m uncut the same way (3 steps, a fault at step
+   2; ``dwconv1d`` forward, remat and its two backward kernels in every
+   step); hymba-1.5b at full width cut to 4 layers (a ``reduced`` note;
+   2 x 512 tokens and the 128 meta tokens, 6 steps) and its selective
+   scan's forward and backward device ms in one layer; 3 steps each of
+   whisper-small uncut with its frames, qwen3-moe at full width cut to 1
+   layer (a ``reduced`` note; its eager steps before the graph's, which
+   is held to their fingerprints and, at the end, to their state copied
+   to the host) and smollm at 2 layers with 2 microbatches, top-k
+   and int8 compression; per model the graph's and the eager step's ms,
+   tokens/s, own peaks, busy shares and device events, the capture's
+   seconds; and ``train_e2e`` for 60 steps, its loss falling;
 11. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
@@ -238,11 +250,12 @@ PROMPT_LEN, GEN_STEPS, STEPPING_PROMPT = 512, 32, 64
 #: The hymba serving phase: prompt length (the 128 meta tokens come on
 #: top), greedy decode steps, and the prefill_by_stepping oracle's prompt.
 HYMBA_PROMPT, HYMBA_GEN, HYMBA_STEPPING = 1536, 32, 64
-#: hymba's depth in that phase, cut so that the script stays near 900 s
-#: with the whisper and training phases (the whole model took about 220 s
-#: of 707); widths, window, meta tokens and prompt as published.
-HYMBA_LAYERS = 16
-HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 16 (the script's time, "
+#: hymba's depth in that phase, cut so that the script stays within its
+#: budget with the whisper and training phases (the whole model took about
+#: 220 s of 707, 16 layers 100 s of 817, 8 layers 67 s of about 820, 4
+#: layers 41 s of 730); widths, window, meta tokens and prompt as published.
+HYMBA_LAYERS = 8
+HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 8 (the script's time, "
               "with the whisper and training phases); widths as published")
 BF16_REL_TOL = 5e-2
 #: fp32 kernels against the fp32 plain path (summation order).
@@ -2786,12 +2799,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT = 8, 256, 20, \
     10, 15
 TRAIN_LR = 1e-3
 #: xlstm-125m uncut in the same loop (8 x 256 tokens): steps, checkpoint
-#: period, the step the fault is injected at.  Fewer than smollm's: a step
-#: takes seconds on the host (the sLSTM loop's ~20 small launches a time
-#: step, run forward, again in the remat, in the chunk checkpoint's
-#: recompute and backward).  The fault comes at the step after a
-#: checkpoint, so the recovery reloads the state from disk and reruns no
-#: step it had taken.
+#: period, the step the fault is injected at.  Fewer than smollm's: an
+#: eager step takes seconds on the host (the sLSTM loop's ~20 small
+#: launches a time step, run forward, again in the remat, in the chunk
+#: checkpoint's recompute and backward), and the clean run takes the eager
+#: step beside the graph.  The fault comes at the step after a checkpoint,
+#: so the recovery reloads the state from disk and reruns no step it had
+#: taken.
 XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT = 3, 2, 2
 #: hymba-1.5b at full width, its depth cut for the script's time: layers,
 #: batch, tokens (the 128 meta tokens come on top), steps.
@@ -2800,6 +2814,27 @@ HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = \
 HYMBA_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 for the training "
                     "run (the script's time); widths, window and meta "
                     "tokens as published")
+#: Steps the graph and the eager step take side by side, compared after
+#: each, where no loop runs (whisper, qwen3-moe, smollm's variants).
+COMPARE_STEPS = 3
+#: whisper-small uncut, in its own dtype: batch and tokens (the 1500
+#: encoder frames come on top).
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 64
+#: qwen3-moe at full width for the graph-against-eager check, cut to one
+#: layer (3.7 B parameters), bf16 moments, the eager steps run before the
+#: graph's (:func:`run_training`'s ``compare_in_sequence``); batch, tokens.
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 1, 2, 256
+MOE_TRAIN_NOTE = ("reduced: qwen3-moe-235b-a22b n_layers 94 -> 1 for the "
+                  "training check, moments in bf16: the functional eager "
+                  "step holds its input and its output state, 2 x 37 GB "
+                  "with fp32 moments, and so does not fit the 80 GB card "
+                  "with its gradients and AdamW's fp32 temporaries (nor at "
+                  "phase 8b's 2 layers); widths as published")
+#: smollm-360m at full width cut to 2 layers, 8 x 256: the step's options
+#: the loop does not take (microbatches, compression).
+SMOLLM_VARIANTS = ((2, "none"), (1, "topk"), (1, "int8"))
+#: train_e2e's steps on the card (its own 4 x 128 batch).
+E2E_STEPS = 60
 
 
 def grad_errors(got: dict, want: dict) -> dict:
@@ -2816,6 +2851,44 @@ def grad_errors(got: dict, want: dict) -> dict:
     return out
 
 
+def state_leaves(tree, prefix=""):
+    """(path, tensor) of every tensor of a train state or metrics dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from state_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def fingerprints(torch, tree) -> dict:
+    """Each tensor's bits as two int64 sums (mod 2**64), taken on its
+    device in chunks: the bits as integers, and the same weighted by
+    their position mod 8191 plus one.  Equal tensors give equal pairs;
+    one differing element always changes the weighted sum."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, v in state_leaves(tree):
+        bits = v.detach().reshape(-1).view(ints[v.element_size()])
+        plain = weighted = 0
+        for i in range(0, bits.numel(), 1 << 26):
+            c = bits[i:i + (1 << 26)].to(torch.int64)
+            pos = torch.arange(i, i + c.numel(), device=c.device) % 8191 + 1
+            plain += int(c.sum())
+            weighted += int((c * pos).sum())
+        out[k] = (str(v.dtype), tuple(v.shape), plain, weighted)
+    return out
+
+
+def differing(torch, got: dict, want: dict) -> list:
+    """The paths whose tensors differ in a bit (or in dtype), or that one
+    side lacks."""
+    got, want = dict(state_leaves(got)), dict(state_leaves(want))
+    bad = sorted(set(got) ^ set(want))
+    return bad + [k for k in sorted(set(got) & set(want))
+                  if got[k].dtype != want[k].dtype
+                  or not torch.equal(got[k], want[k])]
+
+
 def run_training(torch, dev):
     """Phase 10, training on one card, deterministic
     (``torch.use_deterministic_algorithms(True)``, the process started
@@ -2827,58 +2900,78 @@ def run_training(torch, dev):
       ``launch.train.expected_train_launches`` counts them: smollm-360m at
       full width cut to 2 layers (8 x 256), xlstm-125m cut to 2 layers
       (one mLSTM, one sLSTM; 8 x 256), hymba-1.5b cut to 1 layer (2 x 512
-      tokens and the 128 meta tokens);
-    * the fault-tolerant loop (AdamW, fp32 moments) on smollm-360m uncut
-      (bf16, 8 x 256, 20 steps, checkpoints every 10, then again with a
-      fault at step 15) and xlstm-125m uncut (bf16, 8 x 256, 3 steps,
-      checkpoints every 2, a fault at step 2): the loss finite and falling
-      (the mean of the last quarter of the steps below the first
-      quarter's), the launches of every step as expected, the run with the
-      fault ending with the first run's parameters bit for bit; and
-      hymba-1.5b at full width cut to 4 layers (bf16, 2 x 512 tokens, 6
-      steps, no fault run);
-    * for each loop: ms a step (host clock, median), trained tokens/s, own
-      peak memory, the parts of its last step (loss and backward, AdamW;
-      host clock), a step's device ms by kernel, busy share and device
-      events (profiler);
-      hymba's selective scan in one layer (device ms forward and backward,
-      and its own peak memory);
-    * one whisper-small step at full width (fp32, 2 x 64 tokens and 1500
-      frames): a finite loss, its gradients kernel against plain.
+      tokens and the 128 meta tokens), whisper-small uncut (2 x 64 tokens
+      and 1500 frames);
+    * the captured train step (``train_step.capture_train_step``: one
+      CUDA graph of loss, backward, compression and AdamW, the state
+      updated in place) against the eager step (``make_train_step``):
+      both from the same state on the same batches, in turns (graph,
+      eager), the parameters, moments, step, error and metrics bit for
+      bit after every step, and the graph's recorded launches
+      ``expected_train_launches`` (times the microbatches): smollm-360m
+      and xlstm-125m uncut (bf16, 8 x 256), hymba-1.5b at full width cut
+      to 4 layers (2 x 512 + 128 meta tokens), whisper-small uncut with
+      its frames, qwen3-moe at full width cut (:data:`MOE_TRAIN_NOTE`),
+      smollm-360m cut to 2 layers with 2 microbatches, with top-k and
+      with int8 compression;
+    * the fault-tolerant loop through the captured step (AdamW, fp32
+      moments): smollm-360m for 20 steps (checkpoints every 10) and
+      xlstm-125m for 3 (every 2), each clean, with the eager step beside
+      the graph at every step (the clean eager run), then again with a
+      fault (step 15, step 2); hymba's 6 steps clean: the loss finite and
+      falling, and the run with the fault ending with the clean graph
+      run's state and the clean eager run's, bit for bit;
+    * for each model: ms a step for the graph and the eager step (host
+      clock, median, taken in turns), trained tokens/s, the capture's
+      seconds, each step's own peak memory (the capture's: warm-up,
+      recording and first replay; a replay's; an eager step's), busy
+      share and device events a step of each (profiler), hymba's
+      selective scan in one layer (device ms forward and backward, own
+      peak);
+    * ``train_e2e`` (the port's ``examples/train_e2e.py``) for
+      :data:`E2E_STEPS` steps through its captured step: the mean loss of
+      the last 10 steps below the first 10's.
 
     Returns the records, the wrappers' launches, and the kernels the
     profiled steps ran (by launch counter)."""
     import dataclasses
     import shutil
     import torch.nn.functional as F
+    from repro_torch import graphs, train_e2e
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, DataIterator
     from repro_torch.kernels.policy import KernelPolicy
-    from repro_torch.launch.serve import frontend_stub, reset_launch_counts
+    from repro_torch.launch.serve import frontend_stub
     from repro_torch.launch.train import (TRAIN_COUNTERS,
-                                          expected_train_launches,
-                                          train_launch_counts)
-    from repro_torch.measure import device_profile
+                                          deterministic_card,
+                                          expected_train_launches)
+    from repro_torch.measure import device_profile, profile_calls
     from repro_torch.models.layers import trainable_
     from repro_torch.models.ssm import selective_scan
     from repro_torch.models.transformer import init_params
-    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
     from repro_torch.train.train_step import (TrainConfig, accumulate_grads,
+                                              bind_params_,
+                                              capture_train_step,
                                               init_train_state,
                                               make_train_step)
     from repro_torch.train.trainer import (FaultInjector, LoopConfig,
                                            train_loop)
-    torch.use_deterministic_algorithms(True)
+    deterministic_card()
     plain = KernelPolicy(impl="torch")
     totals = dict.fromkeys(TRAIN_COUNTERS, 0)
     profiled = dict.fromkeys(TRAIN_COUNTERS, 0)
     out = {}
 
     def counted(fn, want=None, label=""):
-        reset_launch_counts()
+        """``fn()``'s wrapper launches (a snapshot before and after), held
+        to ``want`` and added to the totals."""
+        before = graphs.snapshot()
         r = fn()
         torch.cuda.synchronize(dev)
-        got = train_launch_counts()
+        moved = graphs.delta(before, graphs.snapshot())
+        got = {k: moved[k] for k in TRAIN_COUNTERS}
         if want is not None and got != want:
             raise AssertionError(f"{label}: launches {got}, expected {want}")
         for k in totals:
@@ -2913,46 +3006,248 @@ def run_training(torch, dev):
             raise AssertionError(f"{label}: {r}")
         return r
 
-    def timed(fn):
+    def own_peak(fn):
+        """(``fn()``, ms on the host clock, synced, and the bytes it
+        allocated at its peak above what was allocated before it)."""
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         r = fn()
         torch.cuda.synchronize(dev)
-        return r, (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        return r, ms, torch.cuda.max_memory_allocated(dev) - before
 
-    def train_runs(name, m, dcfg, first, steps, ckpt_every, fault=None):
-        """The loop from the model's weights, then (``fault``) again with a
-        fault injected at that step.  The first run's last step is taken in
-        its two parts, each timed; then one more step's device profile
-        from the trained state."""
-        n = sum(p.numel() for p in m.parameters())
-        tcfg = TrainConfig(optimizer=AdamWConfig(
-            lr=TRAIN_LR, warmup_steps=max(2, steps // 4), total_steps=steps))
-        step_fn = make_train_step(m, tcfg)
-        want = expected_train_launches(m.cfg)
-        per_step = []
-        tokens = dcfg.global_batch * dcfg.seq_len
-        parts = {}
+    def tcfg_of(steps, mb=1, kind="none", moments="float32"):
+        return TrainConfig(
+            optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=max(2, steps // 4),
+                                  total_steps=steps, moments_dtype=moments),
+            microbatches=mb, compression=CompressionConfig(kind=kind))
 
-        def in_parts(state, batch):
-            # make_train_step's step (no compression), the loss and
-            # backward and AdamW apart, on the host clock, synced
-            (loss, metrics, grads), parts["grad_ms"] = timed(
-                lambda: accumulate_grads(m, state["params"], batch))
-            (params, opt, opt_metrics), parts["adamw_ms"] = timed(
-                lambda: adamw.apply_updates(state["params"], grads,
-                                            state["opt"], tcfg.optimizer))
-            return ({"params": params, "opt": opt},
-                    dict(metrics, **opt_metrics, loss=loss))
+    class Pair:
+        """The captured step of ``m`` and its eager step from one state:
+        :meth:`step` takes the graph's step and then the eager step on the
+        same batch (each on its own state, timed and its own peak taken),
+        and records every path where the two differ.  With ``capture``
+        false the graph is captured later (:meth:`capture`), after the
+        eager steps (:func:`compare_in_sequence`)."""
 
-        def step(state, batch):
-            fn = (in_parts if not runs and len(per_step) == steps - 1
-                  else step_fn)
-            r, got = counted(lambda: fn(state, batch), want,
-                             f"{name} train step")
-            per_step.append(got)
+        def __init__(self, label, m, tcfg, batch, seq, capture=True):
+            self.label, self.tcfg = label, tcfg
+            self.mb = tcfg.microbatches
+            self.want = {k: n * self.mb
+                         for k, n in expected_train_launches(m.cfg).items()}
+            self.state0 = init_train_state(m, tcfg)
+            self.eager = make_train_step(m, tcfg)
+            self.shadow = self.state0
+            self.times = {"graph": [], "eager": []}
+            self.peaks = {"graph": [], "eager": []}
+            self.mismatch = []
+            self.frames = None
+            self.in_turns, self.eager_trace = True, None
+            if capture:
+                self.capture(m, batch, seq)
+
+        def capture(self, m, batch, seq):
+            (self.cap, cap_ms, self.capture_peak), got = counted(
+                lambda: own_peak(lambda: capture_train_step(m, self.tcfg,
+                                                            batch, seq)),
+                {k: 2 * n for k, n in self.want.items()},
+                f"{self.label} capture (warm-up and recording)")
+            self.capture_wall_ms = cap_ms
+            rec = {k: self.cap.captured.launches.get(k, 0) for k in self.want}
+            if rec != self.want:
+                raise AssertionError(f"{self.label}: the graph recorded "
+                                     f"{rec}, expected {self.want}")
+
+        def step(self, state, batch):
+            if self.frames is not None:
+                batch = dict(batch, frontend=self.frames)
+            (new, mg), gms, gpk = own_peak(lambda: self.cap(state, batch))
+            ((self.shadow, me), ems, epk), _ = counted(
+                lambda: own_peak(lambda: self.eager(self.shadow, batch)),
+                self.want, f"{self.label} eager step")
+            for k, v in (("graph", gms), ("eager", ems)):
+                self.times[k].append(v)
+            self.peaks["graph"].append(gpk)
+            self.peaks["eager"].append(epk)
+            bad = differing(torch, new, self.shadow) + [
+                f"metrics/{k}" for k in differing(torch, mg, me)]
+            if bad:
+                self.mismatch.append({"step": int(self.cap.step),
+                                      "paths": bad[:8], "n": len(bad)})
+            return new, mg
+
+        def summary(self, tokens, batch, profile=True, eager_profile=True):
+            """Timings, memory and (``profile``) one profiled step of each:
+            the graph's replay (its kernels held to the launches it
+            recorded) and (``eager_profile``) the eager step; without the
+            latter the eager step's busy share is the graph's device ms
+            over the eager ms (the same kernels)."""
+            g = statistics.median(self.times["graph"])
+            e = statistics.median(self.times["eager"])
+            r = {"graph_ms": g, "eager_ms": e, "speedup": e / g,
+                 "graph_tokens_per_s": tokens * 1e3 / g,
+                 "eager_tokens_per_s": tokens * 1e3 / e,
+                 "graph_ms_all": self.times["graph"],
+                 "eager_ms_all": self.times["eager"],
+                 "capture_s": self.cap.captured.capture_s,
+                 "capture_wall_ms": self.capture_wall_ms,
+                 "capture_own_peak_bytes": self.capture_peak,
+                 "replay_own_peak_bytes": max(self.peaks["graph"]),
+                 "eager_own_peak_bytes": max(self.peaks["eager"]),
+                 "graph_launches": self.want, "microbatches": self.mb,
+                 "steps_compared": len(self.times["graph"]),
+                 "in_turns": self.in_turns,
+                 "bit_equal": not self.mismatch,
+                 "mismatch": self.mismatch}
+            if profile:
+                if self.frames is not None:
+                    batch = dict(batch, frontend=self.frames)
+                state = self.cap.state
+                gdev, gran, retakes = profile_calls(
+                    lambda: self.cap(state, batch), self.want, reps=1,
+                    tries=3)
+                ran = {k: gran.get(k, 0) for k in self.want}
+                if ran != self.want:
+                    raise AssertionError(f"{self.label}: a replay ran {ran} "
+                                         f"(profiler), expected {self.want}")
+                if self.eager_trace is not None:
+                    edev, eran = self.eager_trace
+                elif eager_profile:
+                    edev, eran = device_profile(
+                        lambda: self.eager(self.shadow, batch), reps=1,
+                        warmup=False)
+                else:
+                    edev, eran = gdev, {}
+                for k in profiled:
+                    profiled[k] += gran.get(k, 0) + eran.get(k, 0)
+                r.update({
+                    "graph_device_ms": sum(gdev.values()),
+                    "graph_device_ms_by_kernel": gdev,
+                    "graph_busy": sum(gdev.values()) / g if gdev else None,
+                    "graph_device_events": gran.get("device_events"),
+                    "graph_profiled_launches": ran,
+                    "graph_profile_retakes": retakes,
+                    "eager_device_ms": sum(edev.values()),
+                    "eager_busy": sum(edev.values()) / e if edev else None,
+                    "eager_device_events": eran.get("device_events"),
+                    "eager_profiled": (eager_profile
+                                       or self.eager_trace is not None)})
+            print(f"    {self.label}: graph {g:.1f} ms a step, eager "
+                  f"{e:.1f} ms (median of {len(self.times['graph'])}, "
+                  + ("in turns" if self.in_turns else "the eager steps "
+                     "first") + f"; {e / g:.2f}x), {r['graph_tokens_per_s']:.0f} / "
+                  f"{r['eager_tokens_per_s']:.0f} trained tokens/s; capture "
+                  f"{r['capture_s']:.2f} s ({self.capture_wall_ms / 1e3:.1f}"
+                  f" s with the warm-up and first replay); own peak: capture "
+                  f"{self.capture_peak / 2**30:.2f} GiB, replay "
+                  f"{r['replay_own_peak_bytes'] / 2**20:.1f} MiB, eager step "
+                  f"{r['eager_own_peak_bytes'] / 2**30:.2f} GiB; graph "
+                  f"launches {self.want} (= expected_train_launches x "
+                  f"{self.mb})" + (
+                      f"; device ms graph {r['graph_device_ms']:.1f} (busy "
+                      f"{pct(r['graph_busy'])}, {r['graph_device_events']} "
+                      f"device events), eager {r['eager_device_ms']:.1f} "
+                      f"(busy {pct(r['eager_busy'])}, "
+                      + (f"{r['eager_device_events']} device events)"
+                         if eager_profile else "the graph's device ms: not "
+                         "profiled, its trace takes tens of seconds)")
+                      if profile else "")
+                  + f"; bit for bit after every step: {r['bit_equal']}",
+                  flush=True)
+            if self.mismatch:
+                raise AssertionError(f"{self.label}: graph and eager steps "
+                                     f"differ: {self.mismatch}")
             return r
-        state0 = init_train_state(m, tcfg)
+
+    def compare(label, m, tcfg, dcfg, frames=None, profile=True):
+        """:data:`COMPARE_STEPS` steps of the graph and the eager step on
+        the data steps 0, 1, ... of ``dcfg``."""
+        tokens = dcfg.global_batch * dcfg.seq_len
+        pair = Pair(label, m, tcfg, dcfg.global_batch, dcfg.seq_len)
+        pair.frames = frames
+        it = DataIterator(dcfg, prefetch=0)
+        # only the first step reads the first state: let it go after it
+        state, pair.state0 = pair.state0, None
+        for _ in range(COMPARE_STEPS):
+            batch = next(it)
+            state, _ = pair.step(state, batch)
+        r = pair.summary(tokens, batch, profile)
+        del pair
+        torch.cuda.empty_cache()
+        return r
+
+    def compare_in_sequence(label, m, tcfg, dcfg):
+        """:func:`compare` for a model whose graph and eager step do not
+        fit the card side by side (the functional eager step holds its
+        input and its output state): the eager step's
+        :data:`COMPARE_STEPS` steps first, each state's leaf fingerprints
+        and the metrics kept, the last state copied to the host and one
+        more eager step profiled; the eager state freed, the model given
+        back its first weights (from a host copy: the eager step binds its
+        state's parameters to the model), the graph captured and run from
+        the same state on the same batches, held
+        to the fingerprints and metrics after each step and to the host
+        copy, bit for bit, at the end."""
+        tokens = dcfg.global_batch * dcfg.seq_len
+        pair = Pair(label, m, tcfg, dcfg.global_batch, dcfg.seq_len,
+                    capture=False)
+        pair.in_turns, pair.state0 = False, None   # the card holds 3 states
+        it = DataIterator(dcfg, prefetch=0)
+        batches = [next(it) for _ in range(COMPARE_STEPS)]
+        first = {n: p.detach().cpu() for n, p in m.named_parameters()}
+        marks = []
+        for batch in batches:
+            ((pair.shadow, me), ms, pk), _ = counted(
+                lambda: own_peak(lambda: pair.eager(pair.shadow, batch)),
+                pair.want, f"{label} eager step")
+            pair.times["eager"].append(ms)
+            pair.peaks["eager"].append(pk)
+            marks.append((fingerprints(torch, pair.shadow),
+                          {k: v.cpu() for k, v in me.items()}))
+        edev, eran = device_profile(lambda: pair.eager(pair.shadow, batch),
+                                    reps=1, warmup=False)
+        pair.eager_trace = edev, eran
+        last = {k: v.cpu() for k, v in state_leaves(pair.shadow)}
+        pair.shadow = None
+        bind_params_(m, {n: t.to(dev) for n, t in first.items()})
+        del first
+        torch.cuda.empty_cache()
+        pair.capture(m, dcfg.global_batch, dcfg.seq_len)
+        state = pair.cap.state
+        for i, batch in enumerate(batches):
+            (state, mg), ms, pk = own_peak(lambda: pair.cap(state, batch))
+            pair.times["graph"].append(ms)
+            pair.peaks["graph"].append(pk)
+            fp, me = marks[i]
+            got = fingerprints(torch, state)
+            bad = sorted(k for k in set(fp) | set(got)
+                         if fp.get(k) != got.get(k)) + [
+                f"metrics/{k}" for k in me if not torch.equal(mg[k].cpu(),
+                                                              me[k])]
+            if i == len(batches) - 1:
+                bad += [f"{k} (the host copy)" for k, v in state_leaves(state)
+                        if not torch.equal(v.cpu(), last[k])]
+            if bad:
+                pair.mismatch.append({"step": i + 1, "paths": bad[:8],
+                                      "n": len(bad)})
+        del last
+        r = pair.summary(tokens, batches[-1])
+        del pair
+        torch.cuda.empty_cache()
+        return r
+
+    def loop_runs(name, m, dcfg, steps, ckpt_every, fault=None,
+                  eager_profile=True):
+        """The loop through the captured step: clean, with the eager step
+        beside the graph at every step (:class:`Pair`; its eager side is
+        the clean eager run), then (``fault``) again through the graph
+        alone with a fault injected at that step."""
+        n = sum(p.numel() for p in m.parameters())
+        tcfg = tcfg_of(steps)
+        tokens = dcfg.global_batch * dcfg.seq_len
+        pair = Pair(name, m, tcfg, dcfg.global_batch, dcfg.seq_len)
         loop = LoopConfig(total_steps=steps, ckpt_every=ckpt_every,
                           log_every=5, keep_ckpts=1)
         runs = []
@@ -2960,84 +3255,76 @@ def run_training(torch, dev):
             ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt",
                                 f"{name}_fault_{f}")
             shutil.rmtree(ckpt, ignore_errors=True)
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            before = torch.cuda.memory_allocated(dev)
+            times = []
+
+            def graph_only(state, batch):
+                (r, ms, _) = own_peak(lambda: pair.cap(state, batch))
+                times.append(ms)
+                return r
             t0 = time.perf_counter()
             final, info = train_loop(
-                step, state0, dcfg, loop, ckpt,
+                pair.step if f is None else graph_only, pair.state0, dcfg,
+                loop, ckpt,
                 fault_injector=FaultInjector({f: "sim-device-loss"})
                 if f else None,
                 log=lambda line: print("      " + line, flush=True))
             wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated(dev) - before
             shutil.rmtree(ckpt, ignore_errors=True)
             hist = info["history"]
             losses = [h["loss"] for h in hist]
-            ms = statistics.median(h["time_s"] for h in hist) * 1e3
             runs.append({"fault_at": f, "steps": len(hist),
                          "failures": info["failures"], "losses": losses,
-                         "ms_per_step": ms, "tokens_per_s": tokens * 1e3 / ms,
-                         "own_peak_bytes": peak, "seconds": wall,
-                         "launches_per_step": per_step[-1],
-                         "stragglers": info["stragglers"],
-                         "final": final["params"]})
+                         "seconds": wall, "stragglers": info["stragglers"],
+                         "graph_ms": statistics.median(
+                             times or pair.times["graph"]),
+                         # the clean run's final state, kept past the
+                         # fault run, which overwrites the graph's buffers
+                         "final": {k: v.clone() for k, v in
+                                   state_leaves(final)}})
             print(f"    {name} ({n / 1e6:.1f}M parameters, "
                   f"{m.cfg.dtype}) {dcfg.global_batch}x{dcfg.seq_len}, "
-                  f"{len(hist)} steps" + (f", fault at step {f}" if f else "")
-                  + f": {ms:.1f} ms a step (median), "
-                  f"{runs[-1]['tokens_per_s']:.0f} trained tokens/s, own peak "
-                  f"{peak / 2**30:.2f} GiB, launches a step {per_step[-1]}; "
-                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.1f} s "
-                  "with checkpoints", flush=True)
+                  f"{len(hist)} steps through the graph"
+                  + (f", fault at step {f}" if f else
+                     " with the eager step beside it")
+                  + f": loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{info['failures']} failures; {wall:.1f} s with "
+                  "checkpoints", flush=True)
         clean = runs[0]
-        last = clean["final"]
         q = max(1, steps // 4)
         head = statistics.mean(clean["losses"][:q])
         tail = statistics.mean(clean["losses"][-q:])
         falling = tail < head
         finite = all(np_isfinite(x) for x in clean["losses"])
-        same = None
+        eager_final = dict(state_leaves(pair.shadow))
+        same = same_eager = None
         if fault:
-            faulty = runs[1]
-            same = (faulty["failures"] == 1 and all(
-                torch.equal(last[k], faulty["final"][k]) for k in last))
+            faulty = runs[1]["final"]
+            same = runs[1]["failures"] == 1 and all(
+                torch.equal(clean["final"][k], faulty[k]) for k in faulty)
+            same_eager = all(torch.equal(eager_final[k], faulty[k])
+                             for k in faulty)
         for r in runs:
             del r["final"]
         print(f"    {name}: loss finite {finite}, falling {falling} (mean of "
-              f"the first {q} {head:.4f}, last {q} {tail:.4f})"
+              f"the first {q} {head:.4f}, last {q} {tail:.4f}); the clean "
+              f"graph run equals the eager step at every step: "
+              f"{not pair.mismatch}"
               + (f"; the run with the fault at step {fault} ends with the "
-                 f"same parameters bit for bit: {same}" if fault else ""),
+                 f"clean graph run's state bit for bit: {same}, and with the "
+                 f"clean eager run's: {same_eager}" if fault else ""),
               flush=True)
-        if not (finite and falling and same is not False):
+        if not (finite and falling and clean["failures"] == 0
+                and same is not False and same_eager is not False):
             raise AssertionError(f"{name} training: finite {finite}, "
-                                 f"falling {falling}, bit-exact recovery "
-                                 f"{same}")
-        # where a step's time goes: the parts of the first run's last step,
-        # and one more step's device time by kernel (profiler; the step has
-        # run at its shapes, so no unprofiled call first)
-        grad_ms, opt_ms = parts["grad_ms"], parts["adamw_ms"]
-        state = {"params": last, "opt": adamw.init_state(last,
-                                                         tcfg.optimizer)}
-        step_dev, ran = device_profile(lambda: step_fn(state, first), reps=1,
-                                       warmup=False)
-        for k in profiled:
-            profiled[k] += ran.get(k, 0)
-        busy = (sum(step_dev.values()) / clean["ms_per_step"] if step_dev
-                else None)
-        breakdown = {"grad_ms": grad_ms, "adamw_ms": opt_ms,
-                     "device_ms": step_dev, "busy": busy,
-                     "device_events": ran.get("device_events"),
-                     "profiled_launches": {k: ran.get(k, 0)
-                                           for k in TRAIN_COUNTERS}}
-        print(f"    a {name} step's parts: loss and backward {grad_ms:.1f} "
-              f"ms, AdamW {opt_ms:.1f} ms (host clock); device ms "
-              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(step_dev.items()))
-              + f" (busy {pct(busy)} of the median step), "
-              f"{ran.get('device_events')} device events, kernels "
-              f"{breakdown['profiled_launches']}", flush=True)
+                                 f"falling {falling}, clean failures "
+                                 f"{clean['failures']}, bit-exact recovery "
+                                 f"{same} / {same_eager}")
+        _, first = data(m.cfg, dcfg.seq_len, dcfg.global_batch)
+        r = pair.summary(tokens, first, eager_profile=eager_profile)
+        del pair
+        torch.cuda.empty_cache()
         return {"parameters": n, "runs": runs, "bit_exact_recovery": same,
-                "breakdown": breakdown}
+                "bit_exact_vs_eager": same_eager, **r}
 
     def scan_profile(m, batch, length):
         """hymba's selective scan at one layer's training shape (the first
@@ -3056,12 +3343,7 @@ def run_training(torch, dev):
         fwd = lambda: selective_scan(*ins, chunk=m.cfg.ssm.chunk)  # noqa: E731
         gy = rnd(batch, length, di)
         # the layer's own peak: one forward under autograd and its backward
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        before = torch.cuda.memory_allocated(dev)
-        torch.autograd.grad(fwd()[0], ins, gy)
-        torch.cuda.synchronize(dev)
-        peak = torch.cuda.max_memory_allocated(dev) - before
+        _, _, peak = own_peak(lambda: torch.autograd.grad(fwd()[0], ins, gy))
         y, _ = fwd()
         fwd_ms, _ = device_profile(fwd, reps=3)
         bwd_ms, ran = device_profile(lambda: torch.autograd.grad(
@@ -3080,7 +3362,6 @@ def run_training(torch, dev):
               flush=True)
         return r
 
-    from repro_torch.optim.adamw import AdamWConfig
     seconds = out["seconds"] = {}
     t_part = [time.perf_counter()]
 
@@ -3112,42 +3393,106 @@ def run_training(torch, dev):
         torch.cuda.empty_cache()
         lap(f"{label} step-1 gradients")
 
-    # smollm-360m and xlstm-125m uncut, bf16, each with a fault run
+    # the loops through the captured step: smollm-360m and xlstm-125m
+    # uncut, bf16, each with a fault run; hymba at 4 layers
+    # (the eager xLSTM step is not profiled: the trace of its 192 k sLSTM
+    # loop launches takes tens of seconds of the script's budget)
     for label, c, steps, ckpt_every, fault in (
             ("smollm-360m", cfg, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT),
             ("xlstm-125m", xcfg, XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT)):
         m = draw(c)
-        dcfg, first = data(c, TRAIN_SEQ, TRAIN_BATCH)
-        out[label] = train_runs(label, m, dcfg, first, steps, ckpt_every,
-                                fault)
+        dcfg, _ = data(c, TRAIN_SEQ, TRAIN_BATCH)
+        out[label] = loop_runs(label, m, dcfg, steps, ckpt_every, fault,
+                               eager_profile=label != "xlstm-125m")
         del m
         torch.cuda.empty_cache()
         lap(f"{label} training")
-
-    # hymba-1.5b at full width, HYMBA_TRAIN_LAYERS layers, bf16
     print(f"    {HYMBA_TRAIN_NOTE}", flush=True)
     hcut = dataclasses.replace(hcfg, n_layers=HYMBA_TRAIN_LAYERS)
     m = draw(hcut)
-    dcfg, first = data(hcut, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH)
-    out["hymba-1.5b"] = dict(train_runs(
-        "hymba-1.5b", m, dcfg, first, HYMBA_TRAIN_STEPS, HYMBA_TRAIN_STEPS),
+    dcfg, _ = data(hcut, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_BATCH)
+    out["hymba-1.5b"] = dict(loop_runs(
+        "hymba-1.5b", m, dcfg, HYMBA_TRAIN_STEPS, HYMBA_TRAIN_STEPS),
         reduced=HYMBA_TRAIN_NOTE, scan=scan_profile(
             m, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ + hcfg.meta_tokens))
     del m
     torch.cuda.empty_cache()
     lap("hymba-1.5b training and scan")
 
-    # one whisper-small step at full width, fp32
-    wcfg = dataclasses.replace(get_config("whisper-small"), dtype="float32")
-    wm = draw(wcfg)
-    _, wb = data(wcfg, 64, 2)
-    wb["frontend"] = frontend_stub(wcfg, 2, dev, seed=0)
+    # whisper-small uncut: a step-1 gradient check in fp32, then the graph
+    # against the eager step in its own dtype, with its frames
+    wcfg = get_config("whisper-small")
+    wm = draw(dataclasses.replace(wcfg, dtype="float32"))
+    dcfg, wb = data(wcfg, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH)
+    wb["frontend"] = frontend_stub(wm.cfg, WHISPER_TRAIN_BATCH, dev, seed=0)
     out["whisper_step"] = gated_grads(
-        "whisper-small (12+12 layers, fp32) step 1, 2x64 tokens, 1500 "
-        "frames", wm, wb)
+        f"whisper-small (12+12 layers, fp32) step 1, {WHISPER_TRAIN_BATCH}x"
+        f"{WHISPER_TRAIN_SEQ} tokens, {wcfg.encdec.enc_seq} frames", wm, wb)
+    del wm, wb
+    wm = draw(wcfg)
+    out["whisper-small"] = compare(
+        f"whisper-small ({wcfg.dtype}, {WHISPER_TRAIN_BATCH}x"
+        f"{WHISPER_TRAIN_SEQ} + {wcfg.encdec.enc_seq} frames)", wm,
+        tcfg_of(COMPARE_STEPS), dcfg, frames=frontend_stub(
+            wcfg, WHISPER_TRAIN_BATCH, dev, seed=0))
     del wm
     torch.cuda.empty_cache()
-    lap("whisper-small step")
+    lap("whisper-small")
+
+    # qwen3-moe at full width, cut
+    print(f"    {MOE_TRAIN_NOTE}", flush=True)
+    qcfg = get_config("qwen3-moe-235b-a22b")
+    qcut = dataclasses.replace(qcfg, n_layers=MOE_TRAIN_LAYERS)
+    m = draw(qcut)
+    dcfg, _ = data(qcut, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    out["qwen3-moe"] = dict(compare_in_sequence(
+        f"qwen3-moe ({MOE_TRAIN_LAYERS} layer, "
+        f"{sum(p.numel() for p in m.parameters()) / 1e9:.2f}B parameters, "
+        f"{qcfg.dtype}, bf16 moments, {MOE_TRAIN_BATCH}x{MOE_TRAIN_SEQ})", m,
+        tcfg_of(COMPARE_STEPS, moments="bfloat16"), dcfg),
+        reduced=MOE_TRAIN_NOTE)
+    del m
+    torch.cuda.empty_cache()
+    lap("qwen3-moe")
+
+    # smollm-360m at 2 layers: microbatches and the compressors
+    scut = dataclasses.replace(cfg, n_layers=2)
+    dcfg, _ = data(scut, TRAIN_SEQ, TRAIN_BATCH)
+    out["smollm_variants"] = {}
+    for mb, kind in SMOLLM_VARIANTS:
+        m = draw(scut)
+        out["smollm_variants"][f"mb{mb}_{kind}"] = compare(
+            f"smollm-360m (2 layers, {cfg.dtype}) {TRAIN_BATCH}x{TRAIN_SEQ},"
+            f" microbatches {mb}, compression {kind}", m,
+            tcfg_of(COMPARE_STEPS, mb, kind), dcfg, profile=False)
+        del m
+        torch.cuda.empty_cache()
+    lap("smollm-360m variants")
+
+    # train_e2e: the port's examples/train_e2e.py, through its graph
+    e2e_dir = os.path.join(HERE, "build", "chip_smoke_e2e")
+    shutil.rmtree(e2e_dir, ignore_errors=True)
+    hist_path = os.path.join(e2e_dir, "history.json")
+    train_e2e.main(["--steps", str(E2E_STEPS), "--ckpt-dir",
+                    os.path.join(e2e_dir, "ckpt"), "--out", hist_path])
+    with open(hist_path) as fh:
+        hist = json.load(fh)
+    shutil.rmtree(e2e_dir, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    first10, last10 = statistics.mean(losses[:10]), statistics.mean(
+        losses[-10:])
+    out["train_e2e"] = {"steps": len(hist), "first10": first10,
+                        "last10": last10,
+                        "ms_per_step": statistics.median(
+                            h["time_s"] for h in hist) * 1e3}
+    print(f"    train_e2e ({train_e2e.CONFIG_100M.name}, 4x128, "
+          f"{len(hist)} steps through its graph): first10 {first10:.4f}, "
+          f"last10 {last10:.4f}, {out['train_e2e']['ms_per_step']:.1f} ms a "
+          "step (median, host clock)", flush=True)
+    if not (len(hist) == E2E_STEPS and last10 < first10):
+        raise AssertionError(f"train_e2e: {out['train_e2e']}")
+    torch.cuda.empty_cache()
+    lap("train_e2e")
     return out, totals, profiled
 
 
@@ -3377,14 +3722,16 @@ def main() -> int:
         run_whisper_phase()
     whisper_s = took("whisper serving")
     t_phase = time.perf_counter()
-    print("training path on one card: smollm-360m and xlstm-125m at full "
-          f"width, hymba-1.5b at full width ({HYMBA_TRAIN_LAYERS} layers), a "
-          "whisper-small step:")
+    print("training path on one card, the captured step against the eager "
+          "step: smollm-360m, xlstm-125m and whisper-small at full width, "
+          f"hymba-1.5b at full width ({HYMBA_TRAIN_LAYERS} layers), qwen3-moe "
+          "cut, smollm-360m's variants, train_e2e:")
+    torch.cuda.empty_cache()    # the child's qwen3-moe check needs the card
     training, train_launches, train_profiled = run_training_phase()
     train_s = took("training")
     # dwconv1d's kernels run on the LM paths only; its backward's in
-    # training alone, whose steps are eager: what a profiled step ran
-    # stands for their replay count
+    # training alone: what the profiled train steps (graph replays and
+    # eager steps) ran stands for their replay count
     for name in ("dwconv1d", "dwconv1d_bwd", "dwconv1d_bwd_reduce"):
         launches[name] = replayed[name] = 0
     for name in ("dwconv1d_bwd", "dwconv1d_bwd_reduce"):

@@ -1,10 +1,12 @@
 """Whole calls captured as CUDA graphs, and the kernels' launch counters.
 
-The reference never runs a network body, a prefill or a decode step op by
-op from the host: it ``jax.jit``s each and replays the compiled program
-(``repro/core/network.py:527-635``, ``repro/launch/serve.py:54,62``).  The
+The reference never runs a network body, a prefill, a decode step or a
+train step op by op from the host: it ``jax.jit``s each and replays the
+compiled program (``repro/core/network.py:527-635``,
+``repro/launch/serve.py:54,62``, ``repro/launch/train.py:108``).  The
 port's counterpart is a CUDA graph of the call, captured once per shape and
-replayed:
+replayed (``execute_network``'s memo, ``serve_step.capture_prefill`` and
+``capture_decode_step``, ``train_step.capture_train_step``):
 
 * :func:`capture` warms ``fn`` up on a side stream (which builds the
   kernels and raises their shared-memory limits outside the capture),
@@ -89,6 +91,24 @@ def delta(before: dict, after: dict) -> dict:
     return {name: after[name] - before[name] for name in before}
 
 
+def copy_tree_(dst, src):
+    """Copy every tensor of ``src`` into the same place of ``dst`` (dicts and
+    lists of tensors, the same keys and lengths: a captured call's static
+    buffers, a cache or a train state), in place; a tensor the two share
+    is already there.  Returns ``dst``."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"keys differ: {sorted(dst)} vs {sorted(src)}")
+        for k in dst:
+            copy_tree_(dst[k], src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src, strict=True):
+            copy_tree_(d, s)
+    elif dst is not src:
+        dst.copy_(src)
+    return dst
+
+
 def record(graph: torch.cuda.CUDAGraph, fn: Callable[[], Any],
            device: torch.device) -> Any:
     """``fn()`` captured into ``graph`` (``torch.cuda.graph``); returns what
@@ -132,10 +152,14 @@ class Captured:
 
 
 def capture(fn: Callable[[], Any],
-            device: Optional[torch.device] = None) -> Captured:
+            device: Optional[torch.device] = None, *,
+            generators: tuple = ()) -> Captured:
     """Capture ``fn()``, a call on tensors whose addresses stay fixed, as a
     CUDA graph in a private memory pool, then replay it once.  The warm-up
-    and the capture each move the launch counters by one call.  Raises on
+    and the capture each move the launch counters by one call.  Each of
+    ``generators`` (CUDA generators that ``fn`` draws from) is registered
+    with the graph, so that a replay draws from its seed and offset at the
+    time of the replay, as an eager call would.  Raises on
     a device that is not a CUDA device, and when the capture or the replay
     fails (a failure of ``fn`` during the capture as ``fn`` raised it:
     :func:`record`)."""
@@ -152,6 +176,8 @@ def capture(fn: Callable[[], Any],
         fn()
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     before = snapshot()
     t0 = time.perf_counter()
     output = record(graph, fn, dev)

@@ -16,14 +16,20 @@ encoder-decoder gets one fixed set of encoder frames drawn from
 the fault-tolerant ``train_loop``: it resumes from the newest committed
 checkpoint under ``--ckpt-dir`` (default ``build/repro_torch/ckpt/<arch>``
 in the checkout), so a second run of the same command continues the
-first.  On the card the kernels and the embedding's backward run
-deterministically (``torch.use_deterministic_algorithms``), as the
-loop's bit-exact recovery needs.  It prints ms per step, trained tokens/s,
+first.  On the card the step is the reference's jitted, donated step:
+one CUDA graph of the whole step (``train_step.capture_train_step``:
+loss, backward, compression and AdamW, the state updated in place),
+captured once before the loop, whose capture seconds it prints; the
+kernels and the embedding's backward run deterministically
+(``torch.use_deterministic_algorithms``), as the graph's bits and the
+loop's bit-exact recovery need.  It prints ms per step, trained tokens/s,
 the process's peak device memory and the kernel launches of one step
-(:func:`expected_train_launches`: ``pwconv`` in the forward, the per-layer
-remat's recomputed forward and the backward's recomputed pre-activations;
+against :func:`expected_train_launches` (on the card the launches the
+graph recorded: ``pwconv`` in the forward, the per-layer remat's
+recomputed forward and the backward's recomputed pre-activations;
 ``dwconv1d`` in the forward and the remat, and its backward's two kernels
-once each).  ``--device cpu`` runs the plain PyTorch versions; without a
+once each).  ``--device cpu`` runs the eager step
+(``train_step.make_train_step``) on the plain PyTorch versions; without a
 card the default raises.
 
 The reference's ``--model-parallel`` (above 1), ``--production-mesh`` and
@@ -91,6 +97,20 @@ def train_launch_counts() -> dict:
     return {name: counts[name] for name in TRAIN_COUNTERS}
 
 
+def deterministic_card() -> None:
+    """What bit-exact training on the card needs: cuBLAS's deterministic
+    workspace (``CUBLAS_WORKSPACE_CONFIG``, read when cuBLAS starts, so
+    called before the first product), deterministic algorithms (the
+    embedding's backward is an accumulating ``index_put_``, atomic
+    otherwise), and no TF32 or reduced-precision bf16 reductions."""
+    import torch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     from repro_torch.configs.registry import ARCH_IDS
@@ -125,19 +145,13 @@ def main(argv=None) -> int:
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compress import CompressionConfig
-    from repro_torch.train.train_step import (TrainConfig, init_train_state,
-                                              make_train_step)
+    from repro_torch.train.train_step import TrainConfig, step_for_device
     from repro_torch.train.trainer import LoopConfig, train_loop
 
     dev = require_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if dev.type == "cuda":
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
+        deterministic_card()
     ckpt_dir = args.ckpt_dir or str(_build.BUILD_DIR / "ckpt" / cfg.name)
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -147,15 +161,20 @@ def main(argv=None) -> int:
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, seed=args.seed)
     model = T.init_params(cfg, seed=args.seed, device=dev)
-    state = init_train_state(model, tcfg)
-    step_fn = make_train_step(model, tcfg, seed=args.seed)
+    step_fn, state = step_for_device(model, tcfg, args.global_batch,
+                                     args.seq_len, seed=args.seed)
+    if dev.type == "cuda":
+        print(f"[train] {cfg.name}: the step captured as one CUDA graph in "
+              f"{step_fn.captured.capture_s:.2f} s")
     frames = (frontend_stub(cfg, args.global_batch, dev, seed=args.seed)
               if cfg.encdec is not None else None)
-    per_step = []
+    per_step = []       # the eager step's launches (a replay counts none)
 
     def run_step(state, batch):
         if frames is not None:
             batch = dict(batch, frontend=frames)
+        if dev.type == "cuda":
+            return step_fn(state, batch)
         reset_launch_counts()
         out = step_fn(state, batch)
         per_step.append(train_launch_counts())
@@ -180,10 +199,13 @@ def main(argv=None) -> int:
             if dev.type == "cuda" else "not measured on the CPU")
     want = {k: n * args.microbatches if dev.type == "cuda" else 0
             for k, n in expected_train_launches(cfg).items()}
+    # a replay runs no wrapper: on the card, the launches the graph holds
+    launched = ({k: step_fn.captured.launches.get(k, 0) for k in want}
+                if dev.type == "cuda" else per_step[-1])
     print(f"[train] {cfg.name} on {dev}: {len(hist)} steps in {wall:.1f} s, "
           f"median {ms:.1f} ms/step = {tokens * 1e3 / ms:.0f} trained "
           f"tokens/s; peak device memory {peak}; kernel launches a step "
-          f"{per_step[-1]} (expected {want})")
+          f"{launched} (expected {want})")
     print(f"[train] done: {len(hist)} steps, final loss "
           f"{hist[-1]['loss']:.4f}, stragglers {info['stragglers']}")
     return 0

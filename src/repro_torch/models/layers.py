@@ -203,7 +203,8 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
         xc, lc = x[:, c:c + chunk], labels[:, c:c + chunk]
         if torch.is_grad_enabled():
             nll, nv, zs = torch.utils.checkpoint.checkpoint(
-                _chunk_loss, xc, table, lc, use_reentrant=False)
+                _chunk_loss, xc, table, lc, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             nll, nv, zs = _chunk_loss(xc, table, lc)
         nll_sum, n_tok, zsum = nll_sum + nll, n_tok + nv, zsum + zs

@@ -31,7 +31,10 @@ backward, as the reference's ``jax.checkpoint`` does.  The recurrent
 layers' gradients go through ``dwconv1d``'s backward kernels, the
 differentiable selective scan (``ssm.ChunkScanFn``) and the chunk
 checkpoint of the sLSTM loop; hymba's meta tokens get theirs through the
-prefix the loss drops.
+prefix the loss drops.  The checkpoints (the layer's, the sLSTM chunk's,
+the loss chunk's) stash no RNG state (``preserve_rng_state=False``): the
+forward draws no random numbers, so that is exact, and the captured
+train step reads no generator state inside its capture.
 """
 from __future__ import annotations
 
@@ -443,7 +446,7 @@ def _maybe_remat(fn, cfg: ModelConfig):
     if cfg.remat != "block" or not torch.is_grad_enabled():
         return fn
     return lambda *a: torch.utils.checkpoint.checkpoint(
-        fn, *a, use_reentrant=False)
+        fn, *a, use_reentrant=False, preserve_rng_state=False)
 
 
 def run_encoder(model: LMModel, frames: torch.Tensor,

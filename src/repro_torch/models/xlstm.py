@@ -214,7 +214,7 @@ def slstm_scan(zg, ig, fg, og, r_weights, *, state=None, chunk: int = 128):
         for j in range(0, l, chunk):
             out, *carry = torch.utils.checkpoint.checkpoint(
                 _slstm_steps, xs[j:j + chunk], r, *carry,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
             outs.append(out)
         out = torch.cat(outs, dim=0)
     else:

@@ -10,8 +10,10 @@ differently, so it is not used.
 
 Parameters, gradients and moments are ``{name: tensor}`` dicts of the same
 keys.  :func:`apply_updates` is functional: it returns new tensors and
-leaves its inputs as they were.  The step counter and the learning rate
-stay on the parameters' device, so a step needs no host sync.
+leaves its inputs as they were; :func:`apply_updates_` writes the same
+bits into the state's own tensors (the captured train step's donation).
+The step counter and the learning rate stay on the parameters' device, so
+a step needs no host sync.
 """
 from __future__ import annotations
 
@@ -82,32 +84,61 @@ def global_norm(tree: dict) -> torch.Tensor:
                           for g in tree.values()))
 
 
+def _prologue(grads: dict, step: torch.Tensor, cfg: AdamWConfig):
+    """The step's scalars: (lr, grad norm, clip scale, bias corrections)."""
+    lr = schedule(cfg, step)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    return (lr, gnorm, scale, 1 - cfg.b1 ** step.float(),
+            1 - cfg.b2 ** step.float())
+
+
+def _update(name: str, p, g, mu, nu, scalars, cfg: AdamWConfig):
+    """One parameter's (new p, mu, nu), all fp32."""
+    lr, _, scale, bc1, bc2 = scalars
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    mu = b1 * mu.float() + (1 - b1) * g
+    nu = b2 * nu.float() + (1 - b2) * torch.square(g)
+    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+    if cfg.weight_decay and decays(name):
+        upd = upd + cfg.weight_decay * p.float()
+    return p.float() - lr * upd, mu, nu
+
+
 def apply_updates(params: dict, grads: dict, state: dict,
                   cfg: AdamWConfig):
     """Returns (new params, new state, metrics {grad_norm, lr,
     param_norm}); each new parameter in its own dtype, each moment in
     ``moments_dtype``."""
     step = state["step"] + 1
-    lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
+    scalars = _prologue(grads, step, cfg)
     new_p, new_mu, new_nu = {}, {}, {}
     for name, p in params.items():
         mu, nu = state["mu"][name], state["nu"][name]
-        mdt = mu.dtype
-        g = grads[name].float() * scale
-        mu = b1 * mu.float() + (1 - b1) * g
-        nu = b2 * nu.float() + (1 - b2) * torch.square(g)
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-        if cfg.weight_decay and decays(name):
-            upd = upd + cfg.weight_decay * p.float()
-        new_p[name] = (p.float() - lr * upd).to(p.dtype)
-        new_mu[name] = mu.to(mdt)
-        new_nu[name] = nu.to(mdt)
-    metrics = {"grad_norm": gnorm, "lr": lr,
+        new_p[name], new_mu[name], new_nu[name] = (
+            t.to(dt) for t, dt in zip(
+                _update(name, p, grads[name], mu, nu, scalars, cfg),
+                (p.dtype, mu.dtype, nu.dtype)))
+    metrics = {"grad_norm": scalars[1], "lr": scalars[0],
                "param_norm": global_norm(new_p)}
     return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, metrics
+
+
+def apply_updates_(params: dict, grads: dict, state: dict,
+                   cfg: AdamWConfig) -> dict:
+    """:func:`apply_updates` in place, the same bits: the new parameters,
+    moments and step are written into ``params``' and ``state``'s own
+    tensors (the same expressions, each result copied into its buffer, so
+    no product is fused into another rounding).  Returns the metrics."""
+    step = state["step"]
+    step.add_(1)
+    scalars = _prologue(grads, step, cfg)
+    for name, p in params.items():
+        mu, nu = state["mu"][name], state["nu"][name]
+        for buf, t in zip((p, mu, nu), _update(name, p, grads[name], mu, nu,
+                                               scalars, cfg)):
+            buf.copy_(t)
+    return {"grad_norm": scalars[1], "lr": scalars[0],
+            "param_norm": global_norm(params)}

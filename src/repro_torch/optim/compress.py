@@ -48,6 +48,21 @@ def _int8_tensor(g: torch.Tensor, generator: torch.Generator
     return q.float() * scale
 
 
+def _check(cfg: CompressionConfig, generator) -> None:
+    if cfg.kind == "int8" and generator is None:
+        raise ValueError("int8 compression draws its noise from a "
+                         "generator; pass one")
+    if cfg.kind not in ("topk", "int8"):
+        raise ValueError(cfg.kind)
+
+
+def _compressed(g: torch.Tensor, cfg: CompressionConfig,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    if cfg.kind == "topk":
+        return _topk_tensor(g, cfg.topk_frac)
+    return _int8_tensor(g, generator)
+
+
 def compress(grads: dict, error: dict, cfg: CompressionConfig,
              generator: Optional[torch.Generator] = None):
     """Returns (compressed grads, new error), both fp32.  ``int8`` draws its
@@ -55,17 +70,26 @@ def compress(grads: dict, error: dict, cfg: CompressionConfig,
     grads' order."""
     if cfg.kind == "none":
         return grads, error
-    if cfg.kind == "int8" and generator is None:
-        raise ValueError("int8 compression draws its noise from a "
-                         "generator; pass one")
+    _check(cfg, generator)
     comp, new_err = {}, {}
     for name, g in grads.items():
         g = g.float() + error[name]
-        if cfg.kind == "topk":
-            c = _topk_tensor(g, cfg.topk_frac)
-        elif cfg.kind == "int8":
-            c = _int8_tensor(g, generator)
-        else:
-            raise ValueError(cfg.kind)
-        comp[name], new_err[name] = c, g - c
+        comp[name] = c = _compressed(g, cfg, generator)
+        new_err[name] = g - c
     return comp, new_err
+
+
+def compress_(grads: dict, error: dict, cfg: CompressionConfig,
+              generator: Optional[torch.Generator] = None) -> dict:
+    """:func:`compress` with the new error written into ``error``'s own
+    tensors (the same bits, the same draws); returns the compressed
+    grads."""
+    if cfg.kind == "none":
+        return grads
+    _check(cfg, generator)
+    comp = {}
+    for name, g in grads.items():
+        g = g.float() + error[name]
+        comp[name] = c = _compressed(g, cfg, generator)
+        torch.sub(g, c, out=error[name])
+    return comp

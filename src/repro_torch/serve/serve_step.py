@@ -195,30 +195,6 @@ def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
     return logits, cache
 
 
-def _map_tree(fn, dst, src):
-    """``fn(d, s)`` on each pair of tensors at the same place of two caches
-    (dicts and lists of tensors, the same keys and lengths)."""
-    if isinstance(dst, dict):
-        if set(dst) != set(src):
-            raise ValueError(f"cache keys differ: {sorted(dst)} vs "
-                             f"{sorted(src)}")
-        for k in dst:
-            _map_tree(fn, dst[k], src[k])
-    elif isinstance(dst, list):
-        for d, s in zip(dst, src, strict=True):
-            _map_tree(fn, d, s)
-    else:
-        fn(dst, src)
-
-
-def copy_cache_(dst: dict, src: dict) -> dict:
-    """Copy every tensor of cache ``src`` into the same place of ``dst``, in
-    place (a tensor ``src`` shares with ``dst`` is already there); returns
-    ``dst``."""
-    _map_tree(lambda d, s: None if d is s else d.copy_(s), dst, src)
-    return dst
-
-
 def _clone_cache(cache):
     if isinstance(cache, dict):
         return {k: _clone_cache(v) for k, v in cache.items()}
@@ -240,7 +216,7 @@ def decode_step_into(model: T.LMModel, cache: dict, tokens: torch.Tensor,
     new_logits, new_cache = decode_step(model, cache, tokens, policy=policy,
                                         in_place=True)
     logits.copy_(new_logits)
-    copy_cache_(cache, new_cache)
+    graphs.copy_tree_(cache, new_cache)
     return logits, cache
 
 
@@ -260,7 +236,7 @@ class CapturedDecodeStep:
     def __call__(self, cache: dict, tokens: torch.Tensor):
         with torch.inference_mode():
             if cache is not self.cache:
-                copy_cache_(self.cache, cache)
+                graphs.copy_tree_(self.cache, cache)
             self.tokens.copy_(tokens)
             logits, _ = self.captured.replay()
             return logits.clone(), self.cache
@@ -279,7 +255,7 @@ def capture_decode_step(model: T.LMModel, batch: int, max_len: int, *,
         captured = graphs.capture(lambda: decode_step_into(
             model, cache, tokens, logits, policy=policy), dev)
         # the warm-up and the first replay stepped the static cache
-        copy_cache_(cache, init_cache(model.cfg, batch, max_len, dev))
+        graphs.copy_tree_(cache, init_cache(model.cfg, batch, max_len, dev))
     return CapturedDecodeStep(captured, tokens, cache)
 
 

@@ -1,14 +1,26 @@
 """The training step: loss -> grads -> (compress) -> AdamW.  Counterpart
-of ``repro/train/train_step.py``, eager on one device (the captured step
-is queued in ROADMAP.md).
+of ``repro/train/train_step.py``, on one device.
 
 The state is ``{"params": {name: tensor}, "opt": {"mu", "nu", "step"}[,
-"err"]}``, the names the model's own (``LMModel.named_parameters``).  A
-step is functional: it binds the state's parameters to the model (each
-``nn.Parameter``'s data set to the state's tensor, no copy), runs
-``loss_fn`` and its backward, and returns a new state of new tensors,
-never writing into the old one, so a failed step leaves its input state
-as it was.  Microbatch gradients accumulate in fp32 (reference :42-71).
+"err"]}``, the names the model's own (``LMModel.named_parameters``).  Two
+forms of one step, the same bits:
+
+* :func:`make_train_step`'s step is functional: it binds the state's
+  parameters to the model (each ``nn.Parameter``'s data set to the
+  state's tensor, no copy), runs ``loss_fn`` and its backward, and returns
+  a new state of new tensors, never writing into the old one, so a failed
+  step leaves its input state as it was.  It runs on the CPU, and it is
+  the oracle of the captured step.
+* :func:`capture_train_step` is the reference's ``jax.jit(make_train_step
+  (...), donate_argnums=(0,))`` on the card: :func:`train_step_into`
+  (the step on static buffers, updating the parameters, moments, step and
+  compression error in place) captured as one CUDA graph of the whole
+  step, forward, backward, compression and AdamW.  The state it returns is
+  its own buffers, which the next call updates in place (the donation); a
+  call handed any other state (one ``Checkpointer.restore`` made) copies
+  it in first.
+
+Microbatch gradients accumulate in fp32 (reference :42-71).
 """
 from __future__ import annotations
 
@@ -17,11 +29,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import trainable_
 from repro_torch.optim import adamw
-from repro_torch.optim.compress import CompressionConfig, compress, init_error
+from repro_torch.optim.compress import (CompressionConfig, compress,
+                                        compress_, init_error)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +105,12 @@ def accumulate_grads(model: T.LMModel, params: dict, batch: dict,
             {n: g / microbatches for n, g in grads.items()})
 
 
+def noise_seed(seed: int, step: int) -> int:
+    """The int8 compressor's seed at a state's ``step`` (before the
+    update)."""
+    return seed * 1_000_003 + step
+
+
 def make_train_step(model: T.LMModel, tcfg: TrainConfig,
                     policy: KernelPolicy = DEFAULT_POLICY, *, seed: int = 0):
     """Returns ``train_step(state, batch[, generator]) -> (state,
@@ -112,7 +132,7 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
         if tcfg.compression.kind != "none":
             if tcfg.compression.kind == "int8" and generator is None:
                 generator = torch.Generator(dev).manual_seed(
-                    seed * 1_000_003 + int(opt["step"]))
+                    noise_seed(seed, int(opt["step"])))
             grads, err = compress(grads, state["err"], tcfg.compression,
                                   generator)
         params, opt, opt_metrics = adamw.apply_updates(params, grads, opt,
@@ -128,11 +148,151 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
 
 def init_train_state(model: T.LMModel, tcfg: TrainConfig) -> dict:
     """The state of a model's current weights: its parameters (the same
-    tensors, which a step never writes), zeroed moments and step, and the
-    compressor's zeroed error when one is configured."""
-    params = {n: p.detach() for n, p in model.named_parameters()}
+    tensors, which neither form of the step writes: the captured step
+    copies them in), zeroed moments and step, and the compressor's zeroed
+    error when one is configured."""
+    return _state_of({n: p.detach() for n, p in model.named_parameters()},
+                     tcfg)
+
+
+def _state_of(params: dict, tcfg: TrainConfig) -> dict:
     state = {"params": params,
              "opt": adamw.init_state(params, tcfg.optimizer)}
     if tcfg.compression.kind != "none":
         state["err"] = init_error(params)
     return state
+
+
+def train_step_into(model: T.LMModel, state: dict, batch: dict,
+                    tcfg: TrainConfig, metrics: dict, *,
+                    policy: KernelPolicy = DEFAULT_POLICY,
+                    generator: Optional[torch.Generator] = None):
+    """:func:`make_train_step`'s step on static buffers, the same bits
+    (``model``'s parameters made trainable, ``trainable_``): the
+    gradients of ``state``'s parameters (bound once more with
+    :func:`bind_params_`; microbatches unrolled, fp32 sums) from
+    ``torch.autograd.grad``; the compression error and AdamW's
+    parameters, moments and step written into ``state``'s own tensors;
+    each metric copied into the 0-d tensor of its name in ``metrics`` (a
+    name it lacks gets a new one).  ``int8`` compression draws from
+    ``generator`` (required).  It reads and writes the same addresses at
+    every call, what a CUDA graph of it needs.  Returns ``(state,
+    metrics)``."""
+    params = state["params"]
+    loss, m, grads = accumulate_grads(model, params, batch,
+                                      tcfg.microbatches, policy)
+    if tcfg.compression.kind != "none":
+        grads = compress_(grads, state["err"], tcfg.compression, generator)
+    m = dict(m, **adamw.apply_updates_(params, grads, state["opt"],
+                                       tcfg.optimizer), loss=loss)
+    for k, v in m.items():
+        if k not in metrics:
+            metrics[k] = torch.empty_like(v)
+        metrics[k].copy_(v)
+    return state, metrics
+
+
+@dataclasses.dataclass
+class CapturedTrainStep:
+    """A train step captured as a CUDA graph, called as
+    :func:`make_train_step`'s step: ``(state, batch) -> (state,
+    metrics)``.  The state it returns is its own static :attr:`state`,
+    which the next call updates in place; handed that state, a call only
+    copies the batch in and replays, handed any other, it first copies
+    that state in.  ``batch`` is ``{tokens, labels [, frontend]}`` of the
+    captured shapes on any device.  The metrics are copies of the graph's
+    scalars.  :attr:`step` is the host's copy of the state's step, so the
+    int8 compressor's generator is seeded (:func:`noise_seed`) with no
+    read from the card.  ``captured`` has the capture time and the
+    launches the capture recorded."""
+    captured: graphs.Captured
+    state: dict
+    batch: dict
+    metrics: dict
+    generator: Optional[torch.Generator]
+    seed: int
+    step: int = 0
+
+    def __call__(self, state: dict, batch: dict):
+        if set(batch) != set(self.batch):
+            raise ValueError(f"a batch of {sorted(batch)} for a step "
+                             f"captured with {sorted(self.batch)}")
+        for k, buf in self.batch.items():
+            if tuple(batch[k].shape) != tuple(buf.shape):
+                raise ValueError(f"train step captured for {k} of shape "
+                                 f"{tuple(buf.shape)}, got "
+                                 f"{tuple(batch[k].shape)}")
+        if state is not self.state:
+            graphs.copy_tree_(self.state, state)
+            self.step = int(state["opt"]["step"])
+        for k, buf in self.batch.items():
+            buf.copy_(batch[k])
+        if self.generator is not None:
+            self.generator.manual_seed(noise_seed(self.seed, self.step))
+        self.captured.replay()
+        self.step += 1
+        return self.state, {k: v.clone() for k, v in self.metrics.items()}
+
+
+def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
+                       seq_len: int, *, policy: KernelPolicy = DEFAULT_POLICY,
+                       seed: int = 0) -> CapturedTrainStep:
+    """Capture :func:`train_step_into` for batches of ``batch`` x
+    ``seq_len`` tokens (and an encoder-decoder's frames, (batch, enc_seq,
+    d) in the model's dtype, from a static buffer as the prefill's) on the
+    model's device, which must be the card; raises on the CPU.  The step's
+    static state starts as :func:`init_train_state` of the model's weights
+    at the call, copied (the model's parameters are bound to it from then
+    on), and the int8 compressor draws from a generator registered with
+    the graph, seeded before each replay as :func:`make_train_step` seeds
+    its own with ``seed``.  Bit-exact replays need deterministic
+    algorithms on, as ``launch.train`` sets them."""
+    dev = model.embedding["table"].device
+    if dev.type != "cuda":
+        raise ValueError(f"a train step is captured on the card, not on "
+                         f"{dev}")
+    trainable_(model)
+    cfg = model.cfg
+    weights = {n: p.detach() for n, p in model.named_parameters()}
+    state = _state_of({n: w.clone() for n, w in weights.items()}, tcfg)
+    bufs = {k: torch.zeros((batch, seq_len), dtype=torch.int32, device=dev)
+            for k in ("tokens", "labels")}
+    if cfg.encdec is not None:
+        bufs["frontend"] = torch.zeros(
+            (batch, cfg.encdec.enc_seq, cfg.d_model), dtype=cfg.torch_dtype,
+            device=dev)
+    generator = (torch.Generator(dev) if tcfg.compression.kind == "int8"
+                 else None)
+    metrics = {}
+
+    def step():
+        with torch.enable_grad():
+            return train_step_into(model, state, bufs, tcfg, metrics,
+                                   policy=policy, generator=generator)
+    captured = graphs.capture(step, dev, generators=(generator,)
+                              if generator is not None else ())
+    # the warm-up and the first replay stepped the static state: back to
+    # init_train_state's, in place (a second state may not fit the card)
+    graphs.copy_tree_(state["params"], weights)
+    _zero_tree_({k: v for k, v in state.items() if k != "params"})
+    return CapturedTrainStep(captured, state, bufs, metrics, generator, seed)
+
+
+def _zero_tree_(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            _zero_tree_(v)
+        else:
+            v.zero_()
+
+
+def step_for_device(model: T.LMModel, tcfg: TrainConfig, batch: int,
+                    seq_len: int, *, seed: int = 0):
+    """``(step, state)`` a launcher trains with: on the card the captured
+    step (:func:`capture_train_step`) and its own static state, elsewhere
+    :func:`make_train_step`'s step and :func:`init_train_state`."""
+    if model.embedding["table"].device.type == "cuda":
+        step = capture_train_step(model, tcfg, batch, seq_len, seed=seed)
+        return step, step.state
+    return (make_train_step(model, tcfg, seed=seed),
+            init_train_state(model, tcfg))

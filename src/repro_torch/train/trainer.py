@@ -17,6 +17,11 @@
   it: the reference resets its count at every successful step, so when
   the newest checkpoint precedes the offending step the replayed steps in
   between reset it and the loop retries forever.
+* A step may donate its input state (the captured step updates its
+  buffers in place, and a failed replay has already written them).  So
+  a failure always restores: from the newest checkpoint, or before the
+  first one from a host copy of the starting state, which the loop holds
+  until a checkpoint is committed.
 """
 from __future__ import annotations
 
@@ -64,10 +69,12 @@ def train_loop(
     """Runs to ``loop_cfg.total_steps``; returns (state, {"history",
     "stragglers", "failures"})."""
     ckpt = Checkpointer(ckpt_dir, keep=loop_cfg.keep_ckpts)
-    start = 0
+    start, initial = 0, None     # the restore point until a checkpoint
     if ckpt.latest_step() is not None:
         state, start, _ = ckpt.restore(state)
         log(f"[trainer] resumed from step {start}")
+    else:
+        initial = _host_copy(state)
     it = DataIterator(data_cfg, start_step=start, prefetch=2)
 
     history = []
@@ -92,7 +99,7 @@ def train_loop(
             if ckpt.latest_step() is not None:
                 state, rstep, _ = ckpt.restore(state)
             else:
-                rstep = 0  # restart from initial state
+                state, rstep = _device_copy(initial, state), 0
             if isinstance(e, FloatingPointError):
                 nan_retries = nan_retries + 1 if nan_at == step else 1
                 nan_at = step
@@ -121,7 +128,20 @@ def train_loop(
         if step % loop_cfg.ckpt_every == 0 or step == loop_cfg.total_steps:
             ckpt.save(step, state, extra={"data": it.state()},
                       blocking=False)
+            if ckpt.latest_step() is not None:  # the save waits for the last
+                initial = None
     ckpt.wait()
     it.close()
     return state, {"history": history, "stragglers": stragglers,
                    "failures": failures}
+
+
+def _host_copy(state: dict) -> dict:
+    return {k: _host_copy(v) if isinstance(v, dict)
+            else v.detach().to("cpu", copy=True) for k, v in state.items()}
+
+
+def _device_copy(host: dict, like: dict) -> dict:
+    """New tensors (never ``host``'s own) on ``like``'s devices."""
+    return {k: _device_copy(v, like[k]) if isinstance(v, dict)
+            else v.to(like[k].device, copy=True) for k, v in host.items()}

@@ -101,7 +101,7 @@ from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.serve import sampler as jsampler  # noqa: E402
 from repro.serve import serve_step as JS  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, graphs  # noqa: E402
 from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serve import sampler as tsampler  # noqa: E402
@@ -427,7 +427,7 @@ def check_decode_step_into(arch: str, kv_quant: bool = False,
     _, ft = lm_frontend(model.cfg, 2, 3, "float32")
     logits, ref = TS.prefill(model, tt, max_len=MAX_LEN, frontend=ft)
     cache = TS.init_cache(model.cfg, 2, MAX_LEN, "cpu")
-    TS.copy_cache_(cache, ref)
+    graphs.copy_tree_(cache, ref)
 
     def leaves(c):
         return [c["pos"]] + [layer[k] for layer in c["layers"]

@@ -1388,6 +1388,7 @@ def test_hymba_in_place_ring_write_matches_functional_decode_step(dev):
     computed on the device) against the functional decode_step (the
     reference's one-hot select) over steps that wrap the ring, bit for
     bit, the static cache's tensors at their addresses."""
+    from repro_torch import graphs
     from repro_torch.serve import serve_step as S
     model = _hymba_smoke(dev, "bfloat16")
     toks = torch.randint(0, 128, (3, 30),
@@ -1395,7 +1396,7 @@ def test_hymba_in_place_ring_write_matches_functional_decode_step(dev):
     with torch.inference_mode():
         logits, ref = S.prefill(model, toks, max_len=160)
         cache = S.init_cache(model.cfg, 3, 160, dev)
-        S.copy_cache_(cache, ref)
+        graphs.copy_tree_(cache, ref)
         ks = [layer["k"].data_ptr() for layer in cache["layers"]]
         out = torch.empty_like(logits)
         tok = logits.argmax(-1)[:, None]
@@ -2038,3 +2039,139 @@ def test_recurrent_train_launcher_on_the_card(dev, arch, tmp_path):
     line = next(s for s in out.stdout.splitlines() if "launches a step" in s)
     got, want = line.split("launches a step ")[1].split(" (expected ")
     assert got == want.rstrip(")"), line
+
+
+# ---------------------------------------------------------------------------
+# The captured train step: one CUDA graph of loss, backward, compression
+# and AdamW
+# ---------------------------------------------------------------------------
+
+#: Graph against eager in a process of its own: deterministic algorithms
+#: and cuBLAS's workspace are set before cuBLAS starts
+#: (``launch.train.deterministic_card``).
+_GRAPH_VS_EAGER = """
+import sys, torch
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.launch.serve import frontend_stub
+from repro_torch.launch.train import (deterministic_card,
+                                      expected_train_launches)
+from repro_torch.models.transformer import init_params
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.compress import CompressionConfig
+from repro_torch.train import train_step as TS
+arch, mb, kind = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+deterministic_card()
+dev = torch.device("cuda", 0)
+cfg = get_config(arch, smoke=True)
+model = init_params(cfg, seed=0, device=dev)
+tcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=1e-2, warmup_steps=2,
+                                            total_steps=100),
+                      microbatches=mb,
+                      compression=CompressionConfig(kind=kind,
+                                                    topk_frac=0.1))
+state = TS.init_train_state(model, tcfg)
+eager = TS.make_train_step(model, tcfg, seed=3)
+step = TS.capture_train_step(model, tcfg, 4, 32, seed=3)
+want = {k: n * mb for k, n in expected_train_launches(cfg).items()}
+got = {k: step.captured.launches.get(k, 0) for k in want}
+assert got == want, (got, want)
+it = DataIterator(DataConfig(cfg.vocab_size, 32, 4, seed=1), prefetch=0)
+frames = frontend_stub(cfg, 4, dev, seed=0)
+cstate = state
+
+def leaves(t, p=""):
+    for k, v in t.items():
+        yield from (leaves(v, p + k + "/") if isinstance(v, dict)
+                    else [(p + k, v)])
+for i in range(3):
+    b = next(it)
+    if cfg.encdec is not None:
+        b["frontend"] = frames
+    state, em = eager(state, b)
+    cstate, cm = step(cstate, b)
+    torch.cuda.synchronize(dev)
+    assert cstate is step.state
+    got, ref = dict(leaves(cstate)), dict(leaves(state))
+    bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+    bad += [k for k in em if not torch.equal(cm[k], em[k])]
+    assert not bad, (i, bad[:5])
+print("graph == eager", arch, mb, kind)
+"""
+
+
+@pytest.mark.parametrize("arch,mb,kind", [
+    ("smollm-360m", 1, "none"), ("qwen3-moe-235b-a22b", 1, "none"),
+    ("whisper-small", 1, "none"), ("xlstm-125m", 1, "none"),
+    ("hymba-1.5b", 1, "none"), ("smollm-360m", 2, "topk"),
+    ("smollm-360m", 1, "int8")])
+def test_captured_train_step_equals_eager(dev, arch, mb, kind):
+    """``capture_train_step`` of each trainable family's smoke config (4 x
+    32 tokens; microbatches and compression on smollm) against
+    ``make_train_step``'s step from the same state on the same batches,
+    deterministic: after each of 3 steps the parameters, moments, step,
+    error and metrics bit for bit, int8's noise included; the graph's
+    recorded launches are ``expected_train_launches``."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-c", _GRAPH_VS_EAGER, arch, str(mb), kind],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(src)})
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "graph == eager" in out.stdout
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dwconv1d_function_backward_replays_from_a_capture(dev, dtype):
+    """``DwConv1dFn``'s forward and backward (``torch.autograd.grad``)
+    captured by ``graphs.capture``, as the train step captures them: one
+    launch of each of the three kernels recorded, and a replay gives the
+    eager call's dx and df bit for bit."""
+    from repro_torch import graphs
+    from repro_torch.kernels import dwconv1d
+    x = _r((2, 640, 3200), dev, dtype).requires_grad_(True)
+    f = _r((4, 3200), dev, dtype, 0.5).requires_grad_(True)
+    dy = _r((2, 640, 3200), dev, dtype, seed=3)
+
+    def backward():
+        y = dwconv1d.DwConv1dFn.apply(x, f, "auto")
+        return torch.autograd.grad(y, (x, f), dy)
+    want = backward()
+    cap = graphs.capture(backward, dev)
+    assert cap.launches == {"dwconv1d": 1, "dwconv1d_bwd": 1,
+                            "dwconv1d_bwd_reduce": 1}
+    for t in cap.output:
+        t.zero_()
+    cap.replay()
+    torch.cuda.synchronize(dev)
+    assert all(torch.equal(a, b) for a, b in zip(cap.output, want))
+
+
+def test_failing_train_step_capture_raises(dev, monkeypatch):
+    """A train step that fails inside its capture raises the step's own
+    error through ``graphs.record`` (no eager step runs in its place), and
+    the stream captures again afterwards."""
+    from repro_torch import graphs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import train_step as TS
+    real = TS.adamw.apply_updates_
+
+    def fails_in_capture(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("step failed inside the capture")
+        return real(*a, **k)
+    monkeypatch.setattr(TS.adamw, "apply_updates_", fails_in_capture)
+    model = init_params(get_config("smollm-360m", smoke=True), seed=0,
+                        device=dev)
+    with pytest.raises(RuntimeError, match="inside the capture"):
+        TS.capture_train_step(model, TS.TrainConfig(), 2, 16)
+    buf = torch.zeros(4, device=dev)
+    cap = graphs.capture(lambda: buf.add_(1), dev)
+    cap.replay()
+    torch.cuda.synchronize(dev)
+    assert float(buf[0]) == 3.0

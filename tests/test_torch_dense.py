@@ -45,7 +45,7 @@ from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.serve import serve_step as JS  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, graphs  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import blocking  # noqa: E402
@@ -513,7 +513,7 @@ def test_in_place_step_past_max_len_writes_nothing_as_the_functional():
         _, tt = lm_tokens(2, 6, 5)
         logits, ref = TS.prefill(model, tt, max_len=8)
         cache = TS.init_cache(model.cfg, 2, 8, "cpu")
-        TS.copy_cache_(cache, ref)
+        graphs.copy_tree_(cache, ref)
         out = torch.empty_like(logits)
         tok = sampler.greedy(logits)[:, None]
         for _ in range(4):                         # positions 6, 7, 8, 9

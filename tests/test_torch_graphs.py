@@ -239,7 +239,7 @@ def test_static_decode_step_matches_reference_over_greedy_steps():
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=LOGITS_TOL,
                                atol=LOGITS_TOL)
     cache = TS.init_cache(model.cfg, 2, 32, "cpu")
-    TS.copy_cache_(cache, ct)
+    graphs.copy_tree_(cache, ct)
     addresses = [t.data_ptr() for layer in cache["layers"]
                  for t in layer.values()] + [cache["pos"].data_ptr()]
     logits = torch.empty((2, model.cfg.vocab_size))
@@ -269,7 +269,7 @@ def test_copy_cache_writes_every_state_in_place():
     _, src = TS.prefill(model, torch.randint(0, 128, (3, 5)), max_len=16)
     dst = TS.init_cache(cfg, 3, 16, "cpu")
     kept = [t for layer in dst["layers"] for t in layer.values()]
-    assert TS.copy_cache_(dst, src) is dst
+    assert graphs.copy_tree_(dst, src) is dst
     for layer, ref in zip(dst["layers"], src["layers"]):
         assert set(layer) == set(ref)
         for k, v in layer.items():

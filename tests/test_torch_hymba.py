@@ -44,7 +44,7 @@ from repro.models import ssm as js  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.serve import sampler as jsampler  # noqa: E402
 from repro.serve import serve_step as JS  # noqa: E402
-from repro_torch import convert  # noqa: E402
+from repro_torch import convert, graphs  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import hymba_1_5b as tcfg_mod  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -619,7 +619,7 @@ def test_decode_step_into_writes_in_place_and_matches_decode_step():
     _, tt = _tokens(2, 30, 3)
     logits, ref = TS.prefill(model, tt, max_len=MAX_LEN)
     cache = TS.init_cache(model.cfg, 2, MAX_LEN, "cpu")
-    TS.copy_cache_(cache, ref)
+    graphs.copy_tree_(cache, ref)
 
     def leaves(c):
         return [c["pos"]] + [t for layer in c["layers"] for t in (

@@ -53,14 +53,14 @@ def test_new_modules_are_held_to_the_import_rule(module):
         "jax", "jaxlib", "repro"}
 
 
-#: The training slice's modules and whisper's config: held to the same
-#: rule.
+#: The training slice's modules, whisper's config and ``train_e2e``: held
+#: to the same rule.
 TRAINING_MODULES = ("optim/__init__.py", "optim/adamw.py",
                     "optim/compress.py", "data/__init__.py",
                     "data/pipeline.py", "train/__init__.py",
                     "train/train_step.py", "train/checkpoint.py",
                     "train/trainer.py", "launch/train.py",
-                    "configs/whisper_small.py")
+                    "configs/whisper_small.py", "train_e2e.py")
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
@@ -125,7 +125,8 @@ def test_serving_entry_points_default_to_the_card():
     ("repro_torch.launch.train", "--arch", "smollm-360m", "--smoke",
      "--steps", "1"),
     ("repro_torch.launch.train", "--arch", "whisper-small", "--smoke",
-     "--steps", "1")))
+     "--steps", "1"),
+    ("repro_torch.train_e2e", "--steps", "1")))
 def test_whisper_and_training_entry_points_default_to_the_card(argv,
                                                                 tmp_path):
     _skip_if_card()
@@ -136,7 +137,7 @@ def test_whisper_and_training_entry_points_default_to_the_card(argv,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
-    assert "[serve]" not in out.stdout and "[train]" not in out.stdout
+    assert not any(t in out.stdout for t in ("[serve]", "[train]", "[e2e]"))
     assert not list(tmp_path.iterdir())
 
 

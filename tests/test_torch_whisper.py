@@ -34,7 +34,7 @@ from repro.models import attention as JA
 from repro.models import transformer as JT
 from repro.serve import sampler as jsampler
 from repro.serve import serve_step as JS
-from repro_torch import convert
+from repro_torch import convert, graphs
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry
 from repro_torch.launch import serve as tserve
@@ -288,7 +288,7 @@ def test_decode_step_into_keeps_the_encoder_cache():
     _, ft = frames(jcfg, 2, 8)
     logits, ref = TS.prefill(model, tt, max_len=MAX_LEN, frontend=ft)
     cache = TS.init_cache(model.cfg, 2, MAX_LEN, "cpu")
-    TS.copy_cache_(cache, ref)
+    graphs.copy_tree_(cache, ref)
     enc = [cache["enc_k"].clone(), cache["enc_v"].clone()]
     addresses = [cache[k].data_ptr() for k in ("pos", "enc_k", "enc_v")]
     out = torch.empty_like(logits)
