@@ -2,6 +2,7 @@
 shapes of the main paths, on the card.
 
     python3 src/repro_torch/bench_pwconv.py [--src DIR] [--reps N]
+        [--tp | --tune | --widths]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (by
 default the one beside this file), so that one session on the card can time
@@ -26,6 +27,21 @@ over the copies):
   per launch (host-paced where the host is slower than the kernel);
 
 and its largest error relative to the plain version.
+
+``--tp`` instead times qwen3-1.7b's Linears at their local widths under
+tensor parallelism of 2 (:data:`TP_SHAPES`: the column-parallel q and the
+MLP's gate/up, the row-parallel o and down with their fp32 partial-sum
+store), bf16, at G = 8 (decode) and G = 4096 (prefill): the kernel's,
+the plain version's and one library call's (``torch.mm``, bf16 out) CUDA-
+graph ms, beside the bound: the larger of the bytes moved (x and w read
+once, the output written once) at 3.35 TB/s and the products at the bf16
+tensor-core peak of 989 TFLOP/s.
+
+``--widths`` prints, without a card, every Linear's local (Ci, Co) of
+qwen3-1.7b, qwen3-moe-235b-a22b and smollm-360m at tensor parallelism 2
+and 4 (the sharding rules' blocks, at full width) and the ``pwconv``
+variant each takes at G = 8 and G = 4096 in bf16 and fp32
+(``blocking.pw_variant``).
 
 ``--tune`` instead sweeps what ``blocking.plan_pwconv`` decides for this
 checkout, CUDA-graph timed: the ``stream`` variant's Co slice and split-K
@@ -52,6 +68,15 @@ SHAPES = ((4096, 768, 3072, None), (4096, 1536, 1536, None),
           (1, 768, 3072, None), (1, 1024, 768, None),
           (100352, 32, 64, "relu6"), (25088, 128, 256, "relu6"),
           (1568, 512, 512, "relu6"), (49, 1024, 1024, "relu6"))
+
+#: (Ci, Co, store dtype) of qwen3-1.7b's Linears at tp 2: q 2048 -> 1024
+#: and gate/up 2048 -> 3072 column-parallel; o 1024 -> 2048 and down
+#: 3072 -> 2048 row-parallel, stored in fp32 for the sum over ranks.
+TP_SHAPES = ((2048, 1024, "bfloat16"), (2048, 3072, "bfloat16"),
+             (1024, 2048, "float32"), (3072, 2048, "float32"))
+TP_G = (8, 4096)
+HBM_BYTES_PER_S = 3.35e12
+BF16_PEAK = 989e12
 
 #: Bytes the copies of w rotated over for a cold-L2 time add up to at least.
 COLD_BYTES = 64 * 2 ** 20
@@ -149,6 +174,64 @@ def tune(torch, pwconv, card, rand) -> None:
                         x, w, variant=wide), 20)}), flush=True)
 
 
+def tp(torch, pwconv, card, rand, reps: int) -> None:
+    from repro_torch.kernels import blocking
+    for ci, co, store in TP_SHAPES:
+        odt = getattr(torch, store)
+        for g in TP_G:
+            x = rand((g, ci), torch.bfloat16)
+            w = rand((ci, co), torch.bfloat16, ci ** -0.5)
+            got = pwconv.pwconv(x, w, out_dtype=odt)
+            want = pwconv.pwconv_plain(x, w, out_dtype=odt)
+            moved = (x.numel() + w.numel()) * 2 + g * co * got.element_size()
+            print(json.dumps({
+                "card": card, "tp": 2, "shape": [g, ci, co],
+                "dtype": "bfloat16", "store": store,
+                "variant": blocking.pw_variant(g, ci, co, torch.bfloat16),
+                "ms": _graph_ms(torch, lambda: pwconv.pwconv(
+                    x, w, out_dtype=odt), reps),
+                "plain_ms": _graph_ms(torch, lambda: pwconv.pwconv_plain(
+                    x, w, out_dtype=odt), reps),
+                "library_ms": _graph_ms(torch, lambda: torch.mm(x, w), reps),
+                "bound_ms": max(moved / HBM_BYTES_PER_S,
+                                2 * g * ci * co / BF16_PEAK) * 1e3,
+                "bound_by": ("bytes" if moved / HBM_BYTES_PER_S
+                             > 2 * g * ci * co / BF16_PEAK else "operations"),
+                "max_rel_err": float((got.float() - want.float()).abs().max()
+                                     / want.float().abs().max())}),
+                flush=True)
+
+
+def widths() -> None:
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import blocking
+    from repro_torch.launch.dryrun import make_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import build_model
+    for arch in ("qwen3-1.7b", "qwen3-moe-235b-a22b", "smollm-360m"):
+        for tp in (2, 4):
+            rules = make_rules(Mesh(("data", "model"), (1, tp)),
+                               mode="serve", multi_pod=False)
+            model = build_model(get_config(arch), torch.Generator(), "meta",
+                                rules)
+            seen = {}
+            for name, p in model.named_parameters():
+                if not name.startswith("blocks.") or not name.endswith(".w"):
+                    continue
+                key = name.split(".", 2)[2][:-2]
+                if p.dim() != 2 or key in seen or "router" in key:
+                    continue
+                seen[key] = list(p.shape)
+                print(json.dumps({
+                    "arch": arch, "tp": tp, "linear": key,
+                    "local": list(p.shape), **{
+                        f"G={g} {dt}": blocking.pw_variant(
+                            g, *p.shape, getattr(torch, dt))
+                        for g in (8, 4096)
+                        for dt in ("bfloat16", "float32")}}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.dirname(
@@ -156,8 +239,15 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--tune", action="store_true",
                     help="sweep the stream tile and the variant threshold")
+    ap.add_argument("--tp", action="store_true",
+                    help="qwen3-1.7b's Linears at their tp-2 local widths")
+    ap.add_argument("--widths", action="store_true",
+                    help="local widths and variants at tp 2 and 4 (no card)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.src))
+    if args.widths:
+        widths()
+        return 0
     import torch
     from repro_torch.kernels import pwconv
     if not torch.cuda.is_available():
@@ -177,6 +267,9 @@ def main(argv=None) -> int:
 
     if args.tune:
         tune(torch, pwconv, card, rand)
+        return 0
+    if args.tp:
+        tp(torch, pwconv, card, rand, args.reps)
         return 0
 
     for dtype in (torch.float32, torch.bfloat16):

@@ -13,6 +13,9 @@ with dots (``meta``, the meta tokens, and whisper's ``enc_pos`` and
 ``enc_ln_final`` included), layer ``g*period + vi`` takes
 ``blocks_v{vi}[g]`` and encoder layer ``g`` ``enc_blocks[g]``.
 
+Under a mesh (``rules``) each rank loads its block of every leaf
+(``sharding.rules.param_specs``), cut from the whole array on the host.
+
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts (a JAX
 array converts on the host); this module imports neither JAX nor the
 reference package.
@@ -65,8 +68,8 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 
 
 def load_tree_(module: nn.Module, leaves: dict) -> nn.Module:
-    """Copy ``{dotted name: array}`` into ``module``'s parameters of the
-    same names, in place.  The names, shapes and dtypes must match
+    """Copy ``{dotted name: array or tensor}`` into ``module``'s parameters
+    of the same names, in place.  The names, shapes and dtypes must match
     exactly."""
     params = dict(module.named_parameters())
     if set(params) != set(leaves):
@@ -74,7 +77,9 @@ def load_tree_(module: nn.Module, leaves: dict) -> nn.Module:
                          f"{sorted(set(params) - set(leaves))}, unexpected "
                          f"{sorted(set(leaves) - set(params))}")
     for name, p in params.items():
-        t = tensor_from_numpy(np.array(leaves[name]), p.device)
+        leaf = leaves[name]
+        t = (leaf.to(p.device) if isinstance(leaf, torch.Tensor)
+             else tensor_from_numpy(np.array(leaf), p.device))
         if t.shape != p.shape or t.dtype != p.dtype:
             raise ValueError(f"{name}: reference {tuple(t.shape)} {t.dtype}, "
                              f"port {tuple(p.shape)} {p.dtype}")
@@ -104,9 +109,22 @@ def lm_leaves(jax_params, period: int) -> dict:
     return leaves
 
 
-def lm_params_from_numpy(jax_params, cfg, device="cuda"):
+def lm_params_from_numpy(jax_params, cfg, device="cuda", rules=None):
     """Reference LM params (``repro.models.transformer.init_params``) as the
-    port's ``LMModel`` on ``device``."""
-    from repro_torch.models.transformer import init_params
-    model = init_params(cfg, device=device)
-    return load_tree_(model, lm_leaves(jax_params, len(model.pattern)))
+    port's ``LMModel`` on ``device``; under the mesh of ``rules`` (default:
+    the context's) this rank's blocks of them."""
+    from repro_torch.core.network import require_device
+    from repro_torch.models.transformer import build_model
+    from repro_torch.sharding.rules import (active_mesh, current_rules,
+                                            local_block, param_specs)
+    dev = require_device(device)
+    r = rules if rules is not None else current_rules()
+    model = build_model(cfg, torch.Generator(), "meta", r).to_empty(
+        device=dev)
+    leaves = lm_leaves(jax_params, len(model.pattern))
+    if active_mesh(r) is not None:
+        specs = param_specs({n: np.shape(a) for n, a in leaves.items()}, r)
+        leaves = {n: local_block(tensor_from_numpy(np.array(a), "cpu"),
+                                 specs[n], r.mesh)
+                  for n, a in leaves.items()}
+    return load_tree_(model, leaves)

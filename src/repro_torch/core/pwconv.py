@@ -40,10 +40,10 @@ class PointwiseFn(torch.autograd.Function):
     ``w`` (Ci, Co), ``bias`` (Co,) or None."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, activation, policy):
+    def forward(ctx, x, w, bias, activation, policy, out_dtype=None):
         ctx.activation, ctx.policy = activation, policy
         ctx.save_for_backward(x, w, bias)
-        return _op(x, w, bias, activation, policy)
+        return _op(x, w, bias, activation, policy, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -66,19 +66,22 @@ class PointwiseFn(torch.autograd.Function):
             dw = torch.matmul(x2.float().T, g2).to(w.dtype)
         if bias is not None and ctx.needs_input_grad[2]:
             db = g2.sum(dim=0).to(bias.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def pointwise(x: torch.Tensor, w: torch.Tensor,
               bias: Optional[torch.Tensor] = None, *,
               activation: Optional[str] = None,
-              policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """Pointwise conv (1x1) / GEMM over the trailing axis, fp32 accumulate.
-    x (..., Ci) must be contiguous on the card.  Under autograd (grad mode
-    on and an operand requiring grad) it is :class:`PointwiseFn`; else the
-    op itself, which serving (``inference_mode``) launches exactly once."""
+              policy: KernelPolicy = DEFAULT_POLICY,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Pointwise conv (1x1) / GEMM over the trailing axis, fp32 accumulate,
+    stored in ``out_dtype`` (default x's; a row-parallel Linear's partial
+    sums are stored in fp32).  x (..., Ci) must be contiguous on the card.
+    Under autograd (grad mode on and an operand requiring grad) it is
+    :class:`PointwiseFn`; else the op itself, which serving
+    (``inference_mode``) launches exactly once."""
     if torch.is_grad_enabled() and (
             x.requires_grad or w.requires_grad
             or (bias is not None and bias.requires_grad)):
-        return PointwiseFn.apply(x, w, bias, activation, policy)
-    return _op(x, w, bias, activation, policy)
+        return PointwiseFn.apply(x, w, bias, activation, policy, out_dtype)
+    return _op(x, w, bias, activation, policy, out_dtype=out_dtype)

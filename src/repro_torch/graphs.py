@@ -16,7 +16,9 @@ replayed (``execute_network``'s memo, ``serve_step.capture_prefill`` and
 The kernel wrappers count their launches in plain integers (``launches``
 in ``kernels/{dwconv2d,pwconv,separable_fused,fused_mbconv,se_epilogue,
 dwconv1d}.py``; ``dwconv1d``'s backward also ``bwd_launches`` and
-``reduce_launches``), where they call the launch.  The warm-up and the capture
+``reduce_launches``), where they call the launch; the sharded layers'
+collectives count theirs the same way (``sharding/collectives.py``:
+``all_reduce``, ``all_gather``, ``all_to_all``).  The warm-up and the capture
 each run the wrappers once, so each moves the counters by one call; a
 replay runs no wrapper and moves none.  What a replay ran on the device is
 counted in a profiler trace instead (``measure.device_profile``).
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import (blocking, dwconv1d, dwconv2d, fused_mbconv,
                                  pwconv, se_epilogue, separable_fused)
+from repro_torch.sharding import collectives
 
 #: Counter name -> (wrapper module, attribute, key of a dict attribute or
 #: None).  ``pwconv.<variant>`` are ``pwconv``'s launches by variant.
@@ -53,6 +56,8 @@ _COUNTERS = {
     "dwconv1d": (dwconv1d, "launches", None),
     "dwconv1d_bwd": (dwconv1d, "bwd_launches", None),
     "dwconv1d_bwd_reduce": (dwconv1d, "reduce_launches", None),
+    **{name: (collectives, "launches", name)
+       for name in collectives.launches},
 }
 
 

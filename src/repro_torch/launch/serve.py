@@ -1,10 +1,29 @@
 """Serving launcher: batched prefill, then greedy (or sampled) decode, on
-one card.  Counterpart of ``repro/launch/serve.py`` (no mesh and no
-sharding rules: one device).
+a host mesh.  Counterpart of ``repro/launch/serve.py``: the mesh is
+``make_host_mesh(model=--model-parallel)`` over the ranks of the launch and
+the rules ``dryrun.make_rules(mesh, mode="serve")``.
 
     python -m repro_torch.launch.serve --arch <id> \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] \\
         [--max-len 256] [--temperature 0] [--seed 0] [--device cuda]
+
+Several ranks run under ``torchrun``, which sets the world in the
+environment; ``--model-parallel N`` (default 1) splits the model over N of
+them and the batch over the rest:
+
+    python -m torch.distributed.run --nproc-per-node W \\
+        -m repro_torch.launch.serve --arch <id> --model-parallel N ...
+
+The backend (``--backend``) is NCCL on cards, one rank a card on
+``cuda:LOCAL_RANK`` (a world larger than the cards raises), and gloo with
+``--device cpu``.  ``--backend gloo`` on cards runs several ranks on one
+card (NCCL refuses two ranks on one device); its collectives go through
+host copies and it runs eager, as gloo cannot be captured.  The group's
+set-up and every collective wait at most ``mesh.DEFAULT_TIMEOUT_S``
+seconds, so a lost rank fails the launch (``torchrun`` then stops the
+others and exits non-zero).  Sharded serving covers the attention-MLP families; hymba,
+xLSTM and whisper raise under ``--model-parallel`` above 1 or a world of
+more than one rank.
 
 ``<id>`` is any of ``configs.registry.ARCH_IDS`` (every reference
 architecture).  ``--max-len`` bounds the attention caches and counts the
@@ -25,23 +44,31 @@ replay: the capture is reported on its own), ms per token and the decode
 rate, the kernel launches of the prefill and of one decode step (on the
 card those each graph recorded, as a replay runs no wrapper), and the
 first generated tokens.  ``--device cpu`` runs the eager steps on the plain
-PyTorch versions; without a card it raises.
+PyTorch versions; without a card it raises.  Rank 0 prints, besides, the
+mesh, the backend and how its collectives move tensors, and the
+collectives the prefill and a decode step ran (or each graph recorded).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.network import require_device
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.dryrun import make_rules
 from repro_torch.models import transformer as T
 from repro_torch.serve import serve_step as S
 from repro_torch.serve.sampler import generate, greedy
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import use_rules
 
 #: Kernel launches of one layer, by variant: ``pwconv`` runs every Linear
 #: (hymba: q, k, v, o; the Mamba heads' in, bcdt, dt, out; the MLP's gate,
@@ -69,14 +96,22 @@ LAYER_LAUNCHES = {
 SHARED_EXPERT_LAUNCHES = {"dwconv1d": 0, "pwconv": 3}
 
 
-def launch_counts() -> dict:
-    """The launch counters of the kernels the LM stack runs."""
-    counts = graphs.snapshot()
-    return {name: counts[name] for name in ("dwconv1d", "pwconv")}
+def launch_counts(counts: Optional[dict] = None) -> dict:
+    """The launch counters of the kernels the LM stack runs, of ``counts``
+    (a graph's recorded launches) or of the process."""
+    counts = graphs.snapshot() if counts is None else counts
+    return {name: counts.get(name, 0) for name in ("dwconv1d", "pwconv")}
 
 
 def reset_launch_counts() -> None:
     graphs.reset()
+
+
+def collective_counts(counts: Optional[dict] = None) -> dict:
+    """The collectives' counters, of ``counts`` (a graph's recorded
+    launches) or of the process."""
+    counts = graphs.snapshot() if counts is None else counts
+    return {name: counts.get(name, 0) for name in collectives.launches}
 
 
 def expected_launches(cfg: ModelConfig, phase: str) -> dict:
@@ -128,6 +163,27 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _setup(args):
+    """(device, rules, backend or None) of this rank: the process group
+    under ``torchrun``, or where a model axis above 1 or a backend is asked
+    for; the host mesh and the serving rules over it."""
+    launched = "WORLD_SIZE" in os.environ        # under torchrun
+    if args.model_parallel > 1 and not launched:
+        raise ValueError(
+            f"--model-parallel {args.model_parallel} needs a world of ranks:"
+            f" launch them with python -m torch.distributed.run "
+            f"--nproc-per-node W -m repro_torch.launch.serve ...")
+    backend = None
+    if launched or args.backend:
+        backend = args.backend or ("gloo" if torch.device(args.device).type
+                                   == "cpu" else "nccl")
+        dev = mesh_lib.init_world(backend, args.device)
+    else:
+        dev = require_device(args.device)
+    mesh = mesh_lib.make_host_mesh(model=args.model_parallel)
+    return dev, make_rules(mesh, mode="serve", multi_pod=False), backend
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, choices=ARCH_IDS)
@@ -136,12 +192,24 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="default: nccl on cards, gloo with --device cpu")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = require_device(args.device)
+    dev, rules, backend = _setup(args)
+    try:
+        with use_rules(rules):
+            return _serve(args, dev, rules, backend)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, dev: torch.device, rules, backend: Optional[str]) -> int:
     cfg = get_config(args.arch, smoke=args.smoke)
     model = T.init_params(cfg, seed=args.seed, device=dev)
     prompts = torch.randint(
@@ -149,9 +217,11 @@ def main(argv=None) -> int:
         generator=torch.Generator().manual_seed(args.seed + 1)).to(dev)
     sampler = torch.Generator(device=dev).manual_seed(2)
     frontend = frontend_stub(cfg, args.batch, dev, seed=args.seed)
+    # gloo cannot be captured: its ranks run the eager steps
+    use_graphs = dev.type == "cuda" and backend in (None, "nccl")
 
     with torch.inference_mode():
-        if dev.type == "cuda":
+        if use_graphs:
             t0 = time.perf_counter()
             prefill = S.capture_prefill(
                 model, args.batch, args.prompt_len, max_len=args.max_len,
@@ -163,14 +233,14 @@ def main(argv=None) -> int:
                 return S.prefill(model, t, max_len=args.max_len, frontend=f)
 
             def step(c, t):
-                return S.decode_step(model, c, t)
+                return S.decode_step(model, c, t, max_len=args.max_len)
         reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(prompts, frontend)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
-        prefill_launches = launch_counts()
+        prefill_counts = graphs.snapshot()
 
         first = greedy(logits)[:, None]
         reset_launch_counts()
@@ -179,26 +249,38 @@ def main(argv=None) -> int:
                                temperature=args.temperature)
         _sync(dev)
         t_gen = time.perf_counter() - t0
-        per_step = {k: v / max(args.gen, 1) for k, v in launch_counts().items()}
+        step_counts = {k: v / max(args.gen, 1)
+                       for k, v in graphs.snapshot().items()}
 
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return 0
     tps = args.batch * args.gen / t_gen
     launches = "kernel launches"
-    if dev.type == "cuda":
+    if use_graphs:
         print(f"[serve] captured prefill and decode step as CUDA graphs in "
               f"{t_capture * 1e3:.1f} ms (capture and instantiate: prefill "
               f"{prefill.captured.capture_s * 1e3:.1f} ms, decode step "
               f"{step.captured.capture_s * 1e3:.1f} ms)")
         # a replay runs no wrapper: count what each capture recorded
         launches = "kernel launches each graph recorded"
-        prefill_launches, per_step = (
-            {k: g.captured.launches.get(k, 0) for k in prefill_launches}
-            for g in (prefill, step))
+        prefill_counts, step_counts = (g.captured.launches
+                                       for g in (prefill, step))
+    mesh = rules.mesh
+    group = next((mesh.group(a) for a in mesh.axis_names
+                  if mesh.shape[a] > 1), None)
+    print(f"[serve] mesh {mesh.shape} over "
+          f"{dist.get_world_size() if dist.is_initialized() else 1} rank(s)"
+          f", backend {backend or 'none (one process)'}, collectives "
+          f"{collectives.transport(group, dev)}")
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
           f"{args.prompt_len} in {t_prefill * 1e3:.1f} ms; generated "
           f"{args.gen} tok/seq in {t_gen * 1e3:.1f} ms = "
           f"{t_gen * 1e3 / max(args.gen, 1):.3f} ms/token, {tps:.1f} tok/s")
-    print(f"[serve] {launches}: prefill {prefill_launches}, per decode "
-          f"step {per_step}")
+    print(f"[serve] {launches}: prefill {launch_counts(prefill_counts)}, "
+          f"per decode step {launch_counts(step_counts)}")
+    print(f"[serve] collectives: prefill "
+          f"{collective_counts(prefill_counts)}, per decode step "
+          f"{collective_counts(step_counts)}")
     print("[serve] sample tokens:", toks[0, :16].tolist())
     return 0
 

@@ -78,6 +78,14 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
     return statistics.median(times)
 
 
+#: NCCL's device kernels (``ncclDevKernel_<Coll>_...``, NCCL 2.19 and
+#: later) -> the collective counters (``sharding/collectives.py``) one of
+#: them stands for: ``all_to_all_single`` runs as grouped sends and
+#: receives.
+_NCCL_KERNELS = {"ncclDevKernel_AllReduce": ("all_reduce",),
+                 "ncclDevKernel_AllGather": ("all_gather",),
+                 "ncclDevKernel_SendRecv": ("all_to_all",)}
+
 #: Device kernel name fragment -> the port's kernel it belongs to.
 _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "pw_tc_kernel": "pwconv", "pw_simt_kernel": "pwconv",
@@ -85,7 +93,8 @@ _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "sep_fused_kernel": "separable_fused", "dw_se_": "dw_se",
                  "dw1d_kernel": "dwconv1d",
                  "dw1d_bwd_kernel": "dwconv1d_bwd",
-                 "dw1d_df_reduce_kernel": "dwconv1d_bwd_reduce"}
+                 "dw1d_df_reduce_kernel": "dwconv1d_bwd_reduce",
+                 **{k: v[0] for k, v in _NCCL_KERNELS.items()}}
 
 #: Device kernel name fragment -> the launch counters (``repro_torch.graphs``
 #: names) that one instance of it stands for: one kernel per wrapper launch,
@@ -98,7 +107,8 @@ _KERNEL_COUNTERS = {"dw2d_kernel": ("dwconv2d",),
                     "dw_se_scale_kernel": ("dw_se",),
                     "dw1d_kernel": ("dwconv1d",),
                     "dw1d_bwd_kernel": ("dwconv1d_bwd",),
-                    "dw1d_df_reduce_kernel": ("dwconv1d_bwd_reduce",)}
+                    "dw1d_df_reduce_kernel": ("dwconv1d_bwd_reduce",),
+                    **_NCCL_KERNELS}
 
 #: ``sep_fused_kernel<T, EXPAND, KT>``'s EXPAND, demangled or mangled.
 _SEP_EXPAND = re.compile(r"sep_fused_kernel(?:<[^,>]+,\s*(true|false)"

@@ -25,6 +25,24 @@ Linears, so they run on the ``pwconv`` kernel.  Supports GQA, qk-norm,
 qkv-bias, sliding window with sink (meta) tokens, NoPE and the int8 KV
 cache (``scales``: int8 vectors with a fp32 scale per (B, S, Hkv),
 dequantized to bf16 whatever the model's dtype, as the reference does).
+
+Tensor parallelism (under a mesh whose model axis has tp > 1 ranks; the
+reference leaves all of it to GSPMD): ``w_q``, ``w_k`` and ``w_v`` are
+column-parallel and ``w_o`` row-parallel (``layers.row_linear``), as the
+sharding rules give them.  Where each rank's columns are whole heads,
+attention runs on the rank's heads (a rank's KV heads being the ones its
+query heads read); where they are not (smollm-360m at tp 2: 7.5 query
+heads a rank; internvl2-1b at tp 4: half a KV head), the split
+projections are gathered over the model axis before the heads are formed
+(:func:`_project_qkv`).  The KV cache is split over its sequence (the
+reference's ``"cache"`` kind, ``repro/models/attention.py:403-404,
+472-484``) wherever its length divides: a prefill gathers K and V over
+heads and keeps the rank's slots; a decode step is flash-decoding — the
+query replicated (``"q_decode"``), each rank scoring its own slots into a
+local max, sum and weighted V, combined by one ``all_reduce`` of the
+maxima and one of the rescaled sums and outputs (:func:`_combine_slots`).
+The new token's K and V are written by the rank that owns its slot, by a
+masked write with no host branch.
 """
 from __future__ import annotations
 
@@ -35,7 +53,9 @@ from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models.layers import (apply_rope, init_linear, init_norm,
-                                       linear, rms_norm)
+                                       linear, rms_norm, row_linear)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import model_shard
 
 NEG_INF = -1e30
 
@@ -69,20 +89,52 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
-                 qk_norm, policy):
+                 qk_norm, policy, full_q: bool):
     """q from ``x``, k and v from ``xkv`` (``x`` itself for
-    self-attention)."""
+    self-attention), as this rank attends with them: (q (B,S,hq,dh), k, v
+    (B,Skv,hkv,dh), q0, kv_local).  Under a model axis of tp > 1 ranks the
+    query is the rank's heads q0 .. q0+hq-1 where its columns are whole
+    heads and ``full_q`` is false, else every head (gathered where it was
+    split); k and v are the rank's KV heads (``kv_local``) where the query
+    is local and the KV columns are whole heads too, else every KV head.
+    The split projections that must be whole travel in one gather.  At
+    tp 1 nothing is split: every head, q0 0, kv_local false."""
+    tp, rank, group = model_shard()
     b, s, _ = x.shape
     skv = xkv.shape[1]
-    q = linear(p.w_q, x, policy=policy).reshape(b, s, n_heads, head_dim)
-    k = linear(p.w_k, xkv, policy=policy).reshape(b, skv, n_kv_heads,
-                                                  head_dim)
-    v = linear(p.w_v, xkv, policy=policy).reshape(b, skv, n_kv_heads,
-                                                  head_dim)
+    qc = linear(p.w_q, x, policy=policy)
+    kc = linear(p.w_k, xkv, policy=policy)
+    vc = linear(p.w_v, xkv, policy=policy)
+    q_split = qc.shape[-1] != n_heads * head_dim
+    kv_split = kc.shape[-1] != n_kv_heads * head_dim
+    q_local = not full_q and q_split and n_heads % tp == 0
+    kv_local = q_local and kv_split and n_kv_heads % tp == 0
+    if q_split and not q_local and kv_split and not kv_local:
+        qc, kc, vc = collectives.all_gather_last([qc, kc, vc], group)
+    elif q_split and not q_local:
+        qc, = collectives.all_gather_last([qc], group)
+    elif kv_split and not kv_local:
+        kc, vc = collectives.all_gather_last([kc, vc], group)
+    hq = qc.shape[-1] // head_dim
+    q = qc.reshape(b, s, hq, head_dim)
+    k = kc.reshape(b, skv, -1, head_dim)
+    v = vc.reshape(b, skv, -1, head_dim)
     if qk_norm:
         q = rms_norm(q, p.q_norm["scale"])
         k = rms_norm(k, p.k_norm["scale"])
-    return q, k, v
+    return q, k, v, (rank * hq if q_local else 0), kv_local
+
+
+def _kv_for_heads(k, v, q0: int, hq: int, group_size: int):
+    """Every KV head (B,S,Hkv,dh) cut to what query heads q0 .. q0+hq-1
+    read: the KV heads they share where the query block starts and ends on
+    a group's edge, else one KV head per query head."""
+    if q0 % group_size == 0 and hq % group_size == 0:
+        sl = slice(q0 // group_size, (q0 + hq) // group_size)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.div(torch.arange(q0, q0 + hq, device=k.device), group_size,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def project_q(p: Attention, x, n_heads, head_dim, *, qk_norm, policy):
@@ -323,22 +375,34 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     the decode cache (a cross attention's: the encoder's cached K/V)."""
     b, s, _ = x.shape
     src = x if xkv is None else xkv
-    q, k, v = _project_qkv(p, x, src, n_heads, n_kv_heads, head_dim,
-                           qk_norm=qk_norm, policy=policy)
+    tp, _, group = model_shard()
+    q, k, v, q0, kv_local = _project_qkv(
+        p, x, src, n_heads, n_kv_heads, head_dim, qk_norm=qk_norm,
+        policy=policy, full_q=False)
     if rope_theta is not None and xkv is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     causal = causal and xkv is None
+    hq = q.shape[2]
+    ka, va = k, v
+    if hq != n_heads and not kv_local:     # the rank's queries, every KV head
+        ka, va = _kv_for_heads(k, v, q0, hq, n_heads // n_kv_heads)
     if s <= chunk and src.shape[1] <= chunk:
-        out = dense_attention(q, k, v, causal=causal, window=window,
+        out = dense_attention(q, ka, va, causal=causal, window=window,
                               sink=sink)
     else:
-        out = blockwise_attention(q, k, v, causal=causal, window=window,
+        out = blockwise_attention(q, ka, va, causal=causal, window=window,
                                   sink=sink, chunk=chunk)
-    out = out.reshape(b, s, n_heads * head_dim).contiguous()
-    out = linear(p.w_o, out, policy=policy)
+    out = out.reshape(b, s, hq * head_dim).contiguous()
+    out = row_linear(p.w_o, out, n_heads * head_dim, policy=policy)
+    if return_kv and kv_local:             # the cache holds every KV head
+        hkv, dh = k.shape[2:]
+        k, v = (t.reshape(b, -1, tp * hkv, dh) for t in
+                collectives.all_gather_last(
+                    [k.reshape(b, -1, hkv * dh), v.reshape(b, -1, hkv * dh)],
+                    group))
     return (out, (k, v)) if return_kv else out
 
 
@@ -369,22 +433,43 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
                 in_place: bool) -> torch.Tensor:
     """``new`` (B, 1, ...) written at sequence slot ``slot`` (B,) of
     ``cache`` (B, S, ...): a scatter into ``cache`` itself, or the
-    reference's one-hot select into a new tensor.  A slot past the cache
-    writes nothing either way (the one-hot matches no slot; the scatter
-    writes the last slot's own value back), so a step past ``max_len``
-    never indexes out of the cache."""
+    reference's one-hot select into a new tensor.  A slot outside the
+    cache (past ``max_len``, or another rank's block of a sequence-split
+    cache: a slot here is local, and may be negative) writes nothing
+    either way (the one-hot matches no slot; the scatter writes the
+    nearest slot's own value back), so a step never indexes out of the
+    cache."""
     if in_place:
         smax = cache.shape[1]
         shape = (-1, *[1] * (cache.dim() - 1))
-        idx = torch.clamp(slot, max=smax - 1).long().view(shape).expand_as(
+        idx = torch.clamp(slot, 0, smax - 1).long().view(shape).expand_as(
             new)
-        new = torch.where((slot < smax).view(shape), new,
+        inside = (slot >= 0) & (slot < smax)
+        new = torch.where(inside.view(shape), new,
                           torch.gather(cache, 1, idx))
         return cache.scatter_(1, idx, new)
     j = torch.arange(cache.shape[1], device=slot.device)
     wmask = (j[None, :] == slot[:, None]).view(*cache.shape[:2],
                                                *[1] * (cache.dim() - 2))
     return torch.where(wmask, new, cache)
+
+
+def _combine_slots(scores, v, group) -> torch.Tensor:
+    """Flash-decoding's combine: the masked scores (B,Hq,1,Sl) of this
+    rank's slots and their V (B,Sl,Hkv,dh) -> the softmax-weighted V over
+    every rank's slots (B,1,Hq,dh) fp32.  The maxima are reduced first, so
+    each rank's weights exp(s - m) share one scale (a rank whose slots are
+    all masked adds zeros); one sum then combines the weighted V and the
+    weights' sums."""
+    m = collectives.all_reduce(scores.amax(dim=-1), group, "max")
+    w = torch.exp(scores - m[..., None])
+    o = _gqa_out(w, v)                                       # (B,1,Hq,dh)
+    b, _, hq, dh = o.shape
+    both = collectives.all_reduce(
+        torch.cat([o.reshape(b, hq * dh), w.sum(dim=-1).reshape(b, hq)],
+                  dim=-1), group)
+    return (both[:, :hq * dh].reshape(b, 1, hq, dh)
+            / both[:, hq * dh:].reshape(b, 1, hq, 1))
 
 
 def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
@@ -394,7 +479,7 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
                      qk_norm: bool = False, ring: bool = False,
                      sink: int = 0, scales: Optional[tuple] = None,
                      policy: KernelPolicy = DEFAULT_POLICY,
-                     in_place: bool = False):
+                     in_place: bool = False, kv_len: Optional[int] = None):
     """x_t (B,1,d); cache_k/v (B,Sc,Hkv,dh); pos (B,) current index.
 
     ring=True: the cache is a StreamingLLM-style buffer: ``sink``
@@ -412,16 +497,27 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
     the reference (and the default here) returns new caches through a
     one-hot select.  The values are the same; the static-buffer decode
     step uses it, so that a token does not rewrite the whole cache.
+    kv_len: the whole cache's slots where ``cache_k``/``cache_v`` hold
+    this rank's block of them (the sequence split over the model axis):
+    the token's slot is written by the rank that owns it and the softmax
+    runs over every rank's slots (flash-decoding).
     Returns (out (B,1,d), new_k, new_v[, (new_k_scale, new_v_scale)]).
     """
     b = x_t.shape[0]
-    q, k, v = _project_qkv(p, x_t, x_t, n_heads, n_kv_heads, head_dim,
-                           qk_norm=qk_norm, policy=policy)
+    _, rank, group = model_shard()
+    # the query replicated: every rank scores its own slots
+    q, k, v, _, _ = _project_qkv(p, x_t, x_t, n_heads, n_kv_heads, head_dim,
+                                 qk_norm=qk_norm, policy=policy, full_q=True)
     if rope_theta is not None:
         q = apply_rope(q, pos[:, None], rope_theta)
         k = apply_rope(k, pos[:, None], rope_theta)
     smax = cache_k.shape[1]
-    slot = ring_slot(pos, smax, sink) if ring else pos
+    total = kv_len or smax
+    split = total != smax
+    first = rank * smax if split else 0          # the block's first slot
+    slot = ring_slot(pos, total, sink) if ring else pos
+    if split:
+        slot = slot - first
     if scales is not None:
         k_scale, v_scale = scales
         (k8, ks_new), (v8, vs_new) = _quantize_vec(k), _quantize_vec(v)
@@ -439,18 +535,21 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
         cache_v = _write_slot(cache_v, v.to(cache_v.dtype), slot, in_place)
         k_eff, v_eff = cache_k, cache_v
     scores = _gqa_scores(q, k_eff) * (head_dim ** -0.5)    # (B,Hq,1,Smax)
-    j = torch.arange(smax, device=pos.device)[None, :]
+    j = first + torch.arange(smax, device=pos.device)[None, :]
     if ring:
-        valid = j < torch.clamp(pos + 1, max=smax)[:, None]
+        valid = j < torch.clamp(pos + 1, max=total)[:, None]
     else:
         valid = j <= pos[:, None]
         if window is not None:
             valid &= (j > (pos[:, None] - window)) | (j < sink)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v_eff).to(x_t.dtype)              # (B,1,Hq,dh)
+    if split:
+        out = _combine_slots(scores, v_eff, group).to(x_t.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        out = _gqa_out(probs, v_eff).to(x_t.dtype)          # (B,1,Hq,dh)
     out = out.reshape(b, 1, n_heads * head_dim).contiguous()
-    proj = linear(p.w_o, out, policy=policy)
+    proj = row_linear(p.w_o, out, n_heads * head_dim, policy=policy)
     if scales is not None:
         return proj, cache_k, cache_v, (k_scale, v_scale)
     return proj, cache_k, cache_v

@@ -16,20 +16,53 @@ parameters only get their shapes and dtypes (``transformer.cast_params``
 fills them from a model drawn once).  Parameters are built with
 ``requires_grad=False``, which serving keeps; training turns them on
 with :func:`trainable_`.
+
+Under a mesh every parameter is one rank's block of the unsharded one:
+:func:`param_hook` lets ``transformer.init_params`` cut each parameter as
+it is made (drawn whole, in the unsharded order, then cut), and the
+layers here are the sharded forms the rest of the stack calls: the
+vocab-parallel embedding (:func:`embed` with ``vocab``), the row-parallel
+Linear (:func:`row_linear`) and the unembedding's gather of its vocab
+blocks (:func:`unembed_logits` with ``vocab``).  A column-parallel Linear
+is :func:`linear` on the local columns.  Without a mesh, or on one of one
+rank, each is the one-device op.
 """
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Callable, Optional
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy, pointwise
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import model_shard
+
+_PARAM_HOOK: list = [None]
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """``t`` as a frozen parameter, passed through the :func:`param_hook`
+    in force, if any."""
+    p = nn.Parameter(t, requires_grad=False)
+    hook = _PARAM_HOOK[0]
+    return p if hook is None else hook(p)
+
+
+@contextmanager
+def param_hook(hook: Callable[[nn.Parameter], nn.Parameter]):
+    """Every :func:`param` made inside the block goes through ``hook``, in
+    the order the modules make them (how ``transformer.init_params`` learns
+    that order on the meta device, then cuts each parameter to its
+    rank's block)."""
+    prev = _PARAM_HOOK[0]
+    _PARAM_HOOK[0] = hook
+    try:
+        yield
+    finally:
+        _PARAM_HOOK[0] = prev
 
 
 def trainable_(module: nn.Module) -> nn.Module:
@@ -123,6 +156,29 @@ def linear(p, x: torch.Tensor, *, activation: Optional[str] = None,
                      policy=policy)
 
 
+def row_linear(p, x: torch.Tensor, d_in: int, *,
+               policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """A Linear of ``d_in`` inputs whose rows may be split over the model
+    axis (``w_o``, ``w_down``): where ``p["w"]`` holds the rank's block of
+    rows, the rank's slice of ``x`` (its local part already, or cut here
+    from the whole ``d_in``) times those rows, stored in fp32 by the
+    kernel, is summed over the axis, the bias added once and the sum cast
+    once.  Where the rows are whole it is :func:`linear` on the whole
+    ``x``."""
+    w = p["w"]
+    if w.shape[0] == d_in:
+        return linear(p, x, policy=policy)
+    _, rank, group = model_shard()
+    rows = w.shape[0]
+    if x.shape[-1] == d_in:
+        x = x[..., rank * rows:(rank + 1) * rows].contiguous()
+    y = collectives.all_reduce(
+        pointwise(x, w, policy=policy, out_dtype=torch.float32), group)
+    if p.get("b") is not None:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -158,16 +214,36 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
                               device))})
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p, tokens: torch.Tensor,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """Rows of ``p["table"]`` at ``tokens``.  Where the table holds the
+    rank's block of a ``vocab``-row table (vocab-parallel), each rank looks
+    up the tokens in its rows, zeroes the others and the rows are summed
+    over the model axis (exactly one rank holds each token)."""
+    table = p["table"]
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens]
+    _, rank, group = model_shard()
+    rows = table.shape[0]
+    local = tokens - rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[torch.where(inside, local, 0)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return collectives.all_reduce(x, group)
 
 
-def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def unembed_logits(x: torch.Tensor, table: torch.Tensor,
+                   vocab: Optional[int] = None) -> torch.Tensor:
     """x (..., d) @ table.T (V, d) -> (..., V) in fp32: the operands upcast,
     which is the reference's bf16 x bf16 product with fp32 accumulation.
     A plain product outside any kernel, left to ``torch.matmul`` as the
-    reference leaves it to XLA."""
-    return torch.matmul(x.float(), table.float().T)
+    reference leaves it to XLA.  Where ``table`` is the rank's block of a
+    ``vocab``-row table, its logits are gathered over the model axis."""
+    logits = torch.matmul(x.float(), table.float().T)
+    if vocab is None or table.shape[0] == vocab:
+        return logits
+    return collectives.all_gather(logits, model_shard()[2], dim=-1)
 
 
 def _chunk_loss(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor):

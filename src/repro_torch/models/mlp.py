@@ -1,13 +1,16 @@
 """Dense SwiGLU MLP — three PWConv (paper-op) projections.  Counterpart of
 ``repro/models/mlp.py``.  The gate's SiLU is the ``pwconv`` kernel's
-epilogue, so a call is three ``pwconv`` launches and one multiply."""
+epilogue, so a call is three ``pwconv`` launches and one multiply.  Under
+a mesh ``w_gate`` and ``w_up`` are column-parallel (each rank's block of
+``d_ff`` columns) and ``w_down`` row-parallel (the same block of rows, its
+partial sums summed over the model axis)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import init_linear, linear
+from repro_torch.models.layers import init_linear, linear, row_linear
 
 
 class MLP(nn.Module):
@@ -17,6 +20,7 @@ class MLP(nn.Module):
                  generator: torch.Generator, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
+        self.d_ff = d_ff
         lin = dict(dtype=dtype, device=device)
         self.w_gate = init_linear(generator, d_model, d_ff, **lin)
         self.w_up = init_linear(generator, d_model, d_ff, **lin)
@@ -26,4 +30,4 @@ class MLP(nn.Module):
                 policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
         g = linear(self.w_gate, x, activation="silu", policy=policy)
         u = linear(self.w_up, x, policy=policy)
-        return linear(self.w_down, g * u, policy=policy)
+        return row_linear(self.w_down, g * u, self.d_ff, policy=policy)

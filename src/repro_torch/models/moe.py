@@ -1,8 +1,15 @@
-"""Mixture-of-Experts on one device.  Counterpart of ``repro/models/moe.py``
-with ``mesh=None``: the reference's per-device body (``_moe_local``) at a
-tensor-parallel width of 1, where its two ``all_to_all``s are the identity.
-Expert parallelism across cards waits for the sharding slice (ROADMAP.md,
-queue A).
+"""Mixture-of-Experts with expert parallelism (EP).  Counterpart of
+``repro/models/moe.py``: the reference's per-device body (``_moe_local``)
+and its ``moe_forward``.  Under a mesh the experts are split over the
+model axis (``w_*_e`` (E, ., .) -> the rank's E/tp experts) and, where the
+rules give them the data axis too (``expert_fsdp_axis``), over their dim 1,
+which is gathered over "data" before use (the all-gather that the
+reference's ``shard_map`` in_specs imply).  The tokens enter split over the
+batch (data) and, where the sequence divides, over the sequence (model);
+each rank routes its own tokens, and two ``all_to_all_single`` exchanges
+over the model axis carry the routed copies (with their local expert ids,
+as payload bytes) to their experts' owners and the outputs back.  On one
+device, or an axis of one rank, both exchanges are the identity.
 
 Dispatch is the reference's sort-free rank-by-position scheme with fixed
 capacities: each routed copy of a token takes the rank of its position
@@ -23,6 +30,8 @@ three projections run on the ``pwconv`` kernel.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,6 +40,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models.layers import init_linear, param, randn
 from repro_torch.models.mlp import MLP
+from repro_torch.sharding import collectives
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +136,7 @@ def moe_dense_ref(p: MoE, x: torch.Tensor, cfg: MoEConfig,
 
 
 # ---------------------------------------------------------------------------
-# Capacity dispatch (one device)
+# Capacity dispatch: sort-free ranks, fixed capacities, all_to_all
 # ---------------------------------------------------------------------------
 
 
@@ -155,23 +165,37 @@ def _scatter_rows(rows: torch.Tensor, index: torch.Tensor,
     return buf[:n]
 
 
+def _exchange(x: torch.Tensor, ids: torch.Tensor, group):
+    """The dispatch's all_to_all: rows of ``x`` (N, d) and their int ids
+    (N,) travel in one exchange, each id as four bytes beside its row."""
+    d = x.shape[1]
+    raw = torch.cat([x.contiguous().view(torch.uint8),
+                     ids.to(torch.int32)[:, None].view(torch.uint8)], dim=1)
+    raw = collectives.all_to_all(raw, group)
+    width = d * x.element_size()
+    return (raw[:, :width].contiguous().view(x.dtype),
+            raw[:, width:].contiguous().view(torch.int32)[:, 0].long())
+
+
 def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
-               axis_name=None):
-    """The reference's per-device MoE body at ``tp=1`` (one device, no
-    collectives).  xt (T, d) -> (y (T, d) f32, aux loss, drop fraction),
-    both fp32 scalars on the device."""
-    if tp != 1 or axis_name is not None:
-        raise NotImplementedError("expert parallelism across cards is not "
-                                  "ported yet: ROADMAP.md queue A, item 4")
+               group=None, experts: tuple = None):
+    """The reference's per-device MoE body: xt (T_l, d) local tokens ->
+    (y (T_l, d) f32, aux loss, drop fraction), both fp32 scalars on the
+    device.  ``tp`` ranks of the model axis (``group``, None for one) own
+    E/tp experts each; ``experts`` are this rank's (w_gate_e, w_up_e,
+    w_down_e) whole (default: ``p``'s own).  Collectives: 2x
+    ``all_to_all`` over ``group``."""
     t_l, d = xt.shape
-    e = e_local = cfg.n_experts
+    e = cfg.n_experts
+    e_local = e // tp
     k = cfg.top_k
+    wg, wu, wd = experts or (p.w_gate_e, p.w_up_e, p.w_down_e)
 
     weights, ids, probs = router_topk(_router_logits(p, xt), k,
                                       cfg.norm_topk)
     aux = load_balance_loss(probs, ids, e)
 
-    # ---- copies -> send slots (one destination: the identity exchange) ---
+    # ---- copies -> destination slots --------------------------------------
     n_copies = t_l * k
     flat_ids = ids.reshape(-1)                       # expert id per copy
     flat_w = weights.reshape(-1)
@@ -183,9 +207,15 @@ def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
     slot = owner * cap_send + torch.clamp(rank, 0, cap_send - 1)
     t_r = tp * cap_send
     send_slot = torch.where(keep, slot, t_r)
-    recv_x = _scatter_rows(xt[src_token], send_slot, t_r)
+    send_x = _scatter_rows(xt[src_token], send_slot, t_r)
     # metadata: local expert id (+1, 0 = invalid)
-    recv_e = _scatter_rows(flat_ids % e_local + 1, send_slot, t_r)
+    send_e = _scatter_rows(flat_ids % e_local + 1, send_slot, t_r)
+
+    # ---- all_to_all to expert owners ---------------------------------------
+    if group is not None:
+        recv_x, recv_e = _exchange(send_x, send_e, group)
+    else:
+        recv_x, recv_e = send_x, send_e
 
     # ---- pack into per-expert capacity buffers ----------------------------
     cap_e = _capacity(t_r, max(e_local, 1), cfg.capacity_factor)
@@ -200,10 +230,10 @@ def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
 
     # ---- expert compute (batched over local experts), fp32 products -------
     eb = ebuf.reshape(e_local, cap_e, d).float()
-    g = torch.bmm(eb, p.w_gate_e.float())
-    u = torch.bmm(eb, p.w_up_e.float())
+    g = torch.bmm(eb, wg.float())
+    u = torch.bmm(eb, wu.float())
     h = (F.silu(g) * u).to(xt.dtype)
-    y_e = torch.bmm(h.float(), p.w_down_e.float())
+    y_e = torch.bmm(h.float(), wd.float())
     # the routed outputs in the payload dtype; the combine stays fp32
     y_e = y_e.to(xt.dtype).reshape(e_local * cap_e, d)
 
@@ -211,8 +241,9 @@ def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
     zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
     y_recv = torch.where(keep_r[:, None],
                          y_e[torch.clamp(pos, 0, e_local * cap_e - 1)], zero)
+    y_send = collectives.all_to_all(y_recv, group)
     y_copy = torch.where(keep[:, None],
-                         y_recv[torch.clamp(slot, 0, t_r - 1)].float(), 0.0)
+                         y_send[torch.clamp(slot, 0, t_r - 1)].float(), 0.0)
     # combine: copy c of token t sits at row t*k + c, so the reference's
     # scatter-add over src_token is a sum over each token's k rows
     y = (y_copy * flat_w[:, None]).reshape(t_l, k, d).sum(1)
@@ -224,15 +255,43 @@ def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
+                data_axes: tuple = (), model_axis: Optional[str] = None,
+                expert_axis: Optional[str] = None,
                 policy: KernelPolicy = DEFAULT_POLICY):
-    """x (B, S, d) -> (y (B, S, d), {"aux_loss", "drop_frac"}), one
-    device.  ``mesh`` must be None (expert parallelism is not ported)."""
-    if mesh is not None:
-        raise NotImplementedError("expert parallelism across cards is not "
-                                  "ported yet: ROADMAP.md queue A, item 4")
+    """x (B, S, d) -> (y (B, S, d), {"aux_loss", "drop_frac"}).  EP over
+    ``model_axis`` of ``mesh`` (a ``launch.mesh.Mesh``; None: one device),
+    ``x`` being this rank's batch block (split over ``data_axes``): the
+    sequence is split over the model axis where ``s % tp == 0 and s >=
+    tp`` (else, as in a decode step, every rank routes all its tokens) and
+    the outputs gathered back; the experts' dim 1 is gathered over
+    ``expert_axis`` where the rules split it; ``aux_loss`` and
+    ``drop_frac`` are averaged over the data and model axes (the
+    reference's ``pmean``)."""
     b, s, d = x.shape
-    y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
-    out = y.to(x.dtype).reshape(b, s, d)
+    if mesh is None or model_axis is None:
+        y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
+        out = y.to(x.dtype).reshape(b, s, d)
+    else:
+        tp, rank = mesh.shape[model_axis], mesh.coords[model_axis]
+        group = mesh.group(model_axis)
+        if cfg.n_experts % tp:
+            raise ValueError(f"{cfg.n_experts} experts do not split over "
+                             f"{tp} ranks")
+        split = s % tp == 0 and s >= tp
+        xl = x[:, rank * (s // tp):(rank + 1) * (s // tp)] if split else x
+        full = {"w_gate_e": d, "w_up_e": d, "w_down_e": cfg.d_ff_expert}
+        experts = tuple(
+            collectives.all_gather(getattr(p, n), mesh.group(expert_axis),
+                                   dim=1)
+            if getattr(p, n).shape[1] != full[n] else getattr(p, n)
+            for n in full)
+        y, aux, drop = _moe_local(p, xl.reshape(-1, d), cfg, tp=tp,
+                                  group=group, experts=experts)
+        out = y.to(x.dtype).reshape(xl.shape)
+        if split:
+            out = collectives.all_gather(out, group, dim=1)
+        groups = [mesh.group(a) for a in (*data_axes, model_axis)]
+        aux, drop = collectives.pmean(torch.stack([aux, drop]), groups)
     if cfg.n_shared:
         out = out + p.shared(x, policy=policy)
     return out, {"aux_loss": aux, "drop_frac": drop}

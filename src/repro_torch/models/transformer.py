@@ -35,6 +35,18 @@ prefix the loss drops.  The checkpoints (the layer's, the sLSTM chunk's,
 the loss chunk's) stash no RNG state (``preserve_rng_state=False``): the
 forward draws no random numbers, so that is exact, and the captured
 train step reads no generator state inside its capture.
+
+Sharded serving (under ``sharding.rules.use_rules`` with a mesh of more
+than one rank; the attention-MLP families only): :func:`init_params`
+draws every parameter whole, in the unsharded order, and keeps the rank's
+block of it (``param_specs``), so a sharded model holds exactly the
+unsharded model's values; :func:`hidden_states` takes the whole batch and
+keeps the rank's rows (``shard_act(tokens, "tokens")``); the layers run
+tensor-parallel (``attention.py``, ``mlp.py``, ``layers.py``) and a MoE
+layer expert-parallel (``moe.moe_forward`` with the mesh,
+:func:`_moe_kwargs`).  hymba, xLSTM and whisper raise under such a mesh
+(ROADMAP.md queue A, item 4.3.2), as do sequence-parallel activations and
+weights split over "data" outside the experts (item 4.3.3).
 """
 from __future__ import annotations
 
@@ -53,10 +65,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models import layers
 from repro_torch.models.layers import (chunked_cross_entropy, embed,
                                        init_embedding, init_norm, linear,
                                        norm, param, randn)
 from repro_torch.models.mlp import MLP
+from repro_torch.sharding.rules import (active_mesh, current_rules,
+                                        local_block, param_specs, shard_act)
 
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
@@ -167,7 +182,7 @@ class AttnMLPLayer(nn.Module):
         xn2 = norm(x, self.ln_mlp, cfg.norm_type)
         if variant.use_moe:
             y, aux = moe_lib.moe_forward(self.moe, xn2, cfg.moe,
-                                         policy=policy)
+                                         policy=policy, **_moe_kwargs())
             return x + y, aux
         return x + self.mlp(xn2, policy=policy), {}
 
@@ -213,6 +228,40 @@ def init_layer(cfg: ModelConfig, variant: LayerVariant,
     if variant.kind == "dec":
         return DecLayer(cfg, generator=generator, device=device)
     return AttnMLPLayer(cfg, variant, generator=generator, device=device)
+
+
+def _moe_kwargs() -> dict:
+    """The mesh a MoE layer runs expert-parallel on, from the rules in
+    force (``repro/models/transformer.py:127-132``); none on one rank."""
+    r = current_rules()
+    if active_mesh(r) is None:
+        return dict(mesh=None)
+    return dict(mesh=r.mesh, data_axes=r.batch_axes, model_axis=r.model_axis,
+                expert_axis=r.expert_fsdp)
+
+
+def check_mesh(cfg: ModelConfig, rules=None) -> None:
+    """Raise where ``cfg`` cannot run under the mesh of ``rules`` (default:
+    the context's): hymba, xLSTM and whisper, sequence-parallel
+    activations, and dense weights split over "data"."""
+    r = rules if rules is not None else current_rules()
+    if active_mesh(r) is None:
+        return
+    kinds = {v.kind for v in model_pattern(cfg)}
+    if kinds != {"attn_mlp"}:
+        raise NotImplementedError(
+            f"{cfg.name} ({', '.join(sorted(kinds))} layers) does not run "
+            f"sharded yet: only the attention-MLP families do; hymba's conv "
+            f"filter over channels, xLSTM and whisper are ROADMAP.md queue "
+            f"A, item 4.3.2")
+    if r.seq_axis is not None:
+        raise NotImplementedError(
+            "sequence-parallel activations (seq_axis) are not ported to the "
+            "layers yet: ROADMAP.md queue A, item 4.3.3")
+    if r.fsdp_size > 1:
+        raise NotImplementedError(
+            "weights split over the fsdp axis (FSDP, serve_weight_fsdp) are "
+            "not ported to the layers yet: ROADMAP.md queue A, item 4.3.3")
 
 
 def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:
@@ -311,24 +360,27 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
                  pos: torch.Tensor, cfg: ModelConfig, variant: LayerVariant,
                  *, enc_kv: Optional[tuple] = None,
                  policy: KernelPolicy = DEFAULT_POLICY,
-                 in_place: bool = False):
+                 in_place: bool = False, kv_len: Optional[int] = None):
     """x_t (B,1,d), the layer's cache, pos (B,) -> (x_t', cache').
     ``in_place`` writes the new K/V slot (and scales) into the cache's own
-    tensors (``attention_decode``).  A ``dec`` layer's cross attention
-    reads the encoder's K/V ``enc_kv`` = (k, v) (B, S_enc, Hkv, dh),
-    unmasked.  It projects the token's query alone: the reference also
-    projects it through the cross attention's ``w_k`` and ``w_v`` and
-    discards both (``repro/models/transformer.py:296-299``), which changes
-    no number and would cost two ``pwconv`` launches a layer a step."""
+    tensors (``attention_decode``). ``kv_len``: the whole cache's slots,
+    where the layer's cache holds this rank's block of its sequence. A
+    ``dec`` layer's cross attention reads the encoder's K/V ``enc_kv`` =
+    (k, v) (B, S_enc, Hkv, dh), unmasked. It projects the token's query
+    alone: the reference also projects it through the cross attention's
+    ``w_k`` and ``w_v`` and discards both
+    (``repro/models/transformer.py:296-299``), which changes no number and
+    would cost two ``pwconv`` launches a layer a step."""
     if variant.kind in ("mlstm", "slstm"):
         return block.step(x_t, cache, policy=policy)
+    slots = kv_len or cache["k"].shape[1]
     ring = (variant.window is not None
-            and cache["k"].shape[1] == variant.window + variant.sink)
+            and slots == variant.window + variant.sink)
     xn = norm(x_t, block.ln_attn, cfg.norm_type)
     scales = (cache["k_scale"], cache["v_scale"]) if cfg.kv_quant else None
     res = attn_lib.attention_decode(
         block.attn, xn, cache["k"], cache["v"], pos, ring=ring,
-        scales=scales, policy=policy, in_place=in_place,
+        scales=scales, policy=policy, in_place=in_place, kv_len=kv_len,
         **_attn_kwargs(cfg, variant))
     attn_out, new = res[0], {"k": res[1], "v": res[2]}
     if cfg.kv_quant:
@@ -409,16 +461,50 @@ class LMModel(nn.Module):
             self.cfg.torch_dtype).contiguous()
 
 
+def _block_hook(cfg: ModelConfig, rules):
+    """A ``layers.param_hook`` that cuts each parameter of an
+    ``LMModel(cfg)`` to this rank's block under ``rules``, in the order the
+    modules make them (learned from a model made on the meta device)."""
+    made = []
+    with layers.param_hook(lambda p: made.append(p) or p):
+        meta = LMModel(cfg, generator=torch.Generator(), device="meta")
+    names = {id(p): n for n, p in meta.named_parameters()}
+    specs = param_specs(meta, rules)
+    order = iter([specs[names[id(p)]] for p in made])
+
+    def hook(p):
+        block = local_block(p.data, next(order), rules.mesh)
+        return p if block is p.data else nn.Parameter(block,
+                                                      requires_grad=False)
+    return hook
+
+
+def build_model(cfg: ModelConfig, generator: torch.Generator, device,
+                rules=None) -> LMModel:
+    """``LMModel(cfg)`` drawn from ``generator`` on ``device``; under a mesh
+    of more than one rank (``rules``, default the context's) each parameter
+    is drawn whole, in the unsharded order, and cut to this rank's block
+    as it is made: the device holds the blocks and at most one whole
+    parameter at a time."""
+    r = rules if rules is not None else current_rules()
+    if active_mesh(r) is None:
+        return LMModel(cfg, generator=generator, device=device)
+    check_mesh(cfg, r)
+    with layers.param_hook(_block_hook(cfg, r)):
+        return LMModel(cfg, generator=generator, device=device)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 generator: Optional[torch.Generator] = None,
-                device="cuda") -> LMModel:
+                device="cuda", rules=None) -> LMModel:
     """A model with random weights drawn from ``generator`` (else a host
     generator seeded with ``seed``), on ``device``: the card unless the
     caller asks for the CPU.  The same seed gives the same weights on every
-    device."""
+    device; under a mesh (``rules``, default the context's) each rank holds
+    its blocks of those same weights (:func:`build_model`)."""
     dev = require_device(device)
     gen = generator or torch.Generator().manual_seed(seed)
-    return LMModel(cfg, generator=gen, device=dev)
+    return build_model(cfg, gen, dev, rules)
 
 
 def cast_params(model: LMModel, cfg: ModelConfig) -> LMModel:
@@ -428,8 +514,7 @@ def cast_params(model: LMModel, cfg: ModelConfig) -> LMModel:
     init_params(cfg32, seed=s)`` this is ``init_params(cfg, seed=s)``
     without drawing the weights a second time."""
     dev = model.embedding["table"].device
-    out = LMModel(cfg, generator=torch.Generator(),
-                  device="meta").to_empty(device=dev)
+    out = build_model(cfg, torch.Generator(), "meta").to_empty(device=dev)
     src = dict(model.named_parameters())
     with torch.no_grad():
         for name, p in out.named_parameters():
@@ -469,7 +554,10 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
                   frontend: Optional[torch.Tensor] = None,
                   policy: KernelPolicy = DEFAULT_POLICY,
                   capture_kv: bool = False):
-    """tokens (B, S) -> (hidden (B, P+S, d), prefix_len P, aux): the meta
+    """tokens (B, S) -> (hidden (B, P+S, d), prefix_len P, aux); under a
+    mesh ``tokens`` and ``frontend`` are the whole batch and the hidden
+    states this rank's rows of it (B split over "data" where it divides,
+    ``batch_pspecs``).  The meta
     tokens, if any, then the stubbed modality embeddings ``frontend`` (B,
     F, d), if given (InternVL2's patches, llama4's fusion embeddings), are
     prepended (P of them in all) and every position is absolute (RoPE).
@@ -480,8 +568,10 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     ``aux["layers"]`` holds each layer's captured ``{"kv"?, "cross_kv"?,
     "state"?}`` (:func:`layer_forward`)."""
     cfg = model.cfg
+    check_mesh(cfg)
+    tokens = shard_act(tokens, "tokens")
     b = tokens.shape[0]
-    x = embed(model.embedding, tokens)
+    x = embed(model.embedding, tokens, cfg.vocab_size)
     enc_out = None
     pieces = []
     if cfg.encdec is not None:
@@ -492,7 +582,7 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
         if cfg.meta_tokens:
             pieces.append(model.meta_embeds(b))
         if frontend is not None:
-            pieces.append(frontend.to(x.dtype))
+            pieces.append(shard_act(frontend, "btd").to(x.dtype))
     prefix = sum(p.shape[1] for p in pieces)
     if pieces:
         x = torch.cat(pieces + [x], dim=1)

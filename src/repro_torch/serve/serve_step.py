@@ -40,6 +40,17 @@ embeddings.  An encoder-decoder's cache adds ``"enc_k", "enc_v":
 (n_layers, B, S_enc, Hkv, dh)`` in the model's dtype (never int8, also
 under ``kv_quant``): written once by the prefill and only read by the
 decode steps, which pass them on as they are.
+
+Under a mesh (``sharding.rules.use_rules``; the attention-MLP families)
+every rank runs these with its blocks of the model: the tokens (and a
+frontend) come in whole and the logits go out whole on every rank (the
+vocab blocks gathered over "model", the batch over "data"), while each
+rank's cache holds its blocks, with the shapes ``cache_pspecs`` gives
+them: its batch rows, and its block of each KV cache's slots where their
+number divides the model axis (flash-decoding).  A decode step then needs
+``max_len``, which says how many slots the whole cache has.  The same
+functions, and the captures, run the collectives; under NCCL a capture
+records them.
 """
 from __future__ import annotations
 
@@ -55,12 +66,39 @@ from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import _quantize_vec
 from repro_torch.models.layers import embed, norm, unembed_logits
+from repro_torch.sharding.rules import (P, act_spec, active_mesh,
+                                        cache_pspecs, current_rules,
+                                        gather_block, local_block,
+                                        local_shape, model_shard, shard_act)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
     """Zeroed cache.  ``max_len`` (the prefix included) bounds the
-    attention caches; the recurrent layers' state does not depend on it."""
+    attention caches; the recurrent layers' state does not depend on it.
+    Under a mesh, this rank's blocks of the cache of ``batch`` sequences
+    (``cache_pspecs``)."""
+    r = current_rules()
+    if active_mesh(r) is not None:
+        whole = _init_cache(cfg, batch, max_len, "meta")
+        return _zeros_like_blocks(whole, cache_pspecs(whole, r), r.mesh,
+                                  device)
+    return _init_cache(cfg, batch, max_len, device)
+
+
+def _zeros_like_blocks(tree, specs, mesh, device):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_blocks(v, specs[k], mesh, device)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like_blocks(v, sp, mesh, device)
+                for v, sp in zip(tree, specs, strict=True)]
+    return torch.zeros(local_shape(tree.shape, specs, mesh),
+                       dtype=tree.dtype, device=device)
+
+
+def _init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                device) -> dict:
     pattern = T.model_pattern(cfg)
     cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
              "layers": [T.init_layer_cache(cfg, pattern[i % len(pattern)],
@@ -81,17 +119,41 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return init_cache(cfg, batch, max_len, device="meta")
 
 
+def _kv_lens(model: T.LMModel, max_len: Optional[int]) -> list:
+    """Each layer's whole cache length where the caches may hold a block
+    of their slots (a model axis of more than one rank), else None."""
+    if model_shard()[0] == 1:
+        return [None] * len(model.blocks)
+    if max_len is None:
+        raise ValueError("a decode step on a model split over the model "
+                         "axis needs max_len: the caches hold blocks of "
+                         "their slots")
+    return [T.cache_len(model.variant(i), max_len)
+            for i in range(len(model.blocks))]
+
+
+def _whole_batch(t: torch.Tensor, batch: int) -> torch.Tensor:
+    """``t`` (b, ...) this rank's rows of ``batch``: every rank's rows,
+    gathered over the batch axes where the batch was split."""
+    if t.shape[0] == batch:
+        return t
+    r = current_rules()
+    return gather_block(t, P(r.batch_axes, *[None] * (t.dim() - 1)), r.mesh)
+
+
 def _layers_step(model: T.LMModel, cache: dict, x: torch.Tensor,
-                 policy: KernelPolicy, in_place: bool = False):
+                 policy: KernelPolicy, in_place: bool = False,
+                 max_len: Optional[int] = None):
     """x (B,1,d) through every layer at ``cache["pos"]`` -> (x', new
     cache at pos + 1).  The encoder's K/V pass through unchanged."""
     pos = cache["pos"]
     layers = []
     enc = {k: cache[k] for k in ("enc_k", "enc_v") if k in cache}
-    for i, block in enumerate(model.blocks):
+    for i, (block, kv_len) in enumerate(zip(model.blocks,
+                                            _kv_lens(model, max_len))):
         x, c = T.layer_decode(block, x, cache["layers"][i], pos, model.cfg,
                               model.variant(i), policy=policy,
-                              in_place=in_place,
+                              in_place=in_place, kv_len=kv_len,
                               enc_kv=(enc["enc_k"][i], enc["enc_v"][i])
                               if enc else None)
         layers.append(c)
@@ -100,14 +162,19 @@ def _layers_step(model: T.LMModel, cache: dict, x: torch.Tensor,
 
 def decode_step(model: T.LMModel, cache: dict, tokens: torch.Tensor, *,
                 policy: KernelPolicy = DEFAULT_POLICY,
-                in_place: bool = False):
+                in_place: bool = False, max_len: Optional[int] = None):
     """tokens (B, 1) -> (logits (B, V) fp32, new cache).  ``in_place``
     writes each attention layer's new K/V into ``cache``'s own tensors,
-    which the new cache then shares (:func:`decode_step_into`)."""
-    x = embed(model.embedding, tokens)                  # (B,1,d)
-    x, new_cache = _layers_step(model, cache, x, policy, in_place)
-    x = norm(x, model.ln_final, model.cfg.norm_type)
-    return unembed_logits(x[:, 0], model.unembed_table), new_cache
+    which the new cache then shares (:func:`decode_step_into`).  Under a
+    mesh ``max_len`` is the cache's (:func:`init_cache`)."""
+    cfg = model.cfg
+    T.check_mesh(cfg)
+    x = embed(model.embedding, shard_act(tokens, "tokens"),
+              cfg.vocab_size)                           # (B,1,d)
+    x, new_cache = _layers_step(model, cache, x, policy, in_place, max_len)
+    x = norm(x, model.ln_final, cfg.norm_type)
+    logits = unembed_logits(x[:, 0], model.unembed_table, cfg.vocab_size)
+    return _whole_batch(logits, tokens.shape[0]), new_cache
 
 
 def _embedded_decode_step(model: T.LMModel, cache: dict,
@@ -115,7 +182,8 @@ def _embedded_decode_step(model: T.LMModel, cache: dict,
                           policy: KernelPolicy = DEFAULT_POLICY) -> dict:
     """:func:`decode_step` from an embedding (B, 1, d) rather than a token,
     without the logits: how :func:`prefill_by_stepping` primes the cache
-    with the meta tokens.  Returns the new cache."""
+    with the meta tokens (hymba's, which runs on one rank).  Returns the
+    new cache."""
     return _layers_step(model, cache, x_embed, policy)[1]
 
 
@@ -134,6 +202,17 @@ def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
     return kv_full.index_select(1, torch.where(r < sink, r, base))
 
 
+def _slot_block(t: torch.Tensor) -> torch.Tensor:
+    """A layer's filled cache tensor (b, S_c, ...) (this rank's rows,
+    every slot) cut to the rank's block of its slots under the cache's
+    spec (the reference's ``"cache"`` kind); itself without a mesh."""
+    r = current_rules()
+    if active_mesh(r) is None:
+        return t
+    seq = act_spec(t.shape, "cache", r)[1]
+    return local_block(t, P(None, seq, *[None] * (t.dim() - 2)), r.mesh)
+
+
 def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
             frontend: Optional[torch.Tensor] = None,
             policy: KernelPolicy = DEFAULT_POLICY):
@@ -143,9 +222,9 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
     ``frontend`` as its encoder's frames (B, S_enc, d) (P = 0) and its
     cache holds each layer's cross attention K/V of the encoder's
     output."""
-    b, s = tokens.shape
     x, prefix, aux = T.hidden_states(model, tokens, frontend=frontend,
                                      policy=policy, capture_kv=True)
+    b, s = x.shape[0], tokens.shape[1]
     layers = []
     for i, captured in enumerate(aux["layers"]):
         if "kv" not in captured:                        # mlstm / slstm
@@ -158,7 +237,8 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
         if model.cfg.kv_quant:
             (full["k"], full["k_scale"]), (full["v"], full["v_scale"]) = (
                 _quantize_vec(k), _quantize_vec(v))
-        layer = {name: _ring_fill(t, s_c, sink) for name, t in full.items()}
+        layer = {name: _slot_block(_ring_fill(t, s_c, sink))
+                 for name, t in full.items()}
         if "state" in captured:                         # hymba
             layer["mamba"] = captured["state"]
         layers.append(layer)
@@ -170,7 +250,9 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
         for j, name in enumerate(("enc_k", "enc_v")):
             cache[name] = torch.stack([c["cross_kv"][j]
                                        for c in aux["layers"]]).to(dt)
-    return unembed_logits(x[:, -1], model.unembed_table), cache
+    logits = unembed_logits(x[:, -1], model.unembed_table,
+                            model.cfg.vocab_size)
+    return _whole_batch(logits, tokens.shape[0]), cache
 
 
 def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
@@ -191,7 +273,7 @@ def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
     logits = torch.zeros((b, model.cfg.vocab_size), device=tokens.device)
     for t in range(s):
         logits, cache = decode_step(model, cache, tokens[:, t:t + 1],
-                                    policy=policy)
+                                    policy=policy, max_len=max_len)
     return logits, cache
 
 
@@ -205,7 +287,8 @@ def _clone_cache(cache):
 
 def decode_step_into(model: T.LMModel, cache: dict, tokens: torch.Tensor,
                      logits: torch.Tensor, *,
-                     policy: KernelPolicy = DEFAULT_POLICY):
+                     policy: KernelPolicy = DEFAULT_POLICY,
+                     max_len: Optional[int] = None):
     """:func:`decode_step` on static buffers: each attention layer's new
     K/V slot is written into ``cache``'s K/V in place; the rest of the
     step's new state (every recurrent and conv state, and ``pos``) is
@@ -214,7 +297,7 @@ def decode_step_into(model: T.LMModel, cache: dict, tokens: torch.Tensor,
     addresses every call, which is what a CUDA graph of it needs.
     Returns ``(logits, cache)``."""
     new_logits, new_cache = decode_step(model, cache, tokens, policy=policy,
-                                        in_place=True)
+                                        in_place=True, max_len=max_len)
     logits.copy_(new_logits)
     graphs.copy_tree_(cache, new_cache)
     return logits, cache
@@ -253,7 +336,8 @@ def capture_decode_step(model: T.LMModel, batch: int, max_len: int, *,
     logits = torch.zeros((batch, model.cfg.vocab_size), device=dev)
     with torch.inference_mode():
         captured = graphs.capture(lambda: decode_step_into(
-            model, cache, tokens, logits, policy=policy), dev)
+            model, cache, tokens, logits, policy=policy, max_len=max_len),
+            dev)
         # the warm-up and the first replay stepped the static cache
         graphs.copy_tree_(cache, init_cache(model.cfg, batch, max_len, dev))
     return CapturedDecodeStep(captured, tokens, cache)

@@ -1,0 +1,110 @@
+"""The reference's sharded serving for ``tests/test_torch_tp_serve.py``:
+every case of ``_torch_tp_cases.CASES`` on its mesh of forced host
+devices, written to ``<dir>/<case>.npz``.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
+        PYTHONPATH=src python tests/_torch_tp_oracle.py DIR
+
+The mesh is built here, not by ``repro.launch.mesh.make_host_mesh``:
+``repro.launch.dryrun`` (whose ``make_rules`` the reference's serving
+launcher uses) forces 512 host devices when it is imported, so the devices
+are listed first and the mesh takes the case's own.  The weights are the
+reference's ``init_params``, each all-zero leaf (norm scales, biases)
+replaced by seeded noise; they are written beside the results for the port
+to load.  The prefill and the decode steps are the reference's, jitted
+under the rules (``use_rules``) with the parameters placed by
+``param_specs``; the int8 cache's prefill is its stepping oracle and every
+step of that case runs op by op (compiled, XLA's CPU drops the bf16
+rounding of ``int8 * scale`` the reference's ops make, which the port
+keeps)."""
+from __future__ import annotations
+
+import os
+import sys
+
+import jax
+import numpy as np
+
+DEVICES = jax.devices()
+
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
+
+import _torch_tp_cases as C  # noqa: E402
+from repro.configs.registry import get_config  # noqa: E402
+from repro.launch.dryrun import make_rules  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro.serve import serve_step as JS  # noqa: E402
+from repro.sharding.rules import named, param_specs, use_rules  # noqa: E402
+
+
+def perturbed(tree, seed: int):
+    rng = np.random.default_rng(seed)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if np.any(a.astype(np.float32)):
+            return a
+        return (rng.standard_normal(a.shape) * 0.1).astype(a.dtype)
+    return jax.tree_util.tree_map(leaf, tree)
+
+
+def run(name: str, case: dict, out_dir: str) -> None:
+    import dataclasses
+    cfg = C.config(get_config(case["arch"], smoke=True), case)
+    stepping = cfg.kv_quant
+    if stepping:
+        cfg = dataclasses.replace(cfg, scan_layers=False)
+    params = perturbed(JT.init_params(cfg, jax.random.PRNGKey(C.SEED)),
+                       C.SEED)
+    tokens, frontend = C.inputs(cfg, case)
+    dp, tp = case["mesh"]
+    mesh = Mesh(np.array(DEVICES[:dp * tp]).reshape(dp, tp),
+                ("data", "model"))
+    rules = make_rules(mesh, mode="serve", multi_pod=False)
+    ml = case["max_len"]
+    fj = None if frontend is None else jnp.asarray(frontend)
+    with use_rules(rules), mesh:
+        p = jax.device_put(jax.tree_util.tree_map(jnp.asarray, params),
+                           named(mesh, param_specs(params, rules)))
+        tj = jnp.asarray(tokens)
+        if stepping:
+            def step(c, t):
+                return JS.decode_step(cfg, p, c, t)
+            cache = JS.init_cache(cfg, C.BATCH, ml)
+            for i in range(tokens.shape[1]):
+                logits, cache = step(cache, tj[:, i:i + 1])
+        else:
+            logits, cache = jax.jit(lambda p, t: JS.prefill(
+                cfg, p, t, max_len=ml, frontend=fj))(p, tj)
+            step = jax.jit(lambda c, t: JS.decode_step(cfg, p, c, t))
+        outs, fed = [np.asarray(logits)], []
+        for _ in range(C.STEPS):
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+            logits, cache = step(cache, tok)
+            outs.append(np.asarray(logits))
+            fed.append(np.asarray(tok))
+        aux = {}
+        if cfg.moe is not None:
+            _, _, a = jax.jit(lambda p, t: JT.hidden_states(
+                cfg, p, t, frontend=fj))(p, tj)
+            aux = {"aux_loss": np.asarray(a["aux_loss"]),
+                   "drop_frac": np.asarray(a["drop_frac"])}
+    np.savez(os.path.join(out_dir, f"{name}.npz"),
+             tokens=tokens, logits=np.stack(outs), fed=np.stack(fed),
+             **({} if frontend is None else {"frontend": frontend}),
+             **{f"aux.{k}": v for k, v in aux.items()},
+             **{f"param.{k}": v for k, v in C.flatten(params).items()})
+
+
+def main(argv) -> int:
+    out_dir = argv[0]
+    names = argv[1:] or list(C.CASES)
+    for name in names:
+        run(name, C.CASES[name], out_dir)
+        print(f"[oracle] {name}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

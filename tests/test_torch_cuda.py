@@ -2175,3 +2175,157 @@ def test_failing_train_step_capture_raises(dev, monkeypatch):
     cap.replay()
     torch.cuda.synchronize(dev)
     assert float(buf[0]) == 3.0
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving on the one card: world 1 under NCCL, gloo ranks sharing it
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_world1_nccl_graphs_equal_the_unsharded_graphs(dev, monkeypatch):
+    """qwen3-1.7b smoke, bf16: the captured prefill and three decode steps
+    under the rules of a world of one rank under NCCL (every block the
+    whole tensor, every one-rank collective the identity) bit for bit the
+    unsharded graphs', and no collective recorded."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import make_rules
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.serve import collective_counts
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.serve.sampler import greedy
+    from repro_torch.sharding.rules import use_rules
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                     RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    model = init_params(dataclasses.replace(cfg, dtype="bfloat16"),
+                        device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run():
+        pre = S.capture_prefill(model, 2, 12, max_len=16)
+        step = S.capture_decode_step(model, 2, 16)
+        logits, cache = pre(prompts)
+        outs = [logits]
+        for _ in range(3):
+            logits, cache = step(cache, greedy(logits)[:, None])
+            outs.append(logits)
+        recorded = collective_counts(step.captured.launches)
+        return outs, recorded
+
+    with torch.inference_mode():
+        want, _ = run()
+        init_world("nccl", "cuda")
+        try:
+            with use_rules(make_rules(make_host_mesh(1), mode="serve",
+                                      multi_pod=False)):
+                got, recorded = run()
+        finally:
+            dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not any(recorded.values())
+
+
+def test_two_gloo_ranks_on_the_card_serve_as_one_rank(dev):
+    """``launch.serve --model-parallel 2 --backend gloo`` as two ranks on
+    the one card (eager, collectives via host copies): rank 0's tokens are
+    one rank's."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    args = ["-m", "repro_torch.launch.serve", "--arch", "qwen3-1.7b",
+            "--smoke", "--batch", "2", "--prompt-len", "12", "--gen", "4",
+            "--max-len", "32"]
+    two = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", *args, "--model-parallel", "2",
+         "--backend", "gloo"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    one = subprocess.run([sys.executable, *args], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=root)
+    assert two.returncode == 0 and one.returncode == 0, two.stderr[-3000:]
+    assert "collectives gloo via host copies" in two.stdout
+
+    def tokens(out):
+        return next(l for l in out.splitlines() if "sample tokens" in l)
+    assert tokens(two.stdout) == tokens(one.stdout)
+
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving across cards: NCCL collectives captured in CUDA graphs
+# ---------------------------------------------------------------------------
+
+_ONE_RANK_SERVE: dict = {}
+
+
+def _serve_run(arch: str, launch=(), extra=(), timeout_s: float = 600):
+    """``launch.serve`` of ``arch`` (smoke, fp32) under the ``launch``
+    prefix, with ``extra`` arguments: (return code, stdout, stderr)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    run = subprocess.run(
+        [sys.executable, *launch, "-m", "repro_torch.launch.serve", "--arch",
+         arch, "--smoke", "--batch", "4", "--prompt-len", "12", "--gen", "4",
+         "--max-len", "32", *extra],
+        capture_output=True, text=True, timeout=timeout_s, env=env, cwd=root)
+    return run.returncode, run.stdout, run.stderr
+
+
+@pytest.mark.parametrize("arch,ranks,model", [
+    ("qwen3-1.7b", 2, 2), ("qwen3-1.7b", 4, 4), ("qwen3-1.7b", 4, 2),
+    ("qwen3-moe-235b-a22b", 2, 2), ("qwen3-moe-235b-a22b", 4, 4)])
+def test_nccl_ranks_across_cards_serve_as_one_rank(dev, arch, ranks, model):
+    """``launch.serve --model-parallel model`` as ``ranks`` NCCL ranks, one
+    a card (the batch split over the rest): the prefill and the decode step
+    captured as CUDA graphs with their collectives inside (the MoE's
+    ``all_to_all_single`` among them), and rank 0's tokens one rank's.
+    Skips on a host with fewer cards than ranks."""
+    import ast
+    import re
+
+    from repro_torch.kernels import _build
+    if torch.cuda.device_count() < ranks:
+        pytest.skip(f"needs {ranks} CUDA devices, one a NCCL rank")
+    _build.build(["pwconv"])            # once, before the ranks start
+    if arch not in _ONE_RANK_SERVE:
+        _ONE_RANK_SERVE[arch] = _serve_run(arch)
+    rc, one, err = _ONE_RANK_SERVE[arch]
+    assert rc == 0, err[-3000:]
+    rc, out, err = _serve_run(
+        arch, ["-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(ranks)],
+        ["--model-parallel", str(model)])
+    assert rc == 0, err[-3000:]
+    assert (f"mesh {{'data': {ranks // model}, 'model': {model}}} over "
+            f"{ranks} rank(s), backend nccl, collectives nccl") in out, out
+    assert "captured prefill and decode step as CUDA graphs" in out
+
+    def tokens(text):
+        return next(l for l in text.splitlines() if "sample tokens" in l)
+    assert tokens(out) == tokens(one)
+    line = next(l for l in out.splitlines() if "[serve] collectives" in l)
+    prefill, step = (ast.literal_eval(d) for d in re.findall(r"\{[^}]*\}",
+                                                             line))
+    assert step["all_reduce"] > 0 and prefill["all_reduce"] > 0
+    if "moe" in arch:
+        assert step["all_to_all"] > 0 and prefill["all_to_all"] > 0

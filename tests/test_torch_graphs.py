@@ -51,7 +51,8 @@ def test_registry_covers_every_wrapper_counter(counters):
     assert names == {"dwconv2d", "pwconv", "pwconv.stream", "pwconv.tc",
                      "pwconv.simt", "separable_fused2", "separable_fused3",
                      "fused_mbconv", "dw_se", "dwconv1d", "dwconv1d_bwd",
-                     "dwconv1d_bwd_reduce"}
+                     "dwconv1d_bwd_reduce", "all_reduce", "all_gather",
+                     "all_to_all"}
     assert not any(graphs.snapshot().values())
     assert set(mobilenet_inference.launch_counts()) == set(
         mobilenet_inference.KERNEL_SEGMENTS)

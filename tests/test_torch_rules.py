@@ -63,6 +63,20 @@ TRAINING_MODULES = ("optim/__init__.py", "optim/adamw.py",
                     "configs/whisper_small.py", "train_e2e.py")
 
 
+#: The sharding slice's modules: held to the same rule.
+SHARDING_MODULES = ("sharding/__init__.py", "sharding/rules.py",
+                    "sharding/collectives.py", "launch/mesh.py",
+                    "launch/dryrun.py", "launch/serve.py")
+
+
+@pytest.mark.parametrize("module", SHARDING_MODULES)
+def test_sharding_modules_are_held_to_the_import_rule(module):
+    path = PORT / module
+    assert path in PORT_FILES
+    assert not {m.split(".")[0] for m in _imported_modules(path)} & {
+        "jax", "jaxlib", "repro"}
+
+
 @pytest.mark.parametrize("module", TRAINING_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = PORT / module
