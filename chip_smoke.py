@@ -187,6 +187,11 @@ From the root of a checkout it:
    layer (a ``reduced`` note), expert-parallel at tp 2, the kernels
    against the plain versions on the same ranks in bf16 and fp32, with
    the copies that the bf16 rounding sends to another expert counted;
+   then hymba-1.5b, xlstm-125m and whisper-small at their published
+   widths cut in depth (a ``reduced`` note), fp32, tp 2, each against the
+   unsharded path, with the collectives and launches of a prefill and a
+   step, ``dwconv1d`` on each rank's channel block (hymba's 1600 of 3200
+   channels held against its plain version);
 12. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
@@ -3570,6 +3575,17 @@ MOE_TP_NOTE = ("reduced: qwen3-moe-235b-a22b n_layers 94 -> 1 (phase 11's "
 MOE_MOVED_MAX_FRAC = 0.01
 #: A gloo rank waits at most this long at set-up or in a collective.
 TP_TIMEOUT_S = 300
+#: Parts 4-6: hymba, xLSTM and whisper at their published widths, cut in
+#: depth (the two ranks' blocks and the unsharded oracle on one card, and
+#: the script's time), fp32, tp 2, as parts 2 and 3 run.
+RECURRENT_TP = {
+    "hymba-1.5b": {"n_layers": 2},
+    "xlstm-125m": {"n_layers": 4},
+    "whisper-small": {"n_layers": 2, "n_enc_layers": 2},
+}
+RECURRENT_TP_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 2, xlstm-125m 12 -> "
+                     "4, whisper-small 12 + 12 -> 2 + 2 (phase 11's time); "
+                     "widths, meta tokens and 1500 frames as published")
 
 
 def _free_port() -> int:
@@ -3605,6 +3621,95 @@ def _greedy_run(torch, prefill, step, prompts, gen, tokens=None):
         outs.append(logits)
     torch.cuda.synchronize()
     return outs, fed, prefill_ms, (time.perf_counter() - t0) * 1e3 / gen
+
+
+def _tp_recurrent(torch, dev, rules, arch: str, rank: int) -> dict:
+    """One of parts 4-6 on a gloo rank: ``arch`` at its published widths
+    cut to :data:`RECURRENT_TP`'s depth, fp32, served at tp 2 (a prefill of
+    TP_BATCH x TP_PROMPT tokens, TP_GEN greedy steps, eager) with the
+    collectives and kernel launches of the prefill and of a step, this
+    rank's first ``dwconv1d`` call (its channel block) held against the
+    plain version, and on rank 0 the logits against the unsharded path."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import graphs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import dwconv1d as dw1d
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (collective_counts, frontend_stub,
+                                          launch_counts)
+    from repro_torch.measure import rel_err
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import serve_step as S
+    from repro_torch.sharding.rules import use_rules
+
+    cut = dict(RECURRENT_TP[arch])
+    cfg = get_config(arch)
+    if "n_enc_layers" in cut:
+        cut["encdec"] = dataclasses.replace(
+            cfg.encdec, n_enc_layers=cut.pop("n_enc_layers"))
+    cfg = dataclasses.replace(cfg, dtype="float32", **cut)
+    ml = cfg.meta_tokens + TP_PROMPT + TP_GEN
+    prompts = torch.randint(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT),
+        generator=torch.Generator().manual_seed(564)).to(dev)
+    frames = frontend_stub(cfg, TP_BATCH, dev, seed=0)
+    first = []
+    real = ops.dwconv1d_causal
+
+    def recording(x, f, **kw):
+        if not first:
+            first.append((x.clone(), f.clone(), x.is_contiguous()))
+        return real(x, f, **kw)
+    counted = {}
+
+    def prefill(m, t):
+        graphs.reset()
+        out = S.prefill(m, t, max_len=ml, frontend=frames)
+        counted["prefill"] = graphs.snapshot()
+        graphs.reset()
+        return out
+    r = {}
+    ops.dwconv1d_causal = recording
+    try:
+        with use_rules(rules):
+            m = init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                            device=dev)
+            outs, fed, pre_ms, step_ms = _greedy_run(
+                torch, lambda t: prefill(m, t),
+                lambda c, t: S.decode_step(m, c, t, max_len=ml), prompts,
+                TP_GEN)
+            step = {k: v / TP_GEN for k, v in graphs.snapshot().items()}
+            del m
+    finally:
+        ops.dwconv1d_causal = real
+    r.update(prefill_ms=pre_ms, decode_ms_per_step=step_ms,
+             launches={"prefill": launch_counts(counted["prefill"]),
+                       "decode": launch_counts(step)},
+             collectives={"prefill": collective_counts(counted["prefill"]),
+                          "decode": collective_counts(step)})
+    if first:       # launches made to compare count in no main path
+        x, f, contiguous = first[0]
+        r["dwconv1d_check"] = {
+            "shape": list(x.shape), "contiguous": contiguous,
+            "rel_err": rel_err(dw1d.dwconv1d_causal(x, f),
+                               dw1d.dwconv1d_causal_plain(x, f))}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, r["launches"]["prefill"]["dwconv1d"])
+    r["dwconv1d_launches_by_rank"] = every
+    if rank == 0:
+        torch.cuda.empty_cache()
+        ref = init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                          device=dev)
+        want = _greedy_run(
+            torch, lambda t: S.prefill(ref, t, max_len=ml, frontend=frames),
+            lambda c, t: S.decode_step(ref, c, t), prompts, TP_GEN,
+            tokens=fed)[0]
+        r["rel_err_vs_unsharded"] = max(rel_err(a, b)
+                                        for a, b in zip(outs, want))
+        del ref, want
+    torch.cuda.empty_cache()
+    return r
 
 
 def _tp_rank(rank: int, world: int, port: int, out: str) -> None:
@@ -3744,6 +3849,11 @@ def _tp_rank(rank: int, world: int, port: int, out: str) -> None:
                     del m, runs, ids
                     torch.cuda.empty_cache()
             moe_mod.router_topk = real_topk
+            # parts 4-6: hymba, xLSTM and whisper against the unsharded
+            # path, the paper's depthwise conv on each rank's channels
+            res["recurrent"] = {arch: _tp_recurrent(torch, dev, rules, arch,
+                                                    rank)
+                                for arch in RECURRENT_TP}
         if rank == 0:
             with open(out, "w") as fh:
                 json.dump(res, fh)
@@ -3779,7 +3889,14 @@ def run_sharded(torch, dev):
        MOE_MOVED_MAX_FRAC of those routed, every call past BF16_REL_TOL
        one where a copy moved, and the calls' median within it; fp32, no
        copy moved, every call within FP32_REL_TOL and ``drop_frac``
-       equal."""
+       equal;
+    4.-6. on the same ranks (:func:`_tp_recurrent`): hymba-1.5b, xlstm-125m
+       and whisper-small at their published widths cut in depth
+       (:data:`RECURRENT_TP`), fp32, tp 2, rank 0 within FP32_REL_TOL of
+       the unsharded path, every rank's prefill launching ``dwconv1d`` once
+       a recurrent layer on its channel block (hymba's 1600 of 3200; the
+       first call held against the plain version within KERNEL_TOL), the
+       ms and collectives of a prefill and of a step."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
     from repro_torch.configs.registry import get_config
@@ -3791,7 +3908,8 @@ def run_sharded(torch, dev):
     from repro_torch.sharding.rules import use_rules
 
     from repro_torch.kernels import _build
-    _build.library("pwconv")        # built before anything is timed
+    # built before anything is timed, and before the ranks start
+    _build.build(["pwconv", "dwconv1d"])
     res = {}
     _rank_env(0, 1, _free_port())
     init_world("nccl", "cuda", timeout_s=TP_TIMEOUT_S)
@@ -3933,12 +4051,49 @@ def run_sharded(torch, dev):
             and q["pwconv"] > 0 and bf["kernels"]["pwconv"] > 0
             and bf["kernels"]["collectives"]["all_to_all"] > 0):
         raise AssertionError(f"phase 11 parts 2-3: {tp}")
-    res["reduced"] = [MOE_TP_NOTE]
+    bad = []
+    for arch, r in tp["recurrent"].items():
+        lc, cc = r["launches"], r["collectives"]
+        print(f"    part {4 + list(RECURRENT_TP).index(arch)}, {arch} fp32 "
+              f"tp 2 {TP_BATCH}x{TP_PROMPT} + {TP_GEN} steps: rank 0 "
+              f"prefill {r['prefill_ms']:.1f} ms, "
+              f"{r['decode_ms_per_step']:.1f} ms a step; logits against the "
+              f"unsharded fp32 path {r['rel_err_vs_unsharded']:.2e} (tol "
+              f"{FP32_REL_TOL:g}); collectives a prefill {cc['prefill']}, a "
+              f"step {cc['decode']}; launches a prefill {lc['prefill']}, a "
+              f"step {lc['decode']}; dwconv1d a prefill by rank "
+              f"{r['dwconv1d_launches_by_rank']}", flush=True)
+        check = r.get("dwconv1d_check")
+        if check:
+            print(f"      dwconv1d on rank 0's channel block "
+                  f"{check['shape']} (contiguous {check['contiguous']}): "
+                  f"kernel against plain {check['rel_err']:.2e} (tol "
+                  f"{KERNEL_TOL['float32']:g})", flush=True)
+        n_conv = RECURRENT_TP[arch]["n_layers"] if arch != "whisper-small" \
+            else 0
+        d_local = {"hymba-1.5b": 1600, "xlstm-125m": 768}.get(arch)
+        if not (r["rel_err_vs_unsharded"] <= FP32_REL_TOL
+                and lc["prefill"]["pwconv"] > 0
+                and r["dwconv1d_launches_by_rank"] == [n_conv] * 2
+                and cc["decode"]["all_reduce"] > 0
+                and (check is None if d_local is None else (
+                    check["shape"][-1] == d_local and check["contiguous"]
+                    and check["rel_err"] <= KERNEL_TOL["float32"]))):
+            bad.append(arch)
+    if bad:
+        raise AssertionError(f"phase 11 parts 4-6 {bad}: {tp['recurrent']}")
+    res["reduced"] = [MOE_TP_NOTE, RECURRENT_TP_NOTE]
+    rec = tp["recurrent"].values()
     res["pwconv_launches"] = (
         sum(w[k]["recorded_pwconv"][0] + w[k]["recorded_pwconv"][1]
             for k in ("unsharded", "sharded"))
         + q["pwconv"] + bf["kernels"]["pwconv"]
-        + f32["kernels"]["pwconv"])
+        + f32["kernels"]["pwconv"]
+        + sum(round(r["launches"][ph]["pwconv"] * (1 if ph == "prefill"
+                                                   else TP_GEN))
+              for r in rec for ph in ("prefill", "decode")))
+    res["dwconv1d_launches"] = sum(r["launches"]["prefill"]["dwconv1d"]
+                                   for r in rec)
     return res
 
 
@@ -4101,6 +4256,15 @@ def main() -> int:
                             (100, 3200, None), (1600, 5504, "silu")):
             kc.pwconv(g, ci, co, dtype, act=act, launches=2)
         kc.pwconv(8, 1600, 6400, dtype, act=None)
+        # hymba under a model axis: the Mamba conv on a rank's channel
+        # block at tp 2 and 4, and the Linears' local widths (w_bcdt's 66
+        # and 33 columns, w_dt's 50 and 25 rows) in a prefill and a step
+        for d_local in (1600, 800):
+            kc.dwconv1d(8, 128 + HYMBA_PROMPT, d_local, 4, dtype)
+        for rows in (g, 8):
+            for ci, co in ((3200, 66), (3200, 33), (50, 3200), (25, 3200)):
+                kc.pwconv(rows, ci, co, dtype, act=None,
+                          launches=2 if rows == g else 20)
         # qwen3-1.7b: a batch-8 512-token prefill's q/o, k/v and the MLP's
         # gate, and decode's gate and q at batch 8
         for ci, co, act in ((2048, 2048, None), (2048, 1024, None),
@@ -4187,12 +4351,13 @@ def main() -> int:
         launches[name] += n
     t_phase = time.perf_counter()
     print("sharded serving on the one card: qwen3-1.7b world 1 under NCCL "
-          "as CUDA graphs; qwen3-1.7b tp 2 and qwen3-moe EP tp 2 as two "
-          "gloo ranks:")
+          "as CUDA graphs; qwen3-1.7b tp 2, qwen3-moe EP tp 2, hymba-1.5b, "
+          "xlstm-125m and whisper-small tp 2 as two gloo ranks:")
     torch.cuda.empty_cache()
     sharded = run_sharded_phase()
     sharded_s = took("sharded serving")
     launches["pwconv"] += sharded["pwconv_launches"]
+    launches["dwconv1d"] += sharded["dwconv1d_launches"]
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
                          (hymba_launches, hymba_replayed, hymba_variants),
                          (attn_launches, attn_replayed, attn_variants),

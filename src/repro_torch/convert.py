@@ -14,7 +14,11 @@ with dots (``meta``, the meta tokens, and whisper's ``enc_pos`` and
 ``blocks_v{vi}[g]`` and encoder layer ``g`` ``enc_blocks[g]``.
 
 Under a mesh (``rules``) each rank loads its block of every leaf
-(``sharding.rules.param_specs``), cut from the whole array on the host.
+(``sharding.rules.param_specs``), cut from the whole array on the host;
+the fused projections part by part (``models.transformer.param_parts``:
+the Mamba's ``w_in``, the mLSTM's ``w_up`` and gates, the sLSTM's gates),
+as ``init_params`` cuts them, so a rank loaded from the reference holds
+what a rank drawn by ``init_params`` holds.
 
 Leaves may be numpy arrays or anything ``numpy.asarray`` accepts (a JAX
 array converts on the host); this module imports neither JAX nor the
@@ -114,7 +118,7 @@ def lm_params_from_numpy(jax_params, cfg, device="cuda", rules=None):
     port's ``LMModel`` on ``device``; under the mesh of ``rules`` (default:
     the context's) this rank's blocks of them."""
     from repro_torch.core.network import require_device
-    from repro_torch.models.transformer import build_model
+    from repro_torch.models.transformer import build_model, param_parts
     from repro_torch.sharding.rules import (active_mesh, current_rules,
                                             local_block, param_specs)
     dev = require_device(device)
@@ -124,7 +128,8 @@ def lm_params_from_numpy(jax_params, cfg, device="cuda", rules=None):
     leaves = lm_leaves(jax_params, len(model.pattern))
     if active_mesh(r) is not None:
         specs = param_specs({n: np.shape(a) for n, a in leaves.items()}, r)
+        parts = param_parts(model)
         leaves = {n: local_block(tensor_from_numpy(np.array(a), "cpu"),
-                                 specs[n], r.mesh)
+                                 specs[n], r.mesh, parts=parts.get(n, 1))
                   for n, a in leaves.items()}
     return load_tree_(model, leaves)

@@ -6,6 +6,11 @@
   ``dwconv1d`` kernel on the card, with :func:`depthwise1d_step` for
   decode (the plain one-row step, as in the reference, which launches no
   kernel) and :func:`conv_tail`, the state a prefill hands to decode.
+
+Under a model axis the channels are split (the paper's DWConv across
+ranks): each rank calls these on its contiguous block of D/tp channels
+with its block of the filter, and its conv state is that block's; the
+conv needs no collective.
 """
 from __future__ import annotations
 

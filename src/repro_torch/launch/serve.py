@@ -21,9 +21,11 @@ card (NCCL refuses two ranks on one device); its collectives go through
 host copies and it runs eager, as gloo cannot be captured.  The group's
 set-up and every collective wait at most ``mesh.DEFAULT_TIMEOUT_S``
 seconds, so a lost rank fails the launch (``torchrun`` then stops the
-others and exits non-zero).  Sharded serving covers the attention-MLP families; hymba,
-xLSTM and whisper raise under ``--model-parallel`` above 1 or a world of
-more than one rank.
+others and exits non-zero).  Every family serves sharded: the
+attention-MLP transformers, hymba (its Mamba branch over channels), xLSTM
+(over heads) and whisper (its encoder by head, the cross attention's cache
+by frame); a recurrent width that does not split whole over the model
+axis raises (``transformer.check_mesh``).
 
 ``<id>`` is any of ``configs.registry.ARCH_IDS`` (every reference
 architecture).  ``--max-len`` bounds the attention caches and counts the
@@ -34,7 +36,9 @@ llama4's 64 fusion embeddings) gets a zero frontend stub of that many
 embeddings, as the reference's launcher gives it.  An encoder-decoder
 (whisper-small) gets encoder frames (B, 1500, d) drawn from ``--seed``
 (the reference's launcher gives zeros, which with ``enc_pos`` would test
-little); they are no prefix, and the prefill runs the encoder.
+little); they are no prefix, and the prefill runs the encoder.  Every
+rank draws the same frames from the seed on the host and hands the whole
+batch to the prefill, which keeps its rows.
 
 Weights are random, drawn from ``--seed``.  On the card the prefill and the
 decode step are CUDA graphs (``serve_step.capture_prefill`` and

@@ -43,6 +43,15 @@ local max, sum and weighted V, combined by one ``all_reduce`` of the
 maxima and one of the rescaled sums and outputs (:func:`_combine_slots`).
 The new token's K and V are written by the rank that owns its slot, by a
 masked write with no host branch.
+
+Whisper's cross attention under the model axis: the encoder's K and V
+are split by head (their columns), but the cache holds them split by
+frame (``"enc_k"``, ``"enc_v"``: the reference's ``"cache"`` kind), so a
+prefill turns the rank's heads of every frame into every head of its
+frames with one ``all_to_all`` (:func:`_heads_to_frames`).  A decode
+step's cross attention (:func:`cross_decode`) is flash-decoding over the
+rank's frames, unmasked: the query gathered whole, the maxima and then
+the sums reduced over the axis.
 """
 from __future__ import annotations
 
@@ -138,11 +147,39 @@ def _kv_for_heads(k, v, q0: int, hq: int, group_size: int):
 
 
 def project_q(p: Attention, x, n_heads, head_dim, *, qk_norm, policy):
-    """The query projection alone (with its qk-norm): what a decode step's
-    cross attention needs, its K/V being the encoder's, cached."""
+    """The query projection alone (with its qk-norm), every head (gathered
+    where the columns are split): what a decode step's cross attention
+    needs, its K/V being the encoder's, cached."""
     b, s, _ = x.shape
-    q = linear(p.w_q, x, policy=policy).reshape(b, s, n_heads, head_dim)
+    qc = linear(p.w_q, x, policy=policy)
+    if qc.shape[-1] != n_heads * head_dim:
+        qc, = collectives.all_gather_last([qc], model_shard()[2])
+    q = qc.reshape(b, s, n_heads, head_dim)
     return rms_norm(q, p.q_norm["scale"]) if qk_norm else q
+
+
+def cross_decode(q, k, v, frames: int) -> torch.Tensor:
+    """A decode step's cross attention: q (B,1,Hq,dh) every head against
+    the encoder's cached k, v (B,S,Hkv,dh), unmasked -> (B,1,Hq,dh) in
+    q's dtype.  Where the cache holds this rank's block of the ``frames``
+    (S < frames), flash-decoding over the model axis."""
+    if k.shape[1] == frames:
+        return dense_attention(q, k, v, causal=False)
+    scores = _gqa_scores(q, k) * (q.shape[-1] ** -0.5)     # (B,Hq,1,S)
+    return _combine_slots(scores, v, model_shard()[2]).to(q.dtype)
+
+
+def _heads_to_frames(k, v, tp: int, group):
+    """The rank's heads of every frame, k and v (B,S,h,dh), as every head
+    (tp * h) of the rank's block of S / tp frames, in one all_to_all:
+    block j of the frames goes to rank j, which receives each rank's
+    heads of them in rank order."""
+    b, s, h, dh = k.shape
+    kv = torch.stack([k, v]).reshape(2, b, tp, s // tp, h, dh)
+    got = collectives.all_to_all(kv.permute(2, 0, 1, 3, 4, 5).contiguous(),
+                                 group)                # (tp, 2, b, s/tp, h, dh)
+    got = got.permute(1, 2, 3, 0, 4, 5).reshape(2, b, s // tp, tp * h, dh)
+    return got[0], got[1]
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +409,10 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     attention to it, unmasked and without RoPE.  Dense when both lengths
     fit one ``chunk``, else blockwise.  Returns the block's output (B, S,
     d_model) [, (k, v)]: the K/V (after RoPE), which prefill writes into
-    the decode cache (a cross attention's: the encoder's cached K/V)."""
+    the decode cache (a cross attention's: the encoder's cached K/V).
+    Under a model axis the K/V returned hold every head: of every
+    position, or, for a cross attention whose heads were split and whose
+    S_src divides, of the rank's block of S_src / tp frames."""
     b, s, _ = x.shape
     src = x if xkv is None else xkv
     tp, _, group = model_shard()
@@ -397,7 +437,10 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
                                   sink=sink, chunk=chunk)
     out = out.reshape(b, s, hq * head_dim).contiguous()
     out = row_linear(p.w_o, out, n_heads * head_dim, policy=policy)
-    if return_kv and kv_local:             # the cache holds every KV head
+    if return_kv and kv_local and xkv is not None and (
+            src.shape[1] % tp == 0):       # the encoder's cache: frames
+        k, v = _heads_to_frames(k, v, tp, group)
+    elif return_kv and kv_local:           # the cache holds every KV head
         hkv, dh = k.shape[2:]
         k, v = (t.reshape(b, -1, tp * hkv, dh) for t in
                 collectives.all_gather_last(

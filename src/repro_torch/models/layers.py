@@ -22,7 +22,8 @@ Under a mesh every parameter is one rank's block of the unsharded one:
 it is made (drawn whole, in the unsharded order, then cut), and the
 layers here are the sharded forms the rest of the stack calls: the
 vocab-parallel embedding (:func:`embed` with ``vocab``), the row-parallel
-Linear (:func:`row_linear`) and the unembedding's gather of its vocab
+Linear (:func:`row_linear`), the RMS norm of a split width
+(:func:`rms_norm_split`) and the unembedding's gather of its vocab
 blocks (:func:`unembed_logits` with ``vocab``).  A column-parallel Linear
 is :func:`linear` on the local columns.  Without a mesh, or on one of one
 rank, each is the one-device op.
@@ -106,6 +107,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over a last dimension of ``scale``'s width, where
+    ``x`` holds the rank's block of it (split over the model axis): each
+    row's sum of squares is all-reduced, and the rank's block of ``scale``
+    applies.  :func:`rms_norm` where ``x`` is whole."""
+    width, whole = x.shape[-1], scale.shape[-1]
+    if width == whole:
+        return rms_norm(x, scale, eps)
+    _, rank, group = model_shard()
+    xf = x.float()
+    sq = collectives.all_reduce(xf.square().sum(dim=-1, keepdim=True), group)
+    y = xf * torch.rsqrt(sq / whole + eps)
+    block = scale[rank * width:(rank + 1) * width]
+    return (y * (1.0 + block.float())).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor,

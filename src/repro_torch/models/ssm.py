@@ -18,6 +18,29 @@ backward the reverse linear recurrence ``g_t = dh_t + a_{t+1} g_{t+1}``
 by the same doubling steps run from the chunk's end.  It keeps the chunk's
 states, one (B, chunk, d_inner, N) fp32 tensor, where autograd through the
 doubling steps would keep two for every step.
+
+Under a model axis of tp > 1 ranks (the sharding rules' layout, the
+paper's DWConv split over channels: ``conv``, ``a_log``, ``d_skip`` and
+``dt_bias`` hold the rank's block of d_inner/tp channels) each rank runs
+the mixer on its channels, with the collectives at the layer's edges:
+
+* ``w_in`` is cut part by part (``SPLIT_PARTS``): the rank holds block r
+  of x's columns and block r of z's, side by side, so its ``xz`` is its
+  channels of x and of z and the projection needs no collective;
+* ``dwconv1d`` runs on the rank's (B, L, d_inner/tp) block, contiguous;
+  the selective scan on its channels, the state (B, d_inner/tp, N) its
+  block: no collective inside either;
+* ``w_bcdt`` reads every channel: the conv's output is gathered once
+  (all_gather 1); where its 2N + dt_rank columns split, the rank's
+  columns of ``bcdt`` are gathered too (all_gather 2);
+* ``w_dt`` is row-parallel (``layers.row_linear``: the rank's rows of
+  dt_rank, fp32 partial sums all-reduced, all_reduce 3), and the rank
+  keeps its channels of the sum;
+* ``w_out`` is row-parallel on the rank's channels (all_reduce 4), so the
+  mixer's output is whole on every rank.
+
+A prefill and a decode step make the same four collectives a layer, at
+any length.
 """
 from __future__ import annotations
 
@@ -32,7 +55,10 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.core.dwconv import (conv_tail, depthwise1d_causal,
                                      depthwise1d_step)
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import init_linear, linear, param, rand, randn
+from repro_torch.models.layers import (init_linear, linear, param, rand,
+                                       randn, row_linear)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import model_shard
 
 
 class Mamba(nn.Module):
@@ -42,12 +68,16 @@ class Mamba(nn.Module):
     softplus(bias) spans [dt_min, dt_max]), ``a_log`` (d_inner, N) fp32,
     ``d_skip`` fp32 and ``w_out`` (d_inner -> d)."""
 
+    #: Leaves cut part by part under a model axis: ``w_in``'s ``[x | z]``.
+    SPLIT_PARTS = {"w_in.w": 2}
+
     def __init__(self, d_model: int, cfg: SSMConfig, *,
                  generator: torch.Generator, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
         di, n = d_model * cfg.expand, cfg.d_state
         dt_rank = max(1, d_model // 16)
+        self.d_inner, self.dt_rank = di, dt_rank
         lin = dict(dtype=dtype, device=device)
         self.w_in = init_linear(generator, d_model, 2 * di, **lin)
         self.conv = param(randn(generator, (cfg.conv_k, di),
@@ -168,13 +198,23 @@ def selective_step(h, u_t, dt_t, a, b_t, c_t, d_skip):
 
 
 def _proj_scan_inputs(p: Mamba, xi: torch.Tensor, cfg: SSMConfig, policy):
-    """xi (..., di) conv+silu output -> (dt, b, c), fp32.  The dt columns
+    """xi (..., di) conv+silu output (under a model axis the rank's
+    channels) -> (dt at the same channels, b, c), fp32.  The dt columns
     of ``w_bcdt``'s output are copied out before ``w_dt``'s kernel reads
     them (a column slice is a strided view)."""
     n = cfg.d_state
-    bcdt = linear(p.w_bcdt, xi, policy=policy).float()
-    b, c, dt_low = torch.split(bcdt, [n, n, bcdt.shape[-1] - 2 * n], dim=-1)
-    dt = linear(p.w_dt, dt_low.to(xi.dtype).contiguous(), policy=policy)
+    _, rank, group = model_shard()
+    width = xi.shape[-1]
+    xin = (xi if width == p.d_inner
+           else collectives.all_gather(xi, group, dim=-1))
+    bcdt = linear(p.w_bcdt, xin, policy=policy)
+    if bcdt.shape[-1] != 2 * n + p.dt_rank:     # the rank's columns
+        bcdt = collectives.all_gather(bcdt, group, dim=-1)
+    b, c, dt_low = torch.split(bcdt.float(), [n, n, p.dt_rank], dim=-1)
+    dt = row_linear(p.w_dt, dt_low.to(xi.dtype).contiguous(), p.dt_rank,
+                    policy=policy)
+    if width != p.d_inner:                      # the rank's channels
+        dt = dt[..., rank * width:(rank + 1) * width]
     dt = F.softplus(dt.float() + p.dt_bias)
     return dt, b, c
 
@@ -183,7 +223,8 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: SSMConfig, *,
                 policy: KernelPolicy = DEFAULT_POLICY,
                 h0: Optional[torch.Tensor] = None,
                 return_state: bool = False):
-    """Full-sequence mixer. x (B, L, d) -> (B, L, d).
+    """Full-sequence mixer. x (B, L, d) -> (B, L, d); under a model axis
+    ``x`` and the output are whole and the state is the rank's channels.
 
     return_state: also return the decode cache {h, conv} after the last
     position (conv = last K-1 *pre-conv* inputs, matching
@@ -198,7 +239,7 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: SSMConfig, *,
     y, h_last = selective_scan(xi, dt, a, b, c, p.d_skip, chunk=cfg.chunk,
                                h0=h0)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = linear(p.w_out, y, policy=policy)
+    out = row_linear(p.w_out, y, p.d_inner, policy=policy)
     if return_state:
         return out, {"h": h_last, "conv": conv_tail(xi_raw,
                                                     p.conv.shape[0])}
@@ -226,5 +267,5 @@ def mamba_mixer_step(p: Mamba, x_t: torch.Tensor, state: dict,
     a = -torch.exp(p.a_log)
     h, y = selective_step(state["h"], xi.float(), dt, a, b, c, p.d_skip)
     y = (y * F.silu(z.float())).to(x_t.dtype)
-    out = linear(p.w_out, y, policy=policy)[:, None, :]
+    out = row_linear(p.w_out, y, p.d_inner, policy=policy)[:, None, :]
     return out, {"h": h, "conv": conv_state.float()}

@@ -37,16 +37,21 @@ forward draws no random numbers, so that is exact, and the captured
 train step reads no generator state inside its capture.
 
 Sharded serving (under ``sharding.rules.use_rules`` with a mesh of more
-than one rank; the attention-MLP families only): :func:`init_params`
-draws every parameter whole, in the unsharded order, and keeps the rank's
-block of it (``param_specs``), so a sharded model holds exactly the
-unsharded model's values; :func:`hidden_states` takes the whole batch and
-keeps the rank's rows (``shard_act(tokens, "tokens")``); the layers run
-tensor-parallel (``attention.py``, ``mlp.py``, ``layers.py``) and a MoE
-layer expert-parallel (``moe.moe_forward`` with the mesh,
-:func:`_moe_kwargs`).  hymba, xLSTM and whisper raise under such a mesh
-(ROADMAP.md queue A, item 4.3.2), as do sequence-parallel activations and
-weights split over "data" outside the experts (item 4.3.3).
+than one rank): :func:`init_params` draws every parameter whole, in the
+unsharded order, and keeps the rank's block of it (``param_specs``; a
+fused projection part by part, :func:`param_parts`), so a sharded model
+holds exactly the unsharded model's values; :func:`hidden_states` takes
+the whole batch (and an encoder-decoder's whole frames) and keeps the
+rank's rows (``shard_act(tokens, "tokens")``); the layers run
+tensor-parallel (``attention.py``, ``mlp.py``, ``layers.py``; hymba's
+Mamba branch over its channels, ``ssm.py``; the mLSTM and sLSTM over
+their heads, ``xlstm.py``; whisper's encoder and cross attention by head,
+its cached K/V by frame) and a MoE layer expert-parallel
+(``moe.moe_forward`` with the mesh, :func:`_moe_kwargs`).  The residual
+stream stays whole on every rank: hymba's ``mix`` and meta tokens need
+no collective.  Sequence-parallel activations and weights split over
+"data" outside the experts raise (ROADMAP.md queue A, item 4.3.3), as do
+recurrent widths that do not split whole (:func:`check_mesh`).
 """
 from __future__ import annotations
 
@@ -67,8 +72,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models import layers
 from repro_torch.models.layers import (chunked_cross_entropy, embed,
-                                       init_embedding, init_norm, linear,
-                                       norm, param, randn)
+                                       init_embedding, init_norm, norm,
+                                       param, randn, row_linear)
 from repro_torch.models.mlp import MLP
 from repro_torch.sharding.rules import (active_mesh, current_rules,
                                         local_block, param_specs, shard_act)
@@ -242,18 +247,22 @@ def _moe_kwargs() -> dict:
 
 def check_mesh(cfg: ModelConfig, rules=None) -> None:
     """Raise where ``cfg`` cannot run under the mesh of ``rules`` (default:
-    the context's): hymba, xLSTM and whisper, sequence-parallel
-    activations, and dense weights split over "data"."""
+    the context's): sequence-parallel activations, dense weights split
+    over "data", and recurrent layers whose channels (the Mamba branch's
+    d_inner) or heads (the mLSTM's and sLSTM's) do not split whole over
+    the model axis."""
     r = rules if rules is not None else current_rules()
     if active_mesh(r) is None:
         return
-    kinds = {v.kind for v in model_pattern(cfg)}
-    if kinds != {"attn_mlp"}:
+    tp = r.model_size
+    if cfg.ssm is not None and (cfg.d_model * cfg.ssm.expand) % tp:
         raise NotImplementedError(
-            f"{cfg.name} ({', '.join(sorted(kinds))} layers) does not run "
-            f"sharded yet: only the attention-MLP families do; hymba's conv "
-            f"filter over channels, xLSTM and whisper are ROADMAP.md queue "
-            f"A, item 4.3.2")
+            f"{cfg.name}: the Mamba branch's {cfg.d_model * cfg.ssm.expand} "
+            f"channels do not split over {tp} ranks")
+    if cfg.xlstm is not None and cfg.n_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: the xLSTM's {cfg.n_heads} heads do not split over "
+            f"{tp} ranks")
     if r.seq_axis is not None:
         raise NotImplementedError(
             "sequence-parallel activations (seq_axis) are not ported to the "
@@ -392,11 +401,11 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
         xc = norm(x_t, block.ln_cross, cfg.norm_type)
         q = attn_lib.project_q(block.cross, xc, cfg.n_heads, cfg.head_dim,
                                qk_norm=cfg.qk_norm, policy=policy)
-        cross = attn_lib.dense_attention(q, *enc_kv, causal=False)
-        cross = cross.reshape(x_t.shape[0], 1,
-                              cfg.n_heads * cfg.head_dim).contiguous()
-        return block.finish(x_t, linear(block.cross.w_o, cross,
-                                        policy=policy), cfg, policy), new
+        cross = attn_lib.cross_decode(q, *enc_kv, cfg.encdec.enc_seq)
+        width = cfg.n_heads * cfg.head_dim
+        cross = cross.reshape(x_t.shape[0], 1, width).contiguous()
+        return block.finish(x_t, row_linear(block.cross.w_o, cross, width,
+                                            policy=policy), cfg, policy), new
     mamba_out, new["mamba"] = ssm_lib.mamba_mixer_step(
         block.mamba, xn, cache["mamba"], cfg.ssm, policy=policy)
     return block.mix(x_t, attn_out, mamba_out, cfg, policy), new
@@ -461,6 +470,23 @@ class LMModel(nn.Module):
             self.cfg.torch_dtype).contiguous()
 
 
+def param_parts(model: nn.Module) -> dict:
+    """``{parameter name: parts}`` of the leaves the port cuts part by part
+    under a model axis (each module's ``SPLIT_PARTS``: the Mamba's
+    ``w_in``, the mLSTM's ``w_up`` and gates, the sLSTM's gates): the last
+    dimension is that many equal parts (``[x | z]``, ``[i | f]``, ``[z | i
+    | f | o]``), and a rank holds its block of each
+    (``rules.local_block(..., parts=)``), so that its channels or heads
+    line up across them.  The reference cuts them whole and lets its
+    partitioner move the halves; every other leaf is cut as the rules
+    say."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for leaf, n in getattr(mod, "SPLIT_PARTS", {}).items():
+            out[f"{prefix}.{leaf}" if prefix else leaf] = n
+    return out
+
+
 def _block_hook(cfg: ModelConfig, rules):
     """A ``layers.param_hook`` that cuts each parameter of an
     ``LMModel(cfg)`` to this rank's block under ``rules``, in the order the
@@ -469,11 +495,13 @@ def _block_hook(cfg: ModelConfig, rules):
     with layers.param_hook(lambda p: made.append(p) or p):
         meta = LMModel(cfg, generator=torch.Generator(), device="meta")
     names = {id(p): n for n, p in meta.named_parameters()}
-    specs = param_specs(meta, rules)
-    order = iter([specs[names[id(p)]] for p in made])
+    specs, parts = param_specs(meta, rules), param_parts(meta)
+    order = iter([(specs[names[id(p)]], parts.get(names[id(p)], 1))
+                  for p in made])
 
     def hook(p):
-        block = local_block(p.data, next(order), rules.mesh)
+        spec, n = next(order)
+        block = local_block(p.data, spec, rules.mesh, parts=n)
         return p if block is p.data else nn.Parameter(block,
                                                       requires_grad=False)
     return hook
@@ -577,7 +605,8 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     if cfg.encdec is not None:
         if frontend is None:
             raise ValueError("an encoder-decoder model needs encoder frames")
-        enc_out = run_encoder(model, frontend.to(x.dtype), policy)
+        enc_out = run_encoder(model, shard_act(frontend, "btd").to(x.dtype),
+                              policy)
     else:
         if cfg.meta_tokens:
             pieces.append(model.meta_embeds(b))

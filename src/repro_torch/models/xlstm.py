@@ -36,6 +36,29 @@ kernel on the card); the conv pre-activation through
 ``depthwise1d_causal`` (the ``dwconv1d`` kernel) over a sequence, and the
 plain one-row ``depthwise1d_step`` in decode.  Operands handed to a kernel
 are made contiguous (``torch.chunk`` halves are strided views).
+
+Under a model axis of tp > 1 ranks (the sharding rules' layout; the heads
+split whole, which ``transformer.check_mesh`` asks for) each rank runs its
+heads, and the recurrent state it carries is their block:
+
+* mLSTM: ``w_up`` is cut part by part (``SPLIT_PARTS``: block r of xv's
+  columns and block r of xz's), so the rank's ``dwconv1d`` runs on its
+  d_inner/tp channels of xv with no collective.  q, k, v and the gates
+  read every channel: xv and the conv's output travel in one all_gather
+  (1).  ``w_q``, ``w_k`` and ``w_v`` give the rank's heads, ``w_gates``
+  (cut part by part, ``[i | f]``) their input and forget gates; the
+  chunkwise and recurrent cells run on them.  The output norm, over all
+  of d_inner, all-reduces each row's sum of squares (2)
+  (``layers.rms_norm_split``); ``w_down`` is row-parallel (3).
+* sLSTM: the rank's d_model/tp channels of the normalized input go
+  through ``dwconv1d``; the conv's output is gathered (1); ``w_gates``
+  and its bias, cut part by part (``[z | i | f | o]``), give each gate at
+  the rank's heads, which ``r``'s block of heads matches; the recurrence
+  runs on them, and its output is gathered (2) before the output norm.
+  The FFN is column-parallel, ``w_ff_down`` row-parallel (3).
+
+No collective sits in a time loop: the chunkwise cell's, the sLSTM's or
+its chunk checkpoint's.  A prefill and a decode step make three a layer.
 """
 from __future__ import annotations
 
@@ -49,7 +72,10 @@ from repro_torch.core.dwconv import (conv_tail, depthwise1d_causal,
                                      depthwise1d_step)
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models.layers import (init_linear, init_norm, linear, param,
-                                       randn, rms_norm)
+                                       randn, rms_norm, rms_norm_split,
+                                       row_linear)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import model_shard
 
 NEG_INF = -1e30
 
@@ -239,12 +265,17 @@ class MLSTMBlock(nn.Module):
     """x (B, L, d) -> (B, L, d) with residual (``repro``'s
     ``init_mlstm_block`` / ``mlstm_block`` / ``mlstm_block_step``)."""
 
+    #: Leaves cut part by part under a model axis: ``w_up``'s ``[xv |
+    #: xz]`` and the gates' ``[i | f]``.
+    SPLIT_PARTS = {"w_up.w": 2, "w_gates.w": 2, "w_gates.b": 2}
+
     def __init__(self, d_model: int, n_heads: int, cfg: XLSTMConfig, *,
                  generator: torch.Generator, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
         di = int(d_model * cfg.proj_factor)
         self.d_model, self.n_heads, self.cfg = d_model, n_heads, cfg
+        self.di = di
         lin = dict(dtype=dtype, device=device)
         self.norm = init_norm("rms", d_model, device=device)
         self.w_up = init_linear(generator, d_model, 2 * di, **lin)
@@ -258,17 +289,32 @@ class MLSTMBlock(nn.Module):
         self.out_norm = init_norm("rms", di, device=device)
         self.w_down = init_linear(generator, di, d_model, **lin)
 
+    def _whole(self, xv, xc):
+        """xv and the conv's output, every channel: gathered in one
+        all_gather where they are the rank's block."""
+        if xv.shape[-1] == self.di:
+            return xv, xc
+        return tuple(collectives.all_gather_last([xv, xc],
+                                                 model_shard()[2]))
+
+    def _project(self, xv, xc, shape, policy):
+        """q, k, v (``shape`` + (heads, dh): the rank's heads) and the
+        input and log forget gates (``shape`` + (heads,)) from xv and the
+        conv's output, both of every channel."""
+        dh = self.di // self.n_heads
+        h = self.w_q["w"].shape[-1] // dh
+        q = linear(self.w_q, xc, policy=policy).reshape(*shape, h, dh)
+        k = linear(self.w_k, xc, policy=policy).reshape(*shape, h, dh)
+        v = linear(self.w_v, xv, policy=policy).reshape(*shape, h, dh)
+        gates = linear(self.w_gates, xc, policy=policy).float()
+        igate, fraw = torch.chunk(gates, 2, dim=-1)
+        return q, k, v, igate, F.logsigmoid(fraw)
+
     def _qkv_gates(self, xv, policy):
-        b, l, di = xv.shape
-        dh = di // self.n_heads
+        b, l, _ = xv.shape
         xc = depthwise1d_causal(xv, self.conv.to(xv.dtype), policy=policy)
         xc = F.silu(xc)
-        q = linear(self.w_q, xc, policy=policy).reshape(b, l, self.n_heads, dh)
-        k = linear(self.w_k, xc, policy=policy).reshape(b, l, self.n_heads, dh)
-        v = linear(self.w_v, xv, policy=policy).reshape(b, l, self.n_heads, dh)
-        gates = linear(self.w_gates, xc, policy=policy).float()
-        igate, fraw = torch.chunk(gates, 2, dim=-1)   # (B,L,H)
-        return q, k, v, igate, F.logsigmoid(fraw)
+        return self._project(*self._whole(xv, xc), (b, l), policy)
 
     def forward(self, x, *, chunk: int = 128,
                 policy: KernelPolicy = DEFAULT_POLICY,
@@ -280,9 +326,10 @@ class MLSTMBlock(nn.Module):
         q, k, v, igate, logf = self._qkv_gates(xv, policy)
         h, (c, n, m) = mlstm_chunkwise(q, k, v, igate, logf, chunk=chunk)
         b, l = x.shape[:2]
-        h = rms_norm(h.reshape(b, l, -1).to(x.dtype), self.out_norm["scale"])
+        h = rms_norm_split(h.reshape(b, l, -1).to(x.dtype),
+                           self.out_norm["scale"])
         h = h * F.silu(xz)
-        out = x + linear(self.w_down, h, policy=policy)
+        out = x + row_linear(self.w_down, h, self.di, policy=policy)
         if return_cache:
             return out, {"c": c, "n": n, "m": m,
                          "conv": conv_tail(xv, self.cfg.conv_k)}
@@ -299,19 +346,14 @@ class MLSTMBlock(nn.Module):
         conv_state, xc = depthwise1d_step(
             cache["conv"].to(xv.dtype), xv, self.conv.to(xv.dtype))
         xc = F.silu(xc)
-        di = xv.shape[-1]
-        dh = di // self.n_heads
-        q = linear(self.w_q, xc, policy=policy).reshape(b, self.n_heads, dh)
-        k = linear(self.w_k, xc, policy=policy).reshape(b, self.n_heads, dh)
-        v = linear(self.w_v, xv, policy=policy).reshape(b, self.n_heads, dh)
-        gates = linear(self.w_gates, xc, policy=policy).float()
-        igate, fraw = torch.chunk(gates, 2, dim=-1)
-        h, (c, n, m) = mlstm_step(q, k, v, igate, F.logsigmoid(fraw),
+        q, k, v, igate, logf = self._project(*self._whole(xv, xc), (b,),
+                                             policy)
+        h, (c, n, m) = mlstm_step(q, k, v, igate, logf,
                                   (cache["c"], cache["n"], cache["m"]))
-        h = rms_norm(h.reshape(b, 1, di).to(x_t.dtype),
-                     self.out_norm["scale"])
+        h = rms_norm_split(h.reshape(b, 1, -1).to(x_t.dtype),
+                           self.out_norm["scale"])
         h = h * F.silu(xz)
-        out = x_t + linear(self.w_down, h, policy=policy)
+        out = x_t + row_linear(self.w_down, h, self.di, policy=policy)
         return out, {"c": c, "n": n, "m": m, "conv": conv_state.float()}
 
 
@@ -329,13 +371,18 @@ class SLSTMBlock(nn.Module):
     GLU FFN (factor 4/3), each with a residual (``repro``'s
     ``init_slstm_block`` / ``slstm_block`` / ``slstm_block_step``)."""
 
+    #: Leaves cut part by part under a model axis: the gates' ``[z | i |
+    #: f | o]``.
+    SPLIT_PARTS = {"w_gates.w": 4, "w_gates.b": 4}
+
     def __init__(self, d_model: int, n_heads: int, cfg: XLSTMConfig, *,
                  generator: torch.Generator, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
         dh = d_model // n_heads
         ff = int(d_model * 4 / 3 / 64) * 64 or d_model
-        self.d_model, self.n_heads, self.cfg = d_model, n_heads, cfg
+        self.d_model, self.n_heads, self.cfg, self.ff = (d_model, n_heads,
+                                                         cfg, ff)
         lin = dict(dtype=dtype, device=device)
         self.norm = init_norm("rms", d_model, device=device)
         self.conv = param(randn(generator, (cfg.conv_k, d_model),
@@ -354,21 +401,43 @@ class SLSTMBlock(nn.Module):
         xn = rms_norm(x, self.ffn_norm["scale"])
         g = linear(self.w_ff_gate, xn, activation="silu", policy=policy)
         u = linear(self.w_ff_up, xn, policy=policy)
-        return x + linear(self.w_ff_down, g * u, policy=policy)
+        return x + row_linear(self.w_ff_down, g * u, self.ff, policy=policy)
+
+    def _channels(self, xn):
+        """The conv's input: the rank's block of ``xn``'s channels,
+        contiguous (``xn`` itself where the filter is whole)."""
+        width = self.conv.shape[-1]
+        if width == self.d_model:
+            return xn
+        rank = model_shard()[1]
+        return xn[..., rank * width:(rank + 1) * width].contiguous()
+
+    def _whole(self, t):
+        """``t`` (..., width) at every channel: gathered where it holds
+        the rank's block of d_model (the conv's output, the cell's)."""
+        if t.shape[-1] == self.d_model:
+            return t
+        return collectives.all_gather(t, model_shard()[2], dim=-1)
+
+    def _gates(self, xc, shape, policy):
+        """The four gates' pre-activations at the rank's heads (``shape``
+        + (heads, dh)) from the conv's output."""
+        dh = self.d_model // self.n_heads
+        gates = linear(self.w_gates, self._whole(xc), policy=policy).float()
+        h = gates.shape[-1] // (4 * dh)
+        return tuple(g.reshape(*shape, h, dh)
+                     for g in torch.chunk(gates, 4, dim=-1))
 
     def forward(self, x, *, chunk: int = 128,
                 policy: KernelPolicy = DEFAULT_POLICY,
                 return_cache: bool = False):
-        b, l, d = x.shape
-        dh = d // self.n_heads
-        xn = rms_norm(x, self.norm["scale"])
+        b, l, _ = x.shape
+        xn = self._channels(rms_norm(x, self.norm["scale"]))
         xc = F.silu(depthwise1d_causal(xn, self.conv.to(xn.dtype),
                                        policy=policy))
-        gates = linear(self.w_gates, xc, policy=policy).float()
-        zg, ig, fg, og = (g.reshape(b, l, self.n_heads, dh)
-                          for g in torch.chunk(gates, 4, dim=-1))
+        zg, ig, fg, og = self._gates(xc, (b, l), policy)
         h, (c, n, hs, m) = slstm_scan(zg, ig, fg, og, self.r, chunk=chunk)
-        h = h.reshape(b, l, d).to(x.dtype)
+        h = self._whole(h.reshape(b, l, -1).to(x.dtype))
         out = self._ffn(x + rms_norm(h, self.out_norm["scale"]), policy)
         if return_cache:
             return out, {"c": c, "n": n, "h": hs, "m": m,
@@ -378,18 +447,15 @@ class SLSTMBlock(nn.Module):
     def step(self, x_t, cache: dict, *,
              policy: KernelPolicy = DEFAULT_POLICY):
         """x_t (B, 1, d) -> (B, 1, d); cache from :func:`init_slstm_cache`."""
-        b, _, d = x_t.shape
-        dh = d // self.n_heads
-        xn = rms_norm(x_t, self.norm["scale"])
+        b = x_t.shape[0]
+        xn = self._channels(rms_norm(x_t, self.norm["scale"]))
         conv_state, xc = depthwise1d_step(
             cache["conv"].to(xn.dtype), xn[:, 0], self.conv.to(xn.dtype))
-        gates = linear(self.w_gates, F.silu(xc), policy=policy).float()
-        zg, ig, fg, og = (g.reshape(b, self.n_heads, dh)
-                          for g in torch.chunk(gates, 4, dim=-1))
+        zg, ig, fg, og = self._gates(F.silu(xc), (b,), policy)
         h, (c, n, hs, m) = slstm_step(
             zg, ig, fg, og, self.r,
             (cache["c"], cache["n"], cache["h"], cache["m"]))
-        h = h.reshape(b, 1, d).to(x_t.dtype)
+        h = self._whole(h.reshape(b, 1, -1).to(x_t.dtype))
         out = self._ffn(x_t + rms_norm(h, self.out_norm["scale"]), policy)
         return out, {"c": c, "n": n, "h": hs, "m": m,
                      "conv": conv_state.float()}

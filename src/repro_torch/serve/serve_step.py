@@ -41,16 +41,24 @@ embeddings.  An encoder-decoder's cache adds ``"enc_k", "enc_v":
 under ``kv_quant``): written once by the prefill and only read by the
 decode steps, which pass them on as they are.
 
-Under a mesh (``sharding.rules.use_rules``; the attention-MLP families)
-every rank runs these with its blocks of the model: the tokens (and a
-frontend) come in whole and the logits go out whole on every rank (the
-vocab blocks gathered over "model", the batch over "data"), while each
-rank's cache holds its blocks, with the shapes ``cache_pspecs`` gives
-them: its batch rows, and its block of each KV cache's slots where their
-number divides the model axis (flash-decoding).  A decode step then needs
-``max_len``, which says how many slots the whole cache has.  The same
-functions, and the captures, run the collectives; under NCCL a capture
-records them.
+Under a mesh (``sharding.rules.use_rules``) every rank runs these with
+its blocks of the model: the tokens (and a frontend, or an
+encoder-decoder's frames) come in whole and the logits go out whole on
+every rank (the vocab blocks gathered over "model", the batch over
+"data"), while each rank's cache holds its blocks, with the shapes
+:func:`cache_layout` gives them: its batch rows, its block of each KV
+cache's slots and of the encoder's frames where their number divides the
+model axis (``cache_pspecs``, the reference's specs: flash-decoding), and
+its block of each recurrent state: the Mamba state's and conv state's
+channels, the mLSTM's and sLSTM's heads and their conv state's channels.
+That last departs from the reference, which keeps the recurrent states
+replicated: the port's layers run on the rank's channels and heads, so a
+replicated state would need gathering every token.  A decode step of a
+model with KV caches then needs ``max_len``, which says how many slots
+the whole cache has.  The same functions, and the captures, run the
+collectives; under NCCL a capture records them (their outputs are fresh
+tensors of the capture's pool, and the static buffers are the cache's
+blocks, which :func:`decode_step_into` writes at the same addresses).
 """
 from __future__ import annotations
 
@@ -77,13 +85,48 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed cache.  ``max_len`` (the prefix included) bounds the
     attention caches; the recurrent layers' state does not depend on it.
     Under a mesh, this rank's blocks of the cache of ``batch`` sequences
-    (``cache_pspecs``)."""
+    (:func:`cache_layout`)."""
     r = current_rules()
     if active_mesh(r) is not None:
         whole = _init_cache(cfg, batch, max_len, "meta")
-        return _zeros_like_blocks(whole, cache_pspecs(whole, r), r.mesh,
+        return _zeros_like_blocks(whole, cache_layout(whole, r), r.mesh,
                                   device)
     return _init_cache(cfg, batch, max_len, device)
+
+
+#: The recurrent states' split dimension (after the batch) by leaf name:
+#: the mLSTM's (c, n, m) and the sLSTM's (c, n, h, m) by head, every conv
+#: state by channel; the Mamba state's h (B, d_inner, N) by channel.
+_STATE_DIMS = {"c": 1, "n": 1, "m": 1, "h": 1, "conv": 2}
+
+
+def cache_layout(cache, rules):
+    """The port's specs of a whole cache under ``rules``:
+    ``cache_pspecs`` (the reference's), with each recurrent state split
+    over the model axis where its heads or channels divide: an xLSTM
+    layer's leaves and a hymba layer's ``"mamba"`` state
+    (:data:`_STATE_DIMS`)."""
+    specs = cache_pspecs(cache, rules)
+    tp = rules.model_axis
+    if tp is None or rules.model_size == 1:
+        return specs
+
+    def split(leaf, spec, dim):
+        if leaf.shape[dim] % rules.model_size:
+            return spec
+        return P(*spec[:dim], tp, *spec[dim + 1:])
+
+    def states(layer, spec):
+        return {k: split(v, spec[k], _STATE_DIMS[k]) for k, v in
+                layer.items()}
+
+    for i, layer in enumerate(cache["layers"]):
+        if "mamba" in layer:
+            specs["layers"][i]["mamba"] = states(layer["mamba"],
+                                                 specs["layers"][i]["mamba"])
+        elif "k" not in layer:                  # an mLSTM or sLSTM layer
+            specs["layers"][i] = states(layer, specs["layers"][i])
+    return specs
 
 
 def _zeros_like_blocks(tree, specs, mesh, device):
@@ -122,7 +165,8 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 def _kv_lens(model: T.LMModel, max_len: Optional[int]) -> list:
     """Each layer's whole cache length where the caches may hold a block
     of their slots (a model axis of more than one rank), else None."""
-    if model_shard()[0] == 1:
+    if model_shard()[0] == 1 or all(
+            v.kind in ("mlstm", "slstm") for v in model.pattern):
         return [None] * len(model.blocks)
     if max_len is None:
         raise ValueError("a decode step on a model split over the model "
@@ -179,12 +223,12 @@ def decode_step(model: T.LMModel, cache: dict, tokens: torch.Tensor, *,
 
 def _embedded_decode_step(model: T.LMModel, cache: dict,
                           x_embed: torch.Tensor,
-                          policy: KernelPolicy = DEFAULT_POLICY) -> dict:
+                          policy: KernelPolicy = DEFAULT_POLICY,
+                          max_len: Optional[int] = None) -> dict:
     """:func:`decode_step` from an embedding (B, 1, d) rather than a token,
     without the logits: how :func:`prefill_by_stepping` primes the cache
-    with the meta tokens (hymba's, which runs on one rank).  Returns the
-    new cache."""
-    return _layers_step(model, cache, x_embed, policy)[1]
+    with the meta tokens (hymba's).  Returns the new cache."""
+    return _layers_step(model, cache, x_embed, policy, max_len=max_len)[1]
 
 
 def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
@@ -200,6 +244,15 @@ def _ring_fill(kv_full: torch.Tensor, s_c: int, sink: int) -> torch.Tensor:
     r = torch.arange(s_c, device=kv_full.device)
     base = s - 1 - torch.remainder(s - 1 - r, s_c - sink)
     return kv_full.index_select(1, torch.where(r < sink, r, base))
+
+
+def _frame_block(t: torch.Tensor, frames: int) -> torch.Tensor:
+    """A layer's encoder K or V (b, S, Hkv, dh) as the cache holds it: the
+    rank's block of the ``frames`` where ``t`` has every frame
+    (:func:`_slot_block`); ``t`` where it is that block already (the cross
+    attention hands it so where its heads split,
+    ``attention._heads_to_frames``)."""
+    return _slot_block(t) if t.shape[1] == frames else t
 
 
 def _slot_block(t: torch.Tensor) -> torch.Tensor:
@@ -246,10 +299,11 @@ def prefill(model: T.LMModel, tokens: torch.Tensor, *, max_len: int,
                                device=tokens.device),
              "layers": layers}
     if model.cfg.encdec is not None:
-        dt = model.cfg.torch_dtype
+        dt, frames = model.cfg.torch_dtype, model.cfg.encdec.enc_seq
         for j, name in enumerate(("enc_k", "enc_v")):
-            cache[name] = torch.stack([c["cross_kv"][j]
-                                       for c in aux["layers"]]).to(dt)
+            cache[name] = torch.stack([
+                _frame_block(c["cross_kv"][j], frames)
+                for c in aux["layers"]]).to(dt)
     logits = unembed_logits(x[:, -1], model.unembed_table,
                             model.cfg.vocab_size)
     return _whole_batch(logits, tokens.shape[0]), cache
@@ -269,7 +323,7 @@ def prefill_by_stepping(model: T.LMModel, tokens: torch.Tensor, *,
         meta = model.meta_embeds(b)
         for i in range(model.cfg.meta_tokens):
             cache = _embedded_decode_step(model, cache, meta[:, i:i + 1],
-                                          policy)
+                                          policy, max_len)
     logits = torch.zeros((b, model.cfg.vocab_size), device=tokens.device)
     for t in range(s):
         logits, cache = decode_step(model, cache, tokens[:, t:t + 1],

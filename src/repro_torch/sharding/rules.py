@@ -366,11 +366,18 @@ def local_shape(shape, spec: Spec, mesh) -> tuple:
 
 
 def local_block(t: torch.Tensor, spec: Spec, mesh,
-                coords: Optional[dict] = None) -> torch.Tensor:
+                coords: Optional[dict] = None,
+                parts: int = 1) -> torch.Tensor:
     """This rank's block of the full tensor ``t`` under ``spec`` (the rank
     at ``coords``, default the mesh's own): a contiguous copy that holds no
     reference to ``t``'s storage, or ``t`` itself where the spec
-    replicates it."""
+    replicates it.  ``parts`` > 1: ``t``'s last dimension is that many
+    equal parts side by side (a fused projection's ``[x | z]``), each cut
+    on its own and the rank's blocks of them put side by side (the port's
+    per-part cut, ``models.transformer.param_parts``)."""
+    if parts > 1 and any(_entry_axes(e) for e in spec):
+        return torch.cat([local_block(p, spec, mesh, coords)
+                          for p in t.chunk(parts, dim=-1)], dim=-1)
     coords = mesh.coords if coords is None else coords
     out = t
     for dim, entry in enumerate(spec):
@@ -386,11 +393,16 @@ def local_block(t: torch.Tensor, spec: Spec, mesh,
         memory_format=torch.contiguous_format)
 
 
-def gather_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The full tensor of which ``t`` is this rank's block under ``spec``:
-    the inverse of :func:`local_block`, by all-gathers over the mesh's
-    process groups (each dimension's axes innermost first)."""
+def gather_block(t: torch.Tensor, spec: Spec, mesh,
+                 parts: int = 1) -> torch.Tensor:
+    """The full tensor of which ``t`` is this rank's block under ``spec``
+    (of ``parts`` parts, as :func:`local_block` cuts them): the inverse of
+    :func:`local_block`, by all-gathers over the mesh's process groups
+    (each dimension's axes innermost first)."""
     from repro_torch.sharding import collectives
+    if parts > 1 and any(_entry_axes(e) for e in spec):
+        return torch.cat([gather_block(p, spec, mesh)
+                          for p in t.chunk(parts, dim=-1)], dim=-1)
     for dim, entry in enumerate(spec):
         for a in reversed(_entry_axes(entry)):
             t = collectives.all_gather(t, mesh.group(a), dim=dim)

@@ -1,7 +1,8 @@
-"""The sharded-serving cases of ``tests/test_torch_tp_serve.py``, shared by
-its reference oracle (``_torch_tp_oracle.py``, JAX on forced host devices)
-and its port worlds (``_torch_tp_world.py``, gloo ranks).  Plain data and
-numpy: this module imports neither JAX nor torch."""
+"""The sharded-serving cases of ``tests/test_torch_tp_serve.py`` and
+``tests/test_torch_tp_recurrent.py``, shared by their reference oracle
+(``_torch_tp_oracle.py``, JAX on forced host devices) and their port
+worlds (``_torch_tp_world.py``, gloo ranks).  Plain data and numpy: this
+module imports neither JAX nor torch."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,17 +41,55 @@ CASES = {
     "qwen3_int8_tp2": dict(arch="qwen3-1.7b", mesh=(1, 2), prompt=10,
                            max_len=20, kv_quant=True),
 }
+#: The recurrent and encoder-decoder families' cases
+#: (``tests/test_torch_tp_recurrent.py``), in a dict of their own so that
+#: ``test_torch_tp_serve.py`` does not run them.  ``widths``: the smoke
+#: config's fields replaced so that every leaf the rules split at the
+#: family's published widths at the case's tp splits here too (hymba:
+#: ``w_bcdt``'s 2N + dt_rank columns and ``w_dt``'s dt_rank rows, and an
+#: odd vocabulary, replicated as 32001 is; xLSTM: 4 heads, which split at
+#: tp 4; whisper: an odd vocabulary, replicated as 51865 is).
+_HYMBA = dict(d_model=64, d_head=16, vocab_size=129)
+_XLSTM = dict(d_model=64, n_heads=4, n_kv_heads=4)
+_WHISPER = dict(vocab_size=127)
+RECURRENT_CASES = {
+    # 8 meta + 30 tokens in the 40-slot ring (32 window + 8 sink slots):
+    # the decode steps wrap it
+    "hymba_ring_tp2": dict(arch="hymba-1.5b", mesh=(1, 2), prompt=30,
+                           max_len=48, widths=_HYMBA),
+    "hymba_ring_tp4": dict(arch="hymba-1.5b", mesh=(1, 4), prompt=30,
+                           max_len=48, widths=_HYMBA),
+    "xlstm_tp2": dict(arch="xlstm-125m", mesh=(1, 2), prompt=16, max_len=32,
+                      widths=_XLSTM),
+    "xlstm_tp4": dict(arch="xlstm-125m", mesh=(1, 4), prompt=16, max_len=32,
+                      widths=_XLSTM),
+    "xlstm_dp2_tp2": dict(arch="xlstm-125m", mesh=(2, 2), prompt=16,
+                          max_len=32, widths=_XLSTM),
+    # the encoder's 24 frames: 12 / 6 a rank in the cross attention's cache
+    "whisper_tp2": dict(arch="whisper-small", mesh=(1, 2), prompt=16,
+                        max_len=32, widths=_WHISPER),
+    "whisper_tp4": dict(arch="whisper-small", mesh=(1, 4), prompt=16,
+                        max_len=32, widths=_WHISPER),
+}
+#: The dicts of cases by name, as the oracle and the worlds take them.
+SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES}
 MESHES = sorted({c["mesh"] for c in CASES.values()})
 BATCH = 2
 STEPS = 4
 SEED = 0
 
 
+def meshes(cases: dict) -> list:
+    """The mesh shapes (data, model) of ``cases``."""
+    return sorted({c["mesh"] for c in cases.values()})
+
+
 def config(cfg, case: dict):
     """A package's smoke config of ``case["arch"]`` as the case runs it
-    (fp32, the int8 cache, the capacity factor)."""
+    (fp32, its widths, the int8 cache, the capacity factor)."""
     cfg = dataclasses.replace(cfg, dtype="float32",
-                              kv_quant=bool(case.get("kv_quant")))
+                              kv_quant=bool(case.get("kv_quant")),
+                              **case.get("widths", {}))
     if case.get("capacity"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity"]))
@@ -58,11 +97,15 @@ def config(cfg, case: dict):
 
 
 def inputs(cfg, case: dict, seed: int = SEED):
-    """(tokens (B, S) int32, frontend (B, F, d) fp32 or None), seeded."""
+    """(tokens (B, S) int32, frontend (B, F, d) fp32 or None), seeded; an
+    encoder-decoder's frontend is its encoder's frames (B, S_enc, d)."""
     rng = np.random.default_rng(seed + 1)
     tokens = rng.integers(0, cfg.vocab_size, (BATCH, case["prompt"]))
     frontend = None
-    if case.get("frontend"):
+    if cfg.encdec is not None:
+        frontend = rng.standard_normal((BATCH, cfg.encdec.enc_seq,
+                                        cfg.d_model)).astype(np.float32)
+    elif case.get("frontend"):
         frontend = (rng.standard_normal((BATCH, cfg.fusion_tokens,
                                          cfg.d_model)) * 0.5)
         frontend = frontend.astype(np.float32)

@@ -1,9 +1,11 @@
-"""The reference's sharded serving for ``tests/test_torch_tp_serve.py``:
-every case of ``_torch_tp_cases.CASES`` on its mesh of forced host
-devices, written to ``<dir>/<case>.npz``.
+"""The reference's sharded serving for ``tests/test_torch_tp_serve.py``
+and ``tests/test_torch_tp_recurrent.py``: every case of a dict of
+``_torch_tp_cases`` (``--cases``, default ``CASES``) on its mesh of
+forced host devices, written to ``<dir>/<case>.npz``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        PYTHONPATH=src python tests/_torch_tp_oracle.py DIR
+        PYTHONPATH=src python tests/_torch_tp_oracle.py DIR \\
+        [--cases RECURRENT_CASES] [CASE ...]
 
 The mesh is built here, not by ``repro.launch.mesh.make_host_mesh``:
 ``repro.launch.dryrun`` (whose ``make_rules`` the reference's serving
@@ -98,10 +100,15 @@ def run(name: str, case: dict, out_dir: str) -> None:
 
 
 def main(argv) -> int:
-    out_dir = argv[0]
-    names = argv[1:] or list(C.CASES)
-    for name in names:
-        run(name, C.CASES[name], out_dir)
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cases", default="CASES", choices=sorted(C.SUITES))
+    ap.add_argument("dir")
+    ap.add_argument("names", nargs="*")
+    args = ap.parse_args(argv)
+    cases = C.SUITES[args.cases]
+    for name in args.names or list(cases):
+        run(name, cases[name], args.dir)
         print(f"[oracle] {name}", flush=True)
     return 0
 

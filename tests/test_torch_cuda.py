@@ -2293,20 +2293,23 @@ def _serve_run(arch: str, launch=(), extra=(), timeout_s: float = 600):
 
 @pytest.mark.parametrize("arch,ranks,model", [
     ("qwen3-1.7b", 2, 2), ("qwen3-1.7b", 4, 4), ("qwen3-1.7b", 4, 2),
-    ("qwen3-moe-235b-a22b", 2, 2), ("qwen3-moe-235b-a22b", 4, 4)])
+    ("qwen3-moe-235b-a22b", 2, 2), ("qwen3-moe-235b-a22b", 4, 4),
+    ("hymba-1.5b", 2, 2), ("hymba-1.5b", 4, 4), ("xlstm-125m", 2, 2)])
 def test_nccl_ranks_across_cards_serve_as_one_rank(dev, arch, ranks, model):
     """``launch.serve --model-parallel model`` as ``ranks`` NCCL ranks, one
     a card (the batch split over the rest): the prefill and the decode step
     captured as CUDA graphs with their collectives inside (the MoE's
-    ``all_to_all_single`` among them), and rank 0's tokens one rank's.
-    Skips on a host with fewer cards than ranks."""
+    ``all_to_all_single`` among them; hymba's Mamba branch and the xLSTM
+    over their channels and heads, ``dwconv1d`` on each rank's block), and
+    rank 0's tokens one rank's.  Skips on a host with fewer cards than
+    ranks."""
     import ast
     import re
 
     from repro_torch.kernels import _build
     if torch.cuda.device_count() < ranks:
         pytest.skip(f"needs {ranks} CUDA devices, one a NCCL rank")
-    _build.build(["pwconv"])            # once, before the ranks start
+    _build.build(["pwconv", "dwconv1d"])  # once, before the ranks start
     if arch not in _ONE_RANK_SERVE:
         _ONE_RANK_SERVE[arch] = _serve_run(arch)
     rc, one, err = _ONE_RANK_SERVE[arch]

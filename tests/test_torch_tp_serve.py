@@ -36,10 +36,7 @@ import _torch_tp_cases as C
 from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.dryrun import make_rules
-from repro_torch.models import transformer as T
 from repro_torch.serve import serve_step as S
-from repro_torch.sharding.rules import use_rules
 
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -181,7 +178,7 @@ def test_a_sharded_decode_step_runs_its_collectives(runs):
 
 
 # ---------------------------------------------------------------------------
-# The launcher, the refusals
+# The launcher, the mesh
 # ---------------------------------------------------------------------------
 
 
@@ -205,22 +202,6 @@ def test_launcher_under_torchrun_matches_one_rank():
         run.stdout)
     assert run.stdout.count("sample tokens") == 1    # rank 0 prints
     assert _tokens(run.stdout) == _tokens(one.stdout)
-
-
-@pytest.mark.parametrize("arch", ("hymba-1.5b", "xlstm-125m",
-                                  "whisper-small"))
-def test_families_outside_the_slice_refuse_a_mesh(arch):
-    mesh = mesh_lib.Mesh(("data", "model"), (1, 2))
-    rules = make_rules(mesh, mode="serve", multi_pod=False)
-    cfg = get_config(arch, smoke=True)
-    with use_rules(rules), pytest.raises(NotImplementedError,
-                                         match=r"4\.3\.2"):
-        T.init_params(cfg, device="cpu")
-    model = T.init_params(cfg, device="cpu")
-    tokens = torch.zeros((2, 4), dtype=torch.long)
-    with use_rules(rules), pytest.raises(NotImplementedError,
-                                         match=r"4\.3\.2"):
-        S.prefill(model, tokens, max_len=8)
 
 
 def test_launcher_refuses_a_model_axis_without_ranks(monkeypatch):
