@@ -87,14 +87,14 @@ From the root of a checkout it:
    matches its plain version (each refused launch predicted by the static
    verifier's LC201 before it is made); the code table against
    ``driver_types.h``;
-7. drives the serving path, xlstm-125m at full width cut to 6 of its 12
+7. drives the serving path, xlstm-125m at full width cut to 4 of its 12
    layers (a ``reduced`` note) on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy decode steps, in fp32 and bf16, through the captured prefill
    and decode step (``capture_prefill``, ``capture_decode_step``) and
    through the eager ones.  Around each capture and each call it zeroes
-   the counters and checks the launches (6 ``dwconv1d`` + 30 ``pwconv``
-   per prefill, 0 + 30 per decode step: twice in a capture, none in a
+   the counters and checks the launches (4 ``dwconv1d`` + 20 ``pwconv``
+   per prefill, 0 + 20 per decode step: twice in a capture, none in a
    replay, once in an eager call), and counts the kernels of a profiled
    replay of each graph in the trace; it holds every call's logits against
    the fp32 plain path (``impl="torch"`` on the card; each decode step from
@@ -104,7 +104,7 @@ From the root of a checkout it:
    prompt, and prints the capture times, each path's prefill (host clock
    around a warm call) and decode (CUDA events, median of 10) with their
    busy shares, and each path's own peak memory;
-8. drives the hymba serving path, hymba-1.5b at full width cut to 8 of
+8. drives the hymba serving path, hymba-1.5b at full width cut to 4 of
    its 32 layers (printed as a ``reduced`` note; random from a seed): ``prefill`` of batch 1 and 8 prompts of 1536
    tokens (1664 positions with the 128 meta tokens: blockwise attention,
    a sliding window that excludes keys, the 1152-slot ring cache), then 32
@@ -158,7 +158,7 @@ From the root of a checkout it:
    uncut (bf16, 8 x 256, 20 steps, 480 ``pwconv`` a step) with the eager
    step beside the graph, then through the graph with a fault at step
    15, ending with the clean graph run's state and the clean eager run's
-   bit for bit; xlstm-125m cut to 6 layers the same way (3 steps, a
+   bit for bit; xlstm-125m cut to 4 layers the same way (3 steps, a
    fault at step 2; ``dwconv1d`` forward, remat and its two backward
    kernels in every step); hymba-1.5b at full width cut to 4 layers (a
    ``reduced`` note;
@@ -192,7 +192,21 @@ From the root of a checkout it:
    unsharded path, with the collectives and launches of a prefill and a
    step, ``dwconv1d`` on each rank's channel block (hymba's 1600 of 3200
    channels held against its plain version);
-12. prints the kernels it launched, one JSON line of per-kernel numbers
+12. trains sharded on the one card (:func:`run_sharded_training`, a
+   process of its own, ``--sharded-train-only``): qwen3-1.7b at full
+   width cut to 2 layers, bf16, the captured step under the train rules
+   of a world of one rank under NCCL against the eager step, bit for bit;
+   then two gloo ranks: smollm-360m at full width cut to 2 layers under
+   (data 2, model 1) (FSDP, ZeRO-1, data parallelism) and qwen3-1.7b cut
+   to 2 layers under (1, 2), fp32, step 1's loss and gathered gradients
+   against the one-rank eager step, 3 steps each with their ms,
+   collectives and ``pwconv`` launches by rank; one ``pwconv`` launch at
+   a local training width against its plain version; qwen3-moe's smoke
+   config under (1, 2), kernels against the plain versions; part 1's
+   checkpoint restored under (1, 2) and by one rank, bit for bit
+   (``reduced`` notes name the cuts); NCCL across cards is
+   ``test_nccl_train_across_cards``;
+13. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
    ``replay_launches``: the kernels the profiled graph replays ran), the
    card again, and as its last line ``{"ok": true, "device": ...}``.
@@ -276,17 +290,20 @@ HYMBA_PROMPT, HYMBA_GEN, HYMBA_STEPPING = 1536, 32, 64
 #: hymba's depth in that phase, cut so that the script stays within its
 #: budget with the whisper and training phases (the whole model took about
 #: 220 s of 707, 16 layers 100 s of 817, 8 layers 67 s of about 820, 4
-#: layers 41 s of 730); widths, window, meta tokens and prompt as published.
-HYMBA_LAYERS = 8
-HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 8 (the script's time, "
+#: layers 41 s of 730; cut to 4 again beside phase 12, after a run on a
+#: slow host reached the training phase at 917 s); widths, window, meta
+#: tokens and prompt as published.
+HYMBA_LAYERS = 4
+HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 (the script's time, "
               "with the whisper and training phases); widths as published")
 #: xlstm-125m's depth in the serving phase and in the training loop, cut
 #: so that the whole script keeps a margin under 1200 s on a slow host:
 #: uncut, the script took 854-875 s on one H100 and 1070 s on another
 #: whose every phase ran 1.1-1.5x slower (xLSTM serving 164 s, its
-#: training loop 103 s there); each [mLSTM, sLSTM] pair stays whole.
-XLSTM_LAYERS = 6
-XLSTM_NOTE = ("reduced: xlstm-125m n_layers 12 -> 6 (the script's time); "
+#: training loop 103 s there); cut from 6 to 4 beside phase 12; each
+#: [mLSTM, sLSTM] pair stays whole.
+XLSTM_LAYERS = 4
+XLSTM_NOTE = ("reduced: xlstm-125m n_layers 12 -> 4 (the script's time); "
               "widths as published")
 BF16_REL_TOL = 5e-2
 #: fp32 kernels against the fp32 plain path (summation order).
@@ -2944,7 +2961,7 @@ def run_training(torch, dev):
       eager), the parameters, moments, step, error and metrics bit for
       bit after every step, and the graph's recorded launches
       ``expected_train_launches`` (times the microbatches): smollm-360m
-      and xlstm-125m cut to 6 layers (bf16, 8 x 256), hymba-1.5b at full
+      and xlstm-125m cut to 4 layers (bf16, 8 x 256), hymba-1.5b at full
       width cut to 4 layers (2 x 512 + 128 meta tokens), whisper-small
       uncut with its frames, qwen3-moe at full width cut (:data:`MOE_TRAIN_NOTE`),
       smollm-360m cut to 2 layers with 2 microbatches, with top-k and
@@ -4109,6 +4126,438 @@ def run_sharded_phase():
         return json.load(fh)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: sharded training on the one card
+# ---------------------------------------------------------------------------
+
+#: Part 1: smollm-360m at full width, fp32, its depth cut, under (data 2,
+#: model 1): FSDP, ZeRO-1 and data parallelism, a global batch of
+#: SHARD_TRAIN_BATCH x SHARD_TRAIN_SEQ (half a rank), SHARD_TRAIN_STEPS
+#: steps.  Part 2: qwen3-1.7b at full width, QWEN_TP_TRAIN_LAYERS layers,
+#: under (1, 2) on half that batch.
+SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ, SHARD_TRAIN_STEPS = 4, 256, 3
+SMOLLM_TP_TRAIN_LAYERS, QWEN_TP_TRAIN_LAYERS = 2, 2
+SHARD_TRAIN_NOTE = ("reduced: smollm-360m n_layers 32 -> 2 and qwen3-1.7b "
+                    "28 -> 2 for phase 12 (its time, and two ranks' blocks "
+                    "beside a one-rank oracle on one card); widths as "
+                    "published")
+#: Part 3: qwen3-moe's smoke config under (1, 2), batch x tokens.
+MOE_SHARD_TRAIN_BATCH, MOE_SHARD_TRAIN_SEQ = 4, 64
+#: World 1 under NCCL: qwen3-1.7b at full width, its depth cut, bf16, the
+#: captured step against the eager step, COMPARE_STEPS steps.
+WORLD1_TRAIN_LAYERS, WORLD1_TRAIN_BATCH = 2, 4
+#: Bounds of parts 1 and 2 against the one-rank eager step: the loss
+#: (relative) and each gathered gradient (of its largest magnitude).
+SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 2e-5, 1e-4
+
+
+def _shard_step_case(torch, dev, rules, cfg, batch, *, rank, steps,
+                     policy=None, oracle=True) -> dict:
+    """One sharded training case on this gloo rank: step 1's loss and
+    gradients (gathered whole), then ``steps`` sharded steps timed, each
+    with its collectives and ``pwconv`` launches; rank 0 holds step 1
+    against the one-rank eager step on the same weights and whole batch
+    (``oracle``).  Returns the results and the final state."""
+    from repro_torch import graphs
+    from repro_torch.core.pwconv import DEFAULT_POLICY
+    from repro_torch.launch.serve import collective_counts
+    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.models.layers import trainable_
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.rules import gather_block, use_rules
+    from repro_torch.train import train_step as TS
+    policy = policy or DEFAULT_POLICY
+    tcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+    res = {}
+    with use_rules(rules):
+        model = trainable_(init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(0), device=dev))
+        layout = TS.state_layout(model)
+        state = TS.init_train_state(model, tcfg)
+        graphs.reset()
+        loss, _, grads = TS.accumulate_grads(model, state["params"], batch,
+                                             policy=policy, layout=layout)
+        res["step1_pwconv"] = graphs.snapshot()["pwconv"]
+        whole = {n: gather_block(g, layout.params[n], rules.mesh)
+                 for n, g in grads.items()}
+        res["loss"] = float(loss)
+        del grads
+        step = TS.make_train_step(model, tcfg, policy)
+        res["steps"] = []
+        for _ in range(steps):
+            graphs.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            counts = graphs.snapshot()
+            res["steps"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "pwconv": counts["pwconv"],
+                "collectives": collective_counts(counts)})
+        res["expected_pwconv"] = expected_train_launches(cfg)["pwconv"]
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if oracle and rank == 0:
+        del model
+        torch.cuda.empty_cache()
+        one = trainable_(init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(0), device=dev))
+        ostate = TS.init_train_state(one, tcfg)
+        oloss, _, ograds = TS.accumulate_grads(one, ostate["params"], batch,
+                                               policy=policy)
+        res["one_rank_loss"] = float(oloss)
+        res["loss_rel_err"] = abs(float(loss) / float(oloss) - 1)
+        res["grad_err"] = max(grad_errors(whole, ograds).values())
+        del one, ostate, ograds
+    elif not oracle:
+        res["whole_grads"] = whole
+    torch.cuda.empty_cache()
+    return res, state, layout
+
+
+def _train_rank(rank: int, world: int, port: int, out: str,
+                ckpt_dir: str) -> None:
+    """Phase 12's gloo ranks on the one card (parts 1-4)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.pwconv import KernelPolicy
+    from repro_torch.data.pipeline import DataConfig, _batch_np
+    from repro_torch.kernels import pwconv
+    from repro_torch.launch.dryrun import make_rules
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.train import deterministic_card
+    from repro_torch.measure import rel_err
+    from repro_torch.models.transformer import build_model
+    from repro_torch.sharding.rules import gather_block, use_rules
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoint import Checkpointer, _flatten
+
+    deterministic_card()
+    _rank_env(rank, world, port)
+    dev = init_world("gloo", "cuda", timeout_s=TP_TIMEOUT_S)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def batch_of(cfg, b, s):
+        np_batch = _batch_np(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                        global_batch=b, seed=12), 0)
+        return {k: torch.from_numpy(v).to(dev) for k, v in np_batch.items()}
+
+    dp2 = make_rules(make_host_mesh(model=1), mode="train", multi_pod=False)
+    tp2 = make_rules(make_host_mesh(model=2), mode="train", multi_pod=False)
+    res = {"device": str(dev)}
+    try:
+        # part 1: smollm-360m, (2, 1): FSDP + ZeRO-1 + DP
+        cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
+                                  n_layers=SMOLLM_TP_TRAIN_LAYERS)
+        t0 = time.perf_counter()
+        res["smollm"], state, layout = _shard_step_case(
+            torch, dev, dp2, cfg, batch_of(cfg, SHARD_TRAIN_BATCH,
+                                           SHARD_TRAIN_SEQ),
+            rank=rank, steps=SHARD_TRAIN_STEPS)
+        # part 4's checkpoint: part 1's state, written under (2, 1)
+        with use_rules(dp2):
+            Checkpointer(ckpt_dir, layout=layout).save(SHARD_TRAIN_STEPS,
+                                                       state)
+        del state
+        res["smollm"]["s"] = time.perf_counter() - t0
+        # part 2: qwen3-1.7b, (1, 2): tensor parallelism, heads whole
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32",
+                                  n_layers=QWEN_TP_TRAIN_LAYERS)
+        t0 = time.perf_counter()
+        res["qwen3"], state, _ = _shard_step_case(
+            torch, dev, tp2, cfg, batch_of(cfg, SHARD_TRAIN_BATCH // 2,
+                                           SHARD_TRAIN_SEQ),
+            rank=rank, steps=SHARD_TRAIN_STEPS)
+        del state
+        res["qwen3"]["s"] = time.perf_counter() - t0
+        if rank == 0:
+            # one pwconv launch at a local training width: q's 2048 -> 1024
+            # columns at tp 2, a rank's G = 512 rows
+            g = SHARD_TRAIN_BATCH // 2 * SHARD_TRAIN_SEQ
+            x = torch.randn((g, 2048), device=dev)
+            w = torch.randn((2048, 1024), device=dev) * 2048 ** -0.5
+            res["pwconv_local"] = {
+                "shape": [g, 2048, 1024], "rel_err": rel_err(
+                    pwconv.pwconv(x, w), pwconv.pwconv_plain(x, w))}
+        torch.cuda.empty_cache()
+        # part 3: qwen3-moe smoke, (1, 2): the kernels against the plain
+        # versions on the same two ranks
+        cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b",
+                                             smoke=True), dtype="float32")
+        batch = batch_of(cfg, MOE_SHARD_TRAIN_BATCH, MOE_SHARD_TRAIN_SEQ)
+        runs = {}
+        for tag, pol in (("kernels", KernelPolicy()),
+                         ("plain", KernelPolicy(impl="torch"))):
+            runs[tag], _, _ = _shard_step_case(
+                torch, dev, tp2, cfg, batch, rank=rank, steps=1, policy=pol,
+                oracle=False)
+        k, p = runs["kernels"], runs["plain"]
+        res["moe"] = {"loss_rel_err": abs(k["loss"] / p["loss"] - 1),
+                      "grad_err": max(grad_errors(
+                          k.pop("whole_grads"), p.pop("whole_grads")).values()),
+                      "kernels": k, "plain": p}
+        # part 4: part 1's checkpoint restored under (1, 2) and one rank
+        cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
+                                  n_layers=SMOLLM_TP_TRAIN_LAYERS)
+        tcfg = TS.TrainConfig()
+        with use_rules(tp2):
+            model = build_model(cfg, torch.Generator(), "meta",
+                                tp2).to_empty(device=dev)
+            tlayout = TS.state_layout(model)
+            template = TS.init_train_state(model, tcfg)
+            ck = Checkpointer(ckpt_dir, layout=tlayout)
+            restored, step, _ = ck.restore(template)
+            name = f"step_{step:09d}"
+            with np.load(os.path.join(ckpt_dir, name, "arrays.npz")) as z:
+                stored = {key: z[key] for key in z.files}
+            specs = _flatten(tlayout.state_specs(restored))
+            equal = all(np.array_equal(
+                gather_block(v, specs[key], tp2.mesh).cpu().numpy(),
+                stored[key]) for key, v in _flatten(restored).items())
+            del model, template, restored
+        one_equal = None
+        if rank == 0:
+            whole = build_model(cfg, torch.Generator(), "meta",
+                                None).to_empty(device=dev)
+            template = TS.init_train_state(whole, tcfg)
+            restored, _, _ = Checkpointer(ckpt_dir).restore(template)
+            one_equal = all(np.array_equal(v.cpu().numpy(), stored[key])
+                            for key, v in _flatten(restored).items())
+            del whole, template, restored
+        res["elastic"] = {"step": step, "leaves": len(stored),
+                          "tp2_equal": equal, "one_rank_equal": one_equal}
+        every = [None] * world
+        dist.all_gather_object(every, {
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "smollm_pwconv": [s["pwconv"] for s in res["smollm"]["steps"]],
+            "qwen3_pwconv": [s["pwconv"] for s in res["qwen3"]["steps"]],
+            "moe_pwconv": res["moe"]["kernels"]["steps"][0]["pwconv"],
+            "tp2_equal": equal})
+        res["by_rank"] = every
+        if rank == 0:
+            with open(out, "w") as fh:
+                json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_training(torch, dev):
+    """Phase 12, sharded training on one card (NCCL across cards needs a
+    machine with several: ``test_nccl_train_across_cards``):
+
+    0. world 1 under NCCL (``init_world("nccl")``, the train rules of the
+       host mesh (1, 1)): qwen3-1.7b at full width cut to
+       WORLD1_TRAIN_LAYERS layers, bf16, WORLD1_TRAIN_BATCH x
+       SHARD_TRAIN_SEQ, the captured step (``capture_train_step``, one
+       CUDA graph) against the eager step from the same weights on the
+       same batches, every leaf of the state and every metric bit for bit
+       after each of COMPARE_STEPS steps (deterministic algorithms on).
+       A one-rank mesh is the one-device code: it shows the launcher's
+       NCCL set-up and the rules leave the captured step as it was;
+    1.-4. in two gloo ranks on the one card (:func:`_train_rank`, eager,
+       collectives staged through the host): smollm-360m at full width
+       (SMOLLM_TP_TRAIN_LAYERS layers), fp32, under (data 2, model 1)
+       (FSDP, ZeRO-1, data parallelism), and qwen3-1.7b at full width
+       (QWEN_TP_TRAIN_LAYERS layers, its 16 / 8 heads whole over 2) under
+       (1, 2): step 1's loss within SHARD_LOSS_RTOL and its gathered
+       gradients within SHARD_GRAD_TOL of the one-rank eager step on the
+       same weights and whole batch (rank 0), then SHARD_TRAIN_STEPS
+       steps with their ms, collectives and ``pwconv`` launches by rank
+       against ``expected_train_launches``; one ``pwconv`` launch at a
+       local training width against its plain version; qwen3-moe's smoke
+       config under (1, 2), the kernels against the plain versions on the
+       same ranks (the unsharded MoE is no oracle: each shard routes its
+       own tokens with its own capacity); part 1's checkpoint, written
+       under (2, 1), restored under (1, 2) and by one rank, every leaf
+       bit for bit."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_np
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import make_rules
+    from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.serve import collective_counts
+    from repro_torch.launch.train import (deterministic_card,
+                                          expected_train_launches)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.rules import use_rules
+    from repro_torch.train import train_step as TS
+
+    deterministic_card()
+    # built before anything is timed, and before the ranks start
+    _build.build(["pwconv"])
+    res = {}
+    t0 = time.perf_counter()
+    _rank_env(0, 1, _free_port())
+    init_world("nccl", "cuda", timeout_s=TP_TIMEOUT_S)
+    try:
+        rules = make_rules(make_host_mesh(model=1), mode="train",
+                           multi_pod=False)
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                                  n_layers=WORLD1_TRAIN_LAYERS)
+        tcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in _batch_np(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=SHARD_TRAIN_SEQ,
+                       global_batch=WORLD1_TRAIN_BATCH, seed=13),
+            s).items()} for s in range(COMPARE_STEPS)]
+        with use_rules(rules):
+            gm = init_params(cfg, generator=torch.Generator(dev).manual_seed(
+                0), device=dev)
+            em = init_params(cfg, generator=torch.Generator(dev).manual_seed(
+                0), device=dev)
+            graph = TS.capture_train_step(gm, tcfg, WORLD1_TRAIN_BATCH,
+                                          SHARD_TRAIN_SEQ)
+            eager = TS.make_train_step(em, tcfg)
+            estate = TS.init_train_state(em, tcfg)
+            gstate = graph.state
+            bad, ms = [], {"graph": [], "eager": []}
+            for s, batch in enumerate(batches):
+                for tag in ("graph", "eager"):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    if tag == "graph":
+                        gstate, gm_ = graph(gstate, batch)
+                    else:
+                        estate, em_ = eager(estate, batch)
+                    torch.cuda.synchronize()
+                    ms[tag].append((time.perf_counter() - t1) * 1e3)
+                bad += [f"step {s + 1} {k}" for k in differing(
+                    torch, {"state": gstate, "m": gm_},
+                    {"state": estate, "m": em_})]
+            res["world1_nccl"] = {
+                "bits_equal": not bad, "differing": bad[:8],
+                "graph_ms": ms["graph"], "eager_ms": ms["eager"],
+                "capture_s": graph.captured.capture_s,
+                "recorded_pwconv": graph.captured.launches.get("pwconv", 0),
+                "recorded_collectives": collective_counts(
+                    graph.captured.launches),
+                "expected_pwconv": expected_train_launches(cfg)["pwconv"],
+                "mesh": rules.mesh.shape}
+            del gm, em, graph, eager, estate, gstate
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["world1_nccl"]["s"] = time.perf_counter() - t0
+    w = res["world1_nccl"]
+    print(f"    world 1 under NCCL, qwen3-1.7b bf16 {WORLD1_TRAIN_LAYERS} "
+          f"layers {WORLD1_TRAIN_BATCH}x{SHARD_TRAIN_SEQ}: the captured "
+          f"sharded step against the eager step, {COMPARE_STEPS} steps, "
+          f"every leaf and metric bit for bit: {w['bits_equal']} "
+          f"{w['differing']}; graph "
+          + ", ".join(f"{x:.1f}" for x in w["graph_ms"]) + " ms, eager "
+          + ", ".join(f"{x:.1f}" for x in w["eager_ms"])
+          + f" ms; capture {w['capture_s']:.2f} s; recorded pwconv "
+          f"{w['recorded_pwconv']} (expected {w['expected_pwconv']}), "
+          f"collectives {w['recorded_collectives']} ({w['s']:.0f} s)",
+          flush=True)
+    if not (w["bits_equal"] and w["recorded_pwconv"]
+            == w["expected_pwconv"]):
+        raise AssertionError(f"phase 12 world 1: {w}")
+
+    out = os.path.join(HERE, "build", "chip_smoke_shard_train.json")
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_shard_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_train_rank, args=(2, port, out, ckpt_dir),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * TP_TIMEOUT_S
+    while not ctx.join(timeout=5):       # raises where a rank failed
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("phase 12's gloo ranks outlived "
+                                 f"{2 * TP_TIMEOUT_S} s")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    with open(out) as fh:
+        tr = json.load(fh)
+    tr["world_s"] = time.perf_counter() - t0
+    res["gloo"] = tr
+    bad = []
+    for part, key, mesh in ((1, "smollm", "(data 2, model 1)"),
+                            (2, "qwen3", "(data 1, model 2)")):
+        r = tr[key]
+        pw = [rk[f"{key}_pwconv"] for rk in tr["by_rank"]]
+        print(f"    part {part}, two gloo ranks on {tr['device']}, {key} "
+              f"fp32 {mesh}: step 1 loss {r['loss']:.6f} against one rank "
+              f"{r['one_rank_loss']:.6f} (rel {r['loss_rel_err']:.2e}, tol "
+              f"{SHARD_LOSS_RTOL:g}); gradients gathered "
+              f"{r['grad_err']:.2e} (tol {SHARD_GRAD_TOL:g}); steps "
+              + ", ".join(f"{s['ms']:.0f}" for s in r["steps"])
+              + f" ms, losses "
+              + ", ".join(f"{s['loss']:.4f}" for s in r["steps"])
+              + f"; collectives a step {r['steps'][-1]['collectives']}; "
+              f"pwconv a step by rank {pw} (expected "
+              f"{r['expected_pwconv']}); peak {r['peak_gib']:.2f} GiB "
+              f"(rank 0, {r['s']:.0f} s)", flush=True)
+        if not (r["loss_rel_err"] <= SHARD_LOSS_RTOL
+                and r["grad_err"] <= SHARD_GRAD_TOL
+                and all(n == [r["expected_pwconv"]] * SHARD_TRAIN_STEPS
+                        for n in pw)
+                and all(np_isfinite(s["loss"]) for s in r["steps"])):
+            bad.append(key)
+    pl = tr["pwconv_local"]
+    m = tr["moe"]
+    e = tr["elastic"]
+    print(f"    pwconv at a local training width {pl['shape']} fp32 "
+          f"against plain: {pl['rel_err']:.2e} (tol "
+          f"{KERNEL_TOL['float32']:g})", flush=True)
+    print(f"    part 3, qwen3-moe smoke fp32 (data 1, model 2), the kernels "
+          f"against the plain versions on the same ranks: loss rel "
+          f"{m['loss_rel_err']:.2e}, gradients {m['grad_err']:.2e} (tol "
+          f"{FP32_REL_TOL:g}); collectives a step "
+          f"{m['kernels']['steps'][0]['collectives']}; pwconv by rank "
+          f"{[rk['moe_pwconv'] for rk in tr['by_rank']]} (expected "
+          f"{m['kernels']['expected_pwconv']})", flush=True)
+    print(f"    part 4, part 1's checkpoint (step {e['step']}, "
+          f"{e['leaves']} leaves) restored under (1, 2) bit for bit: "
+          f"{[rk['tp2_equal'] for rk in tr['by_rank']]}, by one rank: "
+          f"{e['one_rank_equal']}; peak device memory by rank "
+          f"{[round(rk['peak_gib'], 2) for rk in tr['by_rank']]} GiB "
+          f"({tr['world_s']:.0f} s for the world)", flush=True)
+    if not (pl["rel_err"] <= KERNEL_TOL["float32"]
+            and m["loss_rel_err"] <= FP32_REL_TOL
+            and m["grad_err"] <= FP32_REL_TOL
+            and all(rk["moe_pwconv"] == m["kernels"]["expected_pwconv"]
+                    for rk in tr["by_rank"])
+            and all(rk["tp2_equal"] for rk in tr["by_rank"])
+            and e["one_rank_equal"]):
+        bad.append("parts 3-4")
+    if bad:
+        raise AssertionError(f"phase 12 {bad}: {tr}")
+    res["reduced"] = [SHARD_TRAIN_NOTE]
+    res["pwconv_launches"] = (
+        w["recorded_pwconv"]
+        + sum(sum(rk[f"{k}_pwconv"]) for rk in tr["by_rank"]
+              for k in ("smollm", "qwen3"))
+        + sum(rk["moe_pwconv"] for rk in tr["by_rank"]))
+    return res
+
+
+def run_sharded_training_phase():
+    """:func:`run_sharded_training` in a process of its own
+    (``--sharded-train-only``), started with ``CUBLAS_WORKSPACE_CONFIG``
+    as phase 10 is: a failure raises here."""
+    out = os.path.join(HERE, "build", "chip_smoke_sharded_train.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--sharded-train-only", out], check=True,
+                   env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    with open(out) as fh:
+        return json.load(fh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                              "NVIDIA GPU.")
@@ -4119,6 +4568,8 @@ def main() -> int:
     ap.add_argument("--whisper-only", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--train-only", metavar="JSON", help=argparse.SUPPRESS)
     ap.add_argument("--sharded-only", metavar="JSON", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-train-only", metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -4154,6 +4605,11 @@ def main() -> int:
         # phase 11 in a process of its own (see run_sharded_phase)
         with open(args.sharded_only, "w") as fh:
             json.dump(run_sharded(torch, dev), fh)
+        return 0
+    if args.sharded_train_only:
+        # phase 12 in a process of its own (see run_sharded_training_phase)
+        with open(args.sharded_train_only, "w") as fh:
+            json.dump(run_sharded_training(torch, dev), fh)
         return 0
     card = card_line()
     print(card)
@@ -4358,6 +4814,15 @@ def main() -> int:
     sharded_s = took("sharded serving")
     launches["pwconv"] += sharded["pwconv_launches"]
     launches["dwconv1d"] += sharded["dwconv1d_launches"]
+    t_phase = time.perf_counter()
+    print("sharded training on the one card: qwen3-1.7b's captured step "
+          "under world-1 NCCL rules against the eager step; smollm-360m "
+          "FSDP + ZeRO-1 + DP, qwen3-1.7b tp 2, qwen3-moe EP and an elastic "
+          "checkpoint as two gloo ranks:")
+    torch.cuda.empty_cache()
+    shard_train = run_sharded_training_phase()
+    shard_train_s = took("sharded training")
+    launches["pwconv"] += shard_train["pwconv_launches"]
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
                          (hymba_launches, hymba_replayed, hymba_variants),
                          (attn_launches, attn_replayed, attn_variants),
@@ -4408,6 +4873,8 @@ def main() -> int:
                        "whisper_seconds": whisper_s, "training": training,
                        "training_seconds": train_s,
                        "sharded": sharded, "sharded_seconds": sharded_s,
+                       "sharded_training": shard_train,
+                       "sharded_training_seconds": shard_train_s,
                        "phase_seconds": phase_s,
                        "launches": launches,
                        "replay_launches": replayed,

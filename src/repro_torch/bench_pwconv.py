@@ -31,7 +31,8 @@ and its largest error relative to the plain version.
 ``--tp`` instead times qwen3-1.7b's Linears at their local widths under
 tensor parallelism of 2 (:data:`TP_SHAPES`: the column-parallel q and the
 MLP's gate/up, the row-parallel o and down with their fp32 partial-sum
-store), bf16, at G = 8 (decode) and G = 4096 (prefill): the kernel's,
+store), bf16, at G = 8 (decode), 2048 (a training rank's 8 x 256 tokens)
+and 4096 (prefill): the kernel's,
 the plain version's and one library call's (``torch.mm``, bf16 out) CUDA-
 graph ms, beside the bound: the larger of the bytes moved (x and w read
 once, the output written once) at 3.35 TB/s and the products at the bf16
@@ -74,7 +75,7 @@ SHAPES = ((4096, 768, 3072, None), (4096, 1536, 1536, None),
 #: 3072 -> 2048 row-parallel, stored in fp32 for the sum over ranks.
 TP_SHAPES = ((2048, 1024, "bfloat16"), (2048, 3072, "bfloat16"),
              (1024, 2048, "float32"), (3072, 2048, "float32"))
-TP_G = (8, 4096)
+TP_G = (8, 2048, 4096)
 HBM_BYTES_PER_S = 3.35e12
 BF16_PEAK = 989e12
 

@@ -84,6 +84,7 @@ def graph_ms(fn, device: torch.device, launches: int = 20,
 #: receives.
 _NCCL_KERNELS = {"ncclDevKernel_AllReduce": ("all_reduce",),
                  "ncclDevKernel_AllGather": ("all_gather",),
+                 "ncclDevKernel_ReduceScatter": ("reduce_scatter",),
                  "ncclDevKernel_SendRecv": ("all_to_all",)}
 
 #: Device kernel name fragment -> the port's kernel it belongs to.

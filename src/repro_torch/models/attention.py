@@ -44,6 +44,14 @@ maxima and one of the rescaled sums and outputs (:func:`_combine_slots`).
 The new token's K and V are written by the rank that owns its slot, by a
 masked write with no host branch.
 
+Training under the model axis differentiates through those collectives
+(``sharding/collectives.py``): the projections' shared input enters the
+split region once (its gradient summed over the axis), split heads
+gathered alike give back the rank's block of their gradient, and where
+the rank's own query heads read KV heads every rank holds alike (the KV
+columns gathered, or whole), those enter the split region too, as do the
+qk-norm scales applied to the rank's own heads.
+
 Whisper's cross attention under the model axis: the encoder's K and V
 are split by head (their columns), but the cache holds them split by
 frame (``"enc_k"``, ``"enc_v"``: the reference's ``"cache"`` kind), so a
@@ -111,11 +119,18 @@ def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
     tp, rank, group = model_shard()
     b, s, _ = x.shape
     skv = xkv.shape[1]
-    qc = linear(p.w_q, x, policy=policy)
-    kc = linear(p.w_k, xkv, policy=policy)
-    vc = linear(p.w_v, xkv, policy=policy)
-    q_split = qc.shape[-1] != n_heads * head_dim
-    kv_split = kc.shape[-1] != n_kv_heads * head_dim
+    q_split = p.w_q["w"].shape[1] != n_heads * head_dim
+    kv_split = p.w_k["w"].shape[1] != n_kv_heads * head_dim
+    # the split projections' inputs enter the split region once each
+    xs = collectives.copy_to_split(x, group) if q_split else x
+    if kv_split:
+        xkvs = xs if (xkv is x and q_split) else collectives.copy_to_split(
+            xkv, group)
+    else:
+        xkvs = xkv
+    qc = linear(p.w_q, xs, policy=policy)
+    kc = linear(p.w_k, xkvs, policy=policy)
+    vc = linear(p.w_v, xkvs, policy=policy)
     q_local = not full_q and q_split and n_heads % tp == 0
     kv_local = q_local and kv_split and n_kv_heads % tp == 0
     if q_split and not q_local and kv_split and not kv_local:
@@ -129,8 +144,12 @@ def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
     k = kc.reshape(b, skv, -1, head_dim)
     v = vc.reshape(b, skv, -1, head_dim)
     if qk_norm:
-        q = rms_norm(q, p.q_norm["scale"])
-        k = rms_norm(k, p.k_norm["scale"])
+        # a replicated scale on the rank's own heads: its gradient is the
+        # sum of the ranks' parts
+        q = rms_norm(q, collectives.copy_to_split(p.q_norm["scale"], group)
+                     if q_local else p.q_norm["scale"])
+        k = rms_norm(k, collectives.copy_to_split(p.k_norm["scale"], group)
+                     if kv_local else p.k_norm["scale"])
     return q, k, v, (rank * hq if q_local else 0), kv_local
 
 
@@ -428,7 +447,10 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     hq = q.shape[2]
     ka, va = k, v
     if hq != n_heads and not kv_local:     # the rank's queries, every KV head
-        ka, va = _kv_for_heads(k, v, q0, hq, n_heads // n_kv_heads)
+        # every rank holds every KV head alike and reads its own part
+        ka, va = _kv_for_heads(collectives.copy_to_split(k, group),
+                               collectives.copy_to_split(v, group), q0, hq,
+                               n_heads // n_kv_heads)
     if s <= chunk and src.shape[1] <= chunk:
         out = dense_attention(q, ka, va, causal=causal, window=window,
                               sink=sink)
@@ -436,7 +458,8 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
         out = blockwise_attention(q, ka, va, causal=causal, window=window,
                                   sink=sink, chunk=chunk)
     out = out.reshape(b, s, hq * head_dim).contiguous()
-    out = row_linear(p.w_o, out, n_heads * head_dim, policy=policy)
+    out = row_linear(p.w_o, out, n_heads * head_dim, d_out=x.shape[-1],
+                     policy=policy)
     if return_kv and kv_local and xkv is not None and (
             src.shape[1] % tp == 0):       # the encoder's cache: frames
         k, v = _heads_to_frames(k, v, tp, group)
@@ -592,7 +615,8 @@ def attention_decode(p: Attention, x_t, cache_k, cache_v, pos, *,
         probs = torch.softmax(scores, dim=-1)
         out = _gqa_out(probs, v_eff).to(x_t.dtype)          # (B,1,Hq,dh)
     out = out.reshape(b, 1, n_heads * head_dim).contiguous()
-    proj = row_linear(p.w_o, out, n_heads * head_dim, policy=policy)
+    proj = row_linear(p.w_o, out, n_heads * head_dim, d_out=x_t.shape[-1],
+                      policy=policy)
     if scales is not None:
         return proj, cache_k, cache_v, (k_scale, v_scale)
     return proj, cache_k, cache_v

@@ -23,10 +23,19 @@ it is made (drawn whole, in the unsharded order, then cut), and the
 layers here are the sharded forms the rest of the stack calls: the
 vocab-parallel embedding (:func:`embed` with ``vocab``), the row-parallel
 Linear (:func:`row_linear`), the RMS norm of a split width
-(:func:`rms_norm_split`) and the unembedding's gather of its vocab
-blocks (:func:`unembed_logits` with ``vocab``).  A column-parallel Linear
-is :func:`linear` on the local columns.  Without a mesh, or on one of one
-rank, each is the one-device op.
+(:func:`rms_norm_split`), the unembedding's gather of its vocab blocks
+(:func:`unembed_logits` with ``vocab``) and the vocab-parallel
+cross-entropy (:func:`chunked_cross_entropy` with ``vocab``).  A
+column-parallel Linear is :func:`linear` on the local columns, its input
+entering the split region through ``collectives.copy_to_split`` (done
+once by the caller for the Linears that share an input).  Under FSDP (the
+train rules, or serving's ``serve_weight_fsdp``) a weight's dimension
+split over "data" is gathered at its use (:func:`fsdp_gather`: the
+input rows of a column-parallel Linear, the output columns of a
+row-parallel one, the embedding table's width), and its gradient
+reduce-scattered back; under per-layer remat the gather runs again in
+the recomputed forward.  Without a mesh, or on one of one rank, each is
+the one-device op.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy, pointwise
 from repro_torch.sharding import collectives
-from repro_torch.sharding.rules import model_shard
+from repro_torch.sharding.rules import fsdp_shard, model_shard
 
 _PARAM_HOOK: list = [None]
 
@@ -168,28 +177,44 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, *,
     return nn.ParameterDict(p)
 
 
+def fsdp_gather(w: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+    """``w`` whole along ``dim`` (``whole`` wide): where it holds the
+    rank's block of that dimension over the fsdp axis, the blocks gathered
+    over it (each data rank uses the weight on its own rows, so the
+    gradient is reduce-scattered back: ``collectives.all_gather`` with
+    ``alike=False``); else ``w``."""
+    if w.shape[dim] == whole:
+        return w
+    return collectives.all_gather(w, fsdp_shard()[2], dim=dim, alike=False)
+
+
 def linear(p, x: torch.Tensor, *, activation: Optional[str] = None,
            policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
-    return pointwise(x, p["w"], p.get("b"), activation=activation,
-                     policy=policy)
+    """``x @ w + b`` on the ``pwconv`` kernel; ``w``'s input rows gathered
+    over the fsdp axis where they are split (:func:`fsdp_gather`)."""
+    w = fsdp_gather(p["w"], 0, x.shape[-1])
+    return pointwise(x, w, p.get("b"), activation=activation, policy=policy)
 
 
 def row_linear(p, x: torch.Tensor, d_in: int, *,
+               d_out: Optional[int] = None,
                policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """A Linear of ``d_in`` inputs whose rows may be split over the model
     axis (``w_o``, ``w_down``): where ``p["w"]`` holds the rank's block of
     rows, the rank's slice of ``x`` (its local part already, or cut here
-    from the whole ``d_in``) times those rows, stored in fp32 by the
-    kernel, is summed over the axis, the bias added once and the sum cast
-    once.  Where the rows are whole it is :func:`linear` on the whole
-    ``x``."""
+    from the whole ``d_in``: ``collectives.split``) times those rows,
+    stored in fp32 by the kernel, is summed over the axis, the bias added
+    once and the sum cast once.  Where the rows are whole it is
+    :func:`linear` on the whole ``x``.  ``d_out``: the output width, whose
+    columns are gathered over the fsdp axis where they are split."""
     w = p["w"]
+    if d_out is not None:
+        w = fsdp_gather(w, 1, d_out)
     if w.shape[0] == d_in:
-        return linear(p, x, policy=policy)
-    _, rank, group = model_shard()
-    rows = w.shape[0]
+        return pointwise(x, w, p.get("b"), policy=policy)
+    group = model_shard()[2]
     if x.shape[-1] == d_in:
-        x = x[..., rank * rows:(rank + 1) * rows].contiguous()
+        x = collectives.split(x, group, dim=-1)
     y = collectives.all_reduce(
         pointwise(x, w, policy=policy, out_dtype=torch.float32), group)
     if p.get("b") is not None:
@@ -232,13 +257,17 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
                               device))})
 
 
-def embed(p, tokens: torch.Tensor,
-          vocab: Optional[int] = None) -> torch.Tensor:
+def embed(p, tokens: torch.Tensor, vocab: Optional[int] = None,
+          width: Optional[int] = None) -> torch.Tensor:
     """Rows of ``p["table"]`` at ``tokens``.  Where the table holds the
     rank's block of a ``vocab``-row table (vocab-parallel), each rank looks
     up the tokens in its rows, zeroes the others and the rows are summed
-    over the model axis (exactly one rank holds each token)."""
+    over the model axis (exactly one rank holds each token).  ``width``:
+    the embedding's width, gathered over the fsdp axis where the table's
+    columns are split."""
     table = p["table"]
+    if width is not None:
+        table = fsdp_gather(table, 1, width)
     if vocab is None or table.shape[0] == vocab:
         return table[tokens]
     _, rank, group = model_shard()
@@ -257,36 +286,67 @@ def unembed_logits(x: torch.Tensor, table: torch.Tensor,
     which is the reference's bf16 x bf16 product with fp32 accumulation.
     A plain product outside any kernel, left to ``torch.matmul`` as the
     reference leaves it to XLA.  Where ``table`` is the rank's block of a
-    ``vocab``-row table, its logits are gathered over the model axis."""
+    ``vocab``-row table, its logits are gathered over the model axis; its
+    columns are gathered over the fsdp axis where they are split."""
+    table = fsdp_gather(table, 1, x.shape[-1])
     logits = torch.matmul(x.float(), table.float().T)
     if vocab is None or table.shape[0] == vocab:
         return logits
     return collectives.all_gather(logits, model_shard()[2], dim=-1)
 
 
-def _chunk_loss(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor):
+def _chunk_loss(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor,
+                vocab: Optional[int] = None):
     """One chunk's (sum NLL, valid tokens, sum lse^2) from its fp32 logits
-    (B, chunk, V)."""
-    logits = unembed_logits(xc, table)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1,
-                       torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    (B, chunk, V).  Where ``table`` holds the rank's block of a
+    ``vocab``-row table, the logits stay split over the model axis
+    (vocab-parallel): the rows' maxima are reduced (max, no gradient),
+    then each row's sum of exp(logit - max) and its target's logit (held
+    by one rank, zero on the others) in one sum; the log-sum-exp is the
+    max plus the log of the sum."""
+    logits = torch.matmul(xc.float(), table.float().T)
     valid = (lc >= 0).float()
+    if vocab is None or table.shape[0] == vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    else:
+        _, rank, group = model_shard()
+        rows = table.shape[0]
+        m = collectives.all_reduce(logits.detach().amax(dim=-1), group,
+                                   "max")
+        sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+        local = lc.long() - rank * rows
+        inside = (local >= 0) & (local < rows)
+        tgt = torch.gather(logits, -1,
+                           torch.clamp(local, 0, rows - 1)[..., None])[..., 0]
+        tgt = torch.where(inside, tgt, torch.zeros((), device=tgt.device))
+        sumexp, tgt = collectives.all_reduce(torch.stack([sumexp, tgt]),
+                                             group).unbind(0)
+        lse = m + torch.log(sumexp)
     return ((lse - tgt) * valid).sum(), valid.sum(), (lse.square()
                                                       * valid).sum()
 
 
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512,
-                          z_loss: float = 0.0):
+                          z_loss: float = 0.0, vocab: Optional[int] = None):
     """(sum NLL, token count) of hidden states x (B, S, d) against
     ``labels`` (B, S) (-1 ignored) over the unembedding ``table`` (V, d),
     in sequence chunks of ``chunk``: the sequence padded with ignored
     labels to whole chunks, each chunk's (B, chunk, V) fp32 logits
     recomputed in the backward (``torch.utils.checkpoint``), never the
     whole (B, S, V).  ``z_loss`` adds ``z_loss * sum(lse^2)`` over the
-    valid tokens to the sum.  The reference's, chunk for chunk."""
+    valid tokens to the sum.  The reference's, chunk for chunk.  Under a
+    mesh the table's columns split over the fsdp axis are gathered once
+    for every chunk (and their gradient reduce-scattered once), and a
+    table of the rank's block of ``vocab`` rows runs the vocab-parallel
+    cross-entropy (:func:`_chunk_loss`); the sums are this rank's rows'."""
     b, s, _ = x.shape
+    table = fsdp_gather(table, 1, x.shape[-1])
+    if vocab is not None and table.shape[0] != vocab:
+        # every rank's x times its own vocab rows
+        x = collectives.copy_to_split(x, model_shard()[2])
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
@@ -297,10 +357,10 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
         xc, lc = x[:, c:c + chunk], labels[:, c:c + chunk]
         if torch.is_grad_enabled():
             nll, nv, zs = torch.utils.checkpoint.checkpoint(
-                _chunk_loss, xc, table, lc, use_reentrant=False,
+                _chunk_loss, xc, table, lc, vocab, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            nll, nv, zs = _chunk_loss(xc, table, lc)
+            nll, nv, zs = _chunk_loss(xc, table, lc, vocab)
         nll_sum, n_tok, zsum = nll_sum + nll, n_tok + nv, zsum + zs
     if z_loss:
         nll_sum = nll_sum + z_loss * zsum

@@ -2,8 +2,11 @@
 ``repro/models/mlp.py``.  The gate's SiLU is the ``pwconv`` kernel's
 epilogue, so a call is three ``pwconv`` launches and one multiply.  Under
 a mesh ``w_gate`` and ``w_up`` are column-parallel (each rank's block of
-``d_ff`` columns) and ``w_down`` row-parallel (the same block of rows, its
-partial sums summed over the model axis)."""
+``d_ff`` columns, their shared input entering the split region once:
+``collectives.copy_to_split``) and ``w_down`` row-parallel (the same
+block of rows, its partial sums summed over the model axis); under FSDP
+each weight's dimension split over "data" is gathered at its use
+(``layers.fsdp_gather``)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +14,8 @@ from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
 from repro_torch.models.layers import init_linear, linear, row_linear
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import model_shard
 
 
 class MLP(nn.Module):
@@ -28,6 +33,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, *,
                 policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
-        g = linear(self.w_gate, x, activation="silu", policy=policy)
-        u = linear(self.w_up, x, policy=policy)
-        return row_linear(self.w_down, g * u, self.d_ff, policy=policy)
+        xs = x
+        if self.w_gate["w"].shape[1] != self.d_ff:     # column-parallel
+            xs = collectives.copy_to_split(x, model_shard()[2])
+        g = linear(self.w_gate, xs, activation="silu", policy=policy)
+        u = linear(self.w_up, xs, policy=policy)
+        return row_linear(self.w_down, g * u, self.d_ff, d_out=x.shape[-1],
+                          policy=policy)

@@ -102,8 +102,9 @@ def load_balance_loss(probs: torch.Tensor, ids: torch.Tensor,
     return n_experts * torch.sum(f * pbar)
 
 
-def _router_logits(p: MoE, xt: torch.Tensor) -> torch.Tensor:
-    return xt.float() @ p.router["w"]
+def _router_logits(p: MoE, xt: torch.Tensor,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return xt.float() @ (p.router["w"] if w is None else w)
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +166,9 @@ def _scatter_rows(rows: torch.Tensor, index: torch.Tensor,
     return buf[:n]
 
 
-def _exchange(x: torch.Tensor, ids: torch.Tensor, group):
-    """The dispatch's all_to_all: rows of ``x`` (N, d) and their int ids
-    (N,) travel in one exchange, each id as four bytes beside its row."""
+def _pack_exchange(x: torch.Tensor, ids: torch.Tensor, group):
     d = x.shape[1]
-    raw = torch.cat([x.contiguous().view(torch.uint8),
+    raw = torch.cat([x.detach().contiguous().view(torch.uint8),
                      ids.to(torch.int32)[:, None].view(torch.uint8)], dim=1)
     raw = collectives.all_to_all(raw, group)
     width = d * x.element_size()
@@ -177,21 +176,48 @@ def _exchange(x: torch.Tensor, ids: torch.Tensor, group):
             raw[:, width:].contiguous().view(torch.int32)[:, 0].long())
 
 
+class _Exchange(torch.autograd.Function):
+    """The packed exchange with the gradient of the rows: the same
+    exchange of it, the other way (the ids carry none)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, group):
+        ctx.group = group
+        out, got = _pack_exchange(x, ids, group)
+        ctx.mark_non_differentiable(got)
+        return out, got
+
+    @staticmethod
+    def backward(ctx, g, _):
+        return collectives.all_to_all(g.contiguous(), ctx.group), None, None
+
+
+def _exchange(x: torch.Tensor, ids: torch.Tensor, group):
+    """The dispatch's all_to_all: rows of ``x`` (N, d) and their int ids
+    (N,) travel in one exchange, each id as four bytes beside its row;
+    differentiable in ``x`` (:class:`_Exchange`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Exchange.apply(x, ids, group)
+    return _pack_exchange(x, ids, group)
+
+
 def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
-               group=None, experts: tuple = None):
+               group=None, experts: tuple = None,
+               router_w: Optional[torch.Tensor] = None):
     """The reference's per-device MoE body: xt (T_l, d) local tokens ->
     (y (T_l, d) f32, aux loss, drop fraction), both fp32 scalars on the
     device.  ``tp`` ranks of the model axis (``group``, None for one) own
     E/tp experts each; ``experts`` are this rank's (w_gate_e, w_up_e,
-    w_down_e) whole (default: ``p``'s own).  Collectives: 2x
-    ``all_to_all`` over ``group``."""
+    w_down_e) whole (default: ``p``'s own), ``router_w`` the router's
+    weight (default ``p``'s).  Collectives: 2x ``all_to_all`` over
+    ``group``."""
     t_l, d = xt.shape
     e = cfg.n_experts
     e_local = e // tp
     k = cfg.top_k
     wg, wu, wd = experts or (p.w_gate_e, p.w_up_e, p.w_down_e)
 
-    weights, ids, probs = router_topk(_router_logits(p, xt), k,
+    weights, ids, probs = router_topk(_router_logits(p, xt, router_w), k,
                                       cfg.norm_topk)
     aux = load_balance_loss(probs, ids, e)
 
@@ -266,27 +292,43 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
     the outputs gathered back; the experts' dim 1 is gathered over
     ``expert_axis`` where the rules split it; ``aux_loss`` and
     ``drop_frac`` are averaged over the data and model axes (the
-    reference's ``pmean``)."""
+    reference's ``pmean``).
+
+    Gradients (training under the mesh) follow the collectives'
+    (``sharding/collectives.py``): the rank's block of the sequence is a
+    ``split`` (its gradient gathered back), the router's replicated weight
+    enters the split region (``copy_to_split``: each rank's tokens give a
+    part of its gradient), both ``all_to_all``s carry the gradient back the
+    other way, the experts' fsdp gather reduce-scatters theirs over "data",
+    and the outputs' gather over the model axis keeps the rank's block.
+    Training needs the sequence split: a rank routing every token of its
+    rows, as a decode step does, would send each expert its copies from
+    every rank of the model axis."""
     b, s, d = x.shape
     if mesh is None or model_axis is None:
         y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
         out = y.to(x.dtype).reshape(b, s, d)
     else:
-        tp, rank = mesh.shape[model_axis], mesh.coords[model_axis]
+        tp = mesh.shape[model_axis]
         group = mesh.group(model_axis)
         if cfg.n_experts % tp:
             raise ValueError(f"{cfg.n_experts} experts do not split over "
                              f"{tp} ranks")
         split = s % tp == 0 and s >= tp
-        xl = x[:, rank * (s // tp):(rank + 1) * (s // tp)] if split else x
+        if not split and tp > 1 and torch.is_grad_enabled() and (
+                x.requires_grad):
+            raise ValueError(f"a MoE layer trains with its {s} positions "
+                             f"split over {tp} ranks of the model axis")
+        xl = collectives.split(x, group, dim=1) if split else x
         full = {"w_gate_e": d, "w_up_e": d, "w_down_e": cfg.d_ff_expert}
         experts = tuple(
             collectives.all_gather(getattr(p, n), mesh.group(expert_axis),
-                                   dim=1)
+                                   dim=1, alike=False)
             if getattr(p, n).shape[1] != full[n] else getattr(p, n)
             for n in full)
-        y, aux, drop = _moe_local(p, xl.reshape(-1, d), cfg, tp=tp,
-                                  group=group, experts=experts)
+        y, aux, drop = _moe_local(
+            p, xl.reshape(-1, d), cfg, tp=tp, group=group, experts=experts,
+            router_w=collectives.copy_to_split(p.router["w"], group))
         out = y.to(x.dtype).reshape(xl.shape)
         if split:
             out = collectives.all_gather(out, group, dim=1)

@@ -49,9 +49,20 @@ their heads, ``xlstm.py``; whisper's encoder and cross attention by head,
 its cached K/V by frame) and a MoE layer expert-parallel
 (``moe.moe_forward`` with the mesh, :func:`_moe_kwargs`).  The residual
 stream stays whole on every rank: hymba's ``mix`` and meta tokens need
-no collective.  Sequence-parallel activations and weights split over
-"data" outside the experts raise (ROADMAP.md queue A, item 4.3.3), as do
-recurrent widths that do not split whole (:func:`check_mesh`).
+no collective.
+
+Sharded training of the attention-MLP families (the train rules: FSDP
+over "data", tensor parallelism over "model"): each rank holds its
+``P(fsdp, tp)`` block of every weight, gathered over "data" at its use
+(``layers.fsdp_gather``), and :func:`loss_fn` takes the whole batch,
+keeps the rank's rows and sums the NLL and the token count over the
+batch axes, so every rank's loss is the global mean and autograd through
+the collectives gives each rank its blocks' gradients
+(``sharding/collectives.py``).  Serving with ``serve_weight_fsdp`` runs
+the same gathers.  Sequence-parallel activations, and training or FSDP
+of the hymba, xLSTM and encoder-decoder layers under a mesh, raise
+(ROADMAP.md queue A, item 4.3.3), as do recurrent widths that do not
+split whole (:func:`check_mesh`).
 """
 from __future__ import annotations
 
@@ -75,8 +86,10 @@ from repro_torch.models.layers import (chunked_cross_entropy, embed,
                                        init_embedding, init_norm, norm,
                                        param, randn, row_linear)
 from repro_torch.models.mlp import MLP
-from repro_torch.sharding.rules import (active_mesh, current_rules,
-                                        local_block, param_specs, shard_act)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import (active_mesh, batch_groups,
+                                        current_rules, local_block,
+                                        param_specs, shard_act)
 
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
@@ -245,12 +258,20 @@ def _moe_kwargs() -> dict:
                 expert_axis=r.expert_fsdp)
 
 
-def check_mesh(cfg: ModelConfig, rules=None) -> None:
+#: Layer kinds whose training, and whose weights split over "data", under
+#: a mesh are not ported yet (ROADMAP.md queue A, item 4.3.3).
+_SERVE_ONLY_KINDS = ("hymba", "mlstm", "slstm", "dec")
+
+
+def check_mesh(cfg: ModelConfig, rules=None, *,
+               training: bool = False) -> None:
     """Raise where ``cfg`` cannot run under the mesh of ``rules`` (default:
-    the context's): sequence-parallel activations, dense weights split
-    over "data", and recurrent layers whose channels (the Mamba branch's
-    d_inner) or heads (the mLSTM's and sLSTM's) do not split whole over
-    the model axis."""
+    the context's): sequence-parallel activations; a model with a hymba,
+    mLSTM, sLSTM or ``dec`` layer with weights split over the fsdp axis,
+    or ``training``; and recurrent layers whose channels (the Mamba
+    branch's d_inner) or heads (the mLSTM's and sLSTM's) do not split
+    whole over the model axis.  The attention-MLP families (dense and
+    MoE) serve and train under FSDP and tensor parallelism."""
     r = rules if rules is not None else current_rules()
     if active_mesh(r) is None:
         return
@@ -267,10 +288,13 @@ def check_mesh(cfg: ModelConfig, rules=None) -> None:
         raise NotImplementedError(
             "sequence-parallel activations (seq_axis) are not ported to the "
             "layers yet: ROADMAP.md queue A, item 4.3.3")
-    if r.fsdp_size > 1:
+    kinds = {v.kind for v in model_pattern(cfg)}
+    if kinds & set(_SERVE_ONLY_KINDS) and (r.fsdp_size > 1 or training):
         raise NotImplementedError(
-            "weights split over the fsdp axis (FSDP, serve_weight_fsdp) are "
-            "not ported to the layers yet: ROADMAP.md queue A, item 4.3.3")
+            f"{cfg.name}: training and weights split over the fsdp axis "
+            f"(FSDP, serve_weight_fsdp) under a mesh are ported for the "
+            f"attention-MLP families only, not yet for the hymba, xLSTM "
+            f"and encoder-decoder layers: ROADMAP.md queue A, item 4.3.3")
 
 
 def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:
@@ -405,6 +429,7 @@ def layer_decode(block: nn.Module, x_t: torch.Tensor, cache: dict,
         width = cfg.n_heads * cfg.head_dim
         cross = cross.reshape(x_t.shape[0], 1, width).contiguous()
         return block.finish(x_t, row_linear(block.cross.w_o, cross, width,
+                                            d_out=cfg.d_model,
                                             policy=policy), cfg, policy), new
     mamba_out, new["mamba"] = ssm_lib.mamba_mixer_step(
         block.mamba, xn, cache["mamba"], cfg.ssm, policy=policy)
@@ -599,7 +624,7 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     check_mesh(cfg)
     tokens = shard_act(tokens, "tokens")
     b = tokens.shape[0]
-    x = embed(model.embedding, tokens, cfg.vocab_size)
+    x = embed(model.embedding, tokens, cfg.vocab_size, cfg.d_model)
     enc_out = None
     pieces = []
     if cfg.encdec is not None:
@@ -646,15 +671,25 @@ def loss_fn(model: LMModel, batch: dict, *,
     the model's device -> (loss, metrics): the mean token NLL of the
     hidden states after the prefix, over the tied or untied table, plus
     ``router_aux_weight * aux_loss`` for MoE; metrics ``nll``, ``tokens``,
-    ``loss`` [, ``moe_aux``, ``moe_drop``], as the reference's."""
+    ``loss`` [, ``moe_aux``, ``moe_drop``], as the reference's.  Under a
+    mesh the batch is the whole one and each rank takes its rows (the
+    labels' as the tokens'); the NLL's sum and the token count are summed
+    over the batch axes (one ``all_reduce``, the count carrying no
+    gradient: ignored labels make the ranks' counts differ), so every
+    rank's loss is the global mean, which the reference's ``n_tok`` gives
+    under GSPMD (``repro/models/transformer.py:482-501``)."""
     cfg = model.cfg
+    check_mesh(cfg, training=torch.is_grad_enabled())
     x, prefix, aux = hidden_states(model, batch["tokens"],
                                    frontend=batch.get("frontend"),
                                    policy=policy)
     x = x[:, prefix:, :]
-    nll_sum, n_tok = chunked_cross_entropy(x, model.unembed_table,
-                                           batch["labels"],
-                                           chunk=cfg.loss_chunk)
+    nll_sum, n_tok = chunked_cross_entropy(
+        x, model.unembed_table, shard_act(batch["labels"], "tokens"),
+        chunk=cfg.loss_chunk, vocab=cfg.vocab_size)
+    for group in batch_groups():
+        nll_sum, n_tok = collectives.all_reduce(
+            torch.stack([nll_sum, n_tok.detach()]), group).unbind(0)
     loss = nll_sum / torch.clamp(n_tok, min=1.0)
     metrics = {"nll": loss, "tokens": n_tok}
     if cfg.moe is not None:
@@ -663,3 +698,11 @@ def loss_fn(model: LMModel, batch: dict, *,
         metrics["moe_drop"] = aux["drop_frac"]
     metrics["loss"] = loss
     return loss, metrics
+
+
+def whole_shapes(cfg: ModelConfig) -> dict:
+    """``{parameter name: shape}`` of an unsharded ``LMModel(cfg)`` (made on
+    the meta device): what the sharding rules' spec functions read."""
+    with layers.param_hook(None):
+        meta = LMModel(cfg, generator=torch.Generator(), device="meta")
+    return {n: tuple(p.shape) for n, p in meta.named_parameters()}

@@ -14,6 +14,15 @@ leaves its inputs as they were; :func:`apply_updates_` writes the same
 bits into the state's own tensors (the captured train step's donation).
 The step counter and the learning rate stay on the parameters' device, so
 a step needs no host sync.
+
+Under a mesh (``layout``, a ``sharding.rules.StateLayout``) each tensor is
+the rank's block of its parameter: :func:`global_norm` sums each block's
+squares over the axes it is split on (a block held alike by several
+ranks counted once), and the moments are ZeRO-1's: where their spec cuts
+a parameter further over "data" (``zero1_specs``: a norm's scale), each
+rank updates its block of the parameter with its block of the gradient
+and the updated blocks are gathered over "data".  The update is
+elementwise, so it gives the unsharded step's bits.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.sharding import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,28 +77,54 @@ def _moments_dtype(cfg) -> torch.dtype:
             and cfg.moments_dtype == "bfloat16" else torch.float32)
 
 
-def init_state(params: dict, cfg: "AdamWConfig | None" = None) -> dict:
+def init_state(params: dict, cfg: "AdamWConfig | None" = None,
+               layout=None) -> dict:
     """Zeroed moments of every parameter and a step counter of 0 (int32),
-    on the parameters' device."""
+    on the parameters' device; under ``layout`` each moment is the rank's
+    ZeRO-1 block."""
     dt = _moments_dtype(cfg)
     dev = next(iter(params.values())).device
-    return {"mu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    def shape(k, p):
+        return (p if layout is None else layout.zero1_block(k, p)).shape
+    return {"mu": {k: torch.zeros(shape(k, p), dtype=dt, device=p.device)
                    for k, p in params.items()},
-            "nu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
+            "nu": {k: torch.zeros(shape(k, p), dtype=dt, device=p.device)
                    for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of every tensor's squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+def global_norm(tree: dict, layout=None) -> torch.Tensor:
+    """sqrt of the sum of every tensor's squares, in fp32.  Under
+    ``layout`` the tensors are the rank's blocks: the squares of the
+    blocks split over the same axes are summed, each sum reduced over
+    those axes (one ``all_reduce`` an axis), and the sums added."""
+    if layout is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree.values()))
+    sums = {}
+    for name, g in tree.items():
+        sq = torch.sum(torch.square(g.float()))
+        key = layout.axes(name)
+        sums[key] = sq if key not in sums else sums[key] + sq
+    keys = sorted(sums, key=sorted)
+    vals = [sums[k] for k in keys]
+    mesh = layout.mesh
+    for axis in mesh.axis_names:
+        idx = [i for i, k in enumerate(keys) if axis in k]
+        if not idx or mesh.shape[axis] == 1:
+            continue
+        red = collectives.all_reduce(torch.stack([vals[i] for i in idx]),
+                                     mesh.group(axis))
+        for j, i in enumerate(idx):
+            vals[i] = red[j]
+    return torch.sqrt(sum(vals))
 
 
-def _prologue(grads: dict, step: torch.Tensor, cfg: AdamWConfig):
+def _prologue(grads: dict, step: torch.Tensor, cfg: AdamWConfig, layout):
     """The step's scalars: (lr, grad norm, clip scale, bias corrections)."""
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     return (lr, gnorm, scale, 1 - cfg.b1 ** step.float(),
@@ -107,38 +144,55 @@ def _update(name: str, p, g, mu, nu, scalars, cfg: AdamWConfig):
     return p.float() - lr * upd, mu, nu
 
 
+def _blocks(name: str, p, g, layout):
+    """(parameter, gradient) as this rank updates them: the ZeRO-1 blocks
+    under ``layout``, else whole."""
+    if layout is None:
+        return p, g
+    return layout.zero1_block(name, p), layout.zero1_block(name, g)
+
+
 def apply_updates(params: dict, grads: dict, state: dict,
-                  cfg: AdamWConfig):
+                  cfg: AdamWConfig, layout=None):
     """Returns (new params, new state, metrics {grad_norm, lr,
     param_norm}); each new parameter in its own dtype, each moment in
-    ``moments_dtype``."""
+    ``moments_dtype``; under ``layout`` the rank's blocks, the moments
+    ZeRO-1's."""
     step = state["step"] + 1
-    scalars = _prologue(grads, step, cfg)
+    scalars = _prologue(grads, step, cfg, layout)
     new_p, new_mu, new_nu = {}, {}, {}
     for name, p in params.items():
         mu, nu = state["mu"][name], state["nu"][name]
+        pb, gb = _blocks(name, p, grads[name], layout)
         new_p[name], new_mu[name], new_nu[name] = (
             t.to(dt) for t, dt in zip(
-                _update(name, p, grads[name], mu, nu, scalars, cfg),
+                _update(name, pb, gb, mu, nu, scalars, cfg),
                 (p.dtype, mu.dtype, nu.dtype)))
+        if layout is not None:
+            new_p[name] = layout.zero1_gather(name, new_p[name])
     metrics = {"grad_norm": scalars[1], "lr": scalars[0],
-               "param_norm": global_norm(new_p)}
+               "param_norm": global_norm(new_p, layout)}
     return new_p, {"mu": new_mu, "nu": new_nu, "step": step}, metrics
 
 
 def apply_updates_(params: dict, grads: dict, state: dict,
-                   cfg: AdamWConfig) -> dict:
+                   cfg: AdamWConfig, layout=None) -> dict:
     """:func:`apply_updates` in place, the same bits: the new parameters,
     moments and step are written into ``params``' and ``state``'s own
     tensors (the same expressions, each result copied into its buffer, so
     no product is fused into another rounding).  Returns the metrics."""
     step = state["step"]
     step.add_(1)
-    scalars = _prologue(grads, step, cfg)
+    scalars = _prologue(grads, step, cfg, layout)
     for name, p in params.items():
         mu, nu = state["mu"][name], state["nu"][name]
-        for buf, t in zip((p, mu, nu), _update(name, p, grads[name], mu, nu,
-                                               scalars, cfg)):
+        pb, gb = _blocks(name, p, grads[name], layout)
+        new_p, new_mu, new_nu = _update(name, pb, gb, mu, nu, scalars, cfg)
+        if layout is not None and pb is not p:
+            new_p = layout.zero1_gather(name, new_p.to(p.dtype))
+        for buf, t in zip((p, mu, nu), (new_p, new_mu, new_nu)):
             buf.copy_(t)
+        # the fp32 temporaries go before the next parameter's are made
+        del new_p, new_mu, new_nu
     return {"grad_norm": scalars[1], "lr": scalars[0],
-            "param_norm": global_norm(params)}
+            "param_norm": global_norm(params, layout)}

@@ -214,7 +214,7 @@ def decode_step(model: T.LMModel, cache: dict, tokens: torch.Tensor, *,
     cfg = model.cfg
     T.check_mesh(cfg)
     x = embed(model.embedding, shard_act(tokens, "tokens"),
-              cfg.vocab_size)                           # (B,1,d)
+              cfg.vocab_size, cfg.d_model)              # (B,1,d)
     x, new_cache = _layers_step(model, cache, x, policy, in_place, max_len)
     x = norm(x, model.ln_final, cfg.norm_type)
     logits = unembed_logits(x[:, 0], model.unembed_table, cfg.vocab_size)

@@ -129,6 +129,28 @@ def model_shard(rules: Optional[ShardingRules] = None) -> tuple:
             mesh.group(r.model_axis))
 
 
+def fsdp_shard(rules: Optional[ShardingRules] = None) -> tuple:
+    """(fsdp size, this rank's index on the fsdp axis, the axis' process
+    group or None); (1, 0, None) without a mesh or an fsdp axis."""
+    r = rules if rules is not None else current_rules()
+    mesh = active_mesh(r)
+    if mesh is None or r.fsdp_axis is None or r.fsdp_size == 1:
+        return 1, 0, None
+    return (r.fsdp_size, mesh.coords[r.fsdp_axis],
+            mesh.group(r.fsdp_axis))
+
+
+def batch_groups(rules: Optional[ShardingRules] = None) -> list:
+    """The process groups of the batch axes that have more than one rank
+    (the groups a loss's sums over the batch run over); [] without a
+    mesh."""
+    r = rules if rules is not None else current_rules()
+    mesh = active_mesh(r)
+    if mesh is None:
+        return []
+    return [mesh.group(a) for a in r.batch_axes if mesh.shape[a] > 1]
+
+
 # ---------------------------------------------------------------------------
 # Activation constraints
 # ---------------------------------------------------------------------------
@@ -277,6 +299,94 @@ def zero1_specs(params, specs: dict, rules: ShardingRules) -> dict:
 
     return {name: upgrade(shape, specs[name])
             for name, shape in _shapes(params).items()}
+
+
+def split_axes(spec: Spec) -> tuple:
+    """The mesh axes each dimension of a tensor under ``spec`` is split
+    over, by dimension: a tuple of tuples of axis names, () where the
+    dimension is whole (what a gradient's reduction, the global norm and
+    ZeRO-1 read)."""
+    return tuple(_entry_axes(e) for e in spec)
+
+
+def spec_axes(spec: Spec) -> frozenset:
+    """Every mesh axis ``spec`` splits some dimension over."""
+    return frozenset(a for axes in split_axes(spec) for a in axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class StateLayout:
+    """How a train state's leaves lie over ``mesh``: ``params`` the
+    parameters' specs (:func:`param_specs`) and ``moments`` AdamW's
+    moments' (:func:`zero1_specs`), by parameter name.  A moment whose
+    spec adds ``zero1_axis`` to its parameter's on one dimension
+    (:meth:`zero1_dim`) is the rank's block of that dimension of the
+    rank's parameter block."""
+    mesh: object
+    params: dict
+    moments: dict
+    zero1_axis: Optional[str] = "data"
+
+    def axes(self, name: str) -> frozenset:
+        """The axes the parameter ``name``'s block is split over."""
+        return spec_axes(self.params[name])
+
+    def zero1_dim(self, name: str) -> Optional[int]:
+        """The dimension the moments of ``name`` split further over
+        ``zero1_axis`` than the parameter does, or None."""
+        p, m = split_axes(self.params[name]), split_axes(self.moments[name])
+        for dim, (a, b) in enumerate(zip(p, m)):
+            if a != b:
+                if b != a + (self.zero1_axis,) or self.zero1_axis in a:
+                    raise ValueError(f"{name}: moments {self.moments[name]}"
+                                     f" are not {self.params[name]} cut "
+                                     f"over {self.zero1_axis!r}")
+                return dim
+        return None
+
+    def zero1_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's ZeRO-1 block of ``t`` (the rank's block of the
+        parameter ``name``, or its gradient): its part of the moments'
+        extra cut, a view; ``t`` itself where the moments add none."""
+        dim = self.zero1_dim(name)
+        if dim is None:
+            return t
+        n = self.mesh.shape[self.zero1_axis]
+        size = t.shape[dim] // n
+        return t.narrow(dim, self.mesh.coords[self.zero1_axis] * size, size)
+
+    def zero1_gather(self, name: str, block: torch.Tensor) -> torch.Tensor:
+        """The rank's parameter block of which ``block`` is the rank's
+        ZeRO-1 block (:meth:`zero1_block`), gathered over ``zero1_axis``;
+        ``block`` itself where the moments add no cut."""
+        from repro_torch.sharding import collectives
+        dim = self.zero1_dim(name)
+        if dim is None:
+            return block
+        return collectives.all_gather(block, self.mesh.group(
+            self.zero1_axis), dim=dim)
+
+    def state_specs(self, state: dict) -> dict:
+        """The specs of a train state ``{"params", "opt": {"mu", "nu",
+        "step"}[, "err"]}``, in its own tree (the step replicated; the
+        compressor's error as the parameters)."""
+        specs = {"params": dict(self.params),
+                 "opt": {"mu": dict(self.moments), "nu": dict(self.moments),
+                         "step": P()}}
+        if "err" in state:
+            specs["err"] = dict(self.params)
+        return specs
+
+
+def train_layout(params, rules: ShardingRules) -> Optional[StateLayout]:
+    """The :class:`StateLayout` of a model's parameters (an ``nn.Module``
+    or ``{name: tensor or shape}`` of whole shapes) under ``rules``, or
+    None where no mesh of more than one rank is in force."""
+    if active_mesh(rules) is None:
+        return None
+    specs = param_specs(params, rules)
+    return StateLayout(rules.mesh, specs, zero1_specs(params, specs, rules),
+                       rules.fsdp_axis)
 
 
 # ---------------------------------------------------------------------------

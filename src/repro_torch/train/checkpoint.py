@@ -22,6 +22,16 @@ Layout (one directory per step):
 * Async: :meth:`Checkpointer.save` copies the state to the host at once
   (the step's tensors may be freed after) and writes in a thread.
 * ``keep`` committed steps are kept; older ones are removed.
+* Elastic (the reference's ``shardings=``, ``repro/train/checkpoint.py:
+  142-162``): under a mesh (``layout``, a ``sharding.rules.StateLayout``)
+  the state holds each rank's blocks.  :meth:`Checkpointer.save` gathers
+  every leaf whole over the mesh (``gather_block``: every rank takes part,
+  one leaf at a time) and rank 0 writes the full arrays, the one-device
+  format; :meth:`Checkpointer.restore` reads the full arrays and cuts the
+  rank's blocks under the layout in force, so a checkpoint written under
+  one mesh (or one device) restores under any other.  Only rank 0 writes,
+  and :meth:`Checkpointer.wait` ends at a barrier of every rank, so the
+  ranks read the same committed steps after it.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 SEP = "/"
 
@@ -63,14 +74,20 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return t
 
 
-def _unflatten_into(template, flat: dict, dtypes: dict, prefix: str = ""):
+def _unflatten_into(template, flat: dict, dtypes: dict, prefix: str = "",
+                    cut=None):
+    """New tensors of ``flat``'s arrays in ``template``'s tree, on its
+    devices in its dtypes; ``cut(key, tensor)`` (if given) takes each
+    stored tensor to the rank's block of it first."""
     out = {}
     for k, v in template.items():
         key = f"{prefix}{k}"
         if isinstance(v, dict):
-            out[k] = _unflatten_into(v, flat, dtypes, key + SEP)
+            out[k] = _unflatten_into(v, flat, dtypes, key + SEP, cut)
             continue
         t = _from_numpy(flat[key], dtypes[key])
+        if cut is not None:
+            t = cut(key, t)
         if tuple(t.shape) != tuple(v.shape):
             raise ValueError(f"{key}: stored {tuple(t.shape)}, template "
                              f"{tuple(v.shape)}")
@@ -83,32 +100,67 @@ def _checksum(a: np.ndarray) -> str:
 
 
 class Checkpointer:
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    """Checkpoints of a train state under ``ckpt_dir``; under a mesh
+    (``layout``) of the rank's blocks, stored whole (elastic)."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, layout=None):
         self.dir = ckpt_dir
         self.keep = keep
-        os.makedirs(ckpt_dir, exist_ok=True)
+        self.layout = (layout if layout is not None
+                       and layout.mesh.size > 1 else None)
+        self.writer = self.layout is None or dist.get_rank() == 0
+        if self.writer:
+            os.makedirs(ckpt_dir, exist_ok=True)
+        self._barrier()
         self._thread: Optional[threading.Thread] = None
+
+    def _barrier(self):
+        if self.layout is not None:
+            dist.barrier()
+
+    def _gathered(self, state) -> dict:
+        """``{key: host array}`` of every leaf whole: under a mesh every
+        rank gathers each leaf, and rank 0 alone keeps it (the others get
+        an empty dict)."""
+        from repro_torch.sharding.rules import gather_block
+        flat = _flatten(state)
+        if self.layout is None:
+            return {k: _to_numpy(v) for k, v in flat.items()}
+        specs = _flatten(self.layout.state_specs(state))
+        host = {}
+        for k, v in flat.items():
+            whole = gather_block(v, specs[k], self.layout.mesh)
+            if self.writer:
+                host[k] = _to_numpy(whole)
+        return host
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, state, extra: Optional[dict] = None,
              blocking: bool = True):
-        flat = _flatten(state)
+        self.wait()
         # snapshot now (to the host); write later
-        host = {k: _to_numpy(v) for k, v in flat.items()}
-        dtypes = {k: str(v.dtype) for k, v in flat.items()}
+        host = self._gathered(state)
+        dtypes = {k: str(v.dtype) for k, v in _flatten(state).items()}
+        if not self.writer:
+            if blocking:
+                self._barrier()
+            return
         if blocking:
             self._write(step, host, dtypes, extra or {})
+            self._barrier()
         else:
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, dtypes, extra or {}),
                 daemon=True)
             self._thread.start()
 
     def wait(self):
+        """The pending write finished; under a mesh every rank waits for
+        rank 0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     def _write(self, step: int, flat: dict, dtypes: dict, extra: dict):
         name = f"step_{step:09d}"
@@ -156,8 +208,16 @@ class Checkpointer:
     def restore(self, template, step: Optional[int] = None
                 ) -> tuple[Any, int, dict]:
         """Returns (state, step, extra): new tensors on the template's
-        devices in its dtypes.  Verifies checksums; falls back to the
-        previous committed step on corruption."""
+        devices in its dtypes (under a mesh the rank's blocks of the
+        stored arrays, cut under the layout).  Verifies checksums; falls
+        back to the previous committed step on corruption."""
+        cut = None
+        if self.layout is not None:
+            from repro_torch.sharding.rules import local_block
+            specs = _flatten(self.layout.state_specs(template))
+
+            def cut(key, t):
+                return local_block(t, specs[key], self.layout.mesh)
         steps = self.committed_steps()
         if step is not None:
             steps = [s for s in steps if s <= step]
@@ -172,7 +232,8 @@ class Checkpointer:
                 for k, v in flat.items():
                     if _checksum(v) != manifest["checksums"][k]:
                         raise IOError(f"checksum mismatch at {k}")
-                state = _unflatten_into(template, flat, manifest["dtypes"])
+                state = _unflatten_into(template, flat, manifest["dtypes"],
+                                        cut=cut)
                 return state, manifest["step"], manifest.get("extra", {})
             except Exception as e:  # corrupted -> try previous
                 print(f"[ckpt] step {s} unusable ({e}); trying previous")

@@ -21,6 +21,20 @@ forms of one step, the same bits:
   it in first.
 
 Microbatch gradients accumulate in fp32 (reference :42-71).
+
+Under a mesh (the rules in force when the step is made, which it keeps
+and sets around every call): every rank takes the whole global batch and
+the same microbatches of it (the reference's ``reshape(mb, b // mb)``),
+``loss_fn`` keeps the rank's rows, and the loss is the global mean.  The
+backward reduce-scatters the FSDP leaves' gradients over "data" as it
+goes (``layers.fsdp_gather``); after it (after the microbatches' fp32
+sums) the gradients of the leaves whole over "data" are summed over it,
+in one ``all_reduce`` a dtype.  AdamW then takes the global norm and
+updates its ZeRO-1 blocks (``optim/adamw.py`` with the state's
+``sharding.rules.StateLayout``).  Compression under a mesh raises: the
+reference's ``topk`` keeps the global top 1% of a tensor and its
+``int8`` scales by the global max, neither of which is a rank's
+(ROADMAP.md queue A, item 4.3.3).
 """
 from __future__ import annotations
 
@@ -36,6 +50,9 @@ from repro_torch.models.layers import trainable_
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import (CompressionConfig, compress,
                                         compress_, init_error)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import (StateLayout, current_rules,
+                                        train_layout, use_rules)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +79,54 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
     return {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
 
 
+def state_layout(model: T.LMModel, rules=None) -> Optional[StateLayout]:
+    """How ``model``'s train state lies over the mesh of ``rules``
+    (default: the context's): its parameters' and ZeRO-1 moments' specs
+    from the unsharded shapes; None without a mesh of more than one
+    rank."""
+    r = rules if rules is not None else current_rules()
+    if r is None:
+        return None
+    return train_layout(T.whole_shapes(model.cfg), r)
+
+
+def reduce_replicated_grads(grads: dict, layout: Optional[StateLayout]):
+    """Each gradient of a leaf whole over a batch axis summed over that
+    axis (each rank's rows gave a part of it), in place of the old tensor
+    in ``grads``: the leaves of one dtype travel in one ``all_reduce``."""
+    if layout is None:
+        return grads
+    r = current_rules()
+    for axis in r.batch_axes:
+        if layout.mesh.shape[axis] == 1:
+            continue
+        names = [n for n in grads if axis not in layout.axes(n)]
+        for dtype in sorted({grads[n].dtype for n in names}, key=str):
+            part = [n for n in names if grads[n].dtype == dtype]
+            flat = collectives.all_reduce(
+                torch.cat([grads[n].reshape(-1) for n in part]),
+                layout.mesh.group(axis))
+            at = 0
+            for n in part:
+                size = grads[n].numel()
+                grads[n] = flat[at:at + size].view(grads[n].shape)
+                at += size
+    return grads
+
+
 def accumulate_grads(model: T.LMModel, params: dict, batch: dict,
                      microbatches: int = 1,
-                     policy: KernelPolicy = DEFAULT_POLICY):
+                     policy: KernelPolicy = DEFAULT_POLICY,
+                     layout: Optional[StateLayout] = None):
     """(loss, metrics, grads) of ``loss_fn`` at ``params`` (bound to
     ``model``, whose parameters must require grad) over ``batch`` (moved
     to the model's device): with one microbatch the gradients in the
     parameters' dtypes; with more, each microbatch's added in fp32 and the
     sums (and the loss) divided by their number, the metrics the last
-    microbatch's (the reference's scan)."""
+    microbatch's (the reference's scan).  Under ``layout`` (a mesh in
+    force) ``batch`` is the global one and the gradients are the rank's
+    blocks, those of leaves whole over "data" summed over it
+    (:func:`reduce_replicated_grads`)."""
     dev = model.embedding["table"].device
     batch = _to_device(batch, dev)
     names = [n for n, _ in model.named_parameters()]
@@ -86,7 +142,8 @@ def accumulate_grads(model: T.LMModel, params: dict, batch: dict,
                 grads)
 
     if microbatches <= 1:
-        return grad_of(batch)
+        loss, metrics, grads = grad_of(batch)
+        return loss, metrics, reduce_replicated_grads(grads, layout)
     b = batch["tokens"].shape[0]
     if b % microbatches:
         raise ValueError(f"a batch of {b} does not split into "
@@ -101,6 +158,7 @@ def accumulate_grads(model: T.LMModel, params: dict, batch: dict,
         loss_sum = loss_sum + loss
         for n in grads:
             grads[n] = grads[n] + g[n].float()
+    grads = reduce_replicated_grads(grads, layout)
     return (loss_sum / microbatches, metrics,
             {n: g / microbatches for n, g in grads.items()})
 
@@ -120,23 +178,28 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
     on the model's device seeded from ``seed`` and the state's step, so a
     replayed step draws the same noise.  Every family trains: the
     attention-MLP transformers, whisper's encoder-decoder, xLSTM and
-    hymba."""
+    hymba; under a mesh (the rules in force here, set again around every
+    call) the attention-MLP families (see the module's docstring)."""
     trainable_(model)
     dev = model.embedding["table"].device
+    rules = current_rules()
+    layout = state_layout(model, rules)
+    _check_compression(tcfg, layout)
 
     def train_step(state: dict, batch: dict,
                    generator: Optional[torch.Generator] = None):
         params, opt = state["params"], state["opt"]
-        loss, metrics, grads = accumulate_grads(
-            model, params, batch, tcfg.microbatches, policy)
-        if tcfg.compression.kind != "none":
-            if tcfg.compression.kind == "int8" and generator is None:
-                generator = torch.Generator(dev).manual_seed(
-                    noise_seed(seed, int(opt["step"])))
-            grads, err = compress(grads, state["err"], tcfg.compression,
-                                  generator)
-        params, opt, opt_metrics = adamw.apply_updates(params, grads, opt,
-                                                       tcfg.optimizer)
+        with use_rules(rules):
+            loss, metrics, grads = accumulate_grads(
+                model, params, batch, tcfg.microbatches, policy, layout)
+            if tcfg.compression.kind != "none":
+                if tcfg.compression.kind == "int8" and generator is None:
+                    generator = torch.Generator(dev).manual_seed(
+                        noise_seed(seed, int(opt["step"])))
+                grads, err = compress(grads, state["err"], tcfg.compression,
+                                      generator)
+            params, opt, opt_metrics = adamw.apply_updates(
+                params, grads, opt, tcfg.optimizer, layout)
         metrics = dict(metrics, **opt_metrics, loss=loss)
         new_state = {"params": params, "opt": opt}
         if tcfg.compression.kind != "none":
@@ -146,18 +209,30 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
     return train_step
 
 
+def _check_compression(tcfg: TrainConfig,
+                       layout: Optional[StateLayout]) -> None:
+    if layout is not None and tcfg.compression.kind != "none":
+        raise NotImplementedError(
+            f"gradient compression ({tcfg.compression.kind}) under a mesh is "
+            f"not ported yet: the reference's topk keeps a tensor's global "
+            f"top 1% and its int8 scales by the global max, neither of "
+            f"which is a rank's: ROADMAP.md queue A, item 4.3.3")
+
+
 def init_train_state(model: T.LMModel, tcfg: TrainConfig) -> dict:
     """The state of a model's current weights: its parameters (the same
     tensors, which neither form of the step writes: the captured step
     copies them in), zeroed moments and step, and the compressor's zeroed
-    error when one is configured."""
+    error when one is configured.  Under a mesh the rank's blocks, the
+    moments ZeRO-1's (:func:`state_layout`)."""
     return _state_of({n: p.detach() for n, p in model.named_parameters()},
-                     tcfg)
+                     tcfg, state_layout(model))
 
 
-def _state_of(params: dict, tcfg: TrainConfig) -> dict:
+def _state_of(params: dict, tcfg: TrainConfig,
+              layout: Optional[StateLayout] = None) -> dict:
     state = {"params": params,
-             "opt": adamw.init_state(params, tcfg.optimizer)}
+             "opt": adamw.init_state(params, tcfg.optimizer, layout)}
     if tcfg.compression.kind != "none":
         state["err"] = init_error(params)
     return state
@@ -166,7 +241,8 @@ def _state_of(params: dict, tcfg: TrainConfig) -> dict:
 def train_step_into(model: T.LMModel, state: dict, batch: dict,
                     tcfg: TrainConfig, metrics: dict, *,
                     policy: KernelPolicy = DEFAULT_POLICY,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    layout: Optional[StateLayout] = None):
     """:func:`make_train_step`'s step on static buffers, the same bits
     (``model``'s parameters made trainable, ``trainable_``): the
     gradients of ``state``'s parameters (bound once more with
@@ -176,15 +252,16 @@ def train_step_into(model: T.LMModel, state: dict, batch: dict,
     each metric copied into the 0-d tensor of its name in ``metrics`` (a
     name it lacks gets a new one).  ``int8`` compression draws from
     ``generator`` (required).  It reads and writes the same addresses at
-    every call, what a CUDA graph of it needs.  Returns ``(state,
-    metrics)``."""
+    every call, what a CUDA graph of it needs.  Under ``layout`` (the
+    rules in force) the sharded step, collectives included.  Returns
+    ``(state, metrics)``."""
     params = state["params"]
     loss, m, grads = accumulate_grads(model, params, batch,
-                                      tcfg.microbatches, policy)
+                                      tcfg.microbatches, policy, layout)
     if tcfg.compression.kind != "none":
         grads = compress_(grads, state["err"], tcfg.compression, generator)
     m = dict(m, **adamw.apply_updates_(params, grads, state["opt"],
-                                       tcfg.optimizer), loss=loss)
+                                       tcfg.optimizer, layout), loss=loss)
     for k, v in m.items():
         if k not in metrics:
             metrics[k] = torch.empty_like(v)
@@ -246,15 +323,23 @@ def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
     on), and the int8 compressor draws from a generator registered with
     the graph, seeded before each replay as :func:`make_train_step` seeds
     its own with ``seed``.  Bit-exact replays need deterministic
-    algorithms on, as ``launch.train`` sets them."""
+    algorithms on, as ``launch.train`` sets them.  Under a mesh (the rules
+    in force, NCCL) the graph holds the sharded step, its collectives
+    included: the capture's warm-up runs each once before the recording,
+    and ``batch`` is the global batch, of which each rank keeps its
+    rows."""
     dev = model.embedding["table"].device
     if dev.type != "cuda":
         raise ValueError(f"a train step is captured on the card, not on "
                          f"{dev}")
     trainable_(model)
     cfg = model.cfg
+    rules = current_rules()
+    layout = state_layout(model, rules)
+    _check_compression(tcfg, layout)
     weights = {n: p.detach() for n, p in model.named_parameters()}
-    state = _state_of({n: w.clone() for n, w in weights.items()}, tcfg)
+    state = _state_of({n: w.clone() for n, w in weights.items()}, tcfg,
+                      layout)
     bufs = {k: torch.zeros((batch, seq_len), dtype=torch.int32, device=dev)
             for k in ("tokens", "labels")}
     if cfg.encdec is not None:
@@ -266,9 +351,10 @@ def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
     metrics = {}
 
     def step():
-        with torch.enable_grad():
+        with torch.enable_grad(), use_rules(rules):
             return train_step_into(model, state, bufs, tcfg, metrics,
-                                   policy=policy, generator=generator)
+                                   policy=policy, generator=generator,
+                                   layout=layout)
     captured = graphs.capture(step, dev, generators=(generator,)
                               if generator is not None else ())
     # the warm-up and the first replay stepped the static state: back to
@@ -287,11 +373,15 @@ def _zero_tree_(tree: dict):
 
 
 def step_for_device(model: T.LMModel, tcfg: TrainConfig, batch: int,
-                    seq_len: int, *, seed: int = 0):
+                    seq_len: int, *, seed: int = 0,
+                    capture: Optional[bool] = None):
     """``(step, state)`` a launcher trains with: on the card the captured
     step (:func:`capture_train_step`) and its own static state, elsewhere
-    :func:`make_train_step`'s step and :func:`init_train_state`."""
-    if model.embedding["table"].device.type == "cuda":
+    (or with ``capture=False``: gloo's ranks on cards) :func:`make_train_
+    step`'s step and :func:`init_train_state`."""
+    if capture is None:
+        capture = model.embedding["table"].device.type == "cuda"
+    if capture:
         step = capture_train_step(model, tcfg, batch, seq_len, seed=seed)
         return step, step.state
     return (make_train_step(model, tcfg, seed=seed),

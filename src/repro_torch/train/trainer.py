@@ -22,6 +22,14 @@
   a failure always restores: from the newest checkpoint, or before the
   first one from a host copy of the starting state, which the loop holds
   until a checkpoint is committed.
+* Under a mesh (``layout``: the state holds each rank's blocks) every
+  rank runs the loop in step: the loss is the global one, so the NaN
+  guard and an injector armed alike on every rank decide alike, every
+  rank restores together (the checkpoints are elastic: ``checkpoint.py``)
+  and the host copy of the starting state is the rank's blocks.  The
+  data is the global batch of each step on every rank (``loss_fn`` keeps
+  the rank's rows), so a sharded run trains on exactly the tokens a
+  one-rank run does.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from repro_torch.train.checkpoint import Checkpointer
 @dataclasses.dataclass
 class LoopConfig:
     total_steps: int
-    ckpt_every: int = 50
+    ckpt_every: int = 50        # 0: no checkpoint (a timing run)
     log_every: int = 10
     keep_ckpts: int = 3
     straggler_factor: float = 3.0
@@ -65,10 +73,13 @@ def train_loop(
     *,
     fault_injector: Optional[FaultInjector] = None,
     log: Callable[[str], None] = print,
+    layout=None,
 ):
     """Runs to ``loop_cfg.total_steps``; returns (state, {"history",
-    "stragglers", "failures"})."""
-    ckpt = Checkpointer(ckpt_dir, keep=loop_cfg.keep_ckpts)
+    "stragglers", "failures"}).  ``layout``: the state's
+    ``sharding.rules.StateLayout`` under a mesh, which every rank runs
+    the loop under."""
+    ckpt = Checkpointer(ckpt_dir, keep=loop_cfg.keep_ckpts, layout=layout)
     start, initial = 0, None     # the restore point until a checkpoint
     if ckpt.latest_step() is not None:
         state, start, _ = ckpt.restore(state)
@@ -125,7 +136,8 @@ def train_loop(
             log(f"[trainer] step {step} loss {loss:.4f} "
                 f"({dt*1e3:.0f} ms)")
         history.append({"step": step, "loss": loss, "time_s": dt})
-        if step % loop_cfg.ckpt_every == 0 or step == loop_cfg.total_steps:
+        if loop_cfg.ckpt_every and (step % loop_cfg.ckpt_every == 0
+                                    or step == loop_cfg.total_steps):
             ckpt.save(step, state, extra={"data": it.state()},
                       blocking=False)
             if ckpt.latest_step() is not None:  # the save waits for the last

@@ -1,5 +1,6 @@
-"""The sharded-serving cases of ``tests/test_torch_tp_serve.py`` and
-``tests/test_torch_tp_recurrent.py``, shared by their reference oracle
+"""The sharded cases of ``tests/test_torch_tp_serve.py``,
+``tests/test_torch_tp_recurrent.py`` and ``tests/test_torch_tp_train.py``,
+shared by their reference oracle
 (``_torch_tp_oracle.py``, JAX on forced host devices) and their port
 worlds (``_torch_tp_world.py``, gloo ranks).  Plain data and numpy: this
 module imports neither JAX nor torch."""
@@ -71,8 +72,39 @@ RECURRENT_CASES = {
     "whisper_tp4": dict(arch="whisper-small", mesh=(1, 4), prompt=16,
                         max_len=32, widths=_WHISPER),
 }
+#: The sharded-training cases (``tests/test_torch_tp_train.py``): a
+#: smoke config (``dtype``, fp32 unless given) on its (data, model) mesh
+#: under the train rules, a global batch of ``TRAIN_BATCH`` x
+#: ``TRAIN_SEQ`` tokens (some labels ignored) in ``microbatches``; the
+#: reference's sharded loss and gradients, AdamW step on them and jitted
+#: train step.  qwen3's 2 KV heads do not split over 4 ranks; smollm's
+#: table is tied and its 3 heads split over no tp; the MoE routes each
+#: shard's tokens with its own capacity.  ``serve``: the serving case of
+#: ``serve_weight_fsdp`` (a prefill and ``SERVE_FSDP_STEPS`` decode steps);
+#: ``oracle=False``: held against the port's own one-rank step (bf16,
+#: whose dots the reference cannot jit on this CPU).
+TRAIN_CASES = {
+    "qwen3_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2)),
+    "qwen3_dp4": dict(arch="qwen3-1.7b", mesh=(4, 1)),
+    "qwen3_tp4": dict(arch="qwen3-1.7b", mesh=(1, 4)),
+    "smollm_dp2_tp2": dict(arch="smollm-360m", mesh=(2, 2)),
+    "qwen3moe_dp2_tp2": dict(arch="qwen3-moe-235b-a22b", mesh=(2, 2)),
+    "qwen3moe_tp2": dict(arch="qwen3-moe-235b-a22b", mesh=(1, 2)),
+    "qwen3_mb2_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2),
+                              microbatches=2),
+    "qwen3_bf16_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2),
+                               dtype="bfloat16", oracle=False),
+    "qwen3_serve_fsdp": dict(arch="qwen3-1.7b", mesh=(2, 2), serve=True,
+                             prompt=16, max_len=32),
+}
+TRAIN_BATCH = 8
+TRAIN_SEQ = 32
+#: The AdamW of the training cases (decay on, warmup, clipping).
+ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=100, weight_decay=0.1,
+             clip_norm=1.0)
 #: The dicts of cases by name, as the oracle and the worlds take them.
-SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES}
+SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES,
+          "TRAIN_CASES": TRAIN_CASES}
 MESHES = sorted({c["mesh"] for c in CASES.values()})
 BATCH = 2
 STEPS = 4
@@ -86,8 +118,9 @@ def meshes(cases: dict) -> list:
 
 def config(cfg, case: dict):
     """A package's smoke config of ``case["arch"]`` as the case runs it
-    (fp32, its widths, the int8 cache, the capacity factor)."""
-    cfg = dataclasses.replace(cfg, dtype="float32",
+    (fp32 unless the case gives a ``dtype``, its widths, the int8 cache,
+    the capacity factor)."""
+    cfg = dataclasses.replace(cfg, dtype=case.get("dtype", "float32"),
                               kv_quant=bool(case.get("kv_quant")),
                               **case.get("widths", {}))
     if case.get("capacity"):
@@ -110,6 +143,19 @@ def inputs(cfg, case: dict, seed: int = SEED):
                                          cfg.d_model)) * 0.5)
         frontend = frontend.astype(np.float32)
     return tokens.astype(np.int32), frontend
+
+
+def train_batch(cfg, seed: int = SEED) -> dict:
+    """A training case's global batch: tokens and labels (B, S) int32,
+    seeded, the first three labels of row 0 and the last two of row 5
+    ignored (-1), so that the data ranks' token counts differ."""
+    rng = np.random.default_rng(seed + 2)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    labels[0, :3] = -1
+    labels[5, -2:] = -1
+    return {"tokens": tokens, "labels": labels}
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -1,5 +1,6 @@
 """The reference's sharded serving for ``tests/test_torch_tp_serve.py``
-and ``tests/test_torch_tp_recurrent.py``: every case of a dict of
+and ``tests/test_torch_tp_recurrent.py``, and its sharded training for
+``tests/test_torch_tp_train.py``: every case of a dict of
 ``_torch_tp_cases`` (``--cases``, default ``CASES``) on its mesh of
 forced host devices, written to ``<dir>/<case>.npz``.
 
@@ -18,7 +19,19 @@ under the rules (``use_rules``) with the parameters placed by
 ``param_specs``; the int8 cache's prefill is its stepping oracle and every
 step of that case runs op by op (compiled, XLA's CPU drops the bf16
 rounding of ``int8 * scale`` the reference's ops make, which the port
-keeps)."""
+keeps).
+
+A training case (``TRAIN_CASES``) runs under ``make_rules(mode="train")``
+with the parameters placed by ``param_specs``, the batch by
+``batch_pspecs`` and AdamW's moments by ``zero1_specs``, as the
+reference's launcher places them: the jitted ``value_and_grad`` of
+``loss_fn`` (summed over the microbatches in fp32 and divided, as the
+reference's step does), its gradients gathered whole; ``apply_updates``
+jitted on those gradients from zeroed moments (the parameters and
+moments after it, gathered); and one jitted, donated ``make_train_step``
+on the whole batch (its loss and norms).  A case with ``serve`` is a
+serving case under ``serve_weight_fsdp``; one with ``oracle=False`` gets
+only its batch (the port draws its own weights)."""
 from __future__ import annotations
 
 import os
@@ -36,8 +49,11 @@ import _torch_tp_cases as C  # noqa: E402
 from repro.configs.registry import get_config  # noqa: E402
 from repro.launch.dryrun import make_rules  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
+from repro.optim import adamw as JO  # noqa: E402
 from repro.serve import serve_step as JS  # noqa: E402
-from repro.sharding.rules import named, param_specs, use_rules  # noqa: E402
+from repro.sharding.rules import (batch_pspecs, named,  # noqa: E402
+                                  param_specs, use_rules, zero1_specs)
+from repro.train import train_step as JTS  # noqa: E402
 
 
 def perturbed(tree, seed: int):
@@ -63,7 +79,8 @@ def run(name: str, case: dict, out_dir: str) -> None:
     dp, tp = case["mesh"]
     mesh = Mesh(np.array(DEVICES[:dp * tp]).reshape(dp, tp),
                 ("data", "model"))
-    rules = make_rules(mesh, mode="serve", multi_pod=False)
+    rules = make_rules(mesh, mode="serve", multi_pod=False,
+                       serve_weight_fsdp=bool(case.get("serve")))
     ml = case["max_len"]
     fj = None if frontend is None else jnp.asarray(frontend)
     with use_rules(rules), mesh:
@@ -99,6 +116,78 @@ def run(name: str, case: dict, out_dir: str) -> None:
              **{f"param.{k}": v for k, v in C.flatten(params).items()})
 
 
+def run_train(name: str, case: dict, out_dir: str) -> None:
+    """A training case (see the module's docstring)."""
+    if case.get("serve"):
+        return run(name, case, out_dir)
+    cfg = C.config(get_config(case["arch"], smoke=True), case)
+    batch = C.train_batch(cfg)
+    out = {"tokens": batch["tokens"], "labels": batch["labels"]}
+    if case.get("oracle", True):
+        params = perturbed(JT.init_params(cfg, jax.random.PRNGKey(C.SEED)),
+                           C.SEED)
+        out.update({f"param.{k}": v for k, v in C.flatten(params).items()})
+        out.update(_train_oracle(cfg, case, params, batch))
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+
+
+def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
+    dp, tp = case["mesh"]
+    mb = case.get("microbatches", 1)
+    mesh = Mesh(np.array(DEVICES[:dp * tp]).reshape(dp, tp),
+                ("data", "model"))
+    rules = make_rules(mesh, mode="train", multi_pod=False)
+    acfg = JO.AdamWConfig(**C.ADAMW)
+    out = {}
+    with use_rules(rules), mesh:
+        pspecs = param_specs(params, rules)
+        zspecs = zero1_specs(params, pspecs, rules)
+        ospecs = {"mu": zspecs, "nu": zspecs,
+                  "step": jax.sharding.PartitionSpec()}
+
+        def placed(tree, specs):
+            return jax.device_put(jax.tree_util.tree_map(jnp.asarray, tree),
+                                  named(mesh, specs))
+
+        def shard_batch(b):
+            return placed(b, batch_pspecs(b, rules))
+        p = placed(params, pspecs)
+        vg = jax.jit(jax.value_and_grad(
+            lambda p, b: JT.loss_fn(cfg, p, b), has_aux=True))
+        size = C.TRAIN_BATCH // mb
+        loss_sum, grads = 0.0, None
+        for i in range(mb):
+            part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            (loss, metrics), g = vg(p, shard_batch(part))
+            g = jax.tree_util.tree_map(
+                lambda a: np.asarray(a, np.float32) if mb > 1
+                else np.asarray(a), g)
+            loss_sum += float(loss)
+            grads = g if grads is None else jax.tree_util.tree_map(
+                np.add, grads, g)
+        if mb > 1:
+            grads = jax.tree_util.tree_map(lambda a: a / mb, grads)
+        out["loss"] = np.float32(loss_sum / mb)
+        out.update({f"metric.{k}": np.asarray(v) for k, v in metrics.items()})
+        out.update({f"grad.{k}": v for k, v in C.flatten(grads).items()})
+        opt = placed(JO.init_state(params, acfg), ospecs)
+        new_p, new_opt, am = jax.jit(
+            lambda p, g, o: JO.apply_updates(p, g, o, acfg))(
+                p, placed(grads, pspecs), opt)
+        for part, tree in (("param", new_p), ("mu", new_opt["mu"]),
+                           ("nu", new_opt["nu"])):
+            out.update({f"adam.{part}.{k}": v
+                        for k, v in C.flatten(tree).items()})
+        out.update({f"adam.{k}": np.asarray(v) for k, v in am.items()})
+        tcfg = JTS.TrainConfig(optimizer=acfg, microbatches=mb)
+        step = jax.jit(JTS.make_train_step(cfg, tcfg), donate_argnums=(0,))
+        state = {"params": placed(params, pspecs),
+                 "opt": placed(JO.init_state(params, acfg), ospecs)}
+        _, sm = step(state, shard_batch(batch))
+        out.update({f"step.{k}": np.asarray(v) for k, v in sm.items()})
+    return out
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser()
@@ -107,8 +196,9 @@ def main(argv) -> int:
     ap.add_argument("names", nargs="*")
     args = ap.parse_args(argv)
     cases = C.SUITES[args.cases]
+    fn = run_train if args.cases == "TRAIN_CASES" else run
     for name in args.names or list(cases):
-        run(name, cases[name], args.dir)
+        fn(name, cases[name], args.dir)
         print(f"[oracle] {name}", flush=True)
     return 0
 

@@ -2332,3 +2332,88 @@ def test_nccl_ranks_across_cards_serve_as_one_rank(dev, arch, ranks, model):
     assert step["all_reduce"] > 0 and prefill["all_reduce"] > 0
     if "moe" in arch:
         assert step["all_to_all"] > 0 and prefill["all_to_all"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Sharded training across cards: the captured step with NCCL inside
+# ---------------------------------------------------------------------------
+
+_ONE_CARD_TRAIN: dict = {}
+
+
+def _train_run(arch: str, launch=(), extra=(), timeout_s: float = 900):
+    """``launch.train`` of ``arch`` (smoke, 3 steps, 8 x 32, its own
+    checkpoint directory) under the ``launch`` prefix with ``extra``
+    arguments: (return code, stdout, stderr)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import tempfile
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory(dir=root / "build") as ckpt:
+        run = subprocess.run(
+            [sys.executable, *launch, "-m", "repro_torch.launch.train",
+             "--arch", arch, "--smoke", "--steps", "3", "--seq-len", "32",
+             "--global-batch", "8", "--ckpt-dir", ckpt, *extra],
+            capture_output=True, text=True, timeout=timeout_s, env=env,
+            cwd=root)
+    return run.returncode, run.stdout, run.stderr
+
+
+def _train_losses(stdout: str) -> list:
+    line = next(l for l in stdout.splitlines()
+                if l.startswith("[train] losses "))
+    return [float(x) for x in line[len("[train] losses "):].strip(
+        "[]").split(",")]
+
+
+@pytest.mark.parametrize("arch,ranks,model", [
+    ("qwen3-1.7b", 4, 1), ("qwen3-1.7b", 4, 2), ("qwen3-1.7b", 4, 4),
+    ("smollm-360m", 4, 2), ("qwen3-1.7b", 2, 2),
+    ("qwen3-moe-235b-a22b", 4, 2)])
+def test_nccl_train_across_cards(dev, arch, ranks, model):
+    """``launch.train --model-parallel model`` as ``ranks`` NCCL ranks, one
+    a card: FSDP and ZeRO-1 over the rest, the whole sharded step captured
+    as one CUDA graph with its collectives (FSDP's reduce-scatters among
+    them).  The dense models' losses match the one-card captured step's
+    within 2e-5; the MoE's (each shard routes its own tokens with its own
+    capacity) those of the same mesh as gloo ranks on the CPU within
+    1e-4.  Skips on a host with fewer cards than ranks."""
+    import ast
+    import re
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    if torch.cuda.device_count() < ranks:
+        pytest.skip(f"needs {ranks} CUDA devices, one a NCCL rank")
+    _build.build(["pwconv"])  # once, before the ranks start
+    torchrun = ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ranks)]
+    moe = "moe" in arch
+    key = (arch, ranks, model) if moe else arch
+    if key not in _ONE_CARD_TRAIN:
+        _ONE_CARD_TRAIN[key] = (
+            _train_run(arch, torchrun, ["--model-parallel", str(model),
+                                        "--device", "cpu", "--backend",
+                                        "gloo"]) if moe else _train_run(arch))
+    rc, one, err = _ONE_CARD_TRAIN[key]
+    assert rc == 0, err[-3000:]
+    rc, out, err = _train_run(arch, torchrun,
+                              ["--model-parallel", str(model)])
+    assert rc == 0, err[-3000:]
+    assert (f"mesh {{'data': {ranks // model}, 'model': {model}}} over "
+            f"{ranks} rank(s), backend nccl, collectives nccl") in out, out
+    assert "the step captured as one CUDA graph" in out
+    np.testing.assert_allclose(_train_losses(out), _train_losses(one),
+                               rtol=1e-4 if moe else 2e-5)
+    line = next(l for l in out.splitlines()
+                if l.startswith("[train] collectives a step"))
+    counts = ast.literal_eval(re.search(r"\{[^}]*\}", line).group(0))
+    assert counts["all_reduce"] > 0
+    if ranks // model > 1:
+        assert counts["reduce_scatter"] > 0
+    if moe:
+        assert counts["all_to_all"] > 0

@@ -52,7 +52,7 @@ def test_registry_covers_every_wrapper_counter(counters):
                      "pwconv.simt", "separable_fused2", "separable_fused3",
                      "fused_mbconv", "dw_se", "dwconv1d", "dwconv1d_bwd",
                      "dwconv1d_bwd_reduce", "all_reduce", "all_gather",
-                     "all_to_all"}
+                     "all_to_all", "reduce_scatter"}
     assert not any(graphs.snapshot().values())
     assert set(mobilenet_inference.launch_counts()) == set(
         mobilenet_inference.KERNEL_SEGMENTS)
