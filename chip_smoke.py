@@ -276,8 +276,6 @@ SOURCES = {
     # oracle of the op (src/repro/kernels/ref.py:76)
     "dwconv1d_bwd": ("src/repro_torch/csrc/dwconv1d.cu",
                      "src/repro/kernels/dwconv1d.py:51"),
-    "dwconv1d_bwd_reduce": ("src/repro_torch/csrc/dwconv1d.cu",
-                            "src/repro/kernels/dwconv1d.py:51"),
 }
 
 #: The serving phase: prompt length, greedy decode steps, the prompt of the
@@ -315,6 +313,26 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def bwd_registers(lib_path, dtype, k: int, vec: bool) -> int:
+    """Registers a thread of ``dw1d_bwd_kernel`` at ``dtype``, K (its exact
+    path for 2..5, the runtime one otherwise) and the vector path, from
+    ptxas' report beside the built library (-1 where it is not found)."""
+    name = {"torch.float32": "f", "torch.bfloat16": "13__nv_bfloat16",
+            "torch.float16": "6__half"}[str(dtype)]
+    kt = k if 2 <= k <= 5 else 0
+    want = f"dw1d_bwd_kernelI{name}Li{kt}ELb{int(vec)}E"
+    log = lib_path.with_suffix(".log")
+    entry = None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and want in entry:
+            return int(m.group(1))
+    return -1
 
 
 def _versions(torch, build) -> str:
@@ -471,30 +489,34 @@ class KernelChecks:
             (2 * x.numel() + f.numel()) * x.element_size())
 
     def dwconv1d_bwd(self, b, length, d, k, dtype):
-        """``dwconv1d``'s backward at a training shape: dx and df of its
-        two kernels against ``dwconv1d_causal_bwd_plain`` (and the
-        library's, as a check of the yardstick), two calls bit for bit (df
-        deterministic) and a CUDA-graph replay of both launches against
-        the eager call; times (CUDA graphs of 20 calls): the first kernel
-        alone (row ``dwconv1d_bwd``), the reduction alone (row
-        ``dwconv1d_bwd_reduce``) and both, beside the plain backward and
-        the library's (cuDNN's backward of the same grouped conv, dx and
-        df in one ``convolution_backward`` call; for the reduction, one
-        ``ws.sum(0)`` and its cast, timed as the kernel is).  Bounds: the backward's
-        bytes (x, dy, f read, dx, df written) and 4BLDK operations; the
-        reduction's (the fp32 partials read, df written)."""
+        """``dwconv1d``'s backward at a training shape: dx and df of its one
+        launch against ``dwconv1d_causal_bwd_plain`` (and the library's,
+        as a check of the yardstick), two calls bit for bit (df
+        deterministic) and a CUDA-graph replay against the eager call, the
+        library's launch (``dwconv1d_bwd_launch_dims``) equal to
+        ``bwd_dims``; times (CUDA graphs of 20 calls) beside the plain
+        backward and the library's (cuDNN's backward of the same grouped
+        conv, dx and df in one ``convolution_backward`` call) and one
+        elementwise ``torch.add(x, dy, out=)`` that moves the same bytes
+        (x and dy read, one (B, L, D) tensor written: the card's pace for
+        this traffic at this size); the kernel's registers a thread
+        (ptxas) and its CTAs and cluster.  Bound: the bytes (x, dy, f
+        read, dx, df written) and 4BLDK operations."""
         torch = self.torch
         import torch.nn.functional as F
-        from repro_torch.kernels import dwconv1d
+        from repro_torch.kernels import _build, dwconv1d
         x = self.rand((b, length, d), dtype)
         f = self.rand((k, d), dtype, k ** -0.5)
         dy = self.rand((b, length, d), dtype)
         dname = str(dtype).replace("torch.", "")
-        label = f"{b}x{length}x{d} k{k} vec {dwconv1d.vector_width(x, f, dy)}"
+        vec = dwconv1d.vector_width(x, f, dy)
+        label = f"{b}x{length}x{d} k{k} vec {vec}"
 
         def bwd():
             return dwconv1d.dwconv1d_causal_bwd(x, f, dy)
+        before = dwconv1d.bwd_launches
         got, again = bwd(), bwd()
+        one_launch = dwconv1d.bwd_launches == before + 2
         side = torch.cuda.Stream(self.dev)
         side.wait_stream(torch.cuda.current_stream(self.dev))
         with torch.cuda.stream(side):
@@ -528,56 +550,54 @@ class KernelChecks:
                       self.rel_err(lib_df[:, 0].T, want[1]))
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         tol = KERNEL_TOL[dname]
-        ws = dwconv1d.bwd_partials(x, f, dy)[1]
-        first_ms = self.graph_ms(lambda: dwconv1d.bwd_partials(x, f, dy),
-                                 self.dev)
-        reduce_ms = self.graph_ms(lambda: dwconv1d.reduce_partials(ws, dtype),
-                                  self.dev)
-        both_ms = self.graph_ms(bwd, self.dev)
+        dims = dwconv1d.bwd_launch_dims(b, length, d, k, dtype)
+        dims_equal = dims == dwconv1d.bwd_dims(b, length, d, k, dtype)
+        grid, _, cluster, _ = dims
+        regs = bwd_registers(_build.library_path("dwconv1d"), dtype, k,
+                             vec > 1)
+        ms = self.graph_ms(bwd, self.dev)
         plain_ms = self.time_ms(
             lambda: dwconv1d.dwconv1d_causal_bwd_plain(x, f, dy), self.dev,
             reps=20, warmup=3)
-        reduce_plain_ms = self.time_ms(lambda: ws.sum(dim=0).to(dtype),
-                                       self.dev, reps=20, warmup=3)
-        reduce_library_ms = self.graph_ms(lambda: ws.sum(dim=0).to(dtype),
-                                          self.dev)
         library_ms = self.graph_ms(library, self.dev)
+        out = torch.empty_like(x)
+        same_bytes_ms = self.graph_ms(lambda: torch.add(x, dy, out=out),
+                                      self.dev)
         es = x.element_size()
-        rows = []
-        for name, ms, pms, lms, nbytes, ops in (
-                ("dwconv1d_bwd", first_ms, plain_ms, library_ms,
-                 (3 * x.numel() + 2 * f.numel()) * es,
-                 4 * b * length * d * k),
-                ("dwconv1d_bwd_reduce", reduce_ms, reduce_plain_ms,
-                 reduce_library_ms,
-                 ws.numel() * 4 + f.numel() * es, ws.numel())):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[dname] * 1e3
-            rows.append({
-                "name": name, "shape": label, "dtype": dname,
-                "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
-                "ms": ms, "plain_ms": pms, "library_ms": lms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "ops": ops, "backward_ms": both_ms,
-                "splits": ws.shape[0], "repeats_bit_for_bit": repeats,
-                "graph_replay_equal": replays, "library_rel_err": lib_rel})
+        nbytes = (3 * x.numel() + 2 * f.numel()) * es
+        ops = 4 * b * length * d * k
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS[dname] * 1e3
+        row = {
+            "name": "dwconv1d_bwd", "shape": label, "dtype": dname,
+            "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "same_bytes_add_ms": same_bytes_ms,
+            "registers": regs,
+            "ctas": grid[0] * grid[1] * grid[2], "cluster": cluster[0],
+            "one_launch": one_launch, "launch_dims_equal": dims_equal,
+            "repeats_bit_for_bit": repeats, "graph_replay_equal": replays,
+            "library_rel_err": lib_rel}
         print(f"  {'dwconv1d backward':17s} {label:44s} {dname:8s} rel err "
-              f"{rel:.2e} (tol {tol:g}; library {lib_rel:.2e}), "
-              f"{ws.shape[0]} partial slots; both kernels {both_ms:.4f} ms "
-              f"(dx + partials {first_ms:.4f}, reduce {reduce_ms:.4f}), "
-              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-              f"{rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']}); "
-              f"reduce bound {rows[1]['bound_ms']:.4f} ms, plain "
-              f"{reduce_plain_ms:.4f} ms, library {reduce_library_ms:.4f} "
-              f"ms; two calls equal {repeats}, graph "
-              f"replay equal {replays}", flush=True)
-        if not (finite and rel <= tol and repeats and replays):
+              f"{rel:.2e} (tol {tol:g}; library {lib_rel:.2e}); one launch "
+              f"{ms:.4f} ms ({row['bound_ms'] / ms:.0%} of the bound "
+              f"{row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, an add of "
+              f"the same bytes {same_bytes_ms:.4f} ms; {regs} "
+              f"registers, {row['ctas']} CTAs in clusters of {cluster[0]}; "
+              f"two calls equal {repeats}, graph replay equal {replays}",
+              flush=True)
+        if not (finite and rel <= tol and repeats and replays and one_launch
+                and dims_equal):
             raise AssertionError(f"dwconv1d backward {label} {dname}: rel "
                                  f"err {rel} > {tol} (finite={finite}), two "
                                  f"calls equal {repeats}, graph replay "
-                                 f"equal {replays}")
-        self.results.extend(rows)
+                                 f"equal {replays}, one launch a call "
+                                 f"{one_launch}, launch dims {dims} vs the "
+                                 f"model's {dims_equal}")
+        self.results.append(row)
 
     def fused(self, b, h, w, ci, c, co, stride, residual, dtype, k=3):
         """One block as the main path runs it: x unpadded, the kernel
@@ -4702,12 +4722,14 @@ def main() -> int:
         kc.dwconv1d(8, 128 + HYMBA_PROMPT, 3200, 4, dtype)
         # dwconv1d's backward at the training shapes: xLSTM's 8 x 256 at
         # the mLSTM's d_inner 1536 and the sLSTM's d_model 768, hymba's
-        # 512 tokens + 128 meta at batch 4 and at phase 10's batch
+        # 512 tokens + 128 meta at batch 4 and at phase 10's batch, and at
+        # phase 10's batch on a rank's channel block at tp 2 and 4
         kc.dwconv1d_bwd(TRAIN_BATCH, TRAIN_SEQ, 1536, 4, dtype)
         kc.dwconv1d_bwd(TRAIN_BATCH, TRAIN_SEQ, 768, 4, dtype)
         kc.dwconv1d_bwd(4, 640, 3200, 4, dtype)
-        kc.dwconv1d_bwd(HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ + 128, 3200, 4,
-                        dtype)
+        for d_bwd in (3200, 1600, 800):
+            kc.dwconv1d_bwd(HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ + 128, d_bwd,
+                            4, dtype)
         for ci, co, act in ((1600, 6400, None), (3200, 132, None),
                             (100, 3200, None), (1600, 5504, "silu")):
             kc.pwconv(g, ci, co, dtype, act=act, launches=2)
@@ -4799,10 +4821,9 @@ def main() -> int:
     # dwconv1d's kernels run on the LM paths only; its backward's in
     # training alone: what the profiled train steps (graph replays and
     # eager steps) ran stands for their replay count
-    for name in ("dwconv1d", "dwconv1d_bwd", "dwconv1d_bwd_reduce"):
+    for name in ("dwconv1d", "dwconv1d_bwd"):
         launches[name] = replayed[name] = 0
-    for name in ("dwconv1d_bwd", "dwconv1d_bwd_reduce"):
-        replayed[name] = train_profiled[name]
+    replayed["dwconv1d_bwd"] = train_profiled["dwconv1d_bwd"]
     for name, n in train_launches.items():
         launches[name] += n
     t_phase = time.perf_counter()

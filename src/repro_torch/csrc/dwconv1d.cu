@@ -25,19 +25,36 @@
 // From dy (B, L, D), x and f:
 //   dx[b, m, d] = sum_i f[i, d] * dy[b, m + (K-1) - i, d]   (anti-causal, zero right pad)
 //   df[i, d]    = sum_{b, l} x[b, l - (K-1) + i, d] * dy[b, l, d]
-// Bound on the H100: bytes (read x and dy once, write dx; df is K x D).
-//   * dw1d_bwd_kernel: one pass.  A CTA is 32 channel vectors x 8 runs of
-//     `rows` rows of one batch row; each thread slides two register windows
-//     down its run (from its last row to its first): dy's K-1 rows to the
-//     right for dx, x's K-1 rows to the left for df, so it reads each row of
-//     x and dy once, writes dx, and keeps df's K taps in fp32 registers.  The
-//     CTA sums its 8 runs' taps in shared memory in a fixed order and writes
-//     one fp32 partial per tap and channel into a workspace (one slot per CTA
-//     along the rows: no atomics).
-//   * dw1d_df_reduce_kernel: sums the partials in slot order in fp32 and
-//     rounds once to f's type, so df has the same bits at every call (the
-//     training loop's bit-exact recovery runs with deterministic algorithms).
-#include "common.cuh"
+// What bounds it on the H100: bytes (x and dy read once, dx written once,
+// df K x D); 4K operations a row and channel are far under the card's
+// operations a byte.  dw1d_bwd_kernel computes both in one launch:
+//   * registers: a CTA of 128 threads covers one tile of 32 channels, a
+//     lane 4 adjacent channels of one run of rows, so a thread keeps K taps,
+//     K fp32 tap sums and two (K-1)-row windows of 4 channels (16K - 8
+//     floats; the old kernel held 8 channels a thread in bf16), and loads a
+//     row's 4 values in one 16- or 8-byte shared-memory read;
+//   * bytes in flight: the CTA stages its rows of x and dy (with their K-1
+//     halo rows) in shared memory with 16-byte cp.async copies, two stages
+//     of 80 rows (fp32) or 144 (16 bits, a stage of about the same bytes),
+//     the next stage's copies in flight while the warps slide their windows
+//     down the current one, five or nine rows a run, unrolled (rows of a
+//     batch row only: every tap is masked by the row's position, so a stage
+//     may span batch rows); misaligned or ragged widths take plain loads
+//     into the stages;
+//   * waves: a thread-block cluster of up to 16 CTAs splits a tile's B * L
+//     rows, doubled while the grid holds fewer than two CTAs for each of the
+//     132 SMs (768 channels: 24 tiles, clusters of 16, 384 CTAs); the whole
+//     grid is one wave;
+//   * the reduction: each CTA sums its runs' tap sums by a fixed shuffle
+//     tree and its warps' in warp order, pushes them through distributed
+//     shared memory to the rank that owns each entry, and after one cluster
+//     barrier each rank sums its entries in rank order and rounds once to
+//     f's type, so df has the same bits at every call and in a CUDA-graph
+//     replay (training's bit-exact recovery), with no atomics and no second
+//     launch.
+// K = 2..5 take exact-K windows; any other K, K = 1 included, a runtime tap
+// loop that reads x and dy from global memory and sums df one tap at a time.
+#include "tile_gemm.cuh"
 
 namespace {
 
@@ -165,228 +182,376 @@ int launch_io(const void* x, const void* f, void* out, int B, int L, int D, int 
 // Backward
 // --------------------------------------------------------------------------
 
-// Runs of one CTA along the sequence (threadIdx.y); channel vectors along x.
-constexpr int kBwdRuns = 8;
-constexpr int kBwdLanes = 32;
+// A CTA: 128 threads over one tile of 32 channels of a range of the B * L
+// rows.  At K = 2..5 a lane owns 4 adjacent channels, so 8 lanes cover a
+// row of the tile and the CTA's 16 runs cover a chunk; a thread-block
+// cluster of up to 16 CTAs splits the rows of one tile, so the grid is
+// (cluster, tiles).
+constexpr int kBwdThreads = 128;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdTile = 32;
+constexpr int kBwdVec = 4;
+constexpr int kBwdRowLanes = kBwdTile / kBwdVec;
+constexpr int kBwdRuns = kBwdThreads / kBwdRowLanes;
+// Rows of a run in a chunk, for 4- and 2-byte types (a stage of about the
+// same bytes): odd, so that the two runs a 16-bit load phase of a half warp
+// reads (64-byte rows) lie on other banks.
+constexpr int kBwdRunRows = 5;
+constexpr int kBwdRunRows16 = 9;
+// The stages: the copies of the next chunk are in flight while the warps
+// compute one.
+constexpr int kBwdStages = 2;
+constexpr int kBwdMaxCluster = 16;
+// The grid the cluster is sized for: two CTAs on each of the H100's 132 SMs.
+constexpr long long kBwdFill = 2 * 132;
+// Fewest rows a CTA is given when the cluster grows.
+constexpr long long kBwdMinRows = 32;
+constexpr int kBwdMinBlocks = 1;
 
-// The CTA's tap sums: each thread's a[V] for its channel vector, summed over
-// threadIdx.y in order through shared memory, stored to out[0 .. 32*V) (the
-// CTA's channel vectors; those at or past D skipped).
-template <int V>
-__device__ __forceinline__ void cta_tap_sum(const float (&a)[V], float* red, float* out, int d0,
-                                           int D) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-  for (int v = 0; v < V; ++v) red[ty * kBwdLanes * V + tx * V + v] = a[v];
-  __syncthreads();
-  const int tid = ty * kBwdLanes + tx;
-  for (int c = tid; c < kBwdLanes * V; c += kBwdLanes * kBwdRuns) {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < kBwdRuns; ++r) s += red[r * kBwdLanes * V + c];
-    if (d0 + c < D) out[c] = s;
+// Rows of a run and of a chunk (a shared-memory stage holds a chunk and
+// its K-1 halo rows) for the element size esize.
+__host__ __device__ constexpr int bwd_run_rows(int esize) {
+  return esize == 4 ? kBwdRunRows : kBwdRunRows16;
+}
+__host__ __device__ constexpr int bwd_chunk(int esize) { return kBwdRuns * bwd_run_rows(esize); }
+
+// Rows [first, first + n) of g's tile (channels [c0, c0 + nch)) into s, n
+// rows of kBwdTile elements: 16-byte cp.async copies under VEC (nch is
+// then a multiple of 16 / sizeof(T)), plain loads otherwise.  Rows outside
+// [0, BL) are left as they are: the compute masks every use of them.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_rows(T* s, const T* __restrict__ g, long long first, int n,
+                                           long long BL, int D, int c0, int nch) {
+  if constexpr (VEC) {
+    constexpr int E = 16 / sizeof(T);
+    constexpr int P = kBwdTile / E;
+    for (int p = threadIdx.x; p < n * P; p += kBwdThreads) {
+      const int j = p / P, q = p % P;
+      const long long r = first + j;
+      if (q * E < nch && r >= 0 && r < BL) cp16(s + j * kBwdTile + q * E, g + r * D + c0 + q * E, true);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * kBwdTile; e += kBwdThreads) {
+      const int j = e / kBwdTile, c = e % kBwdTile;
+      const long long r = first + j;
+      if (c < nch && r >= 0 && r < BL) s[e] = g[r * D + c0 + c];
+    }
   }
-  __syncthreads();
 }
 
-// K > 0: exact-K register windows; K == 0: a runtime tap loop (k_rt taps).
-// grid.x: B * spans (a span = kBwdRuns runs of `rows` rows), grid.y: channel
-// tiles of 32 vectors.  ws (grid.x, K, D) fp32.
-template <typename T, int K, int V>
-__global__ void __launch_bounds__(kBwdLanes * kBwdRuns) dw1d_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ f, const T* __restrict__ dy, T* __restrict__ dx,
-    float* __restrict__ ws, int L, int D, int k_rt, int rows) {
-  __shared__ float red[kBwdRuns * kBwdLanes * V];
-  const int taps = K > 0 ? K : k_rt;
-  const int dvecs = D / V;
-  const int spans = (L + kBwdRuns * rows - 1) / (kBwdRuns * rows);
-  const int b = blockIdx.x / spans;
-  const int l0 = (blockIdx.x % spans) * kBwdRuns * rows + threadIdx.y * rows;
-  const int l1 = min(l0 + rows, L);
-  const int tile0 = blockIdx.y * kBwdLanes * V;  // first channel of the CTA
-  const int dv = blockIdx.y * kBwdLanes + threadIdx.x;
-  const bool live = dv < dvecs && l0 < l1;
-  const int d0 = dv * V;
-  const long long base = (long long)b * L * D + d0;
-  const T* xb = x + base;
-  const T* gb = dy + base;
-  T* ob = dx + base;
-  float* wsb = ws + (long long)blockIdx.x * taps * D + tile0;
+// The split cluster barrier: arrive (this CTA has started, so the others
+// may write into its shared memory) and wait (every CTA has arrived).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
-  if constexpr (K > 0) {
-    constexpr int W = K > 1 ? K - 1 : 1;
-    float acc[K][V];
+// Waits until at most N committed groups of this thread's copies are in
+// flight.
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The CTA's sum sum(e) of entry e < taps * kBwdTile (tap i0 + e / 32,
+// channel e % 32 of the tile) into df, summed over the cluster's ranks in
+// rank order: each rank pushes its sums into the shared memory (vals) of
+// the rank that owns the entry, through distributed shared memory, and
+// after one cluster barrier each rank sums its entries and rounds once.
+// The first fold waits for the arrive every CTA made when it started.
+template <typename T, typename S>
+__device__ __forceinline__ void cluster_fold(cg::cluster_group& cluster, S&& sum, float* vals,
+                                             bool first, int taps, int i0, T* __restrict__ df,
+                                             int D, int c0, int nch) {
+  const int ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n = taps * kBwdTile;
+  const int share = (n + ranks - 1) / ranks;
+  if (first) cluster_wait();
+  for (int e = threadIdx.x; e < n; e += kBwdThreads) {
+    const int owner = e / share;
+    cluster.map_shared_rank(vals, owner)[(e - owner * share) * ranks + rank] = sum(e);
+  }
+  cluster.sync();
+  const int e0 = rank * share;
+  const int cnt = max(0, min(n, e0 + share) - e0);
+  for (int t = threadIdx.x; t < cnt; t += kBwdThreads) {
+    float s = 0.f;
+    for (int q = 0; q < ranks; ++q) s += vals[t * ranks + q];
+    const int e = e0 + t, c = e % kBwdTile;
+    if (c < nch) df[(long long)(i0 + e / kBwdTile) * D + c0 + c] = from_f<T>(s);
+  }
+}
+
+// dx and df in one launch.  Grid (cluster, tiles), clusters along x: rank q
+// of tile t owns rows [q rb, (q + 1) rb) of B * L and channels
+// [32 t, 32 t + 32).  KT > 0: exact K (2..5), the rows staged in shared
+// memory chunk by chunk (bwd_chunk rows and their halo a stage), each
+// thread sliding register windows of its 4 channels down its run of a
+// chunk; KT == 0: a runtime tap loop (k_rt taps, a channel a lane) that
+// reads from global memory, df one tap at a time.
+template <typename T, int KT, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks) dw1d_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ f, const T* __restrict__ dy, T* __restrict__ dx,
+    T* __restrict__ df, long long BL, int L, int D, int k_rt, long long rb) {
+  constexpr int KR = KT > 0 ? KT : 1;  // taps one reduction holds
+  // red (warps, KR, tile): each warp's sums; vals (2, KR * tile + 16): the
+  // ranks' sums a fold's entries receive (two, for the runtime path's
+  // folds in turn); then, for KT > 0, the stages of x's and dy's rows
+  extern __shared__ __align__(16) float dyn[];
+  float* red = dyn;
+  float* vals = red + kBwdWarps * KR * kBwdTile;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.y * kBwdTile;
+  const int nch = min(kBwdTile, D - c0);
+  const long long r_beg = (long long)blockIdx.x * rb;
+  const long long r_end = min(r_beg + rb, BL);
+  const long long n_rows = r_end > r_beg ? r_end - r_beg : 0;
+
+  if constexpr (KT > 0) {
+    constexpr int V = kBwdVec;
+    constexpr int run_rows = bwd_run_rows(sizeof(T));
+    constexpr int chunk = bwd_chunk(sizeof(T));
+    constexpr int srows = chunk + KT - 1;
+    // stage s: xs[s] holds x's rows from r0 - (K-1), gs[s] dy's from r0
+    T* xs = reinterpret_cast<T*>(vals + 2 * (KR * kBwdTile + kBwdMaxCluster));
+    T* gs = xs + kBwdStages * srows * kBwdTile;
+    const int cg4 = (lane % kBwdRowLanes) * V;   // the lane's first channel in the tile
+    const int run = threadIdx.x / kBwdRowLanes;  // the lane's run of a chunk
+    const int d = c0 + cg4;
+    const bool live = cg4 < nch;                    // (under VEC all 4 channels are)
+    float tap[KT][V], acc[KT][V];
 #pragma unroll
-    for (int i = 0; i < K; ++i)
+    for (int i = 0; i < KT; ++i) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[i][v] = 0.f;
-    if (live) {
-      float taps_f[K][V];
-#pragma unroll
-      for (int i = 0; i < K; ++i) load_f<T, V>(f + (long long)i * D + d0, taps_f[i]);
-      // gw[j] = dy[l + 1 + j], xw[j] = x[l - (K-1) + j] for the row l about
-      // to be computed (walking l down from l1 - 1)
-      float gw[W][V], xw[W][V];
-#pragma unroll
-      for (int j = 0; j < K - 1; ++j) {
-        const int lg = l1 + j;
-        const int lx = l1 - 1 - (K - 1) + j;
-        if (lg < L) {
-          load_f<T, V>(gb + (long long)lg * D, gw[j]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) gw[j][v] = 0.f;
-        }
-        if (lx >= 0) {
-          load_f<T, V>(xb + (long long)lx * D, xw[j]);
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) xw[j][v] = 0.f;
-        }
+      for (int v = 0; v < V; ++v) {
+        tap[i][v] = 0.f;
+        acc[i][v] = 0.f;
       }
-      for (int l = l1 - 1; l >= l0; --l) {
-        float g[V], xc[V];
-        load_f<T, V>(gb + (long long)l * D, g);
-        load_f<T, V>(xb + (long long)l * D, xc);
-        Vec<T, V> o;
+      if constexpr (VEC) {
+        if (live) load_f<T, V>(f + (long long)i * D + d, tap[i]);
+      } else {
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          // dx[l] = f[K-1] dy[l] + sum_j f[K-2-j] dy[l+1+j]
-          float s = g[v] * taps_f[K - 1][v];
+        for (int v = 0; v < V; ++v)
+          if (cg4 + v < nch) tap[i][v] = to_f(f[(long long)i * D + d + v]);
+      }
+    }
+    const int chunks = (int)((n_rows + chunk - 1) / chunk);
+    // chunk c's rows into stage c % kBwdStages; one commit group a chunk
+    // (empty past the last), so that the waits count chunks
+    auto stage = [&](int c) {
+      if (c < chunks) {
+        const long long r0 = r_beg + (long long)c * chunk;
+        const int n = (int)min((long long)chunk, r_end - r0);
+        const int s = c % kBwdStages;
+        stage_rows<T, VEC>(xs + s * srows * kBwdTile, x, r0 - (KT - 1), n + KT - 1, BL, D, c0, nch);
+        stage_rows<T, VEC>(gs + s * srows * kBwdTile, dy, r0, n + KT - 1, BL, D, c0, nch);
+      }
+      cp_commit();
+    };
 #pragma unroll
-          for (int j = 0; j < K - 1; ++j) s = fmaf(gw[j][v], taps_f[K - 2 - j][v], s);
-          o.v[v] = from_f<T>(s);
-          // df[i] += x[l - (K-1) + i] dy[l]
+    for (int c = 0; c < kBwdStages - 1; ++c) stage(c);
+    for (int c = 0; c < chunks; ++c) {
+      // chunk c has landed for every thread, and every warp is done with
+      // chunk c - 1, whose stage the copies of chunk c + kBwdStages - 1 take
+      cp_wait_group<kBwdStages - 2>();
+      __syncthreads();
+      stage(c + kBwdStages - 1);
+      const long long r0 = r_beg + (long long)c * chunk;
+      const int n = (int)min((long long)chunk, r_end - r0);
+      const int ja = run * run_rows, nr = min(run_rows, n - ja);
+      if (live && nr > 0) {
+        const T* sx = xs + (c % kBwdStages) * srows * kBwdTile + cg4;
+        const T* sg = gs + (c % kBwdStages) * srows * kBwdTile + cg4;
+        long long r = r0 + ja;
+        int l = (int)(r % L);
+        // xw[m] = x[r - (K-1) + m], gw[m] = dy[r + m] for the row r at hand
+        float xw[KT - 1][V], gw[KT - 1][V];
 #pragma unroll
-          for (int i = 0; i < K - 1; ++i) acc[i][v] = fmaf(xw[i][v], g[v], acc[i][v]);
-          acc[K - 1][v] = fmaf(xc[v], g[v], acc[K - 1][v]);
+        for (int m = 0; m < KT - 1; ++m) {
+          load_f<T, V>(sx + (ja + m) * kBwdTile, xw[m]);
+          load_f<T, V>(sg + (ja + m) * kBwdTile, gw[m]);
         }
-        *reinterpret_cast<Vec<T, V>*>(ob + (long long)l * D) = o;
-        if (K > 1) {
-          // slide both windows one row down
+        T* o = dx + r * D + d;
 #pragma unroll
-          for (int j = K - 2; j > 0; --j)
+        for (int j = 0; j < run_rows; ++j) {
+          if (j < nr) {
+            float xc[V], gn[V];
+            load_f<T, V>(sx + (ja + j + KT - 1) * kBwdTile, xc);  // x[r]
+            load_f<T, V>(sg + (ja + j + KT - 1) * kBwdTile, gn);  // dy[r + K-1]
+            // dx[r] = sum_i f[i] dy[r + (K-1) - i], rows of r's batch row only
+            bool in[KT - 1];
+#pragma unroll
+            for (int i = 0; i < KT - 1; ++i) in[i] = l + (KT - 1 - i) < L;
+            Vec<T, V> ov;
 #pragma unroll
             for (int v = 0; v < V; ++v) {
-              gw[j][v] = gw[j - 1][v];
-              xw[j][v] = xw[j - 1][v];
+              float s = tap[KT - 1][v] * gw[0][v];
+#pragma unroll
+              for (int i = 0; i < KT - 1; ++i) {
+                const int off = KT - 1 - i;
+                const float g = off < KT - 1 ? gw[off][v] : gn[v];
+                if (in[i]) s = fmaf(tap[i][v], g, s);
+              }
+              ov.v[v] = from_f<T>(s);
+            }
+            if constexpr (VEC) {
+              *reinterpret_cast<Vec<T, V>*>(o) = ov;
+            } else {
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                if (cg4 + v < nch) o[v] = ov.v[v];
+            }
+            o += D;
+            // df[i] += x[r - (K-1) + i] dy[r], rows of r's batch row only
+#pragma unroll
+            for (int i = 0; i < KT - 1; ++i) {
+              if (l >= KT - 1 - i) {
+#pragma unroll
+                for (int v = 0; v < V; ++v) acc[i][v] = fmaf(xw[i][v], gw[0][v], acc[i][v]);
+              }
             }
 #pragma unroll
-          for (int v = 0; v < V; ++v) gw[0][v] = g[v];
-          const int lx = l - K;
-          if (lx >= 0) {
-            load_f<T, V>(xb + (long long)lx * D, xw[0]);
-          } else {
+            for (int v = 0; v < V; ++v) acc[KT - 1][v] = fmaf(xc[v], gw[0][v], acc[KT - 1][v]);
 #pragma unroll
-            for (int v = 0; v < V; ++v) xw[0][v] = 0.f;
+            for (int m = 0; m + 1 < KT - 1; ++m)
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                xw[m][v] = xw[m + 1][v];
+                gw[m][v] = gw[m + 1][v];
+              }
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              xw[KT - 2][v] = xc[v];
+              gw[KT - 2][v] = gn[v];
+            }
+            if (++l == L) l = 0;
           }
         }
       }
     }
+    // the CTA's sums: a warp's 4 runs by a fixed shuffle tree, the warps'
+    // in warp order, then the cluster's ranks' in rank order
 #pragma unroll
-    for (int i = 0; i < K; ++i) cta_tap_sum<V>(acc[i], red, wsb + (long long)i * D, tile0, D);
+    for (int i = 0; i < KT; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float a = acc[i][v];
+#pragma unroll
+#pragma unroll
+        for (int o = kBwdRowLanes; o < 32; o *= 2) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane < kBwdRowLanes) red[(warp * KT + i) * kBwdTile + cg4 + v] = a;
+      }
+    __syncthreads();
+    cluster_fold<T>(cluster, [&](int e) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) s += red[w * KT * kBwdTile + e];
+      return s;
+    }, vals, true, KT, 0, df, D, c0, nch);
   } else {
+    const int K = k_rt;
+    const int d = c0 + lane;
+    const bool live = lane < nch;
+    const long long rw = (n_rows + kBwdWarps - 1) / kBwdWarps;  // rows of a warp
+    const long long ra = r_beg + warp * rw, rz = min(ra + rw, r_end);
+    const T* xb = x + d;
+    const T* gb = dy + d;
     if (live) {
-      for (int l = l0; l < l1; ++l) {
-        float s[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) s[v] = 0.f;
-        for (int i = 0; i < taps; ++i) {
-          const int lg = l + (taps - 1) - i;
-          if (lg >= L) continue;
-          float g[V], fv[V];
-          load_f<T, V>(gb + (long long)lg * D, g);
-          load_f<T, V>(f + (long long)i * D + d0, fv);
-#pragma unroll
-          for (int v = 0; v < V; ++v) s[v] = fmaf(g[v], fv[v], s[v]);
+      int l = (int)(ra % L);
+      for (long long r = ra; r < rz; ++r) {
+        float s = 0.f;
+        for (int i = 0; i < K; ++i) {
+          const int off = K - 1 - i;
+          if (l + off < L) s = fmaf(to_f(f[(long long)i * D + d]), to_f(gb[(r + off) * D]), s);
         }
-        Vec<T, V> o;
-#pragma unroll
-        for (int v = 0; v < V; ++v) o.v[v] = from_f<T>(s[v]);
-        *reinterpret_cast<Vec<T, V>*>(ob + (long long)l * D) = o;
+        dx[r * D + d] = from_f<T>(s);
+        if (++l == L) l = 0;
       }
     }
-    for (int i = 0; i < taps; ++i) {
-      float a[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) a[v] = 0.f;
+    for (int i = 0; i < K; ++i) {
+      float a = 0.f;
       if (live) {
-        for (int l = l1 - 1; l >= l0; --l) {
-          const int lx = l - (taps - 1) + i;
-          if (lx < 0) break;
-          float g[V], xv[V];
-          load_f<T, V>(gb + (long long)l * D, g);
-          load_f<T, V>(xb + (long long)lx * D, xv);
-#pragma unroll
-          for (int v = 0; v < V; ++v) a[v] = fmaf(xv[v], g[v], a[v]);
+        int l = (int)(ra % L);
+        for (long long r = ra; r < rz; ++r) {
+          if (l >= K - 1 - i) a = fmaf(to_f(xb[(r - (K - 1) + i) * D]), to_f(gb[r * D]), a);
+          if (++l == L) l = 0;
         }
       }
-      cta_tap_sum<V>(a, red, wsb + (long long)i * D, tile0, D);
+      red[warp * kBwdTile + lane] = a;
+      __syncthreads();
+      // vals alternates between taps: a rank writes into another's for
+      // tap i + 2 only after the cluster barrier of tap i + 1, which that
+      // rank reaches when it is done summing tap i
+      cluster_fold<T>(cluster, [&](int e) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kBwdWarps; ++w) s += red[w * kBwdTile + e];
+        return s;
+      }, vals + (i & 1) * (kBwdTile + kBwdMaxCluster), i == 0, 1, i, df, D, c0, nch);
     }
   }
 }
 
-// df[i, d] = sum over the slots s = 0 .. splits-1, in order, of ws[s, i, d].
-template <typename T>
-__global__ void __launch_bounds__(256) dw1d_df_reduce_kernel(const float* __restrict__ ws,
-                                                             T* __restrict__ df, int splits,
-                                                             int kd) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= kd) return;
-  float s = 0.f;
-  for (int r = 0; r < splits; ++r) s += ws[(long long)r * kd + idx];
-  df[idx] = from_f<T>(s);
+// The backward's launch: grid (cluster, tiles), the cluster along x sized
+// so that the grid puts two CTAs on every SM where the rows allow it; rb
+// rows a CTA.
+struct BwdPlan {
+  LaunchDims d;
+  long long rb;
+};
+
+inline BwdPlan bwd_plan(long long BL, int D, int K, int esize) {
+  const long long tiles = (D + kBwdTile - 1) / kBwdTile;
+  int cluster = 1;
+  while (cluster < kBwdMaxCluster && tiles * cluster < kBwdFill &&
+         (BL + 2 * cluster - 1) / (2 * cluster) >= kBwdMinRows)
+    cluster *= 2;
+  BwdPlan p;
+  p.rb = (BL + cluster - 1) / cluster;
+  const bool exact = K >= 2 && K <= 5;
+  const int kr = exact ? K : 1;
+  const size_t smem = ((size_t)kBwdWarps * kr * kBwdTile + 2 * (kr * kBwdTile + kBwdMaxCluster)) * sizeof(float) +
+                      (exact ? (size_t)kBwdStages * 2 * (bwd_chunk(esize) + K - 1) * kBwdTile * esize : 0);
+  p.d = launch_dims(cluster, tiles, 1, kBwdThreads, cluster, smem);
+  return p;
 }
 
-// The backward's launch configuration: (grid x: CTAs along the rows, grid y:
-// channel tiles), kBwdLanes x kBwdRuns threads.
-inline LaunchDims bwd_dims(int B, int L, int D, int vec, int rows) {
-  const long long spans = (L + (long long)kBwdRuns * rows - 1) / ((long long)kBwdRuns * rows);
-  const long long tiles = (D / vec + kBwdLanes - 1) / kBwdLanes;
-  LaunchDims d = launch_dims(B * spans, tiles, 1, kBwdLanes, 1, 0);
-  d.block[1] = kBwdRuns;
-  return d;
+template <typename T, int KT, bool VEC>
+int launch_bwd_kv(const void* x, const void* f, const void* dy, void* dx, void* df, long long BL,
+                  int L, int D, int k, cudaStream_t stream) {
+  static bool allowed = false;
+  static long long placed_key = -1;
+  const BwdPlan p = bwd_plan(BL, D, k, sizeof(T));
+  if (p.d.grid[1] > 65535) return (int)cudaErrorInvalidConfiguration;
+  return launch_clustered(dw1d_bwd_kernel<T, KT, VEC>, p.d, stream, allowed, placed_key,
+                          static_cast<const T*>(x), static_cast<const T*>(f),
+                          static_cast<const T*>(dy), static_cast<T*>(dx), static_cast<T*>(df), BL,
+                          L, D, k, p.rb);
 }
 
-template <typename T, int K, int V>
-int launch_bwd_kv(const void* x, const void* f, const void* dy, void* dx, float* ws, int B, int L,
-                  int D, int k, int rows, cudaStream_t stream) {
-  const LaunchDims d = bwd_dims(B, L, D, V, rows);
-  if (d.grid[0] > 2147483647LL || d.grid[1] > 65535) return (int)cudaErrorInvalidConfiguration;
-  dw1d_bwd_kernel<T, K, V><<<d.grid_dim(), d.block_dim(), 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(f), static_cast<const T*>(dy),
-      static_cast<T*>(dx), ws, L, D, k, rows);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int V>
-int launch_bwd_v(const void* x, const void* f, const void* dy, void* dx, float* ws, int B, int L,
-                 int D, int k, int rows, cudaStream_t stream) {
+template <typename T, bool VEC>
+int launch_bwd_v(const void* x, const void* f, const void* dy, void* dx, void* df, long long BL,
+                 int L, int D, int k, cudaStream_t stream) {
   switch (k) {
-    case 2: return launch_bwd_kv<T, 2, V>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
-    case 3: return launch_bwd_kv<T, 3, V>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
-    case 4: return launch_bwd_kv<T, 4, V>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
-    case 5: return launch_bwd_kv<T, 5, V>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
-    default: return launch_bwd_kv<T, 0, V>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
+    case 2: return launch_bwd_kv<T, 2, VEC>(x, f, dy, dx, df, BL, L, D, k, stream);
+    case 3: return launch_bwd_kv<T, 3, VEC>(x, f, dy, dx, df, BL, L, D, k, stream);
+    case 4: return launch_bwd_kv<T, 4, VEC>(x, f, dy, dx, df, BL, L, D, k, stream);
+    case 5: return launch_bwd_kv<T, 5, VEC>(x, f, dy, dx, df, BL, L, D, k, stream);
+    default: return launch_bwd_kv<T, 0, VEC>(x, f, dy, dx, df, BL, L, D, k, stream);
   }
 }
 
 template <typename T>
-int launch_bwd(const void* x, const void* f, const void* dy, void* dx, float* ws, int B, int L,
-               int D, int k, int vec, int rows, cudaStream_t stream) {
+int launch_bwd(const void* x, const void* f, const void* dy, void* dx, void* df, long long BL,
+               int L, int D, int k, int vec, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  if (vec == kVec) return launch_bwd_v<T, kVec>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
-  if (vec == 1) return launch_bwd_v<T, 1>(x, f, dy, dx, ws, B, L, D, k, rows, stream);
+  if (vec == kVec) return launch_bwd_v<T, true>(x, f, dy, dx, df, BL, L, D, k, stream);
+  if (vec == 1) return launch_bwd_v<T, false>(x, f, dy, dx, df, BL, L, D, k, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int launch_reduce(const float* ws, void* df, int splits, int kd, cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = ((long long)kd + threads - 1) / threads;
-  dw1d_df_reduce_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(ws, static_cast<T*>(df),
-                                                                     splits, kd);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -404,39 +569,28 @@ extern "C" int dwconv1d_launch(const void* x, const void* f, void* out, int B, i
                     static_cast<cudaStream_t>(stream));
 }
 
-// The backward's first pass: x, f, dy (B, L, D) / (K, D) and dx (B, L, D) at
-// one type (dtype code), ws (splits, K, D) fp32 with splits =
-// dwconv1d_bwd_splits(B, L, rows).  vec and rows as dwconv1d_launch's.
+// The backward, dx and df in one launch: x, f, dy (B, L, D) / (K, D), dx
+// (B, L, D) and df (K, D), all at one type (dtype code).  vec: 1, or
+// 16 / sizeof(type) when D divides into it and every operand is 16-byte
+// aligned.
 extern "C" int dwconv1d_bwd_launch(const void* x, const void* f, const void* dy, void* dx,
-                                   void* ws, int B, int L, int D, int K, int vec, int rows,
-                                   int dtype, void* stream) {
+                                   void* df, int B, int L, int D, int K, int vec, int dtype,
+                                   void* stream) {
   using namespace repro;
-  if (K < 1 || rows < 1 || vec < 1 || D % vec != 0) return (int)cudaErrorInvalidValue;
+  if (K < 1 || B < 1 || L < 1 || D < 1 || vec < 1 || D % vec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (dtype == kF32) return launch_status(launch_bwd<float>(x, f, dy, dx, w, B, L, D, K, vec, rows, s));
+  const long long BL = (long long)B * L;
+  if (dtype == kF32) return launch_status(launch_bwd<float>(x, f, dy, dx, df, BL, L, D, K, vec, s));
   if (dtype == kBF16)
-    return launch_status(launch_bwd<__nv_bfloat16>(x, f, dy, dx, w, B, L, D, K, vec, rows, s));
-  if (dtype == kF16)
-    return launch_status(launch_bwd<__half>(x, f, dy, dx, w, B, L, D, K, vec, rows, s));
+    return launch_status(launch_bwd<__nv_bfloat16>(x, f, dy, dx, df, BL, L, D, K, vec, s));
+  if (dtype == kF16) return launch_status(launch_bwd<__half>(x, f, dy, dx, df, BL, L, D, K, vec, s));
   return (int)cudaErrorInvalidValue;
 }
 
-// Workspace slots of the backward's first pass: its CTAs along the rows.
-extern "C" long long dwconv1d_bwd_splits(int B, int L, int rows) {
-  return bwd_dims(B, L, kBwdLanes, 1, rows).grid[0];
-}
-
-// The backward's second pass: df (K, D) at the dtype code from ws (splits, K, D).
-extern "C" int dwconv1d_bwd_reduce_launch(const void* ws, void* df, int splits, int K, int D,
-                                          int dtype, void* stream) {
+// The backward's launch at (B, L, D, K, dtype) as ten numbers (write_dims),
+// the ones dwconv1d_bwd_launch uses.
+extern "C" int dwconv1d_bwd_launch_dims(int B, int L, int D, int K, int dtype, long long* out) {
   using namespace repro;
-  if (splits < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* w = static_cast<const float*>(ws);
-  const int kd = K * D;
-  if (dtype == kF32) return launch_status(launch_reduce<float>(w, df, splits, kd, s));
-  if (dtype == kBF16) return launch_status(launch_reduce<__nv_bfloat16>(w, df, splits, kd, s));
-  if (dtype == kF16) return launch_status(launch_reduce<__half>(w, df, splits, kd, s));
-  return (int)cudaErrorInvalidValue;
+  if (K < 1 || B < 1 || L < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  return write_dims(bwd_plan((long long)B * L, D, K, dtype == kF32 ? 4 : 2).d, out);
 }

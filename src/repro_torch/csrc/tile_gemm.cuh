@@ -308,14 +308,17 @@ __device__ __forceinline__ void project_store(cg::cluster_group& cluster, int ra
 
 // Launches kern at d, whose grid's x dimension is d.cluster CTAs of one
 // thread-block cluster, after raising its dynamic shared-memory limit to
-// the most a CTA may hold (once) and checking that the card can place such
-// a cluster (once per shared-memory size and cluster).
+// the most a CTA may hold and allowing clusters above the portable 8 (once)
+// and checking that the card can place such a cluster (once per
+// shared-memory size and cluster).
 template <typename K, typename... Args>
 int launch_clustered(K kern, const LaunchDims& d, cudaStream_t stream, bool& allowed, long long& placed_key,
                      Args... args) {
   cudaError_t e;
   if (!allowed) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
     allowed = true;
   }
@@ -331,7 +334,7 @@ int launch_clustered(K kern, const LaunchDims& d, cudaStream_t stream, bool& all
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const long long key = (long long)d.smem * 16 + d.cluster;
+  const long long key = (long long)d.smem * 32 + d.cluster;
   if (key != placed_key) {
     int active = 0;
     e = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);

@@ -15,8 +15,8 @@ replayed (``execute_network``'s memo, ``serve_step.capture_prefill`` and
 
 The kernel wrappers count their launches in plain integers (``launches``
 in ``kernels/{dwconv2d,pwconv,separable_fused,fused_mbconv,se_epilogue,
-dwconv1d}.py``; ``dwconv1d``'s backward also ``bwd_launches`` and
-``reduce_launches``), where they call the launch; the sharded layers'
+dwconv1d}.py``; ``dwconv1d``'s backward also ``bwd_launches``), where
+they call the launch; the sharded layers'
 collectives count theirs the same way (``sharding/collectives.py``:
 ``all_reduce``, ``all_gather``, ``all_to_all``).  The warm-up and the capture
 each run the wrappers once, so each moves the counters by one call; a
@@ -55,7 +55,6 @@ _COUNTERS = {
     "dw_se": (se_epilogue, "launches", None),
     "dwconv1d": (dwconv1d, "launches", None),
     "dwconv1d_bwd": (dwconv1d, "bwd_launches", None),
-    "dwconv1d_bwd_reduce": (dwconv1d, "reduce_launches", None),
     **{name: (collectives, "launches", name)
        for name in collectives.launches},
 }

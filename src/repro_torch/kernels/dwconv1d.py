@@ -16,23 +16,23 @@ input row once in a 16-byte vector of channels.
 The backward (training) replaces no TPU kernel: the reference
 differentiates its XLA oracle ``ref.dwconv1d_causal_ref``
 (``repro/kernels/ref.py:76-89``).  On the card the forward is a kernel, so
-its gradient is one too, in two launches of the same library:
-
-* ``dw1d_bwd_kernel`` (:func:`bwd_partials`): dx, the anti-causal conv
-  ``dx[m] = sum_i f[i] dy[m + (K-1) - i]``, and df's partial sums
-  ``x[l - (K-1) + i] dy[l]`` over each CTA's rows, one fp32 slot per CTA
-  in a workspace, in one pass over x and dy;
-* ``dw1d_df_reduce_kernel`` (:func:`reduce_partials`): df, the slots
-  summed in order in fp32 and rounded once to f's type.
-
-No atomics, so df has the same bits at every call (training's bit-exact
-recovery).  Bound: bytes again, x and dy read and dx written once (about
-19 MB at xLSTM's 8 x 256 x 1536 in bf16, 0.006 ms); the workspace is
-K x D fp32 a CTA along the rows (0.8 MB there).
+its gradient is one too: ``dw1d_bwd_kernel``
+(:func:`dwconv1d_causal_bwd`), one launch for dx, the anti-causal conv
+``dx[m] = sum_i f[i] dy[m + (K-1) - i]``, and df, ``sum_l x[l - (K-1) + i]
+dy[l]``.  Bound: bytes, x and dy read and dx written once, df K x D (about
+19 MB at xLSTM's 8 x 256 x 1536 in bf16, 0.0056 ms at 3.35 TB/s).  A CTA
+of 128 threads stages x's and dy's rows of a 32-channel tile in shared
+memory (``cp.async``, two stages of 80 rows in fp32 or 144 in 16 bits),
+so a stage's loads are in flight before the warps' arithmetic; a thread
+keeps 4 channels' taps and sums in registers; a thread-block cluster of
+up to 16 CTAs splits a tile's rows and sums its CTAs' tap sums in rank
+order through distributed shared memory, so df needs no second launch and
+no atomics: the same bits at every call and under a CUDA-graph replay
+(training's bit-exact recovery).  :func:`bwd_dims` models the launch.
 
 :class:`DwConv1dFn` differentiates the op (``ops.dwconv1d_causal`` under
 autograd): its forward is the kernel on a CUDA tensor, its backward the
-two kernels; ``impl="torch"`` or a CPU tensor takes
+backward kernel; ``impl="torch"`` or a CPU tensor takes
 :func:`dwconv1d_causal_plain` and :func:`dwconv1d_causal_bwd_plain`.
 Nothing falls back.
 """
@@ -47,20 +47,26 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.policy import resolve_impl
 from repro_torch.kernels.spans import marks_span
 
-#: Kernel launches so far in this process: the forward, the backward's
-#: first pass (dx and df's partials) and its second (df).
+#: Kernel launches so far in this process: the forward and the backward
+#: (dx and df in one launch).
 launches = 0
 bwd_launches = 0
-reduce_launches = 0
 
 #: Sequence rows one thread computes (its K-1 halo rows are re-read once
 #: per run, from L1/L2).
 ROWS = 8
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_REDUCE_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-    ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+#: The backward's launch (``csrc/dwconv1d.cu``'s ``kBwd*``): threads a
+#: CTA, channels a tile, stages, the rows a shared-memory stage holds by
+#: element size (16 runs of 5 rows in fp32, of 9 in 16 bits), the largest
+#: cluster, the grid the cluster is sized for (two CTAs on each of the
+#: H100's 132 SMs) and the fewest rows a CTA keeps when the cluster grows.
+BWD_THREADS, BWD_TILE, BWD_STAGES = 128, 32, 2
+BWD_CHUNK = {4: 80, 2: 144}
+BWD_MAX_CLUSTER, BWD_FILL, BWD_MIN_ROWS = 16, 2 * 132, 32
 
 
 def dwconv1d_causal_plain(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -137,74 +143,85 @@ def dwconv1d_causal(x: torch.Tensor, f: torch.Tensor, *,
     return out
 
 
-def bwd_splits(b: int, length: int, rows: int = ROWS) -> int:
-    """Workspace slots of :func:`bwd_partials`: its CTAs along the rows
-    (8 runs of ``rows`` rows of one batch row each)."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_dims(b: int, length: int, d: int, k: int,
+             dtype: torch.dtype) -> tuple:
+    """(grid, block, cluster, smem) of the backward's launch, computed as
+    ``csrc/dwconv1d.cu::bwd_plan`` computes them: a CTA of 128 threads on
+    a tile of 32 channels, ``cluster`` CTAs splitting the B * L rows of a
+    tile, doubled up to 16 while the grid holds fewer than two CTAs an SM
+    and each CTA keeps at least 32 rows; dynamic shared memory for the
+    warps' tap sums and the sums a fold receives and, at K = 2..5, the
+    stages of x's and dy's rows (80 rows in fp32, 144 in 16 bits, and
+    their K-1 halo rows each)."""
+    bl = b * length
+    es = torch.empty((), dtype=dtype).element_size()
+    tiles = _cdiv(d, BWD_TILE)
+    cluster = 1
+    while (cluster < BWD_MAX_CLUSTER and tiles * cluster < BWD_FILL
+           and _cdiv(bl, 2 * cluster) >= BWD_MIN_ROWS):
+        cluster *= 2
+    exact = 2 <= k <= 5
+    kr = k if exact else 1
+    warps = BWD_THREADS // 32
+    smem = (warps * kr * BWD_TILE + 2 * (kr * BWD_TILE + BWD_MAX_CLUSTER)) * 4
+    if exact:
+        smem += 2 * BWD_STAGES * (BWD_CHUNK[es] + k - 1) * BWD_TILE * es
+    return (cluster, tiles, 1), (BWD_THREADS, 1, 1), (cluster, 1, 1), smem
+
+
+def bwd_launch_dims(b: int, length: int, d: int, k: int,
+                    dtype: torch.dtype) -> tuple:
+    """(grid, block, cluster, smem) that the library's backward launch uses
+    (its ``dwconv1d_bwd_launch_dims`` export), to hold :func:`bwd_dims`
+    against on the card.  Builds the library on first use."""
     lib = _build.library("dwconv1d")
-    fn = lib.dwconv1d_bwd_splits
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_longlong
-    return int(fn(b, length, rows))
+    fn = lib.dwconv1d_bwd_launch_dims
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 10)()
+    code, _ = _build.dtype_codes(dtype, dtype)
+    if fn(b, length, d, k, code, out) != 0:
+        raise ValueError(f"dwconv1d_bwd_launch_dims{(b, length, d, k)} "
+                         f"refused")
+    v = list(out)
+    return tuple(v[0:3]), tuple(v[3:6]), tuple(v[6:9]), v[9]
 
 
-def bwd_partials(x: torch.Tensor, f: torch.Tensor, dy: torch.Tensor, *,
-                 rows: int = ROWS) -> tuple:
-    """The backward's first launch, CUDA tensors only: ``(dx, ws)``, dx
-    (B, L, D) in x's dtype and ws (splits, K, D) fp32, df's partial sums."""
+@marks_span("dwconv1d")
+def dwconv1d_causal_bwd(x: torch.Tensor, f: torch.Tensor,
+                        dy: torch.Tensor) -> tuple:
+    """``(dx, df)`` of :func:`dwconv1d_causal` for the output gradient dy
+    (B, L, D), dx in x's dtype and df in f's.  CUDA tensors launch the
+    backward kernel once (dx and df together); CPU tensors take
+    :func:`dwconv1d_causal_bwd_plain`."""
     global bwd_launches
-    _check(x, f, rows)
+    _check(x, f, 1)
+    if x.device.type == "cpu":
+        return dwconv1d_causal_bwd_plain(x, f, dy)
     dev = _build.require_cuda("dwconv1d", x, f, dy)
     if f.dtype != x.dtype or dy.dtype != x.dtype or dy.shape != x.shape:
         raise ValueError(f"dwconv1d backward: x {x.dtype} {tuple(x.shape)}, "
                          f"f {f.dtype}, dy {dy.dtype} {tuple(dy.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.zeros_like(f)
     b, length, d = x.shape
     k = f.shape[0]
     code, _ = _build.dtype_codes(x.dtype, x.dtype)
     dx = torch.empty_like(x)
-    ws = torch.empty((bwd_splits(b, length, rows), k, d),
-                     dtype=torch.float32, device=dev)
+    df = torch.empty_like(f)
     lib = _build.library("dwconv1d")
     fn = lib.dwconv1d_bwd_launch
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     _build.check(lib, "dwconv1d", fn(
         _build.ptr(x), _build.ptr(f), _build.ptr(dy), _build.ptr(dx),
-        _build.ptr(ws), b, length, d, k, vector_width(x, f, dy, dx), rows,
+        _build.ptr(df), b, length, d, k, vector_width(x, f, dy, dx, df),
         code, _build.stream(dev)))
     bwd_launches += 1
-    return dx, ws
-
-
-def reduce_partials(ws: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The backward's second launch: df (K, D) in ``dtype``, ws's slots
-    summed in order in fp32 and rounded once."""
-    global reduce_launches
-    dev = _build.require_cuda("dwconv1d", ws)
-    splits, k, d = ws.shape
-    code, _ = _build.dtype_codes(dtype, dtype)
-    df = torch.empty((k, d), dtype=dtype, device=dev)
-    lib = _build.library("dwconv1d")
-    fn = lib.dwconv1d_bwd_reduce_launch
-    fn.argtypes, fn.restype = _REDUCE_ARGTYPES, ctypes.c_int
-    _build.check(lib, "dwconv1d", fn(_build.ptr(ws), _build.ptr(df), splits,
-                                     k, d, code, _build.stream(dev)))
-    reduce_launches += 1
-    return df
-
-
-@marks_span("dwconv1d")
-def dwconv1d_causal_bwd(x: torch.Tensor, f: torch.Tensor, dy: torch.Tensor,
-                        *, rows: int = ROWS) -> tuple:
-    """``(dx, df)`` of :func:`dwconv1d_causal` for the output gradient dy
-    (B, L, D), dx in x's dtype and df in f's.  CUDA tensors launch
-    :func:`bwd_partials` and :func:`reduce_partials`; CPU tensors take
-    :func:`dwconv1d_causal_bwd_plain`."""
-    _check(x, f, rows)
-    if x.device.type == "cpu":
-        return dwconv1d_causal_bwd_plain(x, f, dy)
-    if x.numel() == 0:
-        return torch.empty_like(x), torch.zeros_like(f)
-    dx, ws = bwd_partials(x, f, dy, rows=rows)
-    return dx, reduce_partials(ws, f.dtype)
+    return dx, df
 
 
 class DwConv1dFn(torch.autograd.Function):

@@ -71,8 +71,7 @@ MESH_NOT_PORTED = ("the production meshes (--production-mesh, "
 
 
 #: The launch counters of a train step (``repro_torch.graphs`` names).
-TRAIN_COUNTERS = ("dwconv1d", "dwconv1d_bwd", "dwconv1d_bwd_reduce",
-                  "pwconv")
+TRAIN_COUNTERS = ("dwconv1d", "dwconv1d_bwd", "pwconv")
 
 #: Linears with an activation a layer has, by variant: each one's backward
 #: recomputes its pre-activation with one more ``pwconv`` launch (the
@@ -89,7 +88,7 @@ def expected_train_launches(cfg) -> dict:
     Linear with an activation, whose backward recomputes its
     pre-activation; ``dwconv1d`` for each conv pre-activation (one an
     mLSTM, sLSTM or hymba layer) in the forward and again in the remat,
-    and its backward's two kernels once each."""
+    and its backward's one kernel once."""
     from repro_torch.launch.serve import (LAYER_LAUNCHES,
                                           SHARED_EXPERT_LAUNCHES)
     from repro_torch.models import transformer as T
@@ -109,7 +108,6 @@ def expected_train_launches(cfg) -> dict:
         out["pwconv"] += passes * fwd["pwconv"] + gates
         out["dwconv1d"] += passes * fwd["dwconv1d"]
         out["dwconv1d_bwd"] += fwd["dwconv1d"]
-        out["dwconv1d_bwd_reduce"] += fwd["dwconv1d"]
     return out
 
 

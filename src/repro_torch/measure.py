@@ -94,7 +94,6 @@ _KERNEL_NAMES = {"dw2d_kernel": "dwconv2d", "pw_stream_kernel": "pwconv",
                  "sep_fused_kernel": "separable_fused", "dw_se_": "dw_se",
                  "dw1d_kernel": "dwconv1d",
                  "dw1d_bwd_kernel": "dwconv1d_bwd",
-                 "dw1d_df_reduce_kernel": "dwconv1d_bwd_reduce",
                  **{k: v[0] for k, v in _NCCL_KERNELS.items()}}
 
 #: Device kernel name fragment -> the launch counters (``repro_torch.graphs``
@@ -108,7 +107,6 @@ _KERNEL_COUNTERS = {"dw2d_kernel": ("dwconv2d",),
                     "dw_se_scale_kernel": ("dw_se",),
                     "dw1d_kernel": ("dwconv1d",),
                     "dw1d_bwd_kernel": ("dwconv1d_bwd",),
-                    "dw1d_df_reduce_kernel": ("dwconv1d_bwd_reduce",),
                     **_NCCL_KERNELS}
 
 #: ``sep_fused_kernel<T, EXPAND, KT>``'s EXPAND, demangled or mangled.

@@ -301,9 +301,14 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
     part of its gradient), both ``all_to_all``s carry the gradient back the
     other way, the experts' fsdp gather reduce-scatters theirs over "data",
     and the outputs' gather over the model axis keeps the rank's block.
-    Training needs the sequence split: a rank routing every token of its
-    rows, as a decode step does, would send each expert its copies from
-    every rank of the model axis."""
+    Where the sequence does not split, every rank routes all the tokens of
+    its rows, as the reference's ``shard_map`` does at ``seq_spec`` None:
+    each expert then receives a copy of every token from each rank of the
+    model axis, capacity included (the reference's own arithmetic); ``x``
+    enters through ``copy_to_split`` and the output leaves through
+    ``computed_alike``, so each rank's routing takes 1/tp of the output's
+    gradient and the ranks' parts of ``x``'s and the router's sum back
+    (the reference's transpose of an output replicated over the axis)."""
     b, s, d = x.shape
     if mesh is None or model_axis is None:
         y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
@@ -315,11 +320,8 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
             raise ValueError(f"{cfg.n_experts} experts do not split over "
                              f"{tp} ranks")
         split = s % tp == 0 and s >= tp
-        if not split and tp > 1 and torch.is_grad_enabled() and (
-                x.requires_grad):
-            raise ValueError(f"a MoE layer trains with its {s} positions "
-                             f"split over {tp} ranks of the model axis")
-        xl = collectives.split(x, group, dim=1) if split else x
+        xl = (collectives.split(x, group, dim=1) if split
+              else collectives.copy_to_split(x, group))
         full = {"w_gate_e": d, "w_up_e": d, "w_down_e": cfg.d_ff_expert}
         experts = tuple(
             collectives.all_gather(getattr(p, n), mesh.group(expert_axis),
@@ -330,8 +332,8 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
             p, xl.reshape(-1, d), cfg, tp=tp, group=group, experts=experts,
             router_w=collectives.copy_to_split(p.router["w"], group))
         out = y.to(x.dtype).reshape(xl.shape)
-        if split:
-            out = collectives.all_gather(out, group, dim=1)
+        out = (collectives.all_gather(out, group, dim=1) if split
+               else collectives.computed_alike(out, group))
         groups = [mesh.group(a) for a in (*data_axes, model_axis)]
         aux, drop = collectives.pmean(torch.stack([aux, drop]), groups)
     if cfg.n_shared:

@@ -89,7 +89,7 @@ from repro_torch.models.mlp import MLP
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import (active_mesh, batch_groups,
                                         current_rules, local_block,
-                                        param_specs, shard_act)
+                                        own_rows, param_specs, shard_act)
 
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
@@ -673,7 +673,9 @@ def loss_fn(model: LMModel, batch: dict, *,
     ``router_aux_weight * aux_loss`` for MoE; metrics ``nll``, ``tokens``,
     ``loss`` [, ``moe_aux``, ``moe_drop``], as the reference's.  Under a
     mesh the batch is the whole one and each rank takes its rows (the
-    labels' as the tokens'); the NLL's sum and the token count are summed
+    labels' as the tokens'; rows that do not divide over the batch axes
+    are every rank's, each counted in one rank's share of the labels,
+    ``rules.own_rows``); the NLL's sum and the token count are summed
     over the batch axes (one ``all_reduce``, the count carrying no
     gradient: ignored labels make the ranks' counts differ), so every
     rank's loss is the global mean, which the reference's ``n_tok`` gives
@@ -684,9 +686,10 @@ def loss_fn(model: LMModel, batch: dict, *,
                                    frontend=batch.get("frontend"),
                                    policy=policy)
     x = x[:, prefix:, :]
+    labels = own_rows(batch["labels"])
     nll_sum, n_tok = chunked_cross_entropy(
-        x, model.unembed_table, shard_act(batch["labels"], "tokens"),
-        chunk=cfg.loss_chunk, vocab=cfg.vocab_size)
+        x, model.unembed_table, labels, chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size)
     for group in batch_groups():
         nll_sum, n_tok = collectives.all_reduce(
             torch.stack([nll_sum, n_tok.detach()]), group).unbind(0)

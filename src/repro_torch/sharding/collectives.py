@@ -35,6 +35,8 @@ the op's output feeds:
 * :func:`copy_to_split` (identity) sums the gradient over the group:
   each rank's part of the computation gives a part of it;
 * :func:`split` (the rank's block) gathers the blocks' gradients back;
+* :func:`computed_alike` (identity) divides the gradient by the group's
+  size: every rank computed the tensor on its own from inputs held alike;
 * an ``all_gather`` whose output every rank uses alike (``alike=True``)
   keeps the rank's block of the gradient; one whose output each rank
   uses on its own data (``alike=False``: FSDP's weights over "data")
@@ -303,6 +305,30 @@ def copy_to_split(x: torch.Tensor, group) -> torch.Tensor:
     if _size(group) == 1 or not _differentiable(x):
         return x
     return _CopyToSplit.apply(x, group)
+
+
+class _ComputedAlike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def computed_alike(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, which every rank of ``group`` computed on its own from
+    inputs it holds alike (each model rank routing every token of its
+    rows): the identity, whose backward gives each rank's computation an
+    even share of the gradient (divided by the group's size), which the
+    ``copy_to_split`` its inputs entered through sums back.  The
+    reference's ``shard_map`` transposes an output replicated over an axis
+    so.  No collective."""
+    if _size(group) == 1 or not _differentiable(x):
+        return x
+    return _ComputedAlike.apply(x, _size(group))
 
 
 class _Split(torch.autograd.Function):

@@ -164,28 +164,33 @@ def act_spec(shape, kind: str, r: ShardingRules) -> Spec:
     """The spec of an activation of ``shape`` and ``kind`` (the reference's
     ``shard_act`` kinds): btd (B,S,d) · heads4 (B,S,H,dh) · cache
     (B,Smax,Hkv,dh) · q_decode · scores_decode (B,Hq,1,S) · logits (B,S,V)
-    · tokens (B,S)."""
+    · tokens (B,S).  The batch is split over the batch axes where it
+    divides, else every rank holds every row (``batch_pspecs``'s rule):
+    the reference's partitioner pads an uneven split instead, which local
+    blocks cannot, and :func:`own_rows` keeps such rows from counting more
+    than once in a loss."""
     tp = r.model_axis
+    b = _batch_axes_if(r, shape[0])
     if kind == "btd":
         seq = r.seq_axis if (r.seq_axis and _div(
             shape[1], r.mesh.shape[r.seq_axis])) else None
-        return P(r.batch_axes, seq, None)
+        return P(b, seq, None)
     if kind == "heads4":
         h_ok = tp is not None and _div(shape[2], r.model_size)
-        return P(r.batch_axes, None, tp if h_ok else None, None)
+        return P(b, None, tp if h_ok else None, None)
     if kind == "cache":
         s_ok = tp is not None and _div(shape[1], r.model_size)
-        return P(r.batch_axes, tp if s_ok else None, None, None)
+        return P(b, tp if s_ok else None, None, None)
     if kind == "q_decode":
-        return P(r.batch_axes, None, None, None)
+        return P(b, None, None, None)
     if kind == "scores_decode":
         s_ok = tp is not None and _div(shape[-1], r.model_size)
-        return P(r.batch_axes, None, None, tp if s_ok else None)
+        return P(b, None, None, tp if s_ok else None)
     if kind == "logits":
         v_ok = tp is not None and _div(shape[-1], r.model_size)
-        return P(r.batch_axes, None, tp if v_ok else None)
+        return P(b, None, tp if v_ok else None)
     if kind == "tokens":
-        return P(r.batch_axes, None)
+        return P(b, None)
     raise ValueError(kind)
 
 
@@ -196,6 +201,29 @@ def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if r is None or r.mesh is None:
         return x
     return local_block(x, act_spec(x.shape, kind, r), r.mesh)
+
+
+def own_rows(labels: torch.Tensor) -> torch.Tensor:
+    """This rank's labels of the whole batch's ``labels`` (B, S), for a
+    loss summed over the batch axes: its block of the rows where B divides
+    over them (:func:`shard_act`, kind "tokens"); else every row, of which
+    this rank's share (blocks of ceil(B / n) in rank order over the n ranks
+    of the batch axes, the last shorter or empty, as the reference's padded
+    split places them) keeps its labels and the rest are ignored (-1), so
+    that each row counts once in the loss, its token count and the
+    gradients summed over the batch axes."""
+    local = shard_act(labels, "tokens")
+    r = current_rules()
+    mesh = active_mesh(r)
+    if mesh is None or _batch_axes_if(r, labels.shape[0]) is not None:
+        return local
+    idx, n = _block_index(tuple(r.batch_axes), mesh, mesh.coords)
+    if n == 1:
+        return local
+    size = -(-labels.shape[0] // n)
+    rows = torch.arange(labels.shape[0], device=labels.device) // size
+    return torch.where((rows == idx)[:, None], local,
+                       torch.full_like(local, -1))
 
 
 # ---------------------------------------------------------------------------

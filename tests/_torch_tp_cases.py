@@ -99,12 +99,41 @@ TRAIN_CASES = {
 }
 TRAIN_BATCH = 8
 TRAIN_SEQ = 32
+#: Sharded training on batches that do not split evenly
+#: (``tests/test_torch_tp_uneven.py``), each case with its own global
+#: ``batch`` x ``seq``: rows that do not divide over "data" (in a
+#: microbatch, too) and a sequence that does not divide over "model" at
+#: a MoE layer (the reference keeps it whole on every model rank).
+#: ``oracle_mesh``: the mesh the reference runs the case on, where its
+#: own refuses it: its MoE ``shard_map`` needs the rows to divide over
+#: "data", so 9 rows at (2, 2) run at (1, 2), which is what each data
+#: rank of the port computes with the rows replicated over "data".
+#: ``whole_grads``: leaves whose gradient is held against the reference's
+#: one-device ``value_and_grad`` (which the oracle then also writes): at 5
+#: rows over 2 data ranks its sharded one scatters the partitioner's pad
+#: row into the table's row 0 (about 1e7 there; its jitted step's
+#: ``grad_norm``, 2.38, has no such row).
+UNEVEN_TRAIN_CASES = {
+    "commandr_mb2_dp4": dict(arch="command-r-35b", mesh=(4, 1), batch=12,
+                             seq=TRAIN_SEQ, microbatches=2),
+    "qwen3_b5_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2), batch=5,
+                             seq=TRAIN_SEQ,
+                             whole_grads=("embedding.table",)),
+    "qwen3moe_s42_tp4": dict(arch="qwen3-moe-235b-a22b", mesh=(1, 4),
+                             batch=12, seq=42),
+    "qwen3moe_b9_s41_dp2_tp2": dict(arch="qwen3-moe-235b-a22b",
+                                    mesh=(2, 2), batch=9, seq=41,
+                                    oracle_mesh=(1, 2)),
+}
 #: The AdamW of the training cases (decay on, warmup, clipping).
 ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=100, weight_decay=0.1,
              clip_norm=1.0)
 #: The dicts of cases by name, as the oracle and the worlds take them.
 SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES,
-          "TRAIN_CASES": TRAIN_CASES}
+          "TRAIN_CASES": TRAIN_CASES,
+          "UNEVEN_TRAIN_CASES": UNEVEN_TRAIN_CASES}
+#: The suites of training cases.
+TRAIN_SUITES = ("TRAIN_CASES", "UNEVEN_TRAIN_CASES")
 MESHES = sorted({c["mesh"] for c in CASES.values()})
 BATCH = 2
 STEPS = 4
@@ -145,16 +174,23 @@ def inputs(cfg, case: dict, seed: int = SEED):
     return tokens.astype(np.int32), frontend
 
 
-def train_batch(cfg, seed: int = SEED) -> dict:
-    """A training case's global batch: tokens and labels (B, S) int32,
-    seeded, the first three labels of row 0 and the last two of row 5
-    ignored (-1), so that the data ranks' token counts differ."""
+def batch_shape(case: dict) -> tuple:
+    """A training case's global batch shape (B, S)."""
+    return case.get("batch", TRAIN_BATCH), case.get("seq", TRAIN_SEQ)
+
+
+def train_batch(cfg, case: dict, seed: int = SEED) -> dict:
+    """A training case's global batch: tokens and labels (B, S) int32 of
+    :func:`batch_shape`, seeded, the first three labels of row 0 and the
+    last two of row 5 (if there is one) ignored (-1), so that the data
+    ranks' token counts differ."""
     rng = np.random.default_rng(seed + 2)
-    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    shape = batch_shape(case)
     tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     labels[0, :3] = -1
-    labels[5, -2:] = -1
+    if shape[0] > 5:
+        labels[5, -2:] = -1
     return {"tokens": tokens, "labels": labels}
 
 

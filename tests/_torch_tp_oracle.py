@@ -29,7 +29,8 @@ reference's launcher places them: the jitted ``value_and_grad`` of
 reference's step does), its gradients gathered whole; ``apply_updates``
 jitted on those gradients from zeroed moments (the parameters and
 moments after it, gathered); and one jitted, donated ``make_train_step``
-on the whole batch (its loss and norms).  A case with ``serve`` is a
+on the whole batch (its loss and norms).  A case's ``oracle_mesh`` runs
+it on that mesh; its ``whole_grads`` add the one-device gradients.  A case with ``serve`` is a
 serving case under ``serve_weight_fsdp``; one with ``oracle=False`` gets
 only its batch (the port draws its own weights)."""
 from __future__ import annotations
@@ -121,7 +122,7 @@ def run_train(name: str, case: dict, out_dir: str) -> None:
     if case.get("serve"):
         return run(name, case, out_dir)
     cfg = C.config(get_config(case["arch"], smoke=True), case)
-    batch = C.train_batch(cfg)
+    batch = C.train_batch(cfg, case)
     out = {"tokens": batch["tokens"], "labels": batch["labels"]}
     if case.get("oracle", True):
         params = perturbed(JT.init_params(cfg, jax.random.PRNGKey(C.SEED)),
@@ -132,7 +133,7 @@ def run_train(name: str, case: dict, out_dir: str) -> None:
 
 
 def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
-    dp, tp = case["mesh"]
+    dp, tp = case.get("oracle_mesh", case["mesh"])
     mb = case.get("microbatches", 1)
     mesh = Mesh(np.array(DEVICES[:dp * tp]).reshape(dp, tp),
                 ("data", "model"))
@@ -154,7 +155,7 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
         p = placed(params, pspecs)
         vg = jax.jit(jax.value_and_grad(
             lambda p, b: JT.loss_fn(cfg, p, b), has_aux=True))
-        size = C.TRAIN_BATCH // mb
+        size = C.batch_shape(case)[0] // mb
         loss_sum, grads = 0.0, None
         for i in range(mb):
             part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -185,6 +186,13 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
                  "opt": placed(JO.init_state(params, acfg), ospecs)}
         _, sm = step(state, shard_batch(batch))
         out.update({f"step.{k}": np.asarray(v) for k, v in sm.items()})
+    if case.get("whole_grads"):
+        _, g = jax.jit(jax.value_and_grad(
+            lambda p, b: JT.loss_fn(cfg, p, b), has_aux=True))(
+                jax.tree_util.tree_map(jnp.asarray, params),
+                {k: jnp.asarray(v) for k, v in batch.items()})
+        out.update({f"whole.grad.{k}": v
+                    for k, v in C.flatten(g).items()})
     return out
 
 
@@ -196,7 +204,7 @@ def main(argv) -> int:
     ap.add_argument("names", nargs="*")
     args = ap.parse_args(argv)
     cases = C.SUITES[args.cases]
-    fn = run_train if args.cases == "TRAIN_CASES" else run
+    fn = run_train if args.cases in C.TRAIN_SUITES else run
     for name in args.names or list(cases):
         fn(name, cases[name], args.dir)
         print(f"[oracle] {name}", flush=True)

@@ -19,6 +19,9 @@ with a fault injected at step 2 against the clean run.
     PYTHONPATH=src python tests/_torch_tp_world.py --data 1 --model 2 \\
         [--cases RECURRENT_CASES] DIR
 
+(``--data 4 --model 1,2,4``: the meshes (4, 1), (2, 2) and (1, 4) in turn,
+in one world of four ranks.)
+
 Besides the logits, each rank writes its cache's block shapes against the
 layout's (``serve_step.cache_layout``), the collectives of the prefill and
 of a decode step (and, for the recurrent cases, of a second prompt length),
@@ -353,7 +356,7 @@ def run_elastic(rules, in_dir: str, rank: int) -> None:
                                   f"_r{rank}.npz"), **out)
 
 
-def worker(rank: int, world: int, model: int, port: int,
+def worker(rank: int, world: int, models: list, port: int,
            in_dir: str, suite: str) -> None:
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -364,25 +367,27 @@ def worker(rank: int, world: int, model: int, port: int,
     from repro_torch.launch.mesh import init_world, make_host_mesh
     init_world("gloo", "cpu", timeout_s=TIMEOUT_S)
     try:
-        host = make_host_mesh(model=model)
-        rules = make_rules(host, mode="serve", multi_pod=False)
-        mesh = (world // model, model)
-        for name, case in C.SUITES[suite].items():
-            if case["mesh"] != mesh:
-                continue
-            if suite != "TRAIN_CASES":
-                run_case(name, case, rules, in_dir, rank,
-                         recurrent=suite != "CASES")
-            elif case.get("serve"):
-                run_case(name, case, make_rules(
-                    host, mode="serve", multi_pod=False,
-                    serve_weight_fsdp=True), in_dir, rank, recurrent=False)
-            else:
-                run_train_case(name, case, make_rules(
-                    host, mode="train", multi_pod=False), in_dir, rank)
-        if suite == "TRAIN_CASES" and mesh in ((2, 2), (4, 1)):
-            run_elastic(make_rules(host, mode="train", multi_pod=False),
-                        in_dir, rank)
+        for model in models:
+            host = make_host_mesh(model=model)
+            rules = make_rules(host, mode="serve", multi_pod=False)
+            mesh = (world // model, model)
+            for name, case in C.SUITES[suite].items():
+                if case["mesh"] != mesh:
+                    continue
+                if suite not in C.TRAIN_SUITES:
+                    run_case(name, case, rules, in_dir, rank,
+                             recurrent=suite != "CASES")
+                elif case.get("serve"):
+                    run_case(name, case, make_rules(
+                        host, mode="serve", multi_pod=False,
+                        serve_weight_fsdp=True), in_dir, rank,
+                        recurrent=False)
+                else:
+                    run_train_case(name, case, make_rules(
+                        host, mode="train", multi_pod=False), in_dir, rank)
+            if suite == "TRAIN_CASES" and mesh in ((2, 2), (4, 1)):
+                run_elastic(make_rules(host, mode="train", multi_pod=False),
+                            in_dir, rank)
     finally:
         dist.destroy_process_group()
 
@@ -390,15 +395,18 @@ def worker(rank: int, world: int, model: int, port: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", type=int, required=True)
-    ap.add_argument("--model", type=int, required=True)
+    ap.add_argument("--model", required=True,
+                    help="the model axis' size; several, comma-separated, "
+                    "run one mesh each in turn over the same world")
     ap.add_argument("--cases", default="CASES", choices=sorted(C.SUITES))
     ap.add_argument("dir")
     args = ap.parse_args(argv)
-    world = args.data * args.model
+    models = [int(m) for m in args.model.split(",")]
+    world = args.data * models[0]
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = mp.start_processes(worker, args=(world, args.model, port,
+    ctx = mp.start_processes(worker, args=(world, models, port,
                                            args.dir, args.cases),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + DEADLINE_S

@@ -1913,33 +1913,37 @@ def test_train_launcher_on_the_card(dev, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# xLSTM and hymba training on the card: dwconv1d's backward kernels
+# xLSTM and hymba training on the card: dwconv1d's backward kernel
 # ---------------------------------------------------------------------------
 
-#: The backward kernels against their plain version: dx and df relative to
+#: The backward kernel against its plain version: dx and df relative to
 #: each one's largest magnitude (df sums B*L products in another order).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 
 @pytest.mark.parametrize("dtype", list(BWD_TOL))
-@pytest.mark.parametrize("b,l,d,k,rows", [
-    (2, 37, 72, 4, 8), (1, 2, 33, 5, 8), (2, 19, 40, 1, 3),
-    (2, 50, 70, 7, 2), (3, 64, 264, 3, 8), (2, 45, 130, 2, 5),
-    (8, 256, 1536, 4, 8), (4, 640, 3200, 4, 8)])
-def test_dwconv1d_bwd_kernels_match_plain(dev, b, l, d, k, rows, dtype):
-    """dx and df of the backward's two kernels against
+@pytest.mark.parametrize("b,l,d,k", [
+    (2, 37, 72, 4), (1, 2, 33, 5), (2, 19, 40, 1), (2, 50, 70, 7),
+    (3, 64, 264, 3), (2, 45, 130, 2), (8, 256, 1536, 4), (4, 640, 3200, 4),
+    (2, 640, 1600, 4), (2, 640, 800, 4)])
+def test_dwconv1d_bwd_kernels_match_plain(dev, b, l, d, k, dtype):
+    """dx and df of the backward's one launch against
     ``dwconv1d_causal_bwd_plain``: exact-K and runtime-K taps (K = 1, 7),
     L < K - 1, odd and misaligned widths (a vector of 1), several CTAs
-    along the rows and the channels, xLSTM's and hymba's training shapes;
-    one launch of each kernel, df in f's dtype."""
+    along the rows and the channels, xLSTM's and hymba's training shapes
+    and hymba's channel blocks at tp 2 and 4 (clusters of 8 and 16); one
+    launch a call (no second pass), df in f's dtype, and the launch the
+    library configures equal to ``bwd_dims``."""
     from repro_torch.kernels import dwconv1d
     x, dy = _r((b, l, d), dev, dtype), _r((b, l, d), dev, dtype, seed=1)
     f = _r((k, d), dev, dtype, k ** -0.5)
-    before = (dwconv1d.bwd_launches, dwconv1d.reduce_launches)
-    dx, df = dwconv1d.dwconv1d_causal_bwd(x, f, dy, rows=rows)
+    before = dwconv1d.bwd_launches
+    dx, df = dwconv1d.dwconv1d_causal_bwd(x, f, dy)
     torch.cuda.synchronize(dev)
-    assert (dwconv1d.bwd_launches, dwconv1d.reduce_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert dwconv1d.bwd_launches == before + 1
+    assert not hasattr(dwconv1d, "reduce_launches")
+    assert dwconv1d.bwd_launch_dims(b, l, d, k, dtype) == dwconv1d.bwd_dims(
+        b, l, d, k, dtype)
     want = dwconv1d.dwconv1d_causal_bwd_plain(x, f, dy)
     for got, ref_ in zip((dx, df), want, strict=True):
         assert got.dtype == dtype and got.shape == ref_.shape
@@ -1947,15 +1951,17 @@ def test_dwconv1d_bwd_kernels_match_plain(dev, b, l, d, k, rows, dtype):
         assert rel_err(got, ref_) <= BWD_TOL[dtype], rel_err(got, ref_)
 
 
+@pytest.mark.parametrize("shape", ((8, 256, 1536), (2, 640, 800)))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
-def test_dwconv1d_bwd_is_bit_identical_and_replays(dev, dtype):
+def test_dwconv1d_bwd_is_bit_identical_and_replays(dev, dtype, shape):
     """df (and dx) have the same bits at every call, and a CUDA graph of
     the Function's whole backward (``torch.autograd.grad`` through
-    ``DwConv1dFn``) replays the eager call's bits."""
+    ``DwConv1dFn``) replays the eager call's bits: at the mLSTM's shape
+    and at hymba's tp-4 channel block (clusters of 16 CTAs)."""
     from repro_torch.kernels import dwconv1d
-    x0 = _r((8, 256, 1536), dev, dtype)
-    f0 = _r((4, 1536), dev, dtype, 0.5)
-    dy = _r((8, 256, 1536), dev, dtype, seed=2)
+    x0 = _r(shape, dev, dtype)
+    f0 = _r((4, shape[-1]), dev, dtype, 0.5)
+    dy = _r(shape, dev, dtype, seed=2)
     first = dwconv1d.dwconv1d_causal_bwd(x0, f0, dy)
     second = dwconv1d.dwconv1d_causal_bwd(x0, f0, dy)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -2129,7 +2135,7 @@ def test_captured_train_step_equals_eager(dev, arch, mb, kind):
 def test_dwconv1d_function_backward_replays_from_a_capture(dev, dtype):
     """``DwConv1dFn``'s forward and backward (``torch.autograd.grad``)
     captured by ``graphs.capture``, as the train step captures them: one
-    launch of each of the three kernels recorded, and a replay gives the
+    launch of each of the two kernels recorded, and a replay gives the
     eager call's dx and df bit for bit."""
     from repro_torch import graphs
     from repro_torch.kernels import dwconv1d
@@ -2142,8 +2148,7 @@ def test_dwconv1d_function_backward_replays_from_a_capture(dev, dtype):
         return torch.autograd.grad(y, (x, f), dy)
     want = backward()
     cap = graphs.capture(backward, dev)
-    assert cap.launches == {"dwconv1d": 1, "dwconv1d_bwd": 1,
-                            "dwconv1d_bwd_reduce": 1}
+    assert cap.launches == {"dwconv1d": 1, "dwconv1d_bwd": 1}
     for t in cap.output:
         t.zero_()
     cap.replay()
