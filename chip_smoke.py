@@ -87,7 +87,7 @@ From the root of a checkout it:
    matches its plain version (each refused launch predicted by the static
    verifier's LC201 before it is made); the code table against
    ``driver_types.h``;
-7. drives the serving path, xlstm-125m at full width cut to 4 of its 12
+7. drives the serving path, xlstm-125m at full width cut to 2 of its 12
    layers (a ``reduced`` note) on random weights
    from a seed: ``prefill`` of batch 1 and 8 prompts of 512 tokens, then
    32 greedy decode steps, in fp32 and bf16, through the captured prefill
@@ -158,7 +158,7 @@ From the root of a checkout it:
    uncut (bf16, 8 x 256, 20 steps, 480 ``pwconv`` a step) with the eager
    step beside the graph, then through the graph with a fault at step
    15, ending with the clean graph run's state and the clean eager run's
-   bit for bit; xlstm-125m cut to 4 layers the same way (3 steps, a
+   bit for bit; xlstm-125m cut to 2 layers the same way (3 steps, a
    fault at step 2; ``dwconv1d`` forward, remat and its two backward
    kernels in every step); hymba-1.5b at full width cut to 4 layers (a
    ``reduced`` note;
@@ -203,7 +203,14 @@ From the root of a checkout it:
    collectives and ``pwconv`` launches by rank; one ``pwconv`` launch at
    a local training width against its plain version; qwen3-moe's smoke
    config under (1, 2), kernels against the plain versions; part 1's
-   checkpoint restored under (1, 2) and by one rank, bit for bit
+   checkpoint restored under (1, 2) and by one rank, bit for bit; part
+   5: hymba-1.5b (2 x 512 + 128 meta tokens), xlstm-125m (one [mLSTM,
+   sLSTM] pair) and whisper-small (with its frames) at their published
+   widths cut in depth under (1, 2), fp32, step 1 against one rank, 3
+   steps with their collectives and ``pwconv`` / ``dwconv1d`` /
+   ``dwconv1d_bwd`` launches by rank, ``dwconv1d``'s backward at the
+   rank's channel block (hymba's 2x640x1600), the starting state
+   checkpointed under (1, 2) and restored by one rank bit for bit
    (``reduced`` notes name the cuts); NCCL across cards is
    ``test_nccl_train_across_cards``;
 13. prints the kernels it launched, one JSON line of per-kernel numbers
@@ -298,10 +305,12 @@ HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 (the script's time, "
 #: so that the whole script keeps a margin under 1200 s on a slow host:
 #: uncut, the script took 854-875 s on one H100 and 1070 s on another
 #: whose every phase ran 1.1-1.5x slower (xLSTM serving 164 s, its
-#: training loop 103 s there); cut from 6 to 4 beside phase 12; each
-#: [mLSTM, sLSTM] pair stays whole.
-XLSTM_LAYERS = 4
-XLSTM_NOTE = ("reduced: xlstm-125m n_layers 12 -> 4 (the script's time); "
+#: training loop 103 s there); cut from 6 to 4 beside phase 12, and to 2
+#: beside phase 12's part 5 (the script took 882 s with 4 on one H100:
+#: xLSTM serving 43 s, its training loop 32 s); each [mLSTM, sLSTM] pair
+#: stays whole.
+XLSTM_LAYERS = 2
+XLSTM_NOTE = ("reduced: xlstm-125m n_layers 12 -> 2 (the script's time); "
               "widths as published")
 BF16_REL_TOL = 5e-2
 #: fp32 kernels against the fp32 plain path (summation order).
@@ -2981,7 +2990,7 @@ def run_training(torch, dev):
       eager), the parameters, moments, step, error and metrics bit for
       bit after every step, and the graph's recorded launches
       ``expected_train_launches`` (times the microbatches): smollm-360m
-      and xlstm-125m cut to 4 layers (bf16, 8 x 256), hymba-1.5b at full
+      and xlstm-125m cut to 2 layers (bf16, 8 x 256), hymba-1.5b at full
       width cut to 4 layers (2 x 512 + 128 meta tokens), whisper-small
       uncut with its frames, qwen3-moe at full width cut (:data:`MOE_TRAIN_NOTE`),
       smollm-360m cut to 2 layers with 2 microbatches, with top-k and
@@ -4169,55 +4178,92 @@ WORLD1_TRAIN_LAYERS, WORLD1_TRAIN_BATCH = 2, 4
 #: Bounds of parts 1 and 2 against the one-rank eager step: the loss
 #: (relative) and each gathered gradient (of its largest magnitude).
 SHARD_LOSS_RTOL, SHARD_GRAD_TOL = 2e-5, 1e-4
+#: Part 5: hymba, xLSTM and whisper trained at their published widths
+#: under (1, 2), cut in depth, fp32: (depth, global batch, tokens a row).
+#: hymba's rows are 512 tokens + its 128 meta tokens, so a rank's
+#: ``dwconv1d`` backward runs at 2 x 640 x 1600 (PERF.md row 7t).
+RECURRENT_TRAIN = {
+    "hymba-1.5b": ({"n_layers": 2}, 2, 512),
+    "xlstm-125m": ({"n_layers": 2}, 4, 256),
+    "whisper-small": ({"n_layers": 2, "n_enc_layers": 2}, 2, 256),
+}
+RECURRENT_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 2, xlstm-125m "
+                        "12 -> 2 (one [mLSTM, sLSTM] pair), whisper-small "
+                        "12 + 12 -> 2 + 2 for phase 12's part 5 (its time, "
+                        "and two ranks' blocks beside a one-rank oracle on "
+                        "one card); widths, meta tokens and 1500 frames as "
+                        "published")
 
 
 def _shard_step_case(torch, dev, rules, cfg, batch, *, rank, steps,
-                     policy=None, oracle=True) -> dict:
+                     policy=None, oracle=True, ckpt_dir=None) -> dict:
     """One sharded training case on this gloo rank: step 1's loss and
-    gradients (gathered whole), then ``steps`` sharded steps timed, each
-    with its collectives and ``pwconv`` launches; rank 0 holds step 1
-    against the one-rank eager step on the same weights and whole batch
-    (``oracle``).  Returns the results and the final state."""
+    gradients (gathered whole, a fused projection part by part), then
+    ``steps`` sharded steps timed, each with its collectives and kernel
+    launches (``launch.train.TRAIN_COUNTERS``) and the shapes its
+    ``dwconv1d`` backward launched at; rank 0 holds step 1 against the
+    one-rank eager step on the same weights and whole batch (``oracle``).
+    With ``ckpt_dir`` the starting state is checkpointed under the mesh
+    and rank 0 restores it by one rank against the one-rank draw, every
+    leaf bit for bit.  Returns the results and the final state."""
     from repro_torch import graphs
     from repro_torch.core.pwconv import DEFAULT_POLICY
+    from repro_torch.kernels import dwconv1d as dw1d
     from repro_torch.launch.serve import collective_counts
-    from repro_torch.launch.train import expected_train_launches
+    from repro_torch.launch.train import (TRAIN_COUNTERS,
+                                          expected_train_launches)
     from repro_torch.models.layers import trainable_
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.sharding.rules import gather_block, use_rules
+    from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoint import Checkpointer, _flatten
     policy = policy or DEFAULT_POLICY
     tcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR))
     res = {}
+    bwd_shapes = []
+    real_bwd = dw1d.dwconv1d_causal_bwd
+
+    def recording_bwd(x, f, dy):
+        bwd_shapes.append(list(x.shape))
+        return real_bwd(x, f, dy)
     with use_rules(rules):
         model = trainable_(init_params(cfg, generator=torch.Generator(
             dev).manual_seed(0), device=dev))
         layout = TS.state_layout(model)
         state = TS.init_train_state(model, tcfg)
+        if ckpt_dir:
+            Checkpointer(ckpt_dir, layout=layout).save(0, state)
         graphs.reset()
         loss, _, grads = TS.accumulate_grads(model, state["params"], batch,
                                              policy=policy, layout=layout)
         res["step1_pwconv"] = graphs.snapshot()["pwconv"]
-        whole = {n: gather_block(g, layout.params[n], rules.mesh)
-                 for n, g in grads.items()}
+        whole = {n: layout.whole(n, g) for n, g in grads.items()}
         res["loss"] = float(loss)
         del grads
         step = TS.make_train_step(model, tcfg, policy)
         res["steps"] = []
-        for _ in range(steps):
-            graphs.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            counts = graphs.snapshot()
-            res["steps"].append({
-                "ms": (time.perf_counter() - t0) * 1e3,
-                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                "pwconv": counts["pwconv"],
-                "collectives": collective_counts(counts)})
-        res["expected_pwconv"] = expected_train_launches(cfg)["pwconv"]
+        dw1d.dwconv1d_causal_bwd = recording_bwd
+        try:
+            for _ in range(steps):
+                graphs.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                counts = graphs.snapshot()
+                res["steps"].append({
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    **{k: counts[k] for k in TRAIN_COUNTERS},
+                    "collectives": collective_counts(counts)})
+        finally:
+            dw1d.dwconv1d_causal_bwd = real_bwd
+        res["dwconv1d_bwd_shapes"] = sorted(
+            list(x) for x in {tuple(x) for x in bwd_shapes})
+        res["expected"] = expected_train_launches(cfg)
+        res["expected_pwconv"] = res["expected"]["pwconv"]
         res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if oracle and rank == 0:
         del model
@@ -4225,6 +4271,13 @@ def _shard_step_case(torch, dev, rules, cfg, batch, *, rank, steps,
         one = trainable_(init_params(cfg, generator=torch.Generator(
             dev).manual_seed(0), device=dev))
         ostate = TS.init_train_state(one, tcfg)
+        if ckpt_dir:
+            restored, _, _ = Checkpointer(ckpt_dir).restore(ostate)
+            a, b = _flatten(restored), _flatten(ostate)
+            res["ckpt_leaves"] = len(b)
+            res["ckpt_one_rank_equal"] = set(a) == set(b) and all(
+                torch.equal(a[k], b[k]) for k in b)
+            del restored, a, b
         oloss, _, ograds = TS.accumulate_grads(one, ostate["params"], batch,
                                                policy=policy)
         res["one_rank_loss"] = float(oloss)
@@ -4239,7 +4292,7 @@ def _shard_step_case(torch, dev, rules, cfg, batch, *, rank, steps,
 
 def _train_rank(rank: int, world: int, port: int, out: str,
                 ckpt_dir: str) -> None:
-    """Phase 12's gloo ranks on the one card (parts 1-4)."""
+    """Phase 12's gloo ranks on the one card (parts 1-5)."""
     import dataclasses
     import numpy as np
     import torch
@@ -4250,12 +4303,14 @@ def _train_rank(rank: int, world: int, port: int, out: str,
     from repro_torch.kernels import pwconv
     from repro_torch.launch.dryrun import make_rules
     from repro_torch.launch.mesh import init_world, make_host_mesh
+    from repro_torch.launch.serve import frontend_stub
     from repro_torch.launch.train import deterministic_card
     from repro_torch.measure import rel_err
     from repro_torch.models.transformer import build_model
-    from repro_torch.sharding.rules import gather_block, use_rules
+    from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
-    from repro_torch.train.checkpoint import Checkpointer, _flatten
+    from repro_torch.train.checkpoint import (Checkpointer, _flatten,
+                                              whole_leaves)
 
     deterministic_card()
     _rank_env(rank, world, port)
@@ -4335,10 +4390,9 @@ def _train_rank(rank: int, world: int, port: int, out: str,
             name = f"step_{step:09d}"
             with np.load(os.path.join(ckpt_dir, name, "arrays.npz")) as z:
                 stored = {key: z[key] for key in z.files}
-            specs = _flatten(tlayout.state_specs(restored))
-            equal = all(np.array_equal(
-                gather_block(v, specs[key], tp2.mesh).cpu().numpy(),
-                stored[key]) for key, v in _flatten(restored).items())
+            # every rank gathers every leaf: no short cut
+            equal = all([np.array_equal(v.cpu().numpy(), stored[key])
+                         for key, v in whole_leaves(restored, tlayout)])
             del model, template, restored
         one_equal = None
         if rank == 0:
@@ -4351,13 +4405,40 @@ def _train_rank(rank: int, world: int, port: int, out: str,
             del whole, template, restored
         res["elastic"] = {"step": step, "leaves": len(stored),
                           "tp2_equal": equal, "one_rank_equal": one_equal}
+        # part 5: hymba, xLSTM and whisper at full width, (1, 2)
+        res["recurrent"] = {}
+        for arch, (cut, b, s) in RECURRENT_TRAIN.items():
+            cut = dict(cut)
+            cfg = get_config(arch)
+            if "n_enc_layers" in cut:
+                cut["encdec"] = dataclasses.replace(
+                    cfg.encdec, n_enc_layers=cut.pop("n_enc_layers"))
+            cfg = dataclasses.replace(cfg, dtype="float32", **cut)
+            batch = batch_of(cfg, b, s)
+            if cfg.encdec is not None:
+                batch["frontend"] = frontend_stub(cfg, b, dev, seed=0)
+            ck = os.path.join(ckpt_dir, f"part5_{arch}")
+            t0 = time.perf_counter()
+            r, state, _ = _shard_step_case(
+                torch, dev, tp2, cfg, batch, rank=rank,
+                steps=SHARD_TRAIN_STEPS, ckpt_dir=ck)
+            del state
+            torch.cuda.empty_cache()
+            r["s"] = time.perf_counter() - t0
+            r["batch"] = [b, s + cfg.meta_tokens]
+            res["recurrent"][arch] = r
         every = [None] * world
         dist.all_gather_object(every, {
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             "smollm_pwconv": [s["pwconv"] for s in res["smollm"]["steps"]],
             "qwen3_pwconv": [s["pwconv"] for s in res["qwen3"]["steps"]],
             "moe_pwconv": res["moe"]["kernels"]["steps"][0]["pwconv"],
-            "tp2_equal": equal})
+            "tp2_equal": equal,
+            "recurrent": {a: {"steps": [{k: s[k] for k in (
+                "pwconv", "dwconv1d", "dwconv1d_bwd", "collectives")}
+                for s in r["steps"]],
+                "dwconv1d_bwd_shapes": r["dwconv1d_bwd_shapes"]}
+                for a, r in res["recurrent"].items()}})
         res["by_rank"] = every
         if rank == 0:
             with open(out, "w") as fh:
@@ -4394,7 +4475,14 @@ def run_sharded_training(torch, dev):
        same ranks (the unsharded MoE is no oracle: each shard routes its
        own tokens with its own capacity); part 1's checkpoint, written
        under (2, 1), restored under (1, 2) and by one rank, every leaf
-       bit for bit."""
+       bit for bit;
+    5. in the same ranks, hymba-1.5b, xlstm-125m and whisper-small at
+       their published widths cut in depth (:data:`RECURRENT_TRAIN`) under
+       (1, 2), fp32: step 1 against the one-rank step, SHARD_TRAIN_STEPS
+       steps with their collectives and kernel launches by rank against
+       ``expected_train_launches``, ``dwconv1d``'s backward at the rank's
+       channel block, the starting state's checkpoint restored by one rank
+       against the one-rank draw, bit for bit."""
     import dataclasses
     import shutil
 
@@ -4415,7 +4503,7 @@ def run_sharded_training(torch, dev):
 
     deterministic_card()
     # built before anything is timed, and before the ranks start
-    _build.build(["pwconv"])
+    _build.build(["pwconv", "dwconv1d"])
     res = {}
     t0 = time.perf_counter()
     _rank_env(0, 1, _free_port())
@@ -4553,14 +4641,59 @@ def run_sharded_training(torch, dev):
             and all(rk["tp2_equal"] for rk in tr["by_rank"])
             and e["one_rank_equal"]):
         bad.append("parts 3-4")
+    launched = {"pwconv": 0, "dwconv1d": 0, "dwconv1d_bwd": 0}
+    for arch, r in tr["recurrent"].items():
+        ranks = [rk["recurrent"][arch] for rk in tr["by_rank"]]
+        by_rank = {k: [[st[k] for st in rk["steps"]] for rk in ranks]
+                   for k in launched}
+        for k in launched:
+            launched[k] += sum(map(sum, by_rank[k]))
+        # the rank's half of each conv's channels: hymba's d_inner, the
+        # mLSTM's d_inner and the sLSTM's d_model (whisper has none)
+        cfg = get_config(arch)
+        widths = ({cfg.d_model * cfg.ssm.expand} if cfg.ssm is not None
+                  else {int(cfg.d_model * cfg.xlstm.proj_factor),
+                        cfg.d_model} if cfg.xlstm is not None else set())
+        want_bwd = sorted([*r["batch"], w // 2] for w in widths)
+        colls = [rk["steps"][-1]["collectives"] for rk in ranks]
+        print(f"    part 5, two gloo ranks, {arch} fp32 (data 1, model 2), "
+              f"{r['batch'][0]}x{r['batch'][1]}: step 1 loss "
+              f"{r['loss']:.6f} against one rank {r['one_rank_loss']:.6f} "
+              f"(rel {r['loss_rel_err']:.2e}, tol {SHARD_LOSS_RTOL:g}); "
+              f"gradients gathered {r['grad_err']:.2e} (tol "
+              f"{SHARD_GRAD_TOL:g}); steps "
+              + ", ".join(f"{st['ms']:.0f}" for st in r["steps"])
+              + " ms, losses "
+              + ", ".join(f"{st['loss']:.4f}" for st in r["steps"])
+              + f"; collectives a step by rank {colls}; launches a step by "
+              f"rank {by_rank} (expected {r['expected']}); dwconv1d "
+              f"backward at {[rk['dwconv1d_bwd_shapes'] for rk in ranks]} "
+              f"(want {want_bwd}); checkpoint under (1, 2) restored by one "
+              f"rank bit for bit: {r['ckpt_one_rank_equal']} "
+              f"({r['ckpt_leaves']} leaves); peak {r['peak_gib']:.2f} GiB "
+              f"(rank 0, {r['s']:.0f} s)", flush=True)
+        if not (r["loss_rel_err"] <= SHARD_LOSS_RTOL
+                and r["grad_err"] <= SHARD_GRAD_TOL
+                and all(by_rank[k] == [[r["expected"][k]]
+                                       * SHARD_TRAIN_STEPS] * len(ranks)
+                        for k in launched)
+                and all(rk["dwconv1d_bwd_shapes"] == want_bwd
+                        for rk in ranks)
+                and len({str(c) for c in colls}) == 1
+                and r["ckpt_one_rank_equal"]
+                and all(np_isfinite(st["loss"]) for st in r["steps"])):
+            bad.append(f"part 5 {arch}")
     if bad:
         raise AssertionError(f"phase 12 {bad}: {tr}")
-    res["reduced"] = [SHARD_TRAIN_NOTE]
+    res["reduced"] = [SHARD_TRAIN_NOTE, RECURRENT_TRAIN_NOTE]
     res["pwconv_launches"] = (
         w["recorded_pwconv"]
         + sum(sum(rk[f"{k}_pwconv"]) for rk in tr["by_rank"]
               for k in ("smollm", "qwen3"))
-        + sum(rk["moe_pwconv"] for rk in tr["by_rank"]))
+        + sum(rk["moe_pwconv"] for rk in tr["by_rank"])
+        + launched["pwconv"])
+    res["dwconv1d_launches"] = launched["dwconv1d"]
+    res["dwconv1d_bwd_launches"] = launched["dwconv1d_bwd"]
     return res
 
 
@@ -4843,7 +4976,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard_train = run_sharded_training_phase()
     shard_train_s = took("sharded training")
-    launches["pwconv"] += shard_train["pwconv_launches"]
+    for name in ("pwconv", "dwconv1d", "dwconv1d_bwd"):
+        launches[name] += shard_train[f"{name}_launches"]
     for got, ran, by in ((serve_launches, serve_replayed, serve_variants),
                          (hymba_launches, hymba_replayed, hymba_variants),
                          (attn_launches, attn_replayed, attn_variants),

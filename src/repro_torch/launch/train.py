@@ -7,7 +7,8 @@ parallelism over "model").
     python -m repro_torch.launch.train --arch <id> [--smoke] \\
         [--steps 100] [--seq-len 256] [--global-batch 8] [--lr 3e-4] \\
         [--microbatches 1] [--ckpt-dir DIR] [--ckpt-every 50] \\
-        [--compress none|topk|int8] [--seed 0] [--device cuda]
+        [--compress none|topk|int8] [--seed 0] [--device cuda] \\
+        [--profile STEPS]
 
 ``<id>`` is any id of ``configs.registry.ARCH_IDS``: the attention-MLP
 transformers, whisper-small, xlstm-125m and hymba-1.5b all train.  Weights
@@ -42,21 +43,24 @@ ranks and the batch over the rest:
         -m repro_torch.launch.train --arch <id> --model-parallel M \\
         [--backend nccl|gloo] [--timeout 120] ...
 
-The attention-MLP families (dense and MoE) train under the mesh: each
-rank holds its ``P(data, model)`` block of every weight (gathered over
-"data" at its use), its ZeRO-1 block of AdamW's moments, and its rows of
-every global batch; the MoE's experts are split over "model" with their
-fsdp dimension over "data".  The backend is NCCL on cards (one rank a
+Every family trains under the mesh: each rank holds its ``P(data,
+model)`` block of every weight (gathered over "data" at its use), its
+ZeRO-1 block of AdamW's moments, and its rows of every global batch; the
+MoE's experts are split over "model" with their fsdp dimension over
+"data"; hymba's Mamba branch runs on the rank's d_inner / M channels and
+the mLSTM and sLSTM on its heads (``dwconv1d`` and its backward on the
+rank's channel block), whisper's encoder and cross attention on its
+heads.  The backend is NCCL on cards (one rank a
 card, the step captured as one CUDA graph with its collectives) and gloo
 with ``--device cpu``; ``--backend gloo`` on cards runs several ranks on
 one card, eager (gloo cannot be captured).  Checkpoints are written whole
 by rank 0 and restore under any mesh.  Rank 0 prints, besides, the mesh,
 the backend and how its collectives move tensors, the collectives of a
 step by op, and the losses.  Outside ``torchrun`` a ``--model-parallel``
-above 1 raises.  Still refused: the hymba, xLSTM and encoder-decoder
-families and gradient compression under a mesh (ROADMAP.md queue A,
-item 4.3.3), and ``--production-mesh`` / ``--multi-pod``, whose 256 / 512
-ranks this launcher does not build (ROADMAP.md queue A, item 4.3).
+above 1 raises.  Still refused: gradient compression under a mesh
+(ROADMAP.md queue A, item 4.3.3), and ``--production-mesh`` /
+``--multi-pod``, whose 256 / 512 ranks this launcher does not build
+(ROADMAP.md queue A, item 4.3).
 """
 from __future__ import annotations
 
@@ -81,8 +85,10 @@ GATED_LINEARS = {"mlstm": 0, "slstm": 1, "hymba": 1, "attn_mlp": 1,
 
 
 def expected_train_launches(cfg) -> dict:
-    """Kernel launches of one microbatch's loss and backward on the card,
-    by :data:`TRAIN_COUNTERS`: ``pwconv`` for every Linear of the forward
+    """Kernel launches of one microbatch's loss and backward on the card
+    (on each rank of a mesh alike: a Linear is one launch at the rank's
+    widths, a conv one at its channel block), by :data:`TRAIN_COUNTERS`:
+    ``pwconv`` for every Linear of the forward
     (an encoder-decoder's encoder included), again in the per-layer
     remat's recomputed forward (``remat="block"``), and once more for each
     Linear with an activation, whose backward recomputes its
@@ -186,6 +192,10 @@ def main(argv=None) -> int:
                     choices=["none", "topk", "int8"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
+                    help="after the loop, trace STEPS more steps with the "
+                         "profiler and print each kernel's device ms and "
+                         "launches a step (on the card)")
     args = ap.parse_args(argv)
     if args.production_mesh or args.multi_pod:
         raise NotImplementedError(MESH_NOT_PORTED)
@@ -266,6 +276,18 @@ def _train(args, dev, rules, backend) -> int:
         log=print if rank0 else (lambda _: None))
     wall = time.perf_counter() - t0
     hist = info["history"]
+    profiled = None
+    if args.profile and dev.type == "cuda" and hist:
+        # every rank steps (the collectives); the state moves on
+        from repro_torch.data.pipeline import _batch_np
+        from repro_torch.measure import device_profile
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in _batch_np(dcfg, 0).items()}
+        holder = [state]
+
+        def one():
+            holder[0] = run_step(holder[0], batch)[0]
+        profiled = device_profile(one, reps=args.profile, warmup=False)
     peak = (torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == "cuda" else None)
     peaks = [peak]
@@ -301,6 +323,11 @@ def _train(args, dev, rules, backend) -> int:
     recorded = " (the graph recorded)" if use_graph else ""
     print(f"[train] collectives a step{recorded}: "
           f"{collective_counts(counts)}")
+    if profiled is not None:
+        ms_by, launched_by = profiled
+        print(f"[train] a profiled step's device ms by kernel "
+              f"{ {k: round(v, 4) for k, v in sorted(ms_by.items())} }, "
+              f"instances {launched_by}")
     print(f"[train] losses {[h['loss'] for h in hist]}")
     print(f"[train] done: {len(hist)} steps, final loss "
           f"{hist[-1]['loss']:.4f}, stragglers {info['stragglers']}")

@@ -52,6 +52,15 @@ the rank's own query heads read KV heads every rank holds alike (the KV
 columns gathered, or whole), those enter the split region too, as do the
 qk-norm scales applied to the rank's own heads.
 
+A training forward makes the serving forward's collectives (w_o's sum,
+and one gather where the heads are not a rank's whole ones, as hymba's
+query and KV columns at tp 2 and 4); its backward one all_reduce for the
+input's ``copy_to_split`` (two for a cross attention: the query's input
+and the encoder's output enter apart), and, where the heads were
+gathered, one all_gather for ``w_o``'s ``split`` of its whole input.
+The K/V of a training step never reach :func:`_heads_to_frames`, which
+only a prefill's returned cache takes.
+
 Whisper's cross attention under the model axis: the encoder's K and V
 are split by head (their columns), but the cache holds them split by
 frame (``"enc_k"``, ``"enc_v"``: the reference's ``"cache"`` kind), so a

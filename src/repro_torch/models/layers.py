@@ -123,15 +123,22 @@ def rms_norm_split(x: torch.Tensor, scale: torch.Tensor,
     """:func:`rms_norm` over a last dimension of ``scale``'s width, where
     ``x`` holds the rank's block of it (split over the model axis): each
     row's sum of squares is all-reduced, and the rank's block of ``scale``
-    applies.  :func:`rms_norm` where ``x`` is whole."""
+    applies.  :func:`rms_norm` where ``x`` is whole.
+
+    Its gradient: each rank uses the summed squares on its own block, so
+    the sum enters the split region (``copy_to_split``: the ranks' parts
+    of its gradient summed, where a plain ``all_reduce`` would pass each
+    rank's part alone), and the scale's block is ``split`` off (its
+    gradient gathered whole)."""
     width, whole = x.shape[-1], scale.shape[-1]
     if width == whole:
         return rms_norm(x, scale, eps)
-    _, rank, group = model_shard()
+    group = model_shard()[2]
     xf = x.float()
-    sq = collectives.all_reduce(xf.square().sum(dim=-1, keepdim=True), group)
+    sq = collectives.copy_to_split(collectives.all_reduce(
+        xf.square().sum(dim=-1, keepdim=True), group), group)
     y = xf * torch.rsqrt(sq / whole + eps)
-    block = scale[rank * width:(rank + 1) * width]
+    block = collectives.split(scale, group, dim=-1)
     return (y * (1.0 + block.float())).to(x.dtype)
 
 

@@ -4,7 +4,8 @@ epilogue, so a call is three ``pwconv`` launches and one multiply.  Under
 a mesh ``w_gate`` and ``w_up`` are column-parallel (each rank's block of
 ``d_ff`` columns, their shared input entering the split region once:
 ``collectives.copy_to_split``) and ``w_down`` row-parallel (the same
-block of rows, its partial sums summed over the model axis); under FSDP
+block of rows, its partial sums summed over the model axis: one
+all_reduce in a forward, one for the input's sum in a backward); under FSDP
 each weight's dimension split over "data" is gathered at its use
 (``layers.fsdp_gather``)."""
 from __future__ import annotations

@@ -41,6 +41,18 @@ the mixer on its channels, with the collectives at the layer's edges:
 
 A prefill and a decode step make the same four collectives a layer, at
 any length.
+
+Training differentiates through them under the sharded convention
+(``sharding/collectives.py``: every rank's loss is the global scalar).
+``x`` enters ``w_in``'s rank columns through ``copy_to_split``; the
+conv's gathered output feeds ``w_bcdt``'s rank columns, so that gather's
+backward reduce-scatters; b and c, whole on every rank, enter the rank's
+channels of the scan through ``copy_to_split``; the rank's channels of
+``w_dt``'s whole output are ``split`` off.  A training forward makes the
+serving forward's four (2 all_reduce, 2 all_gather); its backward 2
+all_reduce (x's and b, c's sums), 2 all_gather (``w_dt``'s input and
+output splits) and 1 reduce_scatter.  ``dwconv1d``'s forward and its
+backward run on the rank's (B, L, d_inner/tp) block, contiguous.
 """
 from __future__ import annotations
 
@@ -201,20 +213,32 @@ def _proj_scan_inputs(p: Mamba, xi: torch.Tensor, cfg: SSMConfig, policy):
     """xi (..., di) conv+silu output (under a model axis the rank's
     channels) -> (dt at the same channels, b, c), fp32.  The dt columns
     of ``w_bcdt``'s output are copied out before ``w_dt``'s kernel reads
-    them (a column slice is a strided view)."""
+    them (a column slice is a strided view).
+
+    Gradients under the model axis: the gathered channels feed
+    ``w_bcdt``'s rank columns, so their gradient is the ranks' parts
+    summed (the gather's backward a reduce-scatter, ``alike=False``); b
+    and c, whole on every rank, enter the rank's own channels of the scan
+    (``copy_to_split``); the rank's channels of ``w_dt``'s whole output
+    are ``split`` off (their gradient gathered whole)."""
     n = cfg.d_state
-    _, rank, group = model_shard()
+    group = model_shard()[2]
     width = xi.shape[-1]
-    xin = (xi if width == p.d_inner
-           else collectives.all_gather(xi, group, dim=-1))
+    local = width != p.d_inner
+    cols = p.w_bcdt["w"].shape[-1] != 2 * n + p.dt_rank
+    xin = (collectives.all_gather(xi, group, dim=-1, alike=not cols)
+           if local else xi)
     bcdt = linear(p.w_bcdt, xin, policy=policy)
-    if bcdt.shape[-1] != 2 * n + p.dt_rank:     # the rank's columns
+    if cols:                                    # the rank's columns
         bcdt = collectives.all_gather(bcdt, group, dim=-1)
-    b, c, dt_low = torch.split(bcdt.float(), [n, n, p.dt_rank], dim=-1)
+    bc, dt_low = torch.split(bcdt.float(), [2 * n, p.dt_rank], dim=-1)
+    if local:
+        bc = collectives.copy_to_split(bc, group)
+    b, c = torch.split(bc, [n, n], dim=-1)
     dt = row_linear(p.w_dt, dt_low.to(xi.dtype).contiguous(), p.dt_rank,
-                    policy=policy)
-    if width != p.d_inner:                      # the rank's channels
-        dt = dt[..., rank * width:(rank + 1) * width]
+                    d_out=p.d_inner, policy=policy)
+    if local:                                   # the rank's channels
+        dt = collectives.split(dt, group, dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)
     return dt, b, c
 
@@ -224,11 +248,14 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: SSMConfig, *,
                 h0: Optional[torch.Tensor] = None,
                 return_state: bool = False):
     """Full-sequence mixer. x (B, L, d) -> (B, L, d); under a model axis
-    ``x`` and the output are whole and the state is the rank's channels.
+    ``x`` and the output are whole and the state is the rank's channels
+    (``x`` entering ``w_in``'s rank columns through ``copy_to_split``).
 
     return_state: also return the decode cache {h, conv} after the last
     position (conv = last K-1 *pre-conv* inputs, matching
     :func:`mamba_mixer_step`)."""
+    if p.conv.shape[-1] != p.d_inner:          # w_in's rank columns
+        x = collectives.copy_to_split(x, model_shard()[2])
     xz = linear(p.w_in, x, policy=policy)
     xi_raw, z = torch.chunk(xz, 2, dim=-1)                     # (B, L, di)
     xi_raw = xi_raw.contiguous()
@@ -239,7 +266,8 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: SSMConfig, *,
     y, h_last = selective_scan(xi, dt, a, b, c, p.d_skip, chunk=cfg.chunk,
                                h0=h0)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = row_linear(p.w_out, y, p.d_inner, policy=policy)
+    out = row_linear(p.w_out, y, p.d_inner, d_out=x.shape[-1],
+                     policy=policy)
     if return_state:
         return out, {"h": h_last, "conv": conv_tail(xi_raw,
                                                     p.conv.shape[0])}
@@ -267,5 +295,6 @@ def mamba_mixer_step(p: Mamba, x_t: torch.Tensor, state: dict,
     a = -torch.exp(p.a_log)
     h, y = selective_step(state["h"], xi.float(), dt, a, b, c, p.d_skip)
     y = (y * F.silu(z.float())).to(x_t.dtype)
-    out = row_linear(p.w_out, y, p.d_inner, policy=policy)[:, None, :]
+    out = row_linear(p.w_out, y, p.d_inner, d_out=x_t.shape[-1],
+                     policy=policy)[:, None, :]
     return out, {"h": h, "conv": conv_state.float()}

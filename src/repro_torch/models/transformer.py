@@ -51,18 +51,22 @@ its cached K/V by frame) and a MoE layer expert-parallel
 stream stays whole on every rank: hymba's ``mix`` and meta tokens need
 no collective.
 
-Sharded training of the attention-MLP families (the train rules: FSDP
-over "data", tensor parallelism over "model"): each rank holds its
-``P(fsdp, tp)`` block of every weight, gathered over "data" at its use
+Sharded training of every family (the train rules: FSDP over "data",
+tensor parallelism over "model"): each rank holds its ``P(fsdp, tp)``
+block of every weight, gathered over "data" at its use
 (``layers.fsdp_gather``), and :func:`loss_fn` takes the whole batch,
 keeps the rank's rows and sums the NLL and the token count over the
 batch axes, so every rank's loss is the global mean and autograd through
 the collectives gives each rank its blocks' gradients
-(``sharding/collectives.py``).  Serving with ``serve_weight_fsdp`` runs
-the same gathers.  Sequence-parallel activations, and training or FSDP
-of the hymba, xLSTM and encoder-decoder layers under a mesh, raise
-(ROADMAP.md queue A, item 4.3.3), as do recurrent widths that do not
-split whole (:func:`check_mesh`).
+(``sharding/collectives.py``): hymba's Mamba branch over its channels
+(``ssm.py``), the mLSTM and sLSTM over their heads (``xlstm.py``),
+whisper's encoder and cross attention by head.  Under the per-layer
+remat a layer's forward collectives run again in its backward, all but
+the last: the closing row-parallel sum, which no saved tensor needs
+(``torch.utils.checkpoint`` stops its recomputation early).  Serving with
+``serve_weight_fsdp`` runs the same gathers.  Sequence-parallel
+activations raise (ROADMAP.md queue A, item 4.3.3), as do recurrent
+widths that do not split whole (:func:`check_mesh`).
 """
 from __future__ import annotations
 
@@ -258,20 +262,14 @@ def _moe_kwargs() -> dict:
                 expert_axis=r.expert_fsdp)
 
 
-#: Layer kinds whose training, and whose weights split over "data", under
-#: a mesh are not ported yet (ROADMAP.md queue A, item 4.3.3).
-_SERVE_ONLY_KINDS = ("hymba", "mlstm", "slstm", "dec")
-
-
 def check_mesh(cfg: ModelConfig, rules=None, *,
                training: bool = False) -> None:
     """Raise where ``cfg`` cannot run under the mesh of ``rules`` (default:
-    the context's): sequence-parallel activations; a model with a hymba,
-    mLSTM, sLSTM or ``dec`` layer with weights split over the fsdp axis,
-    or ``training``; and recurrent layers whose channels (the Mamba
-    branch's d_inner) or heads (the mLSTM's and sLSTM's) do not split
-    whole over the model axis.  The attention-MLP families (dense and
-    MoE) serve and train under FSDP and tensor parallelism."""
+    the context's): sequence-parallel activations (ROADMAP.md queue A,
+    item 4.3.3), and recurrent layers whose channels (the Mamba branch's
+    d_inner) or heads (the mLSTM's and sLSTM's) do not split whole over
+    the model axis.  Every family serves and trains (``training``) under
+    FSDP, data and tensor parallelism."""
     r = rules if rules is not None else current_rules()
     if active_mesh(r) is None:
         return
@@ -288,13 +286,6 @@ def check_mesh(cfg: ModelConfig, rules=None, *,
         raise NotImplementedError(
             "sequence-parallel activations (seq_axis) are not ported to the "
             "layers yet: ROADMAP.md queue A, item 4.3.3")
-    kinds = {v.kind for v in model_pattern(cfg)}
-    if kinds & set(_SERVE_ONLY_KINDS) and (r.fsdp_size > 1 or training):
-        raise NotImplementedError(
-            f"{cfg.name}: training and weights split over the fsdp axis "
-            f"(FSDP, serve_weight_fsdp) under a mesh are ported for the "
-            f"attention-MLP families only, not yet for the hymba, xLSTM "
-            f"and encoder-decoder layers: ROADMAP.md queue A, item 4.3.3")
 
 
 def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:

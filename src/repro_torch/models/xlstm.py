@@ -59,6 +59,19 @@ heads, and the recurrent state it carries is their block:
 
 No collective sits in a time loop: the chunkwise cell's, the sLSTM's or
 its chunk checkpoint's.  A prefill and a decode step make three a layer.
+
+Training (the sharded convention of ``sharding/collectives.py``): the
+normalized input enters the column-parallel ``w_up`` and FFN through
+``copy_to_split``, and the sLSTM's conv takes its channels through
+``split``; the gathers whose outputs feed the rank's heads (the mLSTM's
+xv and conv output, one reduce-scatter for both; the sLSTM's conv
+output) reduce-scatter their gradient, the sLSTM cell's output (used
+alike) keeps the rank's block; the output norm's sums of squares enter
+the rank's channels through ``copy_to_split`` and its scale's block is
+``split`` off (``layers.rms_norm_split``).  A layer's training forward
+makes the serving forward's three; the backward of an mLSTM layer 2
+all_reduce, 1 all_gather and 1 reduce_scatter, of an sLSTM layer 1 of
+each.
 """
 from __future__ import annotations
 
@@ -291,11 +304,13 @@ class MLSTMBlock(nn.Module):
 
     def _whole(self, xv, xc):
         """xv and the conv's output, every channel: gathered in one
-        all_gather where they are the rank's block."""
+        all_gather where they are the rank's block.  They feed the rank's
+        heads (column-parallel q, k, v and gates), so their gradient is
+        the ranks' parts summed (``alike=False``: a reduce-scatter)."""
         if xv.shape[-1] == self.di:
             return xv, xc
-        return tuple(collectives.all_gather_last([xv, xc],
-                                                 model_shard()[2]))
+        return tuple(collectives.all_gather_last(
+            [xv, xc], model_shard()[2], alike=False))
 
     def _project(self, xv, xc, shape, policy):
         """q, k, v (``shape`` + (heads, dh): the rank's heads) and the
@@ -320,6 +335,8 @@ class MLSTMBlock(nn.Module):
                 policy: KernelPolicy = DEFAULT_POLICY,
                 return_cache: bool = False):
         xn = rms_norm(x, self.norm["scale"])
+        if self.conv.shape[-1] != self.di:            # the rank's columns
+            xn = collectives.copy_to_split(xn, model_shard()[2])
         up = linear(self.w_up, xn, policy=policy)
         xv, xz = torch.chunk(up, 2, dim=-1)           # (B,L,di)
         xv = xv.contiguous()
@@ -329,7 +346,8 @@ class MLSTMBlock(nn.Module):
         h = rms_norm_split(h.reshape(b, l, -1).to(x.dtype),
                            self.out_norm["scale"])
         h = h * F.silu(xz)
-        out = x + row_linear(self.w_down, h, self.di, policy=policy)
+        out = x + row_linear(self.w_down, h, self.di, d_out=self.d_model,
+                             policy=policy)
         if return_cache:
             return out, {"c": c, "n": n, "m": m,
                          "conv": conv_tail(xv, self.cfg.conv_k)}
@@ -353,7 +371,8 @@ class MLSTMBlock(nn.Module):
         h = rms_norm_split(h.reshape(b, 1, -1).to(x_t.dtype),
                            self.out_norm["scale"])
         h = h * F.silu(xz)
-        out = x_t + row_linear(self.w_down, h, self.di, policy=policy)
+        out = x_t + row_linear(self.w_down, h, self.di, d_out=self.d_model,
+                               policy=policy)
         return out, {"c": c, "n": n, "m": m, "conv": conv_state.float()}
 
 
@@ -399,31 +418,37 @@ class SLSTMBlock(nn.Module):
 
     def _ffn(self, x, policy):
         xn = rms_norm(x, self.ffn_norm["scale"])
+        if self.w_ff_gate["w"].shape[1] != self.ff:   # column-parallel
+            xn = collectives.copy_to_split(xn, model_shard()[2])
         g = linear(self.w_ff_gate, xn, activation="silu", policy=policy)
         u = linear(self.w_ff_up, xn, policy=policy)
-        return x + row_linear(self.w_ff_down, g * u, self.ff, policy=policy)
+        return x + row_linear(self.w_ff_down, g * u, self.ff,
+                              d_out=self.d_model, policy=policy)
 
     def _channels(self, xn):
         """The conv's input: the rank's block of ``xn``'s channels,
-        contiguous (``xn`` itself where the filter is whole)."""
-        width = self.conv.shape[-1]
-        if width == self.d_model:
+        contiguous (``xn`` itself where the filter is whole; ``split``, so
+        that the gradient is gathered whole)."""
+        if self.conv.shape[-1] == self.d_model:
             return xn
-        rank = model_shard()[1]
-        return xn[..., rank * width:(rank + 1) * width].contiguous()
+        return collectives.split(xn, model_shard()[2], dim=-1)
 
-    def _whole(self, t):
+    def _whole(self, t, alike: bool = True):
         """``t`` (..., width) at every channel: gathered where it holds
-        the rank's block of d_model (the conv's output, the cell's)."""
+        the rank's block of d_model.  The cell's output is used alike by
+        every rank; the conv's feeds the rank's heads of the gates
+        (``alike=False``: its gradient's parts summed)."""
         if t.shape[-1] == self.d_model:
             return t
-        return collectives.all_gather(t, model_shard()[2], dim=-1)
+        return collectives.all_gather(t, model_shard()[2], dim=-1,
+                                      alike=alike)
 
     def _gates(self, xc, shape, policy):
         """The four gates' pre-activations at the rank's heads (``shape``
         + (heads, dh)) from the conv's output."""
         dh = self.d_model // self.n_heads
-        gates = linear(self.w_gates, self._whole(xc), policy=policy).float()
+        gates = linear(self.w_gates, self._whole(xc, alike=False),
+                       policy=policy).float()
         h = gates.shape[-1] // (4 * dh)
         return tuple(g.reshape(*shape, h, dh)
                      for g in torch.chunk(gates, 4, dim=-1))

@@ -39,9 +39,14 @@ the op's output feeds:
   size: every rank computed the tensor on its own from inputs held alike;
 * an ``all_gather`` whose output every rank uses alike (``alike=True``)
   keeps the rank's block of the gradient; one whose output each rank
-  uses on its own data (``alike=False``: FSDP's weights over "data")
+  uses on its own part (``alike=False``: FSDP's weights over "data", the
+  recurrent layers' channels gathered for a column-parallel Linear)
   reduce-scatters it (sum);
 * an ``all_to_all``'s backward is the same exchange the other way.
+
+A sum every rank then uses on its own part (a split RMS norm's sums of
+squares) is ``copy_to_split(all_reduce(x))``: the gradient's parts are
+summed back.
 
 A group of None (no mesh, or an axis of one rank) makes each op return its
 input untouched.  Every other call counts itself in :data:`launches`, in
@@ -207,9 +212,10 @@ def all_gather(x: torch.Tensor, group, dim: int = 0, *,
                alike: bool = True) -> torch.Tensor:
     """``group``'s blocks concatenated along ``dim`` in rank order.  Its
     gradient: the rank's block of the output's where every rank uses the
-    output alike (``alike``), else (each rank uses it on its own data, as
-    FSDP's weight gather over "data") the rank's block of the sum over the
-    group (:func:`reduce_scatter`)."""
+    output alike (``alike``), else (each rank uses it on its own data or
+    part, as FSDP's weight gather over "data", or the Mamba's channels
+    before its column-parallel ``w_bcdt``) the rank's block of the sum over
+    the group (:func:`reduce_scatter`)."""
     if _size(group) == 1:
         return x
     dim = dim % x.dim()
@@ -231,24 +237,41 @@ def _all_gather_last(tensors, group) -> tuple:
 
 class _AllGatherLast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, *tensors):
-        ctx.group = group
-        return _all_gather_last(tensors, group)
+    def forward(ctx, group, alike, *tensors):
+        ctx.group, ctx.alike = group, alike
+        out = _all_gather_last(tensors, group)
+        ctx.like = [(t.shape, t.dtype, t.device) for t in out]
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *(None if g is None else _block(g, ctx.group, -1)
-                        for g in grads))
+        if ctx.alike:
+            return (None, None, *(None if g is None
+                                  else _block(g, ctx.group, -1)
+                                  for g in grads))
+        # one reduce-scatter for them all: each gradient's rank blocks
+        # side by side, (..., n, w_i) -> (..., n, sum w_i), cut on the n
+        n = _size(ctx.group)
+        grads = [g if g is not None else torch.zeros(
+            shape, dtype=dtype, device=dev)
+            for g, (shape, dtype, dev) in zip(grads, ctx.like)]
+        widths = [g.shape[-1] // n for g in grads]
+        both = torch.cat([g.unflatten(-1, (n, w))
+                          for g, w in zip(grads, widths)], dim=-1)
+        mine = reduce_scatter(both, ctx.group, -2).squeeze(-2)
+        return (None, None, *mine.split(widths, dim=-1))
 
 
-def all_gather_last(tensors: list, group) -> list:
+def all_gather_last(tensors: list, group, *, alike: bool = True) -> list:
     """Each of ``tensors`` (the same leading dims) gathered along its last
-    dim, in one collective: they travel side by side.  Every rank uses the
-    outputs alike: the gradient of each is the rank's block."""
+    dim, in one collective: they travel side by side.  The gradient of
+    each, as :func:`all_gather`'s: the rank's block where every rank uses
+    the outputs alike (``alike``), else (each rank uses them on its own
+    part) the rank's block of the sum over the group."""
     if _size(group) == 1:
         return list(tensors)
     if any(_differentiable(t) for t in tensors):
-        return list(_AllGatherLast.apply(group, *tensors))
+        return list(_AllGatherLast.apply(group, alike, *tensors))
     return list(_all_gather_last(tensors, group))
 
 

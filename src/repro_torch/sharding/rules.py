@@ -346,14 +346,16 @@ def spec_axes(spec: Spec) -> frozenset:
 class StateLayout:
     """How a train state's leaves lie over ``mesh``: ``params`` the
     parameters' specs (:func:`param_specs`) and ``moments`` AdamW's
-    moments' (:func:`zero1_specs`), by parameter name.  A moment whose
-    spec adds ``zero1_axis`` to its parameter's on one dimension
-    (:meth:`zero1_dim`) is the rank's block of that dimension of the
-    rank's parameter block."""
+    moments' (:func:`zero1_specs`), by parameter name; ``parts`` the
+    leaves cut part by part (``models.transformer.param_parts``).  A
+    moment whose spec adds ``zero1_axis`` to its parameter's on one
+    dimension (:meth:`zero1_dim`) is the rank's block of that dimension
+    of the rank's parameter block."""
     mesh: object
     params: dict
     moments: dict
     zero1_axis: Optional[str] = "data"
+    parts: dict = dataclasses.field(default_factory=dict)
 
     def axes(self, name: str) -> frozenset:
         """The axes the parameter ``name``'s block is split over."""
@@ -394,27 +396,39 @@ class StateLayout:
         return collectives.all_gather(block, self.mesh.group(
             self.zero1_axis), dim=dim)
 
-    def state_specs(self, state: dict) -> dict:
-        """The specs of a train state ``{"params", "opt": {"mu", "nu",
-        "step"}[, "err"]}``, in its own tree (the step replicated; the
-        compressor's error as the parameters)."""
-        specs = {"params": dict(self.params),
-                 "opt": {"mu": dict(self.moments), "nu": dict(self.moments),
-                         "step": P()}}
-        if "err" in state:
-            specs["err"] = dict(self.params)
-        return specs
+    def whole(self, name: str, t: torch.Tensor,
+              moment: bool = False) -> torch.Tensor:
+        """The whole tensor of which ``t`` is this rank's block: of the
+        parameter ``name`` (its gradient, a compression error), or with
+        ``moment`` of its ZeRO-1 moments; a fused projection put back
+        part by part.  Every rank of the mesh takes part."""
+        if moment:
+            t = self.zero1_gather(name, t)
+        return gather_block(t, self.params[name], self.mesh,
+                            parts=self.parts.get(name, 1))
+
+    def block(self, name: str, t: torch.Tensor,
+              moment: bool = False) -> torch.Tensor:
+        """This rank's block of the whole tensor ``t`` (the inverse of
+        :meth:`whole`), contiguous."""
+        b = local_block(t, self.params[name], self.mesh,
+                        parts=self.parts.get(name, 1))
+        if moment:
+            b = self.zero1_block(name, b)
+        return b.contiguous()
 
 
-def train_layout(params, rules: ShardingRules) -> Optional[StateLayout]:
+def train_layout(params, rules: ShardingRules,
+                 parts: Optional[dict] = None) -> Optional[StateLayout]:
     """The :class:`StateLayout` of a model's parameters (an ``nn.Module``
-    or ``{name: tensor or shape}`` of whole shapes) under ``rules``, or
-    None where no mesh of more than one rank is in force."""
+    or ``{name: tensor or shape}`` of whole shapes) under ``rules``, its
+    fused projections cut in ``parts`` (``{name: parts}``), or None where
+    no mesh of more than one rank is in force."""
     if active_mesh(rules) is None:
         return None
     specs = param_specs(params, rules)
     return StateLayout(rules.mesh, specs, zero1_specs(params, specs, rules),
-                       rules.fsdp_axis)
+                       rules.fsdp_axis, dict(parts or {}))
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,12 @@ Layout (one directory per step):
 * Elastic (the reference's ``shardings=``, ``repro/train/checkpoint.py:
   142-162``): under a mesh (``layout``, a ``sharding.rules.StateLayout``)
   the state holds each rank's blocks.  :meth:`Checkpointer.save` gathers
-  every leaf whole over the mesh (``gather_block``: every rank takes part,
-  one leaf at a time) and rank 0 writes the full arrays, the one-device
-  format; :meth:`Checkpointer.restore` reads the full arrays and cuts the
-  rank's blocks under the layout in force, so a checkpoint written under
+  every leaf whole over the mesh (``StateLayout.whole``: every rank takes
+  part, one leaf at a time; a fused projection such as the Mamba's
+  ``w_in`` and its moments part by part) and rank 0 writes the full
+  arrays, the one-device format; :meth:`Checkpointer.restore` reads the
+  full arrays and cuts the rank's blocks under the layout in force
+  (``StateLayout.block``), so a checkpoint written under
   one mesh (or one device) restores under any other.  Only rank 0 writes,
   and :meth:`Checkpointer.wait` ends at a barrier of every rank, so the
   ranks read the same committed steps after it.
@@ -95,6 +97,28 @@ def _unflatten_into(template, flat: dict, dtypes: dict, prefix: str = "",
     return out
 
 
+def _leaf(key: str):
+    """``(parameter name, whether a moment)`` of a train state's flattened
+    key (``params/<name>``, ``err/<name>``, ``opt/mu/<name>``,
+    ``opt/nu/<name>``), or None for the step counter (replicated)."""
+    head, _, rest = key.partition(SEP)
+    if head != "opt":
+        return rest, False
+    kind, _, name = rest.partition(SEP)
+    return (name, True) if kind in ("mu", "nu") else None
+
+
+def whole_leaves(state, layout):
+    """``(key, tensor)`` of every leaf of a train state whole, one leaf at a
+    time: under ``layout`` (a ``sharding.rules.StateLayout``) gathered
+    over its mesh, a fused projection and its moments part by part
+    (``StateLayout.whole``; every rank takes part, so every rank runs the
+    generator to its end); without one the leaves themselves."""
+    for k, v in _flatten(state).items():
+        leaf = None if layout is None else _leaf(k)
+        yield k, (v if leaf is None else layout.whole(leaf[0], v, leaf[1]))
+
+
 def _checksum(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
 
@@ -119,17 +143,11 @@ class Checkpointer:
             dist.barrier()
 
     def _gathered(self, state) -> dict:
-        """``{key: host array}`` of every leaf whole: under a mesh every
-        rank gathers each leaf, and rank 0 alone keeps it (the others get
-        an empty dict)."""
-        from repro_torch.sharding.rules import gather_block
-        flat = _flatten(state)
-        if self.layout is None:
-            return {k: _to_numpy(v) for k, v in flat.items()}
-        specs = _flatten(self.layout.state_specs(state))
+        """``{key: host array}`` of every leaf whole (:func:`whole_leaves`):
+        under a mesh every rank gathers each leaf, and rank 0 alone keeps
+        it (the others get an empty dict)."""
         host = {}
-        for k, v in flat.items():
-            whole = gather_block(v, specs[k], self.layout.mesh)
+        for k, whole in whole_leaves(state, self.layout):
             if self.writer:
                 host[k] = _to_numpy(whole)
         return host
@@ -213,11 +231,10 @@ class Checkpointer:
         back to the previous committed step on corruption."""
         cut = None
         if self.layout is not None:
-            from repro_torch.sharding.rules import local_block
-            specs = _flatten(self.layout.state_specs(template))
-
             def cut(key, t):
-                return local_block(t, specs[key], self.layout.mesh)
+                leaf = _leaf(key)
+                return t if leaf is None else self.layout.block(
+                    leaf[0], t, leaf[1])
         steps = self.committed_steps()
         if step is not None:
             steps = [s for s in steps if s <= step]

@@ -82,12 +82,13 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
 def state_layout(model: T.LMModel, rules=None) -> Optional[StateLayout]:
     """How ``model``'s train state lies over the mesh of ``rules``
     (default: the context's): its parameters' and ZeRO-1 moments' specs
-    from the unsharded shapes; None without a mesh of more than one
+    from the unsharded shapes, and the leaves cut part by part
+    (``transformer.param_parts``); None without a mesh of more than one
     rank."""
     r = rules if rules is not None else current_rules()
     if r is None:
         return None
-    return train_layout(T.whole_shapes(model.cfg), r)
+    return train_layout(T.whole_shapes(model.cfg), r, T.param_parts(model))
 
 
 def reduce_replicated_grads(grads: dict, layout: Optional[StateLayout]):
@@ -178,8 +179,8 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
     on the model's device seeded from ``seed`` and the state's step, so a
     replayed step draws the same noise.  Every family trains: the
     attention-MLP transformers, whisper's encoder-decoder, xLSTM and
-    hymba; under a mesh (the rules in force here, set again around every
-    call) the attention-MLP families (see the module's docstring)."""
+    hymba, on one device or under a mesh (the rules in force here, set
+    again around every call; see the module's docstring)."""
     trainable_(model)
     dev = model.embedding["table"].device
     rules = current_rules()

@@ -5,6 +5,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import torch
+import _torch_threads  # noqa: F401,E402
 
 from repro_torch.mobilenet_inference import ARCHS
 
@@ -162,6 +163,17 @@ def lm(arch: str, dtype: str, kv_quant: bool = False):
     jp = perturbed(JT.init_params(jcfg, jax.random.PRNGKey(0)))
     return jcfg, jtree(jp), convert.lm_params_from_numpy(jp, tcfg,
                                                          device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_value_and_grad(jcfg):
+    """The reference's ``jax.value_and_grad`` of ``loss_fn`` under
+    ``jcfg`` (``(params, batch) -> ((loss, metrics), grads)``), jitted
+    once a config and compiled once a batch shape: traced op by op it takes
+    several times as long as its compile (fp32 only: the bf16 dots do not
+    run under ``jit`` on this CPU)."""
+    return jax.jit(jax.value_and_grad(lambda p, b: JT.loss_fn(jcfg, p, b),
+                                      has_aux=True))
 
 
 def lm_tokens(b: int, s: int, seed: int, vocab: int = 128):

@@ -1,5 +1,7 @@
 """The sharded cases of ``tests/test_torch_tp_serve.py``,
-``tests/test_torch_tp_recurrent.py`` and ``tests/test_torch_tp_train.py``,
+``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_train.py``,
+``tests/test_torch_tp_uneven.py`` and
+``tests/test_torch_tp_train_recurrent.py``,
 shared by their reference oracle
 (``_torch_tp_oracle.py``, JAX on forced host devices) and their port
 worlds (``_torch_tp_world.py``, gloo ranks).  Plain data and numpy: this
@@ -125,15 +127,55 @@ UNEVEN_TRAIN_CASES = {
                                     mesh=(2, 2), batch=9, seq=41,
                                     oracle_mesh=(1, 2)),
 }
+#: Sharded training of the recurrent and encoder-decoder families
+#: (``tests/test_torch_tp_train_recurrent.py``), at the widths of
+#: ``RECURRENT_CASES`` (every leaf the rules split at full width splits
+#: here too), fp32 on the global batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+#: tokens: hymba's Mamba branch over its channels, the xLSTM over its
+#: heads, whisper's encoder and cross attention over theirs.  hymba at
+#: (2, 2) runs in 2 microbatches.  ``oracle=False``: a bf16 case held
+#: against the port's own one rank: hymba at one layer (bf16's rounding
+#: grows through the depth of these models: on one rank the xLSTM's bf16
+#: gradients differ from its fp32 ones by up to a third, hymba's at two
+#: layers by 4.8%, so another sum order alone moves them past the bf16
+#: bound; the fp32 cases agree with one rank within 3e-6).  ``serve``: ``serve_weight_fsdp``
+#: serving (a prefill and ``STEPS`` decode steps of the tokens in
+#: ``fed``, which the oracle draws) held against the port's one rank.
+RECURRENT_TRAIN_CASES = {
+    "hymba_tp2": dict(arch="hymba-1.5b", mesh=(1, 2), widths=_HYMBA),
+    "hymba_tp4": dict(arch="hymba-1.5b", mesh=(1, 4), widths=_HYMBA),
+    "hymba_mb2_dp2_tp2": dict(arch="hymba-1.5b", mesh=(2, 2),
+                              widths=_HYMBA, microbatches=2),
+    "xlstm_tp4": dict(arch="xlstm-125m", mesh=(1, 4), widths=_XLSTM),
+    "xlstm_dp2_tp2": dict(arch="xlstm-125m", mesh=(2, 2), widths=_XLSTM),
+    "whisper_tp2": dict(arch="whisper-small", mesh=(1, 2),
+                        widths=_WHISPER),
+    "whisper_dp2_tp2": dict(arch="whisper-small", mesh=(2, 2),
+                            widths=_WHISPER),
+    "hymba_bf16_dp2_tp2": dict(arch="hymba-1.5b", mesh=(2, 2),
+                               widths=dict(_HYMBA, n_layers=1),
+                               dtype="bfloat16", oracle=False),
+    "hymba_serve_fsdp": dict(arch="hymba-1.5b", mesh=(2, 2), widths=_HYMBA,
+                             serve=True, oracle=False, prompt=30,
+                             max_len=48),
+    "xlstm_serve_fsdp": dict(arch="xlstm-125m", mesh=(2, 2), widths=_XLSTM,
+                             serve=True, oracle=False, prompt=16,
+                             max_len=32),
+    "whisper_serve_fsdp": dict(arch="whisper-small", mesh=(2, 2),
+                               widths=_WHISPER, serve=True, oracle=False,
+                               prompt=16, max_len=32),
+}
 #: The AdamW of the training cases (decay on, warmup, clipping).
 ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=100, weight_decay=0.1,
              clip_norm=1.0)
 #: The dicts of cases by name, as the oracle and the worlds take them.
 SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES,
           "TRAIN_CASES": TRAIN_CASES,
-          "UNEVEN_TRAIN_CASES": UNEVEN_TRAIN_CASES}
+          "UNEVEN_TRAIN_CASES": UNEVEN_TRAIN_CASES,
+          "RECURRENT_TRAIN_CASES": RECURRENT_TRAIN_CASES}
 #: The suites of training cases.
-TRAIN_SUITES = ("TRAIN_CASES", "UNEVEN_TRAIN_CASES")
+TRAIN_SUITES = ("TRAIN_CASES", "UNEVEN_TRAIN_CASES",
+                "RECURRENT_TRAIN_CASES")
 MESHES = sorted({c["mesh"] for c in CASES.values()})
 BATCH = 2
 STEPS = 4
@@ -183,7 +225,8 @@ def train_batch(cfg, case: dict, seed: int = SEED) -> dict:
     """A training case's global batch: tokens and labels (B, S) int32 of
     :func:`batch_shape`, seeded, the first three labels of row 0 and the
     last two of row 5 (if there is one) ignored (-1), so that the data
-    ranks' token counts differ."""
+    ranks' token counts differ; an encoder-decoder's also its encoder's
+    frames ``frontend`` (B, S_enc, d) fp32."""
     rng = np.random.default_rng(seed + 2)
     shape = batch_shape(case)
     tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
@@ -191,7 +234,11 @@ def train_batch(cfg, case: dict, seed: int = SEED) -> dict:
     labels[0, :3] = -1
     if shape[0] > 5:
         labels[5, -2:] = -1
-    return {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.encdec is not None:
+        batch["frontend"] = rng.standard_normal(
+            (shape[0], cfg.encdec.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -30,13 +30,16 @@ reference's step does), its gradients gathered whole; ``apply_updates``
 jitted on those gradients from zeroed moments (the parameters and
 moments after it, gathered); and one jitted, donated ``make_train_step``
 on the whole batch (its loss and norms).  A case's ``oracle_mesh`` runs
-it on that mesh; its ``whole_grads`` add the one-device gradients.  A case with ``serve`` is a
-serving case under ``serve_weight_fsdp``; one with ``oracle=False`` gets
-only its batch (the port draws its own weights)."""
+it on that mesh; its ``whole_grads`` add the one-device gradients.  A
+case with ``serve`` is a serving case under ``serve_weight_fsdp`` (with
+``oracle=False`` only its weights, prompt and decode tokens, for the
+port's own one rank); a training case with ``oracle=False`` gets only
+its batch (the port draws its own weights)."""
 from __future__ import annotations
 
 import os
 import sys
+import time
 
 import jax
 import numpy as np
@@ -117,13 +120,29 @@ def run(name: str, case: dict, out_dir: str) -> None:
              **{f"param.{k}": v for k, v in C.flatten(params).items()})
 
 
+def run_inputs(name: str, case: dict, out_dir: str) -> None:
+    """A serving case held against the port's own one rank
+    (``oracle=False``): the reference's weights, the prompt and
+    ``STEPS`` decode steps' tokens (drawn, fed whatever the logits)."""
+    cfg = C.config(get_config(case["arch"], smoke=True), case)
+    params = perturbed(JT.init_params(cfg, jax.random.PRNGKey(C.SEED)),
+                       C.SEED)
+    tokens, frontend = C.inputs(cfg, case)
+    fed = np.random.default_rng(C.SEED + 3).integers(
+        0, cfg.vocab_size, (C.STEPS, C.BATCH, 1)).astype(np.int32)
+    np.savez(os.path.join(out_dir, f"{name}.npz"), tokens=tokens, fed=fed,
+             **({} if frontend is None else {"frontend": frontend}),
+             **{f"param.{k}": v for k, v in C.flatten(params).items()})
+
+
 def run_train(name: str, case: dict, out_dir: str) -> None:
     """A training case (see the module's docstring)."""
     if case.get("serve"):
-        return run(name, case, out_dir)
+        return (run if case.get("oracle", True) else run_inputs)(
+            name, case, out_dir)
     cfg = C.config(get_config(case["arch"], smoke=True), case)
     batch = C.train_batch(cfg, case)
-    out = {"tokens": batch["tokens"], "labels": batch["labels"]}
+    out = dict(batch)
     if case.get("oracle", True):
         params = perturbed(JT.init_params(cfg, jax.random.PRNGKey(C.SEED)),
                            C.SEED)
@@ -206,8 +225,9 @@ def main(argv) -> int:
     cases = C.SUITES[args.cases]
     fn = run_train if args.cases in C.TRAIN_SUITES else run
     for name in args.names or list(cases):
+        t0 = time.monotonic()
         fn(name, cases[name], args.dir)
-        print(f"[oracle] {name}", flush=True)
+        print(f"[oracle] {name} {time.monotonic() - t0:.1f} s", flush=True)
     return 0
 
 

@@ -10,8 +10,11 @@ A training case (``TRAIN_CASES``, the train rules) writes its loss and
 metrics, the gradients gathered whole, the parameters and moments after
 the sharded AdamW on the reference's gradients, and one
 ``make_train_step`` step's metrics; a bf16 case its sharded loss and
-gradients beside the port's own one-rank ones.  The (2, 2) and (4, 1)
-worlds of the training suite also run the elastic checkpoints
+gradients beside the port's own one-rank ones; a step's collectives and
+the widths of its ``dwconv1d`` calls, forward and backward.  The (1, 2)
+and (2, 1) meshes of ``RECURRENT_TRAIN_CASES`` write and restore the
+recurrent models' checkpoints (:func:`run_recurrent_ckpt`).  The (2, 2)
+and (4, 1) worlds of the training suite also run the elastic checkpoints
 (``elastic_*``: a one-rank checkpoint restored under (2, 2) and saved
 again; that one restored under (4, 1)) and, under (2, 2), ``train_loop``
 with a fault injected at step 2 against the clean run.
@@ -198,10 +201,39 @@ def _tcfg(microbatches: int = 1):
                        microbatches=microbatches)
 
 
-def _gathered(tree: dict, specs: dict, mesh) -> dict:
-    from repro_torch.sharding.rules import gather_block
-    return {k: gather_block(v, specs[k], mesh).float().numpy()
+def _gathered(tree: dict, layout, moment: bool = False) -> dict:
+    """The rank's blocks of ``tree`` (parameters, gradients, or with
+    ``moment`` the moments) put back whole, fused projections part by
+    part."""
+    return {k: layout.whole(k, v, moment).float().numpy()
             for k, v in tree.items()}
+
+
+def _recording_dwconv1d(widths: dict):
+    """Wraps the plain ``dwconv1d`` forward and backward (what the CPU
+    runs where the card launches the kernels) so that each call appends
+    (channels, contiguous operands) to ``widths["fwd"]`` / ``["bwd"]``;
+    returns a function that puts them back."""
+    from repro_torch.kernels import dwconv1d as K
+    fwd, bwd = K.dwconv1d_causal_plain, K.dwconv1d_causal_bwd_plain
+
+    def rec_fwd(x, f):
+        widths["fwd"].append((x.shape[-1], x.is_contiguous()))
+        return fwd(x, f)
+
+    def rec_bwd(x, f, dy):
+        widths["bwd"].append((dy.shape[-1], x.is_contiguous()
+                              and dy.is_contiguous()))
+        return bwd(x, f, dy)
+    K.dwconv1d_causal_plain, K.dwconv1d_causal_bwd_plain = rec_fwd, rec_bwd
+
+    def restore():
+        K.dwconv1d_causal_plain, K.dwconv1d_causal_bwd_plain = fwd, bwd
+    return restore
+
+
+#: The collectives a training step counts, in this order.
+TRAIN_OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
 
 
 def _port_leaves(z, prefix: str, period: int) -> dict:
@@ -216,15 +248,19 @@ def _port_leaves(z, prefix: str, period: int) -> dict:
 def run_train_case(name: str, case: dict, rules, in_dir: str,
                    rank: int) -> None:
     """A training case: see the module's docstring."""
+    from repro_torch import graphs
     from repro_torch.configs.registry import get_config
     from repro_torch.optim import adamw
-    from repro_torch.sharding.rules import local_block, use_rules
+    from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
     z = np.load(os.path.join(in_dir, f"{name}.npz"))
     cfg = C.config(get_config(case["arch"], smoke=True), case)
     params = C.unflatten({k[len("param."):]: z[k] for k in z.files
                           if k.startswith("param.")})
     batch = {k: torch.from_numpy(z[k]).long() for k in ("tokens", "labels")}
+    if "frontend" in z.files:
+        batch["frontend"] = torch.from_numpy(z["frontend"]).to(
+            cfg.torch_dtype)
     mb = case.get("microbatches", 1)
     tcfg = _tcfg(mb)
     out = {}
@@ -237,28 +273,37 @@ def run_train_case(name: str, case: dict, rules, in_dir: str,
         out["loss"] = loss.float().numpy()
         out.update({f"metric.{k}": v.float().numpy()
                     for k, v in metrics.items()})
-        whole = _gathered(grads, layout.params, rules.mesh)
+        whole = _gathered(grads, layout)
         out.update({f"grad.{k}": v for k, v in whole.items()})
         if case.get("oracle", True):
             # the sharded AdamW on the reference's gradients
             ref = _port_leaves(z, "grad.", len(model.pattern))
-            g = {n: local_block(torch.from_numpy(np.asarray(a)),
-                                layout.params[n], rules.mesh)
+            g = {n: layout.block(n, torch.from_numpy(np.asarray(a)))
                  for n, a in ref.items()}
             acfg = tcfg.optimizer
             new_p, new_opt, am = adamw.apply_updates(
                 state["params"], g,
                 adamw.init_state(state["params"], acfg, layout), acfg,
                 layout)
-            for part, tree, specs in (
-                    ("param", new_p, layout.params),
-                    ("mu", new_opt["mu"], layout.moments),
-                    ("nu", new_opt["nu"], layout.moments)):
-                out.update({f"adam.{part}.{k}": v for k, v in
-                            _gathered(tree, specs, rules.mesh).items()})
+            for part, tree in (("param", new_p), ("mu", new_opt["mu"]),
+                               ("nu", new_opt["nu"])):
+                out.update({f"adam.{part}.{k}": v for k, v in _gathered(
+                    tree, layout, part != "param").items()})
             out.update({f"adam.{k}": v.numpy() for k, v in am.items()})
             step = TS.make_train_step(model, tcfg)
-            _, sm = step(state, batch)
+            widths = {"fwd": [], "bwd": []}
+            restore = _recording_dwconv1d(widths)
+            graphs.reset()
+            try:
+                _, sm = step(state, batch)
+            finally:
+                restore()
+            counts = graphs.snapshot()
+            out["step_collectives"] = np.array([counts[k]
+                                                for k in TRAIN_OPS])
+            for k, v in widths.items():
+                out[f"dwconv1d_{k}_widths"] = np.array(
+                    v, dtype=np.int64).reshape(-1, 2)
             out.update({f"step.{k}": v.float().numpy()
                         for k, v in sm.items()})
     if not case.get("oracle", True) and rank == 0:
@@ -301,9 +346,9 @@ def run_elastic(rules, in_dir: str, rank: int) -> None:
     (``elastic_22``); the loop with a fault at step 2 against the clean
     run.  Under (4, 1): ``elastic_22`` restored and gathered."""
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.sharding.rules import gather_block, use_rules
+    from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
-    from repro_torch.train.checkpoint import Checkpointer, _flatten
+    from repro_torch.train.checkpoint import Checkpointer, whole_leaves
     from repro_torch.train.trainer import (FaultInjector, LoopConfig,
                                            train_loop)
     mesh = rules.mesh
@@ -319,10 +364,8 @@ def run_elastic(rules, in_dir: str, rank: int) -> None:
         with np.load(os.path.join(in_dir, src, f"step_{step:09d}",
                                   "arrays.npz")) as f:
             stored = {k: f[k] for k in f.files}
-        specs = _flatten(layout.state_specs(state))
         equal = True
-        for k, v in _flatten(state).items():
-            whole = gather_block(v, specs[k], mesh)
+        for k, whole in whole_leaves(state, layout):
             a = whole.view(torch.int16) if whole.dtype == torch.bfloat16 \
                 else whole
             equal &= np.array_equal(a.numpy(), stored[k])
@@ -354,6 +397,61 @@ def run_elastic(rules, in_dir: str, rank: int) -> None:
                 [[h["loss"] for h in i["history"]] for i in (ci, fi)])
     np.savez(os.path.join(in_dir, f"port_elastic_{shape[0]}x{shape[1]}"
                                   f"_r{rank}.npz"), **out)
+
+
+#: The recurrent checkpoints' models (at their cases' widths) and seed.
+CKPT_ARCHS = {"hymba-1.5b": C._HYMBA, "xlstm-125m": C._XLSTM}
+CKPT_SEED, CKPT_STEP = 5, 3
+
+
+def ckpt_state(cfg, rules):
+    """A train state of ``cfg``'s model drawn from ``CKPT_SEED`` under
+    ``rules`` (None: one rank), its moments set from the parameters
+    (``mu = p / 2 + 1``, ``nu = p * p``: any wrong cut of a moment shows
+    against its parameter) and its step ``CKPT_STEP``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import use_rules
+    from repro_torch.train import train_step as TS
+    with use_rules(rules):
+        model = T.init_params(cfg, seed=CKPT_SEED, device="cpu", rules=rules)
+        layout = TS.state_layout(model)
+        state = TS.init_train_state(model, _tcfg())
+    for n, p in state["params"].items():
+        b = p if layout is None else layout.zero1_block(n, p)
+        state["opt"]["mu"][n] = b / 2 + 1
+        state["opt"]["nu"][n] = b * b
+    state["opt"]["step"].fill_(CKPT_STEP)
+    return state, layout
+
+
+def ckpt_config(arch: str):
+    from repro_torch.configs.registry import get_config
+    return C.config(get_config(arch, smoke=True), {"widths": CKPT_ARCHS[arch]})
+
+
+def run_recurrent_ckpt(rules, in_dir: str, rank: int) -> None:
+    """Under (1, 2): each of ``CKPT_ARCHS``' states saved (its fused
+    projections split part by part over "model").  Under (2, 1): restored,
+    every leaf of the rank's blocks against the state drawn under (2, 1)
+    itself, bit for bit."""
+    from repro_torch.train.checkpoint import Checkpointer, _flatten
+    mesh = rules.mesh
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    out = {}
+    for arch in CKPT_ARCHS:
+        state, layout = ckpt_state(ckpt_config(arch), rules)
+        ck = Checkpointer(os.path.join(in_dir, f"ckpt_{arch}"), layout=layout)
+        if shape == (1, 2):
+            ck.save(CKPT_STEP, state)
+            continue
+        restored, step, _ = ck.restore(state)
+        got, want = _flatten(restored), _flatten(state)
+        out[f"{arch}.step"] = np.array(step)
+        out[f"{arch}.equal"] = np.array(sorted(
+            k for k in want if not torch.equal(got[k], want[k])) or [""])
+    if out:
+        np.savez(os.path.join(in_dir, f"port_ckpt_{shape[0]}x{shape[1]}"
+                                      f"_r{rank}.npz"), **out)
 
 
 def worker(rank: int, world: int, models: list, port: int,
@@ -388,6 +486,9 @@ def worker(rank: int, world: int, models: list, port: int,
             if suite == "TRAIN_CASES" and mesh in ((2, 2), (4, 1)):
                 run_elastic(make_rules(host, mode="train", multi_pod=False),
                             in_dir, rank)
+            if suite == "RECURRENT_TRAIN_CASES" and mesh in ((1, 2), (2, 1)):
+                run_recurrent_ckpt(make_rules(host, mode="train",
+                                              multi_pod=False), in_dir, rank)
     finally:
         dist.destroy_process_group()
 

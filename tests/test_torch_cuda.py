@@ -2377,13 +2377,17 @@ def _train_losses(stdout: str) -> list:
 @pytest.mark.parametrize("arch,ranks,model", [
     ("qwen3-1.7b", 4, 1), ("qwen3-1.7b", 4, 2), ("qwen3-1.7b", 4, 4),
     ("smollm-360m", 4, 2), ("qwen3-1.7b", 2, 2),
-    ("qwen3-moe-235b-a22b", 4, 2)])
+    ("qwen3-moe-235b-a22b", 4, 2),
+    ("hymba-1.5b", 2, 2), ("hymba-1.5b", 4, 2),
+    ("xlstm-125m", 2, 2), ("xlstm-125m", 4, 2)])
 def test_nccl_train_across_cards(dev, arch, ranks, model):
     """``launch.train --model-parallel model`` as ``ranks`` NCCL ranks, one
     a card: FSDP and ZeRO-1 over the rest, the whole sharded step captured
     as one CUDA graph with its collectives (FSDP's reduce-scatters among
-    them).  The dense models' losses match the one-card captured step's
-    within 2e-5; the MoE's (each shard routes its own tokens with its own
+    them); hymba's Mamba branch and the xLSTM's blocks with ``dwconv1d``
+    and its backward on the rank's channel block.  The dense and
+    recurrent models' losses match the one-card captured step's within
+    2e-5; the MoE's (each shard routes its own tokens with its own
     capacity) those of the same mesh as gloo ranks on the CPU within
     1e-4.  Skips on a host with fewer cards than ranks."""
     import ast
@@ -2394,7 +2398,7 @@ def test_nccl_train_across_cards(dev, arch, ranks, model):
     from repro_torch.kernels import _build
     if torch.cuda.device_count() < ranks:
         pytest.skip(f"needs {ranks} CUDA devices, one a NCCL rank")
-    _build.build(["pwconv"])  # once, before the ranks start
+    _build.build(["pwconv", "dwconv1d"])  # once, before the ranks start
     torchrun = ["-m", "torch.distributed.run", "--standalone",
                 "--nproc-per-node", str(ranks)]
     moe = "moe" in arch

@@ -2,8 +2,10 @@
 package: the dense and VLM transformers (smollm-360m, qwen3-1.7b,
 internvl2-1b, command-r-35b, qwen1.5-110b), the configs and registry, the
 shape set and input specs, the cache specs, and the int8 KV cache.  The
-MoE transformers and ``models/moe.py`` are in ``tests/test_torch_moe.py``;
-both files run the checks of ``_torch_parity.py``.
+MoE transformers and ``models/moe.py`` are in ``tests/test_torch_moe.py``,
+the dense models' prefill, decode steps and generation in
+``tests/test_torch_dense_serving.py``; they run the checks of
+``_torch_parity.py``.
 
 Seeded numpy weights (the reference's own inits, zero-initialized norm
 scales and biases perturbed so that they count) go through the reference
@@ -32,14 +34,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import (BLOCK_TOL, LM_DTYPES, PROMPTS,  # noqa: E402
                            assert_caches, assert_close, check_cache_specs,
-                           check_decode_step_into, check_decode_steps,
-                           check_generate_fp32, check_init_params_and_cast,
+                           check_decode_step_into, check_init_params_and_cast,
                            check_layer_decode, check_layer_forward,
-                           check_prefill, check_prefill_by_stepping_fp32,
-                           check_prefill_equals_stepping, int8_diff, lm,
-                           lm_frontend, lm_tokens, perturbed, port_cache,
-                           rand, ref_prefill_by_stepping, rel_err, to_jax,
-                           to_torch)
+                           int8_diff, lm, lm_frontend, lm_tokens, perturbed,
+                           port_cache, rand, ref_prefill_by_stepping, rel_err,
+                           to_jax, to_torch)
 from repro.configs import base as jbase  # noqa: E402
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
@@ -143,41 +142,6 @@ def test_layer_decode_matches_reference(arch, dtype):
     """No dense arch has a window: a plain cache over 12 steps (llama4's
     rings are in tests/test_torch_moe.py)."""
     check_layer_decode(arch, dtype, 24, 12)
-
-
-@pytest.mark.parametrize("dtype", LM_DTYPES)
-@pytest.mark.parametrize("s", PROMPTS)
-@pytest.mark.parametrize("arch", DENSE)
-def test_hidden_states_and_prefill_match_reference(arch, s, dtype):
-    check_prefill(arch, dtype, s)
-
-
-@pytest.mark.parametrize("dtype", LM_DTYPES)
-@pytest.mark.parametrize("arch", DENSE)
-def test_decode_steps_match_reference(arch, dtype):
-    check_decode_steps(arch, dtype)
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_by_stepping_matches_reference_fp32(arch):
-    check_prefill_by_stepping_fp32(arch)
-
-
-@pytest.mark.parametrize("dtype,s,max_len", [
-    ("float32", 3, 16), ("float32", 40, 60), ("bfloat16", 9, 24)])
-@pytest.mark.parametrize("arch", DENSE)
-def test_prefill_equals_prefill_by_stepping(arch, dtype, s, max_len):
-    check_prefill_equals_stepping(arch, dtype, s, max_len)
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_greedy_generate_matches_reference_fp32(arch):
-    check_generate_fp32(arch)
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_decode_step_into_writes_in_place_and_matches_decode_step(arch):
-    check_decode_step_into(arch)
 
 
 @pytest.mark.parametrize("kv_quant", (False, True))
@@ -501,7 +465,6 @@ def test_operands_reach_the_kernels_contiguous(arch, monkeypatch):
     per = {ph: tserve.expected_launches(model.cfg, ph)["pwconv"]
            for ph in ("prefill", "decode")}
     assert len(seen) == 2 * (per["prefill"] + per["decode"])
-
 
 
 def test_in_place_step_past_max_len_writes_nothing_as_the_functional():

@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401,E402
 
 torch = pytest.importorskip("torch")
 

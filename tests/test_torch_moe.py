@@ -2,10 +2,11 @@
 ``models/moe.py`` (the router, the load-balance loss, the rank-by-position
 dispatch with its capacities, drops, the one-device body ``_moe_local``,
 ``moe_forward`` with and without a shared expert, the dense oracle) and
-the MoE transformers' serving path at their smoke configs (qwen3-moe:
+the MoE transformers' layers at their smoke configs (qwen3-moe:
 top-2 of 4 experts on every layer; llama4: three sliding-window layers
 and a global NoPE one, top-1 plus a shared expert on every other layer,
-8 fusion embeddings).
+8 fusion embeddings) and their metrics with drops; their prefill, decode
+steps and generation are in ``tests/test_torch_moe_serving.py``.
 
 Seeded weights and inputs as in ``tests/test_torch_dense.py``; the
 reference's MoE runs with ``mesh=None`` (its ``_moe_local`` at
@@ -25,11 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import (BLOCK_TOL, LM_DTYPES, PROMPTS,  # noqa: E402
                            TORCH, assert_close, assert_moe_aux,
-                           check_decode_step_into, check_decode_steps,
-                           check_generate_fp32, check_layer_decode,
-                           check_layer_forward, check_prefill,
-                           check_prefill_by_stepping_fp32,
-                           check_prefill_equals_stepping, configs,
+                           check_layer_decode, check_layer_forward, configs,
                            lm_frontend, lm_tokens, perturbed, rand, to_jax,
                            to_torch)
 from repro.configs import base as jbase  # noqa: E402
@@ -271,41 +268,6 @@ def test_layer_decode_matches_reference(arch, max_len, steps, dtype):
     32-slot rings that 36 steps wrap, its global layer on the whole
     cache."""
     check_layer_decode(arch, dtype, max_len, steps)
-
-
-@pytest.mark.parametrize("dtype", LM_DTYPES)
-@pytest.mark.parametrize("s", PROMPTS)
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_hidden_states_and_prefill_match_reference(arch, s, dtype):
-    check_prefill(arch, dtype, s)
-
-
-@pytest.mark.parametrize("dtype", LM_DTYPES)
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_decode_steps_match_reference(arch, dtype):
-    check_decode_steps(arch, dtype)
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_prefill_by_stepping_matches_reference_fp32(arch):
-    check_prefill_by_stepping_fp32(arch)
-
-
-@pytest.mark.parametrize("dtype,s,max_len", [
-    ("float32", 3, 16), ("float32", 40, 60), ("bfloat16", 9, 24)])
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_prefill_equals_prefill_by_stepping(arch, dtype, s, max_len):
-    check_prefill_equals_stepping(arch, dtype, s, max_len)
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_greedy_generate_matches_reference_fp32(arch):
-    check_generate_fp32(arch)
-
-
-@pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_decode_step_into_writes_in_place_and_matches_decode_step(arch):
-    check_decode_step_into(arch)
 
 
 @pytest.mark.parametrize("dtype", LM_DTYPES)

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+import _torch_threads  # noqa: F401,E402
 
 torch = pytest.importorskip("torch")
 

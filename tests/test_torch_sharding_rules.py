@@ -13,6 +13,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401,E402
 
 from repro.configs import base as jbase
 from repro.configs import registry as jregistry

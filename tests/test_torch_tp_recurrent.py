@@ -254,7 +254,8 @@ def test_the_cases_widths_split_what_full_width_splits(name):
 
 
 # ---------------------------------------------------------------------------
-# The launcher, the refusals that stay
+# The launcher, the refusals that stay (FSDP serves: the serve_fsdp cases
+# of tests/test_torch_tp_train_recurrent.py)
 # ---------------------------------------------------------------------------
 
 
@@ -282,9 +283,7 @@ def _rules(**kw):
                                           multi_pod=False), **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(seq_axis="data"),
-                                dict(fsdp_axis="data")],
-                         ids=["seq_axis", "fsdp"])
+@pytest.mark.parametrize("kw", [dict(seq_axis="data")], ids=["seq_axis"])
 def test_sequence_parallel_and_fsdp_still_refuse_a_mesh(kw):
     cfg = get_config("hymba-1.5b", smoke=True)
     with use_rules(_rules(**kw)), pytest.raises(NotImplementedError,

@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401,E402
 
 import _torch_tp_cases as C
 from repro_torch import convert

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401,E402
 import torch
 
 import _torch_tp_cases as C
@@ -347,22 +348,6 @@ def _abstract_rules(mode="train", **kw):
     from repro_torch.launch.dryrun import make_rules
     mesh = mesh_lib.Mesh(("data", "model"), (2, 2))
     return make_rules(mesh, mode=mode, multi_pod=False, **kw)
-
-
-@pytest.mark.parametrize("arch", ("hymba-1.5b", "xlstm-125m",
-                                  "whisper-small"))
-def test_recurrent_and_encdec_training_under_a_mesh_refuses(arch):
-    """hymba, xLSTM and whisper serve under a mesh but neither train nor
-    take FSDP under one yet (4.3.3); the attention-MLP families do."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models import transformer as T
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=r"4\.3\.3"):
-        T.check_mesh(cfg, _abstract_rules(mode="serve"), training=True)
-    with pytest.raises(NotImplementedError, match=r"4\.3\.3"):
-        T.check_mesh(cfg, _abstract_rules())
-    T.check_mesh(get_config("qwen3-moe-235b-a22b", smoke=True),
-                 _abstract_rules(), training=True)
 
 
 @pytest.mark.parametrize("kind", ("topk", "int8"))

@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from _torch_parity import (assert_grads, configs, jtree, lm, lm_frontend,
-                           np32, perturbed, rand, rel_err, to_jax, to_torch)
+                           np32, perturbed, rand, ref_value_and_grad,
+                           rel_err, to_jax, to_torch)
 from repro.data import pipeline as jdata
 from repro.kernels import ref as jref
 from repro.models import attention as JA
@@ -227,8 +228,7 @@ def test_loss_fn_and_gradient_match_reference(arch):
     remat on both sides), 20 tokens with ignored labels, fp32."""
     jcfg, jp, model = lm(arch, "float32")
     bj, bt = _lm_batch(jcfg, 20, 1)
-    (lj, mj), gj = jax.value_and_grad(
-        lambda p: JT.loss_fn(jcfg, p, bj), has_aux=True)(jp)
+    (lj, mj), gj = ref_value_and_grad(jcfg)(jp, bj)
     lt, mt, gt = _port_grads(model, bt)
     assert set(mt) == set(mj)
     for k in mj:
@@ -248,8 +248,7 @@ def test_loss_gradient_through_blockwise_attention(arch, remat):
     model = convert.lm_params_from_numpy(jp, tcfg, device="cpu")
     jp = jtree(jp)
     bj, bt = _lm_batch(jcfg, 40, 2)
-    (lj, _), gj = jax.value_and_grad(
-        lambda p: JT.loss_fn(jcfg, p, bj), has_aux=True)(jp)
+    (lj, _), gj = ref_value_and_grad(jcfg)(jp, bj)
     lt, _, gt = _port_grads(model, bt)
     np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
     assert_grads(gt, convert.lm_leaves(gj, len(model.pattern)))
@@ -407,7 +406,7 @@ def test_train_step_matches_reference(microbatches):
     for i in range(mb):
         part = {k: jnp.asarray(v[i * 4 // mb:(i + 1) * 4 // mb])
                 for k, v in batches[0].items()}
-        g = jax.grad(lambda p: JT.loss_fn(jcfg, p, part)[0])(jp)
+        g = ref_value_and_grad(jcfg)(jp, part)[1]
         want = g if want is None else jax.tree_util.tree_map(jnp.add, want, g)
     want = convert.lm_leaves(jax.tree_util.tree_map(lambda a: a / mb, want),
                              1)

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from _torch_parity import (SPECS, assert_grads, configs, jtree, lm, np32,
-                           perturbed, rand, rel_err, to_jax, to_torch)
+                           perturbed, rand, ref_value_and_grad, rel_err,
+                           to_jax, to_torch)
 from repro.core import network as jnet
 from repro.kernels import ref as jref
 from repro.kernels.policy import KernelPolicy as JKernelPolicy
@@ -293,8 +294,7 @@ def test_loss_fn_and_gradient_match_reference(arch, s, kw):
         jcfg, jp, model = lm(arch, "float32")
         model = convert.lm_params_from_numpy(jp, model.cfg, device="cpu")
     bj, bt = _lm_batch(jcfg, s, s)
-    (lj, mj), gj = jax.value_and_grad(
-        lambda p: JT.loss_fn(jcfg, p, bj), has_aux=True)(jp)
+    (lj, mj), gj = ref_value_and_grad(jcfg)(jp, bj)
     lt, mt, gt = _port_grads(model, bt)
     assert set(mt) == set(mj)
     for k in mj:
@@ -345,7 +345,7 @@ def test_train_step_matches_reference(arch, microbatches):
     for i in range(mb):
         part = {k: jnp.asarray(v[i * 4 // mb:(i + 1) * 4 // mb])
                 for k, v in batches[0].items()}
-        g = jax.grad(lambda p: JT.loss_fn(jcfg, p, part)[0])(jp)
+        g = ref_value_and_grad(jcfg)(jp, part)[1]
         want = g if want is None else jax.tree_util.tree_map(jnp.add, want, g)
     want = convert.lm_leaves(jax.tree_util.tree_map(lambda a: a / mb, want),
                              len(model.pattern))
