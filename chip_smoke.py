@@ -122,14 +122,16 @@ From the root of a checkout it:
    has taken no trace before;
 8b. drives the attention-MLP serving path (:func:`run_attn_mlp`), in a
    process of its own (``--attn-mlp-only``), every model random from seed
-   0 drawn on the card: qwen3-1.7b at full width and depth (28 layers,
-   1.72B parameters), fp32 and bf16, batch 1 and 8, 512-token prompts and
-   32 greedy steps (196 ``pwconv`` a prefill and a decode step, by
+   0 drawn on the card: qwen3-1.7b as published, all 28 layers, fp32
+   and bf16, batch 1 and 8, 512-token
+   prompts and 32 greedy steps (7 ``pwconv`` a layer a prefill and a
+   decode step, by
    variant each Linear's ``pw_variant``, printed by shape), ``prefill``
    against ``prefill_by_stepping`` at a 64-token prompt, and bf16 with the
    int8 KV cache at batch 8 against its plain path and beside the bf16
    cache (the logits' gap, ms per token); smollm-360m and internvl2-1b
-   (its 256 frontend embeddings) at full width and depth, bf16, batch 8;
+   (its 256 frontend embeddings) at full width cut to 8 layers, bf16,
+   batch 8;
    command-r-35b, qwen1.5-110b and qwen3-moe-235b-a22b at full width cut
    to 2, 1 and 2 layers (printed as ``reduced`` notes), bf16, batch 8,
    qwen3-moe's drop fraction and its MoE block against ``moe_dense_ref``
@@ -139,11 +141,12 @@ From the root of a checkout it:
    profiled replay of each graph; and one layer's prefill broken down
    (CUDA events) for qwen3-1.7b and qwen3-moe (the MoE dispatch's
    plain-op share);
-9. drives whisper-small's serving path uncut (:func:`run_whisper`, a
-   process of its own): 12 encoder and 12 decoder layers, frames from
-   seed 0, a 32-token prompt and 64 greedy steps, caches of 448
-   positions, bf16 at batch 1 and 8 and fp32 at batch 1, each run as in
-   8 (216 ``pwconv`` a prefill, 108 a decode step, by variant), the
+9. drives whisper-small's serving path (:func:`run_whisper`, a process of
+   its own): 4 of its 12 encoder and 4 of its 12 decoder layers (a
+   ``reduced`` note), frames from seed 0, a 32-token prompt and 64 greedy
+   steps, caches of 448 positions, bf16 at batch 1 and 8 and fp32 at
+   batch 1, each run as in 8 (18 ``pwconv`` a layer a prefill, 9 a
+   decoder layer a decode step, by variant), the
    captured decode step never writing the encoder's K/V; the encoder's
    own time beside the prefill's;
 10. trains on one card (:func:`run_training`, a process of its own,
@@ -155,12 +158,13 @@ From the root of a checkout it:
    tensor of the state and every metric bit for bit after each step, the
    graph's recorded launches and a profiled replay's
    ``expected_train_launches``: the fault-tolerant loop on smollm-360m
-   uncut (bf16, 8 x 256, 20 steps, 480 ``pwconv`` a step) with the eager
+   cut to 8 of its 32 layers (bf16, 8 x 256, 20 steps, 15 ``pwconv`` a
+   layer a step) with the eager
    step beside the graph, then through the graph with a fault at step
    15, ending with the clean graph run's state and the clean eager run's
    bit for bit; xlstm-125m cut to 2 layers the same way (3 steps, a
    fault at step 2; ``dwconv1d`` forward, remat and its two backward
-   kernels in every step); hymba-1.5b at full width cut to 4 layers (a
+   kernels in every step); hymba-1.5b at full width cut to 2 layers (a
    ``reduced`` note;
    2 x 512 tokens and the 128 meta tokens, 6 steps) and its selective
    scan's forward and backward device ms in one layer; 3 steps each of
@@ -211,7 +215,16 @@ From the root of a checkout it:
    ``dwconv1d_bwd`` launches by rank, ``dwconv1d``'s backward at the
    rank's channel block (hymba's 2x640x1600), the starting state
    checkpointed under (1, 2) and restored by one rank bit for bit
-   (``reduced`` notes name the cuts); NCCL across cards is
+   (``reduced`` notes name the cuts); part 6: qwen3-1.7b and hymba-1.5b
+   at part 2's and part 5's cuts under (1, 2) with ``seq_axis="model"``
+   (sequence parallelism) against the same step without it (loss and
+   gathered gradients; a forward's row-parallel all_reduces become
+   reduce-scatters, counted), smollm-360m under (2, 1) with top-k and
+   int8 compression, each rank's compressed blocks gathered bit for bit
+   one rank's compression of the whole gradient and the replicated
+   leaves bit-equal over the ranks after a step, and under world-1 NCCL
+   rules the captured step with ``seq_axis`` and top-k against the eager
+   step, bit for bit; NCCL across cards is
    ``test_nccl_train_across_cards``;
 13. prints the kernels it launched, one JSON line of per-kernel numbers
    (``launches``: the wrappers' counts on the main paths; beside them
@@ -296,10 +309,11 @@ HYMBA_PROMPT, HYMBA_GEN, HYMBA_STEPPING = 1536, 32, 64
 #: budget with the whisper and training phases (the whole model took about
 #: 220 s of 707, 16 layers 100 s of 817, 8 layers 67 s of about 820, 4
 #: layers 41 s of 730; cut to 4 again beside phase 12, after a run on a
-#: slow host reached the training phase at 917 s); widths, window, meta
-#: tokens and prompt as published.
-HYMBA_LAYERS = 4
-HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 (the script's time, "
+#: slow host reached the training phase at 917 s; to 2 beside phase 12's
+#: part 6, after the script took 882-904 s of its 900 s); widths, window,
+#: meta tokens and prompt as published.
+HYMBA_LAYERS = 2
+HYMBA_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 2 (the script's time, "
               "with the whisper and training phases); widths as published")
 #: xlstm-125m's depth in the serving phase and in the training loop, cut
 #: so that the whole script keeps a margin under 1200 s on a slow host:
@@ -2426,6 +2440,15 @@ def run_hymba_phase():
 #: with why.
 ATTN_PROMPT, ATTN_GEN, ATTN_STEPPING = 512, 32, 64
 LLAMA4_SMOKE_PROMPT, LLAMA4_SMOKE_MAX_LEN = 40, 80
+#: The depth of phase 8b's smollm-360m and internvl2-1b, which ran uncut
+#: (32 and 24 layers) until the script took 882-904 s of its 900 s and
+#: phase 12's part 6 joined; the kernels see the same shapes at any
+#: depth.  qwen3-1.7b runs uncut (28 layers): the script's one serving
+#: path at full depth.
+ATTN_SERVE_LAYERS = 8
+ATTN_SERVE_NOTE = ("reduced: smollm-360m n_layers 32 -> 8, internvl2-1b 24 "
+                   "-> 8 for phase 8b (the script's time); qwen3-1.7b "
+                   "uncut; widths, prompts and frontend as published")
 DEPTH_CUTS = {
     "command-r-35b": (2, "35 B parameters at 40 layers: the run's time"),
     "qwen1.5-110b": (1, "111 B parameters at 80 layers do not fit one "
@@ -2502,11 +2525,11 @@ def lm_breakdown(torch, dev, model, batch, prompt_len):
 
 def run_attn_mlp(torch, dev):
     """The attention-MLP serving path (dense, VLM and MoE transformers):
-    qwen3-1.7b at full width and depth (1.72 B parameters, random from a
-    seed drawn on the card), fp32 and bf16, batch 1 and 8, a 512-token
+    qwen3-1.7b as published, all 28 layers (random from a seed drawn on
+    the card), fp32 and bf16, batch 1 and 8, a 512-token
     prompt and 32 greedy steps; qwen3-1.7b bf16 with the int8 KV cache at
     batch 8; smollm-360m and internvl2-1b (its 256 frontend embeddings) at
-    full width and depth, bf16, batch 8; command-r-35b, qwen1.5-110b and
+    full width cut to ATTN_SERVE_LAYERS, bf16, batch 8; command-r-35b, qwen1.5-110b and
     qwen3-moe-235b-a22b at full width, cut in depth (:data:`DEPTH_CUTS`),
     bf16, batch 8; llama4-maverick at its smoke config (:data:`LLAMA4_NOTE`).
 
@@ -2550,7 +2573,8 @@ def run_attn_mlp(torch, dev):
         return m
 
     with torch.inference_mode():
-        # qwen3-1.7b at full width and depth
+        # qwen3-1.7b as published, uncut
+        print(f"    {ATTN_SERVE_NOTE}", flush=True)
         cfg16 = get_config("qwen3-1.7b")
         m32 = draw(dataclasses.replace(cfg16, dtype="float32"))
         models = {"fp32": m32, "bf16": cast_params(m32, cfg16)}
@@ -2627,9 +2651,11 @@ def run_attn_mlp(torch, dev):
         del m8, logits8, logits16, bf16_b8
         torch.cuda.empty_cache()
 
-        # smollm-360m and internvl2-1b at full width and depth, bf16, batch 8
+        # smollm-360m and internvl2-1b at full width, cut to
+        # ATTN_SERVE_LAYERS, bf16, batch 8
         for arch in ("smollm-360m", "internvl2-1b"):
-            m = draw(get_config(arch))
+            m = draw(dataclasses.replace(get_config(arch),
+                                         n_layers=ATTN_SERVE_LAYERS))
             prompts = torch.randint(
                 0, m.cfg.vocab_size, (8, ATTN_PROMPT),
                 generator=torch.Generator().manual_seed(300)).to(dev)
@@ -2644,7 +2670,7 @@ def run_attn_mlp(torch, dev):
             torch.cuda.empty_cache()
 
         # full width, depth cut
-        reduced = []
+        reduced = [ATTN_SERVE_NOTE]
         for arch in ("command-r-35b", "qwen1.5-110b", "qwen3-moe-235b-a22b"):
             full = get_config(arch)
             layers, why = DEPTH_CUTS[arch]
@@ -2790,17 +2816,26 @@ def whisper_pw_variants(model, batch: int, prompt_len: int) -> dict:
     return out
 
 
+#: Phase 9's whisper-small depth: decoder and encoder layers, cut from
+#: 12 + 12 when the script took 882-904 s of its 900 s and phase 12's
+#: part 6 joined.
+WHISPER_LAYERS = (4, 4)
+WHISPER_NOTE = ("reduced: whisper-small n_layers 12 -> 4 and n_enc_layers "
+                "12 -> 4 for phase 9 (the script's time); widths, 1500 "
+                "frames and the 448-position cache as published")
+
+
 def run_whisper(torch, dev):
-    """Phase 9, whisper-small serving uncut (12 encoder and 12 decoder
-    layers, d 768, 1500 encoder frames; random weights from seed 0 drawn
+    """Phase 9, whisper-small serving cut to WHISPER_LAYERS (d 768, 1500
+    encoder frames; random weights from seed 0 drawn
     on the card, bf16 cast from the fp32 draw): frames from seed 0
     (``launch.serve.frontend_stub``), a 32-token prompt, 64 greedy steps,
     caches of 448 positions; bf16 at batch 1 and 8, fp32 at batch 1.  Each
     run is :meth:`LMServe.run`'s: the captured prefill (encoder and
     decoder, the frames a static buffer) and decode step against the eager
     ones bit for bit, every call against the plain path (``impl="torch"``),
-    216 ``pwconv`` a prefill and 108 a decode step (each Linear's
-    ``pw_variant``: the cross attention's K/V are cached, so a step
+    ``expected_launches``' ``pwconv`` a prefill and a decode step (each
+    Linear's ``pw_variant``: the cross attention's K/V are cached, so a step
     projects its query alone), the encoder's K/V written by the prefill
     and never by a replayed decode step.  Also the encoder's own device ms
     (CUDA events, eager) beside the prefill's.  Returns the runs, the
@@ -2815,7 +2850,11 @@ def run_whisper(torch, dev):
     srv = LMServe(torch, dev)
     runs = []
     with torch.inference_mode():
-        cfg16 = get_config("whisper-small")
+        print(f"    {WHISPER_NOTE}", flush=True)
+        full = get_config("whisper-small")
+        cfg16 = dataclasses.replace(
+            full, n_layers=WHISPER_LAYERS[0], encdec=dataclasses.replace(
+                full.encdec, n_enc_layers=WHISPER_LAYERS[1]))
         t0 = time.perf_counter()
         m32 = init_params(dataclasses.replace(cfg16, dtype="float32"),
                           generator=torch.Generator(dev).manual_seed(0),
@@ -2837,6 +2876,7 @@ def run_whisper(torch, dev):
                               frontend=frames, max_len=WHISPER_MAX_LEN,
                               by_want=whisper_pw_variants(m, batch,
                                                           WHISPER_PROMPT))
+            r["reduced"] = WHISPER_NOTE
             r["encoder_ms"] = graph_ms(lambda: run_encoder(m, frames), dev,
                                        launches=1, reps=3)
             pre = sum(r["prefill_device_ms"].values()) if r[
@@ -2870,15 +2910,26 @@ def run_whisper_phase():
 
 #: The whole script's time budget on one H100, in seconds: the paths
 #: before phase 11 took 730-790 s, and phase 11 (sharded serving) may add
-#: about 60.  Printed against the run's total; the limit that fails a run
-#: is the caller's.
-TIME_BUDGET_S = 900
+#: about 60; 882-904 s with phase 12's part 5, and 850 s since its part 6
+#: (the earlier paths' depths cut to make room: HYMBA_LAYERS,
+#: ATTN_SERVE_LAYERS, WHISPER_LAYERS, SMOLLM_TRAIN_LAYERS,
+#: HYMBA_TRAIN_LAYERS), so that a slow host still fits the 1200 s limit.
+#: Printed against the run's total; the limit that fails a run is the
+#: caller's.
+TIME_BUDGET_S = 850
 
 #: Phase 10, training: smollm-360m's batch, sequence, steps, checkpoint
 #: period and the step the fault is injected at; the learning rate.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT = 8, 256, 20, \
     10, 15
 TRAIN_LR = 1e-3
+#: smollm-360m's depth in the loop: uncut (32) until the script took
+#: 882-904 s of its 900 s and phase 12's part 6 joined (the hymba
+#: training run went from 4 layers to 2 then too).
+SMOLLM_TRAIN_LAYERS = 8
+SMOLLM_TRAIN_NOTE = ("reduced: smollm-360m n_layers 32 -> 8 for the "
+                     "training loop (the script's time); widths as "
+                     "published")
 #: xlstm-125m (at XLSTM_LAYERS) in the same loop (8 x 256 tokens): steps,
 #: checkpoint period, the step the fault is injected at.  Fewer than
 #: smollm's: an eager step takes seconds on the host (the sLSTM loop's ~20
@@ -2891,8 +2942,8 @@ XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT = 3, 2, 2
 #: hymba-1.5b at full width, its depth cut for the script's time: layers,
 #: batch, tokens (the 128 meta tokens come on top), steps.
 HYMBA_TRAIN_LAYERS, HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_STEPS = \
-    4, 2, 512, 6
-HYMBA_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 4 for the training "
+    2, 2, 512, 6
+HYMBA_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 2 for the training "
                     "run (the script's time); widths, window and meta "
                     "tokens as published")
 #: Steps the graph and the eager step take side by side, compared after
@@ -3474,23 +3525,23 @@ def run_training(torch, dev):
         torch.cuda.empty_cache()
         lap(f"{label} step-1 gradients")
 
-    # the loops through the captured step: smollm-360m uncut and
-    # xlstm-125m at XLSTM_LAYERS, bf16, each with a fault run; hymba at 4
-    # layers
+    # the loops through the captured step: smollm-360m at
+    # SMOLLM_TRAIN_LAYERS and xlstm-125m at XLSTM_LAYERS, bf16, each with
+    # a fault run; hymba at HYMBA_TRAIN_LAYERS
     # (the eager xLSTM step is not profiled: the trace of its 192 k sLSTM
     # loop launches takes tens of seconds of the script's budget)
-    for label, c, steps, ckpt_every, fault in (
-            ("smollm-360m", cfg, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT),
+    for label, c, steps, ckpt_every, fault, note in (
+            ("smollm-360m", dataclasses.replace(
+                cfg, n_layers=SMOLLM_TRAIN_LAYERS), TRAIN_STEPS, TRAIN_CKPT,
+             TRAIN_FAULT, SMOLLM_TRAIN_NOTE),
             ("xlstm-125m", dataclasses.replace(xcfg, n_layers=XLSTM_LAYERS),
-             XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT)):
-        if c.n_layers != get_config(label).n_layers:
-            print(f"    {XLSTM_NOTE}", flush=True)
+             XLSTM_STEPS, XLSTM_CKPT, XLSTM_FAULT, XLSTM_NOTE)):
+        print(f"    {note}", flush=True)
         m = draw(c)
         dcfg, _ = data(c, TRAIN_SEQ, TRAIN_BATCH)
         out[label] = loop_runs(label, m, dcfg, steps, ckpt_every, fault,
                                eager_profile=label != "xlstm-125m")
-        if c.n_layers != get_config(label).n_layers:
-            out[label]["reduced"] = XLSTM_NOTE
+        out[label]["reduced"] = note
         del m
         torch.cuda.empty_cache()
         lap(f"{label} training")
@@ -4195,6 +4246,139 @@ RECURRENT_TRAIN_NOTE = ("reduced: hymba-1.5b n_layers 32 -> 2, xlstm-125m "
                         "published")
 
 
+#: Part 6 (sequence parallelism and compression under the mesh):
+#: qwen3-1.7b (QWEN_TP_TRAIN_LAYERS layers, SHARD_TRAIN_BATCH // 2 x
+#: SHARD_TRAIN_SEQ) and hymba-1.5b (RECURRENT_TRAIN's cut) under (1, 2)
+#: with ``seq_axis="model"`` against the same step without it; smollm-360m
+#: (SMOLLM_TP_TRAIN_LAYERS layers) under (2, 1) with top-k and int8, its
+#: compressed blocks gathered against one rank's compression of the
+#: whole gradient, bit for bit, and its replicated leaves bit-equal over
+#: the ranks after a step.  The int8 noise's key.
+PART6_KEY = 1_000_003 * 7 + 1
+
+
+def _forward_collectives(torch, rules, model, batch) -> dict:
+    """The collectives of one forward of ``loss_fn`` without autograd
+    under ``rules``."""
+    from repro_torch import graphs
+    from repro_torch.launch.serve import collective_counts
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.sharding.rules import use_rules
+    with use_rules(rules), torch.no_grad():
+        graphs.reset()
+        loss_fn(model, batch)
+        return collective_counts(graphs.snapshot())
+
+
+def _part6(torch, dev, rank, tp2, dp2, sp2, batch_of) -> dict:
+    """Part 6 on this gloo rank (see :data:`PART6_KEY`): the results."""
+    import dataclasses
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import trainable_
+    from repro_torch.models.transformer import init_params, param_stacks
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import (CompressionConfig, compress,
+                                            init_error)
+    from repro_torch.sharding.rules import use_rules
+    from repro_torch.train import train_step as TS
+    out = {}
+    # sequence parallelism: qwen3-1.7b and hymba-1.5b, (1, 2), SP against
+    # the same step without it
+    cut = dict(RECURRENT_TRAIN["hymba-1.5b"][0])
+    hcfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32",
+                               **cut)
+    qcfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32",
+                               n_layers=QWEN_TP_TRAIN_LAYERS)
+    for arch, cfg, batch in (
+            ("qwen3-1.7b", qcfg, batch_of(qcfg, SHARD_TRAIN_BATCH // 2,
+                                          SHARD_TRAIN_SEQ)),
+            ("hymba-1.5b", hcfg, batch_of(hcfg, *RECURRENT_TRAIN[
+                "hymba-1.5b"][1:]))):
+        t0 = time.perf_counter()
+        run = {}
+        for tag, rules in (("whole", tp2), ("sp", sp2)):
+            run[tag], _, _ = _shard_step_case(
+                torch, dev, rules, cfg, batch, rank=rank, steps=1,
+                oracle=False)
+        whole, sp = run["whole"], run["sp"]
+        with use_rules(tp2):
+            model = init_params(cfg, generator=torch.Generator(
+                dev).manual_seed(0), device=dev)
+        fwd = {tag: _forward_collectives(torch, rules, model, batch)
+               for tag, rules in (("whole", tp2), ("sp", sp2))}
+        del model
+        torch.cuda.empty_cache()
+        out[arch] = {
+            "loss_rel_err": abs(sp["loss"] / whole["loss"] - 1),
+            "grad_err": max(grad_errors(sp.pop("whole_grads"),
+                                        whole.pop("whole_grads")).values()),
+            "step_collectives": {t: run[t]["steps"][0]["collectives"]
+                                 for t in run},
+            "forward_collectives": fwd,
+            "step_ms": {t: run[t]["steps"][0]["ms"] for t in run},
+            "s": time.perf_counter() - t0}
+    # compression: smollm-360m, (2, 1)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32",
+                              n_layers=SMOLLM_TP_TRAIN_LAYERS)
+    batch = batch_of(cfg, SHARD_TRAIN_BATCH, SHARD_TRAIN_SEQ)
+    comp = {}
+    with use_rules(dp2):
+        model = trainable_(init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(0), device=dev))
+        layout = TS.state_layout(model)
+        stacks = param_stacks(model)
+        state = TS.init_train_state(model, TS.TrainConfig())
+        _, _, grads = TS.accumulate_grads(model, state["params"], batch,
+                                          layout=layout)
+        whole_g = {n: layout.whole(n, g) for n, g in grads.items()}
+        for kind in ("topk", "int8"):
+            ccfg = CompressionConfig(kind=kind)
+            c, e = compress(grads, init_error(grads), ccfg, layout=layout,
+                            key=PART6_KEY, stacks=stacks)
+            got = {n: layout.whole(n, c[n]) for n in c}
+            residual = all(torch.equal(e[n], grads[n].float() - c[n])
+                           for n in c)
+            del c, e
+            equal = None
+            if rank == 0:
+                want, _ = compress(whole_g, init_error(whole_g), ccfg,
+                                   key=PART6_KEY, stacks=stacks)
+                equal = all(torch.equal(got[n], want[n]) for n in want)
+                kept = sum(int((want[n] != 0).sum()) for n in want)
+                del want
+            del got
+            # one AdamW step with the compressor: the leaves whole over
+            # "data" (replicas on the two ranks) bit for bit alike
+            tcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR),
+                                  compression=ccfg)
+            new, m = TS.make_train_step(model, tcfg)(
+                TS.init_train_state(model, tcfg), batch)
+            replicated = sorted(n for n in new["params"]
+                                if "data" not in layout.axes(n))
+            digest = hashlib.sha256()
+            for n in replicated:
+                digest.update(new["params"][n].cpu().numpy().tobytes())
+                digest.update(new["err"][n].cpu().numpy().tobytes())
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, digest.hexdigest())
+            comp[kind] = {"blocks_equal_one_rank": equal,
+                          "residual": residual,
+                          "kept": kept if rank == 0 else None,
+                          "replicated_leaves": len(replicated),
+                          "replicas_equal": len(set(every)) == 1,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"])}
+            del new, m
+        del model, state, grads, whole_g
+    torch.cuda.empty_cache()
+    comp["s"] = time.perf_counter() - t0
+    out["smollm_compress"] = comp
+    return out
+
+
 def _shard_step_case(torch, dev, rules, cfg, batch, *, rank, steps,
                      policy=None, oracle=True, ckpt_dir=None) -> dict:
     """One sharded training case on this gloo rank: step 1's loss and
@@ -4324,6 +4508,8 @@ def _train_rank(rank: int, world: int, port: int, out: str,
 
     dp2 = make_rules(make_host_mesh(model=1), mode="train", multi_pod=False)
     tp2 = make_rules(make_host_mesh(model=2), mode="train", multi_pod=False)
+    sp2 = make_rules(make_host_mesh(model=2), mode="train", multi_pod=False,
+                     seq_parallel=True)
     res = {"device": str(dev)}
     try:
         # part 1: smollm-360m, (2, 1): FSDP + ZeRO-1 + DP
@@ -4427,6 +4613,8 @@ def _train_rank(rank: int, world: int, port: int, out: str,
             r["s"] = time.perf_counter() - t0
             r["batch"] = [b, s + cfg.meta_tokens]
             res["recurrent"][arch] = r
+        # part 6: sequence parallelism and compression under the mesh
+        res["part6"] = _part6(torch, dev, rank, tp2, dp2, sp2, batch_of)
         every = [None] * world
         dist.all_gather_object(every, {
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
@@ -4434,6 +4622,7 @@ def _train_rank(rank: int, world: int, port: int, out: str,
             "qwen3_pwconv": [s["pwconv"] for s in res["qwen3"]["steps"]],
             "moe_pwconv": res["moe"]["kernels"]["steps"][0]["pwconv"],
             "tp2_equal": equal,
+            "part6": res["part6"],
             "recurrent": {a: {"steps": [{k: s[k] for k in (
                 "pwconv", "dwconv1d", "dwconv1d_bwd", "collectives")}
                 for s in r["steps"]],
@@ -4482,7 +4671,18 @@ def run_sharded_training(torch, dev):
        steps with their collectives and kernel launches by rank against
        ``expected_train_launches``, ``dwconv1d``'s backward at the rank's
        channel block, the starting state's checkpoint restored by one rank
-       against the one-rank draw, bit for bit."""
+       against the one-rank draw, bit for bit;
+    6. sequence parallelism and compression under the mesh
+       (:func:`_part6`, :data:`PART6_KEY`): qwen3-1.7b and hymba-1.5b
+       under (1, 2) with ``seq_axis="model"`` against the same step
+       without it (SHARD_LOSS_RTOL, SHARD_GRAD_TOL), a forward's
+       all_reduces that became reduce-scatters counted (each row-parallel
+       output's); smollm-360m under (2, 1) with top-k and int8, the
+       compressed blocks gathered against one rank's compression of the
+       whole gradient bit for bit, the error the residual, the leaves
+       whole over "data" bit-equal on both ranks after one AdamW step;
+       and in world 1 under NCCL the captured step with ``seq_axis`` and
+       top-k against the eager step, bit for bit."""
     import dataclasses
     import shutil
 
@@ -4498,6 +4698,7 @@ def run_sharded_training(torch, dev):
                                           expected_train_launches)
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
     from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
 
@@ -4552,6 +4753,33 @@ def run_sharded_training(torch, dev):
                 "expected_pwconv": expected_train_launches(cfg)["pwconv"],
                 "mesh": rules.mesh.shape}
             del gm, em, graph, eager, estate, gstate
+        torch.cuda.empty_cache()
+        # part 6's world 1: seq_axis and top-k in the captured step
+        sp_rules = make_rules(make_host_mesh(model=1), mode="train",
+                              multi_pod=False, seq_parallel=True)
+        ttcfg = TS.TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR),
+                               compression=CompressionConfig(kind="topk"))
+        with use_rules(sp_rules):
+            gm = init_params(cfg, generator=torch.Generator(dev).manual_seed(
+                0), device=dev)
+            em = init_params(cfg, generator=torch.Generator(dev).manual_seed(
+                0), device=dev)
+            graph = TS.capture_train_step(gm, ttcfg, WORLD1_TRAIN_BATCH,
+                                          SHARD_TRAIN_SEQ)
+            eager = TS.make_train_step(em, ttcfg)
+            estate, gstate = TS.init_train_state(em, ttcfg), graph.state
+            bad = []
+            for s, batch in enumerate(batches):
+                gstate, gm_ = graph(gstate, batch)
+                estate, em_ = eager(estate, batch)
+                bad += [f"step {s + 1} {k}" for k in differing(
+                    torch, {"state": gstate, "m": gm_},
+                    {"state": estate, "m": em_})]
+            res["world1_nccl_sp_topk"] = {
+                "bits_equal": not bad, "differing": bad[:8],
+                "steps": len(batches), "seq_axis": sp_rules.seq_axis,
+                "losses": [float(em_["loss"])]}
+            del gm, em, graph, eager, estate, gstate
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4571,6 +4799,14 @@ def run_sharded_training(torch, dev):
     if not (w["bits_equal"] and w["recorded_pwconv"]
             == w["expected_pwconv"]):
         raise AssertionError(f"phase 12 world 1: {w}")
+    w6 = res["world1_nccl_sp_topk"]
+    print(f"    part 6's world 1 under NCCL, the same model with "
+          f"seq_axis={w6['seq_axis']!r} and top-k compression: the captured "
+          f"step against the eager step, {w6['steps']} steps, bit for bit: "
+          f"{w6['bits_equal']} {w6['differing']}", flush=True)
+    if not w6["bits_equal"]:
+        raise AssertionError(f"phase 12 world 1 with seq_axis and top-k: "
+                             f"{w6}")
 
     out = os.path.join(HERE, "build", "chip_smoke_shard_train.json")
     ckpt_dir = os.path.join(HERE, "build", "chip_smoke_shard_ckpt")
@@ -4683,6 +4919,47 @@ def run_sharded_training(torch, dev):
                 and r["ckpt_one_rank_equal"]
                 and all(np_isfinite(st["loss"]) for st in r["steps"])):
             bad.append(f"part 5 {arch}")
+    p6 = tr["part6"]
+    for arch in ("qwen3-1.7b", "hymba-1.5b"):
+        r = p6[arch]
+        fwd, st = r["forward_collectives"], r["step_collectives"]
+        layers = (QWEN_TP_TRAIN_LAYERS if arch == "qwen3-1.7b"
+                  else RECURRENT_TRAIN[arch][0]["n_layers"])
+        print(f"    part 6, two gloo ranks, {arch} fp32 (data 1, model 2) "
+              f"with seq_axis=\"model\" against the same step without it: "
+              f"step 1 loss rel {r['loss_rel_err']:.2e} (tol "
+              f"{SHARD_LOSS_RTOL:g}), gradients gathered {r['grad_err']:.2e} "
+              f"(tol {SHARD_GRAD_TOL:g}); a forward's collectives "
+              f"{fwd['sp']} against {fwd['whole']}, a step's {st['sp']} "
+              f"against {st['whole']}; step ms {r['step_ms']['sp']:.0f} "
+              f"against {r['step_ms']['whole']:.0f} ({r['s']:.0f} s)",
+              flush=True)
+        rs = fwd["sp"]["reduce_scatter"]
+        if not (r["loss_rel_err"] <= SHARD_LOSS_RTOL
+                and r["grad_err"] <= SHARD_GRAD_TOL
+                and fwd["whole"]["reduce_scatter"] == 0 and rs >= layers
+                and fwd["whole"]["all_reduce"] - fwd["sp"]["all_reduce"]
+                == rs
+                and st["sp"]["reduce_scatter"] > st["whole"][
+                    "reduce_scatter"]):
+            bad.append(f"part 6 {arch}")
+    comp = p6["smollm_compress"]
+    for kind in ("topk", "int8"):
+        c = comp[kind]
+        reps = [rk["part6"]["smollm_compress"][kind]["replicas_equal"]
+                for rk in tr["by_rank"]]
+        print(f"    part 6, smollm-360m fp32 (data 2, model 1) with {kind}: "
+              f"each rank's compressed blocks gathered bit for bit one "
+              f"rank's compression of the whole gradient: "
+              f"{c['blocks_equal_one_rank']} ({c['kept']} entries kept "
+              f"or quantized nonzero); the error the residual on every "
+              f"block: {c['residual']}; after one AdamW step the "
+              f"{c['replicated_leaves']} leaves whole over \"data\" bit for "
+              f"bit alike on the ranks: {reps}; loss {c['loss']:.6f}, "
+              f"grad_norm {c['grad_norm']:.6f}", flush=True)
+        if not (c["blocks_equal_one_rank"] and c["residual"]
+                and all(reps) and np_isfinite(c["loss"])):
+            bad.append(f"part 6 {kind}")
     if bad:
         raise AssertionError(f"phase 12 {bad}: {tr}")
     res["reduced"] = [SHARD_TRAIN_NOTE, RECURRENT_TRAIN_NOTE]
@@ -4970,9 +5247,11 @@ def main() -> int:
     launches["dwconv1d"] += sharded["dwconv1d_launches"]
     t_phase = time.perf_counter()
     print("sharded training on the one card: qwen3-1.7b's captured step "
-          "under world-1 NCCL rules against the eager step; smollm-360m "
-          "FSDP + ZeRO-1 + DP, qwen3-1.7b tp 2, qwen3-moe EP and an elastic "
-          "checkpoint as two gloo ranks:")
+          "under world-1 NCCL rules against the eager step (and with "
+          "seq_axis and top-k); smollm-360m FSDP + ZeRO-1 + DP, qwen3-1.7b "
+          "tp 2, qwen3-moe EP, an elastic checkpoint, hymba / xLSTM / "
+          "whisper tp 2, sequence parallelism and compression as two gloo "
+          "ranks:")
     torch.cuda.empty_cache()
     shard_train = run_sharded_training_phase()
     shard_train_s = took("sharded training")

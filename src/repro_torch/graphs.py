@@ -33,6 +33,7 @@ error, say) propagate rather than the capture's "invalidated" error.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Optional
 
@@ -119,21 +120,35 @@ def record(graph: torch.cuda.CUDAGraph, fn: Callable[[], Any],
     ``fn`` returned.  Where ``fn`` raises during the capture, the capture is
     ended (the error that ending it gives, that the capture was
     invalidated, becomes a note), the current stream is restored, and
-    ``fn``'s exception propagates as it was raised."""
+    ``fn``'s exception propagates as it was raised.
+
+    Python's cyclic garbage collector is off while the capture runs
+    (``torch.cuda.graph`` collects once before it begins): a collection
+    that the capture's allocations set off would run the destructors of
+    unreachable objects of earlier work, and a ``CUDAGraph`` among them
+    destroys its executable graph, a call CUDA refuses during a
+    capture, which invalidates it (seen on the card as ``operation not
+    permitted when stream is capturing (function reset)``)."""
     prev = torch.cuda.current_stream(device)
     ctx = torch.cuda.graph(graph)
-    ctx.__enter__()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        out = fn()
-    except BaseException as err:
+        ctx.__enter__()
         try:
-            ctx.__exit__(type(err), err, err.__traceback__)
-        except Exception as end:
-            err.add_note(f"the CUDA graph capture was abandoned: {end}")
-            # the capture's stream context was not left: leave it here
-            torch.cuda.set_stream(prev)
-        raise
-    ctx.__exit__(None, None, None)
+            out = fn()
+        except BaseException as err:
+            try:
+                ctx.__exit__(type(err), err, err.__traceback__)
+            except Exception as end:
+                err.add_note(f"the CUDA graph capture was abandoned: {end}")
+                # the capture's stream context was not left: leave it here
+                torch.cuda.set_stream(prev)
+            raise
+        ctx.__exit__(None, None, None)
+    finally:
+        if collecting:
+            gc.enable()
     return out
 
 
@@ -156,14 +171,10 @@ class Captured:
 
 
 def capture(fn: Callable[[], Any],
-            device: Optional[torch.device] = None, *,
-            generators: tuple = ()) -> Captured:
+            device: Optional[torch.device] = None) -> Captured:
     """Capture ``fn()``, a call on tensors whose addresses stay fixed, as a
     CUDA graph in a private memory pool, then replay it once.  The warm-up
-    and the capture each move the launch counters by one call.  Each of
-    ``generators`` (CUDA generators that ``fn`` draws from) is registered
-    with the graph, so that a replay draws from its seed and offset at the
-    time of the replay, as an eager call would.  Raises on
+    and the capture each move the launch counters by one call.  Raises on
     a device that is not a CUDA device, and when the capture or the replay
     fails (a failure of ``fn`` during the capture as ``fn`` raised it:
     :func:`record`)."""
@@ -180,8 +191,6 @@ def capture(fn: Callable[[], Any],
         fn()
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
     before = snapshot()
     t0 = time.perf_counter()
     output = record(graph, fn, dev)

@@ -5,7 +5,8 @@ the rules ``dryrun.make_rules(mesh, mode="serve")``.
 
     python -m repro_torch.launch.serve --arch <id> \\
         [--smoke] [--batch 4] [--prompt-len 32] [--gen 32] \\
-        [--max-len 256] [--temperature 0] [--seed 0] [--device cuda]
+        [--max-len 256] [--temperature 0] [--seed 0] [--device cuda] \\
+        [--seq-parallel]
 
 Several ranks run under ``torchrun``, which sets the world in the
 environment; ``--model-parallel N`` (default 1) splits the model over N of
@@ -25,7 +26,11 @@ others and exits non-zero).  Every family serves sharded: the
 attention-MLP transformers, hymba (its Mamba branch over channels), xLSTM
 (over heads) and whisper (its encoder by head, the cross attention's cache
 by frame); a recurrent width that does not split whole over the model
-axis raises (``transformer.check_mesh``).
+axis raises (``transformer.check_mesh``).  ``--seq-parallel`` is the
+reference's ``make_rules(seq_parallel=True)``: the prefill holds its
+residual stream as each rank's block of the sequence over "model" where
+the prompt (with its prefix) divides, and leaves the same caches and
+states; a decode step (one position) is unchanged.
 
 ``<id>`` is any of ``configs.registry.ARCH_IDS`` (every reference
 architecture).  ``--max-len`` bounds the attention caches and counts the
@@ -185,7 +190,8 @@ def _setup(args):
     else:
         dev = require_device(args.device)
     mesh = mesh_lib.make_host_mesh(model=args.model_parallel)
-    return dev, make_rules(mesh, mode="serve", multi_pod=False), backend
+    return dev, make_rules(mesh, mode="serve", multi_pod=False,
+                           seq_parallel=args.seq_parallel), backend
 
 
 def main(argv=None) -> int:
@@ -202,6 +208,9 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="hold the prefill's residual stream as each rank's "
+                         "block of the sequence over the model axis")
     args = ap.parse_args(argv)
 
     dev, rules, backend = _setup(args)
@@ -211,6 +220,19 @@ def main(argv=None) -> int:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _peaks(dev: torch.device) -> str:
+    """Each rank's peak device memory so far (GiB; every rank takes
+    part), or a note on the CPU."""
+    if dev.type != "cuda":
+        return "not measured on the CPU"
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    peaks = [peak]
+    if dist.is_initialized():
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, peak)
+    return ", ".join(f"{p:.2f}" for p in peaks) + " GiB"
 
 
 def _serve(args, dev: torch.device, rules, backend: Optional[str]) -> int:
@@ -224,13 +246,14 @@ def _serve(args, dev: torch.device, rules, backend: Optional[str]) -> int:
     # gloo cannot be captured: its ranks run the eager steps
     use_graphs = dev.type == "cuda" and backend in (None, "nccl")
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     with torch.inference_mode():
         if use_graphs:
             t0 = time.perf_counter()
             prefill = S.capture_prefill(
                 model, args.batch, args.prompt_len, max_len=args.max_len,
                 frontend_len=frontend_len(cfg))
-            step = S.capture_decode_step(model, args.batch, args.max_len)
             t_capture = time.perf_counter() - t0
         else:
             def prefill(t, f):
@@ -245,6 +268,11 @@ def _serve(args, dev: torch.device, rules, backend: Optional[str]) -> int:
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         prefill_counts = graphs.snapshot()
+        peaks = _peaks(dev)
+        if use_graphs:      # captured after the prefill: its peak is apart
+            t0 = time.perf_counter()
+            step = S.capture_decode_step(model, args.batch, args.max_len)
+            t_capture += time.perf_counter() - t0
 
         first = greedy(logits)[:, None]
         reset_launch_counts()
@@ -280,6 +308,8 @@ def _serve(args, dev: torch.device, rules, backend: Optional[str]) -> int:
           f"{args.prompt_len} in {t_prefill * 1e3:.1f} ms; generated "
           f"{args.gen} tok/seq in {t_gen * 1e3:.1f} ms = "
           f"{t_gen * 1e3 / max(args.gen, 1):.3f} ms/token, {tps:.1f} tok/s")
+    print(f"[serve] peak device memory by rank through the prefill "
+          f"(weights, its capture and a replay): {peaks}")
     print(f"[serve] {launches}: prefill {launch_counts(prefill_counts)}, "
           f"per decode step {launch_counts(step_counts)}")
     print(f"[serve] collectives: prefill "

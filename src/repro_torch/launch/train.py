@@ -8,10 +8,13 @@ parallelism over "model").
         [--steps 100] [--seq-len 256] [--global-batch 8] [--lr 3e-4] \\
         [--microbatches 1] [--ckpt-dir DIR] [--ckpt-every 50] \\
         [--compress none|topk|int8] [--seed 0] [--device cuda] \\
-        [--profile STEPS]
+        [--profile STEPS] [--seq-parallel] [--n-layers N] \\
+        [--dtype bfloat16|float32]
 
 ``<id>`` is any id of ``configs.registry.ARCH_IDS``: the attention-MLP
-transformers, whisper-small, xlstm-125m and hymba-1.5b all train.  Weights
+transformers, whisper-small, xlstm-125m and hymba-1.5b all train;
+``--n-layers`` cuts its depth (widths as published) and ``--dtype``
+replaces its activation dtype.  Weights
 are random, drawn from ``--seed``; the
 data is the synthetic pipeline (``data/pipeline.py``) from ``--seed``; an
 encoder-decoder gets one fixed set of encoder frames drawn from
@@ -57,14 +60,19 @@ one card, eager (gloo cannot be captured).  Checkpoints are written whole
 by rank 0 and restore under any mesh.  Rank 0 prints, besides, the mesh,
 the backend and how its collectives move tensors, the collectives of a
 step by op, and the losses.  Outside ``torchrun`` a ``--model-parallel``
-above 1 raises.  Still refused: gradient compression under a mesh
-(ROADMAP.md queue A, item 4.3.3), and ``--production-mesh`` /
-``--multi-pod``, whose 256 / 512 ranks this launcher does not build
-(ROADMAP.md queue A, item 4.3).
+above 1 raises.  ``--compress topk|int8`` compresses each rank's
+reduced gradient blocks as the whole tensors' (``optim/compress.py``:
+the global top-k and the global int8 scale).  ``--seq-parallel`` is the
+reference's ``make_rules(seq_parallel=True)``: the residual stream held
+as each rank's block of the sequence over "model" wherever it divides
+(Megatron's sequence parallelism, ``models/transformer.py``).  Still
+refused: ``--production-mesh`` / ``--multi-pod``, whose 256 / 512 ranks
+this launcher does not build (ROADMAP.md queue A, item 4.3).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -161,7 +169,8 @@ def _setup(args):
     else:
         dev = require_device(args.device)
     mesh = mesh_lib.make_host_mesh(model=args.model_parallel)
-    return dev, make_rules(mesh, mode="train", multi_pod=False), backend
+    return dev, make_rules(mesh, mode="train", multi_pod=False,
+                           seq_parallel=args.seq_parallel), backend
 
 
 def main(argv=None) -> int:
@@ -190,6 +199,13 @@ def main(argv=None) -> int:
                          "0 writes none")
     ap.add_argument("--compress", default="none",
                     choices=["none", "topk", "int8"])
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to this many layers")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default=None, help="default: the config's")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="hold the residual stream as each rank's block of "
+                         "the sequence over the model axis")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -231,6 +247,8 @@ def _train(args, dev, rules, backend) -> int:
     from repro_torch.train.trainer import LoopConfig, train_loop
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in (
+        ("n_layers", args.n_layers), ("dtype", args.dtype)) if v})
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     if dev.type == "cuda":
         deterministic_card()

@@ -61,6 +61,14 @@ gathered, one all_gather for ``w_o``'s ``split`` of its whole input.
 The K/V of a training step never reach :func:`_heads_to_frames`, which
 only a prefill's returned cache takes.
 
+Under sequence parallelism (``layers.sequence_parallel``) the input is
+the normed residual gathered whole (``layers.gather_seq``), so the
+attention runs on every position at their global ``positions``, and
+``w_o``'s partial sums are reduce-scattered to the rank's block of the
+sequence (``layers.row_linear``); a cross attention reads the encoder's
+output gathered whole once for every layer.  The K/V a prefill captures
+are the whole sequence's, as without it.
+
 Whisper's cross attention under the model axis: the encoder's K and V
 are split by head (their columns), but the cache holds them split by
 frame (``"enc_k"``, ``"enc_v"``: the reference's ``"cache"`` kind), so a
@@ -78,8 +86,9 @@ import torch
 from torch import nn
 
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import (apply_rope, init_linear, init_norm,
-                                       linear, rms_norm, row_linear)
+from repro_torch.models.layers import (apply_rope, enter_model_axis,
+                                       init_linear, init_norm, linear,
+                                       rms_norm, row_linear)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import model_shard
 
@@ -115,7 +124,7 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
-                 qk_norm, policy, full_q: bool):
+                 qk_norm, policy, full_q: bool, kv_gathered: bool = False):
     """q from ``x``, k and v from ``xkv`` (``x`` itself for
     self-attention), as this rank attends with them: (q (B,S,hq,dh), k, v
     (B,Skv,hkv,dh), q0, kv_local).  Under a model axis of tp > 1 ranks the
@@ -130,13 +139,11 @@ def _project_qkv(p: Attention, x, xkv, n_heads, n_kv_heads, head_dim, *,
     skv = xkv.shape[1]
     q_split = p.w_q["w"].shape[1] != n_heads * head_dim
     kv_split = p.w_k["w"].shape[1] != n_kv_heads * head_dim
-    # the split projections' inputs enter the split region once each
-    xs = collectives.copy_to_split(x, group) if q_split else x
-    if kv_split:
-        xkvs = xs if (xkv is x and q_split) else collectives.copy_to_split(
-            xkv, group)
-    else:
-        xkvs = xkv
+    # the split projections' inputs enter the split region once each, the
+    # whole ones alike
+    xs = enter_model_axis(x, split=q_split)
+    xkvs = xs if (xkv is x and q_split == kv_split) else enter_model_axis(
+        xkv, split=kv_split, gathered=kv_gathered)
     qc = linear(p.w_q, xs, policy=policy)
     kc = linear(p.w_k, xkvs, policy=policy)
     vc = linear(p.w_v, xkvs, policy=policy)
@@ -429,7 +436,8 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
               causal: bool = True, window: Optional[int] = None,
               sink: int = 0, rope_theta: Optional[float] = 1e4,
               qk_norm: bool = False, xkv: Optional[torch.Tensor] = None,
-              chunk: int = 1024, policy: KernelPolicy = DEFAULT_POLICY,
+              xkv_gathered: bool = False, chunk: int = 1024,
+              policy: KernelPolicy = DEFAULT_POLICY,
               return_kv: bool = False):
     """Attention over x (B, S, d): self-attention at absolute ``positions``
     (B, S) (``None``: ``arange(S)``, as the reference falls back to),
@@ -440,13 +448,16 @@ def attention(p: Attention, x, *, n_heads: int, n_kv_heads: int,
     the decode cache (a cross attention's: the encoder's cached K/V).
     Under a model axis the K/V returned hold every head: of every
     position, or, for a cross attention whose heads were split and whose
-    S_src divides, of the rank's block of S_src / tp frames."""
+    S_src divides, of the rank's block of S_src / tp frames.
+    ``xkv_gathered``: ``xkv`` is a sequence-parallel gather's output (the
+    encoder's, ``layers.enter_model_axis``); ``x`` is one where a
+    sequence-parallel layer is running."""
     b, s, _ = x.shape
     src = x if xkv is None else xkv
     tp, _, group = model_shard()
     q, k, v, q0, kv_local = _project_qkv(
         p, x, src, n_heads, n_kv_heads, head_dim, qk_norm=qk_norm,
-        policy=policy, full_q=False)
+        policy=policy, full_q=False, kv_gathered=xkv_gathered)
     if rope_theta is not None and xkv is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)

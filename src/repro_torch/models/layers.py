@@ -36,6 +36,21 @@ row-parallel one, the embedding table's width), and its gradient
 reduce-scattered back; under per-layer remat the gather runs again in
 the recomputed forward.  Without a mesh, or on one of one rank, each is
 the one-device op.
+
+Sequence parallelism (``seq_axis`` in the rules, over the model axis):
+a layer runs inside :func:`sequence_parallel` (``transformer.layer_
+forward`` sets it where the residual stream is held as the rank's block
+of the sequence).  There the residual norms run on the block, their
+replicated scales entering through :func:`seq_params` (each rank's
+tokens give a part of the gradient); :func:`gather_seq` gathers the
+normed block before the column-parallel projections (its backward a
+reduce-scatter, so the projections take it through
+:func:`enter_model_axis`, which knows it is gathered);
+:func:`row_linear` reduce-scatters its fp32 partial
+sums to the rank's block (``collectives.scatter_seq``) where it would
+all-reduce them; and :func:`seq_block` cuts the block of a tensor every
+rank holds whole.  Outside the context each is the identity, or the
+ordinary op.
 """
 from __future__ import annotations
 
@@ -73,6 +88,74 @@ def param_hook(hook: Callable[[nn.Parameter], nn.Parameter]):
         yield
     finally:
         _PARAM_HOOK[0] = prev
+
+
+_SEQ: list = [None]
+
+
+@contextmanager
+def sequence_parallel(group):
+    """Inside the block the layer being run holds its residual stream as
+    the rank's block of the sequence over ``group`` (the model axis'), or
+    (None) whole.  Set inside the function a per-layer remat recomputes,
+    so the recomputed forward runs under it too."""
+    prev = _SEQ[0]
+    _SEQ[0] = group
+    try:
+        yield
+    finally:
+        _SEQ[0] = prev
+
+
+def seq_shard():
+    """The group the residual stream is split over (the sequence-parallel
+    layer being run), or None."""
+    return _SEQ[0]
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism the whole sequence of the rank's block
+    ``x`` (``collectives.gather_seq``: the input of the column-parallel
+    projections, its backward a reduce-scatter); else ``x``."""
+    group = _SEQ[0]
+    return x if group is None else collectives.gather_seq(x, group)
+
+
+def enter_model_axis(x: torch.Tensor, *, split: bool,
+                     gathered: Optional[bool] = None) -> torch.Tensor:
+    """``x`` as it enters a computation over the model axis: each rank's
+    own columns, heads or vocab rows (``split``), or one every rank does
+    alike.  Where ``x`` came through :func:`gather_seq` (``gathered``; by
+    default whether a sequence-parallel layer is running, whose normed
+    input comes so) its backward already sums the ranks' parts: split, it
+    passes as it is, and alike its gradient is divided over the ranks
+    (``collectives.computed_alike``), so that it counts once.  Else split
+    is ``collectives.copy_to_split`` and alike ``x`` itself."""
+    group = model_shard()[2]
+    if gathered is None:
+        gathered = _SEQ[0] is not None
+    if gathered:
+        return x if split else collectives.computed_alike(x, group)
+    return collectives.copy_to_split(x, group) if split else x
+
+
+def seq_block(x: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism the rank's block of the sequence of
+    ``x``, which every rank holds whole (``collectives.split_seq``: its
+    backward a gather); else ``x``."""
+    group = _SEQ[0]
+    return x if group is None else collectives.split_seq(x, group)
+
+
+def seq_params(p):
+    """A norm's parameters (``{"scale"[, "bias"]}``) as they apply to the
+    residual stream: under sequence parallelism each enters the split
+    region (``collectives.copy_to_split``: the rank's tokens give a part
+    of its gradient, the parts summed over the axis); else ``p``."""
+    group = _SEQ[0]
+    if group is None:
+        return p
+    return {k: collectives.copy_to_split(v, group) for k, v in p.items()}
 
 
 def trainable_(module: nn.Module) -> nn.Module:
@@ -205,7 +288,8 @@ def linear(p, x: torch.Tensor, *, activation: Optional[str] = None,
 
 def row_linear(p, x: torch.Tensor, d_in: int, *,
                d_out: Optional[int] = None,
-               policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+               policy: KernelPolicy = DEFAULT_POLICY,
+               seq_out: bool = True) -> torch.Tensor:
     """A Linear of ``d_in`` inputs whose rows may be split over the model
     axis (``w_o``, ``w_down``): where ``p["w"]`` holds the rank's block of
     rows, the rank's slice of ``x`` (its local part already, or cut here
@@ -213,19 +297,34 @@ def row_linear(p, x: torch.Tensor, d_in: int, *,
     stored in fp32 by the kernel, is summed over the axis, the bias added
     once and the sum cast once.  Where the rows are whole it is
     :func:`linear` on the whole ``x``.  ``d_out``: the output width, whose
-    columns are gathered over the fsdp axis where they are split."""
+    columns are gathered over the fsdp axis where they are split.
+
+    Under sequence parallelism (:func:`sequence_parallel`) an output that
+    joins the residual stream (``seq_out``; not the Mamba's ``w_dt``) is
+    the rank's block of the sequence: the partial sums are
+    reduce-scattered (``collectives.scatter_seq``) and the bias, entering
+    the split region, added to the block; with whole rows the rank's
+    block of the output is cut (:func:`seq_block`)."""
     w = p["w"]
+    seq = _SEQ[0] if seq_out else None
     if d_out is not None:
         w = fsdp_gather(w, 1, d_out)
     if w.shape[0] == d_in:
-        return pointwise(x, w, p.get("b"), policy=policy)
+        y = pointwise(x, w, p.get("b"), policy=policy)
+        return y if seq is None else collectives.split_seq(y, seq)
     group = model_shard()[2]
     if x.shape[-1] == d_in:
         x = collectives.split(x, group, dim=-1)
-    y = collectives.all_reduce(
-        pointwise(x, w, policy=policy, out_dtype=torch.float32), group)
-    if p.get("b") is not None:
-        y = y + p["b"].float()
+    part = pointwise(x, w, policy=policy, out_dtype=torch.float32)
+    if seq is None:
+        y = collectives.all_reduce(part, group)
+        b = p.get("b")
+    else:
+        y = collectives.scatter_seq(part, seq)
+        b = p.get("b")
+        b = None if b is None else collectives.copy_to_split(b, seq)
+    if b is not None:
+        y = y + b.float()
     return y.to(x.dtype)
 
 
@@ -265,18 +364,22 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(p, tokens: torch.Tensor, vocab: Optional[int] = None,
-          width: Optional[int] = None) -> torch.Tensor:
+          width: Optional[int] = None, seq=None) -> torch.Tensor:
     """Rows of ``p["table"]`` at ``tokens``.  Where the table holds the
     rank's block of a ``vocab``-row table (vocab-parallel), each rank looks
     up the tokens in its rows, zeroes the others and the rows are summed
     over the model axis (exactly one rank holds each token).  ``width``:
     the embedding's width, gathered over the fsdp axis where the table's
-    columns are split."""
+    columns are split.  ``seq`` (a group: sequence parallelism) returns
+    the rank's block of the sequence: the vocab-parallel sum
+    reduce-scattered instead (``collectives.scatter_seq``), a whole
+    table's rows cut (``collectives.split_seq``)."""
     table = p["table"]
     if width is not None:
         table = fsdp_gather(table, 1, width)
     if vocab is None or table.shape[0] == vocab:
-        return table[tokens]
+        x = table[tokens]
+        return x if seq is None else collectives.split_seq(x, seq)
     _, rank, group = model_shard()
     rows = table.shape[0]
     local = tokens - rank * rows
@@ -284,6 +387,8 @@ def embed(p, tokens: torch.Tensor, vocab: Optional[int] = None,
     x = table[torch.where(inside, local, 0)]
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
+    if seq is not None:
+        return collectives.scatter_seq(x, seq)
     return collectives.all_reduce(x, group)
 
 
@@ -337,7 +442,8 @@ def _chunk_loss(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor,
 
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512,
-                          z_loss: float = 0.0, vocab: Optional[int] = None):
+                          z_loss: float = 0.0, vocab: Optional[int] = None,
+                          gathered: bool = False):
     """(sum NLL, token count) of hidden states x (B, S, d) against
     ``labels`` (B, S) (-1 ignored) over the unembedding ``table`` (V, d),
     in sequence chunks of ``chunk``: the sequence padded with ignored
@@ -348,12 +454,15 @@ def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
     mesh the table's columns split over the fsdp axis are gathered once
     for every chunk (and their gradient reduce-scattered once), and a
     table of the rank's block of ``vocab`` rows runs the vocab-parallel
-    cross-entropy (:func:`_chunk_loss`); the sums are this rank's rows'."""
+    cross-entropy (:func:`_chunk_loss`); the sums are this rank's rows'.
+    ``gathered``: ``x`` is a sequence-parallel gather's output
+    (:func:`enter_model_axis`)."""
     b, s, _ = x.shape
     table = fsdp_gather(table, 1, x.shape[-1])
-    if vocab is not None and table.shape[0] != vocab:
-        # every rank's x times its own vocab rows
-        x = collectives.copy_to_split(x, model_shard()[2])
+    # every rank's x times its own vocab rows, or times the whole table
+    # alike
+    x = enter_model_axis(x, split=vocab is not None
+                         and table.shape[0] != vocab, gathered=gathered)
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:

@@ -38,7 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import init_linear, param, randn
+from repro_torch.models.layers import gather_seq, init_linear, param, randn
 from repro_torch.models.mlp import MLP
 from repro_torch.sharding import collectives
 
@@ -283,7 +283,8 @@ def _moe_local(p: MoE, xt: torch.Tensor, cfg: MoEConfig, tp: int = 1,
 def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
                 data_axes: tuple = (), model_axis: Optional[str] = None,
                 expert_axis: Optional[str] = None,
-                policy: KernelPolicy = DEFAULT_POLICY):
+                policy: KernelPolicy = DEFAULT_POLICY,
+                seq_split: bool = False):
     """x (B, S, d) -> (y (B, S, d), {"aux_loss", "drop_frac"}).  EP over
     ``model_axis`` of ``mesh`` (a ``launch.mesh.Mesh``; None: one device),
     ``x`` being this rank's batch block (split over ``data_axes``): the
@@ -308,7 +309,13 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
     enters through ``copy_to_split`` and the output leaves through
     ``computed_alike``, so each rank's routing takes 1/tp of the output's
     gradient and the ranks' parts of ``x``'s and the router's sum back
-    (the reference's transpose of an output replicated over the axis)."""
+    (the reference's transpose of an output replicated over the axis).
+
+    ``seq_split`` (sequence parallelism): ``x`` is the rank's block of the
+    sequence already, routed as it is and returned as the block (no split,
+    no gather); the shared experts take it gathered whole
+    (``layers.gather_seq``) and reduce-scatter their output back to the
+    block (``layers.row_linear``)."""
     b, s, d = x.shape
     if mesh is None or model_axis is None:
         y, aux, drop = _moe_local(p, x.reshape(-1, d), cfg)
@@ -320,8 +327,11 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
             raise ValueError(f"{cfg.n_experts} experts do not split over "
                              f"{tp} ranks")
         split = s % tp == 0 and s >= tp
-        xl = (collectives.split(x, group, dim=1) if split
-              else collectives.copy_to_split(x, group))
+        if seq_split:
+            xl = x
+        else:
+            xl = (collectives.split(x, group, dim=1) if split
+                  else collectives.copy_to_split(x, group))
         full = {"w_gate_e": d, "w_up_e": d, "w_down_e": cfg.d_ff_expert}
         experts = tuple(
             collectives.all_gather(getattr(p, n), mesh.group(expert_axis),
@@ -332,10 +342,12 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, mesh=None,
             p, xl.reshape(-1, d), cfg, tp=tp, group=group, experts=experts,
             router_w=collectives.copy_to_split(p.router["w"], group))
         out = y.to(x.dtype).reshape(xl.shape)
-        out = (collectives.all_gather(out, group, dim=1) if split
-               else collectives.computed_alike(out, group))
+        if not seq_split:
+            out = (collectives.all_gather(out, group, dim=1) if split
+                   else collectives.computed_alike(out, group))
         groups = [mesh.group(a) for a in (*data_axes, model_axis)]
         aux, drop = collectives.pmean(torch.stack([aux, drop]), groups)
     if cfg.n_shared:
-        out = out + p.shared(x, policy=policy)
+        out = out + p.shared(gather_seq(x) if seq_split else x,
+                             policy=policy)
     return out, {"aux_loss": aux, "drop_frac": drop}

@@ -53,6 +53,13 @@ serving forward's four (2 all_reduce, 2 all_gather); its backward 2
 all_reduce (x's and b, c's sums), 2 all_gather (``w_dt``'s input and
 output splits) and 1 reduce_scatter.  ``dwconv1d``'s forward and its
 backward run on the rank's (B, L, d_inner/tp) block, contiguous.
+
+Under sequence parallelism (``layers.sequence_parallel``) the mixer takes
+the normed residual gathered whole (``layers.gather_seq``): the scan runs
+over the whole sequence on the rank's channels as without it, and
+``w_out``'s partial sums are reduce-scattered to the rank's block of the
+sequence in place of all_reduce 4 (``w_dt``'s sum stays an all_reduce:
+its output feeds the scan).
 """
 from __future__ import annotations
 
@@ -67,8 +74,9 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.core.dwconv import (conv_tail, depthwise1d_causal,
                                      depthwise1d_step)
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import (init_linear, linear, param, rand,
-                                       randn, row_linear)
+from repro_torch.models.layers import (enter_model_axis, init_linear,
+                                       linear, param, rand, randn,
+                                       row_linear)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import model_shard
 
@@ -236,7 +244,7 @@ def _proj_scan_inputs(p: Mamba, xi: torch.Tensor, cfg: SSMConfig, policy):
         bc = collectives.copy_to_split(bc, group)
     b, c = torch.split(bc, [n, n], dim=-1)
     dt = row_linear(p.w_dt, dt_low.to(xi.dtype).contiguous(), p.dt_rank,
-                    d_out=p.d_inner, policy=policy)
+                    d_out=p.d_inner, policy=policy, seq_out=False)
     if local:                                   # the rank's channels
         dt = collectives.split(dt, group, dim=-1)
     dt = F.softplus(dt.float() + p.dt_bias)
@@ -254,8 +262,7 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: SSMConfig, *,
     return_state: also return the decode cache {h, conv} after the last
     position (conv = last K-1 *pre-conv* inputs, matching
     :func:`mamba_mixer_step`)."""
-    if p.conv.shape[-1] != p.d_inner:          # w_in's rank columns
-        x = collectives.copy_to_split(x, model_shard()[2])
+    x = enter_model_axis(x, split=p.conv.shape[-1] != p.d_inner)
     xz = linear(p.w_in, x, policy=policy)
     xi_raw, z = torch.chunk(xz, 2, dim=-1)                     # (B, L, di)
     xi_raw = xi_raw.contiguous()

@@ -47,9 +47,9 @@ tensor-parallel (``attention.py``, ``mlp.py``, ``layers.py``; hymba's
 Mamba branch over its channels, ``ssm.py``; the mLSTM and sLSTM over
 their heads, ``xlstm.py``; whisper's encoder and cross attention by head,
 its cached K/V by frame) and a MoE layer expert-parallel
-(``moe.moe_forward`` with the mesh, :func:`_moe_kwargs`).  The residual
-stream stays whole on every rank: hymba's ``mix`` and meta tokens need
-no collective.
+(``moe.moe_forward`` with the mesh, :func:`_moe_kwargs`).  Without
+sequence parallelism the residual stream stays whole on every rank:
+hymba's ``mix`` and meta tokens need no collective.
 
 Sharded training of every family (the train rules: FSDP over "data",
 tensor parallelism over "model"): each rank holds its ``P(fsdp, tp)``
@@ -64,9 +64,26 @@ whisper's encoder and cross attention by head.  Under the per-layer
 remat a layer's forward collectives run again in its backward, all but
 the last: the closing row-parallel sum, which no saved tensor needs
 (``torch.utils.checkpoint`` stops its recomputation early).  Serving with
-``serve_weight_fsdp`` runs the same gathers.  Sequence-parallel
-activations raise (ROADMAP.md queue A, item 4.3.3), as do recurrent
-widths that do not split whole (:func:`check_mesh`).
+``serve_weight_fsdp`` runs the same gathers.  Recurrent widths that do
+not split whole raise (:func:`check_mesh`).
+
+Sequence parallelism (``seq_axis="model"``, ``make_rules(seq_parallel=
+True)``; Megatron's): where the residual stream's length (the prefix
+and the tokens; the encoder's frames) divides over the model axis
+(``rules.seq_group``, the reference's "btd" constraint), each rank holds
+its block of the sequence between layers: the embedding's
+vocab-parallel sum is reduce-scattered to it (with a prefix, the
+embeddings are summed whole, the prefix put before them and the block
+cut), every layer runs under ``layers.sequence_parallel`` (the norms on
+the block, the normed block gathered whole before the attention, the
+MLP and the recurrences, the row-parallel outputs reduce-scattered back
+to the block), ``ln_final`` runs on the block, and the output is
+gathered whole for the unembedding and the loss, as the reference's
+"logits" spec asks.  The per-layer remat then stashes the block, which
+is what sequence parallelism is for; its recomputed forward repeats the
+layer's gathers, not its last reduce-scatter.  Where the length does not
+divide the stream stays whole, as without it.  A decode step (one
+position) never splits.
 """
 from __future__ import annotations
 
@@ -87,13 +104,15 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models import layers
 from repro_torch.models.layers import (chunked_cross_entropy, embed,
-                                       init_embedding, init_norm, norm,
-                                       param, randn, row_linear)
+                                       gather_seq, init_embedding, init_norm,
+                                       norm, param, randn, row_linear,
+                                       seq_params)
 from repro_torch.models.mlp import MLP
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import (active_mesh, batch_groups,
                                         current_rules, local_block,
-                                        own_rows, param_specs, shard_act)
+                                        own_rows, param_specs, seq_group,
+                                        shard_act)
 
 @dataclasses.dataclass(frozen=True)
 class LayerVariant:
@@ -166,11 +185,12 @@ class HymbaLayer(nn.Module):
     def mix(self, x, attn_out, mamba_out, cfg: ModelConfig, policy):
         """The branches' outputs, each normalized, averaged into the
         residual; then the MLP with its residual."""
-        mixed = 0.5 * (norm(attn_out, self.ln_out_attn, "rms")
-                       + norm(mamba_out, self.ln_out_mamba, "rms"))
+        mixed = 0.5 * (norm(attn_out, seq_params(self.ln_out_attn), "rms")
+                       + norm(mamba_out, seq_params(self.ln_out_mamba),
+                              "rms"))
         x = x + mixed
-        return x + self.mlp(norm(x, self.ln_mlp, cfg.norm_type),
-                            policy=policy)
+        return x + self.mlp(gather_seq(norm(x, seq_params(self.ln_mlp),
+                                            cfg.norm_type)), policy=policy)
 
 
 class AttnMLPLayer(nn.Module):
@@ -197,16 +217,19 @@ class AttnMLPLayer(nn.Module):
     def finish(self, x, xn, attn_out, cfg: ModelConfig,
                variant: LayerVariant, policy):
         """The rest of the layer after its attention: ``(x', aux)``, aux
-        holding a MoE layer's ``aux_loss`` and ``drop_frac``."""
+        holding a MoE layer's ``aux_loss`` and ``drop_frac``.  ``xn`` is
+        the attention's input (gathered whole under sequence
+        parallelism)."""
         if cfg.parallel_block:      # command-r: shared norm, parallel residual
             return x + attn_out + self.mlp(xn, policy=policy), {}
         x = x + attn_out
-        xn2 = norm(x, self.ln_mlp, cfg.norm_type)
+        xn2 = norm(x, seq_params(self.ln_mlp), cfg.norm_type)
         if variant.use_moe:
-            y, aux = moe_lib.moe_forward(self.moe, xn2, cfg.moe,
-                                         policy=policy, **_moe_kwargs())
+            y, aux = moe_lib.moe_forward(
+                self.moe, xn2, cfg.moe, policy=policy,
+                seq_split=layers.seq_shard() is not None, **_moe_kwargs())
             return x + y, aux
-        return x + self.mlp(xn2, policy=policy), {}
+        return x + self.mlp(gather_seq(xn2), policy=policy), {}
 
 
 class DecLayer(nn.Module):
@@ -234,8 +257,8 @@ class DecLayer(nn.Module):
         """The cross attention's output into the residual, then the MLP
         with its own."""
         x = x + cross_out
-        return x + self.mlp(norm(x, self.ln_mlp, cfg.norm_type),
-                            policy=policy)
+        return x + self.mlp(gather_seq(norm(x, seq_params(self.ln_mlp),
+                                            cfg.norm_type)), policy=policy)
 
 
 def init_layer(cfg: ModelConfig, variant: LayerVariant,
@@ -265,11 +288,11 @@ def _moe_kwargs() -> dict:
 def check_mesh(cfg: ModelConfig, rules=None, *,
                training: bool = False) -> None:
     """Raise where ``cfg`` cannot run under the mesh of ``rules`` (default:
-    the context's): sequence-parallel activations (ROADMAP.md queue A,
-    item 4.3.3), and recurrent layers whose channels (the Mamba branch's
+    the context's): recurrent layers whose channels (the Mamba branch's
     d_inner) or heads (the mLSTM's and sLSTM's) do not split whole over
-    the model axis.  Every family serves and trains (``training``) under
-    FSDP, data and tensor parallelism."""
+    the model axis, and a ``seq_axis`` other than the model axis.  Every
+    family serves and trains (``training``) under FSDP, data, tensor and
+    sequence parallelism."""
     r = rules if rules is not None else current_rules()
     if active_mesh(r) is None:
         return
@@ -282,10 +305,7 @@ def check_mesh(cfg: ModelConfig, rules=None, *,
         raise NotImplementedError(
             f"{cfg.name}: the xLSTM's {cfg.n_heads} heads do not split over "
             f"{tp} ranks")
-    if r.seq_axis is not None:
-        raise NotImplementedError(
-            "sequence-parallel activations (seq_axis) are not ported to the "
-            "layers yet: ROADMAP.md queue A, item 4.3.3")
+    seq_group(1, r)      # a seq_axis other than the model axis raises
 
 
 def _attn_kwargs(cfg: ModelConfig, variant: LayerVariant) -> dict:
@@ -301,14 +321,29 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                   positions: Optional[torch.Tensor] = None,
                   xkv: Optional[torch.Tensor] = None, causal: bool = True,
                   policy: KernelPolicy = DEFAULT_POLICY,
-                  capture_kv: bool = False):
+                  capture_kv: bool = False, seq=None):
     """x (B,S,d) -> (x', aux); with ``capture_kv``, aux["kv"] is the
     attention's (k, v) after RoPE, aux["cross_kv"] a ``dec`` layer's cross
     attention's (k, v) of the encoder's output ``xkv``, and aux["state"]
     the recurrent decode state (xLSTM: the layer's cache; hymba: the Mamba
     state).  A MoE layer's aux also holds its ``aux_loss`` and
     ``drop_frac``.  ``causal=False`` makes the self-attention
-    bidirectional (the encoder's)."""
+    bidirectional (the encoder's).
+
+    ``seq`` (a group: sequence parallelism) holds ``x`` and ``x'`` as the
+    rank's block of the sequence over it: the layer runs inside
+    ``layers.sequence_parallel``, its residual norms on the block, their
+    outputs gathered whole for the attention (``positions`` the whole
+    sequence's), the MLP and the recurrences, whose row-parallel outputs
+    reduce-scatter back to the block; ``xkv``, the captured K/V and
+    states are the whole sequence's."""
+    with layers.sequence_parallel(seq):
+        return _layer_forward(block, x, cfg, variant, positions, xkv,
+                              causal, policy, capture_kv)
+
+
+def _layer_forward(block, x, cfg, variant, positions, xkv, causal, policy,
+                   capture_kv):
     aux: dict[str, Any] = {}
     if variant.kind == "mlstm":
         res = block(x, chunk=cfg.attn_chunk // 8, policy=policy,
@@ -319,7 +354,7 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     else:
         kw = dict(chunk=cfg.attn_chunk, policy=policy, return_kv=capture_kv,
                   **_attn_kwargs(cfg, variant))
-        xn = norm(x, block.ln_attn, cfg.norm_type)
+        xn = gather_seq(norm(x, seq_params(block.ln_attn), cfg.norm_type))
         ares = attn_lib.attention(block.attn, xn, positions=positions,
                                   causal=causal, **kw)
         if capture_kv:
@@ -330,9 +365,14 @@ def layer_forward(block: nn.Module, x: torch.Tensor, cfg: ModelConfig,
             return x, aux
         if variant.kind == "dec":
             x = x + ares
-            xc = norm(x, block.ln_cross, cfg.norm_type)
+            xc = gather_seq(norm(x, seq_params(block.ln_cross),
+                                 cfg.norm_type))
             kw.update(window=None, sink=0)
-            cres = attn_lib.attention(block.cross, xc, xkv=xkv, **kw)
+            # the encoder's output is a sequence-parallel gather's where
+            # its frames divided (run_encoder)
+            cres = attn_lib.attention(
+                block.cross, xc, xkv=xkv,
+                xkv_gathered=seq_group(xkv.shape[1]) is not None, **kw)
             if capture_kv:
                 cres, aux["cross_kv"] = cres
             return block.finish(x, cres, cfg, policy), aux
@@ -503,6 +543,29 @@ def param_parts(model: nn.Module) -> dict:
     return out
 
 
+def param_stacks(model: nn.Module) -> dict:
+    """``{parameter name: (stack, index)}`` of the layers' parameters, as
+    the reference stacks them along a leading axis: layer ``i``'s leaf
+    ``<rest>`` is entry ``i // period`` of ``blocks_v{i % period}.<rest>``
+    and encoder layer ``i``'s entry ``i`` of ``enc_blocks.<rest>``
+    (``convert.lm_leaves``); every other parameter is a stack of its own
+    and has no entry.  What the compressors under a mesh take as one
+    tensor (``optim/compress.py``)."""
+    period = len(model.pattern)
+    out = {}
+    for name, _ in model.named_parameters():
+        head, _, rest = name.partition(".")
+        if head not in ("blocks", "enc_blocks"):
+            continue
+        i, _, leaf = rest.partition(".")
+        i = int(i)
+        if head == "blocks":
+            out[name] = (f"blocks_v{i % period}.{leaf}", i // period)
+        else:
+            out[name] = (f"enc_blocks.{leaf}", i)
+    return out
+
+
 def _block_hook(cfg: ModelConfig, rules):
     """A ``layers.param_hook`` that cuts each parameter of an
     ``LMModel(cfg)`` to this rank's block under ``rules``, in the order the
@@ -583,15 +646,24 @@ def run_encoder(model: LMModel, frames: torch.Tensor,
     """The encoder over stubbed frame embeddings (B, S_enc, d): ``frames +
     enc_pos``, every ``enc_blocks`` layer bidirectional (its attention's
     RoPE at positions ``arange(S_enc)``, as the reference's falls back
-    to), then ``enc_ln_final``."""
+    to), then ``enc_ln_final``.  Under sequence parallelism (S_enc
+    dividing over the model axis, ``rules.seq_group``) the layers hold the
+    rank's block of the frames and the output is gathered whole once
+    (``collectives.gather_seq``: every decoder layer's cross attention
+    reads it on its own heads)."""
     cfg = model.cfg
     x = frames + model.enc_pos[None].to(frames.dtype)
+    seq = seq_group(x.shape[1])
+    if seq is not None:
+        x = collectives.split_seq(x, seq)
     for block in model.enc_blocks:
         def blk(x, block=block):
             return layer_forward(block, x, cfg, ENC_VARIANT, causal=False,
-                                 policy=policy)[0]
+                                 policy=policy, seq=seq)[0]
         x = _maybe_remat(blk, cfg)(x)
-    return norm(x, model.enc_ln_final, cfg.norm_type)
+    with layers.sequence_parallel(seq):
+        return gather_seq(norm(x, seq_params(model.enc_ln_final),
+                               cfg.norm_type))
 
 
 def hidden_states(model: LMModel, tokens: torch.Tensor, *,
@@ -615,23 +687,30 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
     check_mesh(cfg)
     tokens = shard_act(tokens, "tokens")
     b = tokens.shape[0]
-    x = embed(model.embedding, tokens, cfg.vocab_size, cfg.d_model)
+    prefix = 0
+    if cfg.encdec is None:
+        prefix = (cfg.meta_tokens or 0) + (
+            0 if frontend is None else frontend.shape[1])
+    total = prefix + tokens.shape[1]
+    seq = seq_group(total)
+    x = embed(model.embedding, tokens, cfg.vocab_size, cfg.d_model,
+              seq=seq if not prefix else None)
     enc_out = None
     pieces = []
     if cfg.encdec is not None:
         if frontend is None:
             raise ValueError("an encoder-decoder model needs encoder frames")
-        enc_out = run_encoder(model, shard_act(frontend, "btd").to(x.dtype),
+        enc_out = run_encoder(model, shard_act(frontend, "rows").to(x.dtype),
                               policy)
     else:
         if cfg.meta_tokens:
             pieces.append(model.meta_embeds(b))
         if frontend is not None:
-            pieces.append(shard_act(frontend, "btd").to(x.dtype))
-    prefix = sum(p.shape[1] for p in pieces)
+            pieces.append(shard_act(frontend, "rows").to(x.dtype))
     if pieces:
         x = torch.cat(pieces + [x], dim=1)
-    total = x.shape[1]
+        if seq is not None:
+            x = collectives.split_seq(x, seq)
     positions = torch.arange(total, device=x.device)[None].expand(b, total)
     aux = {k: torch.zeros((), device=x.device)
            for k in ("aux_loss", "drop_frac")}
@@ -640,14 +719,15 @@ def hidden_states(model: LMModel, tokens: torch.Tensor, *,
         def blk(x, block=block, variant=model.variant(i)):
             return layer_forward(block, x, cfg, variant, positions=positions,
                                  xkv=enc_out, policy=policy,
-                                 capture_kv=capture_kv)
+                                 capture_kv=capture_kv, seq=seq)
         x, a = _maybe_remat(blk, cfg)(x)
         if "aux_loss" in a:
             aux = {k: aux[k] + a[k] for k in aux}
         if capture_kv:
             captured.append({k: a[k] for k in ("kv", "cross_kv", "state")
                              if k in a})
-    x = norm(x, model.ln_final, cfg.norm_type)
+    with layers.sequence_parallel(seq):
+        x = gather_seq(norm(x, seq_params(model.ln_final), cfg.norm_type))
     aux = {k: v / max(cfg.n_layers, 1) for k, v in aux.items()}
     if capture_kv:
         aux["layers"] = captured
@@ -676,11 +756,13 @@ def loss_fn(model: LMModel, batch: dict, *,
     x, prefix, aux = hidden_states(model, batch["tokens"],
                                    frontend=batch.get("frontend"),
                                    policy=policy)
-    x = x[:, prefix:, :]
+    # the hidden states are a sequence-parallel gather's where the stream
+    # divided (hidden_states)
+    gathered = seq_group(x.shape[1]) is not None
     labels = own_rows(batch["labels"])
     nll_sum, n_tok = chunked_cross_entropy(
-        x, model.unembed_table, labels, chunk=cfg.loss_chunk,
-        vocab=cfg.vocab_size)
+        x[:, prefix:], model.unembed_table, labels, chunk=cfg.loss_chunk,
+        vocab=cfg.vocab_size, gathered=gathered)
     for group in batch_groups():
         nll_sum, n_tok = collectives.all_reduce(
             torch.stack([nll_sum, n_tok.detach()]), group).unbind(0)

@@ -72,6 +72,16 @@ the rank's channels through ``copy_to_split`` and its scale's block is
 makes the serving forward's three; the backward of an mLSTM layer 2
 all_reduce, 1 all_gather and 1 reduce_scatter, of an sLSTM layer 1 of
 each.
+
+Under sequence parallelism (``layers.sequence_parallel``) a block's
+residual is the rank's block of the sequence: its norms run on the block
+(their scales through ``layers.seq_params``), the normed block is
+gathered whole (``layers.gather_seq``) before ``w_up`` or the sLSTM's
+channels and the FFN, so the recurrences run over the whole sequence on
+the rank's heads as without it, and the row-parallel ``w_down`` /
+``w_ff_down`` reduce-scatter to the block.  The sLSTM's cell output,
+gathered over its channels, is cut to the rank's block of the sequence
+(``layers.seq_block``) before the output norm.
 """
 from __future__ import annotations
 
@@ -84,9 +94,11 @@ from repro_torch.configs.base import XLSTMConfig
 from repro_torch.core.dwconv import (conv_tail, depthwise1d_causal,
                                      depthwise1d_step)
 from repro_torch.core.pwconv import DEFAULT_POLICY, KernelPolicy
-from repro_torch.models.layers import (init_linear, init_norm, linear, param,
+from repro_torch.models.layers import (enter_model_axis, gather_seq,
+                                       init_linear, init_norm, linear, param,
                                        randn, rms_norm, rms_norm_split,
-                                       row_linear)
+                                       row_linear, seq_block, seq_params,
+                                       seq_shard)
 from repro_torch.sharding import collectives
 from repro_torch.sharding.rules import model_shard
 
@@ -334,15 +346,15 @@ class MLSTMBlock(nn.Module):
     def forward(self, x, *, chunk: int = 128,
                 policy: KernelPolicy = DEFAULT_POLICY,
                 return_cache: bool = False):
-        xn = rms_norm(x, self.norm["scale"])
-        if self.conv.shape[-1] != self.di:            # the rank's columns
-            xn = collectives.copy_to_split(xn, model_shard()[2])
+        xn = enter_model_axis(
+            gather_seq(rms_norm(x, seq_params(self.norm)["scale"])),
+            split=self.conv.shape[-1] != self.di)     # the rank's columns
         up = linear(self.w_up, xn, policy=policy)
         xv, xz = torch.chunk(up, 2, dim=-1)           # (B,L,di)
         xv = xv.contiguous()
         q, k, v, igate, logf = self._qkv_gates(xv, policy)
         h, (c, n, m) = mlstm_chunkwise(q, k, v, igate, logf, chunk=chunk)
-        b, l = x.shape[:2]
+        b, l = xn.shape[:2]
         h = rms_norm_split(h.reshape(b, l, -1).to(x.dtype),
                            self.out_norm["scale"])
         h = h * F.silu(xz)
@@ -417,9 +429,9 @@ class SLSTMBlock(nn.Module):
         self.w_ff_down = init_linear(generator, ff, d_model, **lin)
 
     def _ffn(self, x, policy):
-        xn = rms_norm(x, self.ffn_norm["scale"])
-        if self.w_ff_gate["w"].shape[1] != self.ff:   # column-parallel
-            xn = collectives.copy_to_split(xn, model_shard()[2])
+        xn = enter_model_axis(
+            gather_seq(rms_norm(x, seq_params(self.ffn_norm)["scale"])),
+            split=self.w_ff_gate["w"].shape[1] != self.ff)
         g = linear(self.w_ff_gate, xn, activation="silu", policy=policy)
         u = linear(self.w_ff_up, xn, policy=policy)
         return x + row_linear(self.w_ff_down, g * u, self.ff,
@@ -428,10 +440,12 @@ class SLSTMBlock(nn.Module):
     def _channels(self, xn):
         """The conv's input: the rank's block of ``xn``'s channels,
         contiguous (``xn`` itself where the filter is whole; ``split``, so
-        that the gradient is gathered whole)."""
+        that the gradient is gathered whole, or, where ``xn`` is a
+        sequence-parallel gather's output, the block's gradient alone)."""
         if self.conv.shape[-1] == self.d_model:
-            return xn
-        return collectives.split(xn, model_shard()[2], dim=-1)
+            return enter_model_axis(xn, split=False)
+        return collectives.split(xn, model_shard()[2], dim=-1,
+                                 gathered=seq_shard() is not None)
 
     def _whole(self, t, alike: bool = True):
         """``t`` (..., width) at every channel: gathered where it holds
@@ -456,14 +470,16 @@ class SLSTMBlock(nn.Module):
     def forward(self, x, *, chunk: int = 128,
                 policy: KernelPolicy = DEFAULT_POLICY,
                 return_cache: bool = False):
-        b, l, _ = x.shape
-        xn = self._channels(rms_norm(x, self.norm["scale"]))
+        xn = self._channels(gather_seq(rms_norm(
+            x, seq_params(self.norm)["scale"])))
+        b, l, _ = xn.shape
         xc = F.silu(depthwise1d_causal(xn, self.conv.to(xn.dtype),
                                        policy=policy))
         zg, ig, fg, og = self._gates(xc, (b, l), policy)
         h, (c, n, hs, m) = slstm_scan(zg, ig, fg, og, self.r, chunk=chunk)
-        h = self._whole(h.reshape(b, l, -1).to(x.dtype))
-        out = self._ffn(x + rms_norm(h, self.out_norm["scale"]), policy)
+        h = seq_block(self._whole(h.reshape(b, l, -1).to(x.dtype)))
+        out = self._ffn(x + rms_norm(h, seq_params(self.out_norm)["scale"]),
+                        policy)
         if return_cache:
             return out, {"c": c, "n": n, "h": hs, "m": m,
                          "conv": conv_tail(xn, self.cfg.conv_k)}

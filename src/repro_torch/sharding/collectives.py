@@ -22,7 +22,18 @@ partitioner would place them (``models/layers.py``, ``attention.py``,
 * :func:`copy_to_split` and :func:`split` — no collective in the
   forward: a replicated tensor entering a computation each rank does on
   its own part (a column-parallel Linear; the rank's slice of the
-  input).
+  input);
+* sequence parallelism (the residual stream held as the rank's block of
+  the sequence, dim 1, over the model axis): :func:`gather_seq` (the
+  block gathered before the column-parallel projections; its backward
+  reduce-scatters), :func:`scatter_seq` (a row-parallel output's fp32
+  partial sums reduce-scattered to the rank's block; its backward
+  gathers) and :func:`split_seq` (the rank's block of a replicated
+  sequence; its backward gathers);
+* :func:`max_over` and :func:`top_keys` — no gradient: a max, and the
+  largest keys of a union of the ranks' candidates, over several groups
+  one after the other (the gradient compressors' global scale and top-k
+  threshold, ``optim/compress.py``).
 
 Gradients.  Training differentiates through every op, as GSPMD's
 transpose does, under one convention: every rank's loss is the same
@@ -47,6 +58,14 @@ the op's output feeds:
 A sum every rank then uses on its own part (a split RMS norm's sums of
 squares) is ``copy_to_split(all_reduce(x))``: the gradient's parts are
 summed back.
+
+A tensor :func:`gather_seq` returns is already in the split region: its
+backward sums the ranks' parts of its gradient (the reduce-scatter).  Its
+consumer says so (``models.layers.enter_model_axis``): one on the rank's
+own part takes it as it is, with no :func:`copy_to_split`, one every rank
+does alike takes it through :func:`computed_alike` (its gradient divided
+by the group's size), and :func:`split` with ``gathered`` cuts it with no
+gather in its backward (the block's gradient, zero elsewhere).
 
 A group of None (no mesh, or an axis of one rank) makes each op return its
 input untouched.  Every other call counts itself in :data:`launches`, in
@@ -365,17 +384,127 @@ class _Split(torch.autograd.Function):
         return _all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
 
 
-def split(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+def split(x: torch.Tensor, group, dim: int = -1, *,
+          gathered: bool = False) -> torch.Tensor:
     """The rank's block along ``dim`` of ``x``, which every rank of
     ``group`` holds alike (a contiguous copy); its backward gathers the
     blocks' gradients, so that ``x`` holds its whole gradient on every
-    rank.  No collective in the forward."""
+    rank.  No collective in the forward.  Where ``x`` is a
+    :func:`gather_seq` output (``gathered``) the backward is the block's
+    gradient in place, zero elsewhere (the gather's reduce-scatter sums
+    the ranks')."""
     if _size(group) == 1:
         return x
     dim = dim % x.dim()
-    if _differentiable(x):
+    if _differentiable(x) and not gathered:
         return _Split.apply(x, group, dim)
     return _block(x, group, dim)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: the residual stream as the rank's sequence block
+# ---------------------------------------------------------------------------
+
+#: The dimension of a (B, S, ...) activation that sequence parallelism
+#: splits.
+SEQ_DIM = 1
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x, group, SEQ_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, SEQ_DIM), None
+
+
+def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole sequence of which ``x`` (B, S / n, ...) is the rank's
+    block, gathered over ``group`` (the model axis) along dim 1: the input
+    of the column-parallel projections under sequence parallelism.  Each
+    rank uses it on its own columns or heads, so its backward
+    reduce-scatters the gradient (the ranks' parts summed, each keeping
+    its block): the result is in the split region already, and its
+    consumers take it so (``models.layers.enter_model_axis``)."""
+    if _size(group) == 1:
+        return x
+    if _differentiable(x):
+        return _GatherSeq.apply(x, group)
+    return _all_gather(x, group, SEQ_DIM)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter(x, group, SEQ_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.group, SEQ_DIM), None
+
+
+def scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x`` (B, S, ...), each rank keeping its
+    block of the sequence (dim 1): a row-parallel output's partial sums
+    (fp32, from the kernel) under sequence parallelism, where they would
+    otherwise be all-reduced.  The block is used by its rank alone, so
+    the backward gathers the blocks' gradients (every rank's partial sum
+    has the whole gradient)."""
+    if _size(group) == 1:
+        return x
+    if _differentiable(x):
+        return _ScatterSeq.apply(x, group)
+    return reduce_scatter(x, group, SEQ_DIM)
+
+
+def split_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The rank's block of the sequence (dim 1) of ``x``, which every rank
+    of ``group`` holds alike (the embeddings with a prefix, the encoder's
+    frames): :func:`split` along dim 1, its backward a gather."""
+    return split(x, group, dim=SEQ_DIM)
+
+
+# ---------------------------------------------------------------------------
+# No gradient: the compressors' global max and top-k
+# ---------------------------------------------------------------------------
+
+
+def max_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of every group in
+    ``groups``, one after the other (max is associative, so the order
+    does not change the result); no gradient.  One ``all_reduce`` a
+    group of more than one rank."""
+    x = x.detach()
+    for g in groups:
+        x = all_reduce(x, g, "max")
+    return x
+
+
+def top_keys(keys: list, ks: list, groups) -> list:
+    """The ``ks[i]`` largest of every rank's ``keys[i]`` (1-D int64, each
+    rank's candidates, in descending order) over the ranks of every group
+    in ``groups``, one after the other: each group's candidates gathered
+    side by side (one ``all_gather`` for every tensor of ``keys``) and
+    the largest ``min(ks[i], count)`` kept (the top k of a union is the
+    top k of the ranks' top k, so the order of the groups does not
+    change the result).  No gradient; returns the tensors, descending."""
+    keys = [k.detach() for k in keys]
+    for g in groups:
+        n = _size(g)
+        if n == 1:
+            continue
+        sizes = [k.numel() for k in keys]
+        both = _all_gather(torch.cat(keys), g, 0).view(n, -1)
+        keys, at = [], 0
+        for size, k in zip(sizes, ks):
+            part = both[:, at:at + size].reshape(-1)
+            keys.append(torch.topk(part, min(k, part.numel())).values)
+            at += size
+    return keys
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:

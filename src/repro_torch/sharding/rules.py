@@ -164,7 +164,8 @@ def act_spec(shape, kind: str, r: ShardingRules) -> Spec:
     """The spec of an activation of ``shape`` and ``kind`` (the reference's
     ``shard_act`` kinds): btd (B,S,d) · heads4 (B,S,H,dh) · cache
     (B,Smax,Hkv,dh) · q_decode · scores_decode (B,Hq,1,S) · logits (B,S,V)
-    · tokens (B,S).  The batch is split over the batch axes where it
+    · tokens (B,S) · rows (B, ...: the batch alone split, as an input a
+    sequence-parallel stream takes whole before it cuts its block).  The batch is split over the batch axes where it
     divides, else every rank holds every row (``batch_pspecs``'s rule):
     the reference's partitioner pads an uneven split instead, which local
     blocks cannot, and :func:`own_rows` keeps such rows from counting more
@@ -191,7 +192,29 @@ def act_spec(shape, kind: str, r: ShardingRules) -> Spec:
         return P(b, None, tp if v_ok else None)
     if kind == "tokens":
         return P(b, None)
+    if kind == "rows":
+        return P(b, *([None] * (len(shape) - 1)))
     raise ValueError(kind)
+
+
+def seq_group(total: int, rules: Optional[ShardingRules] = None):
+    """The process group over which a residual stream of ``total``
+    positions is held as the rank's block of its sequence (sequence
+    parallelism: ``seq_axis`` set, the kind "btd" splitting dim 1, which
+    it does where ``total`` divides over the axis), or None where the
+    stream is whole on every rank.  The port runs sequence parallelism
+    over the model axis only (the reference's ``make_rules`` sets no
+    other: ``repro/launch/dryrun.py:46-59``)."""
+    r = rules if rules is not None else current_rules()
+    mesh = active_mesh(r)
+    if mesh is None or r.seq_axis is None:
+        return None
+    if r.seq_axis != r.model_axis:
+        raise ValueError(f"sequence parallelism runs over the model axis "
+                         f"({r.model_axis!r}), not {r.seq_axis!r}")
+    if not _div(total, mesh.shape[r.seq_axis]):
+        return None
+    return mesh.group(r.seq_axis)
 
 
 def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -360,6 +383,41 @@ class StateLayout:
     def axes(self, name: str) -> frozenset:
         """The axes the parameter ``name``'s block is split over."""
         return spec_axes(self.params[name])
+
+    def split_order(self, name: str) -> tuple:
+        """The axes the parameter ``name`` is split over, in the mesh's
+        order: the ranks that hold different blocks of it differ on these
+        axes; ranks that differ on the others hold the same block (its
+        replicas)."""
+        axes = self.axes(name)
+        return tuple(a for a in self.mesh.axis_names if a in axes
+                     and self.mesh.shape[a] > 1)
+
+    def positions(self, name: str, shape: tuple, device=None) -> tuple:
+        """``(coordinates, whole shape)`` of the rank's block (of
+        ``shape``) of the parameter ``name``: each dimension's global
+        coordinates in the whole tensor, a 1-D int64 tensor a dimension,
+        the last of a fused projection part by part (as
+        :func:`local_block` cuts it: the rank's block of each part, side
+        by side)."""
+        spec = list(self.params[name]) + [None] * (len(shape) - len(
+            self.params[name]))
+        parts = self.parts.get(name, 1)
+        if not any(_entry_axes(e) for e in spec):
+            parts = 1
+        out, whole = [], []
+        for dim, (size, entry) in enumerate(zip(shape, spec)):
+            idx, n = _block_index(_entry_axes(entry), self.mesh,
+                                  self.mesh.coords)
+            local = torch.arange(size, device=device)
+            if dim == len(shape) - 1 and parts > 1:
+                w = size // parts            # the rank's width of a part
+                part, within = local // w, local % w
+                out.append(part * (w * n) + idx * w + within)
+            else:
+                out.append(idx * size + local)
+            whole.append(size * n)
+        return out, tuple(whole)
 
     def zero1_dim(self, name: str) -> Optional[int]:
         """The dimension the moments of ``name`` split further over

@@ -31,10 +31,17 @@ goes (``layers.fsdp_gather``); after it (after the microbatches' fp32
 sums) the gradients of the leaves whole over "data" are summed over it,
 in one ``all_reduce`` a dtype.  AdamW then takes the global norm and
 updates its ZeRO-1 blocks (``optim/adamw.py`` with the state's
-``sharding.rules.StateLayout``).  Compression under a mesh raises: the
-reference's ``topk`` keeps the global top 1% of a tensor and its
-``int8`` scales by the global max, neither of which is a rank's
-(ROADMAP.md queue A, item 4.3.3).
+``sharding.rules.StateLayout``).
+
+Compression (``optim/compress.py``) runs on the reduced gradient, the
+rank's blocks under a mesh: ``topk`` keeps the whole tensor's top
+``topk_frac`` and ``int8`` scales by the whole tensor's max, as the
+reference's compressors of its global gradient do, a tensor being the
+reference's stack of a layer variant's leaf (``transformer.
+param_stacks``); ``int8``'s noise is a counter-based draw keyed by
+:func:`noise_key` (the seed and the state's step, read on the device, so
+inside a captured step too), the same on every mesh and on every replica
+of a block.
 """
 from __future__ import annotations
 
@@ -164,41 +171,48 @@ def accumulate_grads(model: T.LMModel, params: dict, batch: dict,
             {n: g / microbatches for n, g in grads.items()})
 
 
-def noise_seed(seed: int, step: int) -> int:
-    """The int8 compressor's seed at a state's ``step`` (before the
-    update)."""
-    return seed * 1_000_003 + step
+def noise_key(seed: int, step: torch.Tensor) -> torch.Tensor:
+    """The int8 compressor's key at the state's ``step`` tensor (before
+    the update), on its device (int64, a new tensor), which a captured
+    step reads inside its graph."""
+    return step.to(torch.int64) + seed * 1_000_003
+
+
+def _compress_kwargs(model: T.LMModel, tcfg: TrainConfig, layout,
+                     seed: int, step: torch.Tensor) -> dict:
+    """The compressor's layout (None on one device), the reference's
+    stacks of the layers (``transformer.param_stacks``) and, for int8,
+    its key."""
+    key = (noise_key(seed, step) if tcfg.compression.kind == "int8"
+           else None)
+    return dict(layout=layout, key=key, stacks=T.param_stacks(model))
 
 
 def make_train_step(model: T.LMModel, tcfg: TrainConfig,
                     policy: KernelPolicy = DEFAULT_POLICY, *, seed: int = 0):
-    """Returns ``train_step(state, batch[, generator]) -> (state,
-    metrics)`` for ``model`` (its parameters made trainable), ``batch``
-    ``{tokens, labels [, frontend]}`` on any device (moved to the model's).
-    The int8 compressor draws its noise from ``generator``, by default one
-    on the model's device seeded from ``seed`` and the state's step, so a
-    replayed step draws the same noise.  Every family trains: the
-    attention-MLP transformers, whisper's encoder-decoder, xLSTM and
-    hymba, on one device or under a mesh (the rules in force here, set
-    again around every call; see the module's docstring)."""
+    """Returns ``train_step(state, batch) -> (state, metrics)`` for
+    ``model`` (its parameters made trainable), ``batch`` ``{tokens,
+    labels [, frontend]}`` on any device (moved to the model's).  The
+    int8 compressor's noise is keyed by ``seed`` and the state's step
+    (:func:`noise_key`), so a replayed step draws the same noise.  Every
+    family trains: the attention-MLP transformers, whisper's
+    encoder-decoder, xLSTM and hymba, on one device or under a mesh (the
+    rules in force here, set again around every call; see the module's
+    docstring)."""
     trainable_(model)
-    dev = model.embedding["table"].device
     rules = current_rules()
     layout = state_layout(model, rules)
-    _check_compression(tcfg, layout)
 
-    def train_step(state: dict, batch: dict,
-                   generator: Optional[torch.Generator] = None):
+    def train_step(state: dict, batch: dict):
         params, opt = state["params"], state["opt"]
         with use_rules(rules):
             loss, metrics, grads = accumulate_grads(
                 model, params, batch, tcfg.microbatches, policy, layout)
             if tcfg.compression.kind != "none":
-                if tcfg.compression.kind == "int8" and generator is None:
-                    generator = torch.Generator(dev).manual_seed(
-                        noise_seed(seed, int(opt["step"])))
-                grads, err = compress(grads, state["err"], tcfg.compression,
-                                      generator)
+                grads, err = compress(
+                    grads, state["err"], tcfg.compression,
+                    **_compress_kwargs(model, tcfg, layout, seed,
+                                       opt["step"]))
             params, opt, opt_metrics = adamw.apply_updates(
                 params, grads, opt, tcfg.optimizer, layout)
         metrics = dict(metrics, **opt_metrics, loss=loss)
@@ -208,16 +222,6 @@ def make_train_step(model: T.LMModel, tcfg: TrainConfig,
         return new_state, metrics
 
     return train_step
-
-
-def _check_compression(tcfg: TrainConfig,
-                       layout: Optional[StateLayout]) -> None:
-    if layout is not None and tcfg.compression.kind != "none":
-        raise NotImplementedError(
-            f"gradient compression ({tcfg.compression.kind}) under a mesh is "
-            f"not ported yet: the reference's topk keeps a tensor's global "
-            f"top 1% and its int8 scales by the global max, neither of "
-            f"which is a rank's: ROADMAP.md queue A, item 4.3.3")
 
 
 def init_train_state(model: T.LMModel, tcfg: TrainConfig) -> dict:
@@ -242,8 +246,7 @@ def _state_of(params: dict, tcfg: TrainConfig,
 def train_step_into(model: T.LMModel, state: dict, batch: dict,
                     tcfg: TrainConfig, metrics: dict, *,
                     policy: KernelPolicy = DEFAULT_POLICY,
-                    generator: Optional[torch.Generator] = None,
-                    layout: Optional[StateLayout] = None):
+                    layout: Optional[StateLayout] = None, seed: int = 0):
     """:func:`make_train_step`'s step on static buffers, the same bits
     (``model``'s parameters made trainable, ``trainable_``): the
     gradients of ``state``'s parameters (bound once more with
@@ -252,15 +255,17 @@ def train_step_into(model: T.LMModel, state: dict, batch: dict,
     parameters, moments and step written into ``state``'s own tensors;
     each metric copied into the 0-d tensor of its name in ``metrics`` (a
     name it lacks gets a new one).  ``int8`` compression draws from
-    ``generator`` (required).  It reads and writes the same addresses at
-    every call, what a CUDA graph of it needs.  Under ``layout`` (the
-    rules in force) the sharded step, collectives included.  Returns
-    ``(state, metrics)``."""
+    :func:`noise_key` of ``seed`` and the state's step.  It reads and
+    writes the same addresses at every call, what a CUDA graph of it
+    needs.  Under ``layout`` (the rules in force) the sharded step,
+    collectives included.  Returns ``(state, metrics)``."""
     params = state["params"]
     loss, m, grads = accumulate_grads(model, params, batch,
                                       tcfg.microbatches, policy, layout)
     if tcfg.compression.kind != "none":
-        grads = compress_(grads, state["err"], tcfg.compression, generator)
+        grads = compress_(grads, state["err"], tcfg.compression,
+                          **_compress_kwargs(model, tcfg, layout, seed,
+                                             state["opt"]["step"]))
     m = dict(m, **adamw.apply_updates_(params, grads, state["opt"],
                                        tcfg.optimizer, layout), loss=loss)
     for k, v in m.items():
@@ -279,16 +284,13 @@ class CapturedTrainStep:
     copies the batch in and replays, handed any other, it first copies
     that state in.  ``batch`` is ``{tokens, labels [, frontend]}`` of the
     captured shapes on any device.  The metrics are copies of the graph's
-    scalars.  :attr:`step` is the host's copy of the state's step, so the
-    int8 compressor's generator is seeded (:func:`noise_seed`) with no
-    read from the card.  ``captured`` has the capture time and the
-    launches the capture recorded."""
+    scalars.  :attr:`step` is the host's copy of the state's step (read
+    from the card only at a copy-in).  ``captured`` has the capture time
+    and the launches the capture recorded."""
     captured: graphs.Captured
     state: dict
     batch: dict
     metrics: dict
-    generator: Optional[torch.Generator]
-    seed: int
     step: int = 0
 
     def __call__(self, state: dict, batch: dict):
@@ -305,8 +307,6 @@ class CapturedTrainStep:
             self.step = int(state["opt"]["step"])
         for k, buf in self.batch.items():
             buf.copy_(batch[k])
-        if self.generator is not None:
-            self.generator.manual_seed(noise_seed(self.seed, self.step))
         self.captured.replay()
         self.step += 1
         return self.state, {k: v.clone() for k, v in self.metrics.items()}
@@ -321,14 +321,15 @@ def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
     model's device, which must be the card; raises on the CPU.  The step's
     static state starts as :func:`init_train_state` of the model's weights
     at the call, copied (the model's parameters are bound to it from then
-    on), and the int8 compressor draws from a generator registered with
-    the graph, seeded before each replay as :func:`make_train_step` seeds
-    its own with ``seed``.  Bit-exact replays need deterministic
-    algorithms on, as ``launch.train`` sets them.  Under a mesh (the rules
-    in force, NCCL) the graph holds the sharded step, its collectives
-    included: the capture's warm-up runs each once before the recording,
-    and ``batch`` is the global batch, of which each rank keeps its
-    rows."""
+    on), and the int8 compressor draws from :func:`noise_key` of
+    ``seed`` and the static state's step, read inside the graph, as
+    :func:`make_train_step`'s does.
+    Bit-exact replays need deterministic algorithms on, as
+    ``launch.train`` sets them.  Under a mesh (the rules in force, NCCL)
+    the graph holds the sharded step, its collectives included (the
+    compressors' too): the capture's warm-up runs each once before the
+    recording, and ``batch`` is the global batch, of which each rank
+    keeps its rows."""
     dev = model.embedding["table"].device
     if dev.type != "cuda":
         raise ValueError(f"a train step is captured on the card, not on "
@@ -337,7 +338,6 @@ def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
     cfg = model.cfg
     rules = current_rules()
     layout = state_layout(model, rules)
-    _check_compression(tcfg, layout)
     weights = {n: p.detach() for n, p in model.named_parameters()}
     state = _state_of({n: w.clone() for n, w in weights.items()}, tcfg,
                       layout)
@@ -347,22 +347,18 @@ def capture_train_step(model: T.LMModel, tcfg: TrainConfig, batch: int,
         bufs["frontend"] = torch.zeros(
             (batch, cfg.encdec.enc_seq, cfg.d_model), dtype=cfg.torch_dtype,
             device=dev)
-    generator = (torch.Generator(dev) if tcfg.compression.kind == "int8"
-                 else None)
     metrics = {}
 
     def step():
         with torch.enable_grad(), use_rules(rules):
             return train_step_into(model, state, bufs, tcfg, metrics,
-                                   policy=policy, generator=generator,
-                                   layout=layout)
-    captured = graphs.capture(step, dev, generators=(generator,)
-                              if generator is not None else ())
+                                   policy=policy, layout=layout, seed=seed)
+    captured = graphs.capture(step, dev)
     # the warm-up and the first replay stepped the static state: back to
     # init_train_state's, in place (a second state may not fit the card)
     graphs.copy_tree_(state["params"], weights)
     _zero_tree_({k: v for k, v in state.items() if k != "params"})
-    return CapturedTrainStep(captured, state, bufs, metrics, generator, seed)
+    return CapturedTrainStep(captured, state, bufs, metrics)
 
 
 def _zero_tree_(tree: dict):

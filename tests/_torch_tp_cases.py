@@ -1,7 +1,8 @@
 """The sharded cases of ``tests/test_torch_tp_serve.py``,
 ``tests/test_torch_tp_recurrent.py``, ``tests/test_torch_tp_train.py``,
-``tests/test_torch_tp_uneven.py`` and
+``tests/test_torch_tp_uneven.py``,
 ``tests/test_torch_tp_train_recurrent.py``,
+``tests/test_torch_tp_seq.py`` and ``tests/test_torch_tp_compress.py``,
 shared by their reference oracle
 (``_torch_tp_oracle.py``, JAX on forced host devices) and their port
 worlds (``_torch_tp_world.py``, gloo ranks).  Plain data and numpy: this
@@ -165,6 +166,54 @@ RECURRENT_TRAIN_CASES = {
                                widths=_WHISPER, serve=True, oracle=False,
                                prompt=16, max_len=32),
 }
+#: Sequence-parallel training (``tests/test_torch_tp_seq.py``): the
+#: train rules with ``seq_parallel`` (``seq_axis="model"``), the residual
+#: stream held as each rank's block of the sequence where it divides; the
+#: reference's sharded loss and gradients alone (``grads_only``).  hymba's
+#: 8 meta tokens and 32 positions make 40, which divides over 2 ranks;
+#: ``qwen3_sp_s30_tp4``'s 30 positions do not divide over 4 ranks, so its
+#: stream stays whole (the reference's "btd" rule).  ``sp_serve``: the
+#: port's prefill and decode steps under the serving rules with and
+#: without ``seq_parallel`` (no oracle).
+SEQ_CASES = {
+    "qwen3_sp_tp2": dict(arch="qwen3-1.7b", mesh=(1, 2), seq_parallel=True,
+                         grads_only=True),
+    "qwen3_sp_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2),
+                             seq_parallel=True, grads_only=True),
+    "smollm_sp_tp4": dict(arch="smollm-360m", mesh=(1, 4),
+                          seq_parallel=True, grads_only=True),
+    "qwen3moe_sp_tp2": dict(arch="qwen3-moe-235b-a22b", mesh=(1, 2),
+                            seq_parallel=True, grads_only=True),
+    "hymba_sp_tp2": dict(arch="hymba-1.5b", mesh=(1, 2), widths=_HYMBA,
+                         seq_parallel=True, grads_only=True),
+    "xlstm_sp_tp2": dict(arch="xlstm-125m", mesh=(1, 2), widths=_XLSTM,
+                         seq_parallel=True, grads_only=True),
+    "whisper_sp_tp2": dict(arch="whisper-small", mesh=(1, 2),
+                           widths=_WHISPER, seq_parallel=True,
+                           grads_only=True),
+    "qwen3_sp_s30_tp4": dict(arch="qwen3-1.7b", mesh=(1, 4), seq=30,
+                             seq_parallel=True, grads_only=True),
+    "hymba_sp_serve": dict(arch="hymba-1.5b", mesh=(1, 4), widths=_HYMBA,
+                           sp_serve=True, oracle=False, prompt=24,
+                           max_len=48),
+    "whisper_sp_serve": dict(arch="whisper-small", mesh=(1, 2),
+                             widths=_WHISPER, sp_serve=True, oracle=False,
+                             prompt=16, max_len=32),
+}
+#: Gradient compression under a mesh (``tests/test_torch_tp_compress.py``):
+#: one jitted, donated train step of the reference with ``compression``
+#: (``step_only``: its metrics, parameters and error after it) against
+#: the port's ``make_train_step``; top-k keeps ``TOPK_FRAC`` of each
+#: whole tensor.
+COMPRESS_CASES = {
+    "qwen3_topk_dp4": dict(arch="qwen3-1.7b", mesh=(4, 1),
+                           compression="topk", step_only=True),
+    "qwen3_topk_dp2_tp2": dict(arch="qwen3-1.7b", mesh=(2, 2),
+                               compression="topk", step_only=True),
+    "qwen3_topk_tp4": dict(arch="qwen3-1.7b", mesh=(1, 4),
+                           compression="topk", step_only=True),
+}
+TOPK_FRAC = 0.05
 #: The AdamW of the training cases (decay on, warmup, clipping).
 ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=100, weight_decay=0.1,
              clip_norm=1.0)
@@ -172,10 +221,11 @@ ADAMW = dict(lr=1e-2, warmup_steps=2, total_steps=100, weight_decay=0.1,
 SUITES = {"CASES": CASES, "RECURRENT_CASES": RECURRENT_CASES,
           "TRAIN_CASES": TRAIN_CASES,
           "UNEVEN_TRAIN_CASES": UNEVEN_TRAIN_CASES,
-          "RECURRENT_TRAIN_CASES": RECURRENT_TRAIN_CASES}
+          "RECURRENT_TRAIN_CASES": RECURRENT_TRAIN_CASES,
+          "SEQ_CASES": SEQ_CASES, "COMPRESS_CASES": COMPRESS_CASES}
 #: The suites of training cases.
 TRAIN_SUITES = ("TRAIN_CASES", "UNEVEN_TRAIN_CASES",
-                "RECURRENT_TRAIN_CASES")
+                "RECURRENT_TRAIN_CASES", "SEQ_CASES", "COMPRESS_CASES")
 MESHES = sorted({c["mesh"] for c in CASES.values()})
 BATCH = 2
 STEPS = 4
@@ -239,6 +289,61 @@ def train_batch(cfg, case: dict, seed: int = SEED) -> dict:
         batch["frontend"] = rng.standard_normal(
             (shape[0], cfg.encdec.enc_seq, cfg.d_model)).astype(np.float32)
     return batch
+
+
+#: The stacks of :func:`compress_inputs` whose top-k threshold is a tie:
+#: qwen3's MLP gate (split over both axes at (2, 2)) and hymba's fused
+#: ``w_in`` (cut part by part).
+TIED_STACKS = ("blocks_v0.mlp.w_gate.w", "blocks_v0.mamba.w_in.w")
+#: The tied value.
+TIE = 5.0
+
+
+def stacks_of(names, period: int) -> dict:
+    """``{stack: [port names in stack order]}``: the reference's stacked
+    leaves (``blocks_v{i % period}.<rest>``, ``enc_blocks.<rest>``) of the
+    port's parameter ``names``, every other name a stack of its own."""
+    out: dict = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        if head in ("blocks", "enc_blocks"):
+            i, _, leaf = rest.partition(".")
+            i = int(i)
+            key, index = ((f"blocks_v{i % period}.{leaf}", i // period)
+                          if head == "blocks" else (f"enc_blocks.{leaf}", i))
+        else:
+            key, index = name, 0
+        out.setdefault(key, []).append((index, name))
+    return {k: [n for _, n in sorted(v)] for k, v in sorted(out.items())}
+
+
+def compress_inputs(shapes: dict, period: int, seed: int = SEED) -> dict:
+    """``{"grad", "err"}``: a whole fp32 gradient and compression error of
+    every leaf of ``shapes`` (``{port name: shape}``), drawn stack by
+    stack (:func:`stacks_of`), seeded.  A stack of ``TIED_STACKS`` has no
+    error and a threshold that is a tie at ``TOPK_FRAC``: its k - 3
+    largest magnitudes distinct above ``TIE``, then 8 entries at
+    +-``TIE`` (3 of which top-k keeps: the lowest flat indices of the
+    stack), the rest below 1."""
+    rng = np.random.default_rng(seed + 5)
+    grad, err = {}, {}
+    for stack, names in stacks_of(shapes, period).items():
+        shape = shapes[names[0]]
+        n = len(names) * int(np.prod(shape))
+        g = rng.uniform(-1, 1, n).astype(np.float32)
+        e = (rng.standard_normal(n) * 0.1).astype(np.float32)
+        if stack in TIED_STACKS:
+            k = max(1, int(n * TOPK_FRAC))
+            at = rng.permutation(n)[:k + 5]
+            sign = rng.choice(np.float32([-1, 1]), k + 5)
+            g[at[:k - 3]] = sign[:k - 3] * (TIE * 2 + rng.uniform(
+                0, 1, k - 3).astype(np.float32))
+            g[at[k - 3:]] = sign[k - 3:] * np.float32(TIE)
+            e[:] = 0
+        g, e = (t.reshape(len(names), *shape) for t in (g, e))
+        for i, name in enumerate(names):
+            grad[name], err[name] = g[i], e[i]
+    return {"grad": grad, "err": err}
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -34,7 +34,15 @@ it on that mesh; its ``whole_grads`` add the one-device gradients.  A
 case with ``serve`` is a serving case under ``serve_weight_fsdp`` (with
 ``oracle=False`` only its weights, prompt and decode tokens, for the
 port's own one rank); a training case with ``oracle=False`` gets only
-its batch (the port draws its own weights)."""
+its batch (the port draws its own weights).
+
+Two case keys reach the reference's own switches: ``seq_parallel``
+(``make_rules(seq_parallel=True)``: ``seq_axis="model"``) and
+``compression`` (``JTS.TrainConfig``'s, top-k of ``TOPK_FRAC``, the
+error placed by ``param_specs`` as ``repro/launch/train.py:104-105``
+places it).  ``grads_only`` writes the loss, metrics and gradients
+alone; ``step_only`` the jitted step's metrics and its state's
+parameters and error after it (``step.param.*``, ``step.err.*``)."""
 from __future__ import annotations
 
 import os
@@ -54,6 +62,7 @@ from repro.configs.registry import get_config  # noqa: E402
 from repro.launch.dryrun import make_rules  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.optim import adamw as JO  # noqa: E402
+from repro.optim import compress as JC  # noqa: E402
 from repro.serve import serve_step as JS  # noqa: E402
 from repro.sharding.rules import (batch_pspecs, named,  # noqa: E402
                                   param_specs, use_rules, zero1_specs)
@@ -156,8 +165,11 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
     mb = case.get("microbatches", 1)
     mesh = Mesh(np.array(DEVICES[:dp * tp]).reshape(dp, tp),
                 ("data", "model"))
-    rules = make_rules(mesh, mode="train", multi_pod=False)
+    rules = make_rules(mesh, mode="train", multi_pod=False,
+                       seq_parallel=bool(case.get("seq_parallel")))
     acfg = JO.AdamWConfig(**C.ADAMW)
+    ccfg = JC.CompressionConfig(kind=case.get("compression", "none"),
+                                topk_frac=C.TOPK_FRAC)
     out = {}
     with use_rules(rules), mesh:
         pspecs = param_specs(params, rules)
@@ -172,6 +184,10 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
         def shard_batch(b):
             return placed(b, batch_pspecs(b, rules))
         p = placed(params, pspecs)
+        if case.get("step_only"):
+            out.update(_step(cfg, case, params, batch, acfg, ccfg, placed,
+                             pspecs, ospecs, shard_batch))
+            return out
         vg = jax.jit(jax.value_and_grad(
             lambda p, b: JT.loss_fn(cfg, p, b), has_aux=True))
         size = C.batch_shape(case)[0] // mb
@@ -190,6 +206,8 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
         out["loss"] = np.float32(loss_sum / mb)
         out.update({f"metric.{k}": np.asarray(v) for k, v in metrics.items()})
         out.update({f"grad.{k}": v for k, v in C.flatten(grads).items()})
+        if case.get("grads_only"):
+            return out
         opt = placed(JO.init_state(params, acfg), ospecs)
         new_p, new_opt, am = jax.jit(
             lambda p, g, o: JO.apply_updates(p, g, o, acfg))(
@@ -212,6 +230,26 @@ def _train_oracle(cfg, case: dict, params, batch: dict) -> dict:
                 {k: jnp.asarray(v) for k, v in batch.items()})
         out.update({f"whole.grad.{k}": v
                     for k, v in C.flatten(g).items()})
+    return out
+
+
+def _step(cfg, case, params, batch, acfg, ccfg, placed, pspecs, ospecs,
+          shard_batch) -> dict:
+    """One jitted, donated ``make_train_step`` step with the case's
+    compression: its metrics and its new state's parameters and error."""
+    mb = case.get("microbatches", 1)
+    tcfg = JTS.TrainConfig(optimizer=acfg, microbatches=mb, compression=ccfg)
+    step = jax.jit(JTS.make_train_step(cfg, tcfg), donate_argnums=(0,))
+    state = {"params": placed(params, pspecs),
+             "opt": placed(JO.init_state(params, acfg), ospecs)}
+    if ccfg.kind != "none":
+        state["err"] = placed(JC.init_error(params), pspecs)
+    new, sm = step(state, shard_batch(batch))
+    out = {f"step.{k}": np.asarray(v) for k, v in sm.items()}
+    for part, tag in (("params", "param"), ("err", "err")):
+        if part in new:
+            out.update({f"step.{tag}.{k}": v
+                        for k, v in C.flatten(new[part]).items()})
     return out
 
 

@@ -38,6 +38,7 @@ or outlives the deadline makes the world exit non-zero."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import socket
 import sys
@@ -52,6 +53,17 @@ import _torch_tp_cases as C
 #: Seconds a world may take, and a collective may wait.
 DEADLINE_S = 200
 TIMEOUT_S = 60
+
+
+def _tensors(tree, prefix=""):
+    """``{dotted path: tensor}`` of a tree of dicts and lists."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_tensors(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
 
 
 def _shapes(tree, prefix=""):
@@ -194,11 +206,14 @@ def _train_model(cfg, params, rules):
                                                    rules=rules))
 
 
-def _tcfg(microbatches: int = 1):
+def _tcfg(microbatches: int = 1, compression: str = "none"):
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compress import CompressionConfig
     from repro_torch.train.train_step import TrainConfig
     return TrainConfig(optimizer=AdamWConfig(**C.ADAMW),
-                       microbatches=microbatches)
+                       microbatches=microbatches,
+                       compression=CompressionConfig(
+                           kind=compression, topk_frac=C.TOPK_FRAC))
 
 
 def _gathered(tree: dict, layout, moment: bool = False) -> dict:
@@ -262,20 +277,41 @@ def run_train_case(name: str, case: dict, rules, in_dir: str,
         batch["frontend"] = torch.from_numpy(z["frontend"]).to(
             cfg.torch_dtype)
     mb = case.get("microbatches", 1)
-    tcfg = _tcfg(mb)
+    tcfg = _tcfg(mb, case.get("compression", "none"))
     out = {}
     with use_rules(rules):
         model = _train_model(cfg, params, rules)
         layout = TS.state_layout(model)
         state = TS.init_train_state(model, tcfg)
+        if case.get("step_only"):
+            new, sm = TS.make_train_step(model, tcfg)(state, batch)
+            out.update({f"step.{k}": v.float().numpy()
+                        for k, v in sm.items()})
+            for part, tag in (("params", "param"), ("err", "err")):
+                out.update({f"step.{tag}.{k}": v for k, v in _gathered(
+                    new[part], layout).items()})
+            np.savez(os.path.join(in_dir, f"port_{name}_r{rank}.npz"), **out)
+            return
+        graphs.reset()
         loss, metrics, grads = TS.accumulate_grads(
             model, state["params"], batch, mb, layout=layout)
+        counts = graphs.snapshot()
+        out["grad_collectives"] = np.array([counts[k] for k in TRAIN_OPS])
+        if case.get("seq_parallel"):
+            # the same gradients' collectives without sequence parallelism
+            with use_rules(dataclasses.replace(rules, seq_axis=None)):
+                graphs.reset()
+                TS.accumulate_grads(model, state["params"], batch, mb,
+                                    layout=layout)
+                counts = graphs.snapshot()
+            out["whole_grad_collectives"] = np.array(
+                [counts[k] for k in TRAIN_OPS])
         out["loss"] = loss.float().numpy()
         out.update({f"metric.{k}": v.float().numpy()
                     for k, v in metrics.items()})
         whole = _gathered(grads, layout)
         out.update({f"grad.{k}": v for k, v in whole.items()})
-        if case.get("oracle", True):
+        if case.get("oracle", True) and not case.get("grads_only"):
             # the sharded AdamW on the reference's gradients
             ref = _port_leaves(z, "grad.", len(model.pattern))
             g = {n: layout.block(n, torch.from_numpy(np.asarray(a)))
@@ -315,6 +351,114 @@ def run_train_case(name: str, case: dict, rules, in_dir: str,
         out.update({f"one.grad.{k}": v.float().numpy()
                     for k, v in grads.items()})
     np.savez(os.path.join(in_dir, f"port_{name}_r{rank}.npz"), **out)
+
+
+def run_seq_serve(name: str, case: dict, host, in_dir: str,
+                  rank: int) -> None:
+    """A serving case under sequence parallelism (``sp_serve``): the
+    port's own weights (``C.SEED``) and the case's prompt, a prefill and
+    ``C.STEPS`` greedy decode steps under the serving rules without and
+    with ``seq_parallel``: the logits, every cache leaf (its bytes) and
+    the prefill's collectives of each."""
+    from repro_torch import graphs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import make_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import serve_step as S
+    from repro_torch.sharding.rules import use_rules
+    cfg = C.config(get_config(case["arch"], smoke=True), case)
+    tokens, frontend = C.inputs(cfg, case)
+    tokens = torch.from_numpy(tokens).long()
+    frontend = None if frontend is None else torch.from_numpy(frontend)
+    ml = case["max_len"]
+    out = {}
+    for tag, sp in (("whole", False), ("sp", True)):
+        rules = make_rules(host, mode="serve", multi_pod=False,
+                           seq_parallel=sp)
+        with use_rules(rules), torch.inference_mode():
+            model = T.init_params(cfg, seed=C.SEED, device="cpu")
+            graphs.reset()
+            logits, cache = S.prefill(model, tokens, max_len=ml,
+                                      frontend=frontend)
+            counts = graphs.snapshot()
+            out[f"{tag}.prefill_collectives"] = np.array(
+                [counts[k] for k in TRAIN_OPS])
+            out.update({f"{tag}.cache.{k}": v.float().numpy()
+                        for k, v in _tensors(cache).items()})
+            steps = [logits]
+            for _ in range(C.STEPS):
+                tok = logits.argmax(-1)[:, None].int()
+                logits, cache = S.decode_step(model, cache, tok, max_len=ml)
+                steps.append(logits)
+            out[f"{tag}.logits"] = torch.stack(steps).numpy()
+    np.savez(os.path.join(in_dir, f"port_{name}_r{rank}.npz"), **out)
+
+
+#: The compressors' key and the models whose whole gradients
+#: :func:`run_compress_blocks` cuts into blocks.
+COMPRESS_KEY = 1_000_003 * 7 + 3
+COMPRESS_ARCHS = {"qwen3-1.7b": {}, "hymba-1.5b": C._HYMBA}
+
+
+def compress_layout(arch: str, rules):
+    """The config, whole shapes, train-state layout (None without
+    ``rules``) and the reference's stacks of the layers
+    (``transformer.param_stacks``) of ``arch`` at its widths, from a model
+    made on the meta device."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    cfg = C.config(get_config(arch, smoke=True),
+                   {"widths": COMPRESS_ARCHS[arch]})
+    with layers.param_hook(None):
+        meta = T.LMModel(cfg, generator=torch.Generator(), device="meta")
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    layout = None if rules is None else TS.state_layout(meta, rules)
+    return cfg, shapes, layout, T.param_stacks(meta)
+
+
+def run_compress_blocks(rules, in_dir: str, rank: int) -> None:
+    """Each of ``COMPRESS_ARCHS``' whole gradients and errors
+    (``C.compress_inputs``) cut into the rank's blocks and compressed
+    under the layout, top-k and int8 (key ``COMPRESS_KEY``): the
+    compressed gradients and new errors gathered whole, whether the new
+    error is the residual bit for bit on the rank's blocks (and, for
+    top-k, whether the two sum back to the input), and whether
+    ``compress_`` gives ``compress``'s bits."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compress as K
+    mesh = rules.mesh
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    out = {}
+    for arch in COMPRESS_ARCHS:
+        cfg, shapes, layout, stacks = compress_layout(arch, rules)
+        whole = C.compress_inputs(shapes, len(T.model_pattern(cfg)))
+        g = {n: layout.block(n, torch.from_numpy(a))
+             for n, a in whole["grad"].items()}
+        e = {n: layout.block(n, torch.from_numpy(a))
+             for n, a in whole["err"].items()}
+        for kind in ("topk", "int8"):
+            cfg = K.CompressionConfig(kind=kind, topk_frac=C.TOPK_FRAC)
+            kw = dict(layout=layout, key=COMPRESS_KEY, stacks=stacks)
+            c, e_new = K.compress(g, e, cfg, **kw)
+            e_in = {n: t.clone() for n, t in e.items()}
+            c_ = K.compress_(g, e_in, cfg, **kw)
+            tag = f"{arch}.{kind}"
+            out[f"{tag}.residual"] = np.array(all(
+                torch.equal(e_new[n], g[n].float() + e[n] - c[n])
+                for n in g))
+            out[f"{tag}.sums_back"] = np.array(all(
+                torch.equal(c[n] + e_new[n], g[n].float() + e[n])
+                for n in g))
+            out[f"{tag}.in_place"] = np.array(all(
+                torch.equal(c[n], c_[n]) and torch.equal(e_new[n], e_in[n])
+                for n in g))
+            for n in g:
+                out[f"{tag}.c.{n}"] = layout.whole(n, c[n]).numpy()
+                out[f"{tag}.e.{n}"] = layout.whole(n, e_new[n]).numpy()
+    np.savez(os.path.join(in_dir, f"port_compress_{shape[0]}x{shape[1]}"
+                                  f"_r{rank}.npz"), **out)
 
 
 #: The elastic checkpoints' and the recovery's model and data.
@@ -406,20 +550,22 @@ CKPT_SEED, CKPT_STEP = 5, 3
 
 def ckpt_state(cfg, rules):
     """A train state of ``cfg``'s model drawn from ``CKPT_SEED`` under
-    ``rules`` (None: one rank), its moments set from the parameters
-    (``mu = p / 2 + 1``, ``nu = p * p``: any wrong cut of a moment shows
-    against its parameter) and its step ``CKPT_STEP``."""
+    ``rules`` (None: one rank), with top-k compression's error, its
+    moments and error set from the parameters (``mu = p / 2 + 1``, ``nu =
+    p * p``, ``err = 3 p - 1``: any wrong cut of one shows against its
+    parameter) and its step ``CKPT_STEP``."""
     from repro_torch.models import transformer as T
     from repro_torch.sharding.rules import use_rules
     from repro_torch.train import train_step as TS
     with use_rules(rules):
         model = T.init_params(cfg, seed=CKPT_SEED, device="cpu", rules=rules)
         layout = TS.state_layout(model)
-        state = TS.init_train_state(model, _tcfg())
+        state = TS.init_train_state(model, _tcfg(compression="topk"))
     for n, p in state["params"].items():
         b = p if layout is None else layout.zero1_block(n, p)
         state["opt"]["mu"][n] = b / 2 + 1
         state["opt"]["nu"][n] = b * b
+        state["err"][n] = 3 * p.float() - 1
     state["opt"]["step"].fill_(CKPT_STEP)
     return state, layout
 
@@ -472,7 +618,9 @@ def worker(rank: int, world: int, models: list, port: int,
             for name, case in C.SUITES[suite].items():
                 if case["mesh"] != mesh:
                     continue
-                if suite not in C.TRAIN_SUITES:
+                if case.get("sp_serve"):
+                    run_seq_serve(name, case, host, in_dir, rank)
+                elif suite not in C.TRAIN_SUITES:
                     run_case(name, case, rules, in_dir, rank,
                              recurrent=suite != "CASES")
                 elif case.get("serve"):
@@ -482,10 +630,15 @@ def worker(rank: int, world: int, models: list, port: int,
                         recurrent=False)
                 else:
                     run_train_case(name, case, make_rules(
-                        host, mode="train", multi_pod=False), in_dir, rank)
+                        host, mode="train", multi_pod=False,
+                        seq_parallel=bool(case.get("seq_parallel"))),
+                        in_dir, rank)
             if suite == "TRAIN_CASES" and mesh in ((2, 2), (4, 1)):
                 run_elastic(make_rules(host, mode="train", multi_pod=False),
                             in_dir, rank)
+            if suite == "COMPRESS_CASES":
+                run_compress_blocks(make_rules(host, mode="train",
+                                               multi_pod=False), in_dir, rank)
             if suite == "RECURRENT_TRAIN_CASES" and mesh in ((1, 2), (2, 1)):
                 run_recurrent_ckpt(make_rules(host, mode="train",
                                               multi_pod=False), in_dir, rank)

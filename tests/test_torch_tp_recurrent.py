@@ -285,9 +285,15 @@ def _rules(**kw):
 
 @pytest.mark.parametrize("kw", [dict(seq_axis="data")], ids=["seq_axis"])
 def test_sequence_parallel_and_fsdp_still_refuse_a_mesh(kw):
+    """Sequence parallelism is no longer refused (4.3.3.3): over the model
+    axis a model is drawn under it; over another axis (which the
+    reference's ``make_rules`` never names, and whose "btd" spec would
+    name "data" twice) it raises."""
     cfg = get_config("hymba-1.5b", smoke=True)
-    with use_rules(_rules(**kw)), pytest.raises(NotImplementedError,
-                                                match=r"4\.3\.3"):
+    with use_rules(_rules(seq_axis="model")):
+        T.init_params(cfg, device="cpu")
+    with use_rules(_rules(**kw)), pytest.raises(ValueError,
+                                                match="model axis"):
         T.init_params(cfg, device="cpu")
 
 

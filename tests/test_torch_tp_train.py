@@ -352,8 +352,10 @@ def _abstract_rules(mode="train", **kw):
 
 @pytest.mark.parametrize("kind", ("topk", "int8"))
 def test_compression_under_a_mesh_refuses(kind):
-    """The reference's compressors are global (top 1% of a whole tensor,
-    its max), not a rank's: under a mesh the step raises (4.3.3)."""
+    """No longer refused (4.3.3.2): under a mesh the step is made, its
+    compressors the whole tensors' (``optim/compress.py``; held against
+    the reference by ``tests/test_torch_tp_compress.py``), and the state
+    carries the error of each rank's blocks."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
     from repro_torch.optim.compress import CompressionConfig
@@ -363,8 +365,10 @@ def test_compression_under_a_mesh_refuses(kind):
     tcfg = TS.TrainConfig(compression=CompressionConfig(kind=kind))
     with use_rules(_abstract_rules()):
         model = T.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=r"4\.3\.3"):
-            TS.make_train_step(model, tcfg)
+        assert callable(TS.make_train_step(model, tcfg))
+        state = TS.init_train_state(model, tcfg)
+    assert {n: e.shape for n, e in state["err"].items()} == {
+        n: p.shape for n, p in state["params"].items()}
 
 
 def test_state_layout_cuts_the_norms_moments_over_data():

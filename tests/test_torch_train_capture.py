@@ -10,8 +10,8 @@ train_e2e.py``.
 On the CPU no graph can be captured: :class:`EagerReplay` stands in for
 the graph in a :class:`~repro_torch.train.train_step.CapturedTrainStep`,
 running the step's body where the card would replay it, so the host side
-of the captured step (copy-in, the host's step counter, the int8
-generator's seeding, the metrics' copies) runs here as it does there.
+of the captured step (copy-in, the host's step counter, the metrics'
+copies) runs here as it does there.
 The card's own checks (graph against eager per family, the ``dwconv1d``
 backward replayed, a failing capture) are in ``tests/test_torch_cuda.py``.
 
@@ -103,11 +103,10 @@ def _stand_in(model, tcfg, batch_like: dict, seed: int = SEED):
     state = ttrain._state_of({n: w.clone() for n, w in weights.items()},
                              tcfg)
     bufs = {k: torch.zeros_like(v) for k, v in batch_like.items()}
-    gen = torch.Generator() if tcfg.compression.kind == "int8" else None
     metrics = {}
     replay = EagerReplay(lambda: ttrain.train_step_into(
-        model, state, bufs, tcfg, metrics, generator=gen))
-    return ttrain.CapturedTrainStep(replay, state, bufs, metrics, gen, seed)
+        model, state, bufs, tcfg, metrics, seed=seed))
+    return ttrain.CapturedTrainStep(replay, state, bufs, metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +126,8 @@ def test_train_step_into_bit_equal_to_functional_step(arch, microbatches,
     ``make_train_step``'s step from the same state on the same batches:
     after each, the parameters, moments, step, compression error and
     every metric bit for bit; the state returned is the buffers passed
-    in, and int8's noise is the functional step's (its generator seeded
-    from the same seed and step)."""
+    in, and int8's noise is the functional step's (keyed by the same seed
+    and step)."""
     cfg = registry.get_config(arch, smoke=True)
     model = TT.init_params(cfg, seed=0, device="cpu")
     tcfg = _tcfg(microbatches, kind)
@@ -140,9 +139,8 @@ def test_train_step_into_bit_equal_to_functional_step(arch, microbatches,
     metrics = {}
     for i, batch in enumerate(_batches(cfg, 3)):
         eager_state, eager_m = eager(eager_state, batch)
-        gen = torch.Generator().manual_seed(ttrain.noise_seed(SEED, i))
         out, m = ttrain.train_step_into(model, state, batch, tcfg, metrics,
-                                        generator=gen)
+                                        seed=SEED)
         assert out is state and m is metrics
         assert {k: v.data_ptr() for k, v in _leaves(out)} == ptrs
         _assert_equal(out, eager_state)
@@ -225,8 +223,8 @@ def test_apply_updates_in_place_bit_equal(pdtype, moments):
 @pytest.mark.parametrize("kind", ("topk", "int8"))
 def test_compress_in_place_bit_equal(kind):
     """``compress_`` against ``compress``: the same compressed gradients
-    and new error bit for bit (int8 from generators of one seed), the
-    error written into its own tensors."""
+    and new error bit for bit (int8 from one key), the error written into
+    its own tensors."""
     rng = np.random.default_rng(1)
     g = {n: torch.from_numpy(rand(rng, s)) for n, s in
          (("a", (64,)), ("b", (8, 12)))}
@@ -235,15 +233,14 @@ def test_compress_in_place_bit_equal(kind):
     err_ = {n: t.clone() for n, t in err.items()}
     ptrs = {n: t.data_ptr() for n, t in err_.items()}
     cfg = tcompress.CompressionConfig(kind=kind, topk_frac=0.1)
-    gen = (lambda: torch.Generator().manual_seed(5)) if kind == "int8" else (
-        lambda: None)
-    comp, new_err = tcompress.compress(g, err, cfg, gen())
-    comp_ = tcompress.compress_(g, err_, cfg, gen())
+    key = 5 if kind == "int8" else None
+    comp, new_err = tcompress.compress(g, err, cfg, key=key)
+    comp_ = tcompress.compress_(g, err_, cfg, key=key)
     _assert_equal(comp_, comp)
     _assert_equal(err_, new_err)
     assert {n: t.data_ptr() for n, t in err_.items()} == ptrs
     if kind == "int8":
-        with pytest.raises(ValueError, match="generator"):
+        with pytest.raises(ValueError, match="key"):
             tcompress.compress_(g, err_, cfg)
 
 

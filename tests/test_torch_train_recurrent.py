@@ -265,10 +265,17 @@ def _lm_batch(jcfg, s: int, seed: int):
 
 
 def _port_grads(model, batch):
+    """``model``'s loss, metrics and gradients; ``model`` (shared through
+    ``_torch_parity.lm``'s cache with the serving tests, which may run
+    after these in the same process) is left frozen as it was."""
     TL.trainable_(model)
-    loss, metrics = TT.loss_fn(model, batch)
-    names = [n for n, _ in model.named_parameters()]
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    try:
+        loss, metrics = TT.loss_fn(model, batch)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        for p in model.parameters():
+            p.requires_grad_(False)
     return loss, metrics, dict(zip(names, grads))
 
 
